@@ -1,0 +1,103 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each kernel source under ``ops/csrc/`` is compiled by ``nvcc`` into a
+shared library with a plain ``extern "C"`` entry point (no PyTorch
+headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas=-v -o <lib> <source>
+
+The library lands in ``ops/_build/`` (listed in ``.gitignore``) under a
+name keyed by a hash of the source and the flags, so an edited source
+rebuilds and an unchanged one is reused. Nothing is built at import:
+:func:`load` runs inside the wrapper that launches the kernel. A failed
+build raises :class:`~mxnet_tpu_torch.base.MXNetError` with nvcc's
+output; there is no fallback. :func:`build_log` keeps what ``ptxas -v``
+said of a build done in this process (registers, shared memory, spills).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict
+
+from ..base import MXNetError
+
+__all__ = ["build_log", "load", "source_path"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_HERE, "csrc")
+_OUT = os.path.join(_HERE, "_build")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                      "-Xptxas=-v")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+_logs: Dict[str, str] = {}
+
+
+def source_path(name: str) -> str:
+    """Absolute path of ``ops/csrc/<name>.cu``."""
+    return os.path.join(_CSRC, name + ".cu")
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for kernel ``name`` if this process built it, else
+    an empty string (the library came from an earlier build)."""
+    return _logs.get(name, "")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    raise MXNetError("nvcc not found (PATH, CUDA_HOME/bin, /usr/local/cuda/"
+                     "bin): the port's CUDA kernels are built at first use")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        src = source_path(name)
+        with open(src, "rb") as f:
+            blob = f.read()
+        key = hashlib.sha256(blob + " ".join(FLAGS).encode()).hexdigest()
+        out = os.path.join(_OUT, "%s-%s.so" % (name, key[:16]))
+        if not os.path.isfile(out):
+            _logs[name] = _compile(src, out)
+        lib = ctypes.CDLL(out)
+        _loaded[name] = lib
+        return lib
+
+
+def _compile(src: str, out: str) -> str:
+    os.makedirs(_OUT, exist_ok=True)
+    # build beside the target and rename: a concurrent or interrupted
+    # build never leaves a half-written library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_OUT)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *FLAGS, "-o", tmp, src]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise MXNetError("nvcc failed (%d) building %s:\n%s\n%s"
+                             % (proc.returncode, src, proc.stdout,
+                                proc.stderr))
+        os.replace(tmp, out)
+        return proc.stdout + proc.stderr
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)

@@ -1,0 +1,203 @@
+"""Ragged paged attention: the decode plane's kernel and its plain version.
+
+The port of ``mxnet_tpu/ops/pallas_kernels.py:292-513``:
+
+* :func:`ragged_paged_attention` — the wrapper of the hand-written CUDA
+  kernel ``ops/csrc/paged_attention.cu`` (it replaces the Pallas
+  ``_paged_kernel``). CUDA fp32 tensors only; it checks device, dtype,
+  contiguity and shapes, allocates its output with ``torch.empty``,
+  launches on the current stream and counts each launch in
+  ``ragged_paged_attention.launches``;
+* :func:`paged_attention_reference` — the plain PyTorch version of the
+  same function (the JAX ``paged_attention_reference``, line for line):
+  what CPU tensors run, and what the kernel is held against on the card;
+* :func:`paged_attention` — the dispatcher the decode model calls: a CUDA
+  tensor goes to the kernel, a CPU tensor to the plain version, anything
+  else raises. There is no fallback from the kernel to the plain version
+  and no shape gate: unlike the JAX dispatcher (which sent work to Pallas
+  only when ``page_size % 8 == 0 and head_dim % 128 == 0``), the kernel
+  takes any ``head_dim <= 256``, any ``page_size`` and any
+  ``H % KH == 0``;
+* :func:`paged_prefill_attention` — C chunk queries of ONE sequence over
+  that sequence's pages with a causal ``q_pos`` (the prefix-cache tail
+  path), through the same dispatcher.
+
+Shapes: q ``(S, H, D)``; pools ``(P, page_size, KH, D)``; page_table
+``(S, max_pages)`` page ids (unused entries point at the null page 0);
+seq_lens / q_pos ``(S,)``. Returns ``(S, H, D)``; a slot with nothing to
+attend to is exact zeros.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..base import MXNetError
+from . import _build
+
+__all__ = ["ragged_paged_attention", "paged_attention_reference",
+           "paged_attention", "paged_prefill_attention", "MAX_HEAD_DIM"]
+
+#: The largest head_dim the kernel takes (8 fp32 values per lane).
+MAX_HEAD_DIM = 256
+
+_NEG_BIG = -1e30  # the JAX reference's mask value
+
+
+def _check_heads(n_heads: int, n_kv: int, who: str) -> int:
+    if n_kv < 1 or n_heads % n_kv:
+        raise ValueError("%s: %d heads not divisible by %d kv heads"
+                         % (who, n_heads, n_kv))
+    return n_heads // n_kv
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.paged_attention_f32
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ragged_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
+                           q_pos=None, scale=None):
+    """Launch the CUDA paged-attention kernel (one query row per slot).
+
+    Every tensor must lie on the same CUDA device; q and the pools are
+    contiguous fp32, page_table / seq_lens / q_pos integer (cast to
+    contiguous int32 here). Raises on anything else — the kernel has no
+    CPU form; :func:`paged_attention` sends CPU tensors to the plain
+    version instead.
+    """
+    if not q.is_cuda:
+        raise MXNetError("ragged_paged_attention runs on a CUDA tensor, got "
+                         "one on %s (use paged_attention to dispatch)"
+                         % (q.device,))
+    dev = q.device
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("page_table", page_table), ("seq_lens", seq_lens)) + \
+            ((("q_pos", q_pos),) if q_pos is not None else ()):
+        if t.device != dev:
+            raise MXNetError("ragged_paged_attention: %s on %s, q on %s"
+                             % (name, t.device, dev))
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != torch.float32:
+            raise MXNetError("ragged_paged_attention: %s must be float32, "
+                             "got %s" % (name, t.dtype))
+        if not t.is_contiguous():
+            raise MXNetError("ragged_paged_attention: %s must be contiguous"
+                             % name)
+    if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise MXNetError("ragged_paged_attention: q (S, H, D) and pools "
+                         "(P, page_size, KH, D) expected, got %s / %s / %s"
+                         % (tuple(q.shape), tuple(k_pool.shape),
+                            tuple(v_pool.shape)))
+    s_slots, n_heads, d = q.shape
+    _n_pages, page_size, n_kv, d_pool = k_pool.shape
+    _check_heads(n_heads, n_kv, "ragged_paged_attention")
+    if d_pool != d or not 1 <= d <= MAX_HEAD_DIM:
+        raise MXNetError("ragged_paged_attention: head_dim %d (pool %d) "
+                         "outside 1..%d" % (d, d_pool, MAX_HEAD_DIM))
+    if page_table.dim() != 2 or page_table.shape[0] != s_slots \
+            or tuple(seq_lens.shape) != (s_slots,) \
+            or (q_pos is not None and tuple(q_pos.shape) != (s_slots,)):
+        raise MXNetError("ragged_paged_attention: page_table (S, max_pages) "
+                         "and seq_lens/q_pos (S,) expected for S=%d" % s_slots)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    pt = page_table.to(torch.int32).contiguous()
+    sl = seq_lens.to(torch.int32).contiguous()
+    qp = q_pos.to(torch.int32).contiguous() if q_pos is not None else None
+    out = torch.empty_like(q)
+    if s_slots == 0:
+        return out
+    fn = _bind(_build.load("paged_attention"))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 pt.data_ptr(), sl.data_ptr(),
+                 qp.data_ptr() if qp is not None else None, out.data_ptr(),
+                 s_slots, n_heads, n_kv, d, page_size, pt.shape[1],
+                 float(scale), stream)
+    if err != 0:
+        raise MXNetError("paged_attention kernel launch failed: CUDA error "
+                         "%d" % err)
+    ragged_paged_attention.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+ragged_paged_attention.launches = 0
+
+
+def paged_attention_reference(q, k_pool, v_pool, page_table, seq_lens,
+                              q_pos=None, scale=None):
+    """Plain PyTorch ragged paged attention — the kernel's parity oracle
+    and the decode path for CPU tensors. Gathers (S, max_pages*page_size)
+    K/V views through the page table, exactly as the JAX reference."""
+    s_slots, n_heads, d = q.shape
+    _, page_size, n_kv, _ = k_pool.shape
+    groups = _check_heads(n_heads, n_kv, "paged_attention_reference")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    t = page_table.shape[1] * page_size
+    pt = page_table.long()
+    # (S, max_pages, page_size, KH, D) -> (S, T, KH, D)
+    k = k_pool[pt].reshape(s_slots, t, n_kv, d)
+    v = v_pool[pt].reshape(s_slots, t, n_kv, d)
+    if groups > 1:
+        k = k.repeat_interleave(groups, dim=2)
+        v = v.repeat_interleave(groups, dim=2)
+    scores = torch.einsum("shd,sthd->sht", q.float(), k.float()) * scale
+    pos = torch.arange(t, device=q.device)
+    valid = pos[None, :] < seq_lens.long()[:, None]
+    if q_pos is not None:
+        valid = valid & (pos[None, :] <= q_pos.long()[:, None])
+    scores = torch.where(valid[:, None, :], scores,
+                         torch.full_like(scores, _NEG_BIG))
+    any_valid = valid.any(dim=1)[:, None, None]
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("sht,sthd->shd", p, v.float())
+    return torch.where(any_valid, out, torch.zeros_like(out)).to(q.dtype)
+
+
+def paged_attention(q, k_pool, v_pool, page_table, seq_lens, q_pos=None,
+                    scale=None):
+    """Dispatcher the decode model calls: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor, an error otherwise."""
+    _check_heads(q.shape[1], k_pool.shape[2], "paged_attention")
+    if q.is_cuda:
+        return ragged_paged_attention(q, k_pool, v_pool, page_table,
+                                      seq_lens, q_pos=q_pos, scale=scale)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, page_table,
+                                         seq_lens, q_pos=q_pos, scale=scale)
+    raise MXNetError("paged_attention: no kernel for device %s (cuda or "
+                     "cpu)" % (q.device,))
+
+
+def paged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
+                            length: int, scale=None):
+    """Chunk attention: C chunk queries of ONE sequence attend over that
+    sequence's pages (the prefix already in the pool AND the chunk's own
+    rows, which the model writes before calling this).
+
+    q: (C, H, D) — the chunk's queries at absolute positions
+    ``start .. start+C-1``; page_row: (max_pages,) the sequence's
+    page-table row; ``length`` the chunk's real token count (padding rows
+    beyond it come back zeroed). Each chunk token becomes its own row of
+    the decode kernel, all sharing one page table row, with the causal
+    bound ``q_pos = start + i``. Returns (C, H, D).
+    """
+    c = q.shape[0]
+    idx = torch.arange(c, dtype=torch.int32, device=q.device)
+    q_pos = idx + int(start)
+    # query i sees positions <= start+i (causal), padding rows see nothing
+    seq_lens = torch.where(idx < int(length), q_pos + 1,
+                           torch.zeros_like(q_pos))
+    pt = page_row.to(device=q.device, dtype=torch.int32)[None, :] \
+        .expand(c, page_row.shape[0]).contiguous()
+    return paged_attention(q, k_pool, v_pool, pt, seq_lens, q_pos=q_pos,
+                           scale=scale)

@@ -1,0 +1,40 @@
+"""mxnet_tpu_torch.serving — the decode-serving plane on PyTorch/CUDA.
+
+The port of ``mxnet_tpu.serving`` as far as this slice goes:
+
+* :mod:`.decode`   — :class:`DecodeEngine` (token-level continuous
+  batching over fixed slots, one decode step per tick, prefill through a
+  bucket ladder, prefix cache with copy-on-write) and the reference model
+  :class:`TinyDecoder`; ``params_from_jax`` carries the JAX model's
+  weights across;
+* :mod:`.kvcache`  — :class:`PagedKVCache`: pools preallocated on the
+  device, host free-list allocator, refcounted prefix index;
+* :mod:`.tenancy`  — tenant registry, weighted-fair queue, per-tenant
+  breakers and budgets;
+* :mod:`.stats`, :mod:`.buckets`, :mod:`.batcher` (error types).
+
+The request-granularity ``Server``, the replica fleet and speculative
+decoding are later slices.
+"""
+from __future__ import annotations
+
+from .batcher import (EngineUnavailableError, QueueFullError,
+                      RequestTimeoutError, ServerClosedError, ServingError)
+from .buckets import bucket_ladder, select_bucket
+from .decode import (DecodeEngine, PagedDecodeModel, TinyDecoder,
+                     params_from_jax)
+from .kvcache import OutOfPagesError, PagedKVCache, PrefixMatch
+from .stats import ServingStats, TenantStats
+from .tenancy import (PRIORITY_CLASSES, Tenant, TenantBreaker,
+                      TenantRegistry, TenantUnavailableError,
+                      WeightedFairQueue)
+
+__all__ = [
+    "ServingError", "QueueFullError", "RequestTimeoutError",
+    "ServerClosedError", "EngineUnavailableError",
+    "ServingStats", "TenantStats", "bucket_ladder", "select_bucket",
+    "DecodeEngine", "PagedDecodeModel", "TinyDecoder", "params_from_jax",
+    "PagedKVCache", "OutOfPagesError", "PrefixMatch",
+    "Tenant", "TenantRegistry", "TenantBreaker",
+    "TenantUnavailableError", "WeightedFairQueue", "PRIORITY_CLASSES",
+]

@@ -1,0 +1,102 @@
+"""The port's standing rules (CPU).
+
+* ``mxnet_tpu_torch/`` and ``chip_smoke.py`` import neither ``jax`` nor
+  anything of ``mxnet_tpu`` (an AST scan of every module), and the port
+  still serves with ``jax`` and ``mxnet_tpu`` made unimportable;
+* its entry points run on the card by default: with no CUDA device and
+  no ``device="cpu"`` they raise instead of quietly using the CPU;
+* ``chip_smoke.py`` refuses to run without a card, printing no result.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from conftest import subprocess_env
+from mxnet_tpu_torch import MXNetError, serving
+
+REPO = Path(__file__).resolve().parent.parent
+_BANNED = ("jax", "jaxlib", "mxnet_tpu")
+
+
+def _port_files():
+    files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+def test_port_imports_no_jax_and_nothing_of_mxnet_tpu():
+    files = _port_files()
+    assert len(files) >= 15  # the scan really covers the package
+    bad = [(str(f.relative_to(REPO)), root) for f in files
+           for root in _imported_roots(f) if root in _BANNED]
+    assert bad == []
+
+
+def test_port_serves_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+import numpy as np
+from mxnet_tpu_torch import serving
+m = serving.TinyDecoder(vocab_size=16, num_layers=1, num_heads=2,
+                        head_dim=4)
+p = m.init_params(0, device="cpu")
+with serving.DecodeEngine(m, p, num_slots=2, max_seq_len=16,
+                          prefill_buckets=(4, 8), timeout_ms=0,
+                          device="cpu") as eng:
+    outs = [f.result(60) for f in [eng.submit([1, 2, 3], 4),
+                                   eng.submit([5], 3)]]
+assert np.array_equal(outs[0], m.reference_generate(p, [1, 2, 3], 4))
+assert np.array_equal(outs[1], m.reference_generate(p, [5], 3))
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("served", [len(o) for o in outs])
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "served [4, 3]" in proc.stdout
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    model = serving.TinyDecoder(vocab_size=16, num_layers=1, num_heads=2,
+                                head_dim=4)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        model.init_params(0)
+    params = model.init_params(0, device="cpu")
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        serving.DecodeEngine(model, params, num_slots=1, max_seq_len=8)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        serving.params_from_jax({"w": [0.0]})
+    with pytest.raises(MXNetError, match="CUDA"):
+        serving.DecodeEngine(model, params, num_slots=1, max_seq_len=8,
+                             device="cuda")
+
+
+def test_chip_smoke_without_a_card_prints_no_result(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke would run")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          cwd=str(tmp_path), env=subprocess_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+    assert os.listdir(tmp_path) == []  # and wrote nothing
