@@ -11,16 +11,32 @@ Phases, each printing one line of its own (any failure exits non-zero):
 2. build: every kernel of the served path, compiled with nvcc from the
    sources in this checkout (one nvcc per source, all started together);
 3. kernels: each kernel's wrapper against its plain PyTorch version on
-   the card, at the shapes the main path gives it, with CUDA-event times
-   of the kernel, the plain version and a PyTorch library call doing the
-   same function (``library_ms``, a yardstick the port never calls);
+   the card, at the shapes the main path gives it (the one-row decode
+   kernel on decode ticks and 32- and 64-row prefill chunks; the
+   multi-query verify kernel on ragged speculative ticks, with GQA, and
+   at W=1 against the one-row kernel), with CUDA-event times of the
+   kernel, the plain version and a PyTorch library call doing the same
+   function (``library_ms``, a yardstick the port never calls);
 4. serve: ``DecodeEngine`` at the full width of the decode bench model
    (``TinyDecoder(vocab_size=1024, num_layers=4, num_heads=8,
    head_dim=64)``, 16 slots, max_seq_len 1152, prefill ladder 8/16/32,
    prefix cache on) answers 32 requests, some sharing a 32-token system
    prompt; every output must equal the port's no-cache oracle on the
-   card, and every kernel of the path must have launched (counts reset
-   just before, read just after).
+   card, and every kernel of the path must have launched;
+5. spec_serve: the decode bench's speculative phase (the JAX package's
+   bench.py, BENCH_DECODE): 32 repetitive-motif prompts, 48 tokens each,
+   buckets 8/16, served with speculation off, with k=4 and the
+   accept-all ``model`` draft, and with k=4 and ``prompt_lookup``; all
+   three must give identical outputs equal to the oracle, accept-all
+   must commit more than one token per slot-tick, and the verify kernel
+   must launch at least once per verify tick and layer;
+6. chunked_serve: the bench's shared-prefix phase with chunked prefill:
+   96 requests over 8 system prompts of 512 tokens, ``prefill_chunk=64``,
+   buckets 16/32, prefix cache on, 16 output tokens; outputs must equal
+   the oracle and prefill must have run in chunks.
+
+In every serving phase the kernels' launch counts are set to 0 just
+before the phase drives the engine and read just after.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -47,6 +63,12 @@ MAX_PAGES = MAX_SEQ // PAGE
 N_REQ, OUT_CAP, SYSTEM_LEN = 32, 256, 32
 OUT_MIX = [16] * 3 + [64] * 2 + [256, 512, 1024]
 KERNEL_TOL = 1e-4  # fp32, another summation order than the plain einsum
+# the kernels' device-side names, as the profiler reports them
+KERNEL_1, KERNEL_2 = "paged_attention_kernel", "paged_spec_kernel"
+# the bench's speculative phase (32 motif prompts x 48 tokens, k = 4) and
+# shared-prefix phase (96 requests over 8 system prompts of 512 tokens)
+SPEC_K, SPEC_N, SPEC_OUT = 4, 32, 48
+SP_SYSTEMS, SP_SYS_LEN, SP_N, SP_OUT, SP_CHUNK = 8, 512, 96, 16, 64
 
 
 def fail(msg):
@@ -59,7 +81,9 @@ def phase(name, **fields):
 
 
 def time_ms(fn, iters=50, warm=3):
-    """Mean device time of ``fn()`` over ``iters`` runs, CUDA events."""
+    """Mean time of ``fn()`` over ``iters`` back-to-back runs, CUDA
+    events: the device's time per call, or the host's where issuing a
+    call takes longer than running it."""
     import torch
 
     for _ in range(warm):
@@ -73,6 +97,28 @@ def time_ms(fn, iters=50, warm=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, kernel, iters=20):
+    """Mean device duration per call of the kernels whose name contains
+    ``kernel`` while ``fn()`` runs ``iters`` times, from torch.profiler:
+    the kernel alone, without its wrapper's host work (which bounds
+    ``time_ms`` at small shapes)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name)
+    if us <= 0:
+        fail("the profiler saw no device time of %s" % kernel)
+    return us / 1e3 / iters
 
 
 def build_all():
@@ -116,15 +162,24 @@ def _attention_case(rng, s, h, kh, d, seq_lens, q_pos=None):
     return args, qp
 
 
-def _bound(s, h, kh, d, limits):
+def _bound(rows, h, kh, d, row_limits, table_tokens=None):
     """Least time (ms) for the work these inputs need: each input byte
-    read once, each output written once, on the card's peak rates."""
-    toks = int(np.sum(limits))
-    pages = int(np.sum(-(-np.asarray(limits) // PAGE)))
-    nbytes = (2 * s * h * d * 4          # q in, out
-              + toks * kh * d * 4 * 2    # the K and V rows attended
-              + pages * 4 + s * 4 * 2)   # page ids, seq_lens (+ q_pos)
-    flops = 4 * d * h * toks             # q.k and p.v
+    read once, each output written once, on the card's peak rates.
+
+    ``rows`` query rows attend ``row_limits`` positions each;
+    ``table_tokens`` are the positions each page-table row covers (its
+    K/V read ONCE however many rows share the row): the row limits
+    themselves when every row has its own table row (the decode tick),
+    the largest limit of a slot's rows when W rows share it (a verify
+    tick, a prefill chunk)."""
+    row_limits = np.asarray(row_limits, np.int64)
+    kv = row_limits if table_tokens is None else \
+        np.asarray(table_tokens, np.int64)
+    pages = int(np.sum(-(-kv // PAGE)))
+    nbytes = (2 * rows * h * d * 4                # q in, out
+              + int(np.sum(kv)) * kh * d * 4 * 2  # the K and V rows read
+              + pages * 4 + rows * 4 * 2)         # page ids, seq_lens/q_pos
+    flops = 4 * d * h * int(np.sum(row_limits))   # q.k and p.v, per row
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -162,29 +217,36 @@ def check_kernels():
         results[name] = (args, qp, lens, h, kh, err)
         phase("kernel_check", case=name, max_abs_err=err, tol=KERNEL_TOL)
 
-    # the prefix-hit tail: a 32-row chunk (the top prefill rung) of one
-    # sequence at positions 32..51 over its own page row, causal
+    # prefill chunks of one sequence over its own page row, causal: the
+    # prefix-hit tail (a 32-row chunk, the top prefill rung, at positions
+    # 32..51) and a chunked-prefill chunk (64 rows at positions 512..575)
     dev = torch.device("cuda")
-    args, _ = _attention_case(rng, 1, 8, 8, 64, [52])
-    q = torch.tensor(rng.randn(32, 8, 64).astype(np.float32), device=dev)
-    row = args[3][0]
-    got = pa.paged_prefill_attention(q, args[1], args[2], row, 32, 20)
-    torch.cuda.synchronize()
-    idx = torch.arange(32, dtype=torch.int32, device=dev)
-    want = pa.paged_attention_reference(
-        q, args[1], args[2], row[None].expand(32, -1),
-        torch.where(idx < 20, idx + 33, torch.zeros_like(idx)),
-        q_pos=idx + 32)
-    err = float((got - want).abs().max())
-    worst = max(worst, err)
-    if not torch.allclose(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL):
-        fail("prefill-chunk kernel disagrees with the plain version: max "
-             "abs err %.3g" % err)
-    phase("kernel_check", case="prefill_chunk_32", max_abs_err=err,
-          tol=KERNEL_TOL)
+    chunk64 = None
+    for c, start, n in ((32, 32, 20), (SP_CHUNK, 512, SP_CHUNK)):
+        args, _ = _attention_case(rng, 1, 8, 8, 64, [start + n])
+        q = torch.tensor(rng.randn(c, 8, 64).astype(np.float32),
+                         device=dev)
+        row = args[3][0]
+        got = pa.paged_prefill_attention(q, args[1], args[2], row, start, n)
+        torch.cuda.synchronize()
+        idx = torch.arange(c, dtype=torch.int32, device=dev)
+        want_args = (q, args[1], args[2], row[None].expand(c, -1).contiguous(),
+                     torch.where(idx < n, idx + start + 1,
+                                 torch.zeros_like(idx)))
+        want = pa.paged_attention_reference(*want_args, q_pos=idx + start)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if not torch.allclose(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL):
+            fail("prefill-chunk kernel (%d rows) disagrees with the plain "
+                 "version: max abs err %.3g" % (c, err))
+        phase("kernel_check", case="prefill_chunk_%d" % c, max_abs_err=err,
+              tol=KERNEL_TOL)
+        chunk64 = (want_args, idx + start, n, start)
 
     def times(case, args, lens, h, kh):
         ms = time_ms(lambda: pa.ragged_paged_attention(*args))
+        device_ms = kernel_device_ms(
+            lambda: pa.ragged_paged_attention(*args), KERNEL_1)
         plain_ms = time_ms(lambda: pa.paged_attention_reference(*args))
         q, kp, vp, pt, sl = args
         t = MAX_PAGES * PAGE
@@ -197,12 +259,14 @@ def check_kernels():
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask))
         bound_ms, bound_by = _bound(SLOTS, h, kh, 64, lens)
-        phase("kernel_time", case=case, ms=ms, plain_ms=plain_ms,
+        phase("kernel_time", case=case, ms=ms, device_ms=device_ms,
+              plain_ms=plain_ms,
               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
               library="scaled_dot_product_attention over K/V gathered "
                       "beforehand (gather not timed)")
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=library_ms)
+        return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms)
 
     # times at the decode bench shape (the JSON line's numbers), then with
     # every slot at max_seq_len: the most bytes one tick's layer can read
@@ -211,10 +275,201 @@ def check_kernels():
     full = [MAX_SEQ] * SLOTS
     args, _ = _attention_case(rng, SLOTS, 8, 8, 64, full)
     times("decode_full_%d" % MAX_SEQ, args, full, 8, 8)
+
+    # the 64-row chunk: each of its rows reads the sequence's pages again
+    # (one table row per query row), so the bound counts them once
+    want_args, qpos, n, start = chunk64
+    ms = time_ms(lambda: pa.ragged_paged_attention(*want_args, q_pos=qpos))
+    device_ms = kernel_device_ms(
+        lambda: pa.ragged_paged_attention(*want_args, q_pos=qpos), KERNEL_1)
+    plain_ms = time_ms(
+        lambda: pa.paged_attention_reference(*want_args, q_pos=qpos))
+    q, kp, vp, pt, sl = want_args
+    t = MAX_PAGES * PAGE
+    kg = kp[pt[:1].long()].reshape(1, t, 8, 64).transpose(1, 2).contiguous()
+    vg = vp[pt[:1].long()].reshape(1, t, 8, 64).transpose(1, 2).contiguous()
+    pos = torch.arange(t, device=dev)[None, :]
+    mask = ((pos < sl[:, None].long()) & (pos <= qpos[:, None].long()))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(0, 1)[None], kg, vg, attn_mask=mask[None, None]))
+    bound_ms, bound_by = _bound(SP_CHUNK, 8, 8, 64, sl.cpu().numpy(),
+                                [start + n])
+    phase("kernel_time", case="prefill_chunk_%d" % SP_CHUNK, ms=ms,
+          device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+          bound_ms=bound_ms, bound_by=bound_by,
+          library="scaled_dot_product_attention, 64 queries over the "
+                  "sequence's K/V gathered beforehand (gather not timed)")
     return {"name": "paged_attention", "route": "cuda",
             "source": "mxnet_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:292",
             "max_abs_err": worst, **bench}
+
+
+def _spec_case(rng, s, w, h, kh, d, row_lens):
+    """Inputs of one verify-step call on the card: q (S, W, H, D), pools
+    sized like the engine's, one page table row per slot padded with the
+    null page past the slot's largest row limit, per-row seq_lens."""
+    import torch
+
+    dev = torch.device("cuda")
+    row_lens = np.asarray(row_lens, np.int32).reshape(s, w)
+    n_pages = s * MAX_PAGES + 1
+    q = torch.tensor(rng.randn(s, w, h, d).astype(np.float32), device=dev)
+    kp = torch.tensor(rng.randn(n_pages, PAGE, kh, d).astype(np.float32),
+                      device=dev)
+    vp = torch.tensor(rng.randn(n_pages, PAGE, kh, d).astype(np.float32),
+                      device=dev)
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    pt = perm[:s * MAX_PAGES].reshape(s, MAX_PAGES).copy()
+    for i in range(s):
+        pt[i, -(-int(row_lens[i].max()) // PAGE):] = 0
+    return [q, kp, vp, torch.tensor(pt, device=dev),
+            torch.tensor(row_lens.ravel(), device=dev)], row_lens
+
+
+def _verify_lens(rng, base_lo, base_hi, ragged):
+    """Per-row limits of one verify tick: slot s at committed length L
+    has rows L, L+1, .. (its token and drafts). Ragged: every fourth slot
+    inactive (all rows 0) and the others with a random number of draft
+    rows, the rest padded with 0 — what acceptance and the draft clamps
+    leave in a real tick."""
+    lens = np.zeros((SLOTS, SPEC_K + 1), np.int32)
+    for i in range(SLOTS):
+        base = int(rng.randint(base_lo, base_hi + 1))
+        live = (int(rng.randint(1, SPEC_K + 2)) if i % 4 else 0) \
+            if ragged else SPEC_K + 1
+        for j in range(live):
+            lens[i, j] = min(base + j, MAX_SEQ)
+    return lens
+
+
+def check_spec_kernel():
+    """The verify step's multi-query kernel against its plain version
+    (bench shape, GQA, and W=1 against the one-row kernel), then timed
+    at the spec bench's lengths and with every slot at max_seq_len."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.RandomState(1)
+    w = SPEC_K + 1
+    worst = 0.0
+    for name, h, kh in (("spec_bench", 8, 8), ("spec_gqa_8_over_2", 8, 2)):
+        lens = _verify_lens(rng, 1, MAX_SEQ - SPEC_K, ragged=True)
+        args, lens = _spec_case(rng, SLOTS, w, h, kh, 64, lens)
+        got = pa.ragged_spec_attention(*args)
+        torch.cuda.synchronize()
+        q = args[0]
+        want = pa.paged_spec_attention_reference(
+            q.reshape(SLOTS * w, h, 64), *args[1:]).reshape(q.shape)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if not torch.allclose(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL):
+            fail("spec kernel %s disagrees with the plain version: max abs "
+                 "err %.3g" % (name, err))
+        zero = torch.tensor(lens == 0, device=q.device)
+        if not bool((got[zero] == 0).all()):
+            fail("spec kernel %s: a row with limit 0 is not exact zeros"
+                 % name)
+        phase("kernel_check", case=name, max_abs_err=err, tol=KERNEL_TOL,
+              rows_with_limit_0=int((lens == 0).sum()))
+
+    # W = 1: the same function as the one-row kernel on the same inputs
+    lens = _verify_lens(rng, 0, MAX_SEQ, ragged=False)[:, :1]
+    args, _ = _spec_case(rng, SLOTS, 1, 8, 8, 64, lens)
+    got = pa.ragged_spec_attention(*args)
+    one = pa.ragged_paged_attention(args[0][:, 0].contiguous(), *args[1:])
+    torch.cuda.synchronize()
+    err = float((got[:, 0] - one).abs().max())
+    worst = max(worst, err)
+    if not torch.allclose(got[:, 0], one, atol=KERNEL_TOL, rtol=KERNEL_TOL):
+        fail("spec kernel at W=1 disagrees with the one-row kernel: max abs "
+             "err %.3g" % err)
+    phase("kernel_check", case="spec_w1_vs_paged_attention",
+          max_abs_err=err, tol=KERNEL_TOL)
+
+    def times(case, base_lo, base_hi):
+        lens = _verify_lens(rng, base_lo, base_hi, ragged=False)
+        args, lens = _spec_case(rng, SLOTS, w, 8, 8, 64, lens)
+        q, kp, vp, pt, sl = args
+        ms = time_ms(lambda: pa.ragged_spec_attention(*args))
+        device_ms = kernel_device_ms(
+            lambda: pa.ragged_spec_attention(*args), KERNEL_2)
+        qf = q.reshape(SLOTS * w, 8, 64)
+        plain_ms = time_ms(lambda: pa.paged_spec_attention_reference(
+            qf, kp, vp, pt, sl))
+        t = MAX_PAGES * PAGE
+        kg = kp[pt.long()].reshape(SLOTS, t, 8, 64).transpose(1, 2)
+        vg = vp[pt.long()].reshape(SLOTS, t, 8, 64).transpose(1, 2)
+        kg, vg = kg.contiguous(), vg.contiguous()
+        mask = (torch.arange(t, device=q.device)[None, None, :]
+                < sl.reshape(SLOTS, w)[:, :, None].long())[:, None]
+        qs = q.transpose(1, 2)  # (S, H, W, D)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask))
+        bound_ms, bound_by = _bound(SLOTS * w, 8, 8, 64, lens.ravel(),
+                                    lens.max(axis=1))
+        phase("kernel_time", case=case, ms=ms, device_ms=device_ms,
+              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+              bound_by=bound_by, rows_per_slot=w,
+              slot_lens=[int(lens.min()), int(lens.max())],
+              library="scaled_dot_product_attention, W queries per slot "
+                      "with a per-row mask over K/V gathered beforehand "
+                      "(gather not timed)")
+        return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms)
+
+    # the spec bench's verify ticks: 10-token prompts + up to 48 tokens
+    bench = times("spec_bench", 10, 10 + SPEC_OUT - w)
+    times("spec_full_%d" % MAX_SEQ, MAX_SEQ - SPEC_K, MAX_SEQ - SPEC_K)
+    return {"name": "paged_spec_attention", "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/paged_spec_attention.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:516",
+            "max_abs_err": worst, **bench}
+
+
+def _reset_launches():
+    from mxnet_tpu_torch.ops import paged_attention as pa
+
+    pa.ragged_paged_attention.launches = 0
+    pa.ragged_spec_attention.launches = 0
+
+
+def _read_launches():
+    from mxnet_tpu_torch.ops import paged_attention as pa
+
+    return (pa.ragged_paged_attention.launches,
+            pa.ragged_spec_attention.launches)
+
+
+def _check_oracle(model, params, reqs, outs, what):
+    """Every output equals the no-cache oracle on the card. On a
+    mismatch, print the oracle's top-2 logit gap at the first divergent
+    position (a near-tie there points at rounding, a wide gap at a bug)
+    and fail."""
+    import torch
+
+    bad = []
+    for i, ((p, m), got) in enumerate(zip(reqs, outs)):
+        ref = model.reference_generate(params, p, m)
+        if got.shape == ref.shape and np.array_equal(got, ref):
+            continue
+        bad.append(i)
+        if len(bad) == 1:
+            n = min(len(got), len(ref))
+            j = next((k for k in range(n) if got[k] != ref[k]), n)
+            logits = model.reference_logits(
+                params, np.concatenate([p, ref[:j]]))[-1]
+            top = torch.topk(logits, 2).values.tolist()
+            print("first divergence: request %d position %d: got %s, oracle "
+                  "%s, oracle top-2 logit gap %.6g"
+                  % (i, j, got[j:j + 1].tolist(), ref[j:j + 1].tolist(),
+                     top[0] - top[1]), flush=True)
+    if bad:
+        fail("%s: %d of %d outputs differ from the oracle (requests %s)"
+             % (what, len(bad), len(reqs), bad[:8]))
 
 
 def serve():
@@ -242,14 +497,16 @@ def serve():
     try:
         eng.warmup()
         before = eng.stats()
-        pa.ragged_paged_attention.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         outs = [f.result(timeout=600)
                 for f in [eng.submit(p, m) for p, m in reqs]]
         wall = time.perf_counter() - t0
-        launches = pa.ragged_paged_attention.launches
+        launches, _spec = _read_launches()
         stats = eng.stats()
-        profile_ticks(eng, rng)
+        profile_ticks(eng, [
+            rng.randint(1, MODEL["vocab_size"], int(rng.randint(4, 24)))
+            for _ in range(SLOTS)])
     finally:
         eng.close()
     ticks = stats["ticks"] - before["ticks"]
@@ -261,14 +518,7 @@ def serve():
     hits = stats["kvcache"]["prefix_hits"] - before["kvcache"]["prefix_hits"]
     if hits < 1 or stats["prefill_chunks"] < 1:
         fail("no prefix-cache hit ran the q_pos kernel path")
-    bad = []
-    for i, ((p, m), got) in enumerate(zip(reqs, outs)):
-        ref = model.reference_generate(params, p, m)
-        if got.shape != (m,) or not np.array_equal(got, ref):
-            bad.append(i)
-    if bad:
-        fail("%d of %d outputs differ from the oracle (requests %s)"
-             % (len(bad), len(reqs), bad[:8]))
+    _check_oracle(model, params, reqs, outs, "serve")
     tokens = int(sum(len(o) for o in outs))
     phase("serve", requests=len(reqs), tokens=tokens, wall_s=wall,
           tokens_per_s=tokens / wall, ttft_p50_ms=stats["ttft_p50_ms"],
@@ -280,18 +530,129 @@ def serve():
     return launches
 
 
-def profile_ticks(eng, rng, n_req=SLOTS, new_tokens=64):
+def _serve_run(model, params, reqs, name, profile=None, **kw):
+    """One engine over ``reqs``: warm up, set the kernels' counts to 0,
+    serve every request, read the counts; then, if ``profile`` names a
+    case, trace one more wave of the first SLOTS requests. Returns
+    (outputs, stats, wall seconds, (paged_attention launches, spec
+    launches), ticks)."""
+    from mxnet_tpu_torch import serving
+
+    eng = serving.DecodeEngine(
+        model, params, num_slots=SLOTS, max_seq_len=MAX_SEQ,
+        page_size=PAGE, timeout_ms=0, name=name, **kw)
+    try:
+        eng.warmup()
+        ticks0 = eng.stats()["ticks"]
+        _reset_launches()
+        t0 = time.perf_counter()
+        outs = [f.result(timeout=600)
+                for f in [eng.submit(p, m) for p, m in reqs]]
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        stats = eng.stats()
+        if profile:
+            profile_ticks(eng, [p for p, _m in reqs[:SLOTS]],
+                          new_tokens=reqs[0][1], case=profile)
+    finally:
+        eng.close()
+    return outs, stats, wall, launches, stats["ticks"] - ticks0
+
+
+def spec_serve(model, params):
+    """The bench's speculative phase at full width, served three ways."""
+    rng = np.random.RandomState(2)
+    reqs = []
+    for _ in range(SPEC_N):
+        # repetitive-motif prompts: the traffic prompt lookup is built for
+        motif = rng.randint(1, MODEL["vocab_size"], 4).astype(np.int32)
+        reqs.append((np.concatenate([motif, motif, motif[:2]]), SPEC_OUT))
+    layers = MODEL["num_layers"]
+    runs = {}
+    spec_launches = 0
+    for key, k, draft in (("spec_off", 0, None),
+                          ("accept_all", SPEC_K, "model"),
+                          ("prompt_lookup", SPEC_K, "prompt_lookup")):
+        outs, st, wall, (one, spec), ticks = _serve_run(
+            model, params, reqs, "chip_smoke_" + key,
+            profile=None if key == "accept_all" else key,
+            prefill_buckets=(8, 16), spec_k=k, spec_draft=draft)
+        sp = st["speculative"]
+        if k and spec < ticks * layers:
+            fail("%s: spec kernel launched %d times for %d verify ticks x "
+                 "%d layers" % (key, spec, ticks, layers))
+        if not k and one < ticks * layers:
+            fail("%s: paged-attention kernel launched %d times for %d ticks "
+                 "x %d layers" % (key, one, ticks, layers))
+        spec_launches += spec
+        tokens = int(sum(len(o) for o in outs))
+        runs[key] = outs
+        phase("spec_serve", run=key, k=k, draft=draft, requests=len(reqs),
+              tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+              ttft_p50_ms=st["ttft_p50_ms"], tpot_p50_ms=st["tpot_p50_ms"],
+              ticks=ticks, acceptance_rate=sp["acceptance_rate"],
+              accepted_per_tick=sp["accepted_per_tick"],
+              proposed_tokens=sp["proposed_tokens"],
+              paged_attention_launches=one, spec_kernel_launches=spec)
+        if key == "accept_all" and not sp["accepted_per_tick"] > 1.0:
+            fail("accept_all committed %.3f tokens per slot-tick (> 1 "
+                 "expected)" % sp["accepted_per_tick"])
+    for key in ("accept_all", "prompt_lookup"):
+        diff = [i for i, (a, b) in enumerate(zip(runs["spec_off"],
+                                                 runs[key]))
+                if not np.array_equal(a, b)]
+        if diff:
+            fail("%s outputs differ from spec_off (requests %s)"
+                 % (key, diff[:8]))
+    _check_oracle(model, params, reqs, runs["spec_off"], "spec_serve")
+    phase("spec_serve", outputs_equal_across_runs=True,
+          outputs_equal_oracle=True)
+    return spec_launches
+
+
+def chunked_serve(model, params):
+    """The bench's shared-prefix phase with chunked prefill at full
+    width: outputs equal the oracle, prefill runs in 64-token chunks."""
+    rng = np.random.RandomState(1)
+    systems = [rng.randint(1, MODEL["vocab_size"], SP_SYS_LEN).astype(
+        np.int32) for _ in range(SP_SYSTEMS)]
+    reqs = []
+    for i in range(SP_N):
+        suffix = rng.randint(1, MODEL["vocab_size"],
+                             int(rng.randint(2, 6))).astype(np.int32)
+        reqs.append((np.concatenate([systems[i % SP_SYSTEMS], suffix]),
+                     SP_OUT))
+    outs, st, wall, (one, spec), ticks = _serve_run(
+        model, params, reqs, "chip_smoke_chunked",
+        prefill_buckets=(16, 32), prefix_cache=True, prefill_chunk=SP_CHUNK)
+    layers = MODEL["num_layers"]
+    if st["prefill_chunks"] < 1:
+        fail("chunked_serve ran no prefill chunk")
+    if one < (ticks + st["prefill_chunks"]) * layers:
+        fail("chunked_serve: paged-attention kernel launched %d times for "
+             "%d ticks + %d chunks x %d layers"
+             % (one, ticks, st["prefill_chunks"], layers))
+    _check_oracle(model, params, reqs, outs, "chunked_serve")
+    tokens = int(sum(len(o) for o in outs))
+    phase("chunked_serve", requests=len(reqs), tokens=tokens, wall_s=wall,
+          tokens_per_s=tokens / wall, ttft_p50_ms=st["ttft_p50_ms"],
+          ttft_p99_ms=st["ttft_p99_ms"], tpot_p50_ms=st["tpot_p50_ms"],
+          ticks=ticks, prefill_chunks=st["prefill_chunks"],
+          prefix_hits=st["kvcache"]["prefix_hits"],
+          paged_attention_launches=one, spec_kernel_launches=spec,
+          outputs_equal_oracle=True)
+
+
+def profile_ticks(eng, reqs, new_tokens=64, case="decode"):
     """Where a tick's time goes: one wave of requests that fills every
     slot, traced with torch.profiler (device activity only). Prints the
     wave's wall time, the device's busy time (the kernels and copies of
     one stream do not overlap, so their durations add up) and the
-    paged-attention kernel's share of it."""
+    attention kernels' share of it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = [rng.randint(1, MODEL["vocab_size"], int(rng.randint(4, 24)))
-            for _ in range(n_req)]
     ticks0 = eng.stats()["ticks"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -308,12 +669,16 @@ def profile_ticks(eng, rng, n_req=SLOTS, new_tokens=64):
     busy_ms = sum(by_name.values())
     if busy_ms <= 0.0:
         fail("the profiler saw no device time in the traced wave")
-    paged_ms = sum(v for k, v in by_name.items() if "paged_attention" in k)
+    paged_ms = sum(v for k, v in by_name.items() if KERNEL_1 in k)
+    spec_ms = sum(v for k, v in by_name.items() if KERNEL_2 in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    phase("tick_profile", requests=n_req, ticks=ticks, wall_ms=wall_ms,
-          device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+    phase("tick_profile", case=case, requests=len(reqs), ticks=ticks,
+          wall_ms=wall_ms, device_busy_ms=busy_ms,
+          device_busy_share=busy_ms / wall_ms,
           paged_attention_ms=paged_ms,
           paged_attention_share_of_busy=paged_ms / busy_ms,
+          spec_attention_ms=spec_ms,
+          spec_attention_share_of_busy=spec_ms / busy_ms,
           per_tick_wall_ms=wall_ms / max(ticks, 1),
           per_tick_busy_ms=busy_ms / max(ticks, 1),
           top_device_ms=[[k[:60], v] for k, v in top])
@@ -347,8 +712,15 @@ def main():
     phase("build", kernels=names, seconds=secs, ptxas=ptxas)
 
     entry = check_kernels()
+    spec_entry = check_spec_kernel()
     entry["launches"] = serve()
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    from mxnet_tpu_torch import serving
+
+    model = serving.TinyDecoder(**MODEL)
+    params = model.init_params(0)  # no device given: the card
+    spec_entry["launches"] = spec_serve(model, params)
+    chunked_serve(model, params)
+    print(json.dumps({"kernels": [entry, spec_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,8 @@
-"""Ragged paged attention: the decode plane's kernel and its plain version.
+"""Ragged paged attention: the decode plane's kernels and their plain
+versions.
 
-The port of ``mxnet_tpu/ops/pallas_kernels.py:292-513``:
+The port of ``mxnet_tpu/ops/pallas_kernels.py:292-707``. The one-row
+decode step:
 
 * :func:`ragged_paged_attention` — the wrapper of the hand-written CUDA
   kernel ``ops/csrc/paged_attention.cu`` (it replaces the Pallas
@@ -20,12 +22,29 @@ The port of ``mxnet_tpu/ops/pallas_kernels.py:292-513``:
   ``H % KH == 0``;
 * :func:`paged_prefill_attention` — C chunk queries of ONE sequence over
   that sequence's pages with a causal ``q_pos`` (the prefix-cache tail
-  path), through the same dispatcher.
+  and chunked-prefill path), through the same dispatcher.
 
 Shapes: q ``(S, H, D)``; pools ``(P, page_size, KH, D)``; page_table
 ``(S, max_pages)`` page ids (unused entries point at the null page 0);
 seq_lens / q_pos ``(S,)``. Returns ``(S, H, D)``; a slot with nothing to
 attend to is exact zeros.
+
+The speculative verify step, W query rows per slot sharing ONE page-table
+row, with per-row ``seq_lens (S*W,)`` carrying the causality between a
+slot's draft rows:
+
+* :func:`ragged_spec_attention` — the wrapper of the hand-written CUDA
+  kernel ``ops/csrc/paged_spec_attention.cu`` (it replaces the Pallas
+  ``_paged_spec_kernel``), q ``(S, W, H, D)``; it reads each slot's K/V
+  once for all W rows; counts ``ragged_spec_attention.launches``;
+* :func:`paged_spec_attention_reference` — its plain version (the JAX
+  ``paged_spec_attention_reference``, line for line), q ``(S*W, H, D)``;
+* :func:`paged_spec_attention` — the dispatcher the decode model calls
+  for W > 1: W derived from ``q.shape[0] // page_table.shape[0]``, CUDA
+  to the kernel, CPU to the plain version, anything else raises. Like
+  :func:`paged_attention` it has no shape gate and no fallback (the JAX
+  dispatcher's ``page_size % 8 == 0 and head_dim % 128 == 0`` gate meant
+  the TPU never ran its spec kernel at ``head_dim`` 64; this one does).
 """
 from __future__ import annotations
 
@@ -37,7 +56,9 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["ragged_paged_attention", "paged_attention_reference",
-           "paged_attention", "paged_prefill_attention", "MAX_HEAD_DIM"]
+           "paged_attention", "paged_prefill_attention",
+           "ragged_spec_attention", "paged_spec_attention_reference",
+           "paged_spec_attention", "MAX_HEAD_DIM"]
 
 #: The largest head_dim the kernel takes (8 fp32 values per lane).
 MAX_HEAD_DIM = 256
@@ -52,13 +73,68 @@ def _check_heads(n_heads: int, n_kv: int, who: str) -> int:
     return n_heads // n_kv
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.paged_attention_f32
+def _bind(lib: ctypes.CDLL, name: str, n_ptrs: int, n_ints: int):
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_launch(who, q, q_dims, k_pool, v_pool, ints):
+    """The checks both kernel wrappers make before a launch: everything on
+    q's CUDA device, q and the pools contiguous fp32, q with the named
+    dims (``"SHD"`` or ``"SWHD"``), pools ``(P, page_size, KH, D)`` with
+    ``1 <= D <= 256`` and ``H % KH == 0``. ``ints`` are the integer
+    operands by name (cast to contiguous int32 by the caller). Returns
+    ``(page_size, KH, D)``."""
+    if not q.is_cuda:
+        raise MXNetError("%s runs on a CUDA tensor, got one on %s (use the "
+                         "dispatcher)" % (who, q.device))
+    dev = q.device
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)) + tuple(ints):
+        if t.device != dev:
+            raise MXNetError("%s: %s on %s, q on %s"
+                             % (who, name, t.device, dev))
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != torch.float32:
+            raise MXNetError("%s: %s must be float32, got %s"
+                             % (who, name, t.dtype))
+        if not t.is_contiguous():
+            raise MXNetError("%s: %s must be contiguous" % (who, name))
+    if q.dim() != len(q_dims) or k_pool.dim() != 4 \
+            or v_pool.shape != k_pool.shape:
+        raise MXNetError("%s: q (%s) and pools (P, page_size, KH, D) "
+                         "expected, got %s / %s / %s"
+                         % (who, ", ".join(q_dims), tuple(q.shape),
+                            tuple(k_pool.shape), tuple(v_pool.shape)))
+    _n_pages, page_size, n_kv, d_pool = k_pool.shape
+    d = q.shape[-1]
+    _check_heads(q.shape[-2], n_kv, who)
+    if d_pool != d or not 1 <= d <= MAX_HEAD_DIM:
+        raise MXNetError("%s: head_dim %d (pool %d) outside 1..%d"
+                         % (who, d, d_pool, MAX_HEAD_DIM))
+    return page_size, n_kv, d
+
+
+def _launch(lib_name, fn_name, n_ints, q, args, ints, scale, d):
+    """Allocate the output, launch on q's current stream, raise on a CUDA
+    error. ``args`` are the tensor operands before the output, ``ints``
+    the integer arguments after it."""
+    out = torch.empty_like(q)
+    fn = _bind(_build.load(lib_name), fn_name, len(args) + 1, n_ints)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(*[a.data_ptr() if a is not None else None for a in args],
+                 out.data_ptr(), *ints, float(scale), stream)
+    if err != 0:
+        raise MXNetError("%s kernel launch failed: CUDA error %d"
+                         % (lib_name, err))
+    return out
 
 
 def ragged_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
@@ -71,59 +147,25 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
     CPU form; :func:`paged_attention` sends CPU tensors to the plain
     version instead.
     """
-    if not q.is_cuda:
-        raise MXNetError("ragged_paged_attention runs on a CUDA tensor, got "
-                         "one on %s (use paged_attention to dispatch)"
-                         % (q.device,))
-    dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("page_table", page_table), ("seq_lens", seq_lens)) + \
-            ((("q_pos", q_pos),) if q_pos is not None else ()):
-        if t.device != dev:
-            raise MXNetError("ragged_paged_attention: %s on %s, q on %s"
-                             % (name, t.device, dev))
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != torch.float32:
-            raise MXNetError("ragged_paged_attention: %s must be float32, "
-                             "got %s" % (name, t.dtype))
-        if not t.is_contiguous():
-            raise MXNetError("ragged_paged_attention: %s must be contiguous"
-                             % name)
-    if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
-        raise MXNetError("ragged_paged_attention: q (S, H, D) and pools "
-                         "(P, page_size, KH, D) expected, got %s / %s / %s"
-                         % (tuple(q.shape), tuple(k_pool.shape),
-                            tuple(v_pool.shape)))
-    s_slots, n_heads, d = q.shape
-    _n_pages, page_size, n_kv, d_pool = k_pool.shape
-    _check_heads(n_heads, n_kv, "ragged_paged_attention")
-    if d_pool != d or not 1 <= d <= MAX_HEAD_DIM:
-        raise MXNetError("ragged_paged_attention: head_dim %d (pool %d) "
-                         "outside 1..%d" % (d, d_pool, MAX_HEAD_DIM))
+    ints = (("page_table", page_table), ("seq_lens", seq_lens)) + \
+        ((("q_pos", q_pos),) if q_pos is not None else ())
+    page_size, n_kv, d = _check_launch(
+        "ragged_paged_attention", q, "SHD", k_pool, v_pool, ints)
+    s_slots, n_heads, _ = q.shape
     if page_table.dim() != 2 or page_table.shape[0] != s_slots \
             or tuple(seq_lens.shape) != (s_slots,) \
             or (q_pos is not None and tuple(q_pos.shape) != (s_slots,)):
         raise MXNetError("ragged_paged_attention: page_table (S, max_pages) "
                          "and seq_lens/q_pos (S,) expected for S=%d" % s_slots)
-    if scale is None:
-        scale = 1.0 / (d ** 0.5)
     pt = page_table.to(torch.int32).contiguous()
     sl = seq_lens.to(torch.int32).contiguous()
     qp = q_pos.to(torch.int32).contiguous() if q_pos is not None else None
-    out = torch.empty_like(q)
     if s_slots == 0:
-        return out
-    fn = _bind(_build.load("paged_attention"))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 pt.data_ptr(), sl.data_ptr(),
-                 qp.data_ptr() if qp is not None else None, out.data_ptr(),
-                 s_slots, n_heads, n_kv, d, page_size, pt.shape[1],
-                 float(scale), stream)
-    if err != 0:
-        raise MXNetError("paged_attention kernel launch failed: CUDA error "
-                         "%d" % err)
+        return torch.empty_like(q)
+    out = _launch("paged_attention", "paged_attention_f32", 6, q,
+                  (q, k_pool, v_pool, pt, sl, qp),
+                  (s_slots, n_heads, n_kv, d, page_size, pt.shape[1]),
+                  scale, d)
     ragged_paged_attention.launches += 1
     return out
 
@@ -176,6 +218,82 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, q_pos=None,
                                          seq_lens, q_pos=q_pos, scale=scale)
     raise MXNetError("paged_attention: no kernel for device %s (cuda or "
                      "cpu)" % (q.device,))
+
+
+def ragged_spec_attention(q, k_pool, v_pool, page_table, seq_lens,
+                          scale=None):
+    """Launch the CUDA multi-query paged-attention kernel (the
+    speculative verify step).
+
+    q: ``(S, W, H, D)`` — W query rows per slot (committed token + drafts,
+    in position order); page_table: ``(S, max_pages)``, ONE row per slot,
+    shared by its W queries; seq_lens: ``(S*W,)`` PER ROW — row w of slot
+    s attends positions ``< seq_lens[s*W + w]``, so a draft row sees the
+    committed prefix and the draft rows below it, and a padded or
+    inactive row carries 0 and returns exact zeros. Same device, dtype
+    and layout rules as :func:`ragged_paged_attention`. Returns
+    ``(S, W, H, D)``.
+    """
+    ints = (("page_table", page_table), ("seq_lens", seq_lens))
+    page_size, n_kv, d = _check_launch(
+        "ragged_spec_attention", q, "SWHD", k_pool, v_pool, ints)
+    s_slots, width, n_heads, _ = q.shape
+    if page_table.dim() != 2 or page_table.shape[0] != s_slots \
+            or tuple(seq_lens.shape) != (s_slots * width,):
+        raise MXNetError("ragged_spec_attention: page_table (S, max_pages) "
+                         "and seq_lens (S*W,) expected for S=%d, W=%d"
+                         % (s_slots, width))
+    pt = page_table.to(torch.int32).contiguous()
+    sl = seq_lens.to(torch.int32).contiguous()
+    if s_slots == 0 or width == 0:
+        return torch.empty_like(q)
+    out = _launch("paged_spec_attention", "paged_spec_attention_f32", 7, q,
+                  (q, k_pool, v_pool, pt, sl),
+                  (s_slots, width, n_heads, n_kv, d, page_size,
+                   pt.shape[1]), scale, d)
+    ragged_spec_attention.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+ragged_spec_attention.launches = 0
+
+
+def paged_spec_attention_reference(q, k_pool, v_pool, page_table, seq_lens,
+                                   scale=None):
+    """Plain PyTorch multi-query verify step — the spec kernel's parity
+    oracle and the path for CPU tensors: each of a slot's W query rows is
+    treated as its own single-query slot sharing the slot's page-table
+    row, with the per-row seq_lens carrying causality. q: ``(S*W, H, D)``,
+    page_table: ``(S, max_pages)``, seq_lens: ``(S*W,)``. Returns
+    ``(S*W, H, D)``."""
+    s_rows = q.shape[0]
+    width = s_rows // page_table.shape[0]
+    pt = torch.repeat_interleave(page_table.to(torch.int32), width, dim=0)
+    return paged_attention_reference(q, k_pool, v_pool, pt, seq_lens,
+                                     scale=scale)
+
+
+def paged_spec_attention(q, k_pool, v_pool, page_table, seq_lens,
+                         scale=None):
+    """Dispatcher for the widened (speculative) decode step: q is the
+    flattened ``(S*W, H, D)`` query block, W derived from the page-table
+    row count, so the model's decode needs no signature change. The CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor, an
+    error otherwise."""
+    _check_heads(q.shape[1], k_pool.shape[2], "paged_spec_attention")
+    s_slots = page_table.shape[0]
+    width = q.shape[0] // s_slots
+    if q.is_cuda:
+        out = ragged_spec_attention(
+            q.reshape(s_slots, width, q.shape[1], q.shape[2]), k_pool,
+            v_pool, page_table, seq_lens, scale=scale)
+        return out.reshape(q.shape)
+    if q.device.type == "cpu":
+        return paged_spec_attention_reference(q, k_pool, v_pool, page_table,
+                                              seq_lens, scale=scale)
+    raise MXNetError("paged_spec_attention: no kernel for device %s (cuda "
+                     "or cpu)" % (q.device,))
 
 
 def paged_prefill_attention(q, k_pool, v_pool, page_row, start: int,

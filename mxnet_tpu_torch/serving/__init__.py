@@ -4,17 +4,22 @@ The port of ``mxnet_tpu.serving`` as far as this slice goes:
 
 * :mod:`.decode`   — :class:`DecodeEngine` (token-level continuous
   batching over fixed slots, one decode step per tick, prefill through a
-  bucket ladder, prefix cache with copy-on-write) and the reference model
-  :class:`TinyDecoder`; ``params_from_jax`` carries the JAX model's
-  weights across;
+  bucket ladder or in chunks interleaved with the ticks, prefix cache
+  with copy-on-write, speculative decoding with a widened verify tick)
+  and the reference model :class:`TinyDecoder`; ``params_from_jax``
+  carries the JAX model's weights across;
+* :mod:`.speculative` — the drafts of speculative decoding: the
+  model-free prompt-lookup (n-gram) draft, the accept-all ``model``
+  draft, and the registry the ``MXNET_DECODE_SPEC_DRAFT`` knob picks
+  from;
 * :mod:`.kvcache`  — :class:`PagedKVCache`: pools preallocated on the
   device, host free-list allocator, refcounted prefix index;
 * :mod:`.tenancy`  — tenant registry, weighted-fair queue, per-tenant
   breakers and budgets;
 * :mod:`.stats`, :mod:`.buckets`, :mod:`.batcher` (error types).
 
-The request-granularity ``Server``, the replica fleet and speculative
-decoding are later slices.
+The request-granularity ``Server``, ring prefill and the replica fleet
+are later slices.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from .buckets import bucket_ladder, select_bucket
 from .decode import (DecodeEngine, PagedDecodeModel, TinyDecoder,
                      params_from_jax)
 from .kvcache import OutOfPagesError, PagedKVCache, PrefixMatch
+from .speculative import (DraftProposer, ModelDraft, PromptLookupDraft,
+                          available_drafts, make_draft, register_draft)
 from .stats import ServingStats, TenantStats
 from .tenancy import (PRIORITY_CLASSES, Tenant, TenantBreaker,
                       TenantRegistry, TenantUnavailableError,
@@ -35,6 +42,8 @@ __all__ = [
     "ServingStats", "TenantStats", "bucket_ladder", "select_bucket",
     "DecodeEngine", "PagedDecodeModel", "TinyDecoder", "params_from_jax",
     "PagedKVCache", "OutOfPagesError", "PrefixMatch",
+    "DraftProposer", "PromptLookupDraft", "ModelDraft",
+    "register_draft", "make_draft", "available_drafts",
     "Tenant", "TenantRegistry", "TenantBreaker",
     "TenantUnavailableError", "WeightedFairQueue", "PRIORITY_CLASSES",
 ]

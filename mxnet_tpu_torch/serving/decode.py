@@ -22,13 +22,24 @@ Anatomy of a request (the same as the JAX plane's):
    its KV into the reserved pages and yields the first token (TTFT). A
    prefix hit runs only the tail through :meth:`TinyDecoder.
    prefill_chunk`, whose attention is the paged kernel with a causal
-   ``q_pos``;
-4. **decode ticks** — one step per tick over all slots: exactly ONE
-   packed ``(5, S)`` host->device copy (tokens, positions, lengths,
-   write pages, write offsets; the page table rides a version-keyed
-   device copy re-sent only when admission or completion changes it),
-   paged attention, greedy argmax on the device, and ONE fetch of the
-   sampled tokens;
+   ``q_pos``. With **chunked prefill** (``prefill_chunk=C`` /
+   ``MXNET_DECODE_PREFILL_CHUNK``) the prompt instead runs ``C`` tokens
+   at a time through the same chunk path, ONE chunk per engine tick,
+   round-robin over the prefilling slots, interleaved with the decode
+   ticks of the other slots — a long prompt no longer stalls every
+   in-flight sequence, and a short prompt is not stuck behind it;
+4. **decode ticks** — one step per tick over all decoding slots: exactly
+   ONE packed ``(5, S*W)`` host->device copy (tokens, positions,
+   lengths, write pages, write offsets; the page table rides a
+   version-keyed device copy re-sent only when admission or completion
+   changes it), paged attention, greedy argmax on the device, and ONE
+   fetch of the sampled tokens. W is 1, or ``spec_k + 1`` with
+   **speculative decoding** (``spec_k`` / ``MXNET_DECODE_SPEC_K``): a
+   draft (:mod:`.speculative`) proposes up to k tokens per slot, the
+   tick verifies all k+1 positions at once through the multi-query CUDA
+   kernel, and greedy rejection commits the longest agreeing prefix
+   plus one — outputs stay token-for-token equal to sequential greedy
+   decode;
 5. **completion** — EOS or the token budget frees the pages and the slot
    admits the next queued sequence.
 
@@ -44,11 +55,10 @@ step retries transients, and a step that still fails evicts exactly the
 sequences in flight (pools zeroed, slots reset) under one circuit
 breaker whose open state sheds with :class:`EngineUnavailableError`.
 
-Left for later slices, and refused by the constructor rather than
-quietly ignored: speculative decoding (``spec_k``), ring prefill
-(``ring_prefill_len``) and chunked prefill (``prefill_chunk``). The HBM
-pressure governor, tracing, the flight recorder, SLO and device-time
-hooks and the replica fleet are not ported yet.
+Left for a later slice, and refused by the constructor rather than
+quietly ignored: ring prefill (``ring_prefill_len``). The HBM pressure
+governor, tracing, the flight recorder, SLO and device-time hooks and
+the replica fleet are not ported yet.
 """
 from __future__ import annotations
 
@@ -69,6 +79,7 @@ from .batcher import (EngineUnavailableError, QueueFullError,
                       RequestTimeoutError, ServerClosedError)
 from .buckets import select_bucket
 from .kvcache import PagedKVCache, PrefixMatch, write_kv
+from .speculative import make_draft, sanitize
 from .stats import ServingStats
 from .tenancy import (SHARED_TENANT, Tenant, TenantRegistry,
                       TenantUnavailableError, WeightedFairQueue)
@@ -84,6 +95,7 @@ _DEFAULT_PREFILL_BUCKETS = "16,64"
 _DEFAULT_TIMEOUT_MS = 10000.0
 _DEFAULT_QUEUE_DEPTH = 256
 _DEFAULT_PREFIX_CACHE = 1  # sharing is exact by construction: default on
+_DEFAULT_PREFILL_CHUNK = 0  # 0 = monolithic prefill (one rung per prompt)
 
 _T_TOKENS = telemetry.counter(
     "mxnet_decode_tokens_total",
@@ -141,11 +153,14 @@ class PagedDecodeModel:
 
     def decode(self, params, tokens, positions, k_pool, v_pool,
                page_tables, seq_lens, write_pages, write_offsets):
-        """One query row per slot: ``tokens``/``positions``/``seq_lens``/
-        ``write_*`` are ``(S,)``, ``page_tables`` ``(S, max_pages)``.
-        ``seq_lens`` INCLUDES the row's own token. Inactive slots carry
-        ``seq_len 0`` and the null write page; their logits are garbage
-        the engine ignores. Returns logits ``(S, vocab)``."""
+        """W query rows per slot (W = 1, or ``spec_k + 1`` in a
+        speculative verify tick, where slot s owns rows ``s*W ..
+        s*W+W-1``): ``tokens``/``positions``/``seq_lens``/``write_*`` are
+        ``(S*W,)``, ``page_tables`` ``(S, max_pages)`` (one row per slot,
+        so ``W = rows // S``). ``seq_lens`` INCLUDES the row's own token.
+        Inactive slots and unused draft rows carry ``seq_len 0`` and the
+        null write page; their logits are garbage the engine ignores.
+        Returns logits ``(S*W, vocab)``."""
         raise NotImplementedError
 
     def prefill(self, params, tokens, length, k_pool, v_pool,
@@ -171,7 +186,8 @@ class PagedDecodeModel:
 class _DecodeRequest:
     __slots__ = ("prompt", "max_new", "eos_id", "future", "t_submit",
                  "deadline", "tokens", "last_t", "slot", "tenant",
-                 "match", "kv_cached")
+                 "match", "kv_cached", "filled", "prefilling", "seq",
+                 "epoch")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  eos_id: Optional[int], deadline: Optional[float],
@@ -186,10 +202,17 @@ class _DecodeRequest:
         self.last_t = 0.0
         self.slot = -1
         self.tenant = tenant
-        # the admission walk's prefix match (stashed by the guard) and
-        # how many prompt tokens' KV came from shared pages
+        # prefix-cache / chunked-prefill state: the admission-time match
+        # (stashed by the guard), how many prompt tokens' KV came from
+        # shared pages, the next position the chunk scheduler processes,
+        # whether prefill is still in flight, and the admission order
+        # the chunk lane round-robins over
         self.match: Optional[PrefixMatch] = None
         self.kv_cached = 0
+        self.filled = 0
+        self.prefilling = False
+        self.seq = 0
+        self.epoch = 0  # weight-swap epoch at prefill start (stale guard)
 
 
 class DecodeEngine:
@@ -221,26 +244,16 @@ class DecodeEngine:
                  prefill_chunk: Optional[int] = None,
                  spec_k: Optional[int] = None,
                  spec_draft=None, device=None):
-        # the JAX plane's options this slice does not port: refuse them
-        # (argument or env knob) instead of quietly serving without them
-        unported = {
-            "spec_k": spec_k if spec_k is not None else get_env(
-                "MXNET_DECODE_SPEC_K", 0, int, cache=False),
-            "ring_prefill_len": ring_prefill_len
-            if ring_prefill_len is not None else get_env(
-                "MXNET_DECODE_RING_PREFILL_LEN", 0, int, cache=False),
-            "prefill_chunk": prefill_chunk if prefill_chunk is not None
-            else get_env("MXNET_DECODE_PREFILL_CHUNK", 0, int, cache=False),
-        }
-        for knob, val in unported.items():
-            if int(val) > 0:
-                raise MXNetError(
-                    "DecodeEngine(%s=%s): not ported to mxnet_tpu_torch "
-                    "yet (a later slice); use the JAX package's engine"
-                    % (knob, val))
-        if spec_draft is not None:
-            raise MXNetError("DecodeEngine(spec_draft=...): speculative "
-                             "decoding is not ported to mxnet_tpu_torch yet")
+        # the JAX plane's option this slice does not port: refuse it
+        # (argument or env knob) instead of quietly serving without it
+        if ring_prefill_len is None:
+            ring_prefill_len = get_env("MXNET_DECODE_RING_PREFILL_LEN", 0,
+                                       int, cache=False)
+        if int(ring_prefill_len) > 0:
+            raise MXNetError(
+                "DecodeEngine(ring_prefill_len=%s): not ported to "
+                "mxnet_tpu_torch yet (a later slice); use the JAX "
+                "package's engine" % (ring_prefill_len,))
         self.device = resolve_device(device)
         self._model = model
         self._params = _tree_map(lambda x: x.to(self.device), params)
@@ -260,12 +273,44 @@ class DecodeEngine:
             prefix_cache = bool(get_env("MXNET_DECODE_PREFIX_CACHE",
                                         _DEFAULT_PREFIX_CACHE, int,
                                         cache=False))
+        if prefill_chunk is None:
+            prefill_chunk = get_env("MXNET_DECODE_PREFILL_CHUNK",
+                                    _DEFAULT_PREFILL_CHUNK, int,
+                                    cache=False)
+        if spec_k is None:
+            spec_k = get_env("MXNET_DECODE_SPEC_K", 0, int, cache=False)
         self.num_slots = max(1, int(num_slots))
         self.max_seq_len = int(max_seq_len)
         self._queue_depth = max(1, int(queue_depth))
         self._timeout_s = float(timeout_ms) / 1e3
         self._prefix_cache = bool(prefix_cache)
+        self._chunk = max(0, min(int(prefill_chunk), self.max_seq_len))
+        # speculative decoding: the step carries a fixed width of
+        # spec_k+1 query rows per slot (committed token + up to k draft
+        # rows). k=0 keeps the classic 1-row tick (the packed operand is
+        # then (5, S) exactly as before). Per-tick draft depth,
+        # acceptance and per-tenant caps vary only the DATA inside it.
+        self._spec_k = max(0, int(spec_k))
+        self._spec_w = self._spec_k + 1
+        if self._spec_k == 0:
+            self._draft = None
+        elif spec_draft is not None and not isinstance(spec_draft, str):
+            self._draft = spec_draft   # a DraftProposer instance
+        else:
+            if spec_draft is None:
+                spec_draft = get_env("MXNET_DECODE_SPEC_DRAFT",
+                                     "prompt_lookup", str, cache=False)
+            self._draft = make_draft(spec_draft, model, self._params)
         self._ladder = self._prefill_ladder(prefill_buckets)
+        # the chunk path's rungs: chunked prefill uses ONE rung (the
+        # chunk size); with chunking off the prefix-cache tail pads to
+        # the prefill ladder instead
+        if self._chunk:
+            self._chunk_rungs: tuple = (self._chunk,)
+        elif self._prefix_cache:
+            self._chunk_rungs = self._ladder
+        else:
+            self._chunk_rungs = ()
         self._cache = PagedKVCache(
             self.num_slots, self.max_seq_len, model.num_layers,
             model.num_kv_heads, model.head_dim, page_size=page_size,
@@ -308,7 +353,17 @@ class DecodeEngine:
         self._evictions = 0
         self._occ_sum = 0.0
         self._ticks = 0
+        # speculation accounting (worker-confined): draft tokens
+        # proposed/accepted, and the accepted-per-tick numerator/
+        # denominator over SPECULATING slot-ticks only
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_new = 0         # tokens committed by speculating slots
+        self._spec_slot_ticks = 0  # slot-ticks where a draft was in play
         self._cow_copies = 0   # written/read under _cv only
+        self._admit_seq = 0    # admission order among prefilling slots
+        self._rr_last = 0      # round-robin cursor over that order
+        self._swap_epoch = 0   # worker-confined; bumps per applied swap
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="mxnet-decode-" + name)
         self._thread.start()
@@ -475,35 +530,40 @@ class DecodeEngine:
 
     @torch.no_grad()
     def warmup(self) -> int:
-        """Run every device path once before traffic — the decode step,
-        every prefill rung, every prefix-cache tail rung and the CoW copy
-        — with writes aimed at the null page only. This builds the CUDA
-        kernel (nvcc at first use) and warms PyTorch's allocator and
-        cuBLAS handles, so the first request pays none of it. Returns the
-        number of passes run."""
+        """Run every device path once before traffic — the decode step at
+        its width (``spec_k + 1`` rows per slot when speculating), every
+        prefill rung (none in chunked mode, which never runs them), every
+        chunk rung and the CoW copy — with writes aimed at the null page
+        only. This builds the CUDA kernels (nvcc at first use) and warms
+        PyTorch's allocator and cuBLAS handles, so the first request pays
+        none of it. Returns the number of passes run."""
         with self._cv:
             params = self._params  # a live swap may rebind between passes
         model, cache = self._model, self._cache
-        s = self.num_slots
-        packed = np.zeros((5, s), np.int32)
-        packed[3], packed[4] = cache.null_write_slots(s)
+        rows = self.num_slots * self._spec_w
+        packed = np.zeros((5, rows), np.int32)
+        packed[3], packed[4] = cache.null_write_slots(rows)
         dev = torch.from_numpy(packed).to(self.device)
         model.decode(params, dev[0], dev[1], cache.k_pool, cache.v_pool,
                      self._device_page_table(), dev[2], dev[3], dev[4])
         passes = 1
-        for rung in self._ladder:
+        if not self._chunk:
+            for rung in self._ladder:
+                pre = np.zeros((3, rung), np.int32)
+                pre[1], pre[2] = cache.null_write_slots(rung)
+                dev = torch.from_numpy(pre).to(self.device)
+                model.prefill(params, dev[0], 1, cache.k_pool, cache.v_pool,
+                              dev[1], dev[2])
+                passes += 1
+        null_row = torch.zeros(cache.max_pages, dtype=torch.int32,
+                               device=self.device)
+        for rung in self._chunk_rungs:
             pre = np.zeros((3, rung), np.int32)
             pre[1], pre[2] = cache.null_write_slots(rung)
             dev = torch.from_numpy(pre).to(self.device)
-            model.prefill(params, dev[0], 1, cache.k_pool, cache.v_pool,
-                          dev[1], dev[2])
+            model.prefill_chunk(params, dev[0], 0, 1, cache.k_pool,
+                                cache.v_pool, null_row, dev[1], dev[2])
             passes += 1
-            if self._prefix_cache:
-                null_row = torch.zeros(cache.max_pages, dtype=torch.int32,
-                                       device=self.device)
-                model.prefill_chunk(params, dev[0], 0, 1, cache.k_pool,
-                                    cache.v_pool, null_row, dev[1], dev[2])
-                passes += 1
         if self._prefix_cache:
             self._copy_page(0, 0)  # null -> null: harmless
             passes += 1
@@ -532,14 +592,31 @@ class DecodeEngine:
                 "slot_occupancy": (self._occ_sum / self._ticks
                                    if self._ticks else 0.0),
                 "prefill_buckets": list(self._ladder),
+                "prefill_chunk": self._chunk,
                 "cow_copies": self._cow_copies,
                 "breaker": self._breaker.state,
                 "weight_swaps": self._swaps,
                 "active_variant": self._active_variant,
                 "device": str(self.device),
-                # process-wide launches of the paged-attention kernel
+                # process-wide launches of the paged-attention kernels
                 # (eager PyTorch has no recompile count to report)
                 "kernel_launches": _pa.ragged_paged_attention.launches,
+                "spec_kernel_launches": _pa.ragged_spec_attention.launches,
+                "speculative": {
+                    "k": self._spec_k,
+                    "draft": (getattr(self._draft, "name", None)
+                              if self._draft is not None else None),
+                    "proposed_tokens": self._spec_proposed,
+                    "accepted_tokens": self._spec_accepted,
+                    "acceptance_rate": (self._spec_accepted /
+                                        self._spec_proposed
+                                        if self._spec_proposed else 0.0),
+                    # tokens committed per SPECULATING slot-tick (1.0 =
+                    # drafts never helped; k+1 = every draft accepted)
+                    "accepted_per_tick": (self._spec_new /
+                                          self._spec_slot_ticks
+                                          if self._spec_slot_ticks else 0.0),
+                },
             })
         out["tenants"] = self._tenants.snapshot()
         out["kvcache"] = self._cache.stats()
@@ -645,11 +722,26 @@ class DecodeEngine:
                 continue
             try:
                 self._admit()
-                active = [(i, r) for i, r in enumerate(self._slots)
-                          if r is not None]
-                if active:
-                    self._step_once(active)
-                else:
+                prefilling = [(i, r) for i, r in enumerate(self._slots)
+                              if r is not None and r.prefilling]
+                decoding = [(i, r) for i, r in enumerate(self._slots)
+                            if r is not None and not r.prefilling]
+                if prefilling:
+                    # ONE chunk per tick, ROUND-ROBIN over prefilling
+                    # slots (admission order, wrapping), then the tick
+                    # goes back to decoding. Round-robin — not oldest-
+                    # first — is what decouples TTFT from the longest
+                    # prompt: a 1-chunk prompt lands on its next turn
+                    # instead of waiting out a 100-chunk neighbour.
+                    cands = sorted(prefilling, key=lambda t: t[1].seq)
+                    slot, req = next(
+                        (t for t in cands if t[1].seq > self._rr_last),
+                        cands[0])
+                    self._rr_last = req.seq
+                    self._advance_prefill(slot, req)
+                if decoding:
+                    self._step_once(decoding)
+                elif not prefilling:
                     # every queued tenant deferred (pages/rate/breaker)
                     # with nothing in flight: yield instead of spinning
                     time.sleep(0.001)
@@ -680,6 +772,7 @@ class DecodeEngine:
                 self._params = params
                 self._active_variant = variant
                 self._swaps += 1
+            self._swap_epoch += len(swaps)
             if self._prefix_cache:
                 # cached KV was computed under the OLD weights: a prompt
                 # prefilled under the new ones must not match it
@@ -813,6 +906,7 @@ class DecodeEngine:
         chaos.maybe_fail("serving.decode.tenant.%s" % req.tenant.tenant_id)
         p = int(req.prompt.size)
         total = p + req.max_new
+        req.epoch = self._swap_epoch  # worker-confined read
         if self._prefix_cache:
             matched, cow_src, cow_dst = self._cache.admit_prefix(
                 slot, total, req.match)
@@ -824,15 +918,25 @@ class DecodeEngine:
         if cow_src is not None:
             self._run_cow(cow_src, cow_dst)
         req.kv_cached = matched
+        # at least the LAST prompt position always runs through the
+        # model: its logits are the first output token — a full hit
+        # recomputes that one position over the shared/CoW pages
+        req.filled = min(matched, p - 1)
+        if self._chunk:
+            # chunked prefill: the slot joins the round-robin chunk lane
+            # and stays out of the decode tick until its last chunk lands
+            req.prefilling = True
+            with self._cv:
+                self._admit_seq += 1
+                req.seq = self._admit_seq
+            self._slots[slot] = req
+            _T_EVENTS.inc(server=self._name, event="admitted")
+            return
         if matched == 0:
             tok = self._run_full_prefill(req, slot)
         else:
-            # at least the LAST prompt position always runs through the
-            # model: its logits are the first output token — a full hit
-            # recomputes that one position over the shared/CoW pages
-            start = min(matched, p - 1)
-            rung = select_bucket(p - start, self._ladder)
-            tok = self._run_chunk(slot, req, start, p, rung)
+            rung = select_bucket(p - req.filled, self._ladder)
+            tok = self._run_chunk(slot, req, req.filled, p, rung)
         self._finish_prefill(req, slot, tok)
 
     def _run_full_prefill(self, req: _DecodeRequest, slot: int):
@@ -915,14 +1019,41 @@ class DecodeEngine:
             self._cow_copies += 1
         _T_EVENTS.inc(server=self._name, event="cow_copy")
 
+    def _advance_prefill(self, slot: int, req: _DecodeRequest):
+        """Chunked prefill: ONE chunk for ``slot``, then the tick yields
+        back to decoding. Completion delivers the first token (the TTFT
+        mark). A chunk failure is request-level — exactly this future
+        fails (feeding the TENANT breaker), the engine keeps ticking."""
+        p = int(req.prompt.size)
+        end = min(req.filled + self._chunk, p)
+        try:
+            tok = self._run_chunk(slot, req, req.filled, end, self._chunk)
+        except Exception as exc:  # noqa: BLE001 - isolate to request
+            self._slots[slot] = None
+            self._release_slot(slot, req)
+            req.tenant.on_request_failure()
+            self._stats.on_error()
+            self._fail(req, exc)
+            return
+        req.filled = end
+        if end >= p:
+            self._finish_prefill(req, slot, tok)
+
     def _finish_prefill(self, req: _DecodeRequest, slot: int, tok):
-        """Prefill complete: index the prompt's pages for future sharers,
-        deliver the first token and hand the slot to the decode tick."""
+        """Prefill complete (monolithic, tail or final chunk): index the
+        prompt's pages for future sharers, deliver the first token and
+        hand the slot to the decode tick."""
         p = int(req.prompt.size)
         self._breaker.on_success()
         req.tenant.breaker.on_success()
         self._cache.seq_lens[slot] = p
-        self._cache.insert_prefix(slot, req.prompt)
+        if req.epoch == self._swap_epoch:
+            # a swap that landed mid-prefill (between chunks) flushed
+            # the index AND left this sequence's earlier pages holding
+            # old-weight KV: serving the request is the documented
+            # in-flight rollout semantic, but RE-INDEXING those pages
+            # would hand stale KV to future prompts — skip the insert
+            self._cache.insert_prefix(slot, req.prompt)
         self._prefills += 1
         _T_EVENTS.inc(server=self._name, event="prefill")
         # first token: ONE scalar fetch per admitted sequence (prefill
@@ -937,7 +1068,9 @@ class DecodeEngine:
         self._tokens_total += 1
         _T_TOKENS.inc(server=self._name)
         req.slot = slot
-        _T_EVENTS.inc(server=self._name, event="admitted")
+        req.prefilling = False
+        if not self._chunk:
+            _T_EVENTS.inc(server=self._name, event="admitted")
         if self._finished(req, first):
             self._slots[slot] = None
             self._complete(req, slot, now)
@@ -947,20 +1080,42 @@ class DecodeEngine:
     # -- the decode tick ------------------------------------------------
     def _step_once(self, active):
         s = self.num_slots
+        w = self._spec_w
         ps = self._cache.page_size
         # rows: tokens, positions, seq_lens, write pages, write offsets —
-        # ONE packed host->device copy per tick. Inactive slots keep
-        # seq_len 0 and the null write page (row 3 stays 0); their
-        # offsets cycle the page so write indices stay in range.
-        packed = np.zeros((5, s), np.int32)
-        packed[4] = np.arange(s) % ps
+        # ONE packed host->device copy per tick, W = spec_k+1 query rows
+        # per slot (slot s owns rows s*W .. s*W+W-1: row 0 the committed
+        # token, rows 1..k its draft guesses at the next positions).
+        # Inactive slots and unused draft rows keep seq_len 0 and the
+        # null write page (row 3 stays 0); their offsets cycle the page
+        # so write indices stay in range. Several such rows write the
+        # same null-page positions; harmless, as no row reads page 0
+        # below its limit.
+        packed = np.zeros((5, s * w), np.int32)
+        packed[4] = np.arange(s * w) % ps
+        drafts: dict = {}
+        pages_before = self._cache.pages_in_use if self._cache.audit else 0
         for slot, req in active:
             pos = int(req.prompt.size) + len(req.tokens) - 1
-            packed[0, slot] = req.tokens[-1]
-            packed[1, slot] = pos
-            packed[2, slot] = pos + 1
-            packed[3, slot] = self._cache.page_table[slot, pos // ps]
-            packed[4, slot] = pos % ps
+            base = slot * w
+            draft = (self._propose(req, slot, pos)
+                     if self._draft is not None else ())
+            drafts[slot] = draft
+            row_toks = [req.tokens[-1]]
+            row_toks.extend(int(t) for t in draft)
+            for j, row_tok in enumerate(row_toks):
+                # row j carries the token at absolute position pos+j and
+                # attends up to itself (per-row seq_len) — rows below it
+                # in the same tick write their KV before attention reads,
+                # so draft rows see each other causally. Admission's
+                # worst-case reserve() plus the _propose clamp guarantee
+                # pos+j is covered, so index the page table directly.
+                packed[0, base + j] = row_tok
+                packed[1, base + j] = pos + j
+                packed[2, base + j] = pos + j + 1
+                packed[3, base + j] = \
+                    self._cache.page_table[slot, (pos + j) // ps]
+                packed[4, base + j] = (pos + j) % ps
         policy = self._retry or resilience.default_policy()
 
         def attempt():
@@ -981,6 +1136,8 @@ class DecodeEngine:
             toks = fetch_host([sampled])[0]
         except Exception as exc:  # noqa: BLE001 - evict, don't die
             self._breaker.on_failure()
+            # the pool re-zero kills EVERY in-flight sequence's KV —
+            # chunked-prefilling slots included, not just this tick's
             self._evict([(i, r) for i, r in enumerate(self._slots)
                          if r is not None], exc)
             return
@@ -989,16 +1146,57 @@ class DecodeEngine:
         tpots = []
         tenant_tpots: dict = {}
         tenant_slots: dict = {}
+        tenant_spec: dict = {}
+        total_new = 0
+        tick_proposed = 0
+        tick_accepted = 0
         for slot, req in active:
-            tok = int(toks[slot])
-            req.tokens.append(tok)
-            self._cache.seq_lens[slot] += 1
-            ms = (now - req.last_t) * 1e3
-            tpots.append(ms)
-            tenant_tpots.setdefault(req.tenant, []).append(ms)
+            base = slot * w
+            draft = drafts.get(slot, ())
+            k_eff = len(draft)
+            # greedy rejection: accept the longest draft prefix that
+            # equals the model's own argmax chain — committed token j is
+            # the model's prediction from row j, and draft[j] rode row
+            # j+1, so draft[j] was a correct guess iff it equals
+            # toks[base+j]. The committed tokens are ALWAYS the model's
+            # outputs (never the draft's), so output == sequential
+            # greedy decode whatever the draft proposed.
+            a = 0
+            while a < k_eff and int(draft[a]) == int(toks[base + a]):
+                a += 1
+            n_new = 0
+            for j in range(a + 1):
+                tok = int(toks[base + j])
+                req.tokens.append(tok)
+                n_new += 1
+                if self._finished(req, tok):
+                    break
+            # commit = advance seq_lens past the rows that verified;
+            # rejected rows' KV (positions >= the new seq_len) is the
+            # ROLLBACK: never committed, masked by the ragged attention
+            # bound, and overwritten by the next tick's rows — no page
+            # alloc/free happened mid-tick, so there is nothing else to
+            # unwind and no bystander is touched.
+            self._cache.seq_lens[slot] += n_new
+            accepted = min(a, n_new)
+            total_new += n_new
+            # a multi-token tick amortizes the wall interval over its
+            # commits so TPOT keeps meaning time-per-OUTPUT-token
+            per_tok = (now - req.last_t) * 1e3 / n_new
+            tpots.extend([per_tok] * n_new)
+            tenant_tpots.setdefault(req.tenant, []).extend(
+                [per_tok] * n_new)
             tenant_slots[req.tenant] = tenant_slots.get(req.tenant, 0) + 1
+            if k_eff:
+                self._spec_slot_ticks += 1
+                self._spec_new += n_new
+                tick_proposed += k_eff
+                tick_accepted += accepted
+                row = tenant_spec.setdefault(req.tenant, [0, 0])
+                row[0] += k_eff
+                row[1] += accepted
             req.last_t = now
-            if self._finished(req, tok):
+            if self._finished(req, int(req.tokens[-1])):
                 self._slots[slot] = None
                 tenant_slots[req.tenant] -= 1
                 self._complete(req, slot, now)
@@ -1007,8 +1205,14 @@ class DecodeEngine:
         for tenant, ms_batch in tenant_tpots.items():
             tenant.stats.on_output_tokens(ms_batch)
             tenant.stats.set_slots(tenant_slots.get(tenant, 0))
-        self._tokens_total += len(active)
-        _T_TOKENS.inc(len(active), server=self._name)
+        if tick_proposed or tick_accepted:
+            self._spec_proposed += tick_proposed
+            self._spec_accepted += tick_accepted
+            self._stats.on_spec(tick_proposed, tick_accepted)
+            for tenant, (p_cnt, a_cnt) in tenant_spec.items():
+                tenant.stats.on_spec(p_cnt, a_cnt)
+        self._tokens_total += total_new
+        _T_TOKENS.inc(total_new, server=self._name)
         self._ticks += 1
         occ = len(active) / float(s)
         self._occ_sum += occ
@@ -1017,6 +1221,67 @@ class DecodeEngine:
             # MXNET_KVCACHE_AUDIT: re-prove the page refcount invariant
             # at every tick boundary, not just on cache mutations
             self._cache.audit_check()
+            # the speculation-specific tick invariants: a verify tick
+            # allocates NOTHING (completions above can only free), and
+            # no speculating tenant stands over the page budget it was
+            # admitted under — the gauge-proven form of "k+1 writes fit
+            # the admission-time reservation".
+            if self._cache.pages_in_use > pages_before:
+                raise MXNetError(
+                    "kvcache %r audit: decode tick grew pages_in_use "
+                    "%d -> %d — a speculative write escaped its "
+                    "admission-time reservation" %
+                    (self._name, pages_before, self._cache.pages_in_use))
+            if self._spec_k:
+                for tenant in {req.tenant for _slot, req in active}:
+                    if tenant.page_budget is not None and \
+                            tenant.pages_in_use > tenant.page_budget:
+                        raise MXNetError(
+                            "tenant %r audit: pages_in_use %d exceeds "
+                            "page_budget %d after a speculative tick"
+                            % (tenant.tenant_id, tenant.pages_in_use,
+                               tenant.page_budget))
+
+    def _propose(self, req: _DecodeRequest, slot: int, pos: int):
+        """Draft tokens for one slot's verify tick, clamped so the tick
+        can NEVER outgrow what admission reserved:
+
+        * the engine k (the fixed width bound);
+        * the tenant's ``spec_k`` cap, if set (can only lower);
+        * the request's remaining output budget (a tick commits at most
+          k+1 tokens; committing past ``max_new`` would over-generate);
+        * the slot's page reservation (every row writes KV at pos+j, and
+          ``write_slots`` hard-faults past the reserved run — the tenant
+          page budget was charged for exactly that run at admission, so
+          staying inside it keeps the budget invariant mid-tick with
+          zero page traffic).
+        """
+        k = self._spec_k
+        cap = req.tenant.spec_k
+        if cap is not None:
+            k = min(k, cap)
+        k = min(k, req.max_new - len(req.tokens) - 1)
+        k = min(k, self._cache.reserved_tokens(slot) - (pos + 1))
+        if k <= 0:
+            return ()
+        history = np.concatenate(
+            [req.prompt, np.asarray(req.tokens, np.int32)])
+        try:
+            proposed = self._draft.propose(history, k)
+        except Exception:  # noqa: BLE001 - a draft bug must not kill ticks
+            # drafts are hints: a failing proposer degrades this slot to
+            # the classic single-token tick instead of faulting the tick
+            # (which would evict every in-flight sequence)
+            return ()
+        return sanitize(proposed, k, self._model.vocab_size)
+
+    def set_tenant_spec_k(self, tenant_id: str, spec_k: Optional[int]):
+        """Set (or clear, with ``None``) one tenant's speculative draft
+        cap at runtime. Caps only LOWER the engine's ``spec_k`` — the
+        verify width K+1 is fixed per engine — so a slow-accepting tenant
+        can be throttled to 0 without touching anyone else's tick."""
+        tenant = self._tenants.resolve(tenant_id)
+        tenant.spec_k = None if spec_k is None else max(0, int(spec_k))
 
     @staticmethod
     def _finished(req: _DecodeRequest, tok: int) -> bool:
@@ -1078,7 +1343,9 @@ class TinyDecoder(PagedDecodeModel):
     Per layer: RMSNorm, QKV projections, :func:`~mxnet_tpu_torch.serving.
     kvcache.write_kv` of the new K/V rows (in place), paged attention
     through :func:`mxnet_tpu_torch.ops.paged_attention.paged_attention`
-    (the CUDA kernel on the card), output projection, RMSNorm + ReLU MLP.
+    (one row per slot) or :func:`~mxnet_tpu_torch.ops.paged_attention.
+    paged_spec_attention` (a speculative verify tick; both the CUDA
+    kernels on the card), output projection, RMSNorm + ReLU MLP.
     Prefill's dense causal attention stays plain PyTorch, as JAX computed
     it outside Pallas. Weights ride a plain dict of tensors;
     ``embed_dim == num_heads * head_dim``; positions are sinusoidal.
@@ -1219,6 +1486,10 @@ class TinyDecoder(PagedDecodeModel):
     def decode(self, params, tokens, positions, k_pool, v_pool,
                page_tables, seq_lens, write_pages, write_offsets):
         s = tokens.shape[0]
+        # the per-slot query width (1 = classic tick, K+1 = speculative
+        # verify tick) falls out of the operands' shapes — the contract's
+        # operands widen, the signature doesn't
+        w = s // page_tables.shape[0]
         h, kh, d = self.num_heads, self.num_kv_heads, self.head_dim
         x = self._embed(params, tokens, positions)
         for li, layer in enumerate(params["layers"]):
@@ -1227,13 +1498,41 @@ class TinyDecoder(PagedDecodeModel):
             k = (hx @ layer["wk"]).reshape(s, kh, d)
             v = (hx @ layer["wv"]).reshape(s, kh, d)
             write_kv(k_pool, v_pool, li, k, v, write_pages, write_offsets)
-            att = _pa.paged_attention(q, k_pool[li], v_pool[li], page_tables,
-                                      seq_lens, scale=self.scale)
+            if w > 1:
+                att = _pa.paged_spec_attention(
+                    q, k_pool[li], v_pool[li], page_tables, seq_lens,
+                    scale=self.scale)
+            else:
+                att = _pa.paged_attention(
+                    q, k_pool[li], v_pool[li], page_tables, seq_lens,
+                    scale=self.scale)
             x = x + att.reshape(s, h * d) @ layer["wo"]
             x = x + self._mlp(self._norm(x, layer["ln2"]), layer)
         return self._norm(x, params["lnf"]) @ params["unembed"]
 
     # -- oracle ---------------------------------------------------------
+    @torch.no_grad()
+    def reference_logits(self, params, tokens):
+        """Dense no-cache forward of a whole token sequence on the params'
+        device: logits ``(T, vocab)`` for every position (position i
+        predicts token i+1). The oracle's one step."""
+        dev = params["embed"].device
+        arr = torch.as_tensor(np.asarray(tokens, np.int32).ravel(),
+                              device=dev)
+        t = arr.shape[0]
+        h, kh, d = self.num_heads, self.num_kv_heads, self.head_dim
+        positions = torch.arange(t, dtype=torch.int32, device=dev)
+        x = self._embed(params, arr, positions)
+        for layer in params["layers"]:
+            hx = self._norm(x, layer["ln1"])
+            q = (hx @ layer["wq"]).reshape(t, h, d)
+            k = (hx @ layer["wk"]).reshape(t, kh, d)
+            v = (hx @ layer["wv"]).reshape(t, kh, d)
+            att = self._dense_causal(q, k, v, self.scale)
+            x = x + att.reshape(t, h * d) @ layer["wo"]
+            x = x + self._mlp(self._norm(x, layer["ln2"]), layer)
+        return self._norm(x, params["lnf"]) @ params["unembed"]
+
     @torch.no_grad()
     def reference_generate(self, params, prompt, max_new_tokens,
                            eos_id=None):
@@ -1241,24 +1540,10 @@ class TinyDecoder(PagedDecodeModel):
         token on the params' device. O(T^2) per token — the correctness
         oracle the engine's paged path is held against, never a serving
         path."""
-        dev = params["embed"].device
         toks = [int(t) for t in np.asarray(prompt).ravel()]
         out: List[int] = []
-        h, kh, d = self.num_heads, self.num_kv_heads, self.head_dim
         for _ in range(int(max_new_tokens)):
-            arr = torch.tensor(toks, dtype=torch.int32, device=dev)
-            t = arr.shape[0]
-            positions = torch.arange(t, dtype=torch.int32, device=dev)
-            x = self._embed(params, arr, positions)
-            for layer in params["layers"]:
-                hx = self._norm(x, layer["ln1"])
-                q = (hx @ layer["wq"]).reshape(t, h, d)
-                k = (hx @ layer["wk"]).reshape(t, kh, d)
-                v = (hx @ layer["wv"]).reshape(t, kh, d)
-                att = self._dense_causal(q, k, v, self.scale)
-                x = x + att.reshape(t, h * d) @ layer["wo"]
-                x = x + self._mlp(self._norm(x, layer["ln2"]), layer)
-            logits = self._norm(x, params["lnf"]) @ params["unembed"]
+            logits = self.reference_logits(params, toks)
             nxt = int(torch.argmax(logits[-1]).item())
             out.append(nxt)
             toks.append(nxt)

@@ -280,6 +280,16 @@ class PagedKVCache:
         charge nobody twice."""
         return self._exclusive[int(slot)]
 
+    def reserved_tokens(self, slot: int) -> int:
+        """Token capacity of ``slot``'s reserved page run — the hard
+        ceiling :meth:`write_slots` enforces. The speculative decode
+        step clamps its per-tick draft depth so that all k+1 verify
+        rows land below this bound: admission reserved the worst case
+        (prompt + max_new) up front, so a speculating sequence can
+        never grow pages mid-tick and never exceeds the tenant page
+        budget it was charged at admission."""
+        return self._owned[int(slot)] * self.page_size
+
     def can_admit_prefix(self, n_tokens: int,
                          match: Optional[PrefixMatch]) -> bool:
         """Whether ``n_tokens`` fits given a prefix ``match``: matched

@@ -4,9 +4,9 @@ Ported from ``mxnet_tpu/serving/stats.py`` for the decode plane:
 :class:`ServingStats` backs ``DecodeEngine.stats()`` and publishes the
 same Prometheus series (``mxnet_serving_requests_total{server=,event=}``,
 the ``mxnet_serving_latency_ms`` / TTFT / TPOT summaries, the queue-depth
-gauge); :class:`TenantStats` is its per-tenant twin. The profiler bridge
-is dropped; the batch-server and speculative-decoding counters wait for
-the slices that port those planes.
+gauge, the speculative-decoding counters); :class:`TenantStats` is its
+per-tenant twin. The profiler bridge is dropped; the batch-server
+counters wait for the slice that ports that plane.
 
 Latency is held in a bounded ring (``MXNET_SERVING_LATENCY_WINDOW``,
 default 2048 most-recent requests) — percentiles over recent traffic,
@@ -64,6 +64,22 @@ _T_DRAIN = telemetry.counter(
     "requests finished during a graceful close(drain=True) — the number "
     "a zero-drop drain/rolling-upgrade asserts against",
     labels=("server",))
+_T_SPEC_PROPOSED = telemetry.counter(
+    "mxnet_spec_proposed_tokens_total",
+    "draft tokens proposed by the speculative decode plane (the verify "
+    "rows beyond each slot's committed token)",
+    labels=("server",))
+_T_SPEC_ACCEPTED = telemetry.counter(
+    "mxnet_spec_accepted_tokens_total",
+    "draft tokens accepted by greedy verification (committed to the "
+    "sequence; proposed - accepted = wasted verify rows)",
+    labels=("server",))
+_T_SPEC_RATE = telemetry.gauge(
+    "mxnet_spec_acceptance_rate",
+    "cumulative accepted/proposed draft-token ratio; tenant='_engine' "
+    "is the engine-wide row, other rows are per tenant — the signal a "
+    "per-tenant spec_k knob is tuned against",
+    labels=("server", "tenant"))
 
 
 def _percentile_rows(out: Dict, pairs) -> None:
@@ -100,6 +116,8 @@ class ServingStats:
         self.timeouts = 0
         self.errors = 0
         self.prefill_chunks = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self.unavailable = 0
         self._queue_depth = 0
         self.name = name
@@ -145,10 +163,28 @@ class ServingStats:
         _T_TPOT.observe_many(tpot_ms_batch, server=self.name)
 
     def on_prefill_chunk(self):
-        """One prefill chunk executed (a prefix-cache tail completion)."""
+        """One prefill chunk executed (chunked prefill or a prefix-cache
+        tail completion)."""
         with self._lock:
             self.prefill_chunks += 1
         _T_CHUNKS.inc(server=self.name)
+
+    def on_spec(self, proposed: int, accepted: int):
+        """One decode tick's speculative outcome, batched across slots:
+        ``proposed`` draft tokens went into the verify rows, ``accepted``
+        of them were committed. One lock acquisition per tick."""
+        if proposed <= 0 and accepted <= 0:
+            return
+        with self._lock:
+            self.spec_proposed += proposed
+            self.spec_accepted += accepted
+            rate = (self.spec_accepted / self.spec_proposed
+                    if self.spec_proposed else 0.0)
+        if proposed > 0:
+            _T_SPEC_PROPOSED.inc(proposed, server=self.name)
+        if accepted > 0:
+            _T_SPEC_ACCEPTED.inc(accepted, server=self.name)
+        _T_SPEC_RATE.set(rate, server=self.name, tenant="_engine")
 
     def on_error(self):
         with self._lock:
@@ -184,6 +220,11 @@ class ServingStats:
                 "timeouts": self.timeouts,
                 "errors": self.errors,
                 "prefill_chunks": self.prefill_chunks,
+                "spec_proposed_tokens": self.spec_proposed,
+                "spec_accepted_tokens": self.spec_accepted,
+                "spec_acceptance_rate": (self.spec_accepted /
+                                         self.spec_proposed
+                                         if self.spec_proposed else 0.0),
                 "unavailable": self.unavailable,
             }
         if lat.size:
@@ -258,6 +299,8 @@ class TenantStats:
         self.errors = 0
         self.deferred_pages = 0
         self.deferred_rate = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self._queue_depth = 0
         self._slots = 0
         self._pages = 0
@@ -328,6 +371,20 @@ class TenantStats:
         _T_TEN_REQS.inc(event="completed", **self._labels())
         _T_TEN_LATENCY.observe(latency_ms, **self._labels())
 
+    def on_spec(self, proposed: int, accepted: int):
+        """This tenant's share of one tick's speculative outcome; keeps
+        the per-tenant ``mxnet_spec_acceptance_rate`` row fresh so one
+        slow-accepting tenant is visible (and tunable via its ``spec_k``)
+        without dividing engine-level counters."""
+        if proposed <= 0 and accepted <= 0:
+            return
+        with self._lock:
+            self.spec_proposed += proposed
+            self.spec_accepted += accepted
+            rate = (self.spec_accepted / self.spec_proposed
+                    if self.spec_proposed else 0.0)
+        _T_SPEC_RATE.set(rate, **self._labels())
+
     def set_slots(self, n: int):
         with self._lock:
             self._slots = n
@@ -359,6 +416,11 @@ class TenantStats:
                 "errors": self.errors,
                 "deferred_pages": self.deferred_pages,
                 "deferred_rate": self.deferred_rate,
+                "spec_proposed_tokens": self.spec_proposed,
+                "spec_accepted_tokens": self.spec_accepted,
+                "spec_acceptance_rate": (self.spec_accepted /
+                                         self.spec_proposed
+                                         if self.spec_proposed else 0.0),
             }
         _percentile_rows(out, (("latency", lat), ("ttft", ttft),
                                ("tpot", tpot)))

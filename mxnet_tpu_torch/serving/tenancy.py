@@ -2,9 +2,9 @@
 
 Ported from ``mxnet_tpu/serving/tenancy.py`` (no JAX there): the registry,
 the weighted-fair queue, the per-tenant breaker and the token bucket,
-as they are. The flight-recorder/SLO hooks, the per-tenant speculative
-cap and the fleet's snapshot aggregation wait for the slices that port
-those planes.
+and the per-tenant speculative cap (``spec_k``), as they are. The
+flight-recorder/SLO hooks and the fleet's snapshot aggregation wait for
+the slices that port those planes.
 
 One decode engine (or batch server) fronts many clients. Without a
 control plane the sharing is accidental: admission is FIFO, so a hot
@@ -53,8 +53,8 @@ first token is the tenant id::
 Keys: ``id``/bare token, ``weight``, ``priority`` (class name or int),
 ``depth`` (sub-queue bound), ``pages`` (KV page budget, 0 = unlimited),
 ``rate`` (tokens/s, 0 = unlimited), ``burst`` (token bucket size, 0 =
-auto). Defaults come from the ``MXNET_TENANT_*`` knobs
-(``docs/env_var.md``).
+auto), ``spec_k`` (speculative draft-depth cap). Defaults come from
+the ``MXNET_TENANT_*`` knobs (``docs/env_var.md``).
 """
 from __future__ import annotations
 
@@ -277,12 +277,20 @@ class Tenant:
     def __init__(self, registry: "TenantRegistry", tenant_id: str,
                  weight: float, priority: int, queue_depth: int,
                  page_budget: Optional[int], rate: float, burst: float,
-                 breaker: TenantBreaker, stats: TenantStats):
+                 breaker: TenantBreaker, stats: TenantStats,
+                 spec_k: Optional[int] = None):
         self.tenant_id = tenant_id
         self.weight = max(0.01, float(weight))
         self.priority = int(priority)
         self.queue_depth = max(1, int(queue_depth))
         self.page_budget = page_budget if page_budget else None
+        # speculative draft-depth CAP for this tenant's slots: None =
+        # inherit the engine's MXNET_DECODE_SPEC_K. Can only LOWER the
+        # engine k (the verify width K+1 is fixed per engine) — the lever
+        # that stops one slow-accepting tenant burning the tick budget on
+        # rejected verify rows. Mutable at runtime
+        # (DecodeEngine.set_tenant_spec_k); plain int read each tick.
+        self.spec_k = None if spec_k is None else max(0, int(spec_k))
         self.rate = max(0.0, float(rate))
         self.breaker = breaker
         self.stats = stats
@@ -368,6 +376,7 @@ class Tenant:
             "page_budget": self.page_budget,
             "pages_in_use": self.pages_in_use,
             "rate_tokens_s": self.rate,
+            "spec_k": self.spec_k,
             "breaker": self.breaker.state,
         })
         return out
@@ -413,6 +422,8 @@ def parse_tenants(spec: str) -> List[Dict]:
                     cfg["rate"] = float(val)
                 elif key == "burst":
                     cfg["burst"] = float(val)
+                elif key == "spec_k":
+                    cfg["spec_k"] = int(val)
                 else:
                     raise MXNetError("tenant spec: unknown key %r in %r"
                                      % (key, tok))
@@ -479,7 +490,8 @@ class TenantRegistry:
                  burst: Optional[float] = None,
                  breaker_threshold: Optional[int] = None,
                  breaker_window_s: Optional[float] = None,
-                 breaker_reset_s: Optional[float] = None) -> Tenant:
+                 breaker_reset_s: Optional[float] = None,
+                 spec_k: Optional[int] = None) -> Tenant:
         """Create (or return the existing) tenant. Like the telemetry
         get-or-create contract, kwargs only apply on first creation."""
         tenant_id = str(tenant_id)
@@ -516,7 +528,8 @@ class TenantRegistry:
                 rate=self._def_rate if rate is None else rate,
                 burst=self._def_burst if burst is None else burst,
                 breaker=TenantBreaker(self.server, tenant_id, **bkw),
-                stats=TenantStats(self.server, tenant_id))
+                stats=TenantStats(self.server, tenant_id),
+                spec_k=spec_k)
             self._tenants[tenant_id] = t
             self._order.append(tenant_id)
             return t

@@ -6,7 +6,8 @@ and the same inputs; its logits must match the JAX model's at
 and torch-CPU order differently, compounding per layer. Token streams
 must match exactly: ``reference_generate`` against JAX's, and the port's
 ``DecodeEngine(device="cpu")`` against both its own oracle and the JAX
-engine, under slot churn (the ``test_decode.py:263`` setup).
+engine, under slot churn (the ``test_decode.py:263`` setup) and with
+chunked prefill (alone, with the prefix cache, under speculation).
 """
 import time
 
@@ -321,9 +322,108 @@ def test_deadline_mid_decode_evicts_at_tick_boundary(models):
                                       tm.reference_generate(tp, [5], 4))
 
 
-@pytest.mark.parametrize("kw", [{"spec_k": 2}, {"ring_prefill_len": 8},
-                                {"prefill_chunk": 4},
-                                {"spec_draft": "prompt_lookup"}])
+# the chunked-prefill configurations of test_decode.py:847-890, and the
+# chunk lane under a speculating tick (prefilling slots ride the widened
+# tick as inactive rows)
+_CHUNKED = {
+    "alone": dict(num_slots=2, prefix_cache=False, prefill_chunk=4),
+    "with_prefix_cache": dict(num_slots=2, page_size=8, prefix_cache=True,
+                              prefill_chunk=4),
+    "with_spec_k_2": dict(num_slots=2, prefix_cache=False, prefill_chunk=4,
+                          spec_k=2, spec_draft="prompt_lookup"),
+}
+
+
+def _chunked_reqs(case):
+    rng = np.random.RandomState(3)
+    if case == "with_prefix_cache":
+        system = [7, 3, 7, 3, 1, 1, 2, 2, 9]
+        return [(np.asarray(system + [15 + i, 14 - i], np.int32), 5)
+                for i in range(5)]
+    return [(rng.randint(1, 32, int(rng.randint(1, 14))).astype(np.int32),
+             int(rng.randint(1, 7))) for _ in range(7)]
+
+
+@pytest.mark.parametrize("case", sorted(_CHUNKED))
+def test_chunked_prefill_equals_oracle_and_jax_engine(models, case):
+    jm, jp, tm, tp = models
+    kw = _CHUNKED[case]
+    reqs = _chunked_reqs(case)
+    with _engine(tm, tp, **kw) as eng:
+        assert eng.warmup() > 0
+        outs = [f.result(timeout=120)
+                for f in [eng.submit(p, m) for p, m in reqs]]
+        stats = eng.stats()
+    with jserving.DecodeEngine(jm, jp, max_seq_len=48,
+                               prefill_buckets=(8, 16), timeout_ms=0,
+                               name="jchunk-" + case, **kw) as jeng:
+        jouts = [f.result(timeout=120)
+                 for f in [jeng.submit(p, m) for p, m in reqs]]
+    for (p, m), got, jgot in zip(reqs, outs, jouts):
+        np.testing.assert_array_equal(got, tm.reference_generate(tp, p, m))
+        np.testing.assert_array_equal(got, jgot)
+    assert stats["prefill_chunk"] == 4
+    assert stats["kvcache"]["pages_in_use"] == 0
+    if case == "with_prefix_cache":
+        assert stats["kvcache"]["prefix_hits"] >= 3
+        assert stats["prefill_chunks"] > 0
+    else:
+        # every prompt runs through the one chunk rung: ceil(p / C) each
+        assert stats["prefill_chunks"] == sum(-(-p.size // 4)
+                                              for p, _m in reqs)
+    if "spec_k" in kw:
+        assert stats["speculative"]["proposed_tokens"] > 0
+
+
+def test_chunked_short_prompt_not_blocked_by_long(models):
+    # test_decode.py:892: a short request submitted alongside a LONG
+    # prompt (8 chunks) completes while the long one is still
+    # prefilling — one chunk per tick, round-robin over prefilling slots
+    _jm, _jp, tm, tp = models
+    with _engine(tm, tp, num_slots=2, prefix_cache=False,
+                 prefill_chunk=4) as eng:
+        eng.warmup()
+        order = []
+        f_long = eng.submit(np.arange(1, 33, dtype=np.int32) % 32, 4)
+        f_short = eng.submit([2, 4], 2)
+        f_long.add_done_callback(lambda _f: order.append("long"))
+        f_short.add_done_callback(lambda _f: order.append("short"))
+        f_long.result(timeout=120)
+        f_short.result(timeout=120)
+        stats = eng.stats()
+    assert order[0] == "short"
+    assert stats["prefill_chunks"] == 9
+
+
+def test_swap_mid_chunked_prefill_never_reindexes_stale_kv(models):
+    # test_decode.py:1022: a swap landing BETWEEN chunks of an in-flight
+    # prefill flushes the index; the straddling sequence's pages hold
+    # old-weight KV and must not be re-indexed at completion
+    _jm, _jp, tm, tp = models
+    tp_b = tm.init_params(1, device="cpu")
+    prompt = np.arange(1, 33, dtype=np.int32) % 32  # 16 chunks of 2
+    with _engine(tm, tp, num_slots=1, page_size=8, prefix_cache=True,
+                 prefill_chunk=2) as eng:
+        eng.warmup()
+        orig = eng._run_chunk
+
+        def slow_chunk(*a):  # 16 chunks take >= 80 ms
+            time.sleep(0.005)
+            return orig(*a)
+
+        eng._run_chunk = slow_chunk
+        f = eng.submit(prompt, 2)
+        time.sleep(0.02)  # some chunks land under the old weights
+        eng.swap_params(tp_b, timeout=120)
+        f.result(timeout=120)  # mixed-weight output: not checked
+        eng._run_chunk = orig
+        np.testing.assert_array_equal(
+            eng.generate(prompt, 5, timeout=120),
+            tm.reference_generate(tp_b, prompt, 5))
+        assert eng.stats()["kvcache"]["prefix_hits"] == 0
+
+
+@pytest.mark.parametrize("kw", [{"ring_prefill_len": 8}])
 def test_unported_options_raise(models, kw):
     _jm, _jp, tm, tp = models
     with pytest.raises(MXNetError, match="not ported"):
