@@ -8,8 +8,9 @@ Phases, each printing one line of its own (any failure exits non-zero):
 
 1. environment: torch/CUDA versions and the card's name and power limit
    (``nvidia-smi``); TF32 off for matmuls and cuDNN, so fp32 stays fp32;
-2. build: every kernel of the served path, compiled with nvcc from the
-   sources in this checkout (one nvcc per source, all started together);
+2. build: every kernel of the served and training paths, compiled with
+   nvcc from the sources in this checkout (one nvcc per source, all
+   started together);
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the main path gives it (the one-row decode
    kernel on decode ticks and 32- and 64-row prefill chunks; the
@@ -33,10 +34,26 @@ Phases, each printing one line of its own (any failure exits non-zero):
 6. chunked_serve: the bench's shared-prefix phase with chunked prefill:
    96 requests over 8 system prompts of 512 tokens, ``prefill_chunk=64``,
    buckets 16/32, prefix cache on, 16 output tokens; outputs must equal
-   the oracle and prefill must have run in chunks.
+   the oracle and prefill must have run in chunks;
+7. train: the training slice's main path, the port's
+   ``example/transformer/train_gpt.py`` at its defaults (dim 64, 4 heads,
+   2 layers, batch 32, Adam 3e-3, 3 epochs x 64 steps) on the card: it
+   must learn (test perplexity below 0.2 x 128, the example's own bar)
+   and the flash-attention kernel must launch at least steps x layers
+   times; steps/s, tokens/s and the perplexities are printed;
+8. train_parity: one training step of the full-width GPT from the same
+   weights, run twice, first through the kernel, then with the
+   registered op's fcompute swapped for the plain version: losses and
+   gradients must agree;
+9. train_profile: torch.profiler device time of 10 training steps.
 
-In every serving phase the kernels' launch counts are set to 0 just
-before the phase drives the engine and read just after.
+The flash-attention kernel is checked (phase 3) against its plain
+version on the GPT shape, ragged and long shapes, both maskings, bf16
+inputs, and through its autograd Function's gradients, and timed at the
+GPT shape and at (4, 8, 2048, 64).
+
+In every serving and training phase the kernels' launch counts are set
+to 0 just before the phase drives the path and read just after.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -63,8 +80,16 @@ MAX_PAGES = MAX_SEQ // PAGE
 N_REQ, OUT_CAP, SYSTEM_LEN = 32, 256, 32
 OUT_MIX = [16] * 3 + [64] * 2 + [256, 512, 1024]
 KERNEL_TOL = 1e-4  # fp32, another summation order than the plain einsum
+# bf16 outputs: both versions round an fp32 result to bf16, whose step is
+# 2^-7 at 1 and 2^-6 at 2; the outputs stay below 2 (inputs 0.5 N(0, 1))
+BF16_TOL = 2e-2
 # the kernels' device-side names, as the profiler reports them
 KERNEL_1, KERNEL_2 = "paged_attention_kernel", "paged_spec_kernel"
+KERNEL_3 = "flash_attention_kernel"
+# the training slice: the GPT example's shape (batch 32, 4 heads, SEQ 64,
+# head_dim 64 / 4) and a long shape
+GPT_ATT = (32, 4, 64, 16)
+LONG_ATT = (4, 8, 2048, 64)
 # the bench's speculative phase (32 motif prompts x 48 tokens, k = 4) and
 # shared-prefix phase (96 requests over 8 system prompts of 512 tokens)
 SPEC_K, SPEC_N, SPEC_OUT = 4, 32, 48
@@ -430,11 +455,118 @@ def check_spec_kernel():
             "max_abs_err": worst, **bench}
 
 
+def _flash_bound(b, h, s, d, causal, itemsize):
+    """Least time (ms) of one attention forward: q, k, v read once and the
+    output written once; 2 * D flops for q.k and as many for p.v per
+    (row, key) pair, of which causal keeps S (S + 1) / 2 per (b, h)."""
+    nbytes = 4 * b * h * s * d * itemsize
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * d * b * h * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash_kernel():
+    """The fused attention forward kernel against its plain version on
+    the training path's shape and on ragged, long, non-causal and bf16
+    cases, its autograd Function's gradients, then timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(3)
+    dev = torch.device("cuda")
+
+    def qkv(shape, dtype=torch.float32):
+        return [torch.tensor(rng.randn(*shape).astype(np.float32) * 0.5,
+                             device=dev).to(dtype) for _ in range(3)]
+
+    cases = [("gpt", GPT_ATT, True, torch.float32),
+             ("2x2x64x16", (2, 2, 64, 16), False, torch.float32),
+             ("1x2x100x32", (1, 2, 100, 32), True, torch.float32),
+             ("1x1x9x8", (1, 1, 9, 8), True, torch.float32),
+             ("d64_s1000", (1, 2, 1000, 64), True, torch.float32),
+             ("d64_s1000", (1, 2, 1000, 64), False, torch.float32),
+             ("d128_s1000", (1, 2, 1000, 128), True, torch.float32),
+             ("d128_s1000", (1, 2, 1000, 128), False, torch.float32),
+             # the widest head_dim, and one that is not a multiple of 4
+             # (no 16-byte staging loads)
+             ("d256_s300", (1, 2, 300, 256), True, torch.float32),
+             ("d6_s77", (2, 2, 77, 6), False, torch.float32),
+             ("bf16_gpt", GPT_ATT, True, torch.bfloat16),
+             ("bf16_2x4x200x64", (2, 4, 200, 64), False, torch.bfloat16)]
+    worst = 0.0
+    for name, shape, causal, dtype in cases:
+        q, k, v = qkv(shape, dtype)
+        got = fa.flash_attention_forward(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_reference(q, k, v, causal=causal)
+        tol = KERNEL_TOL if dtype == torch.float32 else BF16_TOL
+        err = float((got.float() - want.float()).abs().max())
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        if got.dtype != dtype or not torch.allclose(
+                got.float(), want.float(), atol=tol, rtol=tol):
+            fail("flash kernel %s (causal=%s, %s) disagrees with the plain "
+                 "version: max abs err %.3g" % (name, causal, dtype, err))
+        phase("kernel_check", case="flash_%s_%s" % (
+            name, "causal" if causal else "full"), dtype=str(dtype),
+            max_abs_err=err, tol=tol)
+
+    # the autograd Function (kernel forward, dense-recompute backward)
+    # against torch.autograd.grad of the plain version
+    q, k, v = qkv(GPT_ATT)
+    w = torch.tensor(rng.randn(*GPT_ATT).astype(np.float32), device=dev)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, causal=True)
+        grads.append(torch.autograd.grad((out * w).sum(), leaves))
+    err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    if not all(torch.allclose(a, b, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+               for a, b in zip(*grads)):
+        fail("flash autograd gradients disagree with the plain version: "
+             "max abs err %.3g" % err)
+    phase("kernel_check", case="flash_autograd_gradients", max_abs_err=err,
+          tol=KERNEL_TOL)
+
+    entry = None
+    for shape in (GPT_ATT, LONG_ATT):
+        q, k, v = qkv(shape)
+        for causal in (True, False):
+            ms = time_ms(lambda: fa.flash_attention_forward(
+                q, k, v, causal=causal), iters=20)
+            device_ms = kernel_device_ms(lambda: fa.flash_attention_forward(
+                q, k, v, causal=causal), KERNEL_3)
+            plain_ms = time_ms(lambda: fa.flash_attention_reference(
+                q, k, v, causal=causal), iters=20)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), iters=20)
+            bound_ms, bound_by = _flash_bound(*shape, causal, 4)
+            phase("kernel_time", case="flash_%s_%s" % (
+                "x".join(map(str, shape)), "causal" if causal else "full"),
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library="scaled_dot_product_attention(is_causal=%s)" % causal)
+            if entry is None:  # the training path's shape and masking
+                entry = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:137",
+            "max_abs_err": worst, **entry}
+
+
 def _reset_launches():
+    from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops import paged_attention as pa
 
     pa.ragged_paged_attention.launches = 0
     pa.ragged_spec_attention.launches = 0
+    fa.flash_attention_forward.launches = 0
 
 
 def _read_launches():
@@ -643,6 +775,148 @@ def chunked_serve(model, params):
           outputs_equal_oracle=True)
 
 
+def train():
+    """The training slice's main path: the port's train_gpt example at its
+    defaults on the card; it must learn and run the flash kernel."""
+    from mxnet_tpu_torch.example.transformer import train_gpt
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    args = train_gpt.parse_args([])  # the defaults: the card
+    _reset_launches()
+    res = train_gpt.run(args)
+    launches = fa.flash_attention_forward.launches
+    if not res["learned"]:
+        fail("train: test perplexity %.2f is not below 0.2 x %d"
+             % (res["test_ppl"], train_gpt.VOCAB))
+    if launches < res["steps"] * args.layers:
+        fail("train: flash kernel launched %d times for %d steps x %d "
+             "layers" % (launches, res["steps"], args.layers))
+    phase("train", steps=res["steps"], layers=args.layers,
+          batch=args.batch_size, train_s=res["train_s"],
+          steps_per_s=res["steps_per_s"], tokens_per_s=res["tokens_per_s"],
+          epoch_train_ppl=res["epoch_train_ppl"], test_ppl=res["test_ppl"],
+          uniform_ppl=res["uniform_ppl"], flash_launches=launches)
+    return launches
+
+
+def _gpt_on_card(layers=2):
+    """The example's full-width GPT on the card with seed-7 weights, its
+    deferred shapes resolved, and the first training batch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.example.transformer import train_gpt
+
+    mx.random.seed(7)
+    net = train_gpt.GPT(layers=layers)
+    net.initialize(mx.initializer.Xavier())  # no ctx given: the card
+    x, y = train_gpt.make_corpus(32, np.random.RandomState(29))
+    pos = np.broadcast_to(np.arange(train_gpt.SEQ, dtype=np.int32),
+                          (32, train_gpt.SEQ)).copy()
+    batch = (nd.array(x), nd.array(y), nd.array(pos))
+    net(batch[0], batch[2])
+    return net, batch
+
+
+def _train_step(net, lossfn, batch, trainer=None):
+    from mxnet_tpu_torch import autograd
+
+    x, y, pos = batch
+    with autograd.record():
+        loss = lossfn(net(x, pos), y)
+    loss.backward()
+    if trainer is not None:
+        trainer.step(1)
+    return loss
+
+
+def train_parity():
+    """One step from the same weights, through the kernel and then with
+    the registered op's fcompute swapped for the plain version."""
+    import torch
+
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    net, batch = _gpt_on_card()
+    lossfn = gloss.SoftmaxCrossEntropyLoss(axis=2)
+    params = list(net.collect_params().values())
+    op = get_op("_contrib_flash_attention")
+    runs = []
+    kernel_fcompute = op.fcompute
+    try:
+        for plain in (False, True):
+            if plain:
+                op.fcompute = lambda attrs, q, k, v: \
+                    fa.flash_attention_reference(q, k, v, attrs.scale,
+                                                 attrs.causal)
+            _reset_launches()
+            loss = _train_step(net, lossfn, batch)
+            torch.cuda.synchronize()
+            runs.append((loss.asnumpy(), [p.grad().asnumpy()
+                                          for p in params],
+                         fa.flash_attention_forward.launches))
+    finally:
+        op.fcompute = kernel_fcompute
+    (l_k, g_k, n_k), (l_p, g_p, n_p) = runs
+    if n_k < 2 or n_p != 0:
+        fail("train_parity: %d kernel launches in the kernel run, %d in the "
+             "plain run" % (n_k, n_p))
+    loss_err = float(np.abs(l_k - l_p).max())
+    grad_err = max(float(np.abs(a - b).max()) for a, b in zip(g_k, g_p))
+    # fp32, the kernel's and the plain version's sums in other orders:
+    # the CPU parity tests' tolerances (loss 2e-5, gradients 1e-4)
+    if loss_err > 2e-5 or grad_err > 1e-4:
+        fail("train_parity: loss err %.3g, gradient err %.3g"
+             % (loss_err, grad_err))
+    phase("train_parity", loss=float(l_k.mean()), loss_max_abs_err=loss_err,
+          grad_max_abs_err=grad_err, loss_tol=2e-5, grad_tol=1e-4,
+          kernel_launches=n_k, params=len(params))
+
+
+def train_profile(steps=10):
+    """Where a training step's time goes: 10 steps of the full-width GPT
+    traced with torch.profiler (device activity only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.gluon import Trainer, loss as gloss
+
+    net, batch = _gpt_on_card()
+    lossfn = gloss.SoftmaxCrossEntropyLoss(axis=2)
+    trainer = Trainer(net.collect_params(), "adam", {"learning_rate": 3e-3})
+    for _ in range(3):  # warm up
+        _train_step(net, lossfn, batch, trainer)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _train_step(net, lossfn, batch, trainer)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}  # device op name -> [ms, launches]
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = by_name.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    if busy_ms <= 0.0:
+        fail("the profiler saw no device time in the traced steps")
+    flash_ms = sum(ms for k, (ms, _) in by_name.items() if KERNEL_3 in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    phase("train_profile", steps=steps, wall_ms=wall_ms,
+          per_step_wall_ms=wall_ms / steps, device_busy_ms=busy_ms,
+          per_step_busy_ms=busy_ms / steps,
+          device_busy_share=busy_ms / wall_ms, flash_ms=flash_ms,
+          flash_share_of_busy=flash_ms / busy_ms,
+          device_kernels_per_step=sum(n for _, n in by_name.values())
+          / steps,
+          # [name (long enough to show the functor), ms, launches]
+          top_device_ms=[[k[:140], ms, n] for k, (ms, n) in top])
+
+
 def profile_ticks(eng, reqs, new_tokens=64, case="decode"):
     """Where a tick's time goes: one wave of requests that fills every
     slot, traced with torch.profiler (device activity only). Prints the
@@ -713,6 +987,7 @@ def main():
 
     entry = check_kernels()
     spec_entry = check_spec_kernel()
+    flash_entry = check_flash_kernel()
     entry["launches"] = serve()
     from mxnet_tpu_torch import serving
 
@@ -720,7 +995,11 @@ def main():
     params = model.init_params(0)  # no device given: the card
     spec_entry["launches"] = spec_serve(model, params)
     chunked_serve(model, params)
-    print(json.dumps({"kernels": [entry, spec_entry]}), flush=True)
+    flash_entry["launches"] = train()
+    train_parity()
+    train_profile()
+    print(json.dumps({"kernels": [entry, spec_entry, flash_entry]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,11 +13,23 @@ This package imports ``torch`` and numpy, never ``jax`` and nothing of
 :class:`MXNetError`.
 
 Ported so far: the decode-serving plane (``serving.DecodeEngine`` over
-``serving.TinyDecoder``) with the paged-attention kernel
-(``ops.paged_attention``).
+``serving.TinyDecoder``) with the paged-attention kernels
+(``ops.paged_attention``), and the imperative/gluon training path of the
+GPT example (``nd``, ``autograd``, ``gluon``, ``initializer``,
+``optimizer``; ``example/transformer/train_gpt.py``) with the
+flash-attention kernel (``ops.flash_attention``). The training path
+follows MXNet's entry points, with one departure: the default context is
+the card (``gpu(0)``), and without one, code that does not ask for
+``mx.cpu()`` raises.
 """
 from __future__ import annotations
 
+from . import autograd, gluon, initializer, ndarray, optimizer, random
+from . import ndarray as nd
 from .base import MXNetError, fetch_host, get_env, resolve_device
+from .context import Context, cpu, current_context, gpu, num_gpus
 
-__all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device"]
+__all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
+           "Context", "cpu", "gpu", "current_context", "num_gpus",
+           "autograd", "gluon", "initializer", "nd", "ndarray", "optimizer",
+           "random"]

@@ -1,0 +1,177 @@
+"""Autograd over torch autograd: the port of ``mxnet_tpu/autograd.py``.
+
+``record()`` turns recording on; :func:`mxnet_tpu_torch.ndarray.invoke`
+then runs each op with torch autograd enabled when one of its inputs is
+in the graph, so torch builds the tape. A leaf is an NDArray marked by
+``attach_grad`` (or :func:`mark_variables`): its tensor is a torch leaf
+that requires grad. :func:`backward` takes ``torch.autograd.grad`` from
+the heads to every live leaf, lets torch tell which ones the heads
+reach, and lands each gradient in the leaf's ``.grad`` buffer under its
+``grad_req``, as the JAX package does:
+
+* ``write`` replaces the buffer, ``add`` adds to it, ``null`` leaves it;
+* the buffer NDArray stays the same object (``Parameter.grad()`` hands
+  it out), only its tensor is rebound;
+* the leaf's fresh-grad bit turns on (``Trainer`` checks it).
+
+A rebind inside ``record()`` does not change what an earlier op saw:
+NDArrays rebind their tensor and never write into it under record.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+import torch
+
+from .base import MXNetError
+
+__all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
+           "is_training", "set_recording", "set_training", "mark_variables",
+           "backward"]
+
+
+class _State(threading.local):
+    def __init__(self):
+        self.recording = False
+        self.training = False
+
+
+_STATE = _State()
+
+
+def is_recording() -> bool:
+    return _STATE.recording
+
+
+def is_training() -> bool:
+    return _STATE.training
+
+
+def set_recording(flag: bool) -> bool:
+    prev = _STATE.recording
+    _STATE.recording = bool(flag)
+    return prev
+
+
+def set_training(flag: bool) -> bool:
+    prev = _STATE.training
+    _STATE.training = bool(flag)
+    return prev
+
+
+class _RecordingStateScope:
+    def __init__(self, is_record: Optional[bool],
+                 train_mode_flag: Optional[bool]):
+        self._enter_record = is_record
+        self._enter_train = train_mode_flag
+        self._prev_record = None
+        self._prev_train = None
+
+    def __enter__(self):
+        if self._enter_record is not None:
+            self._prev_record = set_recording(self._enter_record)
+        if self._enter_train is not None:
+            self._prev_train = set_training(self._enter_train)
+        return self
+
+    def __exit__(self, *a):
+        if self._prev_record is not None:
+            set_recording(self._prev_record)
+        if self._prev_train is not None:
+            set_training(self._prev_train)
+
+
+def record(train_mode: bool = True):
+    """``with autograd.record():`` — turn on recording (+ train mode)."""
+    return _RecordingStateScope(True, train_mode)
+
+
+def pause(train_mode: bool = False):
+    return _RecordingStateScope(False, train_mode)
+
+
+def train_mode():
+    return _RecordingStateScope(None, True)
+
+
+def predict_mode():
+    return _RecordingStateScope(None, False)
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make ``variables`` leaves whose gradients land in ``gradients``."""
+    from .ndarray.ndarray import _make_leaf
+
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        _make_leaf(v, req)
+        v._grad = g
+
+
+def _candidates():
+    """Every live marked NDArray that takes a gradient, with its leaf
+    tensor. Which of them the heads reach is left to
+    ``torch.autograd.grad(..., allow_unused=True)``, public API: a walk
+    of ``grad_fn.next_functions`` that looks for ``AccumulateGrad``
+    nodes by their attributes leans on internals that differ between
+    torch builds (under torch 2.11 such a walk reached no leaf)."""
+    from .ndarray.ndarray import _MARKED, _MARKED_LOCK
+
+    with _MARKED_LOCK:  # another thread may mark a leaf meanwhile
+        marked = list(_MARKED)
+    return [nd for nd in marked
+            if nd._marked and nd._grad_req != "null"
+            and nd._leaf is not None]
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Run backward from ``heads``, writing into the leaves' ``.grad``."""
+    from .ndarray.ndarray import NDArray
+
+    if isinstance(heads, NDArray):
+        heads = [heads]
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif not isinstance(head_grads, (list, tuple)):
+        head_grads = [head_grads]
+
+    leaf_grads = {}  # id(leaf) -> (leaf, summed grad) of this pass
+
+    def _add(leaf, g):
+        prev = leaf_grads.get(id(leaf))
+        leaf_grads[id(leaf)] = (leaf, g if prev is None else prev[1] + g)
+
+    outs, grads = [], []
+    for h, hg in zip(heads, head_grads):
+        g = torch.ones_like(h._data) if hg is None else hg._data
+        if h._data.grad_fn is None:
+            # the head is itself a leaf: its gradient is the head grad
+            if h._marked and h._grad_req != "null":
+                _add(h, g)
+            continue
+        outs.append(h._data)
+        grads.append(g)
+    if not outs and not any(h._marked for h in heads):
+        raise MXNetError(
+            "cannot differentiate: no recorded graph reaches the heads (did "
+            "you call attach_grad() and compute inside autograd.record()?)")
+    found = _candidates() if outs else []
+    if found:
+        gs = torch.autograd.grad(outs, [nd._leaf for nd in found], grads,
+                                 retain_graph=retain_graph,
+                                 allow_unused=True)
+        for leaf, g in zip(found, gs):
+            if g is not None:
+                _add(leaf, g)
+
+    for leaf, g in leaf_grads.values():
+        g = g.detach().to(leaf._data.dtype)
+        if leaf._grad is None:
+            leaf._grad = NDArray(torch.zeros_like(leaf._data.detach()))
+        if leaf._grad_req == "add":
+            leaf._grad._data = leaf._grad._data + g
+        else:
+            leaf._grad._data = g
+        leaf._fresh_grad = True

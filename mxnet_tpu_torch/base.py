@@ -4,17 +4,22 @@ The PyTorch/CUDA counterpart of ``mxnet_tpu/base.py``: the same
 :class:`MXNetError`, the same ``MXNET_*`` knob reader, and a
 :func:`fetch_host` that is one batched device->host copy. Device choice
 is explicit: :func:`resolve_device` sends everything to the card unless
-the caller asks for the CPU, and refuses to fall back quietly.
+the caller asks for the CPU, and refuses to fall back quietly. The dtype
+helpers (:func:`np_dtype`, :func:`dtype_name`, :func:`torch_dtype`) and
+the attribute parsers (:func:`parser_for`) are the port's own copies of
+the JAX package's, for the op registry.
 """
 from __future__ import annotations
 
+import ast
 import os
 from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "get_env", "fetch_host", "resolve_device"]
+__all__ = ["MXNetError", "get_env", "fetch_host", "resolve_device",
+           "np_dtype", "dtype_name", "torch_dtype", "parser_for"]
 
 
 class MXNetError(RuntimeError):
@@ -99,3 +104,141 @@ def _copy_to_host(tensors) -> list:
                 tuple(tensors[i].shape))
             off += n
     return out
+
+
+# ---------------------------------------------------------------------------
+# dtype plumbing: the user-visible names of the JAX package. numpy has no
+# bfloat16, so that one name maps to torch.bfloat16.
+# ---------------------------------------------------------------------------
+
+DTYPE_NP = {
+    "float32": np.float32,
+    "float64": np.float64,
+    "float16": np.float16,
+    "bfloat16": torch.bfloat16,
+    "uint8": np.uint8,
+    "int8": np.int8,
+    "int32": np.int32,
+    "int64": np.int64,
+    "bool": np.bool_,
+}
+
+_TORCH_OF_NP = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.float16): torch.float16,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.bool_): torch.bool,
+}
+_NP_OF_TORCH = {v: k for k, v in _TORCH_OF_NP.items()}
+
+
+def np_dtype(dtype) -> Any:
+    """Normalize a user dtype spec (name / numpy dtype / torch dtype) to a
+    numpy dtype (``torch.bfloat16`` for bfloat16, which numpy lacks)."""
+    if dtype is None:
+        return np.float32
+    if isinstance(dtype, str):
+        if dtype not in DTYPE_NP:
+            raise MXNetError("unknown dtype %r" % (dtype,))
+        return DTYPE_NP[dtype]
+    if isinstance(dtype, torch.dtype):
+        return torch.bfloat16 if dtype == torch.bfloat16 \
+            else _NP_OF_TORCH[dtype].type
+    return dtype
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a user dtype spec (name, numpy or torch dtype)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    d = np_dtype(dtype)
+    if d is torch.bfloat16:
+        return d
+    try:
+        return _TORCH_OF_NP[np.dtype(d)]
+    except KeyError:
+        raise MXNetError("unsupported dtype %r" % (dtype,))
+
+
+def dtype_name(dtype) -> str:
+    """Canonical string name for a dtype."""
+    if isinstance(dtype, torch.dtype):
+        return "bfloat16" if dtype == torch.bfloat16 \
+            else np.dtype(_NP_OF_TORCH[dtype]).name
+    try:
+        return np.dtype(dtype).name
+    except TypeError:
+        return str(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attribute (string) parsing: typed op attributes from strings or values,
+# as the JAX package parses them.
+# ---------------------------------------------------------------------------
+
+def parse_bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, (int, np.integer)):
+        return bool(v)
+    s = str(v).strip().lower()
+    if s in ("true", "1"):
+        return True
+    if s in ("false", "0", "none"):
+        return False
+    raise MXNetError("cannot parse bool from %r" % (v,))
+
+
+def parse_int(v) -> int:
+    if isinstance(v, (int, np.integer)) and not isinstance(v, bool):
+        return int(v)
+    return int(float(str(v)))
+
+
+def parse_float(v) -> float:
+    return float(v)
+
+
+def parse_shape(v) -> tuple:
+    """Parse a shape/tuple attr: accepts (2,2), [2,2], "(2, 2)", "2", 2."""
+    if v is None:
+        return None
+    if isinstance(v, (tuple, list)):
+        return tuple(int(x) for x in v)
+    if isinstance(v, (int, np.integer)):
+        return (int(v),)
+    s = str(v).strip()
+    if s in ("None", ""):
+        return None
+    val = ast.literal_eval(s)
+    if isinstance(val, (int, float)):
+        return (int(val),)
+    return tuple(int(x) for x in val)
+
+
+def parse_str(v) -> str:
+    return str(v)
+
+
+def parse_dtype(v):
+    if v is None or (isinstance(v, str) and v in ("None", "")):
+        return None
+    return np_dtype(v if isinstance(v, str) else dtype_name(v))
+
+
+_PARSERS = {
+    bool: parse_bool,
+    int: parse_int,
+    float: parse_float,
+    tuple: parse_shape,
+    str: parse_str,
+    "dtype": parse_dtype,
+}
+
+
+def parser_for(typ) -> Callable:
+    return _PARSERS.get(typ, typ if callable(typ) else parse_str)

@@ -1,0 +1,194 @@
+"""Gluon Block / HybridBlock: the port of ``mxnet_tpu/gluon/block.py``
+(name scopes and prefixes, children, ``collect_params``, ``initialize``,
+and the eager ``hybrid_forward(F, ...)`` call with ``F`` the port's
+``nd``).
+
+``hybridize()`` is not ported yet: the JAX package compiles the block
+into one jitted module there (its CachedOp), and the port's counterpart,
+a captured step, is later work. It raises rather than quietly running
+the eager path under the compiled path's name.
+"""
+from __future__ import annotations
+
+import re
+import threading
+from collections import OrderedDict
+
+from ..base import MXNetError
+from ..name import NameManager
+from ..ndarray.ndarray import NDArray
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
+
+__all__ = ["Block", "HybridBlock"]
+
+
+class _BlockScope(object):
+    """Name scoping for Blocks."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                prefix = NameManager.current().get(None, hint) + "_"
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            prefix = "%s%d_" % (hint, count)
+            current._counter[hint] = count + 1
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._current.value = self._old_scope
+
+
+class Block(object):
+    """Base building block."""
+
+    def __init__(self, prefix=None, params=None):
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._children = OrderedDict()
+        self._reg_params = {}
+
+    def __repr__(self):
+        return "%s(%s)" % (self.__class__.__name__,
+                           ", ".join(self._children))
+
+    def __setattr__(self, name, value):
+        if hasattr(self, name):
+            existing = getattr(self, name)
+            if isinstance(existing, (Parameter, Block)) and \
+                    not isinstance(value, type(existing)):
+                raise TypeError("Changing attribute type for %s from %s to "
+                                "%s is not allowed."
+                                % (name, type(existing), type(value)))
+        if isinstance(value, Block):
+            self.register_child(value, name)
+        elif isinstance(value, Parameter):
+            if name in self._reg_params and self._reg_params[name] is not \
+                    value:
+                raise MXNetError("Overriding Parameter attribute %s is not "
+                                 "allowed." % name)
+            self._reg_params[name] = value
+        super().__setattr__(name, value)
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        return self._scope
+
+    @property
+    def params(self):
+        return self._params
+
+    def collect_params(self, select=None) -> ParameterDict:
+        """All Parameters of this block and its children."""
+        ret = ParameterDict(self._params.prefix)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({name: value for name, value in self.params.items()
+                        if pattern.match(name)})
+        for cld in self._children.values():
+            ret.update(cld.collect_params(select=select))
+        return ret
+
+    def register_child(self, block, name=None):
+        if name is None:
+            name = str(len(self._children))
+        self._children[name] = block
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        if init is None:
+            from .. import initializer
+
+            init = initializer.Uniform()
+        self.collect_params().initialize(init, ctx, verbose, force_reinit)
+
+    def hybridize(self, active=True, **kwargs):
+        raise MXNetError(
+            "hybridize() is not ported yet: the port runs blocks eagerly "
+            "(the compiled whole-step path is later work)")
+
+    def __call__(self, *args):
+        return self.forward(*args)
+
+    def forward(self, *args):
+        raise NotImplementedError
+
+
+class HybridBlock(Block):
+    """Block written as ``hybrid_forward(self, F, x, *args, **params)``,
+    with ``F`` the ``nd`` namespace and the block's parameters arriving as
+    keyword NDArrays, as in MXNet. Runs eagerly."""
+
+    def _eager_forward(self, x, *args):
+        from .. import ndarray as F
+
+        try:
+            params = {i: j.data(x.context)
+                      for i, j in self._reg_params.items()}
+        except DeferredInitializationError:
+            self._finish_deferred(x, *args)
+            params = {i: j.data(x.context)
+                      for i, j in self._reg_params.items()}
+        return self.hybrid_forward(F, x, *args, **params)
+
+    def _finish_deferred(self, x, *args):
+        """Resolve deferred shapes from the input, then initialize."""
+        self.shape_hint(x, *args)
+        for p in self._reg_params.values():
+            p._finish_deferred_init()
+
+    def shape_hint(self, x, *args):
+        """Layers override this to fill 0-dims of their params from x."""
+
+    def forward(self, x, *args):
+        if not isinstance(x, NDArray):
+            raise MXNetError("HybridBlock takes NDArray inputs, got %s"
+                             % type(x).__name__)
+        return self._eager_forward(x, *args)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError

@@ -1,0 +1,148 @@
+"""Basic Gluon layers: the port of the part of
+``mxnet_tpu/gluon/nn/basic_layers.py`` the GPT path uses: Sequential,
+HybridSequential, Dense, Activation, Embedding and LayerNorm."""
+from __future__ import annotations
+
+import numpy as np
+
+from ..block import Block, HybridBlock
+
+__all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
+           "Embedding", "LayerNorm"]
+
+
+class Sequential(Block):
+    """Stack of Blocks run in order."""
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __getitem__(self, key):
+        return list(self._children.values())[key]
+
+    def __len__(self):
+        return len(self._children)
+
+
+class HybridSequential(HybridBlock):
+    """Stack of HybridBlocks run in order."""
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def hybrid_forward(self, F, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __getitem__(self, key):
+        return list(self._children.values())[key]
+
+    def __len__(self):
+        return len(self._children)
+
+
+class Dense(HybridBlock):
+    """Fully-connected layer; weight (units, in_units), in_units deferred
+    to the first forward when 0."""
+
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, **kwargs):
+        super().__init__(**kwargs)
+        self._flatten = flatten
+        with self.name_scope():
+            self._units = units
+            self._in_units = in_units
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units), init=weight_initializer,
+                dtype=dtype, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,), init=bias_initializer,
+                    dtype=dtype, allow_deferred_init=True)
+            else:
+                self.bias = None
+            if activation is not None:
+                self.act = Activation(activation, prefix=activation + "_")
+            else:
+                self.act = None
+
+    def shape_hint(self, x, *args):
+        if self.weight.shape[1] == 0:
+            in_units = int(np.prod(x.shape[1:])) if self._flatten \
+                else x.shape[-1]
+            self.weight.shape = (self._units, in_units)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        act = F.FullyConnected(x, weight, bias, no_bias=bias is None,
+                               num_hidden=self._units, flatten=self._flatten)
+        if self.act is not None:
+            act = self.act(act)
+        return act
+
+
+class Activation(HybridBlock):
+    """Activation layer."""
+
+    def __init__(self, activation, **kwargs):
+        self._act_type = activation
+        super().__init__(**kwargs)
+
+    def _alias(self):
+        return self._act_type
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
+
+class Embedding(HybridBlock):
+    """Index -> vector lookup; weight (input_dim, output_dim)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype, "sparse_grad": sparse_grad}
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim),
+            init=weight_initializer, dtype=dtype, allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **self._kwargs)
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over ``axis``; gamma/beta deferred."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def shape_hint(self, x, *args):
+        if self.gamma.shape[0] == 0:
+            ch = x.shape[self._axis]
+            self.gamma.shape = (ch,)
+            self.beta.shape = (ch,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.invoke("LayerNorm", x, gamma, beta, axis=self._axis,
+                        eps=self._epsilon)[0]

@@ -1,0 +1,302 @@
+"""Gluon Parameter / ParameterDict: the port of
+``mxnet_tpu/gluon/parameter.py``.
+
+A parameter owns one NDArray per context (one context is what the port
+runs: more raise in ``Trainer``) and its gradient buffer. Shapes with an
+unknown (0) dimension defer initialization to the first forward, which
+fills them in call order; since every weight is drawn from the one host
+stream ``random.np_rng()``, that order fixes the values, and it is the
+JAX package's order.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from .. import autograd, initializer as init_mod
+from ..base import MXNetError, np_dtype
+from ..context import Context, cpu, current_context
+from ..ndarray import ndarray as nd_mod
+from ..ndarray.ndarray import NDArray
+
+__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+
+
+class DeferredInitializationError(MXNetError):
+    """Error for unfinished deferred initialization."""
+
+
+class Parameter(object):
+    """A Block parameter, with deferred initialization when the shape
+    holds unknown (0) dimensions resolved at the first forward."""
+
+    def __init__(self, name, grad_req="write", shape=None, dtype=np.float32,
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True):
+        self._data = None  # OrderedDict ctx -> NDArray
+        self._grad = None
+        self._ctx_list = None
+        self._deferred_init = ()
+        self.name = name
+        self._differentiable = differentiable
+        if not differentiable:
+            grad_req = "null"
+        self._allow_deferred_init = allow_deferred_init
+        self._grad_req = None
+        if isinstance(shape, int):
+            shape = (shape,)
+        self.shape = tuple(shape) if shape is not None else None
+        self.dtype = dtype
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self.grad_req = grad_req
+        self.init = init
+
+    def __repr__(self):
+        return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
+                                                      self.dtype)
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise MXNetError("grad_req must be write, add, or null, got %r"
+                             % (req,))
+        if not self._differentiable:
+            req = "null"
+        if self._grad_req == req:
+            return
+        self._grad_req = req
+        if req == "null" and self._grad is not None:
+            self._grad = None
+            for d in (self._data or {}).values():
+                d._marked = False
+                d._leaf = None
+                d._grad = None
+                d._data = d._data.detach()
+        elif self._data is not None:
+            self._init_grad()
+
+    # -- init machinery ---------------------------------------------------
+    def _check_and_get(self, arr_dict, ctx):
+        if arr_dict is not None:
+            if ctx is list:
+                return list(arr_dict.values())
+            if ctx is None or len(arr_dict) == 1:
+                return list(arr_dict.values())[0]
+            if ctx in arr_dict:
+                return arr_dict[ctx]
+            raise MXNetError("Parameter '%s' was not initialized on context "
+                             "%s." % (self.name, ctx))
+        if self._deferred_init:
+            raise DeferredInitializationError(
+                "Parameter '%s' has not been initialized yet because "
+                "initialization was deferred. Actual initialization happens "
+                "during the first forward pass." % self.name)
+        raise MXNetError(
+            "Parameter '%s' has not been initialized. You should initialize "
+            "parameters with Block.collect_params().initialize()."
+            % self.name)
+
+    def _finish_deferred_init(self):
+        if not self._deferred_init:
+            return
+        init, ctx, default_init, data = self._deferred_init
+        self._deferred_init = ()
+        if self.shape is None or np.prod(self.shape) <= 0:
+            raise MXNetError("Cannot initialize Parameter '%s' because it has "
+                             "invalid shape: %s." % (self.name, self.shape))
+        with autograd.pause():
+            if data is None:
+                data = nd_mod.zeros(self.shape, dtype=self.dtype, ctx=cpu())
+                # a parameter's own init overrides the suffix dispatch
+                # through the InitDesc __init__ attr
+                attrs = {}
+                if init is not None:
+                    init_obj = init_mod.create(init)
+                    if hasattr(init_obj, "dumps"):
+                        attrs["__init__"] = init_obj.dumps()
+                    else:  # a plain callable
+                        init_obj(init_mod.InitDesc(self.name), data)
+                        self._init_impl(data, ctx)
+                        return
+                init_mod.create(default_init)(
+                    init_mod.InitDesc(self.name, attrs), data)
+            self._init_impl(data, ctx)
+
+    def _init_impl(self, data, ctx_list):
+        self._ctx_list = list(ctx_list)
+        self._data = OrderedDict()
+        if not isinstance(data, NDArray):
+            data = nd_mod.array(data, dtype=self.dtype, ctx=cpu())
+        for ctx in self._ctx_list:
+            self._data[ctx] = data.copyto(ctx)
+        self._init_grad()
+
+    def _init_grad(self):
+        if self.grad_req == "null":
+            self._grad = None
+            return
+        self._grad = OrderedDict()
+        for ctx, d in self._data.items():
+            d.attach_grad(grad_req=self.grad_req)
+            self._grad[ctx] = d._grad
+
+    # -- public API -------------------------------------------------------
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False):
+        """Initialize data and grad buffers on ``ctx`` (the current
+        context by default: the card, unless a ``with mx.cpu():`` scope
+        is active)."""
+        if default_init is None:
+            default_init = init_mod.Uniform()
+        if self._data is not None and not force_reinit:
+            return
+        if ctx is None:
+            ctx = [current_context()]
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        if init is None:
+            init = default_init if self.init is None else self.init
+        if self.shape is None or any(s == 0 for s in self.shape):
+            if self._allow_deferred_init:
+                self._deferred_init = (init, ctx, default_init, None)
+                return
+            raise MXNetError("Cannot initialize Parameter '%s' because it has "
+                             "invalid shape: %s." % (self.name, self.shape))
+        self._deferred_init = (init, ctx, default_init, None)
+        self._finish_deferred_init()
+
+    def set_data(self, data):
+        """Set the value on every context (numpy or NDArray)."""
+        self.shape = tuple(data.shape)
+        if self._data is None:
+            if not self._deferred_init:
+                raise MXNetError("Parameter '%s' has not been initialized"
+                                 % self.name)
+            self._deferred_init = self._deferred_init[:3] + (data,)
+            return
+        src = data._data if isinstance(data, NDArray) else torch.from_numpy(
+            np.array(data, np.dtype(np_dtype(self.dtype))))
+        for arr in self._data.values():
+            with torch.no_grad():
+                arr._data.copy_(src.to(arr._data.device))
+
+    def data(self, ctx=None) -> NDArray:
+        return self._check_and_get(self._data, ctx)
+
+    def grad(self, ctx=None) -> NDArray:
+        if self._data is not None and self._grad is None:
+            raise MXNetError("Cannot get gradient array for Parameter '%s' "
+                             "because grad_req='null'" % self.name)
+        return self._check_and_get(self._grad, ctx)
+
+    def list_grad(self):
+        if self._data is not None and self._grad is None:
+            raise MXNetError("Cannot get gradient array for Parameter '%s' "
+                             "because grad_req='null'" % self.name)
+        return self._check_and_get(self._grad, list)
+
+    def list_ctx(self):
+        if self._data is None:
+            if self._deferred_init:
+                return self._deferred_init[1]
+            raise MXNetError("Parameter '%s' has not been initialized"
+                             % self.name)
+        return self._ctx_list
+
+    def zero_grad(self):
+        if self._grad is None:
+            return
+        for g in self._grad.values():
+            g._data = torch.zeros_like(g._data)
+
+
+class ParameterDict(object):
+    """Prefix-scoped dict of Parameters with sharing."""
+
+    def __init__(self, prefix="", shared=None):
+        self._prefix = prefix
+        self._params = OrderedDict()
+        self._shared = shared
+
+    def __repr__(self):
+        return "%s(\n%s\n)" % (self._prefix,
+                               "\n".join(str(v) for v in self.values()))
+
+    def __getitem__(self, key):
+        return self._params[key]
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __len__(self):
+        return len(self._params)
+
+    def items(self):
+        return self._params.items()
+
+    def keys(self):
+        return self._params.keys()
+
+    def values(self):
+        return self._params.values()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def _get_impl(self, name):
+        if name in self._params:
+            return self._params[name]
+        if self._shared is not None and name in self._shared._params:
+            self._params[name] = self._shared._params[name]
+            return self._params[name]
+        return None
+
+    def get(self, name, **kwargs) -> Parameter:
+        """Get or create the Parameter ``self.prefix + name``."""
+        name = self.prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            param = Parameter(name, **kwargs)
+            self._params[name] = param
+            return param
+        for k, v in kwargs.items():
+            existing = getattr(param, k, None)
+            if k == "shape" and v is not None and existing is not None \
+                    and len(v) == len(existing) \
+                    and all(a == b or a * b == 0 for a, b in zip(v, existing)):
+                param.shape = tuple(a or b for a, b in zip(v, existing))
+            elif v is not None and existing is not None and v != existing:
+                raise MXNetError(
+                    "Cannot retrieve Parameter '%s' because desired attribute "
+                    "does not match with stored for attribute '%s': desired "
+                    "'%s' vs stored '%s'." % (name, k, v, existing))
+        return param
+
+    def update(self, other):
+        for k, v in other.items():
+            if k in self._params:
+                if self._params[k] is not v:
+                    raise MXNetError(
+                        "Cannot update self with other because they have "
+                        "different Parameters with the same name '%s'" % k)
+            else:
+                self._params[k] = v
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        if init is None:
+            init = init_mod.Uniform()
+        for _, v in self.items():
+            v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()

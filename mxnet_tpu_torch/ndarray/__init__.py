@@ -1,0 +1,50 @@
+"""``mx.nd``: NDArray plus one function per registered op, generated from
+the registry as the JAX package's ``ndarray/__init__.py`` does, and
+``invoke``, the way ``F.invoke`` reaches an op by name."""
+import sys as _sys
+
+from .. import ops as _ops  # noqa: F401  (registers the ops)
+from ..ops.registry import OP_REGISTRY as _REG
+from .ndarray import NDArray, array, invoke, ones, zeros
+
+__all__ = ["NDArray", "array", "invoke", "ones", "zeros"]
+
+
+def _make_op_func(_name):
+    _param_names = list(_REG[_name].params.keys())
+
+    def _fn(*args, out=None, **kwargs):
+        # MXNet's generated-wrapper convention: leading positional arrays
+        # (or None) are inputs; trailing positional scalars fill the op's
+        # parameters in declaration order
+        arrays = []
+        scalars = []
+        for a in args:
+            if isinstance(a, NDArray) or a is None or (
+                    not isinstance(a, (int, float, str, tuple, list, bool))
+                    and hasattr(a, "shape")):
+                arrays.append(a)
+            else:
+                scalars.append(a)
+        if scalars:
+            free = [p for p in _param_names if p not in kwargs]
+            for p, v in zip(free, scalars):
+                kwargs[p] = v
+        return invoke(_name, *arrays, out=out, **kwargs)
+
+    _fn.__name__ = _name
+    _fn.__qualname__ = _name
+    _fn.__doc__ = _REG[_name].doc
+    return _fn
+
+
+_mod = _sys.modules[__name__]
+for _opname in list(_REG):
+    if not hasattr(_mod, _opname):
+        setattr(_mod, _opname, _make_op_func(_opname))
+
+add = getattr(_mod, "broadcast_add")
+subtract = getattr(_mod, "broadcast_sub")
+multiply = getattr(_mod, "broadcast_mul")
+divide = getattr(_mod, "broadcast_div")
+split = getattr(_mod, "SliceChannel")

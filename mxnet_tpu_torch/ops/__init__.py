@@ -5,11 +5,17 @@ its plain PyTorch version.
   ``csrc/paged_attention.cu``), replacing the Pallas ``_paged_kernel``,
   and the speculative verify step's multi-query version (CUDA C++,
   ``csrc/paged_spec_attention.cu``), replacing ``_paged_spec_kernel``.
+* :mod:`.flash_attention` — the fused attention forward of the training
+  path (CUDA C++, ``csrc/flash_attention.cu``), replacing the Pallas
+  ``_flash_kernel``, under the registered op ``_contrib_flash_attention``.
+
+:mod:`.registry` holds the op registry; :mod:`.tensor` and :mod:`.nn`
+register the plain PyTorch ops the GPT training path calls.
 
 Kernels are built by :mod:`._build` at first use, never at import.
 """
 from __future__ import annotations
 
-from . import paged_attention
+from . import flash_attention, nn, paged_attention, registry, tensor
 
-__all__ = ["paged_attention"]
+__all__ = ["flash_attention", "nn", "paged_attention", "registry", "tensor"]

@@ -1,0 +1,130 @@
+"""Operator registry: the port of ``mxnet_tpu/ops/registry.py``.
+
+Every op registers
+
+* an ``fcompute(attrs, *inputs) -> tensor | tuple`` written with PyTorch
+  on ``torch.Tensor``s;
+* a typed parameter spec, so string attrs parse as in the JAX package;
+* its input names.
+
+Gradients are not registered per op: :func:`mxnet_tpu_torch.ndarray.invoke`
+runs ``fcompute`` with torch autograd on while ``autograd.record()`` is
+active, and torch differentiates through it (the JAX package runs
+``jax.vjp`` over the same ``fcompute`` instead). An op whose backward is
+not the autodiff of its forward (``_contrib_flash_attention``) wraps its
+``fcompute`` in a ``torch.autograd.Function`` itself.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..base import MXNetError, parser_for
+
+__all__ = ["OpDef", "register", "get_op", "AttrDict", "OP_REGISTRY",
+           "REQUIRED"]
+
+OP_REGISTRY: Dict[str, "OpDef"] = {}
+
+
+class AttrDict(dict):
+    """Parsed op attributes with attribute access (``attrs.axis``)."""
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError:
+            raise AttributeError(k)
+
+
+class OpDef:
+    """One registered operator.
+
+    ``params`` maps attr name -> (type, default); type is bool/int/float/
+    tuple/str/'dtype' or a callable parser, default :data:`REQUIRED` marks
+    a mandatory attr. ``inputs`` is a list of input names or a
+    callable(attrs) -> list; ``num_outputs`` an int or callable(attrs).
+    """
+
+    REQUIRED = object()
+
+    def __init__(self, name: str, fcompute: Callable,
+                 params: Optional[Dict[str, Tuple[Any, Any]]] = None,
+                 inputs: Any = ("data",), num_outputs: Any = 1,
+                 aliases: Sequence[str] = (), doc: str = ""):
+        self.name = name
+        self.fcompute = fcompute
+        self.params = params or {}
+        self._inputs = inputs
+        self._num_outputs = num_outputs
+        self.aliases = tuple(aliases)
+        self.doc = doc
+
+    def input_names(self, attrs: Optional[AttrDict] = None) -> List[str]:
+        if callable(self._inputs):
+            return list(self._inputs(attrs or self.parse_attrs({})))
+        return list(self._inputs)
+
+    def num_outputs(self, attrs: Optional[AttrDict] = None) -> int:
+        if callable(self._num_outputs):
+            return int(self._num_outputs(attrs or self.parse_attrs({})))
+        return int(self._num_outputs)
+
+    def parse_attrs(self, raw: Dict[str, Any]) -> AttrDict:
+        """Typed attrs from raw (possibly string-valued) ones, with
+        defaults applied and required fields checked. Unknown attrs are
+        kept verbatim, as in the JAX package."""
+        out = AttrDict()
+        for pname, (ptype, pdefault) in self.params.items():
+            if pname in raw:
+                v = raw[pname]
+                if v is None or (isinstance(v, str) and v == "None"):
+                    if pdefault is OpDef.REQUIRED:
+                        raise MXNetError("op %s: required attribute %r is "
+                                         "None" % (self.name, pname))
+                    out[pname] = pdefault
+                elif isinstance(v, str) or ptype in (bool, int, float, tuple) \
+                        or isinstance(ptype, str):
+                    out[pname] = parser_for(ptype)(v)
+                else:
+                    out[pname] = v
+            elif pdefault is OpDef.REQUIRED:
+                raise MXNetError("op %s: required attribute %r missing"
+                                 % (self.name, pname))
+            else:
+                out[pname] = pdefault
+        for k, v in raw.items():
+            if k not in out and not k.startswith("__"):
+                out[k] = v
+        return out
+
+    def __repr__(self):
+        return "OpDef(%s)" % self.name
+
+
+REQUIRED = OpDef.REQUIRED
+
+
+def register(name: str, params: Optional[Dict[str, Tuple[Any, Any]]] = None,
+             inputs: Any = ("data",), num_outputs: Any = 1,
+             aliases: Sequence[str] = ()):
+    """Decorator registering ``fcompute`` under ``name`` (+ aliases)."""
+
+    def deco(fn: Callable) -> Callable:
+        if name in OP_REGISTRY:
+            raise MXNetError("op %r registered twice" % name)
+        opdef = OpDef(name, fn, params=params, inputs=inputs,
+                      num_outputs=num_outputs, aliases=aliases,
+                      doc=fn.__doc__ or "")
+        OP_REGISTRY[name] = opdef
+        for a in aliases:
+            OP_REGISTRY.setdefault(a, opdef)
+        return fn
+
+    return deco
+
+
+def get_op(name: str) -> OpDef:
+    try:
+        return OP_REGISTRY[name]
+    except KeyError:
+        raise MXNetError("operator %r is not registered" % (name,))

@@ -1,0 +1,203 @@
+"""Tensor ops: the part of ``mxnet_tpu/ops/tensor.py`` the GPT training
+path calls, in PyTorch.
+
+Elementwise and broadcast arithmetic (and their scalar forms), the unary
+ops the losses use, ``sum``/``mean`` with ``exclude``, ``Reshape`` with
+MXNet's special codes, ``transpose``, ``SliceChannel``/``split``,
+``pick`` and ``Embedding``. Index tensors are cast to int64 inside
+``pick`` and ``Embedding``: torch's gathers need it, and callers feed
+int32. Every other op of the JAX module is not ported yet: ``nd.<name>``
+does not exist for it, and ``invoke`` raises "not registered".
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import MXNetError
+from .registry import REQUIRED, register
+
+__all__ = []
+
+
+def _norm_axes(axis, ndim, exclude=False):
+    if axis is None or (isinstance(axis, tuple) and len(axis) == 0):
+        axes = tuple(range(ndim))
+    else:
+        if isinstance(axis, int):
+            axis = (axis,)
+        axes = tuple(sorted(a % ndim if a < 0 else a for a in axis))
+    if exclude:
+        axes = tuple(i for i in range(ndim) if i not in axes)
+    return axes
+
+
+def _reg(name, fn, params=None, inputs=("data",), num_outputs=1,
+         aliases=()):
+    register(name, params=params, inputs=inputs, num_outputs=num_outputs,
+             aliases=aliases)(fn)
+
+
+# ---------------------------------------------------------------------------
+# elementwise
+# ---------------------------------------------------------------------------
+
+for _n, _f in {"negative": torch.neg, "abs": torch.abs,
+               "square": torch.square, "_copy": torch.clone}.items():
+    _reg(_n, lambda attrs, x, _f=_f: _f(x))
+
+_BINARY = {
+    "add": lambda a, b: a + b,
+    "sub": lambda a, b: a - b,
+    "mul": lambda a, b: a * b,
+    "div": lambda a, b: a / b,
+}
+for _n, _f in _BINARY.items():
+    # the elemwise_* and broadcast_* forms share one body (torch
+    # broadcasts natively), as in the JAX package
+    _reg("elemwise_" + _n, lambda attrs, a, b, _f=_f: _f(a, b),
+         inputs=("lhs", "rhs"), aliases=("_" + _n,))
+    _reg("broadcast_" + _n, lambda attrs, a, b, _f=_f: _f(a, b),
+         inputs=("lhs", "rhs"))
+
+_SCALAR = {
+    "_plus_scalar": lambda a, s: a + s,
+    "_minus_scalar": lambda a, s: a - s,
+    "_rminus_scalar": lambda a, s: s - a,
+    "_mul_scalar": lambda a, s: a * s,
+    "_div_scalar": lambda a, s: a / s,
+    "_rdiv_scalar": lambda a, s: s / a,
+}
+for _n, _f in _SCALAR.items():
+    # the output keeps the input dtype (the JAX package casts the scalar
+    # to a.dtype); a Python scalar needs no host-to-device copy
+    _reg(_n, lambda attrs, a, _f=_f: _f(a, attrs.scalar).to(a.dtype),
+         params={"scalar": (float, 0.0)})
+
+
+# ---------------------------------------------------------------------------
+# reductions
+# ---------------------------------------------------------------------------
+
+_REDUCE_PARAMS = {"axis": (tuple, None), "keepdims": (bool, False),
+                  "exclude": (bool, False)}
+
+
+def _def_reduce(name, fn):
+    def f(attrs, x):
+        axes = _norm_axes(attrs.axis, x.dim(), attrs.exclude)
+        if not axes:  # torch reads an empty dim list as "all": keep x
+            return x
+        return fn(x, dim=axes, keepdim=attrs.keepdims)
+
+    _reg(name, f, params=dict(_REDUCE_PARAMS))
+
+
+_def_reduce("sum", torch.sum)
+_def_reduce("mean", torch.mean)
+
+
+# ---------------------------------------------------------------------------
+# shape
+# ---------------------------------------------------------------------------
+
+
+def _reshape_infer(shape, target):
+    """MXNet Reshape semantics: 0 copies input dim, -1 infers, -2 copies
+    rest, -3 merges two dims, -4 splits a dim."""
+    out = []
+    src = list(shape)
+    i = 0
+    j = 0
+    while j < len(target):
+        t = target[j]
+        if t == 0:
+            out.append(src[i])
+            i += 1
+        elif t == -1:
+            out.append(-1)
+            i += 1
+        elif t == -2:
+            out.extend(src[i:])
+            i = len(src)
+        elif t == -3:
+            out.append(src[i] * src[i + 1])
+            i += 2
+        elif t == -4:
+            a, b = target[j + 1], target[j + 2]
+            if a == -1:
+                a = src[i] // b
+            if b == -1:
+                b = src[i] // a
+            out.extend([a, b])
+            i += 1
+            j += 2
+        else:
+            out.append(t)
+            i += 1
+        j += 1
+    if -1 in out:
+        known = 1
+        for v in out:
+            if v != -1:
+                known *= v
+        total = 1
+        for v in shape:
+            total *= v
+        out[out.index(-1)] = total // known
+    return tuple(out)
+
+
+def _reshape(attrs, x):
+    if not attrs.shape:
+        return x
+    if attrs.reverse:
+        return x.reshape(tuple(reversed(_reshape_infer(
+            tuple(reversed(x.shape)), tuple(reversed(attrs.shape))))))
+    return x.reshape(_reshape_infer(tuple(x.shape), attrs.shape))
+
+
+_reg("Reshape", _reshape, params={"shape": (tuple, None),
+                                  "reverse": (bool, False)},
+     aliases=("reshape",))
+_reg("transpose",
+     lambda attrs, x: x.permute(*attrs.axes) if attrs.axes
+     else x.permute(*reversed(range(x.dim()))),
+     params={"axes": (tuple, None)})
+
+
+def _split(attrs, x):
+    ax = attrs.axis % x.dim()
+    parts = torch.chunk(x, attrs.num_outputs, dim=ax)
+    if len(parts) != attrs.num_outputs or x.shape[ax] % attrs.num_outputs:
+        raise MXNetError("SliceChannel: axis %d of size %d does not split "
+                         "into %d" % (ax, x.shape[ax], attrs.num_outputs))
+    return tuple(p.squeeze(ax) if attrs.squeeze_axis else p for p in parts)
+
+
+_reg("SliceChannel", _split,
+     params={"num_outputs": (int, REQUIRED), "axis": (int, 1),
+             "squeeze_axis": (bool, False)},
+     num_outputs=lambda attrs: attrs.num_outputs, aliases=("split",))
+
+
+# ---------------------------------------------------------------------------
+# indexing
+# ---------------------------------------------------------------------------
+
+
+def _pick(attrs, x, idx):
+    ax = attrs.axis % x.dim()
+    idxe = idx.to(torch.int64).unsqueeze(ax).clamp(0, x.shape[ax] - 1)
+    out = torch.gather(x, ax, idxe)
+    return out if attrs.keepdims else out.squeeze(ax)
+
+
+_reg("pick", _pick,
+     params={"axis": (int, -1), "keepdims": (bool, False),
+             "mode": (str, "clip")},
+     inputs=("data", "index"))
+_reg("Embedding",
+     lambda attrs, data, weight: weight[data.to(torch.int64)],
+     params={"input_dim": (int, REQUIRED), "output_dim": (int, REQUIRED),
+             "dtype": ("dtype", None), "sparse_grad": (bool, False)},
+     inputs=("data", "weight"))

@@ -4,7 +4,13 @@
   anything of ``mxnet_tpu`` (an AST scan of every module), and the port
   still serves with ``jax`` and ``mxnet_tpu`` made unimportable;
 * its entry points run on the card by default: with no CUDA device and
-  no ``device="cpu"`` they raise instead of quietly using the CPU;
+  no ``device="cpu"`` they raise instead of quietly using the CPU; the
+  training slice's default context is ``gpu(0)``, so ``current_context()``
+  and ``nd.array`` without a context raise too, and ``gpu()`` raises
+  where the JAX package (``mxnet_tpu/context.py:81``) falls back to the
+  host;
+* the training slice, like the serving one, imports and trains with
+  ``jax`` and ``mxnet_tpu`` made unimportable;
 * ``chip_smoke.py`` refuses to run without a card, printing no result.
 """
 import ast
@@ -16,8 +22,9 @@ from pathlib import Path
 import pytest
 import torch
 
+import mxnet_tpu_torch as mx
 from conftest import subprocess_env
-from mxnet_tpu_torch import MXNetError, serving
+from mxnet_tpu_torch import MXNetError, nd, serving
 
 REPO = Path(__file__).resolve().parent.parent
 _BANNED = ("jax", "jaxlib", "mxnet_tpu")
@@ -89,6 +96,43 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(MXNetError, match="CUDA"):
         serving.DecodeEngine(model, params, num_slots=1, max_seq_len=8,
                              device="cuda")
+
+
+def test_training_slice_trains_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+from mxnet_tpu_torch.example.transformer import train_gpt
+res = train_gpt.run(train_gpt.parse_args(
+    ["--device", "cpu", "--epochs", "1", "--train-size", "64",
+     "--batch-size", "8", "--layers", "1"]))
+assert res["steps"] == 8 and res["test_ppl"] > 0
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("trained", res["steps"])
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "trained 8" in proc.stdout
+
+
+def test_training_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mx.current_context()
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        nd.array([1.0, 2.0])
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mx.gpu()  # no quiet fall-back to the host
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mx.gluon.nn.Dense(2, in_units=2).initialize()
+    with mx.cpu():  # asked for: the host is honoured
+        assert mx.current_context() == mx.cpu()
+        assert nd.array([1.0, 2.0]).context == mx.cpu()
 
 
 def test_chip_smoke_without_a_card_prints_no_result(tmp_path):
