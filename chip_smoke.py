@@ -8,14 +8,15 @@ Phases, each printing one line of its own (any failure exits non-zero):
 
 1. environment: torch/CUDA versions and the card's name and power limit
    (``nvidia-smi``); TF32 off for matmuls and cuDNN, so fp32 stays fp32;
-2. build: every kernel of the served and training paths, compiled with
-   nvcc from the sources in this checkout (one nvcc per source, all
-   started together);
+2. build: every kernel of the served, training and detection paths,
+   compiled with nvcc from the sources in this checkout (one nvcc per
+   source, all started together);
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the main path gives it (the one-row decode
    kernel on decode ticks and 32- and 64-row prefill chunks; the
    multi-query verify kernel on ragged speculative ticks, with GQA, and
-   at W=1 against the one-row kernel), with CUDA-event times of the
+   at W=1 against the one-row kernel; the flash-attention and NMS
+   kernels as set out below), with CUDA-event times of the
    kernel, the plain version and a PyTorch library call doing the same
    function (``library_ms``, a yardstick the port never calls);
 4. serve: ``DecodeEngine`` at the full width of the decode bench model
@@ -47,10 +48,32 @@ Phases, each printing one line of its own (any failure exits non-zero):
    gradients must agree;
 9. train_profile: torch.profiler device time of 10 training steps.
 
+10. ssd_train: the detection slice's main path, the port's
+    ``example/ssd/train_ssd.py`` at its defaults (3 epochs x 8 batches of
+    8 images, side 64, 3 classes, SGD 0.01 with momentum 0.9 and wd 5e-4)
+    through the symbolic Module API on the card: the last epoch's loss
+    must be below the first's (the example's own criterion), and the NMS
+    kernel must launch at least once per forward pass (24 training steps
+    and one inference pass); the losses, img/s and the detections on
+    image 0 are printed;
+11. ssd_parity: one forward and backward of the full-size SSD from the
+    same weights on the same batch, run twice, first through the kernel,
+    then with the detection ops' NMS swapped for the plain version: the
+    detection outputs must be equal, cls_prob, loc_loss and the
+    gradients must agree within 1e-4;
+12. ssd_profile: torch.profiler device time of 5 SSD training steps.
+
 The flash-attention kernel is checked (phase 3) against its plain
 version on the GPT shape, ragged and long shapes, both maskings, bf16
 inputs, and through its autograd Function's gradients, and timed at the
-GPT shape and at (4, 8, 2048, 64).
+GPT shape and at (4, 8, 2048, 64). The NMS kernel is checked against its
+plain version, whose keep masks it must equal exactly, at the SSD shape
+(B = 8, N = 3840, 3 classes, top-100 valid), with every box valid, under
+force_suppress, at N = 1, 77, 1000 and 6000 (``Proposal``'s default
+pre-NMS count), on duplicated boxes and on integer boxes whose IoU is
+exactly the threshold; then ``MultiBoxDetection`` through the kernel
+against the same op with the plain version; then timed at the SSD shape
+and at B = 1, N = 6000.
 
 In every serving and training phase the kernels' launch counts are set
 to 0 just before the phase drives the path and read just after.
@@ -86,6 +109,15 @@ BF16_TOL = 2e-2
 # the kernels' device-side names, as the profiler reports them
 KERNEL_1, KERNEL_2 = "paged_attention_kernel", "paged_spec_kernel"
 KERNEL_3 = "flash_attention_kernel"
+KERNEL_4 = "nms_keep_"  # nms_keep_mask_kernel and nms_keep_scan_kernel
+# the detection slice: the SSD example's NMS (batch 8, 3 x (32 x 32 +
+# 16 x 16) anchors at side 64, threshold 0.45, top 100), and Proposal's
+# default (6000 boxes before NMS, threshold 0.7, one class)
+SSD_NMS = (8, 3840, 0.45, 100)
+PROPOSAL_NMS = (1, 6000, 0.7)
+# fp32, the kernel and the plain version in one call on the same weights:
+# only the suppression differs, and it must decide alike
+SSD_TOL = 1e-4
 # the training slice: the GPT example's shape (batch 32, 4 heads, SEQ 64,
 # head_dim 64 / 4) and a long shape
 GPT_ATT = (32, 4, 64, 16)
@@ -124,11 +156,11 @@ def time_ms(fn, iters=50, warm=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, kernel, iters=20):
-    """Mean device duration per call of the kernels whose name contains
+def device_ms_by_kernel(fn, kernel, iters=20):
+    """Mean device duration per call of each kernel whose name contains
     ``kernel`` while ``fn()`` runs ``iters`` times, from torch.profiler:
-    the kernel alone, without its wrapper's host work (which bounds
-    ``time_ms`` at small shapes)."""
+    {short kernel name: ms}, the kernels alone, without their wrapper's
+    host work (which bounds ``time_ms`` at small shapes)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -139,11 +171,23 @@ def kernel_device_ms(fn, kernel, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name)
-    if us <= 0:
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and kernel in e.name:
+            # "(anonymous namespace)::nms_keep_scan_kernel(...)" -> the
+            # kernel's own name
+            name = e.name[e.name.find(kernel):].split("(")[0]
+            out[name] = out.get(name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / iters
+    if not out:
         fail("the profiler saw no device time of %s" % kernel)
-    return us / 1e3 / iters
+    return out
+
+
+def kernel_device_ms(fn, kernel, iters=20):
+    """Mean device duration per call of all kernels whose name contains
+    ``kernel``: the sum of ``device_ms_by_kernel``."""
+    return sum(device_ms_by_kernel(fn, kernel, iters).values())
 
 
 def build_all():
@@ -560,13 +604,315 @@ def check_flash_kernel():
             "max_abs_err": worst, **entry}
 
 
+def _nms_inputs(rng, b, n, n_valid=None, ncls=3, side=1.0, dup=False,
+                integer=False):
+    """Boxes sorted as the detection ops hand them to NMS: (B, N, 4)
+    corner boxes, classes, and the first ``n_valid`` of each image valid
+    (all when None)."""
+    import torch
+
+    if integer:  # 2x2 boxes on a unit grid: IoU exactly 1/7 or 1/3
+        xy = rng.randint(0, 6, (b, n, 2)).astype(np.float32)
+        wh = np.full((b, n, 2), 2.0, np.float32)
+    else:
+        xy = rng.rand(b, n, 2) * side * 0.8
+        wh = (0.05 + rng.rand(b, n, 2) * 0.35) * side
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    if dup:  # every odd box repeats the box before it
+        boxes[:, 1::2] = boxes[:, 0:n - 1:2]
+    cls = rng.randint(0, ncls, (b, n)).astype(np.float32)
+    valid = np.zeros((b, n), bool)
+    valid[:, :n if n_valid is None else n_valid] = True
+    dev = torch.device("cuda")
+    return [torch.tensor(a, device=dev) for a in (boxes, cls, valid)]
+
+
+def _nms_bound(boxes, cls, valid, keep, force):
+    """Least time (ms) of one NMS call on these inputs: 21 bytes a box
+    read (4 coordinates, a class, a valid byte) and a keep byte written;
+    operations: 5 a box for its area, and 15 for each (kept i, later
+    valid j) pair the greedy walk must test (same class, or any under
+    force_suppress): 4 min/max, 2 subtractions and 2 clamps for the
+    overlap, a product, an add, a subtract, a clamp, a division, a
+    comparison, a class test."""
+    b, n = keep.shape
+    k, v = keep.cpu().numpy(), valid.cpu().numpy()
+    c = cls.cpu().numpy()
+    pairs = 0
+    for img in range(b):
+        later = np.cumsum(v[img][::-1])[::-1]  # valid boxes at j >= i
+        for i in np.nonzero(k[img])[0]:
+            if force:
+                pairs += int(later[i]) - 1
+            else:
+                pairs += int(np.sum(v[img, i + 1:] & (c[img, i + 1:]
+                                                      == c[img, i])))
+    nbytes = b * n * (21 + 1)
+    ops = 5 * b * n + 15 * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", pairs)
+
+
+def check_nms_kernel():
+    """The NMS kernel against its plain version, keep masks exactly equal,
+    then MultiBoxDetection through the kernel against the same op with
+    the plain version, then timed."""
+    import torch
+
+    from mxnet_tpu_torch.ops import detection, nms
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    rng = np.random.RandomState(4)
+    b, n, thr, topk = SSD_NMS
+    cases = [("ssd", _nms_inputs(rng, b, n, topk), thr, False),
+             ("ssd_all_valid", _nms_inputs(rng, b, n), thr, False),
+             ("force_suppress", _nms_inputs(rng, 2, n), thr, True),
+             ("n1", _nms_inputs(rng, 3, 1), 0.5, False),
+             ("n77", _nms_inputs(rng, 3, 77), 0.5, False),
+             ("n1000", _nms_inputs(rng, 2, 1000), 0.3, False),
+             ("n6000", _nms_inputs(rng, 1, 6000, side=600.0), 0.7, True),
+             ("duplicates", _nms_inputs(rng, 2, 700, dup=True), 0.5, False)]
+    for t in (1.0 / 7.0, 1.0 / 3.0):
+        cases.append(("iou_on_threshold_%.4f" % t,
+                      _nms_inputs(rng, 2, 300, ncls=1, integer=True), t,
+                      False))
+    worst = 0.0  # largest |kernel - plain| over every case, keep as 0/1
+    for name, (bx, c, v), t, force in cases:
+        got = nms.nms_keep_cuda(bx, c, v, t, force)
+        torch.cuda.synchronize()
+        want = nms.nms_keep_reference(bx, c, v, t, force)
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        if not torch.equal(got, want):
+            fail("nms kernel case %s: %d of %d keep decisions differ from "
+                 "the plain version" % (name, int((got != want).sum()),
+                                        got.numel()))
+        phase("kernel_check", case="nms_" + name, shape=list(v.shape),
+              kept=int(got.sum()), valid=int(v.sum()), equal=True)
+
+    # the whole op: decode, per-class sort, top-k cut and NMS
+    op = get_op("_contrib_MultiBoxDetection")
+    attrs = op.parse_attrs({"nms_threshold": thr, "nms_topk": topk})
+    logits = torch.tensor(rng.randn(b, 4, n).astype(np.float32) * 3,
+                          device="cuda")
+    prob = torch.softmax(logits, dim=1)
+    loc = torch.tensor(rng.randn(b, n * 4).astype(np.float32) * 0.5,
+                       device="cuda")
+    anchors = _nms_inputs(rng, 1, n)[0]
+    outs = []
+    try:
+        for plain in (False, True):
+            if plain:
+                detection.nms_keep = nms.nms_keep_reference
+            nms.nms_keep_cuda.launches = 0
+            outs.append(op.fcompute(attrs, prob, loc, anchors))
+            torch.cuda.synchronize()
+            outs.append(nms.nms_keep_cuda.launches)
+    finally:
+        detection.nms_keep = nms.nms_keep
+    worst = max(worst, float((outs[0] - outs[2]).abs().max()))
+    if outs[1] != 1 or outs[3] != 0 or not torch.equal(outs[0], outs[2]):
+        fail("MultiBoxDetection through the kernel differs from the plain "
+             "version (launches %d / %d)" % (outs[1], outs[3]))
+    phase("kernel_check", case="nms_multibox_detection", shape=[b, n, 6],
+          detections=int((outs[0][..., 0] >= 0).sum()), equal=True)
+
+    entry = None
+    for case, (bx, c, v), t, force in (
+            ("ssd_%dx%d" % (b, n), _nms_inputs(rng, b, n, topk), thr, False),
+            ("proposal_%dx%d" % PROPOSAL_NMS[:2],
+             _nms_inputs(rng, *PROPOSAL_NMS[:2], ncls=1, side=600.0),
+             PROPOSAL_NMS[2], True)):
+        def run():
+            return nms.nms_keep_cuda(bx, c, v, t, force)
+
+        ms = time_ms(run, iters=50)
+        by_kernel = device_ms_by_kernel(run, KERNEL_4)
+        device_ms = sum(by_kernel.values())
+        plain_ms = time_ms(lambda: nms.nms_keep_reference(bx, c, v, t,
+                                                          force),
+                           iters=3, warm=1)
+        bound_ms, bound_by, pairs = _nms_bound(bx, c, v, run(), force)
+        phase("kernel_time", case="nms_" + case, ms=ms, device_ms=device_ms,
+              device_ms_by_kernel=by_kernel, plain_ms=plain_ms,
+              bound_ms=bound_ms, bound_by=bound_by,
+              iou_pairs=pairs, valid=int(v.sum()), library_ms=None,
+              library="none: no PyTorch call computes greedy NMS "
+                      "(torchvision is not on the card's machine)")
+        if entry is None:  # the SSD path's shape
+            entry = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
+    return {"name": "nms_keep", "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/nms.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:52",
+            "max_abs_err": worst, **entry}
+
+
+def _ssd_rec():
+    """The SSD example's synthetic dataset, in a fresh temporary
+    directory (removed by the caller)."""
+    import tempfile
+
+    from mxnet_tpu_torch.example.ssd import train_ssd
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssd_")
+    return tmp, train_ssd.make_dataset(os.path.join(tmp, "shapes"))
+
+
+def ssd_train():
+    """The detection slice's main path: the port's train_ssd example at
+    its defaults on the card; it must learn and run the NMS kernel on
+    every forward pass."""
+    import shutil
+
+    from mxnet_tpu_torch.example.ssd import train_ssd
+    from mxnet_tpu_torch.ops import nms
+
+    tmp, rec = _ssd_rec()
+    try:
+        args = train_ssd.parse_args(["--rec", rec])  # the defaults: the card
+        _reset_launches()
+        res = train_ssd.run(args)
+        launches = nms.nms_keep_cuda.launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not res["improved"]:
+        fail("ssd_train: loss %.4f -> %.4f did not improve"
+             % (res["first_loss"], res["last_loss"]))
+    if launches < res["steps"] + 1:
+        fail("ssd_train: NMS kernel launched %d times for %d training "
+             "steps and one inference pass" % (launches, res["steps"]))
+    phase("ssd_train", steps=res["steps"], batch=args.batch_size,
+          side=args.side, epochs=res["epochs"], train_s=res["train_s"],
+          img_per_s=res["img_per_s"], first_loss=res["first_loss"],
+          last_loss=res["last_loss"], det_shape=list(res["det_shape"]),
+          detections_image0=res["detections"],
+          best_score_image0=res["best_score"], nms_launches=launches)
+    return launches
+
+
+def _ssd_on_card(rec):
+    """The SSD example's module on the card, seed-11 weights, bound and
+    with its optimizer, and its iterator."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.ssd import train_ssd
+
+    mx.random.seed(11)
+    it = mx.image.ImageDetIter(batch_size=8, data_shape=(3, 64, 64),
+                               path_imgrec=rec, shuffle=True, mean=True,
+                               std=True, rand_mirror=True)
+    mod = mx.module.Module(train_ssd.get_symbol_train(train_ssd.NUM_CLASSES),
+                           data_names=("data",), label_names=("label",))
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(mx.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.01, "momentum": 0.9, "wd": 5e-4})
+    return it, mod
+
+
+def ssd_parity():
+    """One forward and backward from the same weights on the same batch,
+    through the kernel and with the plain version swapped in."""
+    import shutil
+
+    import torch
+
+    from mxnet_tpu_torch.ops import detection, nms
+
+    tmp, rec = _ssd_rec()
+    try:
+        it, mod = _ssd_on_card(rec)
+        batch = next(iter(it))
+        ex = mod._exec_group.execs[0]
+        runs = []
+        try:
+            for plain in (False, True):
+                if plain:
+                    detection.nms_keep = nms.nms_keep_reference
+                _reset_launches()
+                mod.forward(batch, is_train=True)
+                mod.backward()
+                torch.cuda.synchronize()
+                runs.append(([o.asnumpy() for o in mod.get_outputs()],
+                             {k: g.asnumpy() for k, g in ex.grad_dict.items()},
+                             nms.nms_keep_cuda.launches))
+        finally:
+            detection.nms_keep = nms.nms_keep
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (o_k, g_k, n_k), (o_p, g_p, n_p) = runs
+    if n_k != 1 or n_p != 0:
+        fail("ssd_parity: %d kernel launches in the kernel run, %d in the "
+             "plain run" % (n_k, n_p))
+    errs = [float(np.abs(a - b).max()) for a, b in zip(o_k[:3], o_p[:3])]
+    grad_err = max(float(np.abs(g_k[k] - g_p[k]).max()) for k in g_k)
+    if not np.array_equal(o_k[3], o_p[3]):
+        fail("ssd_parity: the detection outputs differ")
+    if max(errs) > SSD_TOL or grad_err > SSD_TOL:
+        fail("ssd_parity: output errs %s, gradient err %.3g"
+             % (errs, grad_err))
+    phase("ssd_parity", detections_equal=True,
+          cls_prob_max_abs_err=errs[0], loc_loss_max_abs_err=errs[1],
+          grad_max_abs_err=grad_err, tol=SSD_TOL, params=len(g_k),
+          detections=int((o_k[3][..., 0] >= 0).sum()), kernel_launches=n_k)
+
+
+def ssd_profile(steps=5):
+    """Where an SSD training step's time goes: 5 steps traced with
+    torch.profiler (device activity only)."""
+    import shutil
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tmp, rec = _ssd_rec()
+    try:
+        it, mod = _ssd_on_card(rec)
+        batches = [b for _, b in zip(range(steps + 2), it)]
+        for batch in batches[:2]:  # warm up
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for batch in batches[2:]:
+                mod.forward_backward(batch)
+                mod.update()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    by_name = {}  # device op name -> [ms, launches]
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = by_name.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    if busy_ms <= 0.0:
+        fail("the profiler saw no device time in the traced SSD steps")
+    nms_ms = sum(ms for k, (ms, _) in by_name.items() if KERNEL_4 in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    phase("ssd_profile", steps=steps, wall_ms=wall_ms,
+          per_step_wall_ms=wall_ms / steps, device_busy_ms=busy_ms,
+          per_step_busy_ms=busy_ms / steps,
+          device_busy_share=busy_ms / wall_ms, nms_ms=nms_ms,
+          nms_share_of_busy=nms_ms / busy_ms,
+          device_ops_per_step=sum(n for _, n in by_name.values()) / steps,
+          top_device_ms=[[k[:140], ms, n] for k, (ms, n) in top])
+
+
 def _reset_launches():
     from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import nms
     from mxnet_tpu_torch.ops import paged_attention as pa
 
     pa.ragged_paged_attention.launches = 0
     pa.ragged_spec_attention.launches = 0
     fa.flash_attention_forward.launches = 0
+    nms.nms_keep_cuda.launches = 0
 
 
 def _read_launches():
@@ -988,6 +1334,7 @@ def main():
     entry = check_kernels()
     spec_entry = check_spec_kernel()
     flash_entry = check_flash_kernel()
+    nms_entry = check_nms_kernel()
     entry["launches"] = serve()
     from mxnet_tpu_torch import serving
 
@@ -998,8 +1345,11 @@ def main():
     flash_entry["launches"] = train()
     train_parity()
     train_profile()
-    print(json.dumps({"kernels": [entry, spec_entry, flash_entry]}),
-          flush=True)
+    nms_entry["launches"] = ssd_train()
+    ssd_parity()
+    ssd_profile()
+    print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
+                                  nms_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,19 +17,26 @@ Ported so far: the decode-serving plane (``serving.DecodeEngine`` over
 (``ops.paged_attention``), and the imperative/gluon training path of the
 GPT example (``nd``, ``autograd``, ``gluon``, ``initializer``,
 ``optimizer``; ``example/transformer/train_gpt.py``) with the
-flash-attention kernel (``ops.flash_attention``). The training path
-follows MXNet's entry points, with one departure: the default context is
-the card (``gpu(0)``), and without one, code that does not ask for
-``mx.cpu()`` raises.
+flash-attention kernel (``ops.flash_attention``), and the symbolic path
+of the SSD example (``sym``, ``executor``, ``module``, ``io``,
+``recordio``, ``image``, the detection ops; ``example/ssd/train_ssd.py``)
+with the NMS kernel (``ops.nms``). The training paths follow MXNet's
+entry points, with one departure: the default context is the card
+(``gpu(0)``), and without one, code that does not ask for ``mx.cpu()``
+raises.
 """
 from __future__ import annotations
 
 from . import autograd, gluon, initializer, ndarray, optimizer, random
+from . import attribute, executor, image, io, model, module, recordio
 from . import ndarray as nd
+from . import symbol
+from . import symbol as sym
 from .base import MXNetError, fetch_host, get_env, resolve_device
 from .context import Context, cpu, current_context, gpu, num_gpus
 
 __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
            "Context", "cpu", "gpu", "current_context", "num_gpus",
            "autograd", "gluon", "initializer", "nd", "ndarray", "optimizer",
-           "random"]
+           "random", "attribute", "executor", "image", "io", "model",
+           "module", "recordio", "sym", "symbol"]

@@ -1,0 +1,164 @@
+"""Executor: a bound Symbol, the port of ``mxnet_tpu/executor.py``.
+
+Where the JAX executor jits the whole graph and takes a ``jax.vjp`` of it
+(``mxnet_tpu/executor.py:87-183``), this one walks the graph eagerly
+(:meth:`Symbol.eval_torch`):
+
+* ``forward(is_train=True)`` evaluates under torch autograd, with each
+  argument whose ``grad_req`` is not ``null`` entered as a fresh leaf
+  tensor (sharing the argument's storage), and keeps the outputs' graph
+  for one backward;
+* ``forward(is_train=False)`` evaluates under ``torch.no_grad()``;
+* ``backward(out_grads)`` takes ``torch.autograd.grad`` from the outputs
+  to those leaves, feeding ones to every output when ``out_grads`` is
+  None (``executor.py:275-277``). Outputs that carry no gradient
+  (``BlockGrad``, ``MultiBoxDetection``, whose JAX forms stop gradients)
+  are left out; ops with a gradient of their own (``SoftmaxOutput``,
+  ``MakeLoss``) apply it. Gradients land in ``grad_dict`` under
+  ``grad_req``: ``write`` rebinds, ``add`` accumulates, ``null`` skips.
+
+The graph is held from forward to backward and freed by it. A captured
+graph (the JAX package's one compiled step) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from . import autograd
+from .base import MXNetError
+from .context import Context, current_context
+from .ndarray.ndarray import NDArray
+
+__all__ = ["Executor"]
+
+
+class Executor(object):
+    """A bound computation graph (reference executor.py:45).
+
+    ``args``/``args_grad``/``aux_states`` are dicts, or lists of NDArrays
+    in ``list_arguments()`` order, as for ``Symbol.bind``."""
+
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None):
+        self._symbol = symbol
+        self._ctx = ctx if isinstance(ctx, Context) else current_context()
+        self.arg_names = symbol.list_arguments()
+        self.aux_names = symbol.list_auxiliary_states()
+        self.output_names = symbol.list_outputs()
+
+        self.arg_dict = self._as_dict(args, self.arg_names, "args")
+        self.arg_arrays = [self.arg_dict[n] for n in self.arg_names]
+        self.grad_dict = {} if args_grad is None else self._as_dict(
+            args_grad, self.arg_names, "args_grad", allow_missing=True)
+        self.grad_arrays = [self.grad_dict.get(n) for n in self.arg_names]
+        self.aux_dict = self._as_dict(aux_states or {}, self.aux_names,
+                                      "aux_states")
+        self.aux_arrays = [self.aux_dict[n] for n in self.aux_names]
+
+        if isinstance(grad_req, str):
+            self.grad_req = dict.fromkeys(self.arg_names, grad_req)
+        elif isinstance(grad_req, (list, tuple)):
+            self.grad_req = dict(zip(self.arg_names, grad_req))
+        else:
+            self.grad_req = dict(grad_req)
+        bad = {r for r in self.grad_req.values()
+               if r not in ("write", "add", "null")}
+        if bad:
+            raise MXNetError("grad_req must be write, add or null, got %s"
+                             % sorted(bad))
+
+        self.outputs: List[NDArray] = []
+        self._heads = None  # (output tensors, leaves, names) for backward
+
+    @staticmethod
+    def _as_dict(vals, names, what, allow_missing=False):
+        if isinstance(vals, dict):
+            missing = [n for n in names if n not in vals]
+            if missing and not allow_missing:
+                raise MXNetError("%s: missing bindings for %s"
+                                 % (what, missing))
+            return {n: vals[n] for n in names if n in vals}
+        vals = list(vals)
+        if len(vals) != len(names):
+            raise MXNetError("%s: expected %d arrays, got %d"
+                             % (what, len(names), len(vals)))
+        return dict(zip(names, vals))
+
+    def forward(self, is_train=False, **kwargs):
+        """Run the graph (reference executor.py:114); keyword arrays
+        rebind arguments first."""
+        for name, val in kwargs.items():
+            if name not in self.arg_dict:
+                raise MXNetError("unknown argument %r" % name)
+            self.arg_dict[name]._data = val._data if isinstance(
+                val, NDArray) else torch.as_tensor(
+                    val, device=self.arg_dict[name]._data.device)
+        values = {n: a._data for n, a in self.arg_dict.items()}
+        values.update((n, a._data) for n, a in self.aux_dict.items())
+        self._heads = None
+        with autograd.train_mode() if is_train else autograd.predict_mode():
+            if is_train:
+                diff = [n for n in self.arg_names
+                        if self.grad_req.get(n, "null") != "null"
+                        and n in self.grad_dict]
+                leaves = []
+                for n in diff:
+                    leaf = values[n].detach().requires_grad_(True)
+                    values[n] = leaf
+                    leaves.append(leaf)
+                with torch.enable_grad():
+                    outs = self._symbol.eval_torch(values)
+                self._heads = (outs, leaves, diff)
+            else:
+                with torch.no_grad():
+                    outs = self._symbol.eval_torch(values)
+        self.outputs = [NDArray(o.detach()) for o in outs]
+        return self.outputs
+
+    def backward(self, out_grads=None, is_train=True):
+        """Gradients of the last ``forward(is_train=True)`` into
+        ``grad_dict`` (reference executor.py:155)."""
+        if self._heads is None:
+            raise MXNetError("backward needs a fresh forward(is_train=True)")
+        outs, leaves, names = self._heads
+        self._heads = None  # one backward per forward, as in the JAX one
+        if out_grads is None:
+            cts = [torch.ones_like(o) for o in outs]
+        else:
+            if isinstance(out_grads, NDArray):
+                out_grads = [out_grads]
+            cts = [g._data if isinstance(g, NDArray)
+                   else torch.as_tensor(g, device=o.device)
+                   for g, o in zip(out_grads, outs)]
+        pairs = [(o, c) for o, c in zip(outs, cts) if o.requires_grad]
+        if pairs and leaves:
+            grads = torch.autograd.grad([o for o, _ in pairs], leaves,
+                                        [c for _, c in pairs],
+                                        allow_unused=True)
+        else:
+            grads = [None] * len(leaves)
+        for name, leaf, g in zip(names, leaves, grads):
+            tgt = self.grad_dict[name]
+            if g is None:
+                g = torch.zeros_like(leaf)
+            if self.grad_req[name] == "add":
+                tgt._data = tgt._data + g
+            else:
+                tgt._data = g
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Bind parameter values (reference executor.py:copy_params_from):
+        a value on this executor's device is shared, not copied."""
+        dev = self._ctx.torch_device()
+        for src, dst, what in ((arg_params, self.arg_dict, "arguments"),
+                               (aux_params or {}, self.aux_dict,
+                                "auxiliary states")):
+            for name, array in src.items():
+                if name in dst:
+                    dst[name]._data = array._data.detach().to(dev)
+                elif not allow_extra_params:
+                    raise MXNetError("Found name \"%s\" that is not in the "
+                                     "%s" % (name, what))

@@ -1,0 +1,289 @@
+"""Module: symbolic training over one Symbol, the port of
+``mxnet_tpu/module/module.py`` (bind, init_params, init_optimizer,
+forward/backward, update, get_outputs, get_params/set_params).
+
+One context (the card by default: ``context=None`` is the current
+context, which raises without a card unless a ``with mx.cpu():`` scope
+asks for the host), no kvstore, and :meth:`Module.update` applies the
+optimizer's per-parameter updater in place. The fused ``fastpath`` apply
+of the JAX package is not ported yet.
+
+:func:`params_from_jax` carries the JAX ``Module.get_params()`` into this
+package, so both can compute the same thing.
+"""
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from .. import optimizer as opt
+from ..base import MXNetError
+from ..context import Context, current_context
+from ..initializer import InitDesc, Uniform
+from ..ndarray import ndarray as nd_mod
+from ..ndarray.ndarray import NDArray
+from .base_module import BaseModule, _check_input_names
+from .executor_group import DataParallelExecutorGroup
+
+__all__ = ["Module", "params_from_jax"]
+
+
+class Module(BaseModule):
+    def __init__(self, symbol, data_names=("data",),
+                 label_names=("softmax_label",), logger=logging,
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None, group2ctxs=None, compression_params=None):
+        super().__init__(logger=logger)
+        if context is None:
+            context = current_context()
+        if isinstance(context, Context):
+            context = [context]
+        if group2ctxs or state_names or compression_params:
+            raise MXNetError("Module: group2ctxs, state_names and "
+                             "compression_params are not ported yet")
+        self._context = list(context)
+        self._symbol = symbol
+        data_names = list(data_names) if data_names is not None else []
+        label_names = list(label_names) if label_names is not None else []
+        fixed_param_names = list(fixed_param_names or [])
+        _check_input_names(symbol, data_names, "data", True)
+        _check_input_names(symbol, label_names, "label", False)
+        _check_input_names(symbol, fixed_param_names, "fixed_param", True)
+
+        input_names = data_names + label_names
+        self._param_names = [x for x in symbol.list_arguments()
+                             if x not in input_names]
+        self._fixed_param_names = fixed_param_names
+        self._aux_names = symbol.list_auxiliary_states()
+        self._data_names = data_names
+        self._label_names = label_names
+        self._output_names = symbol.list_outputs()
+
+        self._arg_params = None
+        self._aux_params = None
+        self._params_dirty = False
+        self._optimizer = None
+        self._updater = None
+        self._exec_group = None
+        self._data_shapes = None
+        self._label_shapes = None
+
+    # -- properties -------------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    @property
+    def data_shapes(self):
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        return list(zip(self._output_names, self._inferred_out_shapes))
+
+    def _require(self, *what):
+        for w in what:
+            if not getattr(self, w):
+                raise MXNetError("Module: call %s first" % {
+                    "binded": "bind()", "params_initialized": "init_params()",
+                    "optimizer_initialized": "init_optimizer()"}[w])
+
+    # -- parameters -------------------------------------------------------
+    def get_params(self):
+        """``(arg_params, aux_params)``: name -> NDArray on the context."""
+        self._require("binded", "params_initialized")
+        if self._params_dirty:
+            self._exec_group.get_params(self._arg_params, self._aux_params)
+            self._params_dirty = False
+        return self._arg_params, self._aux_params
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False, allow_extra=False):
+        """Initialize the parameters (reference module.py:init_params):
+        from ``arg_params``/``aux_params`` where given, else by the
+        initializer, in sorted name order (the JAX package's draw order)."""
+        if self.params_initialized and not force_init:
+            return
+        self._require("binded")
+        if initializer is None:
+            initializer = Uniform(0.01)
+        ctx = self._context[0]
+        if self._arg_params is None:
+            self._arg_params = {n: nd_mod.zeros(s, ctx=ctx)
+                                for n, s in self._param_shapes.items()}
+        if self._aux_params is None:
+            self._aux_params = {n: nd_mod.zeros(s, ctx=ctx)
+                                for n, s in self._aux_shapes.items()}
+        attrs = self._symbol.attr_dict()
+
+        def _impl(name, arr, cache):
+            if cache is not None:
+                if name in cache:
+                    src = cache[name]
+                    data = src._data if isinstance(src, NDArray) \
+                        else torch.as_tensor(np.asarray(src))
+                    if tuple(data.shape) != tuple(arr.shape):
+                        raise MXNetError("%s: shape %s given, %s expected"
+                                         % (name, tuple(data.shape),
+                                            arr.shape))
+                    arr._data = data.detach().to(
+                        device=arr._data.device, dtype=arr._data.dtype)
+                    return
+                if not allow_missing:
+                    raise RuntimeError("%s is not presented" % name)
+            if initializer is not None:
+                initializer(InitDesc(name, attrs.get(name)), arr)
+
+        for name, arr in sorted(self._arg_params.items()):
+            _impl(name, arr, arg_params)
+        for name, arr in sorted(self._aux_params.items()):
+            _impl(name, arr, aux_params)
+        self.params_initialized = True
+        self._params_dirty = False
+        self._exec_group.set_params(self._arg_params, self._aux_params,
+                                    allow_extra=allow_extra)
+
+    # -- binding ----------------------------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        """Infer every shape and bind one executor (reference
+        module.py:bind)."""
+        from ..io import DataDesc
+
+        if shared_module is not None:
+            raise MXNetError("Module.bind(shared_module) is not ported yet")
+        if force_rebind:
+            self._exec_group = None
+            self.binded = False
+        if self.binded:
+            self.logger.warning("Already binded, ignoring bind()")
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        data_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
+                       for x in data_shapes]
+        if label_shapes is not None:
+            label_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
+                            for x in label_shapes]
+        self._data_shapes = data_shapes
+        self._label_shapes = label_shapes
+        shapes = dict(data_shapes)
+        shapes.update(dict(label_shapes or []))
+        arg_shapes, out_shapes, aux_shapes = self._symbol.infer_shape(
+            **shapes)
+        self._inferred_out_shapes = out_shapes
+        self._param_shapes = {
+            n: s for n, s in zip(self._symbol.list_arguments(), arg_shapes)
+            if n in self._param_names}
+        self._aux_shapes = dict(zip(self._aux_names, aux_shapes))
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, self._context, data_shapes, label_shapes,
+            self._param_names, for_training, inputs_need_grad,
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+        self.binded = True
+        if self.params_initialized:
+            self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        """Set up the optimizer (reference module.py:474): one device, no
+        kvstore, ``rescale_grad`` 1 / batch size unless given."""
+        from ..model import _create_kvstore
+
+        self._require("binded", "params_initialized")
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning("optimizer already initialized, ignoring...")
+            return
+        _create_kvstore(kvstore, len(self._context), self._arg_params)
+        if isinstance(optimizer, str):
+            names = [n for n in self._symbol.list_arguments()
+                     if n in self._param_names]
+            optimizer_params = dict(optimizer_params)
+            optimizer_params.setdefault(
+                "rescale_grad", 1.0 / self._exec_group.batch_size)
+            optimizer = opt.create(optimizer,
+                                   param_idx2name=dict(enumerate(names)),
+                                   **optimizer_params)
+        self._optimizer = optimizer
+        self._updater = opt.get_updater(optimizer)
+        self.optimizer_initialized = True
+
+    # -- computation ------------------------------------------------------
+    def forward(self, data_batch, is_train=None):
+        self._require("binded", "params_initialized")
+        self._exec_group.forward(data_batch, is_train)
+
+    def backward(self, out_grads=None):
+        self._require("binded", "params_initialized")
+        self._exec_group.backward(out_grads=out_grads)
+
+    def update(self):
+        """One optimizer step on every parameter with a gradient, in
+        place (reference module.py:644 without a kvstore)."""
+        self._require("binded", "params_initialized",
+                      "optimizer_initialized")
+        self._params_dirty = True
+        e = self._exec_group.execs[0]
+        names = [n for n in self._symbol.list_arguments()
+                 if n in self._param_names]
+        for idx, name in enumerate(names):
+            if name in e.grad_dict:
+                self._updater(idx, e.grad_dict[name], e.arg_dict[name])
+
+    def get_outputs(self, merge_multi_context=True):
+        self._require("binded", "params_initialized")
+        return self._exec_group.get_outputs(merge_multi_context)
+
+    def get_input_grads(self, merge_multi_context=True):
+        self._require("binded", "params_initialized")
+        if not self.inputs_need_grad:
+            raise MXNetError("bind with inputs_need_grad=True first")
+        return self._exec_group.get_input_grads(merge_multi_context)
+
+
+def params_from_jax(mod, arg_params, aux_params):
+    """The JAX ``Module.get_params()`` pair (name -> NDArray or numpy) as
+    this package's, for ``mod.set_params``: NDArrays on the bound port
+    module ``mod``'s context under the same names (the names are explicit,
+    ``conv1_weight``, ``cls_pred0_bias``, ...). Each name must be one of
+    ``mod``'s parameters (auxiliary states) with the same shape, float32;
+    a missing, extra or mismatched one raises."""
+    mod._require("binded")
+    dev = mod._context[0].torch_device()
+    out = []
+    for params, want in ((arg_params, mod._param_shapes),
+                         (aux_params, mod._aux_shapes)):
+        params = params or {}
+        missing = sorted(set(want) - set(params))
+        extra = sorted(set(params) - set(want))
+        if missing or extra:
+            raise MXNetError("params_from_jax: missing %s, extra %s"
+                             % (missing, extra))
+        conv = {}
+        for name, value in params.items():
+            host = np.asarray(value.asnumpy() if hasattr(value, "asnumpy")
+                              else value)
+            if host.shape != tuple(want[name]) or host.dtype != np.float32:
+                raise MXNetError("params_from_jax: %s is %s %s, the port "
+                                 "expects float32 %s" % (
+                                     name, host.dtype, host.shape,
+                                     tuple(want[name])))
+            conv[name] = NDArray(torch.from_numpy(np.array(host)).to(dev))
+        out.append(conv)
+    return tuple(out)

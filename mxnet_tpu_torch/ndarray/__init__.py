@@ -1,6 +1,7 @@
 """``mx.nd``: NDArray plus one function per registered op, generated from
-the registry as the JAX package's ``ndarray/__init__.py`` does, and
-``invoke``, the way ``F.invoke`` reaches an op by name."""
+the registry as the JAX package's ``ndarray/__init__.py`` does,
+``invoke``, the way ``F.invoke`` reaches an op by name, and
+``nd.contrib``, the ``_contrib_*`` ops under their short names."""
 import sys as _sys
 
 from .. import ops as _ops  # noqa: F401  (registers the ops)
@@ -48,3 +49,5 @@ subtract = getattr(_mod, "broadcast_sub")
 multiply = getattr(_mod, "broadcast_mul")
 divide = getattr(_mod, "broadcast_div")
 split = getattr(_mod, "SliceChannel")
+
+from . import contrib  # noqa: E402  (reads the generated functions above)

@@ -108,6 +108,10 @@ class NDArray:
             str(self.asnumpy()), "x".join(str(s) for s in self.shape),
             self.context)
 
+    def astype(self, dtype) -> "NDArray":
+        """A copy cast to ``dtype``."""
+        return NDArray(self._data.detach().to(torch_dtype(dtype), copy=True))
+
     def copy(self) -> "NDArray":
         return invoke("_copy", self)
 

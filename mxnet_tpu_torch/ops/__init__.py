@@ -8,14 +8,20 @@ its plain PyTorch version.
 * :mod:`.flash_attention` — the fused attention forward of the training
   path (CUDA C++, ``csrc/flash_attention.cu``), replacing the Pallas
   ``_flash_kernel``, under the registered op ``_contrib_flash_attention``.
+* :mod:`.nms` — greedy non-maximum suppression of the detection path
+  (CUDA C++, ``csrc/nms.cu``), replacing the Pallas ``_nms_kernel``; the
+  detection ops of :mod:`.detection` call it.
 
-:mod:`.registry` holds the op registry; :mod:`.tensor` and :mod:`.nn`
-register the plain PyTorch ops the GPT training path calls.
+:mod:`.registry` holds the op registry; :mod:`.tensor`, :mod:`.nn` and
+:mod:`.detection` register the plain PyTorch ops the GPT and SSD training
+paths call.
 
 Kernels are built by :mod:`._build` at first use, never at import.
 """
 from __future__ import annotations
 
-from . import flash_attention, nn, paged_attention, registry, tensor
+from . import (detection, flash_attention, nms, nn, paged_attention,
+               registry, tensor)
 
-__all__ = ["flash_attention", "nn", "paged_attention", "registry", "tensor"]
+__all__ = ["detection", "flash_attention", "nms", "nn", "paged_attention",
+           "registry", "tensor"]

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from ..base import MXNetError, parser_for
+from ..base import MXNetError, dtype_name, parser_for
 
 __all__ = ["OpDef", "register", "get_op", "AttrDict", "OP_REGISTRY",
            "REQUIRED"]
@@ -95,6 +95,28 @@ class OpDef:
         for k, v in raw.items():
             if k not in out and not k.startswith("__"):
                 out[k] = v
+        return out
+
+    def serialize_attrs(self, attrs: Dict[str, Any]) -> Dict[str, str]:
+        """Declared attrs as strings for MXNet-format symbol JSON, as the
+        JAX package writes them: tuples of numbers as ``(a, b)`` with
+        integral values printed as ints, an unset optional attr left
+        out."""
+        out = {}
+        for k, v in attrs.items():
+            if k not in self.params:
+                continue
+            ptype, pdefault = self.params[k]
+            if v is None and pdefault is None:
+                continue
+            if ptype == "dtype" and v is not None:
+                out[k] = dtype_name(v)
+            elif isinstance(v, (tuple, list)):
+                out[k] = "(" + ", ".join(
+                    str(int(x)) if float(x).is_integer() else repr(float(x))
+                    for x in v) + ")"
+            else:
+                out[k] = str(v)
         return out
 
     def __repr__(self):

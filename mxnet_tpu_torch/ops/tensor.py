@@ -1,10 +1,13 @@
-"""Tensor ops: the part of ``mxnet_tpu/ops/tensor.py`` the GPT training
-path calls, in PyTorch.
+"""Tensor ops: the part of ``mxnet_tpu/ops/tensor.py`` the GPT and SSD
+training paths call, in PyTorch.
 
 Elementwise and broadcast arithmetic (and their scalar forms), the unary
 ops the losses use, ``sum``/``mean`` with ``exclude``, ``Reshape`` with
 MXNet's special codes, ``transpose``, ``SliceChannel``/``split``,
-``pick`` and ``Embedding``. Index tensors are cast to int64 inside
+``pick`` and ``Embedding``; and for the SSD path ``Flatten``,
+``Concat``, ``BlockGrad``, ``MakeLoss`` (a ``torch.autograd.Function``
+with the reference's backward), ``smooth_l1`` and the rest of what
+Symbol's operator sugar emits. Index tensors are cast to int64 inside
 ``pick`` and ``Embedding``: torch's gathers need it, and callers feed
 int32. Every other op of the JAX module is not ported yet: ``nd.<name>``
 does not exist for it, and ``invoke`` raises "not registered".
@@ -59,6 +62,22 @@ for _n, _f in _BINARY.items():
     _reg("broadcast_" + _n, lambda attrs, a, b, _f=_f: _f(a, b),
          inputs=("lhs", "rhs"))
 
+# the rest of what Symbol's operator sugar emits (mxnet_tpu/symbol.py:
+# 141-210): power, mod and the comparisons, whose result keeps the
+# input's dtype (1.0 / 0.0)
+_SUGAR = {
+    "_power": torch.pow,
+    "broadcast_mod": torch.remainder,
+    "broadcast_equal": lambda a, b: (a == b).to(a.dtype),
+    "broadcast_not_equal": lambda a, b: (a != b).to(a.dtype),
+    "broadcast_greater": lambda a, b: (a > b).to(a.dtype),
+    "broadcast_greater_equal": lambda a, b: (a >= b).to(a.dtype),
+    "broadcast_lesser": lambda a, b: (a < b).to(a.dtype),
+    "broadcast_lesser_equal": lambda a, b: (a <= b).to(a.dtype),
+}
+for _n, _f in _SUGAR.items():
+    _reg(_n, lambda attrs, a, b, _f=_f: _f(a, b), inputs=("lhs", "rhs"))
+
 _SCALAR = {
     "_plus_scalar": lambda a, s: a + s,
     "_minus_scalar": lambda a, s: a - s,
@@ -66,6 +85,15 @@ _SCALAR = {
     "_mul_scalar": lambda a, s: a * s,
     "_div_scalar": lambda a, s: a / s,
     "_rdiv_scalar": lambda a, s: s / a,
+    "_mod_scalar": lambda a, s: torch.remainder(a, s),
+    "_rmod_scalar": lambda a, s: torch.remainder(torch.full_like(a, s), a),
+    "_power_scalar": lambda a, s: torch.pow(a, s),
+    "_equal_scalar": lambda a, s: a == s,
+    "_not_equal_scalar": lambda a, s: a != s,
+    "_greater_scalar": lambda a, s: a > s,
+    "_greater_equal_scalar": lambda a, s: a >= s,
+    "_lesser_scalar": lambda a, s: a < s,
+    "_lesser_equal_scalar": lambda a, s: a <= s,
 }
 for _n, _f in _SCALAR.items():
     # the output keeps the input dtype (the JAX package casts the scalar
@@ -159,6 +187,13 @@ def _reshape(attrs, x):
 _reg("Reshape", _reshape, params={"shape": (tuple, None),
                                   "reverse": (bool, False)},
      aliases=("reshape",))
+_reg("Flatten", lambda attrs, x: x.reshape(x.shape[0], -1),
+     aliases=("flatten",))
+_reg("Concat", lambda attrs, *xs: torch.cat(xs, dim=attrs.dim),
+     params={"num_args": (int, 1), "dim": (int, 1)},
+     inputs=lambda attrs: ["arg%d" % i
+                           for i in range(attrs.get("num_args", 1))],
+     aliases=("concat",))
 _reg("transpose",
      lambda attrs, x: x.permute(*attrs.axes) if attrs.axes
      else x.permute(*reversed(range(x.dim()))),
@@ -201,3 +236,53 @@ _reg("Embedding",
      params={"input_dim": (int, REQUIRED), "output_dim": (int, REQUIRED),
              "dtype": ("dtype", None), "sparse_grad": (bool, False)},
      inputs=("data", "weight"))
+
+
+# ---------------------------------------------------------------------------
+# gradient control and losses
+# ---------------------------------------------------------------------------
+
+_reg("BlockGrad", lambda attrs, x: x.detach(), aliases=("stop_gradient",))
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; the backward emits the incoming gradient times
+    ``grad_scale``, divided by the batch size (``normalization='batch'``)
+    or by the count of entries above ``valid_thresh`` (``'valid'``): the
+    JAX ``_make_loss`` custom vjp (``mxnet_tpu/ops/tensor.py:124-150``,
+    reference make_loss.cc)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, norm, valid_thresh):
+        ctx.save_for_backward(x)
+        ctx.scale, ctx.norm, ctx.valid_thresh = scale, norm, valid_thresh
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = torch.tensor(ctx.scale, dtype=g.dtype, device=g.device)
+        if ctx.norm == "batch":
+            s = s / x.shape[0]
+        elif ctx.norm == "valid":
+            s = s / torch.clamp_min(
+                (x > ctx.valid_thresh).to(g.dtype).sum(), 1.0)
+        return g * s, None, None, None
+
+
+_reg("make_loss",
+     lambda attrs, x: _MakeLoss.apply(x, attrs.grad_scale,
+                                      attrs.normalization,
+                                      attrs.valid_thresh),
+     params={"grad_scale": (float, 1.0), "valid_thresh": (float, 0.0),
+             "normalization": (str, "null")},
+     aliases=("MakeLoss_", "MakeLoss"))
+
+
+def _smooth_l1(attrs, x):
+    s2 = attrs.scalar ** 2
+    return torch.where(x.abs() < 1.0 / s2, 0.5 * (x * attrs.scalar) ** 2,
+                       x.abs() - 0.5 / s2)
+
+
+_reg("smooth_l1", _smooth_l1, params={"scalar": (float, 1.0)})

@@ -1,0 +1,586 @@
+"""Symbol: declarative graph construction, the port of
+``mxnet_tpu/symbol.py``.
+
+The graph is a small Python DAG over the op registry, as in the JAX
+package, and JSON keeps the reference's ``*-symbol.json`` format (nodes,
+arg_nodes and heads with ``[node_id, out_idx, version]`` inputs), so a
+graph written by either package loads in the other.
+
+Two departures in how a graph runs:
+
+* shape inference runs every op on ``meta`` tensors (shapes, no data)
+  where the JAX package traces it with ``jax.eval_shape``; ops that read
+  values (``MultiBoxTarget``, the NMS) have a shape rule of their own.
+  Parameter shapes are back-filled from the op's attrs as in
+  ``_fill_param_shapes`` (Convolution, FullyConnected, LayerNorm,
+  Embedding, the ``SoftmaxOutput`` label);
+* an executor walks the graph eagerly under torch autograd
+  (:mod:`.executor`) where the JAX package jits it whole.
+
+``group2ctx``, shared executors, subgraph backends and symbolic control
+flow are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import json
+from builtins import slice as _py_slice  # a generated op may shadow it
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .base import MXNetError, dtype_name
+from .name import NameManager
+from .ops.registry import OP_REGISTRY, get_op
+
+__all__ = ["Symbol", "var", "Variable", "Group", "load_json"]
+
+
+class _Node:
+    """One graph node: an op application or a variable (op=None)."""
+
+    __slots__ = ("op", "name", "attrs", "inputs", "_extra_attrs")
+
+    def __init__(self, op: Optional[str], name: str, attrs: Dict[str, Any],
+                 inputs: List[Tuple["_Node", int]]):
+        self.op = op
+        self.name = name
+        self.attrs = attrs
+        self.inputs = inputs
+        self._extra_attrs = {}  # user attrs (__lr_mult__ etc.)
+
+    def is_var(self):
+        return self.op is None
+
+    def num_outputs(self) -> int:
+        if self.op is None:
+            return 1
+        opdef = get_op(self.op)
+        return opdef.num_outputs(opdef.parse_attrs(self.attrs))
+
+
+# op inputs that are auxiliary states (not gradient targets), as in the
+# JAX package (reference FMutateInputs)
+_AUX_INPUT_NAMES = {"moving_mean", "moving_var", "running_mean",
+                    "running_var"}
+
+
+class Symbol(object):
+    """Multi-output symbolic handle (reference symbol.py:54)."""
+
+    def __init__(self, outputs: List[Tuple[_Node, int]]):
+        self._outputs = list(outputs)
+
+    # -- identity / composition -----------------------------------------
+    @property
+    def name(self):
+        if len(self._outputs) == 1:
+            return self._outputs[0][0].name
+        return None
+
+    def attr(self, key):
+        return self._outputs[0][0]._extra_attrs.get(key)
+
+    def _set_attr(self, **kwargs):
+        self._outputs[0][0]._extra_attrs.update(
+            {k: str(v) for k, v in kwargs.items()})
+
+    def attr_dict(self):
+        """name -> attr dict of every node (reference symbol.py:attr_dict)."""
+        ret = {}
+        for node in self._topo_nodes():
+            d = {}
+            if node.op is not None:
+                d.update(_str_attrs(node))
+            d.update(node._extra_attrs)
+            if d:
+                ret[node.name] = d
+        return ret
+
+    def __repr__(self):
+        if len(self._outputs) == 1:
+            return "<Symbol %s>" % self.name
+        return "<Symbol group [%s]>" % ", ".join(
+            n.name for n, _ in self._outputs)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if names.count(index) != 1:
+                raise MXNetError(
+                    "There are multiple outputs with name \"%s\"" % index
+                    if index in names else
+                    "Cannot find output that matches name \"%s\"" % index)
+            index = names.index(index)
+        if isinstance(index, _py_slice):
+            return Group([self[i] for i in range(*index.indices(len(self)))])
+        if index >= len(self):
+            raise IndexError
+        return Symbol([self._outputs[index]])
+
+    # -- operators (reference symbol.py:141-210) ------------------------
+    def _binop(self, other, op, scalar_op, reverse=False):
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            return _invoke(op, [a, b], {})
+        if isinstance(other, (int, float, np.generic)):
+            return _invoke(scalar_op, [self], {"scalar": float(other)})
+        raise TypeError("cannot combine Symbol with %r" % (other,))
+
+    def __add__(self, o):
+        return self._binop(o, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binop(o, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        if isinstance(o, (int, float, np.generic)):
+            return _invoke("_rminus_scalar", [self], {"scalar": float(o)})
+        return self._binop(o, "elemwise_sub", "_minus_scalar", reverse=True)
+
+    def __mul__(self, o):
+        return self._binop(o, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binop(o, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        if isinstance(o, (int, float, np.generic)):
+            return _invoke("_rdiv_scalar", [self], {"scalar": float(o)})
+        return self._binop(o, "elemwise_div", "_div_scalar", reverse=True)
+
+    def __pow__(self, o):
+        return self._binop(o, "_power", "_power_scalar")
+
+    def __mod__(self, o):
+        return self._binop(o, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, o):
+        return self._binop(o, "broadcast_mod", "_rmod_scalar", reverse=True)
+
+    # comparisons build graph nodes (reference symbol.py:303-339); the
+    # identity hash keeps Symbols usable in dicts and sets
+    __hash__ = object.__hash__
+
+    def __eq__(self, o):
+        return self._binop(o, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        return self._binop(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, o):
+        return self._binop(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binop(o, "broadcast_greater_equal",
+                           "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binop(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binop(o, "broadcast_lesser_equal",
+                           "_lesser_equal_scalar")
+
+    def __neg__(self):
+        return _invoke("negative", [self], {})
+
+    # -- graph traversal --------------------------------------------------
+    def _topo_nodes(self) -> List[_Node]:
+        seen = set()
+        order: List[_Node] = []
+
+        def visit(node):
+            if id(node) in seen:
+                return
+            seen.add(id(node))
+            for inp, _ in node.inputs:
+                visit(inp)
+            order.append(node)
+
+        for n, _ in self._outputs:
+            visit(n)
+        return order
+
+    def _aux_ids(self) -> set:
+        """ids of the variables some op binds to an aux input slot."""
+        aux = set()
+        for n in self._topo_nodes():
+            if n.is_var():
+                continue
+            opdef = get_op(n.op)
+            names = opdef.input_names(opdef.parse_attrs(n.attrs))
+            for (src, _), iname in zip(n.inputs, names):
+                if src.is_var() and iname in _AUX_INPUT_NAMES:
+                    aux.add(id(src))
+        return aux
+
+    def list_arguments(self) -> List[str]:
+        aux = self._aux_ids()
+        return [n.name for n in self._topo_nodes()
+                if n.is_var() and id(n) not in aux]
+
+    def list_outputs(self) -> List[str]:
+        outs = []
+        for node, idx in self._outputs:
+            if node.is_var():
+                outs.append(node.name)
+            elif node.num_outputs() == 1:
+                outs.append(node.name + "_output")
+            else:
+                outs.append("%s_output%d" % (node.name, idx))
+        return outs
+
+    def list_auxiliary_states(self) -> List[str]:
+        aux = self._aux_ids()
+        return [n.name for n in self._topo_nodes()
+                if n.is_var() and id(n) in aux]
+
+    # -- shape inference --------------------------------------------------
+    def infer_shape(self, *args, **kwargs):
+        """``(arg_shapes, out_shapes, aux_shapes)`` from the given input
+        shapes (positional in ``list_arguments()`` order, or by name)."""
+        known: Dict[str, Tuple] = {}
+        for name, shape in zip(self.list_arguments(), args):
+            if shape is not None:
+                known[name] = tuple(shape)
+        for k, v in kwargs.items():
+            if v is not None:
+                known[k] = tuple(v)
+
+        # local propagation in topological order: run each op on meta
+        # tensors once all its input shapes are known, back-filling
+        # parameter shapes from the op's attrs first
+        shapes: Dict[Tuple[int, int], Optional[Tuple]] = {}
+        dtypes: Dict[Tuple[int, int], torch.dtype] = {}
+        for node in self._topo_nodes():
+            if node.is_var():
+                shp = known.get(node.name)
+                if shp is None and node._extra_attrs.get("__shape__"):
+                    shp = tuple(json.loads(node._extra_attrs["__shape__"]))
+                shapes[(id(node), 0)] = shp
+                dtypes[(id(node), 0)] = torch.float32
+                continue
+            in_shapes = [shapes.get((id(n), i)) for n, i in node.inputs]
+            if any(s is None for s in in_shapes):
+                filled = _fill_param_shapes(node, in_shapes)
+                if filled is not None:
+                    for (src, si), old, new in zip(node.inputs, in_shapes,
+                                                   filled):
+                        if old is None and new is not None:
+                            shapes[(id(src), si)] = new
+                    in_shapes = filled
+            if any(s is None for s in in_shapes):
+                for i in range(node.num_outputs()):
+                    shapes[(id(node), i)] = None
+                continue
+            opdef = get_op(node.op)
+            attrs = opdef.parse_attrs(node.attrs)
+            metas = [torch.empty(s, dtype=dtypes.get((id(n), i),
+                                                     torch.float32),
+                                 device="meta")
+                     for s, (n, i) in zip(in_shapes, node.inputs)]
+            try:
+                with torch.no_grad():
+                    out = opdef.fcompute(attrs, *metas)
+            except Exception as e:  # an op's own error names the problem
+                raise MXNetError("shape inference failed at op %s(%s): %s"
+                                 % (node.op, node.name, e)) from e
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            for i, o in enumerate(outs):
+                shapes[(id(node), i)] = tuple(o.shape)
+                dtypes[(id(node), i)] = o.dtype
+
+        aux = self._aux_ids()
+        arg_shapes = [shapes.get((id(n), 0)) for n in self._topo_nodes()
+                      if n.is_var() and id(n) not in aux]
+        out_shapes = [shapes.get((id(n), i)) for n, i in self._outputs]
+        aux_shapes = [shapes.get((id(n), 0)) for n in self._topo_nodes()
+                      if n.is_var() and id(n) in aux]
+        if any(s is None for s in out_shapes):
+            raise MXNetError("infer_shape: insufficient information")
+        return arg_shapes, out_shapes, aux_shapes
+
+    # -- JSON (reference *-symbol.json format) ---------------------------
+    def tojson(self) -> str:
+        nodes = self._topo_nodes()
+        node_ids = {id(n): i for i, n in enumerate(nodes)}
+        out_nodes = []
+        arg_nodes = []
+        for i, n in enumerate(nodes):
+            if n.is_var():
+                arg_nodes.append(i)
+            entry = {
+                "op": n.op if n.op is not None else "null",
+                "name": n.name,
+                "inputs": [[node_ids[id(src)], idx, 0]
+                           for src, idx in n.inputs],
+            }
+            attrs = dict(_str_attrs(n))
+            attrs.update(n._extra_attrs)
+            if attrs:
+                entry["attrs"] = {k: str(v) for k, v in attrs.items()}
+            out_nodes.append(entry)
+        js = {
+            "nodes": out_nodes,
+            "arg_nodes": arg_nodes,
+            "node_row_ptr": list(range(len(nodes) + 1)),
+            "heads": [[node_ids[id(n)], idx, 0] for n, idx in self._outputs],
+            "attrs": {"mxnet_version": ["int", 10300]},
+        }
+        return json.dumps(js, indent=2)
+
+    # -- evaluation / binding ---------------------------------------------
+    def eval_torch(self, value_map: Dict[str, torch.Tensor]):
+        """Output tensors of the graph given name -> tensor bindings; runs
+        each op's ``fcompute`` in topological order (under whatever
+        autograd mode the caller set)."""
+        vals: Dict[Tuple[int, int], Any] = {}
+        for node in self._topo_nodes():
+            if node.is_var():
+                if node.name not in value_map:
+                    raise MXNetError("eval: missing binding for %r"
+                                     % node.name)
+                vals[(id(node), 0)] = value_map[node.name]
+                continue
+            opdef = get_op(node.op)
+            attrs = opdef.parse_attrs(node.attrs)
+            out = opdef.fcompute(attrs, *[vals[(id(n), i)]
+                                          for n, i in node.inputs])
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            for i, o in enumerate(outs):
+                vals[(id(node), i)] = o
+        return [vals[(id(n), i)] for n, i in self._outputs]
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        from .executor import Executor
+
+        if group2ctx or shared_exec is not None:
+            raise MXNetError("bind: group2ctx and shared_exec are not "
+                             "ported yet")
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    stype_dict=None, group2ctx=None, shared_arg_names=None,
+                    shared_exec=None, shared_buffer=None, **kwargs):
+        """Allocate the argument, gradient and aux arrays on ``ctx`` from
+        the inferred shapes and bind (reference symbol.py:1289)."""
+        from .executor import Executor
+        from .ndarray import ndarray as nd_mod
+
+        if group2ctx or shared_exec is not None or shared_buffer is not None:
+            raise MXNetError("simple_bind: group2ctx and shared executors "
+                             "are not ported yet")
+        if stype_dict and any(v != "default" for v in stype_dict.values()):
+            raise MXNetError("simple_bind: sparse storage is not ported yet")
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        arg_names = self.list_arguments()
+        missing = [n for n, s in zip(arg_names, arg_shapes) if s is None]
+        if missing:
+            raise MXNetError("simple_bind: cannot infer shapes for %s"
+                             % missing)
+        type_dict = type_dict or {}
+        reqs = grad_req if isinstance(grad_req, dict) \
+            else dict.fromkeys(arg_names, grad_req)
+        args, args_grad = {}, {}
+        for name, shape in zip(arg_names, arg_shapes):
+            dt = type_dict.get(name, np.float32)
+            args[name] = nd_mod.zeros(shape, ctx=ctx, dtype=dt)
+            if reqs.get(name, "null") != "null":
+                args_grad[name] = nd_mod.zeros(shape, ctx=ctx, dtype=dt)
+        aux = {name: nd_mod.zeros(shape, ctx=ctx) for name, shape in
+               zip(self.list_auxiliary_states(), aux_shapes)}
+        return Executor(self, ctx, args, args_grad or None, grad_req, aux)
+
+
+def _str_attrs(node: _Node) -> Dict[str, str]:
+    if node.op is None:
+        return {}
+    opdef = get_op(node.op)
+    return opdef.serialize_attrs(opdef.parse_attrs(node.attrs))
+
+
+def _fill_param_shapes(node: _Node, in_shapes):
+    """Back-fill unknown parameter-input shapes from the op's attrs and
+    its data shape (the JAX package's ``_fill_param_shapes``, for the ops
+    the port has). Returns a filled copy of ``in_shapes``, or None when
+    the op gives no hint."""
+    op = node.op
+    opdef = get_op(op)
+    attrs = opdef.parse_attrs(node.attrs)
+    in_names = opdef.input_names(attrs)
+    named = dict(zip(in_names, in_shapes))
+    data = named.get("data")
+    out = list(in_shapes)
+
+    def put(slot, shape):
+        if slot in in_names and named.get(slot) is None and shape is not None:
+            out[in_names.index(slot)] = tuple(int(s) for s in shape)
+
+    if op == "FullyConnected" and data is not None:
+        in_units = int(np.prod(data[1:])) if attrs.flatten else data[-1]
+        put("weight", (attrs.num_hidden, in_units))
+        put("bias", (attrs.num_hidden,))
+    elif op == "Convolution" and data is not None:
+        put("weight", (attrs.num_filter, data[1] // attrs.num_group)
+            + tuple(attrs.kernel))
+        put("bias", (attrs.num_filter,))
+    elif op == "LayerNorm" and data is not None:
+        c = (data[attrs.axis % len(data)],)
+        put("gamma", c)
+        put("beta", c)
+    elif op == "Embedding":
+        put("weight", (attrs.input_dim, attrs.output_dim))
+    elif op in ("SoftmaxOutput", "Softmax") and data is not None:
+        put("label", data[:-1])
+    else:
+        return None
+    return out
+
+
+def _invoke(op_name: str, sym_inputs: List[Symbol], attrs: Dict[str, Any],
+            name: Optional[str] = None) -> Symbol:
+    from .attribute import AttrScope
+
+    opdef = get_op(op_name)
+    parsed = opdef.parse_attrs(attrs)
+    name = NameManager.current().get(name, op_name.lower().lstrip("_"))
+    entries: List[Tuple[_Node, int]] = []
+    for s in sym_inputs:
+        # a multi-output symbol used as one input gives all its outputs
+        entries.extend(s._outputs)
+    # missing trailing inputs become variables (FullyConnected(data)
+    # creates name_weight / name_bias)
+    in_names = opdef.input_names(parsed)
+    for missing in in_names[len(entries):]:
+        entries.append((_Node(None, "%s_%s" % (name, missing), {}, []), 0))
+    node = _Node(op_name, name, dict(attrs), entries)
+    scope_attrs = AttrScope.current().get(None)
+    if scope_attrs:
+        node._extra_attrs.update(scope_attrs)
+    n_out = opdef.num_outputs(parsed)
+    # LayerNorm's mean and variance outputs are internal
+    if op_name == "LayerNorm":
+        n_out = 1
+    return Symbol([(node, i) for i in range(n_out)])
+
+
+def _make_sym_op(op_name: str):
+    opdef = OP_REGISTRY[op_name]
+    param_names = list(opdef.params.keys())
+
+    def fn(*args, **kwargs):
+        name = kwargs.pop("name", None)
+        attr = kwargs.pop("attr", None)
+        sym_inputs = [a for a in args if isinstance(a, Symbol)]
+        scalars = [a for a in args if not isinstance(a, Symbol)]
+        kw_syms = {k: v for k, v in kwargs.items() if isinstance(v, Symbol)}
+        for k in kw_syms:
+            kwargs.pop(k)
+        if kw_syms:  # keyword inputs (data=..., weight=...) in slot order
+            in_names = opdef.input_names(opdef.parse_attrs(kwargs))
+            sym_inputs.extend(kw_syms[n] for n in in_names if n in kw_syms)
+        if scalars:
+            free = [p for p in param_names if p not in kwargs]
+            kwargs.update(zip(free, scalars))
+        out = _invoke(op_name, sym_inputs, kwargs, name=name)
+        if attr:
+            out._set_attr(**attr)
+        return out
+
+    fn.__name__ = op_name
+    fn.__qualname__ = op_name
+    fn.__doc__ = opdef.doc
+    return fn
+
+
+def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
+        init=None, stype=None, **kwargs) -> Symbol:
+    """A variable (reference symbol.py:var)."""
+    from .attribute import AttrScope
+
+    if not isinstance(name, str):
+        raise TypeError("Expect a string for variable name")
+    node = _Node(None, name, {}, [])
+    extra = {}
+    if shape is not None:
+        extra["__shape__"] = json.dumps(list(shape))
+    if lr_mult is not None:
+        extra["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        extra["__wd_mult__"] = str(wd_mult)
+    if dtype is not None:
+        extra["__dtype__"] = dtype_name(dtype)
+    if init is not None:
+        extra["__init__"] = init if isinstance(init, str) else init.dumps()
+    if attr:
+        extra.update({k: str(v) for k, v in attr.items()})
+    for k, v in kwargs.items():
+        if k.startswith("__") and k.endswith("__"):
+            extra[k] = str(v)
+    # scope attrs apply under explicit ones (reference AttrScope.get)
+    node._extra_attrs = AttrScope.current().get(extra)
+    return Symbol([(node, 0)])
+
+
+Variable = var
+
+
+def Group(symbols) -> Symbol:
+    """One multi-output Symbol of several (reference symbol.py:Group)."""
+    if not symbols or any(not isinstance(s, Symbol) for s in symbols):
+        raise TypeError("Expected a list of symbols as input")
+    outputs = []
+    for s in symbols:
+        outputs.extend(s._outputs)
+    return Symbol(outputs)
+
+
+def load_json(json_str: str) -> Symbol:
+    """Parse reference-format symbol JSON ('attrs', or the older 'attr'
+    and 'param', merged in that order)."""
+    js = json.loads(json_str)
+    nodes: List[_Node] = []
+    for nj in js["nodes"]:
+        op = nj["op"]
+        attrs = dict(nj.get("param") or {})
+        attrs.update(nj.get("attr") or {})
+        attrs.update(nj.get("attrs") or {})
+        if op == "null":
+            node = _Node(None, nj["name"], {}, [])
+            node._extra_attrs = dict(attrs)
+        else:
+            if op not in OP_REGISTRY:
+                raise MXNetError("symbol JSON references op %r, which is "
+                                 "not ported yet" % op)
+            inputs = [(nodes[i], idx) for i, idx, *_ in nj.get("inputs", [])]
+            params = get_op(op).params
+            node = _Node(op, nj["name"], {k: v for k, v in attrs.items()
+                                         if k in params}, inputs)
+            node._extra_attrs = {k: v for k, v in attrs.items()
+                                 if k not in params}
+        nodes.append(node)
+    return Symbol([(nodes[i], idx) for i, idx, *_ in js["heads"]])
+
+
+# generated op wrappers: sym.Convolution(...), sym.Activation(...), ...
+import sys as _sys  # noqa: E402
+
+_mod = _sys.modules[__name__]
+for _opname in list(OP_REGISTRY):
+    if not hasattr(_mod, _opname):
+        setattr(_mod, _opname, _make_sym_op(_opname))
+
+# the _contrib_* ops under their short names (mx.sym.contrib.MultiBoxPrior)
+from . import sym_contrib as contrib  # noqa: E402,F401

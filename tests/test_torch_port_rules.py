@@ -11,6 +11,10 @@
   host;
 * the training slice, like the serving one, imports and trains with
   ``jax`` and ``mxnet_tpu`` made unimportable;
+* the detection slice's entry points, ``Module`` and ``ImageDetIter``,
+  raise without a card when no context asks for the host, and the SSD
+  example imports and takes a training step with ``jax`` and
+  ``mxnet_tpu`` made unimportable;
 * ``chip_smoke.py`` refuses to run without a card, printing no result.
 """
 import ast
@@ -133,6 +137,52 @@ def test_training_defaults_to_the_card():
     with mx.cpu():  # asked for: the host is honoured
         assert mx.current_context() == mx.cpu()
         assert nd.array([1.0, 2.0]).context == mx.cpu()
+
+
+def test_detection_slice_defaults_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from mxnet_tpu_torch.example.ssd import train_ssd
+
+    rec = train_ssd.make_dataset(str(tmp_path / "s"), n=2, side=16)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mx.image.ImageDetIter(batch_size=2, data_shape=(3, 16, 16),
+                              path_imgrec=rec)
+    net = train_ssd.get_symbol_train(3)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mx.module.Module(net, data_names=("data",), label_names=("label",))
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mx.module.Module(net, data_names=("data",), label_names=("label",),
+                         context=mx.gpu())
+    with mx.cpu():  # asked for: the host is honoured
+        it = mx.image.ImageDetIter(batch_size=2, data_shape=(3, 16, 16),
+                                   path_imgrec=rec)
+        mod = mx.module.Module(net, data_names=("data",),
+                               label_names=("label",))
+    assert next(iter(it)).data[0].context == mx.cpu()
+    assert mod._context == [mx.cpu()]
+
+
+def test_detection_slice_trains_with_jax_and_mxnet_tpu_blocked(tmp_path):
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+import numpy as np
+from mxnet_tpu_torch.example.ssd import train_ssd
+res = train_ssd.run(train_ssd.parse_args(
+    ["--device", "cpu", "--epochs", "1", "--side", "16", "--batch-size",
+     "32", "--data-dir", sys.argv[1]]))
+assert res["steps"] == 2 and np.isfinite(res["last_loss"])
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("trained", res["steps"])
+"""
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=str(REPO), env=subprocess_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "trained 2" in proc.stdout
 
 
 def test_chip_smoke_without_a_card_prints_no_result(tmp_path):
