@@ -6,8 +6,10 @@ check it end to end. Run from the root of a checkout:
 
 Phases, each printing one line of its own (any failure exits non-zero):
 
-1. environment: torch/CUDA versions and the card's name and power limit
-   (``nvidia-smi``); TF32 off for matmuls and cuDNN, so fp32 stays fp32;
+1. environment: torch/CUDA versions, the card's name and power limit
+   (``nvidia-smi``), and the NVRTC and driver versions ``rtc`` compiles
+   with and loads into; TF32 off for matmuls and cuDNN, so fp32 stays
+   fp32;
 2. build: every kernel of the served, training and detection paths,
    compiled with nvcc from the sources in this checkout (one nvcc per
    source, all started together);
@@ -62,6 +64,30 @@ Phases, each printing one line of its own (any failure exits non-zero):
     detection outputs must be equal, cls_prob, loc_loss and the
     gradients must agree within 1e-4;
 12. ssd_profile: torch.profiler device time of 5 SSD training steps.
+
+13. rtc_check: the extension slice's kernel route, ``rtc.CudaModule``
+    (NVRTC to a CUBIN for the card, launched with ``cuLaunchKernel``): the
+    runtime-compilation spec in CUDA-C (``example/rtc_spec.py``: axpy,
+    axpy with by-value scalars over a grid, rows scaled by blockIdx, two
+    outputs, a template exported as ``fwd<float>`` and ``fwd<__half>``,
+    64 KiB of dynamic shared memory), each against its plain version;
+    then source that does not compile, a kernel not exported, a bad
+    signature, a wrong argument count, a grid of 0, a CPU array, a wrong
+    output dtype and a block of 2048 threads must each raise MXNetError;
+14. custom_softmax: the port's ``example/numpy_ops/custom_softmax.py``
+    (a gluon MLP trained through a numpy CustomOp) at its defaults on the
+    card: it must print LEARNED (test accuracy above 0.9);
+15. custom_rtc: the slice's main path, ``custom_softmax_rtc.py``: a
+    symbolic MLP ending in ``sym.Custom`` whose forward (row softmax) and
+    backward ((prob - onehot) / n) are CUDA-C kernels launched through
+    ``rtc.CudaModule``, trained by ``Module.fit`` (2 epochs, ``acc``,
+    ``Speedometer``), then ``score`` and ``predict``; the same graph with
+    the numpy op from the same seed must agree within 1e-5 after the
+    first batch, both must reach accuracy above 0.9, and the rtc kernels
+    must launch at least 2 x training batches + test batches times;
+16. rtc_time: the softmax-forward kernel through ``Kernel.launch`` at
+    (64, 10) and (8192, 1024): host and device time, bound, plain version
+    and ``torch.softmax``.
 
 The flash-attention kernel is checked (phase 3) against its plain
 version on the GPT shape, ragged and long shapes, both maskings, bf16
@@ -122,6 +148,17 @@ SSD_TOL = 1e-4
 # head_dim 64 / 4) and a long shape
 GPT_ATT = (32, 4, 64, 16)
 LONG_ATT = (4, 8, 2048, 64)
+# the extension slice: the rtc spec kernels are fp32 elementwise work
+# whose only rounding difference from the plain version is NVRTC's fused
+# multiply-add (one ulp); the softmax kernels differ from it in expf and
+# the order of the row's sum; the rtc op and the numpy op of the
+# custom_rtc phase must agree within 1e-5 after the first batch
+RTC_TOL = 1e-5
+SOFTMAX_TOL = 1e-6
+CUSTOM_TOL = 1e-5
+# the softmax-forward kernel: the custom_rtc path's shape and a large one
+RTC_SHAPES = ((64, 10), (8192, 1024))
+KERNEL_5 = "softmax_fwd"
 # the bench's speculative phase (32 motif prompts x 48 tokens, k = 4) and
 # shared-prefix phase (96 requests over 8 system prompts of 512 tokens)
 SPEC_K, SPEC_N, SPEC_OUT = 4, 32, 48
@@ -904,15 +941,202 @@ def ssd_profile(steps=5):
           top_device_ms=[[k[:140], ms, n] for k, (ms, n) in top])
 
 
+def rtc_check():
+    """The rtc spec in CUDA-C (``example/rtc_spec.py``), each case held
+    against its plain version with a synchronise after it, then every
+    error a user can meet: each must raise MXNetError."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.example import rtc_spec
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(rtc_spec.SOURCE, exports=rtc_spec.EXPORTS)
+    phase("rtc_check", case="compile", seconds=time.perf_counter() - t0,
+          exports=list(rtc_spec.EXPORTS))
+    worst = 0.0
+    for case in rtc_spec.cases(np.random.RandomState(5)):
+        outs, want, _ = rtc_spec.launch_case(mod, case, dev)
+        torch.cuda.synchronize()
+        err = max(float((o.float() - w.float()).abs().max())
+                  for o, w in zip(outs, want))
+        if not err <= RTC_TOL:
+            fail("rtc kernel %s (%s) disagrees with its plain version: max "
+                 "abs err %.3g" % (case.name, case.kernel, err))
+        worst = max(worst, err)
+        phase("rtc_check", case=case.name, kernel=case.kernel,
+              grid=list(case.grid), block=list(case.block),
+              shared_mem=case.shared_mem, max_abs_err=err, tol=RTC_TOL)
+
+    def on_card(a, dtype=torch.float32):
+        return NDArray(torch.as_tensor(a, dtype=dtype, device=dev))
+
+    n = 1000
+    x, y = on_card(np.ones(n)), on_card(np.ones(n))
+    out = on_card(np.zeros(n))
+    axpy_n = mod.get_kernel("axpy_n", "float alpha, const float *x, "
+                            "const float *y, float *out, int n")
+    grid = ((n + 255) // 256, 1, 1)
+    for what, match, call in (
+            ("source_does_not_compile", "does not compile", lambda: rtc.
+             CudaModule('extern "C" __global__ void broken( {}')),
+            ("not_exported", "not exported", lambda: mod.get_kernel(
+                "missing", "const float *x, float *o")),
+            ("bad_signature", "signature", lambda: mod.get_kernel(
+                "axpy", "float *& bad sig")),
+            ("argument_count", "args for", lambda: axpy_n.launch(
+                (1.0, x, y), grid_dims=grid, block_dims=(256, 1, 1))),
+            ("grid_of_zero", "invalid grid_dims", lambda: axpy_n.launch(
+                (1.0, x, y, out, n), grid_dims=(0, 1, 1))),
+            ("cpu_ndarray", "is on cpu", lambda: axpy_n.launch(
+                (1.0, NDArray(torch.ones(n)), y, out, n), grid_dims=grid,
+                block_dims=(256, 1, 1))),
+            ("output_dtype", "must be a contiguous", lambda: axpy_n.launch(
+                (1.0, x, y, on_card(np.zeros(n), torch.float64), n),
+                grid_dims=grid, block_dims=(256, 1, 1))),
+            ("block_of_2048", "cuLaunchKernel", lambda: axpy_n.launch(
+                (1.0, x, y, out, n), grid_dims=(1, 1, 1),
+                block_dims=(2048, 1, 1)))):
+        try:
+            call()
+        except mx.MXNetError as e:
+            if match not in str(e):
+                fail("rtc error case %s raised without %r: %s"
+                     % (what, match, e))
+            if what == "source_does_not_compile" and "error" not in str(e):
+                fail("rtc: the compile error carries no NVRTC log: %s" % e)
+            phase("rtc_check", case="raises_" + what,
+                  message=str(e)[:300])
+            continue
+        fail("rtc error case %s did not raise" % what)
+    torch.cuda.synchronize()  # the refused launch left no fault behind
+    return worst
+
+
+def custom_softmax():
+    """The port's numpy-op example (gluon MLP, numpy CustomOp) at its
+    defaults on the card: it must print LEARNED."""
+    from mxnet_tpu_torch.example.numpy_ops import custom_softmax as cs
+
+    res = cs.run(cs.parse_args([]))  # the defaults: the card
+    if not res["learned"]:
+        fail("custom_softmax: test accuracy %.3f is not above 0.9"
+             % res["test_acc"])
+    print("custom-op training LEARNED", flush=True)
+    phase("custom_softmax", steps=res["steps"], step_ms=res["step_ms"],
+          train_acc=res["train_acc"], test_acc=res["test_acc"],
+          verdict="LEARNED")
+
+
+def custom_rtc():
+    """The extension slice's main path: the symbolic MLP with the rtc
+    softmax op, through Module.fit, score and predict on the card; then
+    the same graph with the numpy op from the same seed: the first
+    batch's outputs and updated weights must agree, both must learn,
+    and the rtc kernels must launch on every pass."""
+    import torch
+
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.example.numpy_ops import custom_softmax_rtc as cr
+
+    cr.kernels(torch.device("cuda", torch.cuda.current_device()))  # compile
+    args = cr.parse_args([])  # the defaults: the card, the rtc op
+    _reset_launches()
+    res = cr.run(args)
+    launches = rtc.Kernel.total_launches
+    ref = cr.run(cr.parse_args(["--op", "np_softmax_ce"]))
+    errs = {"prob": float(np.abs(res["first"]["prob"]
+                                 - ref["first"]["prob"]).max())}
+    for name, v in res["first"]["params"].items():
+        errs[name] = float(np.abs(v - ref["first"]["params"][name]).max())
+    worst = max(errs.values())
+    if not worst <= CUSTOM_TOL:
+        fail("custom_rtc: the rtc op and the numpy op differ after the "
+             "first batch: %s" % errs)
+    for r in (res, ref):
+        if not r["learned"]:
+            fail("custom_rtc: %s reached accuracy %.3f, not above 0.9"
+                 % (r["op"], r["score"]))
+    need = 2 * res["train_batches"] + res["test_batches"]
+    if launches < need:
+        fail("custom_rtc: rtc kernels launched %d times for %d training and "
+             "%d test batches" % (launches, res["train_batches"],
+                                  res["test_batches"]))
+    phase("custom_rtc", train_batches=res["train_batches"],
+          test_batches=res["test_batches"], rtc_launches=launches,
+          first_batch_max_abs_err=worst, tol=CUSTOM_TOL,
+          rtc_score=res["score"], numpy_score=ref["score"],
+          rtc_predict_acc=res["pred_acc"], numpy_predict_acc=ref["pred_acc"],
+          rtc_step_ms=res["step_ms"], numpy_step_ms=ref["step_ms"])
+    return launches
+
+
+def rtc_time():
+    """The softmax-forward user kernel through Kernel.launch at the
+    path's shape and a large one, fp32: host time per launch (CUDA
+    events over back-to-back launches), device time (profiler), the
+    bound, the plain version and torch.softmax."""
+    import torch
+
+    from mxnet_tpu_torch.example.numpy_ops import custom_softmax_rtc as cr
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    entry, worst = None, 0.0
+    for rows, cols in RTC_SHAPES:
+        x = NDArray(torch.randn(rows, cols, device="cuda", generator=gen))
+        y = NDArray(torch.empty(rows, cols, device="cuda"))
+
+        def run():
+            cr.softmax_forward(x, y)
+
+        run()
+        torch.cuda.synchronize()
+        err = float((y._data - cr.softmax_forward_plain(x._data)).abs()
+                    .max())
+        if not err <= SOFTMAX_TOL:
+            fail("softmax_fwd (%d, %d) disagrees with its plain version: max "
+                 "abs err %.3g" % (rows, cols, err))
+        worst = max(worst, err)
+        ms = time_ms(run, iters=200)
+        device_ms = kernel_device_ms(run, KERNEL_5)
+        plain_ms = time_ms(lambda: cr.softmax_forward_plain(x._data))
+        library_ms = time_ms(lambda: torch.softmax(x._data, 1))
+        # read x once, write y once; ~5 fp32 operations an element
+        bytes_ms = 2 * rows * cols * 4 / PEAK_BYTES_S * 1e3
+        ops_ms = 5 * rows * cols / PEAK_FP32_FLOPS * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        phase("rtc_time", case="softmax_fwd_%dx%d" % (rows, cols), ms=ms,
+              device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+              bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+              block=cr.fwd_block(cols), library="torch.softmax(x, 1)")
+        if entry is None:  # the custom_rtc path's shape
+            entry = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
+    return {"name": "rtc", "route": "nvrtc",
+            "source": "mxnet_tpu_torch/example/numpy_ops/"
+                      "custom_softmax_rtc.py",
+            "replaces": "mxnet_tpu/rtc.py:88", "max_abs_err": worst,
+            **entry}
+
+
 def _reset_launches():
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops import nms
     from mxnet_tpu_torch.ops import paged_attention as pa
 
+    from mxnet_tpu_torch import rtc
+
     pa.ragged_paged_attention.launches = 0
     pa.ragged_spec_attention.launches = 0
     fa.flash_attention_forward.launches = 0
     nms.nms_keep_cuda.launches = 0
+    rtc.Kernel.total_launches = 0
 
 
 def _read_launches():
@@ -1324,9 +1548,15 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi, flush=True)
+    from mxnet_tpu_torch import MXNetError, rtc
+
+    try:
+        rtc_versions = rtc.versions()
+    except MXNetError as e:
+        fail("rtc: %s" % e)
     phase("environment", torch=torch.__version__, cuda=torch.version.cuda,
           device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-          tf32_matmul=False, tf32_cudnn=False)
+          tf32_matmul=False, tf32_cudnn=False, **rtc_versions)
 
     names, secs, ptxas = build_all()
     phase("build", kernels=names, seconds=secs, ptxas=ptxas)
@@ -1348,8 +1578,14 @@ def main():
     nms_entry["launches"] = ssd_train()
     ssd_parity()
     ssd_profile()
+    rtc_err = rtc_check()
+    custom_softmax()
+    rtc_launches = custom_rtc()
+    rtc_entry = rtc_time()
+    rtc_entry["launches"] = rtc_launches
+    rtc_entry["max_abs_err"] = max(rtc_entry["max_abs_err"], rtc_err)
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
-                                  nms_entry]}), flush=True)
+                                  nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

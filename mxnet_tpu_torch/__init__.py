@@ -20,15 +20,19 @@ GPT example (``nd``, ``autograd``, ``gluon``, ``initializer``,
 flash-attention kernel (``ops.flash_attention``), and the symbolic path
 of the SSD example (``sym``, ``executor``, ``module``, ``io``,
 ``recordio``, ``image``, the detection ops; ``example/ssd/train_ssd.py``)
-with the NMS kernel (``ops.nms``). The training paths follow MXNet's
-entry points, with one departure: the default context is the card
-(``gpu(0)``), and without one, code that does not ask for ``mx.cpu()``
-raises.
+with the NMS kernel (``ops.nms``), and the extension path (``rtc``,
+whose ``CudaModule`` compiles the user's CUDA-C kernels with NVRTC,
+``operator``'s custom ops, ``autograd.Function``, ``metric``,
+``callback``, ``Module.fit``; ``example/numpy_ops/``). The training
+paths follow MXNet's entry points, with one departure: the default
+context is the card (``gpu(0)``), and without one, code that does not
+ask for ``mx.cpu()`` raises.
 """
 from __future__ import annotations
 
 from . import autograd, gluon, initializer, ndarray, optimizer, random
 from . import attribute, executor, image, io, model, module, recordio
+from . import callback, contrib, metric, operator, rtc
 from . import ndarray as nd
 from . import symbol
 from . import symbol as sym
@@ -39,4 +43,5 @@ __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
            "Context", "cpu", "gpu", "current_context", "num_gpus",
            "autograd", "gluon", "initializer", "nd", "ndarray", "optimizer",
            "random", "attribute", "executor", "image", "io", "model",
-           "module", "recordio", "sym", "symbol"]
+           "module", "recordio", "sym", "symbol", "callback", "contrib",
+           "metric", "operator", "rtc"]

@@ -16,6 +16,10 @@ reach, and lands each gradient in the leaf's ``.grad`` buffer under its
 
 A rebind inside ``record()`` does not change what an earlier op saw:
 NDArrays rebind their tensor and never write into it under record.
+
+:class:`Function` (a differentiable function written as a forward and a
+backward on NDArrays) runs on a ``torch.autograd.Function``, so torch's
+tape calls the user's backward.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward"]
+           "backward", "Function"]
 
 
 class _State(threading.local):
@@ -175,3 +179,76 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         else:
             leaf._grad._data = g
         leaf._fresh_grad = True
+
+
+class _FunctionBridge(torch.autograd.Function):
+    """The torch node of one :class:`Function` call: forward and backward
+    run the user's methods on NDArrays around the tensors, paused."""
+
+    @staticmethod
+    def forward(ctx, fn, inputs, info, *tensors):
+        from .ndarray.ndarray import NDArray
+
+        args = list(inputs)
+        for slot, t in zip(info["slots"], tensors):
+            args[slot] = NDArray(t)
+        with pause():
+            outputs = fn.forward(*args)
+        info["single"] = isinstance(outputs, NDArray)
+        ctx.fn = fn
+        outs = (outputs,) if info["single"] else tuple(outputs)
+        # an input handed back as it is would alias the node's own input
+        return tuple(o._data.clone() if any(o._data is t for t in tensors)
+                     else o._data for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray.ndarray import NDArray
+
+        with pause():
+            igs = ctx.fn.backward(*[NDArray(g) for g in grads])
+        if isinstance(igs, NDArray) or igs is None:
+            igs = (igs,)
+        return (None, None, None) + tuple(
+            ig._data if ig is not None and need else None
+            for ig, need in zip(igs, ctx.needs_input_grad[3:]))
+
+
+class Function:
+    """Custom differentiable function (reference autograd.py:363).
+
+    Subclass and implement ``forward(self, *inputs)`` and
+    ``backward(self, *output_grads)``; both take and return NDArrays and
+    run with recording paused. ``backward`` returns one gradient per
+    NDArray input (None for none).
+    """
+
+    def __init__(self):
+        self._saved = None
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        slots = [i for i, x in enumerate(inputs) if isinstance(x, NDArray)]
+        if not (is_recording() and any(inputs[i]._in_graph for i in slots)):
+            with pause():
+                return self.forward(*inputs)
+        info = {"slots": slots}
+        with torch.enable_grad():
+            outs = _FunctionBridge.apply(self, inputs, info,
+                                         *[inputs[i]._data for i in slots])
+        result = [NDArray(o) for o in outs]
+        return result[0] if info["single"] else tuple(result)

@@ -1,17 +1,57 @@
 """BaseModule: the high-level train/predict interface, the port of
-``mxnet_tpu/module/base_module.py``.
+``mxnet_tpu/module/base_module.py`` (reference
+``python/mxnet/module/base_module.py``: fit :409, score, predict,
+forward_backward).
 
-``forward_backward`` and ``set_params`` are here. ``fit``, ``score``,
-``predict`` and the checkpoint helpers need ``metric.py`` and the
-``.params`` format, which are not ported yet: they raise.
+``fit`` is the JAX package's epoch loop on its eager branch: each batch
+runs ``forward_backward`` and ``update`` (the JAX package's one compiled
+training step, ``trainplane.module_plane``, is not ported yet). A kvstore
+other than ``local`` or None, and ``monitor=``, raise. ``save_params``
+and ``load_params`` need the ``.params`` format, which is not ported
+yet: they raise.
 """
 from __future__ import annotations
 
 import logging
+import time
 
+from .. import metric as metric_mod
 from ..base import MXNetError
+from ..initializer import Uniform
 
 __all__ = ["BaseModule"]
+
+
+class _BatchEndParam(object):
+    """Callback payload: epoch / nbatch / eval_metric / locals (reference
+    BatchEndParam namedtuple contract)."""
+
+    def __init__(self, epoch, nbatch, eval_metric, locals_):
+        self.epoch = epoch
+        self.nbatch = nbatch
+        self.eval_metric = eval_metric
+        self.locals = locals_
+
+
+def _fire(callbacks, *args):
+    """Invoke one callback or a list of them."""
+    if callbacks is None:
+        return
+    cbs = callbacks if isinstance(callbacks, (list, tuple)) else [callbacks]
+    for cb in cbs:
+        cb(*args)
+
+
+def _as_metric(m):
+    return m if isinstance(m, metric_mod.EvalMetric) else metric_mod.create(m)
+
+
+def _limited(data_iter, num_batch):
+    """Yield (nbatch, batch) pairs, stopping after num_batch if given."""
+    for nbatch, batch in enumerate(data_iter):
+        if num_batch is not None and nbatch >= num_batch:
+            return
+        yield nbatch, batch
 
 
 def _check_input_names(symbol, names, typename, throw):
@@ -42,6 +82,142 @@ class BaseModule(object):
         self.forward(data_batch, is_train=True)
         self.backward()
 
+    def prepare(self, data_batch, sparse_row_id_fn=None):
+        pass
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0, sparse_row_id_fn=None):
+        """Evaluate on a data iterator (reference base_module.py:score)."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("score: bind() and init_params() first")
+        if reset:
+            eval_data.reset()
+        eval_metric = _as_metric(eval_metric)
+        eval_metric.reset()
+        seen = 0
+        for nbatch, batch in _limited(eval_data, num_batch):
+            self.forward(batch, is_train=False)
+            self.update_metric(eval_metric, batch.label)
+            _fire(batch_end_callback,
+                  _BatchEndParam(epoch, nbatch, eval_metric, locals()))
+            seen = nbatch + 1
+        _fire(score_end_callback,
+              _BatchEndParam(epoch, seen, eval_metric, locals()))
+        return eval_metric.get_name_value()
+
+    def _unpadded_outputs(self, batch):
+        """Forwarded outputs with the batch's tail padding sliced off."""
+        keep = slice(None) if not batch.pad else slice(0, -batch.pad)
+        return [out[keep] for out in self.get_outputs()]
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("iter_predict: bind() and init_params() first")
+        if reset:
+            eval_data.reset()
+        for nbatch, batch in _limited(eval_data, num_batch):
+            self.forward(batch, is_train=False)
+            yield (self._unpadded_outputs(batch), nbatch, batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False, sparse_row_id_fn=None):
+        """Run prediction, collecting outputs (reference
+        base_module.py:predict)."""
+        from ..ndarray import ndarray as nd_mod
+
+        per_batch = [[o.copy() for o in outs] for outs, _, _
+                     in self.iter_predict(eval_data, num_batch, reset)]
+        if not per_batch:
+            return []
+        if not merge_batches:
+            return per_batch
+        width = len(per_batch[0])
+        if any(len(outs) != width for outs in per_batch):
+            raise ValueError(
+                "Cannot merge batches: output arity varies across "
+                "mini-batches. Maybe bucketing is used?")
+        merged = [nd_mod.invoke("Concat", *[outs[i] for outs in per_batch],
+                                dim=0, num_args=len(per_batch))
+                  for i in range(width)]
+        if width == 1 and not always_output_list:
+            return merged[0]
+        return merged
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=None, arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, sparse_row_id_fn=None):
+        """Train the module (reference base_module.py:409): bind, init
+        params and optimizer, then per epoch ``forward_backward`` +
+        ``update`` + ``update_metric`` on every batch, the callbacks, and
+        ``score`` on ``eval_data``."""
+        if num_epoch is None:
+            raise MXNetError("fit: please specify number of epochs")
+        if monitor is not None:
+            raise MXNetError("fit(monitor=...) is not ported yet")
+        if kvstore not in ("local", None):
+            raise MXNetError("fit: kvstore %r is not ported yet (local or "
+                             "None)" % (kvstore,))
+
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer or Uniform(0.01),
+                         arg_params=arg_params, aux_params=aux_params,
+                         allow_missing=allow_missing, force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+
+        eval_metric = _as_metric(eval_metric)
+        validation_metric = validation_metric or eval_metric
+
+        for epoch in range(begin_epoch, num_epoch):
+            started = time.time()
+            eval_metric.reset()
+            nbatch = -1
+            epoch_vals = []
+            for nbatch, batch in enumerate(train_data):
+                self.prepare(batch, sparse_row_id_fn=sparse_row_id_fn)
+                self.forward_backward(batch)
+                self.update()
+                self.update_metric(eval_metric, batch.label)
+                if batch_end_callback is not None:
+                    # snapshot BEFORE callbacks: an auto-resetting
+                    # Speedometer on the final batch would otherwise leave
+                    # the epoch summary reading an empty (nan) metric
+                    epoch_vals = eval_metric.get_name_value()
+                    _fire(batch_end_callback,
+                          _BatchEndParam(epoch, nbatch, eval_metric,
+                                         locals()))
+            if nbatch < 0:
+                raise ValueError("train_data produced no batches")
+            if batch_end_callback is None:
+                epoch_vals = eval_metric.get_name_value()
+
+            for name, val in epoch_vals:
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f",
+                             epoch, time.time() - started)
+
+            arg_now, aux_now = self.get_params()
+            _fire(epoch_end_callback, epoch, self.symbol, arg_now, aux_now)
+
+            if eval_data is not None:
+                for name, val in self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch):
+                    self.logger.info("Epoch[%d] Validation-%s=%f",
+                                     epoch, name, val)
+
+            train_data.reset()
+
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True, allow_extra=False):
         self.init_params(initializer=None, arg_params=arg_params,
@@ -53,17 +229,8 @@ class BaseModule(object):
         return self._symbol
 
     def _not_ported(self, what):
-        raise MXNetError("Module.%s is not ported yet (it needs metric.py "
-                         "or the .params format)" % what)
-
-    def fit(self, *args, **kwargs):
-        self._not_ported("fit")
-
-    def score(self, *args, **kwargs):
-        self._not_ported("score")
-
-    def predict(self, *args, **kwargs):
-        self._not_ported("predict")
+        raise MXNetError("Module.%s is not ported yet (it needs the .params "
+                         "format)" % what)
 
     def save_params(self, fname):
         self._not_ported("save_params")

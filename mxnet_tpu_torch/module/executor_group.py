@@ -79,6 +79,13 @@ class DataParallelExecutorGroup(object):
                              "backward")
         self.execs[0].backward(out_grads)
 
+    def update_metric(self, eval_metric, labels, pre_sliced=False):
+        """The metric over the whole batch: one executor, no slices
+        (reference executor_group.py:601)."""
+        eval_metric.update_dict(
+            dict(zip(self.label_names, labels)),
+            dict(zip(self.output_names, self.execs[0].outputs)))
+
     def get_outputs(self, merge_multi_context=True):
         outs = self.execs[0].outputs
         return list(outs) if merge_multi_context else [[o] for o in outs]

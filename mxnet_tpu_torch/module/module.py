@@ -246,6 +246,11 @@ class Module(BaseModule):
             if name in e.grad_dict:
                 self._updater(idx, e.grad_dict[name], e.arg_dict[name])
 
+    def update_metric(self, eval_metric, labels, pre_sliced=False):
+        """Feed the last forward's outputs and ``labels`` to the metric
+        (reference module.py:update_metric)."""
+        self._exec_group.update_metric(eval_metric, labels, pre_sliced)
+
     def get_outputs(self, merge_multi_context=True):
         self._require("binded", "params_initialized")
         return self._exec_group.get_outputs(merge_multi_context)

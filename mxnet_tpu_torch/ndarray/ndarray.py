@@ -146,6 +146,31 @@ class NDArray:
     def _in_graph(self) -> bool:
         return self._data.requires_grad
 
+    # -- indexing -----------------------------------------------------------
+    def __getitem__(self, key):
+        """Basic and advanced indexing (a view for basic slices, as in
+        MXNet); differentiable under ``record()``."""
+        from .. import autograd
+
+        if isinstance(key, NDArray):
+            key = key._data.long()
+        with torch.set_grad_enabled(autograd.is_recording()
+                                    and self._in_graph):
+            return NDArray(self._data[key])
+
+    def __setitem__(self, key, value):
+        """``x[key] = value``: rebinds to a new tensor with the slice
+        replaced (an op recorded earlier keeps the value it saw)."""
+        if isinstance(value, NDArray):
+            v = value._data.detach()
+        elif isinstance(value, (int, float, bool, np.generic)):
+            v = value
+        else:
+            v = torch.as_tensor(np.asarray(value))
+        new = self._data.detach().clone()
+        new[key] = v.to(new) if isinstance(v, torch.Tensor) else v
+        self._data = new
+
     # -- op methods -------------------------------------------------------
     def reshape(self, *shape, **kwargs):
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):

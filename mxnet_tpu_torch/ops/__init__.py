@@ -17,6 +17,8 @@ its plain PyTorch version.
 paths call.
 
 Kernels are built by :mod:`._build` at first use, never at import.
+The ``Custom`` op of :mod:`mxnet_tpu_torch.operator` is registered here
+too, so that ``nd.Custom`` and ``sym.Custom`` are generated.
 """
 from __future__ import annotations
 
@@ -25,3 +27,5 @@ from . import (detection, flash_attention, nms, nn, paged_attention,
 
 __all__ = ["detection", "flash_attention", "nms", "nn", "paged_attention",
            "registry", "tensor"]
+
+from .. import operator as _operator  # noqa: E402,F401  (registers Custom)

@@ -45,7 +45,10 @@ def _reg(name, fn, params=None, inputs=("data",), num_outputs=1,
 # ---------------------------------------------------------------------------
 
 for _n, _f in {"negative": torch.neg, "abs": torch.abs,
-               "square": torch.square, "_copy": torch.clone}.items():
+               "square": torch.square, "_copy": torch.clone,
+               "relu": torch.relu, "sigmoid": torch.sigmoid,
+               "zeros_like": torch.zeros_like,
+               "ones_like": torch.ones_like}.items():
     _reg(_n, lambda attrs, x, _f=_f: _f(x))
 
 _BINARY = {

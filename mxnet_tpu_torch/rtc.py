@@ -1,0 +1,532 @@
+"""Runtime kernel compilation: CUDA-C source compiled at run time with
+NVRTC and launched with the CUDA driver API, the port of
+``mxnet_tpu/rtc.py``.
+
+The JAX package's ``PallasModule`` ``exec``s Pallas Python source and
+runs it through ``pl.pallas_call`` (``mxnet_tpu/rtc.py:88``), with
+``CudaModule`` as an alias. This module makes ``CudaModule`` what it was
+in the reference MXNet (``src/common/rtc.cc``, ``python/mxnet/rtc.py``):
+
+* ``CudaModule(source, options, exports)`` compiles CUDA-C ``source``
+  with NVRTC, for the card's own architecture (``sm_90a`` on an H100),
+  to a CUBIN, and loads it with ``cuModuleLoadData`` into torch's
+  primary context of the current device. A CUBIN and not PTX: PTX from
+  an NVRTC newer than the driver does not JIT. The options are
+  ``--std=c++17`` and ``-I$CUDA_HOME/include`` (so ``#include
+  <cuda_fp16.h>`` works), then the user's own. ``exports`` may name C++
+  template instantiations (``"fwd<float>"``); an ``extern "C"`` kernel
+  is found under its own name.
+* ``get_kernel(name, signature)`` binds a kernel to a C-style signature:
+  ``const`` pointers and by-value scalars are inputs, non-``const``
+  pointers are outputs, as in the JAX package.
+* ``Kernel.launch(args, ctx, grid_dims, block_dims, shared_mem)`` packs
+  one pointer per tensor and one C value per scalar and calls
+  ``cuLaunchKernel`` on torch's current stream, without synchronising.
+  Outputs are contiguous NDArrays on the card in the signature's dtype,
+  written in place (the reference's CUDA semantics, and the JAX
+  package's "contents replaced" for any kernel that writes every
+  element). Inputs of another dtype, and numbers or numpy arrays, are
+  copied to temporaries, which are freed after the launch: the caching
+  allocator reuses a block only in stream order. A scalar parameter
+  takes a Python or numpy number; an NDArray there raises, so that no
+  device-to-host copy hides in a launch.
+
+What bounds a kernel launched here is the user's kernel; the path's own
+cost is the host work of packing and launching (a few microseconds).
+
+There is no fallback: without a card or without NVRTC the constructor
+raises :class:`MXNetError`, and nothing is compiled in a subprocess or
+interpreted on the host. Loaded modules stay loaded for the life of the
+process (no ``cuModuleUnload``): unloading safely would need the device
+synchronised at an arbitrary point in garbage collection. The JAX
+package's ``PallasModule`` has no counterpart: Pallas source cannot run
+on the card.
+
+Launches are counted per kernel (``Kernel.launches``) and in all
+(``Kernel.total_launches``).
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import re
+import threading
+from typing import List, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from .base import MXNetError, np_dtype, torch_dtype
+from .ndarray.ndarray import NDArray
+
+__all__ = ["CudaModule", "Kernel", "versions"]
+
+# ---------------------------------------------------------------------------
+# signatures (the JAX package's _SIG_RE, _CTYPE_DT and _parse_signature)
+# ---------------------------------------------------------------------------
+
+_SIG_RE = re.compile(
+    r"^\s*(?P<const>const\s+)?(?P<type>\w+)\s*(?P<ptr>\*)?\s*(?P<name>\w+)\s*$")
+
+_CTYPE_DT = {"float": np.float32, "double": np.float64, "int": np.int32,
+             "long": np.int64, "half": np.float16,
+             "bfloat16": torch.bfloat16, "uint8": np.uint8, "int8": np.int8}
+
+
+class Param(NamedTuple):
+    """One parameter of a kernel signature."""
+    name: str
+    dtype: object  # a numpy dtype, or torch.bfloat16
+    is_out: bool   # a non-const pointer
+    is_ptr: bool   # a pointer (else passed by value)
+
+
+def _parse_signature(sig: str) -> List[Param]:
+    spec = []
+    for part in sig.split(","):
+        m = _SIG_RE.match(part)
+        if not m:
+            raise MXNetError("cannot parse signature fragment %r" % part)
+        base = m.group("type")
+        dt = _CTYPE_DT.get(base)
+        if dt is None:
+            dt = np_dtype(base)
+        is_ptr = bool(m.group("ptr"))
+        spec.append(Param(m.group("name"), dt if dt is torch.bfloat16
+                          else np.dtype(dt), is_ptr and not m.group("const"),
+                          is_ptr))
+    return spec
+
+
+# by-value scalars: the C type of each signature dtype (half and bfloat16
+# travel as their 16 bits)
+_SCALAR_CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double,
+                 torch.int32: ctypes.c_int32, torch.int64: ctypes.c_int64,
+                 torch.uint8: ctypes.c_uint8, torch.int8: ctypes.c_int8,
+                 torch.bool: ctypes.c_bool}
+
+
+def _scalar_value(kernel, p: Param, v):
+    if isinstance(v, (NDArray, torch.Tensor)):
+        raise MXNetError(
+            "kernel %s: scalar parameter %s takes a Python or numpy number, "
+            "not an array (that would hide a device-to-host copy)"
+            % (kernel, p.name))
+    if not isinstance(v, (int, float, bool, np.number, np.bool_)):
+        raise MXNetError("kernel %s: scalar parameter %s takes a number, got "
+                         "%s" % (kernel, p.name, type(v).__name__))
+    dt = torch_dtype(p.dtype)
+    if dt in (torch.float16, torch.bfloat16):
+        bits = torch.tensor([float(v)], dtype=dt).view(torch.int16).item()
+        return ctypes.c_uint16(bits & 0xFFFF)
+    if dt.is_floating_point:
+        return _SCALAR_CTYPE[dt](float(v))
+    return _SCALAR_CTYPE[dt](int(v))
+
+
+# ---------------------------------------------------------------------------
+# the launch checks: pure functions, reachable without a card
+# ---------------------------------------------------------------------------
+
+
+def _check_launch(kernel: str, spec: Sequence[Param], args: Sequence,
+                  grid_dims) -> tuple:
+    """The JAX package's checks, with its messages, before any driver
+    call: the argument count, every output an NDArray, every grid dim at
+    least 1. Returns the grid as three dims."""
+    if len(args) != len(spec):
+        raise MXNetError("kernel %s: %d args for %d-parameter signature"
+                         % (kernel, len(args), len(spec)))
+    for a, p in zip(args, spec):
+        if p.is_out and not isinstance(a, NDArray):
+            raise MXNetError("kernel %s: output args must be NDArrays"
+                             % kernel)
+    grid = tuple(int(g) for g in grid_dims) or (1,)
+    if any(g < 1 for g in grid):
+        raise MXNetError("kernel %s: invalid grid_dims %r (all dims must be "
+                         ">= 1)" % (kernel, grid_dims))
+    if len(grid) > 3:
+        raise MXNetError("kernel %s: grid_dims %r has more than 3 dims"
+                         % (kernel, grid_dims))
+    return grid + (1,) * (3 - len(grid))
+
+
+def _pack_args(kernel: str, spec: Sequence[Param], args: Sequence,
+               device: torch.device):
+    """``(values, keep)``: one ctypes value per parameter (a ``c_uint64``
+    device pointer per array, a C scalar per by-value parameter), and the
+    tensors that must stay alive until the launch is issued. Raises on an
+    array on another device, and on an output that is not a contiguous
+    NDArray in the signature's dtype."""
+    values, keep = [], []
+    for a, p in zip(args, spec):
+        if not p.is_ptr:
+            values.append(_scalar_value(kernel, p, a))
+            continue
+        want = torch_dtype(p.dtype)
+        if isinstance(a, NDArray):
+            t = a._data
+            if t.device != device:
+                raise MXNetError(
+                    "kernel %s: argument %s is on %s; the module's kernels "
+                    "run on %s" % (kernel, p.name, t.device, device))
+            if p.is_out:
+                if t.dtype != want or not t.is_contiguous():
+                    raise MXNetError(
+                        "kernel %s: output %s must be a contiguous %s array, "
+                        "got %s%s" % (kernel, p.name, want, t.dtype,
+                                      "" if t.is_contiguous()
+                                      else " (not contiguous)"))
+            else:
+                t = t.detach().to(want).contiguous()
+        elif isinstance(a, torch.Tensor):
+            raise MXNetError("kernel %s: argument %s: pass an NDArray, a "
+                             "number or a numpy array, not a torch.Tensor"
+                             % (kernel, p.name))
+        else:
+            t = torch.as_tensor(np.asarray(a), dtype=want, device=device)
+        keep.append(t)
+        values.append(ctypes.c_uint64(t.data_ptr()))
+    return values, keep
+
+
+# ---------------------------------------------------------------------------
+# the two libraries, loaded at first use
+# ---------------------------------------------------------------------------
+
+_LOCK = threading.Lock()
+_LIBS = {}
+_MAX_DYN_SMEM_ATTR = 8  # CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES
+_CUDA_ERROR_NOT_FOUND = 500
+
+
+def _cuda_home() -> str:
+    return os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+
+
+def _nvrtc_dirs() -> List[str]:
+    """Where NVRTC is looked for: the toolkit, then torch's wheel."""
+    site = os.path.dirname(os.path.dirname(os.path.abspath(torch.__file__)))
+    return [os.path.join(_cuda_home(), "lib64"),
+            os.path.join(site, "nvidia", "cuda_nvrtc", "lib")]
+
+
+def _driver():
+    """``libcuda.so.1`` with ``argtypes`` on every function used (ctypes
+    would otherwise cut a pointer to 32 bits)."""
+    with _LOCK:
+        if "cuda" in _LIBS:
+            return _LIBS["cuda"]
+        lib = ctypes.CDLL("libcuda.so.1")
+        P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        PP = ctypes.POINTER(ctypes.c_void_p)
+        sigs = {
+            "cuInit": [U],
+            "cuDriverGetVersion": [ctypes.POINTER(I)],
+            "cuDeviceGet": [ctypes.POINTER(I), I],
+            "cuDevicePrimaryCtxRetain": [PP, I],
+            "cuCtxGetCurrent": [PP],
+            "cuCtxSetCurrent": [P],
+            "cuModuleLoadData": [PP, P],
+            "cuModuleGetFunction": [PP, P, ctypes.c_char_p],
+            "cuFuncSetAttribute": [P, I, I],
+            "cuLaunchKernel": [P, U, U, U, U, U, U, U, P, PP, PP],
+            "cuGetErrorName": [I, ctypes.POINTER(ctypes.c_char_p)],
+        }
+        for name, argtypes in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = I
+        _LIBS["cuda"] = lib
+        return lib
+
+
+def _cu_check(res: int, what: str):
+    if res != 0:
+        name = ctypes.c_char_p()
+        _driver().cuGetErrorName(res, ctypes.byref(name))
+        raise MXNetError("%s failed: %s (CUresult %d)"
+                         % (what, (name.value or b"?").decode(), res))
+
+
+def _driver_version() -> int:
+    v = ctypes.c_int()
+    _cu_check(_driver().cuDriverGetVersion(ctypes.byref(v)),
+              "cuDriverGetVersion")
+    return v.value
+
+
+def _bind_nvrtc(path: str):
+    # its builtins library sits beside it; load that first, by path, so
+    # NVRTC's own dlopen of it by name finds it loaded
+    for b in sorted(glob.glob(os.path.join(os.path.dirname(path),
+                                           "libnvrtc-builtins.so*"))):
+        ctypes.CDLL(b, mode=ctypes.RTLD_GLOBAL)
+        break
+    lib = ctypes.CDLL(path)
+    P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    CP, PP = ctypes.c_char_p, ctypes.POINTER(ctypes.c_void_p)
+    sigs = {
+        "nvrtcVersion": [ctypes.POINTER(I), ctypes.POINTER(I)],
+        "nvrtcCreateProgram": [PP, CP, CP, I, P, P],
+        "nvrtcAddNameExpression": [P, CP],
+        "nvrtcCompileProgram": [P, I, ctypes.POINTER(CP)],
+        "nvrtcGetProgramLogSize": [P, ctypes.POINTER(S)],
+        "nvrtcGetProgramLog": [P, CP],
+        "nvrtcGetCUBINSize": [P, ctypes.POINTER(S)],
+        "nvrtcGetCUBIN": [P, CP],
+        "nvrtcGetLoweredName": [P, CP, ctypes.POINTER(CP)],
+        "nvrtcDestroyProgram": [PP],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = I
+    lib.nvrtcGetErrorString.argtypes = [I]
+    lib.nvrtcGetErrorString.restype = CP
+    major, minor = I(), I()
+    lib.nvrtcVersion(ctypes.byref(major), ctypes.byref(minor))
+    return lib, (major.value, minor.value)
+
+
+def _nvrtc():
+    """``(lib, (major, minor), path)`` of the first NVRTC found whose major
+    version the driver supports (a CUBIN from a newer major release may
+    not load); the first found if none is. Raises naming the paths tried
+    when there is none."""
+    with _LOCK:
+        if "nvrtc" in _LIBS:
+            return _LIBS["nvrtc"]
+    dirs = _nvrtc_dirs()
+    found = []
+    for d in dirs:
+        libs = [p for p in glob.glob(os.path.join(d, "libnvrtc.so*"))
+                if "builtins" not in p]
+        # the unversioned name first, then the shortest (all name one file)
+        libs.sort(key=lambda p: (os.path.basename(p) != "libnvrtc.so",
+                                 len(p), p))
+        found.extend(libs[:1])
+    if not found:
+        raise MXNetError("rtc: NVRTC (libnvrtc.so*) not found; tried %s"
+                         % dirs)
+    driver_major = _driver_version() // 1000
+    bound = []
+    for path in found:
+        lib, ver = _bind_nvrtc(path)
+        bound.append((lib, ver, path))
+        if ver[0] <= driver_major:
+            break
+    chosen = next((b for b in bound if b[1][0] <= driver_major), bound[0])
+    with _LOCK:
+        _LIBS.setdefault("nvrtc", chosen)
+        return _LIBS["nvrtc"]
+
+
+def versions() -> dict:
+    """The NVRTC the port compiles with and the driver it loads into:
+    ``{"nvrtc": "12.8", "nvrtc_path": ..., "driver": 12080}``."""
+    _, ver, path = _nvrtc()
+    return {"nvrtc": "%d.%d" % ver, "nvrtc_path": path,
+            "driver": _driver_version()}
+
+
+def _arch(device: torch.device) -> str:
+    major, minor = torch.cuda.get_device_capability(device)
+    # the "a" target has Hopper's wgmma and setmaxnreg; plain sm_90 lacks them
+    return "sm_%d%d%s" % (major, minor, "a" if (major, minor) == (9, 0)
+                          else "")
+
+
+def _primary_context(device: torch.device) -> ctypes.c_void_p:
+    """torch's primary context of ``device`` (retained once more)."""
+    torch.cuda.init()
+    drv = _driver()
+    _cu_check(drv.cuInit(0), "cuInit")
+    dev = ctypes.c_int()
+    _cu_check(drv.cuDeviceGet(ctypes.byref(dev), device.index), "cuDeviceGet")
+    ctx = ctypes.c_void_p()
+    _cu_check(drv.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev),
+              "cuDevicePrimaryCtxRetain")
+    return ctx
+
+
+class _CurrentContext:
+    """Make ``ctx`` current on this thread for a driver call, and put
+    back the one that was (a thread that never touched CUDA through
+    torch has none)."""
+
+    def __init__(self, ctx: ctypes.c_void_p):
+        self._ctx = ctx
+        self._prev = None
+
+    def __enter__(self):
+        drv = _driver()
+        cur = ctypes.c_void_p()
+        _cu_check(drv.cuCtxGetCurrent(ctypes.byref(cur)), "cuCtxGetCurrent")
+        if cur.value != self._ctx.value:
+            _cu_check(drv.cuCtxSetCurrent(self._ctx), "cuCtxSetCurrent")
+            self._prev = cur
+        return self
+
+    def __exit__(self, *exc):
+        if self._prev is not None and self._prev.value:
+            _driver().cuCtxSetCurrent(self._prev)
+
+
+# ---------------------------------------------------------------------------
+# module and kernel
+# ---------------------------------------------------------------------------
+
+
+class Kernel(object):
+    """One launchable kernel (reference rtc.py:CudaKernel)."""
+
+    #: launches of every kernel of every module
+    total_launches = 0
+
+    def __init__(self, module: "CudaModule", fn: ctypes.c_void_p, name: str,
+                 spec: List[Param]):
+        self._module = module
+        self._fn = fn
+        self._name = name
+        self._spec = spec
+        self._smem_set = 48 * 1024  # what a launch may use without opting in
+        self.launches = 0
+
+    def launch(self, args: Sequence, ctx=None,
+               grid_dims: Sequence[int] = (1, 1, 1),
+               block_dims: Sequence[int] = (1, 1, 1), shared_mem: int = 0):
+        """Launch over ``grid_dims`` blocks of ``block_dims`` threads with
+        ``shared_mem`` bytes of dynamic shared memory, on torch's current
+        stream (reference rtc.py:CudaKernel.launch). ``args`` pairs with
+        the signature; outputs are written in place and returned (one
+        NDArray, or a list of them)."""
+        grid = _check_launch(self._name, self._spec, args, grid_dims)
+        device = self._module.device
+        if ctx is not None and ctx.torch_device() != device:
+            raise MXNetError("kernel %s: ctx %s, but the module was loaded "
+                             "on %s" % (self._name, ctx, device))
+        block = tuple(int(b) for b in block_dims)
+        block = block + (1,) * (3 - len(block))
+        values, keep = _pack_args(self._name, self._spec, args, device)
+        params = (ctypes.c_void_p * max(len(values), 1))(
+            *[ctypes.addressof(v) for v in values])
+        stream = torch.cuda.current_stream(device).cuda_stream
+        drv = _driver()
+        with _CurrentContext(self._module._ctx):
+            if shared_mem > self._smem_set:
+                _cu_check(drv.cuFuncSetAttribute(
+                    self._fn, _MAX_DYN_SMEM_ATTR, int(shared_mem)),
+                    "kernel %s: cuFuncSetAttribute(max dynamic shared "
+                    "memory %d)" % (self._name, shared_mem))
+                self._smem_set = int(shared_mem)
+            _cu_check(drv.cuLaunchKernel(
+                self._fn, grid[0], grid[1], grid[2], block[0], block[1],
+                block[2], int(shared_mem), ctypes.c_void_p(stream), params,
+                None), "kernel %s: cuLaunchKernel(grid %s, block %s, shared "
+                "%d)" % (self._name, grid, block, shared_mem))
+        self.launches += 1
+        Kernel.total_launches += 1
+        del keep  # temporaries: freed in stream order after the launch
+        outs = [a for a, p in zip(args, self._spec) if p.is_out]
+        return outs[0] if len(outs) == 1 else outs
+
+
+class CudaModule(object):
+    """Compile CUDA-C source at run time with NVRTC (reference
+    rtc.py:CudaModule).
+
+    Example::
+
+        mod = mx.rtc.CudaModule(r'''
+        extern "C" __global__ void axpy(const float *a, const float *x,
+                                        const float *y, float *out, int n) {
+            int i = blockIdx.x * blockDim.x + threadIdx.x;
+            if (i < n) out[i] = a[0] * x[i] + y[i];
+        }''')
+        k = mod.get_kernel("axpy", "const float *a, const float *x, "
+                                   "const float *y, float *out, int n")
+        k.launch((a, x, y, out, n), grid_dims=((n + 255) // 256, 1, 1),
+                 block_dims=(256, 1, 1))
+    """
+
+    def __init__(self, source: str, options: Sequence[str] = (),
+                 exports: Sequence[str] = ()):
+        if not torch.cuda.is_available():
+            raise MXNetError("rtc.CudaModule needs a CUDA device, and none "
+                             "is available")
+        nvrtc, _, _ = _nvrtc()
+        self.device = torch.device("cuda", torch.cuda.current_device())
+        self._exports = tuple(exports)
+        opts = ["--gpu-architecture=%s" % _arch(self.device), "--std=c++17"]
+        include = os.path.join(_cuda_home(), "include")
+        if os.path.isdir(include):
+            opts.append("-I" + include)
+        opts.extend(options)
+        cubin, self._lowered = self._compile(nvrtc, source, opts)
+        self._ctx = _primary_context(self.device)
+        self._module = ctypes.c_void_p()
+        with _CurrentContext(self._ctx):
+            _cu_check(_driver().cuModuleLoadData(
+                ctypes.byref(self._module), cubin), "cuModuleLoadData")
+        self._cubin = cubin  # the image stays alive beside the module
+
+    def _compile(self, nvrtc, source, opts):
+        def check(res, what):
+            if res != 0:
+                raise MXNetError("CudaModule: %s failed: %s" % (
+                    what, nvrtc.nvrtcGetErrorString(res).decode()))
+
+        prog = ctypes.c_void_p()
+        check(nvrtc.nvrtcCreateProgram(ctypes.byref(prog), source.encode(),
+                                       b"mxnet_rtc.cu", 0, None, None),
+              "nvrtcCreateProgram")
+        try:
+            for name in self._exports:
+                check(nvrtc.nvrtcAddNameExpression(prog, name.encode()),
+                      "nvrtcAddNameExpression(%s)" % name)
+            c_opts = (ctypes.c_char_p * len(opts))(
+                *[o.encode() for o in opts])
+            res = nvrtc.nvrtcCompileProgram(prog, len(opts), c_opts)
+            size = ctypes.c_size_t()
+            nvrtc.nvrtcGetProgramLogSize(prog, ctypes.byref(size))
+            log = ctypes.create_string_buffer(size.value)
+            nvrtc.nvrtcGetProgramLog(prog, log)
+            if res != 0:
+                raise MXNetError(
+                    "CudaModule: kernel source does not compile (%s, options "
+                    "%s):\n%s" % (nvrtc.nvrtcGetErrorString(res).decode(),
+                                  opts, log.value.decode(errors="replace")))
+            check(nvrtc.nvrtcGetCUBINSize(prog, ctypes.byref(size)),
+                  "nvrtcGetCUBINSize")
+            cubin = ctypes.create_string_buffer(size.value)
+            check(nvrtc.nvrtcGetCUBIN(prog, cubin), "nvrtcGetCUBIN")
+            lowered = {}
+            for name in self._exports:
+                low = ctypes.c_char_p()
+                check(nvrtc.nvrtcGetLoweredName(prog, name.encode(),
+                                                ctypes.byref(low)),
+                      "nvrtcGetLoweredName(%s)" % name)
+                lowered[name] = low.value.decode()
+        finally:
+            nvrtc.nvrtcDestroyProgram(ctypes.byref(prog))
+        return cubin, lowered
+
+    def get_kernel(self, name: str, signature: str) -> Kernel:
+        """Bind a kernel by name and C-style signature (reference
+        rtc.py:CudaModule.get_kernel); each call gives a fresh binding.
+        An exported name is looked up by its lowered name, any other by
+        its own (an ``extern "C"`` kernel); a name the module does not
+        hold raises "not exported"."""
+        spec = _parse_signature(signature)
+        fn = ctypes.c_void_p()
+        with _CurrentContext(self._ctx):
+            res = _driver().cuModuleGetFunction(
+                ctypes.byref(fn), self._module,
+                self._lowered.get(name, name).encode())
+        if res == _CUDA_ERROR_NOT_FOUND:
+            raise MXNetError("kernel %r not exported (exports: %s)"
+                             % (name, list(self._exports)))
+        _cu_check(res, "cuModuleGetFunction(%s)" % name)
+        return Kernel(self, fn, name, spec)

@@ -13,7 +13,8 @@ Two departures in how a graph runs:
   values (``MultiBoxTarget``, the NMS) have a shape rule of their own.
   Parameter shapes are back-filled from the op's attrs as in
   ``_fill_param_shapes`` (Convolution, FullyConnected, LayerNorm,
-  Embedding, the ``SoftmaxOutput`` label);
+  Embedding, the ``SoftmaxOutput`` label), and for a ``Custom`` node from
+  what its prop's ``infer_shape`` returns;
 * an executor walks the graph eagerly under torch autograd
   (:mod:`.executor`) where the JAX package jits it whole.
 
@@ -444,6 +445,10 @@ def _fill_param_shapes(node: _Node, in_shapes):
         put("weight", (attrs.input_dim, attrs.output_dim))
     elif op in ("SoftmaxOutput", "Softmax") and data is not None:
         put("label", data[:-1])
+    elif op == "Custom":  # what the user's prop says (a loss op's label)
+        from .operator import fill_input_shapes
+
+        return fill_input_shapes(attrs, in_shapes)
     else:
         return None
     return out

@@ -15,7 +15,12 @@
   raise without a card when no context asks for the host, and the SSD
   example imports and takes a training step with ``jax`` and
   ``mxnet_tpu`` made unimportable;
-* ``chip_smoke.py`` refuses to run without a card, printing no result.
+* ``chip_smoke.py`` refuses to run without a card, printing no result;
+* the extension slice's modules (``rtc``, ``operator``, ``metric``,
+  ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
+  no module of the port defines ``PallasModule`` (Pallas source cannot
+  run on the card), and the rtc example fits with ``jax`` and
+  ``mxnet_tpu`` made unimportable.
 """
 import ast
 import os
@@ -194,3 +199,56 @@ def test_chip_smoke_without_a_card_prints_no_result(tmp_path):
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
     assert os.listdir(tmp_path) == []  # and wrote nothing
+
+
+def test_scan_covers_the_extension_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ("mxnet_tpu_torch/rtc.py", "mxnet_tpu_torch/operator.py",
+                 "mxnet_tpu_torch/metric.py", "mxnet_tpu_torch/callback.py",
+                 "mxnet_tpu_torch/contrib/__init__.py",
+                 "mxnet_tpu_torch/contrib/torch_bridge.py",
+                 "mxnet_tpu_torch/example/rtc_spec.py",
+                 "mxnet_tpu_torch/example/numpy_ops/custom_softmax.py",
+                 "mxnet_tpu_torch/example/numpy_ops/custom_softmax_rtc.py"):
+        assert path in names
+
+
+def _defines(path, name):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.ClassDef, ast.FunctionDef)) \
+                and node.name == name:
+            return True
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == name
+                for t in node.targets):
+            return True
+    return False
+
+
+def test_no_module_of_the_port_defines_pallas_module():
+    assert [str(f.relative_to(REPO)) for f in _port_files()
+            if _defines(f, "PallasModule")] == []
+    assert _defines(REPO / "mxnet_tpu" / "rtc.py", "PallasModule")
+    assert _defines(REPO / "mxnet_tpu_torch" / "rtc.py", "CudaModule")
+    assert not hasattr(mx.rtc, "PallasModule")
+
+
+def test_extension_slice_fits_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+from mxnet_tpu_torch.example.numpy_ops import custom_softmax_rtc as cr
+res = cr.run(cr.parse_args(["--device", "cpu", "--epochs", "1",
+                            "--train-size", "256"]))
+assert res["learned"] and res["train_batches"] == 4
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("fitted", res["train_batches"])
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "fitted 4" in proc.stdout
