@@ -87,12 +87,21 @@ Phases, each printing one line of its own (any failure exits non-zero):
     must launch at least 2 x training batches + test batches times;
 16. rtc_time: the softmax-forward kernel through ``Kernel.launch`` at
     (64, 10) and (8192, 1024): host and device time, bound, plain version
-    and ``torch.softmax``.
+    and ``torch.softmax`` (host and device time).
 
 The flash-attention kernel is checked (phase 3) against its plain
-version on the GPT shape, ragged and long shapes, both maskings, bf16
-inputs, and through its autograd Function's gradients, and timed at the
-GPT shape and at (4, 8, 2048, 64). The NMS kernel is checked against its
+version on the GPT shape, ragged and long shapes (S = 1, 63, 65, 129,
+1000 and 2048 around its 128-row q tiles and 64-token kv tiles), head
+dims 6 (the cp.async route), 8, 24, 64, 100, 128 and 256, both
+maskings, bf16 inputs (also at (4, 8, 2048, 64); within one bf16
+rounding step of the plain version), and through its autograd
+Function's gradients, and timed at the GPT shape and at (4, 8, 2048, 64)
+beside SDPA's host and device time, with two bounds: the tensor cores
+(fp32 inputs at fp32 accuracy, bf16 at the bf16 rate: ``bound_ms``) and
+the fp32 rate outside them (``bound_simt_ms``); at the GPT shape the
+wrapper's host time is split from its entry point's, with and without
+the tensor maps' encoding. The build phase fails if ptxas reports a
+spill in the flash kernel at D = 64. The NMS kernel is checked against its
 plain version, whose keep masks it must equal exactly, at the SSD shape
 (B = 8, N = 3840, 3 classes, top-100 valid), with every box valid, under
 force_suppress, at N = 1, 77, 1000 and 6000 (``Proposal``'s default
@@ -120,6 +129,8 @@ import numpy as np
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the full 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # tensor cores
+PEAK_BF16_FLOPS = 989e12  # tensor cores
 
 # the decode bench model and plane (the JAX package's bench.py,
 # BENCH_DECODE full configuration)
@@ -129,9 +140,10 @@ MAX_PAGES = MAX_SEQ // PAGE
 N_REQ, OUT_CAP, SYSTEM_LEN = 32, 256, 32
 OUT_MIX = [16] * 3 + [64] * 2 + [256, 512, 1024]
 KERNEL_TOL = 1e-4  # fp32, another summation order than the plain einsum
-# bf16 outputs: both versions round an fp32 result to bf16, whose step is
-# 2^-7 at 1 and 2^-6 at 2; the outputs stay below 2 (inputs 0.5 N(0, 1))
-BF16_TOL = 2e-2
+# bf16 outputs: both versions round an fp32 result to bf16 (8 significant
+# bits), and their two summation orders can tip that rounding by one step,
+# at most 2^-7 of the value; the atol covers outputs near 0
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 # the kernels' device-side names, as the profiler reports them
 KERNEL_1, KERNEL_2 = "paged_attention_kernel", "paged_spec_kernel"
 KERNEL_3 = "flash_attention_kernel"
@@ -193,29 +205,62 @@ def time_ms(fn, iters=50, warm=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms_by_kernel(fn, kernel, iters=20):
-    """Mean device duration per call of each kernel whose name contains
-    ``kernel`` while ``fn()`` runs ``iters`` times, from torch.profiler:
-    {short kernel name: ms}, the kernels alone, without their wrapper's
-    host work (which bounds ``time_ms`` at small shapes)."""
+def host_ms(fn, iters=200, warm=3):
+    """Mean host time to issue ``fn()`` over ``iters`` back-to-back calls
+    (``time.perf_counter``, no synchronisation inside the loop)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
+def _profiled_us(fn, iters, keep):
+    """{event name: device microseconds} of the CUDA events that
+    ``keep(name)`` accepts in one torch.profiler session over ``iters``
+    runs of ``fn()``. A session that recorded no device time of them is
+    run again, three sessions at most: the profiler once came back empty
+    for a call it had timed in earlier runs of this script. Empty if all
+    three were."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and kernel in e.name:
-            # "(anonymous namespace)::nms_keep_scan_kernel(...)" -> the
-            # kernel's own name
-            name = e.name[e.name.find(kernel):].split("(")[0]
-            out[name] = out.get(name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and keep(e.name):
+                out[e.name] = out.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us()
+        if sum(out.values()) > 0.0:
+            return out
+    return {}
+
+
+def device_ms_by_kernel(fn, kernel, iters=20):
+    """Mean device duration per call of each kernel whose name contains
+    ``kernel`` while ``fn()`` runs ``iters`` times, from torch.profiler:
+    {short kernel name: ms}, the kernels alone, without their wrapper's
+    host work (which bounds ``time_ms`` at small shapes)."""
+    out = {}
+    for name, us in _profiled_us(fn, iters, lambda n: kernel in n).items():
+        # "(anonymous namespace)::nms_keep_scan_kernel(...)" -> the
+        # kernel's own name
+        name = name[name.find(kernel):].split("(")[0]
+        out[name] = out.get(name, 0.0) + us / 1e3 / iters
     if not out:
         fail("the profiler saw no device time of %s" % kernel)
     return out
@@ -225,6 +270,63 @@ def kernel_device_ms(fn, kernel, iters=20):
     """Mean device duration per call of all kernels whose name contains
     ``kernel``: the sum of ``device_ms_by_kernel``."""
     return sum(device_ms_by_kernel(fn, kernel, iters).values())
+
+
+def call_device_ms(fn, iters=20):
+    """Mean device duration per call of everything ``fn()`` runs on the
+    card (every kernel, copy and fill), from torch.profiler: a library
+    call's device time, whatever its kernels are named."""
+    total = sum(_profiled_us(fn, iters, lambda n: True).values()) / 1e3 \
+        / iters
+    if total <= 0.0:
+        fail("the profiler saw no device time of the library call")
+    return total
+
+
+def ptxas_entries(log):
+    """What ``ptxas -v`` said of each kernel entry in an nvcc log:
+    {mangled name: {"registers", "spill_stores", "spill_loads", "line"}}."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {"line": []})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+            cur["line"].append(ln.strip())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur["line"].append(ln.strip())
+    return out
+
+
+def flash_ptxas(log):
+    """The flash kernel's instances at D = 64 (fp32 and bf16), from the
+    build's ptxas report; fails on a spill or a missing report."""
+    import re
+
+    found = {}
+    for name, info in ptxas_entries(log).items():
+        m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                      name)
+        if m and m.group(2) == "64":
+            found["float32" if m.group(1) == "f" else "bfloat16"] = info
+    if sorted(found) != ["bfloat16", "float32"]:
+        fail("build: no ptxas report of the flash kernel at D = 64 "
+             "(found %s)" % sorted(found))
+    for dt, info in found.items():
+        if info.get("spill_stores", 1) or info.get("spill_loads", 1):
+            fail("build: the flash kernel at D = 64 (%s) spills: %s"
+                 % (dt, info["line"]))
+    return {dt: " | ".join(info["line"]) for dt, info in found.items()}
 
 
 def build_all():
@@ -364,15 +466,20 @@ def check_kernels():
         qs = q[:, :, None, :]
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask))
+        library_device_ms = call_device_ms(
+            lambda: F.scaled_dot_product_attention(qs, kg, vg,
+                                                   attn_mask=mask))
         bound_ms, bound_by = _bound(SLOTS, h, kh, 64, lens)
         phase("kernel_time", case=case, ms=ms, device_ms=device_ms,
-              plain_ms=plain_ms,
-              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+              plain_ms=plain_ms, library_ms=library_ms,
+              library_device_ms=library_device_ms, bound_ms=bound_ms,
+              bound_by=bound_by,
               library="scaled_dot_product_attention over K/V gathered "
                       "beforehand (gather not timed)")
         return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=library_ms)
+                    library_ms=library_ms,
+                    library_device_ms=library_device_ms)
 
     # times at the decode bench shape (the JSON line's numbers), then with
     # every slot at max_seq_len: the most bytes one tick's layer can read
@@ -398,10 +505,14 @@ def check_kernels():
     mask = ((pos < sl[:, None].long()) & (pos <= qpos[:, None].long()))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(0, 1)[None], kg, vg, attn_mask=mask[None, None]))
+    library_device_ms = call_device_ms(
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(0, 1)[None], kg, vg, attn_mask=mask[None, None]))
     bound_ms, bound_by = _bound(SP_CHUNK, 8, 8, 64, sl.cpu().numpy(),
                                 [start + n])
     phase("kernel_time", case="prefill_chunk_%d" % SP_CHUNK, ms=ms,
           device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+          library_device_ms=library_device_ms,
           bound_ms=bound_ms, bound_by=bound_by,
           library="scaled_dot_product_attention, 64 queries over the "
                   "sequence's K/V gathered beforehand (gather not timed)")
@@ -514,10 +625,14 @@ def check_spec_kernel():
         qs = q.transpose(1, 2)  # (S, H, W, D)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask))
+        library_device_ms = call_device_ms(
+            lambda: F.scaled_dot_product_attention(qs, kg, vg,
+                                                   attn_mask=mask))
         bound_ms, bound_by = _bound(SLOTS * w, 8, 8, 64, lens.ravel(),
                                     lens.max(axis=1))
         phase("kernel_time", case=case, ms=ms, device_ms=device_ms,
-              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+              plain_ms=plain_ms, library_ms=library_ms,
+              library_device_ms=library_device_ms, bound_ms=bound_ms,
               bound_by=bound_by, rows_per_slot=w,
               slot_lens=[int(lens.min()), int(lens.max())],
               library="scaled_dot_product_attention, W queries per slot "
@@ -525,7 +640,8 @@ def check_spec_kernel():
                       "(gather not timed)")
         return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=library_ms)
+                    library_ms=library_ms,
+                    library_device_ms=library_device_ms)
 
     # the spec bench's verify ticks: 10-token prompts + up to 48 tokens
     bench = times("spec_bench", 10, 10 + SPEC_OUT - w)
@@ -539,13 +655,25 @@ def check_spec_kernel():
 def _flash_bound(b, h, s, d, causal, itemsize):
     """Least time (ms) of one attention forward: q, k, v read once and the
     output written once; 2 * D flops for q.k and as many for p.v per
-    (row, key) pair, of which causal keeps S (S + 1) / 2 per (b, h)."""
+    (row, key) pair, of which causal keeps S (S + 1) / 2 per (b, h).
+    Returns ``(bound_ms, bound_by, bound_simt_ms)``: the operations on the
+    tensor cores (fp32 inputs at fp32 accuracy: 3 TF32 products per fp32
+    product at 495 TFLOP/s; bf16 inputs: the two products at the bf16
+    rate, 989 TFLOP/s), against the bytes; and, comparable with the
+    earlier rows, the operations at the 67 TFLOP/s fp32 rate outside the
+    tensor cores, against the bytes."""
     nbytes = 4 * b * h * s * d * itemsize
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * d * b * h * pairs
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    t_bytes = nbytes / PEAK_BYTES_S
+    if itemsize == 4:
+        t_tc = 3 * flops / PEAK_TF32_FLOPS
+    else:
+        t_tc = flops / PEAK_BF16_FLOPS
+    t_simt = flops / PEAK_FP32_FLOPS
+    return (max(t_bytes, t_tc) * 1e3,
+            "bytes" if t_bytes >= t_tc else "operations",
+            max(t_bytes, t_simt) * 1e3)
 
 
 def check_flash_kernel():
@@ -555,6 +683,7 @@ def check_flash_kernel():
     import torch
     import torch.nn.functional as F
 
+    from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.RandomState(3)
@@ -578,23 +707,42 @@ def check_flash_kernel():
              ("d6_s77", (2, 2, 77, 6), False, torch.float32),
              ("bf16_gpt", GPT_ATT, True, torch.bfloat16),
              ("bf16_2x4x200x64", (2, 4, 200, 64), False, torch.bfloat16)]
+    # the tensor-core tiling: q tiles of 128 rows, kv tiles of 64, two
+    # stages: one row, one tile minus or plus one, two tiles plus one, and
+    # a long sequence; head_dims of one, three and thirteen 8-column
+    # steps; D = 6 (24-byte rows) on the cp.async route; bf16 at the long
+    # shape
+    for causal in (True, False):
+        for s in (1, 63, 65, 129, 2048):
+            cases.append(("d64_s%d" % s, (2, 2, s, 64), causal,
+                          torch.float32))
+        for d in (8, 24, 100):
+            cases.append(("d%d_s200" % d, (2, 2, 200, d), causal,
+                          torch.float32))
+        cases.append(("d6_s200", (2, 2, 200, 6), causal, torch.float32))
+        cases.append(("bf16_long", LONG_ATT, causal, torch.bfloat16))
     worst = 0.0
     for name, shape, causal, dtype in cases:
         q, k, v = qkv(shape, dtype)
+        route = fa.flash_plan(shape[-1], q.element_size()).route
+        if (route == "tma") != (shape[-1] * q.element_size() % 16 == 0):
+            fail("flash %s: staged through %s" % (name, route))
         got = fa.flash_attention_forward(q, k, v, causal=causal)
         torch.cuda.synchronize()
         want = fa.flash_attention_reference(q, k, v, causal=causal)
-        tol = KERNEL_TOL if dtype == torch.float32 else BF16_TOL
+        rtol, atol = ((KERNEL_TOL, KERNEL_TOL) if dtype == torch.float32
+                      else (BF16_RTOL, BF16_ATOL))
         err = float((got.float() - want.float()).abs().max())
         if dtype == torch.float32:
             worst = max(worst, err)
         if got.dtype != dtype or not torch.allclose(
-                got.float(), want.float(), atol=tol, rtol=tol):
+                got.float(), want.float(), atol=atol, rtol=rtol):
             fail("flash kernel %s (causal=%s, %s) disagrees with the plain "
                  "version: max abs err %.3g" % (name, causal, dtype, err))
         phase("kernel_check", case="flash_%s_%s" % (
             name, "causal" if causal else "full"), dtype=str(dtype),
-            max_abs_err=err, tol=tol)
+            route=route, max_abs_err=err, max_abs_want=float(
+                want.float().abs().max()), rtol=rtol, atol=atol)
 
     # the autograd Function (kernel forward, dense-recompute backward)
     # against torch.autograd.grad of the plain version
@@ -614,8 +762,9 @@ def check_flash_kernel():
           tol=KERNEL_TOL)
 
     entry = None
-    for shape in (GPT_ATT, LONG_ATT):
-        q, k, v = qkv(shape)
+    for shape, dtype in ((GPT_ATT, torch.float32), (LONG_ATT, torch.float32),
+                         (LONG_ATT, torch.bfloat16)):
+        q, k, v = qkv(shape, dtype)
         for causal in (True, False):
             ms = time_ms(lambda: fa.flash_attention_forward(
                 q, k, v, causal=causal), iters=20)
@@ -625,16 +774,71 @@ def check_flash_kernel():
                 q, k, v, causal=causal), iters=20)
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal), iters=20)
-            bound_ms, bound_by = _flash_bound(*shape, causal, 4)
-            phase("kernel_time", case="flash_%s_%s" % (
+            library_device_ms = call_device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=causal))
+            bound_ms, bound_by, bound_simt_ms = _flash_bound(
+                *shape, causal, q.element_size())
+            phase("kernel_time", case="flash_%s%s_%s" % (
+                "bf16_" if dtype == torch.bfloat16 else "",
                 "x".join(map(str, shape)), "causal" if causal else "full"),
                 ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, library_device_ms=library_device_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_simt_ms=bound_simt_ms,
                 library="scaled_dot_product_attention(is_causal=%s)" % causal)
             if entry is None:  # the training path's shape and masking
                 entry = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=library_ms)
+                             bound_simt_ms=bound_simt_ms,
+                             library_ms=library_ms,
+                             library_device_ms=library_device_ms)
+    # the wrapper's host work at the training path's shape: the whole
+    # wrapper, then its entry point alone on the same tensors, staged
+    # through TMA (three tensor maps encoded a call) and through cp.async
+    # (none); host time to issue a call, the device left to run behind
+    q, k, v = qkv(GPT_ATT)
+    out = torch.empty_like(q)
+    b, h, s, d = GPT_ATT
+    plan = fa.flash_plan(d, 4)
+    fn = fa._bind(_build.load("flash_attention"), "flash_attention_f32")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call_entry(vec):
+        return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), b * h, s, d, 1, 0.25, stream,
+                          plan.rows, plan.kv_tile, plan.stages, vec,
+                          plan.smem_bytes)
+
+    if call_entry(0)() != 0 or call_entry(16)() != 0:
+        fail("flash entry point refused the GPT shape")
+    phase("kernel_time", case="flash_gpt_host", host_ms=dict(
+        wrapper=host_ms(lambda: fa.flash_attention_forward(
+            q, k, v, causal=True)),
+        entry_tma=host_ms(call_entry(0)),
+        entry_cp_async=host_ms(call_entry(16))))
+    # the same long shape staged through cp.async: views 8 bytes into
+    # their buffers are not 16-byte aligned, which TMA needs
+    q, k, v = qkv(LONG_ATT)
+    n = q.numel()
+    qa, ka, va = (torch.empty(n + 2, device=dev)[2:].view(LONG_ATT)
+                  .copy_(t) for t in (q, k, v))
+    route = fa.flash_plan(LONG_ATT[-1], 4, qa.data_ptr() & 15).route
+    for causal in (True, False):
+        got = fa.flash_attention_forward(qa, ka, va, causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_forward(q, k, v, causal=causal)
+        err = float((got - want).abs().max())
+        if route != "cp.async" or not err <= KERNEL_TOL:
+            fail("flash through %s at %s: max abs err %.3g against TMA"
+                 % (route, LONG_ATT, err))
+        phase("kernel_time", case="flash_%s_%s_cp.async" % (
+            "x".join(map(str, LONG_ATT)), "causal" if causal else "full"),
+            route=route, max_abs_err_vs_tma=err,
+            device_ms=kernel_device_ms(lambda: fa.flash_attention_forward(
+                qa, ka, va, causal=causal), KERNEL_3),
+            tma_device_ms=kernel_device_ms(lambda: fa.flash_attention_forward(
+                q, k, v, causal=causal), KERNEL_3))
     return {"name": "flash_attention", "route": "cuda",
             "source": "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:137",
@@ -1105,6 +1309,7 @@ def rtc_time():
         device_ms = kernel_device_ms(run, KERNEL_5)
         plain_ms = time_ms(lambda: cr.softmax_forward_plain(x._data))
         library_ms = time_ms(lambda: torch.softmax(x._data, 1))
+        library_device_ms = call_device_ms(lambda: torch.softmax(x._data, 1))
         # read x once, write y once; ~5 fp32 operations an element
         bytes_ms = 2 * rows * cols * 4 / PEAK_BYTES_S * 1e3
         ops_ms = 5 * rows * cols / PEAK_FP32_FLOPS * 1e3
@@ -1112,12 +1317,14 @@ def rtc_time():
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         phase("rtc_time", case="softmax_fwd_%dx%d" % (rows, cols), ms=ms,
               device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
-              bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-              block=cr.fwd_block(cols), library="torch.softmax(x, 1)")
+              library_device_ms=library_device_ms, bound_ms=bound_ms,
+              bound_by=bound_by, max_abs_err=err, block=cr.fwd_block(cols),
+              library="torch.softmax(x, 1)")
         if entry is None:  # the custom_rtc path's shape
             entry = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms)
+                         library_ms=library_ms,
+                         library_device_ms=library_device_ms)
     return {"name": "rtc", "route": "nvrtc",
             "source": "mxnet_tpu_torch/example/numpy_ops/"
                       "custom_softmax_rtc.py",
@@ -1475,6 +1682,9 @@ def train_profile(steps=10):
     if busy_ms <= 0.0:
         fail("the profiler saw no device time in the traced steps")
     flash_ms = sum(ms for k, (ms, _) in by_name.items() if KERNEL_3 in k)
+    if flash_ms <= 0.0:
+        fail("train_profile: the profiler saw no device time of %s in the "
+             "traced steps" % KERNEL_3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     phase("train_profile", steps=steps, wall_ms=wall_ms,
           per_step_wall_ms=wall_ms / steps, device_busy_ms=busy_ms,
@@ -1559,7 +1769,10 @@ def main():
           tf32_matmul=False, tf32_cudnn=False, **rtc_versions)
 
     names, secs, ptxas = build_all()
-    phase("build", kernels=names, seconds=secs, ptxas=ptxas)
+    from mxnet_tpu_torch.ops import _build
+
+    phase("build", kernels=names, seconds=secs, ptxas=ptxas,
+          flash_d64_ptxas=flash_ptxas(_build.build_log("flash_attention")))
 
     entry = check_kernels()
     spec_entry = check_spec_kernel()

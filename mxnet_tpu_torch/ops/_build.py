@@ -12,8 +12,9 @@ name keyed by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one is reused. Nothing is built at import:
 :func:`load` runs inside the wrapper that launches the kernel. A failed
 build raises :class:`~mxnet_tpu_torch.base.MXNetError` with nvcc's
-output; there is no fallback. :func:`build_log` keeps what ``ptxas -v``
-said of a build done in this process (registers, shared memory, spills).
+output; there is no fallback. :func:`build_log` gives what ``ptxas -v``
+said of a loaded library's build (registers, shared memory, spills),
+kept in ``<lib>.log`` beside it.
 """
 from __future__ import annotations
 
@@ -48,8 +49,9 @@ def source_path(name: str) -> str:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output for kernel ``name`` if this process built it, else
-    an empty string (the library came from an earlier build)."""
+    """nvcc's output for the loaded library of kernel ``name`` (kept
+    beside the library, so a library from an earlier build has it too),
+    or an empty string if the library is not loaded or has no log."""
     return _logs.get(name, "")
 
 
@@ -77,13 +79,16 @@ def load(name: str) -> ctypes.CDLL:
         key = hashlib.sha256(blob + " ".join(FLAGS).encode()).hexdigest()
         out = os.path.join(_OUT, "%s-%s.so" % (name, key[:16]))
         if not os.path.isfile(out):
-            _logs[name] = _compile(src, out)
+            _compile(src, out)
+        if os.path.isfile(out + ".log"):
+            with open(out + ".log") as f:
+                _logs[name] = f.read()
         lib = ctypes.CDLL(out)
         _loaded[name] = lib
         return lib
 
 
-def _compile(src: str, out: str) -> str:
+def _compile(src: str, out: str) -> None:
     os.makedirs(_OUT, exist_ok=True)
     # build beside the target and rename: a concurrent or interrupted
     # build never leaves a half-written library under the final name
@@ -96,8 +101,11 @@ def _compile(src: str, out: str) -> str:
             raise MXNetError("nvcc failed (%d) building %s:\n%s\n%s"
                              % (proc.returncode, src, proc.stdout,
                                 proc.stderr))
-        os.replace(tmp, out)
-        return proc.stdout + proc.stderr
+        with open(tmp + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp + ".log", out + ".log")  # the log first: a library
+        os.replace(tmp, out)                    # is never without its log
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in (tmp, tmp + ".log"):
+            if os.path.exists(path):
+                os.remove(path)

@@ -26,8 +26,11 @@ registered op ``_contrib_flash_attention`` (``:710-723``). Layout
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -36,14 +39,74 @@ from . import _build
 from .registry import register
 
 __all__ = ["flash_attention_forward", "flash_attention_reference",
-           "flash_attention", "MAX_HEAD_DIM"]
+           "flash_attention", "flash_plan", "FlashPlan", "MAX_HEAD_DIM",
+           "MAX_SHARED_BYTES"]
 
 #: The largest head_dim the kernel takes.
 MAX_HEAD_DIM = 256
+#: Shared memory one block may use on an H100 (227 KB).
+MAX_SHARED_BYTES = 232448
+_LINE = 128  # bytes of one swizzled shared-memory row (TMA's 128B swizzle)
+_STAGES = 2  # K/V tiles in flight: tile t+1 loads while tile t is computed
+
+
+class FlashPlan(NamedTuple):
+    """How the kernel tiles one call (``flash_plan``)."""
+    d_pad: int        # head_dim zero-padded to a multiple of 8 (mma depth)
+    d_max: int        # the kernel instance: d_pad <= d_max
+    rows: int         # q rows a block (16 a warp)
+    warps: int
+    kv_tile: int      # kv tokens a stage
+    stages: int       # K/V stages in the shared-memory ring
+    line_blocks: int  # 128-byte column blocks a tile row spans
+    vec: int          # bytes a staging copy moves: 0 = TMA; else cp.async
+                      # (16, 8, 4) or plain loads (2)
+    route: str        # "tma", "cp.async" or "ld.st"
+    smem_bytes: int   # dynamic shared memory of a block
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(d: int, itemsize: int, align: int = 16) -> FlashPlan:
+    """The kernel's tiling for head_dim ``d`` and inputs of ``itemsize``
+    bytes whose device pointers are ``align``-byte aligned. The wrapper
+    passes it to the kernel, which checks it against its own constants.
+
+    Each tile of Q, K and V lives in shared memory as 128-byte rows in
+    TMA's 128B swizzle (a 16-byte chunk's index XOR the row's index mod
+    8), ``line_blocks`` column blocks of ``rows`` (or ``kv_tile``) such
+    rows each. A row stride ``d * itemsize`` that is a multiple of 16 (and
+    16-byte aligned pointers) stages through TMA; any other through
+    ``cp.async`` with zero fill, in the widest copy that divides it."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise MXNetError("flash_attention: head_dim %d outside 1..%d"
+                         % (d, MAX_HEAD_DIM))
+    d_pad = -(-d // 8) * 8
+    d_max = next(b for b in (16, 32, 64, 128, 256) if d_pad <= b)
+    # registers: the accumulator is d_max / 2 floats a thread, so at 256
+    # the block is 4 warps and the kv tile 32 tokens
+    warps = 8 if d_max <= 128 else 4
+    kv_tile = 64 if d_max <= 128 else 32
+    line_blocks = -(-d_pad * itemsize // _LINE)
+    row_bytes = d * itemsize
+    vec = next(v for v in (16, 8, 4, 2, 1)
+               if row_bytes % v == 0 and align % v == 0)
+    if vec == 16:
+        vec, route = 0, "tma"
+    else:
+        route = "cp.async" if vec >= 4 else "ld.st"
+    # + 1024: the swizzle needs 1024-byte aligned tiles; + 64: the barriers
+    smem = (16 * warps + 2 * _STAGES * kv_tile) * line_blocks * _LINE \
+        + 1024 + 64
+    return FlashPlan(d_pad, d_max, 16 * warps, warps, kv_tile, _STAGES,
+                     line_blocks, vec, route, smem)
 
 _NEG_BIG = -1e30  # the JAX reference's mask value
+# the entry points' own codes, returned before any launch
+_LAUNCH_ERRORS = {-1: "the plan does not match the built kernel",
+                  -2: "cuTensorMapEncodeTiled refused the tensor map"}
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_SAME_DEVICE = contextlib.nullcontext()
 
 
 def _default_scale(d: int) -> float:
@@ -67,8 +130,10 @@ def flash_attention_reference(q, k, v, scale=None, causal=False):
 def _bind(lib: ctypes.CDLL, name: str):
     fn = getattr(lib, name)
     if fn.argtypes is None:
+        # q, k, v, out, BH, S, D, causal, scale, stream, then the plan:
+        # rows, kv_tile, stages, vec, smem_bytes
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
-            [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 5
         fn.restype = ctypes.c_int
     return fn
 
@@ -115,14 +180,24 @@ def flash_attention_forward(q, k, v, scale=None, causal=False):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    align = 16
+    for ptr in ptrs:
+        align = min(align, ptr & -ptr)
+    plan = flash_plan(d, q.element_size(), align)
     fn = _bind(_build.load("flash_attention"), entry)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b * h, s, d, int(bool(causal)), float(scale), stream)
+    index = q.device.index
+    # the current stream as a raw handle (no Stream object), and the
+    # device made current only where it is not: microseconds a call
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    with (_SAME_DEVICE if torch.cuda.current_device() == index
+          else torch.cuda.device(index)):
+        err = fn(*ptrs, out.data_ptr(), b * h, s, d, int(bool(causal)),
+                 float(scale), stream, plan.rows, plan.kv_tile, plan.stages,
+                 plan.vec, plan.smem_bytes)
     if err != 0:
-        raise MXNetError("flash_attention kernel launch failed: CUDA error "
-                         "%d" % err)
+        raise MXNetError("flash_attention kernel launch failed: %s"
+                         % _LAUNCH_ERRORS.get(err, "CUDA error %d" % err))
     flash_attention_forward.launches += 1
     return out
 

@@ -32,7 +32,13 @@ in the reference MXNet (``src/common/rtc.cc``, ``python/mxnet/rtc.py``):
   device-to-host copy hides in a launch.
 
 What bounds a kernel launched here is the user's kernel; the path's own
-cost is the host work of packing and launching (a few microseconds).
+cost is the host work of packing and launching. ``Kernel`` works out a
+launch plan once, when it is bound (each parameter's kind, dtype and C
+type), and keeps one set of ctypes holders per thread, so a launch
+writes each argument's pointer or value into a holder, checks the
+thread's current context and calls ``cuLaunchKernel``; an input already
+of the signature's dtype and contiguous passes its own pointer, and an
+error message is built only when a check or a driver call fails.
 
 There is no fallback: without a card or without NVRTC the constructor
 raises :class:`MXNetError`, and nothing is compiled in a subprocess or
@@ -130,6 +136,16 @@ def _scalar_value(kernel, p: Param, v):
 # ---------------------------------------------------------------------------
 
 
+def _dims3(dims) -> tuple:
+    """``dims`` as three Python ints, padded with 1s."""
+    if type(dims) is tuple and len(dims) == 3:
+        d0, d1, d2 = dims
+        if type(d0) is int and type(d1) is int and type(d2) is int:
+            return dims
+    dims = tuple(int(d) for d in dims)
+    return dims + (1,) * (3 - len(dims))
+
+
 def _check_launch(kernel: str, spec: Sequence[Param], args: Sequence,
                   grid_dims) -> tuple:
     """The JAX package's checks, with its messages, before any driver
@@ -142,14 +158,43 @@ def _check_launch(kernel: str, spec: Sequence[Param], args: Sequence,
         if p.is_out and not isinstance(a, NDArray):
             raise MXNetError("kernel %s: output args must be NDArrays"
                              % kernel)
-    grid = tuple(int(g) for g in grid_dims) or (1,)
+    grid = tuple(int(g) for g in grid_dims)
     if any(g < 1 for g in grid):
         raise MXNetError("kernel %s: invalid grid_dims %r (all dims must be "
                          ">= 1)" % (kernel, grid_dims))
     if len(grid) > 3:
         raise MXNetError("kernel %s: grid_dims %r has more than 3 dims"
                          % (kernel, grid_dims))
-    return grid + (1,) * (3 - len(grid))
+    return _dims3(grid)
+
+
+def _pack_pointer(kernel: str, p: Param, a, device: torch.device):
+    """The tensor whose device pointer parameter ``p`` passes for ``a``:
+    an output's own storage, an input's own storage when it already has
+    the signature's dtype and is contiguous, else a temporary. Raises on
+    an array on another device, a torch.Tensor, and an output that is not
+    a contiguous NDArray in the signature's dtype."""
+    want = torch_dtype(p.dtype)
+    if isinstance(a, NDArray):
+        t = a._data
+        if t.device != device:
+            raise MXNetError(
+                "kernel %s: argument %s is on %s; the module's kernels "
+                "run on %s" % (kernel, p.name, t.device, device))
+        if p.is_out:
+            if t.dtype != want or not t.is_contiguous():
+                raise MXNetError(
+                    "kernel %s: output %s must be a contiguous %s array, "
+                    "got %s%s" % (kernel, p.name, want, t.dtype,
+                                  "" if t.is_contiguous()
+                                  else " (not contiguous)"))
+            return t
+        return t.detach().to(want).contiguous()
+    if isinstance(a, torch.Tensor):
+        raise MXNetError("kernel %s: argument %s: pass an NDArray, a "
+                         "number or a numpy array, not a torch.Tensor"
+                         % (kernel, p.name))
+    return torch.as_tensor(np.asarray(a), dtype=want, device=device)
 
 
 def _pack_args(kernel: str, spec: Sequence[Param], args: Sequence,
@@ -164,31 +209,95 @@ def _pack_args(kernel: str, spec: Sequence[Param], args: Sequence,
         if not p.is_ptr:
             values.append(_scalar_value(kernel, p, a))
             continue
-        want = torch_dtype(p.dtype)
-        if isinstance(a, NDArray):
-            t = a._data
-            if t.device != device:
-                raise MXNetError(
-                    "kernel %s: argument %s is on %s; the module's kernels "
-                    "run on %s" % (kernel, p.name, t.device, device))
-            if p.is_out:
-                if t.dtype != want or not t.is_contiguous():
-                    raise MXNetError(
-                        "kernel %s: output %s must be a contiguous %s array, "
-                        "got %s%s" % (kernel, p.name, want, t.dtype,
-                                      "" if t.is_contiguous()
-                                      else " (not contiguous)"))
-            else:
-                t = t.detach().to(want).contiguous()
-        elif isinstance(a, torch.Tensor):
-            raise MXNetError("kernel %s: argument %s: pass an NDArray, a "
-                             "number or a numpy array, not a torch.Tensor"
-                             % (kernel, p.name))
-        else:
-            t = torch.as_tensor(np.asarray(a), dtype=want, device=device)
+        t = _pack_pointer(kernel, p, a, device)
         keep.append(t)
         values.append(ctypes.c_uint64(t.data_ptr()))
     return values, keep
+
+
+class _LaunchPlan:
+    """What ``_check_launch`` and ``_pack_args`` work out from the
+    signature, worked out once per kernel: each parameter's kind, torch
+    dtype and C type. :meth:`fill` writes one launch's values into
+    preallocated ctypes holders and returns the temporaries it made (None
+    when there are none). An argument off the fast path (an input of
+    another dtype or layout, a number for a pointer, anything that
+    raises) goes through ``_pack_pointer`` / ``_scalar_value``, so the
+    values and the errors are those of ``_pack_args``."""
+
+    __slots__ = ("kernel", "spec", "n", "dtypes", "ctypes", "convert",
+                 "outs", "ptrs")
+
+    def __init__(self, kernel: str, spec: Sequence[Param]):
+        self.kernel = kernel
+        self.spec = tuple(spec)
+        self.n = len(spec)
+        self.dtypes = tuple(torch_dtype(p.dtype) for p in spec)
+        self.ctypes, self.convert = [], []
+        for p, dt in zip(spec, self.dtypes):
+            if p.is_ptr:
+                self.ctypes.append(ctypes.c_uint64)
+                self.convert.append(None)
+            elif dt in (torch.float16, torch.bfloat16):
+                self.ctypes.append(ctypes.c_uint16)
+                self.convert.append(None)  # its bits, by _scalar_value
+            else:
+                self.ctypes.append(_SCALAR_CTYPE[dt])
+                self.convert.append(float if dt.is_floating_point else int)
+        self.ctypes = tuple(self.ctypes)
+        self.convert = tuple(self.convert)
+        self.outs = tuple(i for i, p in enumerate(spec) if p.is_out)
+        self.ptrs = tuple(p.is_ptr for p in spec)
+
+    def holders(self):
+        """One launch's ctypes holders and the parameter array that points
+        at them (``cuLaunchKernel`` copies the values before it
+        returns, so one set per thread is reused by every launch)."""
+        values = [c() for c in self.ctypes]
+        params = (ctypes.c_void_p * max(self.n, 1))(
+            *[ctypes.addressof(v) for v in values])
+        return values, params
+
+    def check(self, args: Sequence, grid_dims) -> tuple:
+        """``_check_launch``, skipped where the arguments' count and
+        outputs and the grid are plainly right."""
+        if len(args) == self.n and all(
+                type(args[i]) is NDArray for i in self.outs) and \
+                type(grid_dims) is tuple and len(grid_dims) == 3:
+            g0, g1, g2 = grid_dims
+            if type(g0) is int and type(g1) is int and type(g2) is int \
+                    and g0 >= 1 and g1 >= 1 and g2 >= 1:
+                return grid_dims
+        return _check_launch(self.kernel, self.spec, args, grid_dims)
+
+    def fill(self, values, args: Sequence, device: torch.device):
+        keep = None
+        for i, a in enumerate(args):
+            dt = self.dtypes[i]
+            if self.ptrs[i]:
+                if type(a) is NDArray:
+                    t = a._data
+                    if t.dtype == dt and t.device == device and \
+                            t.is_contiguous():
+                        values[i].value = t.data_ptr()
+                        continue
+                t = _pack_pointer(self.kernel, self.spec[i], a, device)
+                if keep is None:
+                    keep = []
+                keep.append(t)
+                values[i].value = t.data_ptr()
+                continue
+            conv = self.convert[i]
+            if conv is not None and type(a) in _PLAIN_NUMBERS:
+                values[i].value = conv(a)
+            else:
+                values[i].value = _scalar_value(self.kernel, self.spec[i],
+                                                a).value
+        return keep
+
+
+_PLAIN_NUMBERS = frozenset((int, float, bool, np.float32, np.float64,
+                            np.int32, np.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +324,9 @@ def _nvrtc_dirs() -> List[str]:
 def _driver():
     """``libcuda.so.1`` with ``argtypes`` on every function used (ctypes
     would otherwise cut a pointer to 32 bits)."""
+    lib = _LIBS.get("cuda")  # bound once; every launch asks for it
+    if lib is not None:
+        return lib
     with _LOCK:
         if "cuda" in _LIBS:
             return _LIBS["cuda"]
@@ -352,25 +464,31 @@ def _primary_context(device: torch.device) -> ctypes.c_void_p:
 
 
 class _CurrentContext:
-    """Make ``ctx`` current on this thread for a driver call, and put
+    """Make ``ctx`` current on this thread for driver calls, and put
     back the one that was (a thread that never touched CUDA through
-    torch has none)."""
+    torch has none). One instance may be entered again and again, not
+    nested and on one thread only: a ``Kernel`` keeps one a thread, so a
+    launch allocates no ctypes object for it."""
 
     def __init__(self, ctx: ctypes.c_void_p):
         self._ctx = ctx
+        self._cur = ctypes.c_void_p()
+        self._cur_ref = ctypes.byref(self._cur)
         self._prev = None
 
     def __enter__(self):
         drv = _driver()
-        cur = ctypes.c_void_p()
-        _cu_check(drv.cuCtxGetCurrent(ctypes.byref(cur)), "cuCtxGetCurrent")
-        if cur.value != self._ctx.value:
+        _cu_check(drv.cuCtxGetCurrent(self._cur_ref), "cuCtxGetCurrent")
+        prev = self._cur.value
+        if prev != self._ctx.value:
             _cu_check(drv.cuCtxSetCurrent(self._ctx), "cuCtxSetCurrent")
-            self._prev = cur
+        else:
+            prev = None
+        self._prev = prev
         return self
 
     def __exit__(self, *exc):
-        if self._prev is not None and self._prev.value:
+        if self._prev:
             _driver().cuCtxSetCurrent(self._prev)
 
 
@@ -379,8 +497,21 @@ class _CurrentContext:
 # ---------------------------------------------------------------------------
 
 
+def _raw_stream(index: int) -> int:
+    """torch's current stream on device ``index`` as a raw handle (a
+    CUDA build of torch has the binding; a CPU build never launches)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 class Kernel(object):
-    """One launchable kernel (reference rtc.py:CudaKernel)."""
+    """One launchable kernel (reference rtc.py:CudaKernel).
+
+    ``__init__`` works out the launch plan once (each parameter's kind,
+    dtype and C type); each launch then only writes its values into this
+    thread's preallocated ctypes holders, makes torch's primary context
+    current where it is not, and calls ``cuLaunchKernel``. The holders
+    are per thread: a custom op's backward launches on torch's autograd
+    thread."""
 
     #: launches of every kernel of every module
     total_launches = 0
@@ -391,8 +522,19 @@ class Kernel(object):
         self._fn = fn
         self._name = name
         self._spec = spec
+        self._plan = _LaunchPlan(name, spec)
+        self._tls = threading.local()
         self._smem_set = 48 * 1024  # what a launch may use without opting in
         self.launches = 0
+
+    def _thread_state(self):
+        """This thread's (holders, parameter array, context switch)."""
+        st = getattr(self._tls, "st", None)
+        if st is None:
+            values, params = self._plan.holders()
+            st = self._tls.st = (values, params,
+                                 _CurrentContext(self._module._ctx))
+        return st
 
     def launch(self, args: Sequence, ctx=None,
                grid_dims: Sequence[int] = (1, 1, 1),
@@ -402,35 +544,44 @@ class Kernel(object):
         stream (reference rtc.py:CudaKernel.launch). ``args`` pairs with
         the signature; outputs are written in place and returned (one
         NDArray, or a list of them)."""
-        grid = _check_launch(self._name, self._spec, args, grid_dims)
-        device = self._module.device
+        plan = self._plan
+        grid = plan.check(args, grid_dims)
+        module = self._module
+        device = module.device
         if ctx is not None and ctx.torch_device() != device:
             raise MXNetError("kernel %s: ctx %s, but the module was loaded "
                              "on %s" % (self._name, ctx, device))
-        block = tuple(int(b) for b in block_dims)
-        block = block + (1,) * (3 - len(block))
-        values, keep = _pack_args(self._name, self._spec, args, device)
-        params = (ctypes.c_void_p * max(len(values), 1))(
-            *[ctypes.addressof(v) for v in values])
-        stream = torch.cuda.current_stream(device).cuda_stream
+        block = _dims3(block_dims)
+        if type(shared_mem) is not int:
+            shared_mem = int(shared_mem)
+        values, params, switch = self._thread_state()
+        keep = plan.fill(values, args, device)
+        # torch's current stream as a raw handle: what
+        # torch.cuda.current_stream(device).cuda_stream gives, without
+        # building a Stream object (microseconds a launch)
+        stream = _raw_stream(module.device_index)
         drv = _driver()
-        with _CurrentContext(self._module._ctx):
+        with switch:
             if shared_mem > self._smem_set:
                 _cu_check(drv.cuFuncSetAttribute(
-                    self._fn, _MAX_DYN_SMEM_ATTR, int(shared_mem)),
+                    self._fn, _MAX_DYN_SMEM_ATTR, shared_mem),
                     "kernel %s: cuFuncSetAttribute(max dynamic shared "
                     "memory %d)" % (self._name, shared_mem))
-                self._smem_set = int(shared_mem)
-            _cu_check(drv.cuLaunchKernel(
+                self._smem_set = shared_mem
+            res = drv.cuLaunchKernel(
                 self._fn, grid[0], grid[1], grid[2], block[0], block[1],
-                block[2], int(shared_mem), ctypes.c_void_p(stream), params,
-                None), "kernel %s: cuLaunchKernel(grid %s, block %s, shared "
-                "%d)" % (self._name, grid, block, shared_mem))
+                block[2], shared_mem, stream, params, None)
+            if res:  # the message is built only for a refused launch
+                _cu_check(res, "kernel %s: cuLaunchKernel(grid %s, block "
+                          "%s, shared %d)" % (self._name, grid, block,
+                                              shared_mem))
         self.launches += 1
         Kernel.total_launches += 1
         del keep  # temporaries: freed in stream order after the launch
-        outs = [a for a, p in zip(args, self._spec) if p.is_out]
-        return outs[0] if len(outs) == 1 else outs
+        outs = plan.outs
+        if len(outs) == 1:
+            return args[outs[0]]
+        return [args[i] for i in outs]
 
 
 class CudaModule(object):
@@ -458,6 +609,7 @@ class CudaModule(object):
                              "is available")
         nvrtc, _, _ = _nvrtc()
         self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device_index = self.device.index
         self._exports = tuple(exports)
         opts = ["--gpu-architecture=%s" % _arch(self.device), "--std=c++17"]
         include = os.path.join(_cuda_home(), "include")

@@ -134,3 +134,61 @@ def test_cuda_kernel_matches_plain_version(cuda_device, shape, causal, dtype,
     want = fa.flash_attention_reference(q, k, v, causal=causal)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_plan_fits_shared_memory_and_pads_head_dim(itemsize):
+    """For every head_dim the kernel takes: D padded to a multiple of 8
+    (the mma depth), shared memory within a block's 227 KB, the tiles
+    1024-byte aligned (TMA's 128B swizzle), and TMA wherever the row
+    stride is a multiple of 16 bytes."""
+    for d in range(1, fa.MAX_HEAD_DIM + 1):
+        plan = fa.flash_plan(d, itemsize)
+        assert plan.d_pad % 8 == 0 and d <= plan.d_pad < d + 8
+        assert plan.d_pad <= plan.d_max <= fa.MAX_HEAD_DIM
+        assert plan.smem_bytes <= fa.MAX_SHARED_BYTES
+        assert plan.rows == 16 * plan.warps and plan.kv_tile % 8 == 0
+        assert plan.stages >= 2
+        assert plan.line_blocks * 128 >= plan.d_pad * itemsize
+        tiles = (plan.rows + 2 * plan.stages * plan.kv_tile) * \
+            plan.line_blocks * 128
+        assert tiles % 1024 == 0 and plan.smem_bytes >= tiles + 1024
+        if d * itemsize % 16 == 0:
+            assert (plan.route, plan.vec) == ("tma", 0)
+        else:
+            assert plan.route in ("cp.async", "ld.st")
+            assert d * itemsize % plan.vec == 0 and plan.vec < 16
+    # pointers that are not 16-byte aligned cannot be staged by TMA
+    assert fa.flash_plan(64, 4, align=8).route == "cp.async"
+    assert fa.flash_plan(6, 4).route == "cp.async"
+    assert fa.flash_plan(100, 2).route == "cp.async"
+    assert fa.flash_plan(101, 2).route == "ld.st"
+    with pytest.raises(MXNetError, match="head_dim"):
+        fa.flash_plan(257, itemsize)
+
+
+# bf16: both versions round an fp32 result to bf16 (8 significant bits);
+# their summation orders may tip the rounding by one step, at most 2^-7
+# of the value
+_BF16_RTOL, _BF16_ATOL = 2.0 ** -7, 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,dtype,rtol,atol", [
+    ((2, 2, s, 64), causal, torch.float32, 1e-4, 1e-4)
+    for s in (1, 63, 65, 129, 2048) for causal in (True, False)] + [
+    ((2, 2, 200, d), True, torch.float32, 1e-4, 1e-4)
+    for d in (6, 8, 24, 100)
+] + [((4, 8, 2048, 64), True, torch.bfloat16, _BF16_RTOL, _BF16_ATOL),
+     ((1, 2, 129, 100), False, torch.bfloat16, _BF16_RTOL, _BF16_ATOL)])
+def test_cuda_kernel_long_and_ragged(cuda_device, shape, causal, dtype, rtol,
+                                     atol):
+    q, k, v = (torch.tensor(a, device=cuda_device).to(dtype)
+               for a in _qkv(9, shape))
+    fa.flash_attention_forward.launches = 0
+    got = fa.flash_attention_forward(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_forward.launches == 1
+    want = fa.flash_attention_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)

@@ -18,6 +18,8 @@
   (1e-5: NVRTC may fuse a multiply-add, one ulp), and the launch counts.
   They skip without a card.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -196,3 +198,145 @@ def test_cuda_spec_case_matches_plain_version(cuda_device, name):
     assert rtc.Kernel.total_launches == before + 1
     for o, w in zip(outs, want):
         torch.testing.assert_close(o.float(), w.float(), rtol=0, atol=1e-5)
+
+
+# the launch plan (Kernel.__init__) against _pack_args, on the CPU: the
+# same values for the same arguments, the same errors with the same text
+PLAN_SIG = ("float alpha, const float *x, const double *d, float *out, "
+            "int n, half h, bfloat16 b, const int8 *i8, long big, bool f")
+
+
+def _plan_args(case):
+    with mx.cpu():
+        x, out = mx.nd.ones((4, 2)), mx.nd.zeros((4, 2))
+        d = mx.nd.ones((3,), dtype="float64")
+    args = [1.5, x, d, out, 7, 0.333, -2.5, np.arange(5, dtype=np.int8),
+            2 ** 40, True]
+    if case == "numpy_scalars":
+        args[0], args[4], args[8] = np.float32(0.1), np.int64(9), np.int32(3)
+    elif case == "float_for_int":
+        args[4], args[0] = 2.7, 3
+    elif case == "cast_input":
+        args[1] = NDArray(torch.arange(8.0, dtype=torch.float64).view(4, 2))
+    elif case == "strided_input":
+        args[1] = NDArray(torch.arange(8.0).view(2, 4).t())
+    elif case == "numpy_input":
+        args[1], args[2] = np.arange(8, dtype=np.int64), [1.0, 2.0]
+    elif case == "bool_scalar":
+        args[9] = np.bool_(False)
+    return args
+
+
+@pytest.mark.parametrize("case", ["plain", "numpy_scalars", "float_for_int",
+                                  "cast_input", "strided_input",
+                                  "numpy_input", "bool_scalar"])
+def test_launch_plan_packs_what_pack_args_packs(case):
+    spec = rtc._parse_signature(PLAN_SIG)
+    plan = rtc._LaunchPlan("k", spec)
+    cpu = torch.device("cpu")
+    args = _plan_args(case)
+    want, want_keep = rtc._pack_args("k", spec, args, cpu)
+    values, params = plan.holders()
+    keep = plan.fill(values, args, cpu)
+    assert [type(v) for v in values] == [type(v) for v in want]
+    for i, (got, ref, p) in enumerate(zip(values, want, spec)):
+        if p.is_ptr and ref.value not in [a._data.data_ptr() for a in args
+                                          if isinstance(a, NDArray)]:
+            # a temporary: the same contents, in a tensor of its own
+            tmp = next(t for t in keep if t.data_ptr() == got.value)
+            ref_t = next(t for t in want_keep if t.data_ptr() == ref.value)
+            assert tmp.dtype == ref_t.dtype and torch.equal(tmp, ref_t)
+        else:
+            assert got.value == ref.value, (i, p.name)
+    # the parameter array points at the holders
+    assert [params[i] for i in range(len(spec))] == \
+        [ctypes.addressof(v) for v in values]
+    # inputs of the signature's dtype, contiguous, pass their own storage
+    if case in ("plain", "numpy_scalars", "float_for_int", "bool_scalar"):
+        assert len(keep) == 1 and keep[0].dtype == torch.int8  # numpy i8
+
+
+@pytest.mark.parametrize("bad", range(6))
+def test_launch_plan_raises_what_pack_args_raises(bad):
+    spec = rtc._parse_signature(PLAN_SIG)
+    plan = rtc._LaunchPlan("k", spec)
+    cpu = torch.device("cpu")
+    args = _plan_args("plain")
+    with mx.cpu():
+        if bad == 0:
+            args[0] = mx.nd.ones((1,))  # an array for a scalar
+        elif bad == 1:
+            args[4] = "7"  # not a number
+        elif bad == 2:
+            args[3] = mx.nd.zeros((4, 2), dtype="float64")  # output dtype
+        elif bad == 3:
+            args[3] = NDArray(torch.zeros(2, 4).t())  # not contiguous
+        elif bad == 4:
+            args[1] = torch.ones(4, 2)  # a torch.Tensor
+        else:
+            args[6] = torch.ones(1)  # a tensor for a bfloat16 scalar
+    with pytest.raises(MXNetError) as want:
+        rtc._pack_args("k", spec, args, cpu)
+    values, _ = plan.holders()
+    with pytest.raises(MXNetError) as got:
+        plan.fill(values, args, cpu)
+    assert str(got.value) == str(want.value)
+    # and an array on another device than the module's
+    with pytest.raises(MXNetError) as want:
+        rtc._pack_args("k", spec, _plan_args("plain"), torch.device("meta"))
+    with pytest.raises(MXNetError) as got:
+        plan.fill(values, _plan_args("plain"), torch.device("meta"))
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("args,grid", [
+    ((1, 2, 3), (1, 1, 1)), ((1, 2, 3, np.zeros(2)), (1, 1, 1)),
+    ((1, 2, 3, "out"), (2, 0, 1)), ((1, 2, 3, "out"), (4,)),
+    ((1, 2, 3, "out"), ()), ((1, 2, 3, "out"), (1, 1, 1, 1)),
+    ((1, 2, 3, "out"), (2, 3, 4)), ((1, 2, 3, "out"), [2, np.int64(3)])])
+def test_launch_plan_checks_as_check_launch(args, grid):
+    spec = rtc._parse_signature(AXPY_SIG)
+    plan = rtc._LaunchPlan("axpy", spec)
+    with mx.cpu():
+        args = tuple(mx.nd.zeros((2,)) if isinstance(a, str) else a
+                     for a in args)
+    try:
+        want = rtc._check_launch("axpy", spec, args, grid)
+    except MXNetError as e:
+        with pytest.raises(MXNetError) as got:
+            plan.check(args, grid)
+        assert str(got.value) == str(e)
+        return
+    assert plan.check(args, grid) == want
+
+
+@pytest.mark.cuda
+def test_cuda_launch_from_a_second_thread(cuda_device):
+    """A launch from a thread torch never touched (the custom op's
+    backward runs on the autograd thread) gets holders and a current
+    context of its own, and leaves that thread's context as it found
+    it."""
+    import threading
+
+    mod = rtc.CudaModule(rtc_spec.SOURCE, exports=rtc_spec.EXPORTS)
+    case = next(c for c in rtc_spec.cases(np.random.RandomState(5))
+                if c.name == "axpy")
+    result = {}
+
+    def body():
+        try:
+            result["run"] = rtc_spec.launch_case(mod, case, cuda_device)
+        except Exception as e:  # reported on the main thread
+            result["error"] = e
+
+    for _ in range(2):  # the main thread's holders, then a new thread's
+        outs, want, kernel = rtc_spec.launch_case(mod, case, cuda_device)
+        th = threading.Thread(target=body)
+        th.start()
+        th.join()
+        assert "error" not in result, result.get("error")
+        torch.cuda.synchronize()
+        for got, ref in ((outs, want), result["run"][:2]):
+            for o, w in zip(got, ref):
+                torch.testing.assert_close(o.float(), w.float(), rtol=0,
+                                           atol=1e-5)
