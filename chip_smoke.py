@@ -113,6 +113,20 @@ and at B = 1, N = 6000.
 In every serving and training phase the kernels' launch counts are set
 to 0 just before the phase drives the path and read just after.
 
+Kernel 1 (paged attention) is two kernels, a split kernel over spans of
+positions and a merge kernel, launched only where a row may pass one
+span: its device times sum both and print each
+(``device_ms_by_kernel``), and the build phase fails if ptxas reports a
+spill in either. It is checked on decode ticks (ragged, GQA, causal,
+lengths and causal bounds at its span boundaries) and on prefill chunks
+(the 32-row prefix-hit tail, the 64-row chunk, a first chunk shorter
+than its rung, a chunk starting mid-page, GQA 8/2, and row tiles that
+straddle a span boundary, run ``STRADDLE_REPS`` times), padding rows
+exact zeros, and timed on the decode bench, every slot at max_seq_len, a
+young batch (every slot under 90 positions) and both chunks. ``wrapper_host`` prints the host time of one call of each
+paged wrapper; ``python3 chip_smoke.py --wrapper-host`` prints only
+that line.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the rest of the checkout beside it, the script exits non-zero
@@ -140,12 +154,15 @@ MAX_PAGES = MAX_SEQ // PAGE
 N_REQ, OUT_CAP, SYSTEM_LEN = 32, 256, 32
 OUT_MIX = [16] * 3 + [64] * 2 + [256, 512, 1024]
 KERNEL_TOL = 1e-4  # fp32, another summation order than the plain einsum
+STRADDLE_REPS = 50  # runs of each chunk case whose rows two blocks share
 # bf16 outputs: both versions round an fp32 result to bf16 (8 significant
 # bits), and their two summation orders can tip that rounding by one step,
 # at most 2^-7 of the value; the atol covers outputs near 0
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 # the kernels' device-side names, as the profiler reports them
-KERNEL_1, KERNEL_2 = "paged_attention_kernel", "paged_spec_kernel"
+# kernel 1 is two kernels, paged_attention_split_kernel and
+# paged_attention_merge_kernel: its readings sum both
+KERNEL_1, KERNEL_2 = "paged_attention_", "paged_spec_kernel"
 KERNEL_3 = "flash_attention_kernel"
 KERNEL_4 = "nms_keep_"  # nms_keep_mask_kernel and nms_keep_scan_kernel
 # the detection slice: the SSD example's NMS (batch 8, 3 x (32 x 32 +
@@ -221,13 +238,14 @@ def host_ms(fn, iters=200, warm=3):
     return (t1 - t0) / iters * 1e3
 
 
-def _profiled_us(fn, iters, keep):
+def _profiled_us(fn, iters, keep, per_call=None):
     """{event name: device microseconds} of the CUDA events that
     ``keep(name)`` accepts in one torch.profiler session over ``iters``
-    runs of ``fn()``. A session that recorded no device time of them is
-    run again, three sessions at most: the profiler once came back empty
-    for a call it had timed in earlier runs of this script. Empty if all
-    three were."""
+    runs of ``fn()``. A session that recorded no device time of them (or,
+    given ``per_call``, other than ``per_call * iters`` events) is run
+    again after a pause, five sessions at most: the profiler has come
+    back empty, three times running once, and short, for calls it had
+    timed in other sessions. Empty if all five were."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -235,28 +253,34 @@ def _profiled_us(fn, iters, keep):
     fn()
     torch.cuda.synchronize()
     out = {}
-    for _ in range(3):
+    for attempt in range(5):
+        if attempt:
+            time.sleep(0.2)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         out = {}
+        seen = 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and keep(e.name):
                 out[e.name] = out.get(e.name, 0.0) + \
                     e.time_range.elapsed_us()
-        if sum(out.values()) > 0.0:
+                seen += 1
+        if sum(out.values()) > 0.0 and per_call in (None, seen / iters):
             return out
     return {}
 
 
-def device_ms_by_kernel(fn, kernel, iters=20):
+def device_ms_by_kernel(fn, kernel, iters=20, per_call=None):
     """Mean device duration per call of each kernel whose name contains
     ``kernel`` while ``fn()`` runs ``iters`` times, from torch.profiler:
     {short kernel name: ms}, the kernels alone, without their wrapper's
-    host work (which bounds ``time_ms`` at small shapes)."""
+    host work (which bounds ``time_ms`` at small shapes). ``per_call``:
+    the launches a call makes, where every session must show them all."""
     out = {}
-    for name, us in _profiled_us(fn, iters, lambda n: kernel in n).items():
+    for name, us in _profiled_us(fn, iters, lambda n: kernel in n,
+                                 per_call).items():
         # "(anonymous namespace)::nms_keep_scan_kernel(...)" -> the
         # kernel's own name
         name = name[name.find(kernel):].split("(")[0]
@@ -329,6 +353,26 @@ def flash_ptxas(log):
     return {dt: " | ".join(info["line"]) for dt, info in found.items()}
 
 
+def paged_ptxas(log):
+    """Kernel 1's split kernel (every instance) and merge kernel, from
+    the build's ptxas report; fails on a spill or a missing report."""
+    found = {}
+    for name, info in ptxas_entries(log).items():
+        for kind in ("split", "merge"):
+            if "paged_attention_%s_kernel" % kind in name:
+                found.setdefault(kind, []).append(info)
+    if sorted(found) != ["merge", "split"]:
+        fail("build: no ptxas report of paged_attention's split and merge "
+             "kernels (found %s)" % sorted(found))
+    for kind, infos in found.items():
+        for info in infos:
+            if info.get("spill_stores", 1) or info.get("spill_loads", 1):
+                fail("build: paged_attention's %s kernel spills: %s"
+                     % (kind, info["line"]))
+    return {kind: [" | ".join(info["line"]) for info in infos]
+            for kind, infos in found.items()}
+
+
 def build_all():
     """Start one nvcc per kernel source, all together, and wait."""
     from concurrent.futures import ThreadPoolExecutor
@@ -393,6 +437,39 @@ def _bound(rows, h, kh, d, row_limits, table_tokens=None):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _chunk_case(rng, c, start, n, h, kh):
+    """One prefill chunk on the card: q (C, H, D) at positions start ..
+    start + C - 1 (rows at or past n are padding), the pools, the
+    sequence's page row, and the plain version's operands (the row
+    repeated per query row, per-row seq_lens, and q_pos)."""
+    import torch
+
+    args, _ = _attention_case(rng, 1, h, kh, 64, [start + n])
+    dev = args[0].device
+    q = torch.tensor(rng.randn(c, h, 64).astype(np.float32), device=dev)
+    row = args[3][0]
+    idx = torch.arange(c, dtype=torch.int32, device=dev)
+    plain = (q, args[1], args[2], row[None].expand(c, -1).contiguous(),
+             torch.where(idx < n, idx + start + 1, torch.zeros_like(idx)))
+    return q, row, plain, idx + start
+
+
+def wrapper_host_ms():
+    """Host time to issue one call of each paged wrapper (the shared
+    ``_launch``, the checks, the allocations): kernel 1 at the decode
+    bench, kernel 2 at the spec bench."""
+    from mxnet_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.RandomState(3)
+    args, _ = _attention_case(rng, SLOTS, 8, 8, 64, [MAX_SEQ // 2] * SLOTS)
+    lens = _verify_lens(rng, 10, 10 + SPEC_OUT - SPEC_K - 1, ragged=False)
+    spec_args, _ = _spec_case(rng, SLOTS, SPEC_K + 1, 8, 8, 64, lens)
+    return {"paged_attention": host_ms(
+                lambda: pa.ragged_paged_attention(*args)),
+            "paged_spec_attention": host_ms(
+                lambda: pa.ragged_spec_attention(*spec_args))}
+
+
 def check_kernels():
     """Each paged-attention shape of the main path: the kernel against
     the plain version on the same inputs, then timed."""
@@ -404,11 +481,18 @@ def check_kernels():
     rng = np.random.RandomState(0)
     ragged = [0, 1, 15, 16, 17, 31, 32, 33, 47, 100, 255, 256, 257, 600,
               1151, 1152]
+    # lengths at the kernel's span boundaries: k * SPAN - 1, k * SPAN,
+    # k * SPAN + 1 (the last span one token short, full, one token into
+    # the next)
+    edges = [k * pa.SPAN + e for k in range(1, 6) for e in (-1, 0, 1)]
     cases = [
         ("decode_bench", 8, 8, ragged, None),
         ("decode_gqa_8_over_2", 8, 2, ragged, None),
         ("decode_causal_q_pos", 8, 8, ragged,
          [max(0, n - 1 - (7 * i) % 13) for i, n in enumerate(ragged)]),
+        ("decode_span_edges", 8, 8, edges + [MAX_SEQ], None),
+        ("decode_span_edges_causal", 8, 8, [MAX_SEQ] * SLOTS,
+         [n - 1 for n in edges] + [MAX_SEQ - 1]),
     ]
     results = {}
     worst = 0.0
@@ -427,59 +511,81 @@ def check_kernels():
 
     # prefill chunks of one sequence over its own page row, causal: the
     # prefix-hit tail (a 32-row chunk, the top prefill rung, at positions
-    # 32..51) and a chunked-prefill chunk (64 rows at positions 512..575)
-    dev = torch.device("cuda")
-    chunk64 = None
-    for c, start, n in ((32, 32, 20), (SP_CHUNK, 512, SP_CHUNK)):
-        args, _ = _attention_case(rng, 1, 8, 8, 64, [start + n])
-        q = torch.tensor(rng.randn(c, 8, 64).astype(np.float32),
-                         device=dev)
-        row = args[3][0]
-        got = pa.paged_prefill_attention(q, args[1], args[2], row, start, n)
-        torch.cuda.synchronize()
-        idx = torch.arange(c, dtype=torch.int32, device=dev)
-        want_args = (q, args[1], args[2], row[None].expand(c, -1).contiguous(),
-                     torch.where(idx < n, idx + start + 1,
-                                 torch.zeros_like(idx)))
-        want = pa.paged_attention_reference(*want_args, q_pos=idx + start)
-        err = float((got - want).abs().max())
+    # 32..51), a chunked-prefill chunk (64 rows at positions 512..575), a
+    # first chunk shorter than its rung, one starting mid-page, GQA, and
+    # chunks whose row tiles (8 rows; 2 at GQA 8/2) straddle position
+    # SPAN with a start no multiple of the tile: two blocks hold those
+    # rows, so they run STRADDLE_REPS times to give a race its chances
+    chunks = {}
+    for name, c, start, n, h, kh in (
+            ("prefill_chunk_32", 32, 32, 20, 8, 8),
+            ("prefill_chunk_%d" % SP_CHUNK, SP_CHUNK, 512, SP_CHUNK, 8, 8),
+            ("prefill_chunk_start_0", SP_CHUNK, 0, 37, 8, 8),
+            ("prefill_chunk_mid_page", SP_CHUNK, PAGE * 2 + PAGE // 2,
+             SP_CHUNK, 8, 8),
+            ("prefill_chunk_gqa_8_over_2", SP_CHUNK, 512, SP_CHUNK, 8, 2),
+            ("prefill_chunk_straddles_span", SP_CHUNK, pa.SPAN - 3,
+             SP_CHUNK, 8, 8),
+            ("prefill_chunk_straddles_span_gqa_8_over_2", SP_CHUNK,
+             pa.SPAN - 27, SP_CHUNK - 4, 8, 2)):
+        q, row, plain, qpos = _chunk_case(rng, c, start, n, h, kh)
+        want = pa.paged_attention_reference(*plain, q_pos=qpos)
+        err = 0.0
+        for _ in range(STRADDLE_REPS if "straddles" in name else 1):
+            got = pa.paged_prefill_attention(q, plain[1], plain[2], row,
+                                             start, n)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+            if not torch.allclose(got, want, atol=KERNEL_TOL,
+                                  rtol=KERNEL_TOL):
+                fail("prefill-chunk kernel %s disagrees with the plain "
+                     "version: max abs err %.3g" % (name, err))
+            if not bool((got[n:] == 0).all()):
+                fail("prefill-chunk kernel %s: a padding row is not exact "
+                     "zeros" % name)
         worst = max(worst, err)
-        if not torch.allclose(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL):
-            fail("prefill-chunk kernel (%d rows) disagrees with the plain "
-                 "version: max abs err %.3g" % (c, err))
-        phase("kernel_check", case="prefill_chunk_%d" % c, max_abs_err=err,
-              tol=KERNEL_TOL)
-        chunk64 = (want_args, idx + start, n, start)
+        phase("kernel_check", case=name, max_abs_err=err, tol=KERNEL_TOL,
+              rows=c, start=start, length=n)
+        chunks[name] = (q, row, plain, qpos, start, n)
+
+    def record(case, run, plain_run, library_run, bound, library,
+               max_limit):
+        ms = time_ms(run)
+        # the split kernel, and the merge where a row may pass one span
+        by_kernel = device_ms_by_kernel(run, KERNEL_1,
+                                        per_call=1 + (max_limit > pa.SPAN))
+        plain_ms = time_ms(plain_run)
+        library_ms = time_ms(library_run)
+        library_device_ms = call_device_ms(library_run)
+        bound_ms, bound_by = bound
+        phase("kernel_time", case=case, ms=ms,
+              device_ms=sum(by_kernel.values()),
+              device_ms_by_kernel=by_kernel, plain_ms=plain_ms,
+              library_ms=library_ms, library_device_ms=library_device_ms,
+              bound_ms=bound_ms, bound_by=bound_by, library=library)
+        return dict(ms=ms, device_ms=sum(by_kernel.values()),
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms,
+                    library_device_ms=library_device_ms)
 
     def times(case, args, lens, h, kh):
-        ms = time_ms(lambda: pa.ragged_paged_attention(*args))
-        device_ms = kernel_device_ms(
-            lambda: pa.ragged_paged_attention(*args), KERNEL_1)
-        plain_ms = time_ms(lambda: pa.paged_attention_reference(*args))
         q, kp, vp, pt, sl = args
         t = MAX_PAGES * PAGE
         kg = kp[pt.long()].reshape(SLOTS, t, kh, 64).transpose(1, 2)
         vg = vp[pt.long()].reshape(SLOTS, t, kh, 64).transpose(1, 2)
         kg, vg = kg.contiguous(), vg.contiguous()
-        mask = (torch.arange(t, device=dev)[None, :] < sl[:, None].long())
+        mask = (torch.arange(t, device=q.device)[None, :]
+                < sl[:, None].long())
         mask = mask[:, None, None, :]
         qs = q[:, :, None, :]
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask))
-        library_device_ms = call_device_ms(
+        return record(
+            case, lambda: pa.ragged_paged_attention(*args),
+            lambda: pa.paged_attention_reference(*args),
             lambda: F.scaled_dot_product_attention(qs, kg, vg,
-                                                   attn_mask=mask))
-        bound_ms, bound_by = _bound(SLOTS, h, kh, 64, lens)
-        phase("kernel_time", case=case, ms=ms, device_ms=device_ms,
-              plain_ms=plain_ms, library_ms=library_ms,
-              library_device_ms=library_device_ms, bound_ms=bound_ms,
-              bound_by=bound_by,
-              library="scaled_dot_product_attention over K/V gathered "
-                      "beforehand (gather not timed)")
-        return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=library_ms,
-                    library_device_ms=library_device_ms)
+                                                   attn_mask=mask),
+            _bound(SLOTS, h, kh, 64, lens),
+            "scaled_dot_product_attention over K/V gathered beforehand "
+            "(gather not timed)", t)
 
     # times at the decode bench shape (the JSON line's numbers), then with
     # every slot at max_seq_len: the most bytes one tick's layer can read
@@ -488,34 +594,36 @@ def check_kernels():
     full = [MAX_SEQ] * SLOTS
     args, _ = _attention_case(rng, SLOTS, 8, 8, 64, full)
     times("decode_full_%d" % MAX_SEQ, args, full, 8, 8)
+    # and the young batch tick_profile traces: 4..24-token prompts, up to
+    # 64 tokens out, so every slot within one span
+    short = [int(n) for n in rng.randint(5, 89, SLOTS)]
+    args, _ = _attention_case(rng, SLOTS, 8, 8, 64, short)
+    times("decode_short", args, short, 8, 8)
 
-    # the 64-row chunk: each of its rows reads the sequence's pages again
-    # (one table row per query row), so the bound counts them once
-    want_args, qpos, n, start = chunk64
-    ms = time_ms(lambda: pa.ragged_paged_attention(*want_args, q_pos=qpos))
-    device_ms = kernel_device_ms(
-        lambda: pa.ragged_paged_attention(*want_args, q_pos=qpos), KERNEL_1)
-    plain_ms = time_ms(
-        lambda: pa.paged_attention_reference(*want_args, q_pos=qpos))
-    q, kp, vp, pt, sl = want_args
-    t = MAX_PAGES * PAGE
-    kg = kp[pt[:1].long()].reshape(1, t, 8, 64).transpose(1, 2).contiguous()
-    vg = vp[pt[:1].long()].reshape(1, t, 8, 64).transpose(1, 2).contiguous()
-    pos = torch.arange(t, device=dev)[None, :]
-    mask = ((pos < sl[:, None].long()) & (pos <= qpos[:, None].long()))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(0, 1)[None], kg, vg, attn_mask=mask[None, None]))
-    library_device_ms = call_device_ms(
-        lambda: F.scaled_dot_product_attention(
-            q.transpose(0, 1)[None], kg, vg, attn_mask=mask[None, None]))
-    bound_ms, bound_by = _bound(SP_CHUNK, 8, 8, 64, sl.cpu().numpy(),
-                                [start + n])
-    phase("kernel_time", case="prefill_chunk_%d" % SP_CHUNK, ms=ms,
-          device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
-          library_device_ms=library_device_ms,
-          bound_ms=bound_ms, bound_by=bound_by,
-          library="scaled_dot_product_attention, 64 queries over the "
-                  "sequence's K/V gathered beforehand (gather not timed)")
+    # the chunks of the main path: each K/V tile is read once per tile of
+    # chunk rows; the bound counts the sequence's pages once
+    for name in ("prefill_chunk_%d" % SP_CHUNK, "prefill_chunk_32"):
+        q, row, plain, qpos, start, n = chunks[name]
+        c = q.shape[0]
+        kp, vp, sl = plain[1], plain[2], plain[4]
+        t = MAX_PAGES * PAGE
+        kg = kp[row[None].long()].reshape(1, t, 8, 64).transpose(1, 2)
+        vg = vp[row[None].long()].reshape(1, t, 8, 64).transpose(1, 2)
+        kg, vg = kg.contiguous(), vg.contiguous()
+        pos = torch.arange(t, device=q.device)[None, :]
+        mask = ((pos < sl[:, None].long()) & (pos <= qpos[:, None].long()))
+        qs = q.transpose(0, 1)[None]
+        record(name,
+               lambda: pa.paged_prefill_attention(q, kp, vp, row, start, n),
+               lambda: pa.paged_attention_reference(*plain, q_pos=qpos),
+               lambda: F.scaled_dot_product_attention(
+                   qs, kg, vg, attn_mask=mask[None, None]),
+               _bound(c, 8, 8, 64, sl.cpu().numpy(), [start + n]),
+               "scaled_dot_product_attention, %d queries over the "
+               "sequence's K/V gathered beforehand (gather not timed)" % c,
+               start + n)
+    phase("wrapper_host", **{k + "_host_ms": v
+                             for k, v in wrapper_host_ms().items()})
     return {"name": "paged_attention", "route": "cuda",
             "source": "mxnet_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:292",
@@ -1723,7 +1831,12 @@ def profile_ticks(eng, reqs, new_tokens=64, case="decode"):
     busy_ms = sum(by_name.values())
     if busy_ms <= 0.0:
         fail("the profiler saw no device time in the traced wave")
-    paged_ms = sum(v for k, v in by_name.items() if KERNEL_1 in k)
+    paged_by_kernel = {}
+    for k, v in by_name.items():
+        if KERNEL_1 in k:
+            k = k[k.find(KERNEL_1):].split("(")[0]
+            paged_by_kernel[k] = paged_by_kernel.get(k, 0.0) + v
+    paged_ms = sum(paged_by_kernel.values())
     spec_ms = sum(v for k, v in by_name.items() if KERNEL_2 in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     phase("tick_profile", case=case, requests=len(reqs), ticks=ticks,
@@ -1731,6 +1844,7 @@ def profile_ticks(eng, reqs, new_tokens=64, case="decode"):
           device_busy_share=busy_ms / wall_ms,
           paged_attention_ms=paged_ms,
           paged_attention_share_of_busy=paged_ms / busy_ms,
+          paged_attention_ms_by_kernel=paged_by_kernel,
           spec_attention_ms=spec_ms,
           spec_attention_share_of_busy=spec_ms / busy_ms,
           per_tick_wall_ms=wall_ms / max(ticks, 1),
@@ -1758,6 +1872,13 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi, flush=True)
+    if sys.argv[1:] == ["--wrapper-host"]:
+        # only the paged wrappers' host time, of the package beside this
+        # file: to compare two checkouts in one call, copy the script into
+        # each and run it there
+        phase("wrapper_host", **{k + "_host_ms": v
+                                 for k, v in wrapper_host_ms().items()})
+        return 0
     from mxnet_tpu_torch import MXNetError, rtc
 
     try:
@@ -1772,7 +1893,9 @@ def main():
     from mxnet_tpu_torch.ops import _build
 
     phase("build", kernels=names, seconds=secs, ptxas=ptxas,
-          flash_d64_ptxas=flash_ptxas(_build.build_log("flash_attention")))
+          flash_d64_ptxas=flash_ptxas(_build.build_log("flash_attention")),
+          paged_attention_ptxas=paged_ptxas(
+              _build.build_log("paged_attention")))
 
     entry = check_kernels()
     spec_entry = check_spec_kernel()

@@ -21,8 +21,17 @@ decode step:
   takes any ``head_dim <= 256``, any ``page_size`` and any
   ``H % KH == 0``;
 * :func:`paged_prefill_attention` — C chunk queries of ONE sequence over
-  that sequence's pages with a causal ``q_pos`` (the prefix-cache tail
-  and chunked-prefill path), through the same dispatcher.
+  that sequence's pages, causal (the prefix-cache tail and
+  chunked-prefill path): on the card :func:`ragged_prefill_attention`,
+  the same kernel's chunk entry point, which reads the sequence's K/V
+  once per tile of chunk rows; on the CPU each chunk row becomes a row
+  of the plain version with the page row repeated and ``q_pos``.
+
+Both kernel entry points split each row's positions into spans of
+:data:`SPAN` tokens, one block per span, and merge the spans' partial
+softmax states in a second kernel (launched only where a row may reach a
+second span); :func:`_split_plan` mirrors that tiling (span count, grid,
+rows per block, workspace) in plain Python.
 
 Shapes: q ``(S, H, D)``; pools ``(P, page_size, KH, D)``; page_table
 ``(S, max_pages)`` page ids (unused entries point at the null page 0);
@@ -48,7 +57,9 @@ slot's draft rows:
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -57,13 +68,52 @@ from . import _build
 
 __all__ = ["ragged_paged_attention", "paged_attention_reference",
            "paged_attention", "paged_prefill_attention",
-           "ragged_spec_attention", "paged_spec_attention_reference",
-           "paged_spec_attention", "MAX_HEAD_DIM"]
+           "ragged_prefill_attention", "ragged_spec_attention",
+           "paged_spec_attention_reference", "paged_spec_attention",
+           "MAX_HEAD_DIM", "SPAN"]
 
-#: The largest head_dim the kernel takes (8 fp32 values per lane).
+#: The largest head_dim the kernels take.
 MAX_HEAD_DIM = 256
+#: Positions one block of ``paged_attention.cu`` covers (its ``kSpan``).
+SPAN = 128
+#: Query vectors one block holds (``paged_attention.cu:kMaxUnits``): a
+#: chunk block holds ``MAX_UNITS // min(groups, MAX_UNITS)`` rows.
+MAX_UNITS = 8
 
 _NEG_BIG = -1e30  # the JAX reference's mask value
+# the entry points' own codes, returned before any launch
+_LAUNCH_ERRORS = {-1: "the workspace does not match the built kernel"}
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+class SplitPlan(NamedTuple):
+    """The tiling of one launch of ``paged_attention.cu``."""
+    nsplit: int          # spans per row: ceil(max_pages * page_size / span)
+    rows_tile: int       # rows per block (1 for decode)
+    gpb: int             # query heads of one kv head per block
+    grid: Tuple[int, int, int]   # (row tiles, KH x group chunks, nsplit)
+    acc_shape: Tuple[int, ...]   # partial acc: (rows, H, nsplit, D)
+    ml_shape: Tuple[int, ...]    # partial (m, l): (rows, H, nsplit, 2)
+    workspace_numel: int         # acc then (m, l), one fp32 allocation
+
+
+def _split_plan(rows, n_heads, n_kv, d, page_size, max_pages, chunk=False,
+                span=SPAN):
+    """The tiling of a launch, as the entry points compute it: ``rows``
+    query rows (decode slots, each with its own table row, or ``chunk``
+    rows of one sequence sharing one), ``n_heads`` query heads over
+    ``n_kv`` kv heads of size ``d``, tables of ``max_pages`` pages of
+    ``page_size``. It depends on shapes alone, so one shape always
+    launches the same grid. ``span`` is the kernel's :data:`SPAN`; the
+    tests replay other spans through it."""
+    groups = _check_heads(n_heads, n_kv, "_split_plan")
+    nsplit = -(-max_pages * page_size // span)
+    gpb = min(groups, MAX_UNITS)
+    rows_tile = max(1, min(rows, MAX_UNITS // gpb)) if chunk else 1
+    grid = (-(-rows // rows_tile), n_kv * -(-groups // gpb), nsplit)
+    cells = rows * n_heads * nsplit
+    return SplitPlan(nsplit, rows_tile, gpb, grid, (rows, n_heads, nsplit, d),
+                     (rows, n_heads, nsplit, 2), cells * (d + 2))
 
 
 def _check_heads(n_heads: int, n_kv: int, who: str) -> int:
@@ -118,23 +168,38 @@ def _check_launch(who, q, q_dims, k_pool, v_pool, ints):
     return page_size, n_kv, d
 
 
-def _launch(lib_name, fn_name, n_ints, q, args, ints, scale, d):
+def _launch(lib_name, fn_name, q, args, ints, scale, d, workspace=None):
     """Allocate the output, launch on q's current stream, raise on a CUDA
-    error. ``args`` are the tensor operands before the output, ``ints``
-    the integer arguments after it."""
+    error. ``args`` are the tensor operands before the output,
+    ``workspace`` (if any) the scratch after it, ``ints`` the integer
+    arguments after those."""
     out = torch.empty_like(q)
-    fn = _bind(_build.load(lib_name), fn_name, len(args) + 1, n_ints)
+    ptrs = [a.data_ptr() if a is not None else None for a in args]
+    ptrs.append(out.data_ptr())
+    if workspace is not None:
+        ptrs.append(workspace.data_ptr())
+    fn = _bind(_build.load(lib_name), fn_name, len(ptrs), len(ints))
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    dev = q.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(*[a.data_ptr() if a is not None else None for a in args],
-                 out.data_ptr(), *ints, float(scale), stream)
+    index = q.device.index
+    # the current stream as a raw handle (no Stream object), and the
+    # device made current only where it is not: host time on every tick
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    with (_SAME_DEVICE if torch.cuda.current_device() == index
+          else torch.cuda.device(index)):
+        err = fn(*ptrs, *ints, float(scale), stream)
     if err != 0:
-        raise MXNetError("%s kernel launch failed: CUDA error %d"
-                         % (lib_name, err))
+        raise MXNetError("%s kernel launch failed: %s"
+                         % (lib_name,
+                            _LAUNCH_ERRORS.get(err, "CUDA error %d" % err)))
     return out
+
+
+def _workspace(plan, like):
+    """The split kernel's partial states, uninitialised: every entry the
+    merge reads is written by the split kernel first."""
+    return torch.empty(plan.workspace_numel, dtype=torch.float32,
+                       device=like.device)
 
 
 def ragged_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
@@ -162,10 +227,11 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
     qp = q_pos.to(torch.int32).contiguous() if q_pos is not None else None
     if s_slots == 0:
         return torch.empty_like(q)
-    out = _launch("paged_attention", "paged_attention_f32", 6, q,
+    plan = _split_plan(s_slots, n_heads, n_kv, d, page_size, pt.shape[1])
+    out = _launch("paged_attention", "paged_attention_f32", q,
                   (q, k_pool, v_pool, pt, sl, qp),
-                  (s_slots, n_heads, n_kv, d, page_size, pt.shape[1]),
-                  scale, d)
+                  (s_slots, n_heads, n_kv, d, page_size, pt.shape[1],
+                   plan.nsplit), scale, d, _workspace(plan, q))
     ragged_paged_attention.launches += 1
     return out
 
@@ -247,7 +313,7 @@ def ragged_spec_attention(q, k_pool, v_pool, page_table, seq_lens,
     sl = seq_lens.to(torch.int32).contiguous()
     if s_slots == 0 or width == 0:
         return torch.empty_like(q)
-    out = _launch("paged_spec_attention", "paged_spec_attention_f32", 7, q,
+    out = _launch("paged_spec_attention", "paged_spec_attention_f32", q,
                   (q, k_pool, v_pool, pt, sl),
                   (s_slots, width, n_heads, n_kv, d, page_size,
                    pt.shape[1]), scale, d)
@@ -296,6 +362,39 @@ def paged_spec_attention(q, k_pool, v_pool, page_table, seq_lens,
                      "or cpu)" % (q.device,))
 
 
+def ragged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
+                             length: int, scale=None):
+    """Launch the CUDA paged-attention kernel's chunk entry point: C chunk
+    rows of ONE sequence over its page row, row i causal at position
+    ``start + i``, rows at or past ``length`` exact zeros. One block holds
+    a tile of chunk rows and reads each K/V tile once for all of them.
+
+    q: ``(C, H, D)``; page_row: ``(max_pages,)`` integer (cast to
+    contiguous int32 here); same device, dtype and layout rules as
+    :func:`ragged_paged_attention`, whose launch count it adds to (the
+    chunk was a launch of that kernel before it had its own entry
+    point). Returns ``(C, H, D)``.
+    """
+    ints = (("page_row", page_row),)
+    page_size, n_kv, d = _check_launch(
+        "ragged_prefill_attention", q, "CHD", k_pool, v_pool, ints)
+    c, n_heads, _ = q.shape
+    if page_row.dim() != 1:
+        raise MXNetError("ragged_prefill_attention: page_row (max_pages,) "
+                         "expected, got %s" % (tuple(page_row.shape),))
+    row = page_row.to(torch.int32).contiguous()
+    if c == 0:
+        return torch.empty_like(q)
+    plan = _split_plan(c, n_heads, n_kv, d, page_size, row.shape[0],
+                       chunk=True)
+    out = _launch("paged_attention", "paged_prefill_attention_f32", q,
+                  (q, k_pool, v_pool, row),
+                  (c, int(start), int(length), n_heads, n_kv, d, page_size,
+                   row.shape[0], plan.nsplit), scale, d, _workspace(plan, q))
+    ragged_paged_attention.launches += 1
+    return out
+
+
 def paged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
                             length: int, scale=None):
     """Chunk attention: C chunk queries of ONE sequence attend over that
@@ -305,10 +404,18 @@ def paged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
     q: (C, H, D) — the chunk's queries at absolute positions
     ``start .. start+C-1``; page_row: (max_pages,) the sequence's
     page-table row; ``length`` the chunk's real token count (padding rows
-    beyond it come back zeroed). Each chunk token becomes its own row of
-    the decode kernel, all sharing one page table row, with the causal
-    bound ``q_pos = start + i``. Returns (C, H, D).
+    beyond it come back zeroed). A CUDA tensor goes to
+    :func:`ragged_prefill_attention`; on the CPU each chunk token becomes
+    its own row of the plain version, all sharing one page table row,
+    with the causal bound ``q_pos = start + i``. Returns (C, H, D).
     """
+    _check_heads(q.shape[1], k_pool.shape[2], "paged_prefill_attention")
+    if q.is_cuda:
+        return ragged_prefill_attention(q, k_pool, v_pool, page_row, start,
+                                        length, scale=scale)
+    if q.device.type != "cpu":
+        raise MXNetError("paged_prefill_attention: no kernel for device %s "
+                         "(cuda or cpu)" % (q.device,))
     c = q.shape[0]
     idx = torch.arange(c, dtype=torch.int32, device=q.device)
     q_pos = idx + int(start)
@@ -317,5 +424,5 @@ def paged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
                            torch.zeros_like(q_pos))
     pt = page_row.to(device=q.device, dtype=torch.int32)[None, :] \
         .expand(c, page_row.shape[0]).contiguous()
-    return paged_attention(q, k_pool, v_pool, pt, seq_lens, q_pos=q_pos,
-                           scale=scale)
+    return paged_attention_reference(q, k_pool, v_pool, pt, seq_lens,
+                                     q_pos=q_pos, scale=scale)

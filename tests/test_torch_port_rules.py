@@ -1,7 +1,8 @@
 """The port's standing rules (CPU).
 
-* ``mxnet_tpu_torch/`` and ``chip_smoke.py`` import neither ``jax`` nor
-  anything of ``mxnet_tpu`` (an AST scan of every module), and the port
+* ``mxnet_tpu_torch/``, ``chip_smoke.py`` and ``paged_attention_sweep.py``
+  import neither ``jax`` nor anything of ``mxnet_tpu`` (an AST scan of
+  every module), and the port
   still serves with ``jax`` and ``mxnet_tpu`` made unimportable;
 * its entry points run on the card by default: with no CUDA device and
   no ``device="cpu"`` they raise instead of quietly using the CPU; the
@@ -41,7 +42,7 @@ _BANNED = ("jax", "jaxlib", "mxnet_tpu")
 
 def _port_files():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "paged_attention_sweep.py"]
 
 
 def _imported_roots(path):
