@@ -127,6 +127,19 @@ young batch (every slot under 90 positions) and both chunks. ``wrapper_host`` pr
 paged wrapper; ``python3 chip_smoke.py --wrapper-host`` prints only
 that line.
 
+Kernel 2 (the verify step) is one kernel that splits each slot over spans
+of positions and merges a row's spans in its last span block to arrive:
+the build phase fails if ptxas reports a spill in any instance of it. It
+is checked on ragged verify ticks (H = KH and GQA 8/2), on rows whose
+limits straddle a span boundary inside one slot (W = 5 at limits
+k * SPAN - 2 .. k * SPAN + 2, and GQA 8/2 at W = 5; blocks of
+two spans hold those rows, so they run ``STRADDLE_REPS`` times), at W = 9
+with 4 query heads per kv head (36 rows, five row chunks), on rows of
+limit 0 beside live ones (which must be exact zeros), at head dims 6
+(4-byte staging), 32, 80, 128 and 256, and at W = 1 against kernel 1;
+then timed on the spec bench and with every slot at max_seq_len (both
+sets of figures in its entry of the kernels line).
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the rest of the checkout beside it, the script exits non-zero
@@ -154,15 +167,16 @@ MAX_PAGES = MAX_SEQ // PAGE
 N_REQ, OUT_CAP, SYSTEM_LEN = 32, 256, 32
 OUT_MIX = [16] * 3 + [64] * 2 + [256, 512, 1024]
 KERNEL_TOL = 1e-4  # fp32, another summation order than the plain einsum
-STRADDLE_REPS = 50  # runs of each chunk case whose rows two blocks share
+STRADDLE_REPS = 50  # runs of each case whose rows blocks of two spans share
 # bf16 outputs: both versions round an fp32 result to bf16 (8 significant
 # bits), and their two summation orders can tip that rounding by one step,
 # at most 2^-7 of the value; the atol covers outputs near 0
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 # the kernels' device-side names, as the profiler reports them
 # kernel 1 is two kernels, paged_attention_split_kernel and
-# paged_attention_merge_kernel: its readings sum both
-KERNEL_1, KERNEL_2 = "paged_attention_", "paged_spec_kernel"
+# paged_attention_merge_kernel: its readings sum both; kernel 2 is
+# paged_spec_attention_kernel (every instance)
+KERNEL_1, KERNEL_2 = "paged_attention_", "paged_spec_attention_"
 KERNEL_3 = "flash_attention_kernel"
 KERNEL_4 = "nms_keep_"  # nms_keep_mask_kernel and nms_keep_scan_kernel
 # the detection slice: the SSD example's NMS (batch 8, 3 x (32 x 32 +
@@ -239,13 +253,13 @@ def host_ms(fn, iters=200, warm=3):
 
 
 def _profiled_us(fn, iters, keep, per_call=None):
-    """{event name: device microseconds} of the CUDA events that
-    ``keep(name)`` accepts in one torch.profiler session over ``iters``
-    runs of ``fn()``. A session that recorded no device time of them (or,
-    given ``per_call``, other than ``per_call * iters`` events) is run
-    again after a pause, five sessions at most: the profiler has come
-    back empty, three times running once, and short, for calls it had
-    timed in other sessions. Empty if all five were."""
+    """{event name: [device microseconds, events]} of the CUDA events
+    that ``keep(name)`` accepts in one torch.profiler session over
+    ``iters`` runs of ``fn()``. A session that recorded no device time of
+    them (or, given ``per_call``, events of another number of kernels
+    than ``per_call``) is run again after a pause, five sessions at most:
+    the profiler has come back empty, three times running once. Empty if
+    all five were."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -261,13 +275,13 @@ def _profiled_us(fn, iters, keep, per_call=None):
                 fn()
             torch.cuda.synchronize()
         out = {}
-        seen = 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and keep(e.name):
-                out[e.name] = out.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us()
-                seen += 1
-        if sum(out.values()) > 0.0 and per_call in (None, seen / iters):
+                rec = out.setdefault(e.name, [0.0, 0])
+                rec[0] += e.time_range.elapsed_us()
+                rec[1] += 1
+        if sum(us for us, _ in out.values()) > 0.0 and \
+                per_call in (None, len(out)):
             return out
     return {}
 
@@ -277,14 +291,18 @@ def device_ms_by_kernel(fn, kernel, iters=20, per_call=None):
     ``kernel`` while ``fn()`` runs ``iters`` times, from torch.profiler:
     {short kernel name: ms}, the kernels alone, without their wrapper's
     host work (which bounds ``time_ms`` at small shapes). ``per_call``:
-    the launches a call makes, where every session must show them all."""
+    the kernels a call launches, each once, which every session must
+    show; each kernel's reading is then its mean over the launches the
+    session recorded (sessions have come back one launch short of those
+    they ran, which a mean over the calls would read low)."""
     out = {}
-    for name, us in _profiled_us(fn, iters, lambda n: kernel in n,
-                                 per_call).items():
+    for name, (us, count) in _profiled_us(fn, iters, lambda n: kernel in n,
+                                          per_call).items():
         # "(anonymous namespace)::nms_keep_scan_kernel(...)" -> the
         # kernel's own name
         name = name[name.find(kernel):].split("(")[0]
-        out[name] = out.get(name, 0.0) + us / 1e3 / iters
+        out[name] = out.get(name, 0.0) + \
+            us / 1e3 / (count if per_call else iters)
     if not out:
         fail("the profiler saw no device time of %s" % kernel)
     return out
@@ -300,8 +318,8 @@ def call_device_ms(fn, iters=20):
     """Mean device duration per call of everything ``fn()`` runs on the
     card (every kernel, copy and fill), from torch.profiler: a library
     call's device time, whatever its kernels are named."""
-    total = sum(_profiled_us(fn, iters, lambda n: True).values()) / 1e3 \
-        / iters
+    total = sum(us for us, _ in _profiled_us(
+        fn, iters, lambda n: True).values()) / 1e3 / iters
     if total <= 0.0:
         fail("the profiler saw no device time of the library call")
     return total
@@ -353,22 +371,22 @@ def flash_ptxas(log):
     return {dt: " | ".join(info["line"]) for dt, info in found.items()}
 
 
-def paged_ptxas(log):
-    """Kernel 1's split kernel (every instance) and merge kernel, from
-    the build's ptxas report; fails on a spill or a missing report."""
+def spill_free_ptxas(log, kernels):
+    """Every instance of each of ``kernels`` (names as the source gives
+    them) from a build's ptxas report; fails on a spill or a missing
+    report."""
     found = {}
     for name, info in ptxas_entries(log).items():
-        for kind in ("split", "merge"):
-            if "paged_attention_%s_kernel" % kind in name:
+        for kind in kernels:
+            if kind in name:
                 found.setdefault(kind, []).append(info)
-    if sorted(found) != ["merge", "split"]:
-        fail("build: no ptxas report of paged_attention's split and merge "
-             "kernels (found %s)" % sorted(found))
+    if sorted(found) != sorted(kernels):
+        fail("build: no ptxas report of %s (found %s)"
+             % (", ".join(kernels), sorted(found)))
     for kind, infos in found.items():
         for info in infos:
             if info.get("spill_stores", 1) or info.get("spill_loads", 1):
-                fail("build: paged_attention's %s kernel spills: %s"
-                     % (kind, info["line"]))
+                fail("build: %s spills: %s" % (kind, info["line"]))
     return {kind: [" | ".join(info["line"]) for info in infos]
             for kind, infos in found.items()}
 
@@ -670,8 +688,8 @@ def _verify_lens(rng, base_lo, base_hi, ragged):
 
 def check_spec_kernel():
     """The verify step's multi-query kernel against its plain version
-    (bench shape, GQA, and W=1 against the one-row kernel), then timed
-    at the spec bench's lengths and with every slot at max_seq_len."""
+    (the cases set out in the module's docstring), then timed at the spec
+    bench's lengths and with every slot at max_seq_len."""
     import torch
     import torch.nn.functional as F
 
@@ -680,25 +698,65 @@ def check_spec_kernel():
     rng = np.random.RandomState(1)
     w = SPEC_K + 1
     worst = 0.0
-    for name, h, kh in (("spec_bench", 8, 8), ("spec_gqa_8_over_2", 8, 2)):
-        lens = _verify_lens(rng, 1, MAX_SEQ - SPEC_K, ragged=True)
-        args, lens = _spec_case(rng, SLOTS, w, h, kh, 64, lens)
-        got = pa.ragged_spec_attention(*args)
-        torch.cuda.synchronize()
+
+    def check(name, h, kh, d, lens, reps=1):
+        lens = np.asarray(lens, np.int32).reshape(SLOTS, -1)
+        width = lens.shape[1]
+        args, lens = _spec_case(rng, SLOTS, width, h, kh, d, lens)
         q = args[0]
         want = pa.paged_spec_attention_reference(
-            q.reshape(SLOTS * w, h, 64), *args[1:]).reshape(q.shape)
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        if not torch.allclose(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL):
-            fail("spec kernel %s disagrees with the plain version: max abs "
-                 "err %.3g" % (name, err))
+            q.reshape(SLOTS * width, h, d), *args[1:]).reshape(q.shape)
         zero = torch.tensor(lens == 0, device=q.device)
-        if not bool((got[zero] == 0).all()):
-            fail("spec kernel %s: a row with limit 0 is not exact zeros"
-                 % name)
+        err = 0.0
+        for _ in range(reps):
+            got = pa.ragged_spec_attention(*args)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+            if not torch.allclose(got, want, atol=KERNEL_TOL,
+                                  rtol=KERNEL_TOL):
+                fail("spec kernel %s disagrees with the plain version: max "
+                     "abs err %.3g" % (name, err))
+            if not bool((got[zero] == 0).all()):
+                fail("spec kernel %s: a row with limit 0 is not exact zeros"
+                     % name)
         phase("kernel_check", case=name, max_abs_err=err, tol=KERNEL_TOL,
-              rows_with_limit_0=int((lens == 0).sum()))
+              rows_per_slot=width, heads=h, kv_heads=kh, head_dim=d,
+              rows_with_limit_0=int((lens == 0).sum()), runs=reps)
+        return err
+
+    for name, h, kh in (("spec_bench", 8, 8), ("spec_gqa_8_over_2", 8, 2)):
+        worst = max(worst, check(name, h, kh, 64, _verify_lens(
+            rng, 1, MAX_SEQ - SPEC_K, ragged=True)))
+    # every slot's W = 5 rows at limits k * SPAN - 2 .. k * SPAN + 2: the
+    # rows of one slot end in two spans, so blocks of both spans hold them
+    # and the last to arrive merges; run STRADDLE_REPS times
+    straddle = np.asarray([[(1 + i % (MAX_SEQ // pa.SPAN - 1)) * pa.SPAN
+                            - 2 + j for j in range(w)]
+                           for i in range(SLOTS)], np.int32)
+    for name, h, kh in (("spec_straddles_span", 8, 8),
+                        ("spec_straddles_span_gqa_8_over_2", 8, 2)):
+        worst = max(worst, check(name, h, kh, 64, straddle,
+                                 reps=STRADDLE_REPS))
+    # W = 9 with 4 query heads per kv head: 36 rows a kv head, five row
+    # chunks; the rows past each slot's live ones have limit 0
+    wide = np.zeros((SLOTS, 9), np.int32)
+    for i in range(SLOTS):
+        base, live = int(rng.randint(1, MAX_SEQ - 8)), int(rng.randint(0, 10))
+        wide[i, :live] = base + np.arange(live)
+    worst = max(worst, check("spec_w9_groups_4", 8, 2, 64, wide))
+    # rows of limit 0 beside live ones: a dead slot, padded drafts, and a
+    # live row between dead ones
+    mixed = _verify_lens(rng, 1, MAX_SEQ - SPEC_K, ragged=False)
+    mixed[0] = 0
+    mixed[1, 1:] = 0
+    mixed[2, ::2] = 0
+    worst = max(worst, check("spec_limit_0_rows", 8, 8, 64, mixed))
+    # head dims of every instance: 4-byte staging at 6, then 32, 80, 128
+    # and 256
+    for d in (6, 32, 80, 128, 256):
+        worst = max(worst, check("spec_head_dim_%d" % d, 8, 8, d,
+                                 _verify_lens(rng, 1, MAX_SEQ - SPEC_K,
+                                              ragged=True)))
 
     # W = 1: the same function as the one-row kernel on the same inputs
     lens = _verify_lens(rng, 0, MAX_SEQ, ragged=False)[:, :1]
@@ -719,8 +777,9 @@ def check_spec_kernel():
         args, lens = _spec_case(rng, SLOTS, w, 8, 8, 64, lens)
         q, kp, vp, pt, sl = args
         ms = time_ms(lambda: pa.ragged_spec_attention(*args))
-        device_ms = kernel_device_ms(
-            lambda: pa.ragged_spec_attention(*args), KERNEL_2)
+        # one launch a call: every session must show each
+        by_kernel = device_ms_by_kernel(
+            lambda: pa.ragged_spec_attention(*args), KERNEL_2, per_call=1)
         qf = q.reshape(SLOTS * w, 8, 64)
         plain_ms = time_ms(lambda: pa.paged_spec_attention_reference(
             qf, kp, vp, pt, sl))
@@ -738,10 +797,11 @@ def check_spec_kernel():
                                                    attn_mask=mask))
         bound_ms, bound_by = _bound(SLOTS * w, 8, 8, 64, lens.ravel(),
                                     lens.max(axis=1))
+        device_ms = sum(by_kernel.values())
         phase("kernel_time", case=case, ms=ms, device_ms=device_ms,
-              plain_ms=plain_ms, library_ms=library_ms,
-              library_device_ms=library_device_ms, bound_ms=bound_ms,
-              bound_by=bound_by, rows_per_slot=w,
+              device_ms_by_kernel=by_kernel, plain_ms=plain_ms,
+              library_ms=library_ms, library_device_ms=library_device_ms,
+              bound_ms=bound_ms, bound_by=bound_by, rows_per_slot=w,
               slot_lens=[int(lens.min()), int(lens.max())],
               library="scaled_dot_product_attention, W queries per slot "
                       "with a per-row mask over K/V gathered beforehand "
@@ -751,13 +811,16 @@ def check_spec_kernel():
                     library_ms=library_ms,
                     library_device_ms=library_device_ms)
 
-    # the spec bench's verify ticks: 10-token prompts + up to 48 tokens
+    # the spec bench's verify ticks: 10-token prompts + up to 48 tokens;
+    # then every slot at max_seq_len, the most bytes a verify tick reads
     bench = times("spec_bench", 10, 10 + SPEC_OUT - w)
-    times("spec_full_%d" % MAX_SEQ, MAX_SEQ - SPEC_K, MAX_SEQ - SPEC_K)
+    full = times("spec_full_%d" % MAX_SEQ, MAX_SEQ - SPEC_K,
+                 MAX_SEQ - SPEC_K)
     return {"name": "paged_spec_attention", "route": "cuda",
             "source": "mxnet_tpu_torch/ops/csrc/paged_spec_attention.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:516",
-            "max_abs_err": worst, **bench}
+            "max_abs_err": worst, **bench,
+            "full_%d" % MAX_SEQ: full}
 
 
 def _flash_bound(b, h, s, d, causal, itemsize):
@@ -1894,8 +1957,13 @@ def main():
 
     phase("build", kernels=names, seconds=secs, ptxas=ptxas,
           flash_d64_ptxas=flash_ptxas(_build.build_log("flash_attention")),
-          paged_attention_ptxas=paged_ptxas(
-              _build.build_log("paged_attention")))
+          paged_attention_ptxas=spill_free_ptxas(
+              _build.build_log("paged_attention"),
+              ("paged_attention_split_kernel",
+               "paged_attention_merge_kernel")),
+          paged_spec_attention_ptxas=spill_free_ptxas(
+              _build.build_log("paged_spec_attention"),
+              ("paged_spec_attention_kernel",)))
 
     entry = check_kernels()
     spec_entry = check_spec_kernel()

@@ -45,7 +45,10 @@ slot's draft rows:
 * :func:`ragged_spec_attention` — the wrapper of the hand-written CUDA
   kernel ``ops/csrc/paged_spec_attention.cu`` (it replaces the Pallas
   ``_paged_spec_kernel``), q ``(S, W, H, D)``; it reads each slot's K/V
-  once for all W rows; counts ``ragged_spec_attention.launches``;
+  once for up to :data:`MAX_UNITS` of its W x groups query vectors,
+  splits the slot over spans of :data:`SPAN` positions and merges the
+  spans in the same launch (:func:`_spec_plan` mirrors the tiling); counts
+  ``ragged_spec_attention.launches``;
 * :func:`paged_spec_attention_reference` — its plain version (the JAX
   ``paged_spec_attention_reference``, line for line), q ``(S*W, H, D)``;
 * :func:`paged_spec_attention` — the dispatcher the decode model calls
@@ -74,10 +77,12 @@ __all__ = ["ragged_paged_attention", "paged_attention_reference",
 
 #: The largest head_dim the kernels take.
 MAX_HEAD_DIM = 256
-#: Positions one block of ``paged_attention.cu`` covers (its ``kSpan``).
+#: Positions one block of ``paged_attention.cu`` or
+#: ``paged_spec_attention.cu`` covers (their ``kSpan``).
 SPAN = 128
-#: Query vectors one block holds (``paged_attention.cu:kMaxUnits``): a
-#: chunk block holds ``MAX_UNITS // min(groups, MAX_UNITS)`` rows.
+#: Query vectors one block holds (``kMaxUnits`` of both kernels): a
+#: chunk block of kernel 1 holds ``MAX_UNITS // min(groups, MAX_UNITS)``
+#: rows, a verify block up to ``MAX_UNITS`` of a slot's W x groups.
 MAX_UNITS = 8
 
 _NEG_BIG = -1e30  # the JAX reference's mask value
@@ -114,6 +119,32 @@ def _split_plan(rows, n_heads, n_kv, d, page_size, max_pages, chunk=False,
     cells = rows * n_heads * nsplit
     return SplitPlan(nsplit, rows_tile, gpb, grid, (rows, n_heads, nsplit, d),
                      (rows, n_heads, nsplit, 2), cells * (d + 2))
+
+
+class SpecPlan(NamedTuple):
+    """The tiling of one launch of ``paged_spec_attention.cu``."""
+    nsplit: int          # spans per row: ceil(max_pages * page_size / span)
+    rchunks: int         # row chunks of MAX_UNITS query vectors per kv head
+    grid: Tuple[int, int, int]   # (slots, KH x rchunks, nsplit)
+    tiles: int                   # arrival counters: slots x KH x rchunks
+    workspace_numel: int         # partial acc (S*W, H, nsplit, D), then
+                                 # (m, l) (S*W, H, nsplit, 2): one fp32
+
+
+def _spec_plan(slots, width, n_heads, n_kv, d, page_size, max_pages,
+               span=SPAN):
+    """The tiling of a verify launch, as the entry point computes it:
+    ``slots`` page-table rows, each shared by ``width`` query rows, whose
+    ``width * groups`` query vectors per kv head go MAX_UNITS to a block
+    (unit ``w * groups + g``). It depends on shapes alone, so one shape
+    always launches the same grid. ``span`` is the kernel's :data:`SPAN`;
+    the tests replay other spans through it."""
+    groups = _check_heads(n_heads, n_kv, "_spec_plan")
+    nsplit = -(-max_pages * page_size // span)
+    rchunks = -(-width * groups // MAX_UNITS)
+    return SpecPlan(nsplit, rchunks, (slots, n_kv * rchunks, nsplit),
+                    slots * n_kv * rchunks,
+                    slots * width * n_heads * nsplit * (d + 2))
 
 
 def _check_heads(n_heads: int, n_kv: int, who: str) -> int:
@@ -168,16 +199,15 @@ def _check_launch(who, q, q_dims, k_pool, v_pool, ints):
     return page_size, n_kv, d
 
 
-def _launch(lib_name, fn_name, q, args, ints, scale, d, workspace=None):
+def _launch(lib_name, fn_name, q, args, ints, scale, d, scratch=()):
     """Allocate the output, launch on q's current stream, raise on a CUDA
     error. ``args`` are the tensor operands before the output,
-    ``workspace`` (if any) the scratch after it, ``ints`` the integer
-    arguments after those."""
+    ``scratch`` the buffers after it, ``ints`` the integer arguments after
+    those."""
     out = torch.empty_like(q)
     ptrs = [a.data_ptr() if a is not None else None for a in args]
     ptrs.append(out.data_ptr())
-    if workspace is not None:
-        ptrs.append(workspace.data_ptr())
+    ptrs.extend(t.data_ptr() for t in scratch)
     fn = _bind(_build.load(lib_name), fn_name, len(ptrs), len(ints))
     if scale is None:
         scale = 1.0 / (d ** 0.5)
@@ -196,10 +226,29 @@ def _launch(lib_name, fn_name, q, args, ints, scale, d, workspace=None):
 
 
 def _workspace(plan, like):
-    """The split kernel's partial states, uninitialised: every entry the
-    merge reads is written by the split kernel first."""
+    """The span blocks' partial states, uninitialised: every entry a merge
+    reads is written by a span block first."""
     return torch.empty(plan.workspace_numel, dtype=torch.float32,
                        device=like.device)
+
+
+# (device index, raw stream, tiles) -> the verify kernel's arrival
+# counters: zeroed once, and back at zero after every launch, so each
+# launch (and a captured launch's replay) finds them at zero. Launches on
+# one stream are ordered; another stream gets counters of its own.
+_ARRIVALS = {}
+
+
+def _arrivals(plan, like):
+    """The cached zeroed int32 counters of a verify launch on ``like``'s
+    device and current stream."""
+    index = like.device.index
+    key = (index, torch._C._cuda_getCurrentRawStream(index), plan.tiles)
+    buf = _ARRIVALS.get(key)
+    if buf is None:
+        buf = _ARRIVALS[key] = torch.zeros(plan.tiles, dtype=torch.int32,
+                                           device=like.device)
+    return buf
 
 
 def ragged_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
@@ -231,7 +280,7 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
     out = _launch("paged_attention", "paged_attention_f32", q,
                   (q, k_pool, v_pool, pt, sl, qp),
                   (s_slots, n_heads, n_kv, d, page_size, pt.shape[1],
-                   plan.nsplit), scale, d, _workspace(plan, q))
+                   plan.nsplit), scale, d, (_workspace(plan, q),))
     ragged_paged_attention.launches += 1
     return out
 
@@ -298,7 +347,9 @@ def ragged_spec_attention(q, k_pool, v_pool, page_table, seq_lens,
     committed prefix and the draft rows below it, and a padded or
     inactive row carries 0 and returns exact zeros. Same device, dtype
     and layout rules as :func:`ragged_paged_attention`. Returns
-    ``(S, W, H, D)``.
+    ``(S, W, H, D)``. One launch at every length: the last span block of
+    each (slot, kv head, row chunk) merges its rows' spans, counted on
+    zeroed counters cached per device and stream (:func:`_arrivals`).
     """
     ints = (("page_table", page_table), ("seq_lens", seq_lens))
     page_size, n_kv, d = _check_launch(
@@ -313,10 +364,13 @@ def ragged_spec_attention(q, k_pool, v_pool, page_table, seq_lens,
     sl = seq_lens.to(torch.int32).contiguous()
     if s_slots == 0 or width == 0:
         return torch.empty_like(q)
+    plan = _spec_plan(s_slots, width, n_heads, n_kv, d, page_size,
+                      pt.shape[1])
     out = _launch("paged_spec_attention", "paged_spec_attention_f32", q,
                   (q, k_pool, v_pool, pt, sl),
-                  (s_slots, width, n_heads, n_kv, d, page_size,
-                   pt.shape[1]), scale, d)
+                  (s_slots, width, n_heads, n_kv, d, page_size, pt.shape[1],
+                   plan.nsplit, plan.tiles), scale, d,
+                  (_workspace(plan, q), _arrivals(plan, q)))
     ragged_spec_attention.launches += 1
     return out
 
@@ -390,7 +444,8 @@ def ragged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
     out = _launch("paged_attention", "paged_prefill_attention_f32", q,
                   (q, k_pool, v_pool, row),
                   (c, int(start), int(length), n_heads, n_kv, d, page_size,
-                   row.shape[0], plan.nsplit), scale, d, _workspace(plan, q))
+                   row.shape[0], plan.nsplit), scale, d,
+                  (_workspace(plan, q),))
     ragged_paged_attention.launches += 1
     return out
 

@@ -1,5 +1,6 @@
-"""Sweep the tiling of ``mxnet_tpu_torch/ops/csrc/paged_attention.cu`` on
-the card: the readings that chose its ``kSpan`` and its chunk rows.
+"""Sweep the tiling of ``mxnet_tpu_torch/ops/csrc/paged_attention.cu``
+(kernel 1) and ``paged_spec_attention.cu`` (kernel 2) on the card: the
+readings that chose their ``kSpan`` and kernel 1's chunk rows.
 
     python3 paged_attention_sweep.py [--ablate]
 
@@ -16,9 +17,16 @@ slots, H = KH = 8, D = 64, ragged lengths 0..1152), with every slot at
 checked against the plain version first. ``--ablate`` also builds two
 variants at the built span, one without the attention math and one
 without its shared-memory reads of K and V, to show where a chunk's time
-goes. The variants are made by replacing lines of the source, so the
-script stops, naming the variant, once the source no longer has them.
-Nothing selects a variant at run time. One JSON line per reading.
+goes. Kernel 2 is built at ``kSpan`` 64, 128 and 256 (``spec_span_*``)
+and timed at the spec bench (16 slots, W = 5, limits 10..57), with every
+slot at 1148..1152, at 600..604, and with every slot's rows straddling
+position 128 (126..130) or 256 (254..258); at the built span also
+``spec_tile_64`` (tiles of 64 tokens, not 32) and ``spec_4_blocks`` (4
+blocks a SM, not 3, at D <= 64); ``--ablate`` adds ``spec_no_math``, the
+built span without the attention math. The variants are made by
+replacing lines of the source, so the script stops, naming the variant,
+once the source no longer has them. Nothing selects a variant at run
+time. One JSON line per reading.
 """
 import ctypes
 import json
@@ -35,7 +43,7 @@ from mxnet_tpu_torch.ops import paged_attention as pa
 
 SPANS = (64, 128, 256)
 PAGE, MAX_PAGES, SLOTS = 16, 72, 16
-# name: (span, [(text in the source, its replacement), ...])
+# name: (span, [(text in the source, its replacement), ...]); kernel 1's
 _VARIANTS = {
     "units_4": [("constexpr int kMaxUnits = kWarps;",
                  "constexpr int kMaxUnits = 4;")],
@@ -60,8 +68,22 @@ def _edit(src, name, edits):
     return src
 
 
+# kernel 2's: 64-token tiles (8 tokens a warp), 4 blocks a SM at D <= 64
+_SPEC_VARIANTS = {
+    "spec_tile_64": [("constexpr int kTile = 32;",
+                      "constexpr int kTile = 64;")],
+    "spec_4_blocks": [("DC <= 8 ? 3 : DC <= 16 ? 2 : 1",
+                       "DC <= 8 ? 4 : DC <= 16 ? 2 : 1")],
+}
+_SPEC_ABLATIONS = {
+    "spec_no_math": [("if (u >= units || pos >= lim[u]) continue;",
+                      "if (u >= 0) continue;")],
+}
+
+
 def _variants(ablate):
-    """{name: (span, source text)}."""
+    """{name: (span, source text)}: kernel 1's, then kernel 2's
+    (``spec_*``)."""
     src = open(_build.source_path("paged_attention")).read()
     span_line = "constexpr int kSpan = %d;"
     out = {"span_%d" % s: (s, _edit(src, "span_%d" % s,
@@ -70,6 +92,14 @@ def _variants(ablate):
     more = dict(_VARIANTS, **(_ABLATIONS if ablate else {}))
     for name, edits in more.items():
         out[name] = (pa.SPAN, _edit(src, name, edits))
+    spec = open(_build.source_path("paged_spec_attention")).read()
+    for s in SPANS:
+        out["spec_span_%d" % s] = (s, _edit(
+            spec, "spec_span_%d" % s,
+            [(span_line % pa.SPAN, span_line % s)]))
+    more = dict(_SPEC_VARIANTS, **(_SPEC_ABLATIONS if ablate else {}))
+    for name, edits in more.items():
+        out[name] = (pa.SPAN, _edit(spec, name, edits))
     return out
 
 
@@ -114,6 +144,41 @@ def _inputs(rng, rows, lens):
         torch.tensor(np.asarray(lens, np.int32), device=dev)
 
 
+def _spec_runs(lib, span, cases, stream, scale):
+    """[(case, call, out, want)] of kernel 2's entry point in ``lib``."""
+    fn = lib.paged_spec_attention_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_void_p]
+    runs = []
+    for case, (q, kp, vp, pt, sl) in cases.items():
+        s, w = q.shape[:2]
+        plan = pa._spec_plan(s, w, 8, 8, 64, PAGE, MAX_PAGES, span=span)
+        ws = torch.empty(plan.workspace_numel, device=q.device)
+        arrivals = torch.zeros(plan.tiles, dtype=torch.int32,
+                               device=q.device)
+        out = torch.empty_like(q)
+
+        def call(q=q, kp=kp, vp=vp, pt=pt, sl=sl, ws=ws, out=out,
+                 arrivals=arrivals, plan=plan, s=s, w=w):
+            if fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), pt.data_ptr(),
+                  sl.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  arrivals.data_ptr(), s, w, 8, 8, 64, PAGE, MAX_PAGES,
+                  plan.nsplit, plan.tiles, scale, stream):
+                raise SystemExit("launch failed")
+        want = pa.paged_spec_attention_reference(
+            q.reshape(s * w, 8, 64), kp, vp, pt, sl,
+            scale=scale).reshape(q.shape)
+        runs.append((case, call, out, want))
+    return runs
+
+
+def _spec_inputs(rng, lens):
+    """Kernel 2's operands for per-row limits ``lens`` (SLOTS, W)."""
+    q, kp, vp, pt, _ = _inputs(rng, SLOTS * lens.shape[1], lens.max(axis=1))
+    return (q.reshape(SLOTS, lens.shape[1], 8, 64), kp, vp, pt,
+            torch.tensor(lens.ravel(), device=q.device))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("paged_attention_sweep: no CUDA device")
@@ -133,9 +198,41 @@ def main():
         q, kp, vp, pt, _ = _inputs(rng, c, [start + n])
         chunks["prefill_chunk_%d" % c] = (q, kp, vp, pt[0].contiguous(),
                                           start, n)
+    w = 5
+    steps = np.arange(w, dtype=np.int32)
+    spec = {
+        "spec_bench": _spec_inputs(rng, np.asarray(
+            [10 + int(rng.randint(0, 44)) + steps for _ in range(SLOTS)])),
+        "spec_full_1152": _spec_inputs(rng, np.asarray(
+            [1148 + steps] * SLOTS)),
+        "spec_straddle_128": _spec_inputs(rng, np.asarray(
+            [126 + steps] * SLOTS)),
+        "spec_straddle_256": _spec_inputs(rng, np.asarray(
+            [254 + steps] * SLOTS)),
+        "spec_mid_600": _spec_inputs(rng, np.asarray(
+            [600 + steps] * SLOTS)),
+    }
     stream = torch.cuda.current_stream().cuda_stream
     scale = 1.0 / 8.0
     for name, (span, lib) in _build_all(_variants(ablate)).items():
+        if name.startswith("spec_"):
+            for case, call, out, want in _spec_runs(lib, span, spec, stream,
+                                                    scale):
+                call()
+                torch.cuda.synchronize()
+                err = float((out - want).abs().max())
+                if name not in _SPEC_ABLATIONS and \
+                        err > chip_smoke.KERNEL_TOL:
+                    raise SystemExit("%s %s disagrees with the plain "
+                                     "version: %g" % (name, case, err))
+                by_kernel = chip_smoke.device_ms_by_kernel(
+                    call, chip_smoke.KERNEL_2, iters=50, per_call=1)
+                print(json.dumps({
+                    "variant": name, "span": span, "case": case,
+                    "max_abs_err": err,
+                    "device_ms": sum(by_kernel.values()),
+                    "ms": chip_smoke.time_ms(call, iters=200)}), flush=True)
+            continue
         dec = lib.paged_attention_f32
         dec.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
