@@ -101,14 +101,30 @@ beside SDPA's host and device time, with two bounds: the tensor cores
 the fp32 rate outside them (``bound_simt_ms``); at the GPT shape the
 wrapper's host time is split from its entry point's, with and without
 the tensor maps' encoding. The build phase fails if ptxas reports a
-spill in the flash kernel at D = 64. The NMS kernel is checked against its
-plain version, whose keep masks it must equal exactly, at the SSD shape
-(B = 8, N = 3840, 3 classes, top-100 valid), with every box valid, under
-force_suppress, at N = 1, 77, 1000 and 6000 (``Proposal``'s default
-pre-NMS count), on duplicated boxes and on integer boxes whose IoU is
-exactly the threshold; then ``MultiBoxDetection`` through the kernel
-against the same op with the plain version; then timed at the SSD shape
-and at B = 1, N = 6000.
+spill in the flash kernel at D = 64. NMS is three kernels a call
+(compaction with the small-image path, mask pass, scan; the build phase
+fails if ptxas reports a spill in any of them). They are checked
+against the plain version, whose keep masks they must equal exactly, at
+the SSD shape (B = 8, N = 3840, 3 classes, top-100 valid), with every box
+valid, under force_suppress, at N = 1, 77, 1000 and 6000 (``Proposal``'s
+default pre-NMS count), on duplicated boxes, on integer boxes whose IoU
+is exactly the threshold (either side of the cap ``nms.CAP``), at valid
+counts around the 64-box groups and the cap with invalid boxes between
+the valid ones (with and without force_suppress), on a batch whose
+images fall on both sides of the cap, on interleaved valid boxes at
+N = 3000, and at N = 10000 (more far tiles a scan step than its
+registers hold); then ``MultiBoxDetection`` through the kernels against
+the same op with the plain version; then one call at the SSD shape
+captured in a CUDA graph and replayed on new boxes and counts
+(``nms_graph_replay``: the call reads nothing back on the host); then
+timed at the SSD shape, at B = 1, N = 6000 and at the SSD shape with
+every box valid, the device time of each kernel its mean over the
+launches a session recorded. ``python3 chip_smoke.py --nms-sweep``
+builds the NMS source with caps 128, 256 and 512 and times each at the
+SSD shape with 100 to 500 valid boxes an image; ``--nms-time`` builds
+only ``nms.cu`` and times the three shapes through ``nms_keep_cuda``
+(to compare two checkouts in one call, copy the script into each and
+run it there).
 
 In every serving and training phase the kernels' launch counts are set
 to 0 just before the phase drives the path and read just after.
@@ -178,7 +194,11 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 # paged_spec_attention_kernel (every instance)
 KERNEL_1, KERNEL_2 = "paged_attention_", "paged_spec_attention_"
 KERNEL_3 = "flash_attention_kernel"
-KERNEL_4 = "nms_keep_"  # nms_keep_mask_kernel and nms_keep_scan_kernel
+# NMS is three kernels a call: nms_keep_compact_kernel, nms_keep_mask_kernel
+# and nms_keep_scan_kernel
+KERNEL_4 = "nms_keep_"
+NMS_KERNELS = ("nms_keep_compact_kernel", "nms_keep_mask_kernel",
+               "nms_keep_scan_kernel")
 # the detection slice: the SSD example's NMS (batch 8, 3 x (32 x 32 +
 # 16 x 16) anchors at side 64, threshold 0.45, top 100), and Proposal's
 # default (6000 boxes before NMS, threshold 0.7, one class)
@@ -1017,10 +1037,11 @@ def check_flash_kernel():
 
 
 def _nms_inputs(rng, b, n, n_valid=None, ncls=3, side=1.0, dup=False,
-                integer=False):
+                integer=False, counts=None):
     """Boxes sorted as the detection ops hand them to NMS: (B, N, 4)
     corner boxes, classes, and the first ``n_valid`` of each image valid
-    (all when None)."""
+    (all when None); or, given ``counts``, counts[i] boxes of image i
+    valid at random places, invalid boxes between them."""
     import torch
 
     if integer:  # 2x2 boxes on a unit grid: IoU exactly 1/7 or 1/3
@@ -1034,7 +1055,11 @@ def _nms_inputs(rng, b, n, n_valid=None, ncls=3, side=1.0, dup=False,
         boxes[:, 1::2] = boxes[:, 0:n - 1:2]
     cls = rng.randint(0, ncls, (b, n)).astype(np.float32)
     valid = np.zeros((b, n), bool)
-    valid[:, :n if n_valid is None else n_valid] = True
+    if counts is None:
+        valid[:, :n if n_valid is None else n_valid] = True
+    else:
+        for img, c in enumerate(counts):
+            valid[img, rng.permutation(n)[:c]] = True
     dev = torch.device("cuda")
     return [torch.tensor(a, device=dev) for a in (boxes, cls, valid)]
 
@@ -1067,9 +1092,10 @@ def _nms_bound(boxes, cls, valid, keep, force):
 
 
 def check_nms_kernel():
-    """The NMS kernel against its plain version, keep masks exactly equal,
-    then MultiBoxDetection through the kernel against the same op with
-    the plain version, then timed."""
+    """The NMS kernels against their plain version, keep masks exactly
+    equal, then MultiBoxDetection through the kernels against the same op
+    with the plain version, then one call captured in a CUDA graph and
+    replayed on new boxes, then timed."""
     import torch
 
     from mxnet_tpu_torch.ops import detection, nms
@@ -1089,6 +1115,27 @@ def check_nms_kernel():
         cases.append(("iou_on_threshold_%.4f" % t,
                       _nms_inputs(rng, 2, 300, ncls=1, integer=True), t,
                       False))
+    # valid counts at the 64-box groups and around the cap, one image
+    # each, invalid boxes between the valid ones; a batch on both sides
+    # of the cap (own seed: the timed inputs below stay as before)
+    rng2 = np.random.RandomState(40)
+    cap = nms.CAP
+    edges = (0, 1, 63, 64, 65, 127, 128, 129, cap - 1, cap, cap + 1,
+             2 * cap + 64)
+    cases += [
+        ("count_edges", _nms_inputs(rng2, len(edges), 700, counts=edges),
+         0.45, False),
+        ("count_edges_force", _nms_inputs(rng2, len(edges), 700,
+                                          counts=edges), 0.45, True),
+        ("mixed_ssd", _nms_inputs(rng2, b, n, counts=(
+            100, n, 40, cap, cap + 1, 1500, 0, 100)), thr, False),
+        ("interleaved", _nms_inputs(rng2, 4, 3000, counts=(
+            700, 2000, 90, 3000)), 0.5, False),
+        # more far tiles a scan step than its registers hold (N > 7808)
+        ("n10000", _nms_inputs(rng2, 1, 10000, side=600.0), 0.7, True),
+        ("iou_on_threshold_small", _nms_inputs(rng2, 2, cap - 56, ncls=1,
+                                               integer=True), 1.0 / 3.0,
+         False)]
     worst = 0.0  # largest |kernel - plain| over every case, keep as 0/1
     for name, (bx, c, v), t, force in cases:
         got = nms.nms_keep_cuda(bx, c, v, t, force)
@@ -1100,7 +1147,8 @@ def check_nms_kernel():
                  "the plain version" % (name, int((got != want).sum()),
                                         got.numel()))
         phase("kernel_check", case="nms_" + name, shape=list(v.shape),
-              kept=int(got.sum()), valid=int(v.sum()), equal=True)
+              kept=int(got.sum()), valid=int(v.sum()),
+              valid_per_image=v.sum(1).tolist(), equal=True)
 
     # the whole op: decode, per-class sort, top-k cut and NMS
     op = get_op("_contrib_MultiBoxDetection")
@@ -1129,17 +1177,37 @@ def check_nms_kernel():
     phase("kernel_check", case="nms_multibox_detection", shape=[b, n, 6],
           detections=int((outs[0][..., 0] >= 0).sum()), equal=True)
 
+    worst = max(worst, nms_graph_replay())
+
+    entry = nms_time(rng, per_call=len(NMS_KERNELS))
+    return {"name": "nms_keep", "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/nms.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:52",
+            "max_abs_err": worst, **entry}
+
+
+def nms_time(rng, per_call):
+    """NMS timed through ``nms_keep_cuda`` at the SSD shape, ``Proposal``'s
+    and the SSD shape with every box valid: CUDA-event and device ms (each
+    of the ``per_call`` kernels a call launches: its mean over the
+    launches a session recorded), the plain version, the bound. Returns
+    the SSD shape's figures."""
+    from mxnet_tpu_torch.ops import nms
+
+    b, n, thr, topk = SSD_NMS
     entry = None
     for case, (bx, c, v), t, force in (
             ("ssd_%dx%d" % (b, n), _nms_inputs(rng, b, n, topk), thr, False),
             ("proposal_%dx%d" % PROPOSAL_NMS[:2],
              _nms_inputs(rng, *PROPOSAL_NMS[:2], ncls=1, side=600.0),
-             PROPOSAL_NMS[2], True)):
+             PROPOSAL_NMS[2], True),
+            ("ssd_all_valid_%dx%d" % (b, n), _nms_inputs(rng, b, n), thr,
+             False)):
         def run():
             return nms.nms_keep_cuda(bx, c, v, t, force)
 
         ms = time_ms(run, iters=50)
-        by_kernel = device_ms_by_kernel(run, KERNEL_4)
+        by_kernel = device_ms_by_kernel(run, KERNEL_4, per_call=per_call)
         device_ms = sum(by_kernel.values())
         plain_ms = time_ms(lambda: nms.nms_keep_reference(bx, c, v, t,
                                                           force),
@@ -1155,10 +1223,122 @@ def check_nms_kernel():
             entry = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=None)
-    return {"name": "nms_keep", "route": "cuda",
-            "source": "mxnet_tpu_torch/ops/csrc/nms.cu",
-            "replaces": "mxnet_tpu/ops/pallas_kernels.py:52",
-            "max_abs_err": worst, **entry}
+    return entry
+
+
+def nms_graph_replay(replays=3):
+    """One ``nms_keep_cuda`` call at the SSD shape captured in a CUDA
+    graph, then replayed on new boxes written into its static inputs,
+    each replay's keep mask against the plain version: a call reads no
+    count on the host and plans from its shape alone. Returns the largest
+    |graph - plain| (keep as 0/1)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import nms
+
+    rng = np.random.RandomState(5)
+    b, n, thr, topk = SSD_NMS
+    bx, c, v = _nms_inputs(rng, b, n, topk)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        nms.nms_keep_cuda(bx, c, v, thr, False)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = nms.nms_keep_cuda.launches
+    with torch.cuda.graph(graph):
+        keep = nms.nms_keep_cuda(bx, c, v, thr, False)
+    if nms.nms_keep_cuda.launches != before + 1:
+        fail("nms_graph: the captured call counted %d launches"
+             % (nms.nms_keep_cuda.launches - before))
+    worst = 0.0
+    # new boxes, another number valid in each image on each replay (the
+    # last replay puts images above the cap: the mask pass and the scan)
+    for rep, counts in enumerate(((topk,) * b, (3, 60, 100, 0, 1, 64, 65,
+                                                99),
+                                  (100, 500, n, 0, 257, 64, 1000, 2))):
+        nb, nc, nv = _nms_inputs(rng, b, n, counts=counts)
+        bx.copy_(nb)
+        c.copy_(nc)
+        v.copy_(nv)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = nms.nms_keep_reference(bx, c, v, thr, False)
+        worst = max(worst, float((keep.float() - want.float()).abs().max()))
+        if not torch.equal(keep, want):
+            fail("nms_graph: replay %d differs from the plain version in %d "
+                 "of %d keep decisions" % (rep, int((keep != want).sum()),
+                                           keep.numel()))
+        phase("kernel_check", case="nms_graph_replay_%d" % rep,
+              shape=[b, n], valid_per_image=list(counts),
+              kept=int(keep.sum()), equal=True)
+    del graph
+    return worst
+
+
+def nms_sweep(caps=(128, 256, 512)):
+    """The cap C (images of at most C valid boxes finish in the
+    compaction block) by measurement: a copy of ``nms.cu`` with its
+    ``kCap`` line rewritten, built once per cap (all nvcc started
+    together), each checked against the plain version and timed (device
+    ms by kernel) at the SSD shape with 100, 200, 300, 400 and 500 valid
+    boxes an image, and every box valid."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from mxnet_tpu_torch.ops import _build, nms
+
+    with open(_build.source_path("nms")) as f:
+        source = f.read()
+    line = "constexpr int kCap = %d;" % nms.CAP
+    if line not in source:
+        fail("nms_sweep: no line %r in nms.cu" % line)
+    os.makedirs(_build._OUT, exist_ok=True)
+
+    def build(cap):
+        src = os.path.join(_build._OUT, "nms_sweep_cap%d.cu" % cap)
+        with open(src, "w") as f:
+            f.write(source.replace(line, "constexpr int kCap = %d;" % cap))
+        out = src[:-3] + ".so"
+        proc = subprocess.run([_build._nvcc(), *_build.FLAGS, "-o", out,
+                               src], capture_output=True, text=True)
+        if proc.returncode:
+            fail("nms_sweep: nvcc at cap %d failed:\n%s%s"
+                 % (cap, proc.stdout, proc.stderr))
+        spill_free_ptxas(proc.stdout + proc.stderr, NMS_KERNELS)
+        return ctypes.CDLL(out)
+
+    with ThreadPoolExecutor(max_workers=len(caps)) as pool:
+        libs = dict(zip(caps, pool.map(build, caps)))
+    rng = np.random.RandomState(41)
+    b, n, thr, _ = SSD_NMS
+    cases = [("valid_%d" % k, _nms_inputs(rng, b, n, k))
+             for k in (100, 200, 300, 400, 500)]
+    cases.append(("all_valid", _nms_inputs(rng, b, n)))
+    built, cap0 = nms._build.load("nms"), nms.CAP
+    try:
+        for cap in caps:
+            nms._build._loaded["nms"], nms.CAP = libs[cap], cap
+            row = {}
+            for name, (bx, c, v) in cases:
+                def run():
+                    return nms.nms_keep_cuda(bx, c, v, thr, False)
+
+                got = run()
+                torch.cuda.synchronize()
+                if not torch.equal(got, nms.nms_keep_reference(bx, c, v, thr,
+                                                               False)):
+                    fail("nms_sweep: cap %d differs from the plain version "
+                         "at %s" % (cap, name))
+                by = device_ms_by_kernel(run, KERNEL_4,
+                                         per_call=len(NMS_KERNELS))
+                row[name] = [sum(by.values()), by]
+            phase("nms_sweep", cap=cap, device_ms=row)
+    finally:
+        nms._build._loaded["nms"], nms.CAP = built, cap0
 
 
 def _ssd_rec():
@@ -1952,6 +2132,18 @@ def main():
           device=torch.cuda.get_device_name(0), nvidia_smi=smi,
           tf32_matmul=False, tf32_cudnn=False, **rtc_versions)
 
+    if sys.argv[1:] == ["--nms-time"]:
+        # only the NMS times, through the public wrapper of the package
+        # beside this file: to compare two checkouts in one call, copy the
+        # script into each and run it there
+        from mxnet_tpu_torch.ops import _build
+
+        _build.load("nms")
+        kernels = [k for k in ptxas_entries(_build.build_log("nms"))
+                   if KERNEL_4 in k]
+        phase("build", kernels=["nms"], nms_kernels=len(kernels))
+        nms_time(np.random.RandomState(44), per_call=len(kernels))
+        return 0
     names, secs, ptxas = build_all()
     from mxnet_tpu_torch.ops import _build
 
@@ -1963,8 +2155,12 @@ def main():
                "paged_attention_merge_kernel")),
           paged_spec_attention_ptxas=spill_free_ptxas(
               _build.build_log("paged_spec_attention"),
-              ("paged_spec_attention_kernel",)))
+              ("paged_spec_attention_kernel",)),
+          nms_ptxas=spill_free_ptxas(_build.build_log("nms"), NMS_KERNELS))
 
+    if sys.argv[1:] == ["--nms-sweep"]:
+        nms_sweep()
+        return 0
     entry = check_kernels()
     spec_entry = check_spec_kernel()
     flash_entry = check_flash_kernel()

@@ -18,10 +18,11 @@ Three entry points:
 
 * :func:`nms_keep_reference` — the plain PyTorch version: the CPU path,
   and the kernel's oracle on the card;
-* :func:`nms_keep_cuda` — the wrapper of the hand-written CUDA kernel
+* :func:`nms_keep_cuda` — the wrapper of the hand-written CUDA kernels
   ``ops/csrc/nms.cu``: CUDA tensors only, checked for dtype, shape and
-  contiguity, one launch for the whole batch, raising on a CUDA error, and
-  counted in ``nms_keep_cuda.launches``;
+  contiguity, three launches for the whole batch whose grids and
+  workspaces follow from (B, N) alone (:func:`nms_plan`), raising on a
+  CUDA error, and counted in ``nms_keep_cuda.launches`` (one a call);
 * :func:`nms_keep` — the dispatcher the detection ops call: a CUDA tensor
   goes to the kernel, a CPU tensor to the plain version, a ``meta`` tensor
   (shape inference) gets an empty mask of the right shape, anything else
@@ -30,20 +31,57 @@ Three entry points:
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["nms_keep", "nms_keep_cuda", "nms_keep_reference", "MAX_BOXES",
-           "MAX_BATCH"]
+__all__ = ["nms_keep", "nms_keep_cuda", "nms_keep_reference", "nms_plan",
+           "CAP", "MAX_BOXES", "MAX_BATCH"]
 
 #: the most boxes an image may hold: the scan keeps ceil(N / 64) words of
 #: removed bits in 48 KB of shared memory
 MAX_BOXES = 64 * 6144
-#: the most images a call may hold: the mask pass's grid has one z per image
+#: the most images a call may hold: the mask pass's grid has one y per image
 MAX_BATCH = 65535
+#: an image of at most CAP valid boxes is finished in shared memory by the
+#: block that compacts it; the kernel's kCap, checked at launch
+CAP = 256
+#: mask-pass blocks (of 8 warps, a quarter tile each) the plan aims for on
+#: each SM, over the whole batch
+_MASK_BLOCKS_PER_SM = 4
+_MASK_WARPS = 8
+
+
+class NmsPlan(NamedTuple):
+    """What a call of the kernels needs, from (B, N) alone: ``words``
+    64-box groups of an image, ``tiles`` = words (words + 1) / 2
+    upper-triangle mask tiles of 64 words each an image (the mask
+    workspace is (B, tiles * 64) int64), and ``mask_blocks`` blocks of 8
+    warps an image in the mask pass's grid-stride loop over 4 words^2
+    quarter-tile slots, one slot a warp."""
+    words: int
+    tiles: int
+    mask_blocks: int
+
+
+def nms_plan(b, n, sms):
+    """The kernels' plan for B images of N boxes on a card of ``sms``
+    streaming multiprocessors. No count of valid boxes enters it, so a
+    call's grids and workspaces are fixed by shape (a CUDA graph can
+    replay it on new boxes)."""
+    words = (n + 63) // 64
+    blocks = max(1, min(-(-4 * words * words // _MASK_WARPS),
+                        _MASK_BLOCKS_PER_SM * sms // max(b, 1)))
+    return NmsPlan(words, words * (words + 1) // 2, blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(boxes, cls, valid):
@@ -91,9 +129,9 @@ def nms_keep_reference(boxes, cls, valid, overlap_thresh, force_suppress):
 def _bind(lib: ctypes.CDLL):
     fn = lib.nms_keep_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -118,19 +156,31 @@ def nms_keep_cuda(boxes, cls, valid, overlap_thresh, force_suppress):
     if n > MAX_BOXES or b > MAX_BATCH:
         raise MXNetError("nms_keep_cuda: %d images of %d boxes, at most %d "
                          "of %d" % (b, n, MAX_BATCH, MAX_BOXES))
-    keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    dev = boxes.device
+    keep = torch.empty((b, n), dtype=torch.bool, device=dev)
     if keep.numel() == 0:
         return keep
-    words = (n + 63) // 64
-    # bit rows of the suppression mask; words below the diagonal are
-    # never written and never read
-    mask = torch.empty((b, n, words), dtype=torch.int64, device=boxes.device)
+    plan = nms_plan(b, n, _sm_count(dev.index if dev.index is not None
+                                    else torch.cuda.current_device()))
+    # compacted indices of the valid boxes (B, N), then the counts (B,)
+    comp = torch.empty(b * n + b, dtype=torch.int32, device=dev)
+    # compacted boxes (B, N, 4), then their areas and classes (B, N, 2)
+    cbox = torch.empty(b * n * 6, dtype=torch.float32, device=dev)
+    # upper-triangle 64 x 64 tiles of the compacted boxes' bit mask, for
+    # images above the cap; only tiles under the count are written or read
+    mask = torch.empty((b, plan.tiles * 64), dtype=torch.int64, device=dev)
     fn = _bind(_build.load("nms"))
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    with torch.cuda.device(boxes.device):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = fn(boxes.data_ptr(), cls.data_ptr(), valid.data_ptr(),
+                 comp.data_ptr(), comp.data_ptr() + 4 * b * n,
+                 cbox.data_ptr(), cbox.data_ptr() + 16 * b * n,
                  mask.data_ptr(), keep.data_ptr(), b, n,
-                 float(overlap_thresh), int(bool(force_suppress)), stream)
+                 float(overlap_thresh), int(bool(force_suppress)), CAP,
+                 plan.mask_blocks, stream)
+    if err == -1:
+        raise MXNetError("nms_keep: the plan does not match the built kernel "
+                         "(cap %d, %d mask blocks)" % (CAP, plan.mask_blocks))
     if err != 0:
         raise MXNetError("nms_keep kernel launch failed: CUDA error %d" % err)
     nms_keep_cuda.launches += 1
