@@ -249,11 +249,53 @@ class NDArray:
             return invoke("_rdiv_scalar", self, scalar=float(o))
         return self._binop(o, "broadcast_div", "_div_scalar", reverse=True)
 
+    def __mod__(self, o):
+        return self._binop(o, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, o):
+        if isinstance(o, (int, float, np.generic)):
+            return invoke("_rmod_scalar", self, scalar=float(o))
+        return self._binop(o, "broadcast_mod", "_mod_scalar", reverse=True)
+
+    def __pow__(self, o):
+        return self._binop(o, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, o):
+        if isinstance(o, (int, float, np.generic)):
+            return invoke("_rpower_scalar", self, scalar=float(o))
+        return NotImplemented
+
     def __neg__(self):
         return invoke("negative", self)
 
     def __abs__(self):
         return invoke("abs", self)
+
+    # comparisons are elementwise, 1 or 0 in the input's dtype, as the
+    # reference's (mxnet_tpu/ndarray/ndarray.py); hashing stays by identity
+    def __eq__(self, o):
+        if o is None:
+            return False
+        return self._binop(o, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        if o is None:
+            return True
+        return self._binop(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, o):
+        return self._binop(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binop(o, "broadcast_greater_equal",
+                           "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binop(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binop(o, "broadcast_lesser_equal",
+                           "_lesser_equal_scalar")
 
     def __hash__(self):
         return id(self)

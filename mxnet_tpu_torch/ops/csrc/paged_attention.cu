@@ -9,8 +9,9 @@
 // h / (H / KH). A row attends its first `limit` positions:
 //   * decode (paged_attention_f32): row s = slot s, its own table row,
 //     limit = min(seq_lens[s], q_pos[s] + 1) (q_pos optional);
-//   * chunk (paged_prefill_attention_f32): C rows of ONE sequence share
-//     one table row; row i sits at position start + i, so its limit is
+//   * chunk (paged_prefill_attention_f32, or _dev_f32 with start and
+//     length read on the device): C rows of ONE sequence share one table
+//     row; row i sits at position start + i, so its limit is
 //     start + i + 1, and a padding row (i >= length) has limit 0.
 // A row with limit 0 returns exact zeros. Padded table entries point at
 // the null page 0; no block reads a position at or past its rows' limit,
@@ -83,9 +84,11 @@
 // kernel at 80 registers a thread (ptxas uses 80, no spill), so three
 // blocks, 24 warps, share an SM at D <= 128, each with a tile in flight.
 //
-// Interface: two plain C entry points (bound with ctypes), each launching
-// the split kernel and, where a row may cover two spans, the merge kernel
-// on the caller's stream and returning the first CUDA error. A chunk
+// Interface: three plain C entry points (bound with ctypes): decode, a
+// chunk with (start, length) as launch arguments, and a chunk with them
+// on the device (what a captured CUDA graph replays). Each launches the
+// split kernel and, where a row may cover two spans, the merge kernel on
+// the caller's stream and returns the first CUDA error. A chunk
 // block holds kMaxUnits / gpb rows. The caller passes nsplit, which sizes
 // its workspace (ops/paged_attention.py:_split_plan mirrors this tiling);
 // an entry point that finds it inconsistent with kSpan returns -1 before
@@ -121,6 +124,8 @@ struct Rows {
   const int* q_pos;     // decode: causal bound per row, or null
   int start;            // chunk: row i sits at position start + i
   int length;           // chunk: rows >= length are padding
+  const int* chunk;     // chunk: (start, length) on the device, which
+                        // then stand for the two above; or null
   int tokens;           // max_pages * page_size
 };
 
@@ -147,7 +152,9 @@ __device__ __forceinline__ int row_limit(const Rows& r, int row) {
     lim = __ldg(r.seq_lens + row);
     if (r.q_pos != nullptr) lim = min(lim, __ldg(r.q_pos + row) + 1);
   } else {
-    lim = row < r.length ? r.start + row + 1 : 0;
+    const int start = r.chunk != nullptr ? __ldg(r.chunk) : r.start;
+    const int length = r.chunk != nullptr ? __ldg(r.chunk + 1) : r.length;
+    lim = row < length ? start + row + 1 : 0;
   }
   return max(0, min(lim, r.tokens));
 }
@@ -683,7 +690,7 @@ extern "C" int paged_attention_f32(const float* q, const float* k_pool,
                                    float* workspace, int S, int H, int KH,
                                    int D, int page_size, int max_pages,
                                    int nsplit, float scale, void* stream) {
-  const Rows rows{seq_lens, q_pos, 0, 0, 0};
+  const Rows rows{seq_lens, q_pos, 0, 0, nullptr, 0};
   return launch(q, k_pool, v_pool, page_table, max_pages, rows, out,
                 workspace, S, H, KH, D, page_size, max_pages, nsplit,
                 static_cast<long long>(max_pages) * page_size, scale,
@@ -699,11 +706,28 @@ extern "C" int paged_prefill_attention_f32(
     const int* page_row, float* out, float* workspace, int C, int start,
     int length, int H, int KH, int D, int page_size, int max_pages,
     int nsplit, float scale, void* stream) {
-  const Rows rows{nullptr, nullptr, start, length, 0};
+  const Rows rows{nullptr, nullptr, start, length, nullptr, 0};
   // the last real row's limit bounds every row's
   const long long max_limit =
       static_cast<long long>(start) + (length < C ? length : C);
   return launch(q, k_pool, v_pool, page_row, 0, rows, out, workspace, C, H,
                 KH, D, page_size, max_pages, nsplit, max_limit, scale,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The same chunk with (start, length) read on the device from `chunk`
+// (two int32), so a CUDA graph can capture the launch once and replay it
+// for any chunk of that shape: the grid depends on shapes alone, and the
+// merge is launched wherever the table holds more than kSpan positions
+// (it returns at once for rows of one span).
+extern "C" int paged_prefill_attention_dev_f32(
+    const float* q, const float* k_pool, const float* v_pool,
+    const int* page_row, const int* chunk, float* out, float* workspace,
+    int C, int H, int KH, int D, int page_size, int max_pages, int nsplit,
+    float scale, void* stream) {
+  const Rows rows{nullptr, nullptr, 0, 0, chunk, 0};
+  return launch(q, k_pool, v_pool, page_row, 0, rows, out, workspace, C, H,
+                KH, D, page_size, max_pages, nsplit,
+                static_cast<long long>(max_pages) * page_size, scale,
                 static_cast<cudaStream_t>(stream));
 }

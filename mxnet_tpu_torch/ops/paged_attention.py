@@ -24,13 +24,16 @@ decode step:
   that sequence's pages, causal (the prefix-cache tail and
   chunked-prefill path): on the card :func:`ragged_prefill_attention`,
   the same kernel's chunk entry point, which reads the sequence's K/V
-  once per tile of chunk rows; on the CPU each chunk row becomes a row
+  once per tile of chunk rows (given ``start`` and ``length`` as 0-d
+  device tensors, a third entry point reads them on the card: what a
+  captured CUDA graph replays); on the CPU each chunk row becomes a row
   of the plain version with the page row repeated and ``q_pos``.
 
-Both kernel entry points split each row's positions into spans of
+The kernel's entry points split each row's positions into spans of
 :data:`SPAN` tokens, one block per span, and merge the spans' partial
 softmax states in a second kernel (launched only where a row may reach a
-second span); :func:`_split_plan` mirrors that tiling (span count, grid,
+second span, which the device-scalar chunk entry point decides from the
+table's size); :func:`_split_plan` mirrors that tiling (span count, grid,
 rows per block, workspace) in plain Python.
 
 Shapes: q ``(S, H, D)``; pools ``(P, page_size, KH, D)``; page_table
@@ -73,7 +76,7 @@ __all__ = ["ragged_paged_attention", "paged_attention_reference",
            "paged_attention", "paged_prefill_attention",
            "ragged_prefill_attention", "ragged_spec_attention",
            "paged_spec_attention_reference", "paged_spec_attention",
-           "MAX_HEAD_DIM", "SPAN"]
+           "launch_counts", "add_launches", "MAX_HEAD_DIM", "SPAN"]
 
 #: The largest head_dim the kernels take.
 MAX_HEAD_DIM = 256
@@ -241,11 +244,19 @@ _ARRIVALS = {}
 
 def _arrivals(plan, like):
     """The cached zeroed int32 counters of a verify launch on ``like``'s
-    device and current stream."""
+    device and current stream. A CUDA graph capture must find them made:
+    zeroing them inside the capture would put the memset in the graph and
+    cache memory of the graph's own pool, so it raises instead (an eager
+    launch on the capturing stream, before the capture, makes them)."""
     index = like.device.index
     key = (index, torch._C._cuda_getCurrentRawStream(index), plan.tiles)
     buf = _ARRIVALS.get(key)
     if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise MXNetError(
+                "ragged_spec_attention: no arrival counters for this stream "
+                "and shape; run the launch once on the capturing stream "
+                "before the capture")
         buf = _ARRIVALS[key] = torch.zeros(plan.tiles, dtype=torch.int32,
                                            device=like.device)
     return buf
@@ -379,6 +390,23 @@ def ragged_spec_attention(q, k_pool, v_pool, page_table, seq_lens,
 ragged_spec_attention.launches = 0
 
 
+def launch_counts():
+    """``(kernel 1, kernel 2)``: the launch counts of
+    :func:`ragged_paged_attention` (with :func:`ragged_prefill_attention`)
+    and :func:`ragged_spec_attention`."""
+    return (ragged_paged_attention.launches, ragged_spec_attention.launches)
+
+
+def add_launches(counts, times=1):
+    """Add ``times`` x ``counts``, a ``(kernel 1, kernel 2)`` pair, to the
+    launch counts: what a CUDA graph launches when it replays the kernels
+    its capture recorded. Their wrappers ran only during the capture,
+    which launches nothing, so the caller takes the capture's own counts
+    back with ``times=-1``."""
+    ragged_paged_attention.launches += counts[0] * times
+    ragged_spec_attention.launches += counts[1] * times
+
+
 def paged_spec_attention_reference(q, k_pool, v_pool, page_table, seq_lens,
                                    scale=None):
     """Plain PyTorch multi-query verify step — the spec kernel's parity
@@ -416,8 +444,25 @@ def paged_spec_attention(q, k_pool, v_pool, page_table, seq_lens,
                      "or cpu)" % (q.device,))
 
 
-def ragged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
-                             length: int, scale=None):
+def _chunk_scalars(start, length, like):
+    """``(start, length)`` as the int32 pair on ``like``'s device that
+    ``paged_prefill_attention_dev_f32`` reads: the pair itself where
+    ``length`` sits right after ``start`` in one int32 buffer (the decode
+    engine's static chunk operand), a new two-element tensor otherwise."""
+    for name, t in (("start", start), ("length", length)):
+        if t.dim() != 0 or t.device != like.device \
+                or t.dtype not in (torch.int32, torch.int64):
+            raise MXNetError("ragged_prefill_attention: %s must be an int "
+                             "or a 0-d integer tensor on %s" % (name,
+                                                                like.device))
+    if start.dtype == length.dtype == torch.int32 \
+            and length.data_ptr() == start.data_ptr() + 4:
+        return start
+    return torch.stack((start, length)).to(torch.int32)
+
+
+def ragged_prefill_attention(q, k_pool, v_pool, page_row, start, length,
+                             scale=None):
     """Launch the CUDA paged-attention kernel's chunk entry point: C chunk
     rows of ONE sequence over its page row, row i causal at position
     ``start + i``, rows at or past ``length`` exact zeros. One block holds
@@ -427,7 +472,12 @@ def ragged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
     contiguous int32 here); same device, dtype and layout rules as
     :func:`ragged_paged_attention`, whose launch count it adds to (the
     chunk was a launch of that kernel before it had its own entry
-    point). Returns ``(C, H, D)``.
+    point). ``start`` and ``length`` are ints, passed to the kernel as
+    launch arguments, or 0-d integer tensors on q's device, which the
+    kernel reads there (``paged_prefill_attention_dev_f32``: no host read,
+    so a CUDA graph can capture the launch and replay it for every chunk
+    of the shape; it launches the merge wherever the table holds more
+    than :data:`SPAN` positions). Returns ``(C, H, D)``.
     """
     ints = (("page_row", page_row),)
     page_size, n_kv, d = _check_launch(
@@ -436,22 +486,32 @@ def ragged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
     if page_row.dim() != 1:
         raise MXNetError("ragged_prefill_attention: page_row (max_pages,) "
                          "expected, got %s" % (tuple(page_row.shape),))
+    on_device = torch.is_tensor(start) or torch.is_tensor(length)
+    if on_device:
+        sl = _chunk_scalars(torch.as_tensor(start, device=q.device),
+                            torch.as_tensor(length, device=q.device), q)
     row = page_row.to(torch.int32).contiguous()
     if c == 0:
         return torch.empty_like(q)
     plan = _split_plan(c, n_heads, n_kv, d, page_size, row.shape[0],
                        chunk=True)
-    out = _launch("paged_attention", "paged_prefill_attention_f32", q,
-                  (q, k_pool, v_pool, row),
-                  (c, int(start), int(length), n_heads, n_kv, d, page_size,
-                   row.shape[0], plan.nsplit), scale, d,
-                  (_workspace(plan, q),))
+    if on_device:
+        out = _launch("paged_attention", "paged_prefill_attention_dev_f32",
+                      q, (q, k_pool, v_pool, row, sl),
+                      (c, n_heads, n_kv, d, page_size, row.shape[0],
+                       plan.nsplit), scale, d, (_workspace(plan, q),))
+    else:
+        out = _launch("paged_attention", "paged_prefill_attention_f32", q,
+                      (q, k_pool, v_pool, row),
+                      (c, int(start), int(length), n_heads, n_kv, d,
+                       page_size, row.shape[0], plan.nsplit), scale, d,
+                      (_workspace(plan, q),))
     ragged_paged_attention.launches += 1
     return out
 
 
-def paged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
-                            length: int, scale=None):
+def paged_prefill_attention(q, k_pool, v_pool, page_row, start, length,
+                            scale=None):
     """Chunk attention: C chunk queries of ONE sequence attend over that
     sequence's pages (the prefix already in the pool AND the chunk's own
     rows, which the model writes before calling this).
@@ -459,7 +519,8 @@ def paged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
     q: (C, H, D) — the chunk's queries at absolute positions
     ``start .. start+C-1``; page_row: (max_pages,) the sequence's
     page-table row; ``length`` the chunk's real token count (padding rows
-    beyond it come back zeroed). A CUDA tensor goes to
+    beyond it come back zeroed). ``start`` and ``length`` are ints or 0-d
+    integer tensors on q's device. A CUDA tensor goes to
     :func:`ragged_prefill_attention`; on the CPU each chunk token becomes
     its own row of the plain version, all sharing one page table row,
     with the causal bound ``q_pos = start + i``. Returns (C, H, D).
@@ -473,9 +534,15 @@ def paged_prefill_attention(q, k_pool, v_pool, page_row, start: int,
                          "(cuda or cpu)" % (q.device,))
     c = q.shape[0]
     idx = torch.arange(c, dtype=torch.int32, device=q.device)
-    q_pos = idx + int(start)
+    if torch.is_tensor(start):
+        start = start.to(torch.int32)
+    else:
+        start = int(start)
+    if not torch.is_tensor(length):
+        length = int(length)
+    q_pos = idx + start
     # query i sees positions <= start+i (causal), padding rows see nothing
-    seq_lens = torch.where(idx < int(length), q_pos + 1,
+    seq_lens = torch.where(idx < length, q_pos + 1,
                            torch.zeros_like(q_pos))
     pt = page_row.to(device=q.device, dtype=torch.int32)[None, :] \
         .expand(c, page_row.shape[0]).contiguous()

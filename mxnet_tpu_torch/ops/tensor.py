@@ -65,11 +65,18 @@ for _n, _f in _BINARY.items():
     _reg("broadcast_" + _n, lambda attrs, a, b, _f=_f: _f(a, b),
          inputs=("lhs", "rhs"))
 
+def _power_any(a, b):
+    if a.is_floating_point() or b.is_floating_point():
+        return torch.pow(a, b)
+    return _int_power(a, b)
+
+
 # the rest of what Symbol's operator sugar emits (mxnet_tpu/symbol.py:
 # 141-210): power, mod and the comparisons, whose result keeps the
 # input's dtype (1.0 / 0.0)
 _SUGAR = {
-    "_power": torch.pow,
+    "_power": _power_any,
+    "broadcast_power": _power_any,
     "broadcast_mod": torch.remainder,
     "broadcast_equal": lambda a, b: (a == b).to(a.dtype),
     "broadcast_not_equal": lambda a, b: (a != b).to(a.dtype),
@@ -81,6 +88,33 @@ _SUGAR = {
 for _n, _f in _SUGAR.items():
     _reg(_n, lambda attrs, a, b, _f=_f: _f(a, b), inputs=("lhs", "rhs"))
 
+def _int_power(base, exp):
+    """``base ** exp`` on integer tensors as XLA's integer power gives it:
+    a negative exponent gives 1 for a base of 1, +-1 for a base of -1 and
+    0 otherwise (torch refuses negative integer exponents)."""
+    neg = exp < 0
+    out = torch.pow(base, torch.where(neg, torch.zeros_like(exp), exp))
+    odd = torch.remainder(exp, 2) == 1
+    small = torch.where(base == 1, torch.ones_like(out),
+                        torch.where(base == -1,
+                                    torch.where(odd, -torch.ones_like(out),
+                                                torch.ones_like(out)),
+                                    torch.zeros_like(out)))
+    return torch.where(neg, small, out)
+
+
+def _power(a, b):
+    if a.is_floating_point() or a.dtype == torch.bool:
+        return torch.pow(a, b)
+    return _int_power(a, b if torch.is_tensor(b) else torch.full_like(a, b))
+
+
+def _rpower(a, s):
+    if a.is_floating_point() or a.dtype == torch.bool:
+        return torch.pow(s, a)
+    return _int_power(torch.full_like(a, s), a)
+
+
 _SCALAR = {
     "_plus_scalar": lambda a, s: a + s,
     "_minus_scalar": lambda a, s: a - s,
@@ -90,18 +124,39 @@ _SCALAR = {
     "_rdiv_scalar": lambda a, s: s / a,
     "_mod_scalar": lambda a, s: torch.remainder(a, s),
     "_rmod_scalar": lambda a, s: torch.remainder(torch.full_like(a, s), a),
-    "_power_scalar": lambda a, s: torch.pow(a, s),
-    "_equal_scalar": lambda a, s: a == s,
-    "_not_equal_scalar": lambda a, s: a != s,
-    "_greater_scalar": lambda a, s: a > s,
-    "_greater_equal_scalar": lambda a, s: a >= s,
-    "_lesser_scalar": lambda a, s: a < s,
-    "_lesser_equal_scalar": lambda a, s: a <= s,
+    "_power_scalar": _power,
+    "_rpower_scalar": _rpower,
+    "_equal_scalar": lambda a, s: (a == s).to(a.dtype),
+    "_not_equal_scalar": lambda a, s: (a != s).to(a.dtype),
+    "_greater_scalar": lambda a, s: (a > s).to(a.dtype),
+    "_greater_equal_scalar": lambda a, s: (a >= s).to(a.dtype),
+    "_lesser_scalar": lambda a, s: (a < s).to(a.dtype),
+    "_lesser_equal_scalar": lambda a, s: (a <= s).to(a.dtype),
 }
+
+
+def _scalar_as(s: float, dtype: torch.dtype):
+    """The scalar cast to the input's dtype first, as the reference does
+    (``jnp.asarray(scalar, dtype=a.dtype)``), kept a Python number so that
+    no host-to-device copy is made: an integer dtype truncates it toward
+    zero and refuses a value out of its range as numpy does; a float dtype
+    rounds it to that precision."""
+    if dtype == torch.bool:
+        return bool(s)
+    if not dtype.is_floating_point:
+        v = int(s)
+        info = torch.iinfo(dtype)
+        if not info.min <= v <= info.max:
+            raise OverflowError("Python integer %d out of bounds for %s"
+                                % (v, str(dtype).replace("torch.", "")))
+        return v
+    return torch.tensor(s, dtype=dtype).item()
+
+
 for _n, _f in _SCALAR.items():
-    # the output keeps the input dtype (the JAX package casts the scalar
-    # to a.dtype); a Python scalar needs no host-to-device copy
-    _reg(_n, lambda attrs, a, _f=_f: _f(a, attrs.scalar).to(a.dtype),
+    # the arithmetic follows from the input dtype and the cast scalar (an
+    # integer division gives float32); a comparison keeps the input dtype
+    _reg(_n, lambda attrs, a, _f=_f: _f(a, _scalar_as(attrs.scalar, a.dtype)),
          params={"scalar": (float, 0.0)})
 
 
@@ -123,8 +178,26 @@ def _def_reduce(name, fn):
     _reg(name, f, params=dict(_REDUCE_PARAMS))
 
 
-_def_reduce("sum", torch.sum)
-_def_reduce("mean", torch.mean)
+def _sum(x, dim, keepdim):
+    """The reference's integer sums: 32 bits for integers of up to 32
+    (unsigned ones to uint32), as JAX without x64 computes them; 64-bit
+    inputs stay 64-bit."""
+    if x.is_floating_point() or x.dtype in (torch.int64, torch.uint64):
+        return torch.sum(x, dim=dim, keepdim=keepdim)
+    out = torch.sum(x, dim=dim, keepdim=keepdim, dtype=torch.int64)
+    unsigned = x.dtype in (torch.uint8, torch.uint16, torch.uint32)
+    return out.to(torch.uint32 if unsigned else torch.int32)
+
+
+def _mean(x, dim, keepdim):
+    """An integer mean is float32, as the reference's."""
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return torch.mean(x, dim=dim, keepdim=keepdim)
+
+
+_def_reduce("sum", _sum)
+_def_reduce("mean", _mean)
 
 
 # ---------------------------------------------------------------------------

@@ -44,9 +44,19 @@ Anatomy of a request (the same as the JAX plane's):
    admits the next queued sequence.
 
 Where JAX threads donated pools through ``jit``, the port preallocates
-the pools once and updates them in place; it runs eagerly (no
-``torch.compile``, no CUDA graphs), so there is no recompile gauge:
-``stats()`` reports the kernel's launch count instead.
+the pools once and updates them in place. Where JAX compiles each device
+path once per shape, the port captures it once as a CUDA graph on the
+card: the decode tick at its width, each prefill rung, each chunk rung and
+the copy-on-write page copy, each over static operands (a pinned host
+buffer copied into a device tensor of fixed shape), the engine's own
+parameter tensors and the pools, with the sampled token's argmax inside
+the graph. ``warmup()`` captures them all before traffic; a path not
+warmed is captured at its first use. ``compile_count`` counts the captured
+paths as the JAX engine counts its jit caches, and ``stats()`` reports it
+with ``steady_state_recompiles`` (captures since ``warmup()``, which stay
+0). On the CPU (the tests) nothing is captured: each path runs eagerly
+over the same static operands and is counted at its first run, so the
+counts mean the same on both devices.
 
 Resilience (chaos sites ``serving.decode``, ``serving.decode.prefill``,
 ``serving.decode.tenant.<id>``): prefill runs per sequence under the
@@ -66,12 +76,14 @@ import logging
 import threading
 import time
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import resilience, telemetry
+from ..telemetry import accounting as _accounting
 from ..base import MXNetError, fetch_host, get_env, resolve_device
 from ..ops import paged_attention as _pa
 from ..resilience import CircuitBreaker, chaos
@@ -127,6 +139,59 @@ def _tree_sig(tree):
     return _tree_map(lambda x: (tuple(x.shape), str(x.dtype)), tree)
 
 
+def _tree_copy(dst, src):
+    """Copy every leaf of ``src`` into the same leaf of ``dst``, in place:
+    the captured paths keep reading ``dst``'s tensors."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _tree_copy(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, x in zip(dst, src):
+            _tree_copy(d, x)
+    else:
+        dst.copy_(src)
+
+
+class _Feed:
+    """A static int32 device operand and the host buffer that fills it:
+    one host-to-device copy a pass. On the card the buffer is pinned and
+    the copy asynchronous, so :meth:`put` first waits for the previous
+    copy out of the buffer (not for the work queued behind it)."""
+
+    def __init__(self, numel: int, device: torch.device):
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(numel, dtype=torch.int32, pin_memory=cuda)
+        self.dev = torch.zeros(numel, dtype=torch.int32, device=device)
+        self._sent = torch.cuda.Event() if cuda else None
+
+    def put(self, values) -> None:
+        if self._sent is not None:
+            self._sent.synchronize()
+        self.host.numpy()[:] = np.asarray(values, np.int32).ravel()
+        self.dev.copy_(self.host, non_blocking=True)
+        if self._sent is not None:
+            self._sent.record(torch.cuda.current_stream(self.dev.device))
+
+
+class _Path:
+    """One device path of the engine at one shape, keyed ``(kind, rows or
+    rung)``: its static operand, the function over it (which reads only
+    the operand, the engine's parameters and the pools, and returns the
+    path's device output) and, on the card, the CUDA graph captured from
+    it with that output and the kernel launches the graph replays."""
+
+    __slots__ = ("key", "feed", "fn", "ready", "graph", "out", "launches")
+
+    def __init__(self, key, feed: _Feed, fn):
+        self.key = key
+        self.feed = feed
+        self.fn = fn
+        self.ready = False     # captured (the card) or run once (the CPU)
+        self.graph = None
+        self.out = None
+        self.launches = (0, 0)
+
+
 def params_from_jax(tree, device=None):
     """The port's param dict from the JAX package's (leaves converted to
     numpy, e.g. by ``jax.device_get``): same keys and layouts — ``embed``,
@@ -168,7 +233,13 @@ class PagedDecodeModel:
         """Whole prompt in one pass: ``tokens`` ``(T,)`` padded to a
         ladder rung, ``length`` the real token count, ``write_*`` ``(T,)``
         (padding rows target the null page). Returns the last real
-        token's logits ``(vocab,)``."""
+        token's logits ``(vocab,)``.
+
+        The engine passes every scalar (``length`` here, ``start`` and
+        ``length`` of :meth:`prefill_chunk`) as a 0-d int32 tensor on the
+        device, and runs each of these functions as a captured CUDA graph
+        on the card: a model reads no host value of its operands and
+        synchronises nothing. Direct callers may pass ints."""
         raise NotImplementedError
 
     def prefill_chunk(self, params, tokens, start, length, k_pool, v_pool,
@@ -256,7 +327,10 @@ class DecodeEngine:
                 "package's engine" % (ring_prefill_len,))
         self.device = resolve_device(device)
         self._model = model
-        self._params = _tree_map(lambda x: x.to(self.device), params)
+        # the engine's own parameter tensors, which the captured paths read
+        # (a swap copies into them): never the caller's
+        self._params = _tree_map(lambda x: x.to(self.device, copy=True),
+                                 params)
         if num_slots is None:
             num_slots = get_env("MXNET_DECODE_SLOTS", _DEFAULT_SLOTS, int,
                                 cache=False)
@@ -341,8 +415,17 @@ class DecodeEngine:
         self._active_variant: Optional[str] = None
         self._swaps = 0
         self._deadline_evictions = 0
-        self._pt_dev = None  # version-keyed device page table
+        # the page table's static device copy, re-sent when the allocator
+        # moved its version; the captured paths, keyed (kind, size); the
+        # capture count at warmup (None before it) and the replays
+        self._pt = _Feed(self.num_slots * self._cache.max_pages, self.device)
         self._pt_version = -1
+        self._paths: dict = {}
+        self._captures = 0
+        self._warm_compiles: Optional[int] = None
+        self._replays = 0
+        self._capture_stream = None
+        self._calls: List[tuple] = []  # (fn, Future) for the worker
 
         self._slots: List[Optional[_DecodeRequest]] = \
             [None] * self.num_slots
@@ -371,16 +454,14 @@ class DecodeEngine:
     # ------------------------------------------------------------------
     # construction helpers
     # ------------------------------------------------------------------
-    def _device_page_table(self):
-        """The page table's device copy, re-sent only when the allocator
-        mutated it (admission/free) — steady ticks with stable membership
-        skip the transfer entirely."""
+    def _sync_page_table(self):
+        """Copy the page table into its static device tensor when the
+        allocator mutated it (admission/free) — steady ticks with stable
+        membership skip the transfer entirely."""
         ver = self._cache.version
-        if self._pt_dev is None or self._pt_version != ver:
-            self._pt_dev = torch.from_numpy(
-                self._cache.page_table.copy()).to(self.device)
+        if self._pt_version != ver:
+            self._pt.put(self._cache.page_table)
             self._pt_version = ver
-        return self._pt_dev
 
     def _prefill_ladder(self, buckets):
         if buckets is None:
@@ -528,48 +609,195 @@ class DecodeEngine:
         with self._cv:
             return self._active_variant
 
-    @torch.no_grad()
     def warmup(self) -> int:
-        """Run every device path once before traffic — the decode step at
+        """Capture every device path before traffic — the decode step at
         its width (``spec_k + 1`` rows per slot when speculating), every
         prefill rung (none in chunked mode, which never runs them), every
-        chunk rung and the CoW copy — with writes aimed at the null page
-        only. This builds the CUDA kernels (nvcc at first use) and warms
-        PyTorch's allocator and cuBLAS handles, so the first request pays
-        none of it. Returns the number of passes run."""
-        with self._cv:
-            params = self._params  # a live swap may rebind between passes
-        model, cache = self._model, self._cache
+        chunk rung and the CoW copy — each first run eagerly over
+        operands whose writes aim at the null page only. That pass also
+        builds the CUDA kernels (nvcc at first use) and warms cuBLAS, so
+        the first request pays none of it. Anchors the steady-state
+        recompile gauge at 0: a cold first shared-prefix request captures
+        NOTHING. Runs on the engine's worker thread, between ticks.
+        Returns the compile count (:attr:`compile_count`)."""
+        return self._on_worker(self._warmup)
+
+    def _warmup(self) -> int:
+        cache = self._cache
         rows = self.num_slots * self._spec_w
         packed = np.zeros((5, rows), np.int32)
         packed[3], packed[4] = cache.null_write_slots(rows)
-        dev = torch.from_numpy(packed).to(self.device)
-        model.decode(params, dev[0], dev[1], cache.k_pool, cache.v_pool,
-                     self._device_page_table(), dev[2], dev[3], dev[4])
-        passes = 1
+        self._sync_page_table()
+        self._run(self._path(("step", rows)), packed)
         if not self._chunk:
+            # chunked mode never dispatches the monolithic rungs — every
+            # prompt runs through the one chunk rung captured below
             for rung in self._ladder:
                 pre = np.zeros((3, rung), np.int32)
                 pre[1], pre[2] = cache.null_write_slots(rung)
-                dev = torch.from_numpy(pre).to(self.device)
-                model.prefill(params, dev[0], 1, cache.k_pool, cache.v_pool,
-                              dev[1], dev[2])
-                passes += 1
-        null_row = torch.zeros(cache.max_pages, dtype=torch.int32,
-                               device=self.device)
+                self._run(self._path(("prefill", rung)), pre, [1])
+        null_row = np.zeros(cache.max_pages, np.int32)
         for rung in self._chunk_rungs:
             pre = np.zeros((3, rung), np.int32)
             pre[1], pre[2] = cache.null_write_slots(rung)
-            dev = torch.from_numpy(pre).to(self.device)
-            model.prefill_chunk(params, dev[0], 0, 1, cache.k_pool,
-                                cache.v_pool, null_row, dev[1], dev[2])
-            passes += 1
+            self._run(self._path(("chunk", rung)), pre, null_row, [0, 1])
         if self._prefix_cache:
-            self._copy_page(0, 0)  # null -> null: harmless
-            passes += 1
+            self._run(self._path(("cow", 1)), [0, 0])  # null -> null
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return passes
+        count = self.compile_count
+        self._warm_compiles = count
+        _accounting.set_steady_state_recompiles("serving." + self._name, 0)
+        return count
+
+    @property
+    def compile_count(self) -> int:
+        """Device paths captured so far: on the card, CUDA graphs; on the
+        CPU, paths that have run. The counterpart of the JAX engine's
+        summed jit cache sizes."""
+        return self._captures
+
+    def _on_worker(self, fn):
+        """Run ``fn()`` on the engine's worker thread between ticks and
+        return its result. Every CUDA call of the engine comes from that
+        one thread, so a capture never races a tick; the captures also use
+        ``capture_error_mode="thread_local"``, so CUDA work of other
+        threads (a caller's own kernels, the copy a ``swap_params`` makes)
+        cannot invalidate them."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        fut: Future = Future()
+        with self._cv:
+            if self._closed:
+                raise ServerClosedError("engine is closed")
+            self._calls.append((fn, fut))
+            self._cv.notify_all()
+        while True:
+            try:
+                return fut.result(timeout=1.0)
+            except FutureTimeout:
+                if not self._thread.is_alive():
+                    raise MXNetError("DecodeEngine %r: the worker thread "
+                                     "died before it ran the call"
+                                     % self._name)
+
+    def _path(self, key) -> _Path:
+        """The path ``key`` = ``(kind, size)``, made (not yet captured) at
+        its first request: ``("step", S*W)``, ``("prefill", rung)``,
+        ``("chunk", rung)`` or ``("cow", 1)``."""
+        path = self._paths.get(key)
+        if path is None:
+            path = self._paths[key] = self._make_path(key)
+        return path
+
+    def _make_path(self, key) -> _Path:
+        kind, n = key
+        model, params, cache = self._model, self._params, self._cache
+        mp = cache.max_pages
+        if kind == "step":
+            # rows: tokens, positions, seq_lens, write pages, offsets
+            feed = _Feed(5 * n, self.device)
+
+            def fn():
+                d = feed.dev.view(5, n)
+                logits = model.decode(
+                    params, d[0], d[1], cache.k_pool, cache.v_pool,
+                    self._pt.dev.view(self.num_slots, mp), d[2], d[3], d[4])
+                return torch.argmax(logits, dim=-1)
+        elif kind == "prefill":
+            # tokens, write pages, write offsets; then the length
+            feed = _Feed(3 * n + 1, self.device)
+
+            def fn():
+                d = feed.dev
+                pre = d[:3 * n].view(3, n)
+                last = model.prefill(params, pre[0], d[3 * n], cache.k_pool,
+                                     cache.v_pool, pre[1], pre[2])
+                return torch.argmax(last)
+        elif kind == "chunk":
+            # tokens, write pages, write offsets; the slot's page row;
+            # then start and length, side by side (the kernel reads the
+            # pair where it lies)
+            feed = _Feed(3 * n + mp + 2, self.device)
+
+            def fn():
+                d = feed.dev
+                pre = d[:3 * n].view(3, n)
+                o = 3 * n + mp
+                last = model.prefill_chunk(
+                    params, pre[0], d[o], d[o + 1], cache.k_pool,
+                    cache.v_pool, d[3 * n:o], pre[1], pre[2])
+                return torch.argmax(last)
+        elif kind == "cow":
+            feed = _Feed(2, self.device)  # source page, destination page
+
+            def fn():
+                idx = feed.dev.long()
+                for pool in (cache.k_pool, cache.v_pool):
+                    pool.index_copy_(1, idx[1:], pool.index_select(1, idx[:1]))
+        else:
+            raise MXNetError("unknown device path %r" % (key,))
+        return _Path(key, feed, fn)
+
+    def _run(self, path: _Path, *operand):
+        """Fill ``path``'s static operand from ``operand`` (host arrays,
+        concatenated) and run the path: on the card, replay its graph
+        (captured here at the path's first run); on the CPU, call its
+        function. Returns the path's device output, which the caller reads
+        before the next run. Chaos and the retry policy stay around
+        this call, on the host."""
+        path.feed.put(np.concatenate(
+            [np.asarray(a, np.int32).ravel() for a in operand]))
+        return self._replay(path)
+
+    def _replay(self, path: _Path):
+        if not path.ready:
+            self._capture(path)
+        if path.graph is None:  # the CPU: no graphs
+            return path.fn()
+        path.graph.replay()
+        _pa.add_launches(path.launches)
+        self._replays += 1
+        return path.out
+
+    def _capture(self, path: _Path):
+        """Capture ``path`` as a CUDA graph (on the CPU, only count it).
+        One eager pass on the capture stream comes first, as PyTorch asks:
+        it launches each kernel once (building it at first use) and makes
+        the verify kernel's arrival counters on that stream. The graph has
+        a memory pool of its own, so no other graph's replay reuses its
+        output. A capture that fails raises: the path is never served
+        eagerly instead."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            stream = self._capture_stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                path.fn()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            before = _pa.launch_counts()
+            try:
+                with torch.cuda.graph(graph, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    out = path.fn()
+            except Exception as exc:
+                raise MXNetError(
+                    "DecodeEngine %r: capturing the %s path %r as a CUDA "
+                    "graph failed: %s" % (self._name, path.key[0], path.key,
+                                          exc)) from exc
+            finally:
+                # the capture ran the wrappers but launched nothing
+                after = _pa.launch_counts()
+                launches = (after[0] - before[0], after[1] - before[1])
+                _pa.add_launches(launches, -1)
+            path.graph, path.out, path.launches = graph, out, launches
+        path.ready = True
+        self._captures += 1
+        _accounting.note_recompile("serving." + self._name, 1,
+                                   time.perf_counter() - t0)
 
     def queue_depth(self) -> int:
         """Requests queued but not yet slotted."""
@@ -598,10 +826,11 @@ class DecodeEngine:
                 "weight_swaps": self._swaps,
                 "active_variant": self._active_variant,
                 "device": str(self.device),
-                # process-wide launches of the paged-attention kernels
-                # (eager PyTorch has no recompile count to report)
+                # process-wide launches of the paged-attention kernels,
+                # those the engine's graph replays made included
                 "kernel_launches": _pa.ragged_paged_attention.launches,
                 "spec_kernel_launches": _pa.ragged_spec_attention.launches,
+                "graph_replays": self._replays,
                 "speculative": {
                     "k": self._spec_k,
                     "draft": (getattr(self._draft, "name", None)
@@ -630,6 +859,13 @@ class DecodeEngine:
                 "pages_in_use_now": out["kvcache"]["shared_pages"],
                 "pages_cached": out["kvcache"]["pages_cached"],
             }
+        count = self.compile_count
+        out["compile_count"] = count
+        if self._warm_compiles is not None:
+            steady = count - self._warm_compiles
+            out["steady_state_recompiles"] = steady
+            _accounting.set_steady_state_recompiles(
+                "serving." + self._name, steady)
         return out
 
     def close(self, drain: bool = True,
@@ -694,16 +930,27 @@ class DecodeEngine:
 
     @torch.no_grad()
     def _worker(self):
+        if self.device.index is not None:
+            torch.cuda.set_device(self.device)
         while True:
             with self._cv:
                 while not self._wfq.total_queued() \
                         and not self._any_active() and not self._closed \
-                        and not self._pending_swaps:
+                        and not self._pending_swaps and not self._calls:
                     self._cv.wait()
-                if self._closed and not self._wfq.total_queued() \
-                        and not self._any_active():
+                calls, self._calls = self._calls, []
+                stop = self._closed and not self._wfq.total_queued() \
+                    and not self._any_active()
+                if stop:
                     swaps, self._pending_swaps = self._pending_swaps, []
-                    break
+            for fn, fut in calls:  # warmup(), handed over between ticks
+                if fut.set_running_or_notify_cancel():
+                    try:
+                        fut.set_result(fn())
+                    except BaseException as exc:  # noqa: BLE001 - to caller
+                        fut.set_exception(exc)
+            if stop:
+                break
             self._apply_pending_swaps()
             self._expire_queued()
             self._evict_expired()
@@ -761,15 +1008,17 @@ class DecodeEngine:
                 fut.set_exception(exc)
 
     def _apply_pending_swaps(self):
-        """Tick-boundary weight swap: rebind ``self._params`` between
-        steps. In-flight sequences continue on the new weights next
-        tick; nothing is evicted."""
+        """Tick-boundary weight swap: copy the newest tree into the
+        engine's own parameter tensors, which every captured path (and a
+        ``model`` draft) reads, between steps. In-flight sequences
+        continue on the new weights next tick; nothing is evicted and
+        (same signature) nothing is captured again."""
         with self._cv:
             if not self._pending_swaps:
                 return
             swaps, self._pending_swaps = self._pending_swaps, []
-            for params, variant, _fut in swaps:
-                self._params = params
+            _tree_copy(self._params, swaps[-1][0])
+            for _params, variant, _fut in swaps:
                 self._active_variant = variant
                 self._swaps += 1
             self._swap_epoch += len(swaps)
@@ -950,15 +1199,12 @@ class DecodeEngine:
         npg, noff = self._cache.null_write_slots(rung - p)
         pre[1] = np.concatenate([wpg, npg])
         pre[2] = np.concatenate([woff, noff])
+        path = self._path(("prefill", rung))
         policy = self._retry or resilience.default_policy()
 
         def attempt():
             chaos.maybe_fail("serving.decode.prefill")
-            dev = torch.from_numpy(pre).to(self.device)
-            last = self._model.prefill(
-                self._params, dev[0], p, self._cache.k_pool,
-                self._cache.v_pool, dev[1], dev[2])
-            return torch.argmax(last)
+            return self._run(path, pre, [p])
 
         return policy.call(attempt, site="serving.decode.prefill")
 
@@ -989,32 +1235,24 @@ class DecodeEngine:
             offs.append(noff)
         pre[1] = np.concatenate(pages)
         pre[2] = np.concatenate(offs)
-        row = self._cache.page_table[slot].copy()
+        row = self._cache.page_table[slot]
+        path = self._path(("chunk", rung))
         policy = self._retry or resilience.default_policy()
 
         def attempt():
             chaos.maybe_fail("serving.decode.prefill")
-            dev = torch.from_numpy(pre).to(self.device)
-            last = self._model.prefill_chunk(
-                self._params, dev[0], start, n, self._cache.k_pool,
-                self._cache.v_pool, torch.from_numpy(row).to(self.device),
-                dev[1], dev[2])
-            return torch.argmax(last)
+            return self._run(path, pre, row, [start, n])
 
         tok = policy.call(attempt, site="serving.decode.prefill")
         self._stats.on_prefill_chunk()
         return tok
 
-    def _copy_page(self, src: int, dst: int):
-        for pool in (self._cache.k_pool, self._cache.v_pool):
-            pool[:, dst].copy_(pool[:, src])
-
     def _run_cow(self, src: int, dst: int):
         """The copy-on-write copy: the divergent/partial page's K/V (all
         layers) duplicated into the writer's own page BEFORE any of its
         writes can land there — sharers never observe each other's
-        tokens. A plain device copy."""
-        self._copy_page(src, dst)
+        tokens. A device copy, captured like the other paths."""
+        self._run(self._path(("cow", 1)), [src, dst])
         with self._cv:
             self._cow_copies += 1
         _T_EVENTS.inc(server=self._name, event="cow_copy")
@@ -1083,7 +1321,8 @@ class DecodeEngine:
         w = self._spec_w
         ps = self._cache.page_size
         # rows: tokens, positions, seq_lens, write pages, write offsets —
-        # ONE packed host->device copy per tick, W = spec_k+1 query rows
+        # ONE packed host->device copy per tick (into the step graph's
+        # static operand), W = spec_k+1 query rows
         # per slot (slot s owns rows s*W .. s*W+W-1: row 0 the committed
         # token, rows 1..k its draft guesses at the next positions).
         # Inactive slots and unused draft rows keep seq_len 0 and the
@@ -1116,16 +1355,13 @@ class DecodeEngine:
                 packed[3, base + j] = \
                     self._cache.page_table[slot, (pos + j) // ps]
                 packed[4, base + j] = (pos + j) % ps
+        path = self._path(("step", s * w))
+        self._sync_page_table()
         policy = self._retry or resilience.default_policy()
 
         def attempt():
             chaos.maybe_fail("serving.decode")
-            dev = torch.from_numpy(packed).to(self.device)
-            logits = self._model.decode(
-                self._params, dev[0], dev[1], self._cache.k_pool,
-                self._cache.v_pool, self._device_page_table(), dev[2],
-                dev[3], dev[4])
-            return torch.argmax(logits, dim=-1)
+            return self._run(path, packed)
 
         try:
             sampled = policy.call(attempt, site="serving.decode")
@@ -1336,6 +1572,15 @@ class DecodeEngine:
 # Reference model: a tiny pre-norm transformer over the paged cache
 # ---------------------------------------------------------------------------
 
+def _row(logits, length):
+    """``logits[length - 1]``: ``length`` an int, or a 0-d integer tensor
+    on the logits' device that is read there (no host read, so the pass
+    can be captured as a CUDA graph)."""
+    if torch.is_tensor(length):
+        return logits.index_select(0, length.reshape(1).long() - 1)[0]
+    return logits[int(length) - 1]
+
+
 class TinyDecoder(PagedDecodeModel):
     """Small causal transformer implementing the paged-decode contract —
     the port of the JAX package's ``TinyDecoder``, op for op.
@@ -1456,14 +1701,15 @@ class TinyDecoder(PagedDecodeModel):
             x = x + att.reshape(t, h * d) @ layer["wo"]
             x = x + self._mlp(self._norm(x, layer["ln2"]), layer)
         logits = self._norm(x, params["lnf"]) @ params["unembed"]
-        return logits[int(length) - 1]
+        return _row(logits, length)
 
     def prefill_chunk(self, params, tokens, start, length, k_pool, v_pool,
                       page_table_row, write_pages, write_offsets):
         c = tokens.shape[0]
         h, kh, d = self.num_heads, self.num_kv_heads, self.head_dim
-        positions = int(start) + torch.arange(c, dtype=torch.int32,
-                                              device=tokens.device)
+        positions = torch.arange(c, dtype=torch.int32, device=tokens.device) \
+            + (start.to(torch.int32) if torch.is_tensor(start)
+               else int(start))
         x = self._embed(params, tokens, positions)
         for li, layer in enumerate(params["layers"]):
             hx = self._norm(x, layer["ln1"])
@@ -1481,7 +1727,7 @@ class TinyDecoder(PagedDecodeModel):
             x = x + att.reshape(c, h * d) @ layer["wo"]
             x = x + self._mlp(self._norm(x, layer["ln2"]), layer)
         logits = self._norm(x, params["lnf"]) @ params["unembed"]
-        return logits[int(length) - 1]
+        return _row(logits, length)
 
     def decode(self, params, tokens, positions, k_pool, v_pool,
                page_tables, seq_lens, write_pages, write_offsets):

@@ -1,0 +1,50 @@
+"""Compile-once accounting: the port's copy of the recompile gauges of
+``mxnet_tpu/telemetry/accounting.py``, under the same metric names.
+
+On the card the decode plane's counterpart of a jit compile is the capture
+of a CUDA graph (:class:`~mxnet_tpu_torch.serving.DecodeEngine`):
+
+* :func:`note_recompile` counts a capture, or any compile a backend
+  reports by hand, at its site (``mxnet_recompiles_total{site=}``), and
+  its wall seconds (``mxnet_compile_seconds_total{site=}``);
+* :func:`set_steady_state_recompiles` is the serving-facing gauge: after
+  ``warmup()`` it must stay 0.
+"""
+from __future__ import annotations
+
+from . import registry as _registry
+
+__all__ = ["RECOMPILES", "COMPILE_SECONDS", "STEADY_STATE_RECOMPILES",
+           "note_recompile", "set_steady_state_recompiles"]
+
+RECOMPILES = _registry.counter(
+    "mxnet_recompiles_total",
+    "XLA (re)compilations observed per jit call site",
+    labels=("site",))
+
+COMPILE_SECONDS = _registry.counter(
+    "mxnet_compile_seconds_total",
+    "cumulative wall seconds of jit calls that triggered a compile",
+    labels=("site",))
+
+STEADY_STATE_RECOMPILES = _registry.gauge(
+    "mxnet_steady_state_recompiles",
+    "recompiles after warmup at a site that promised compile-once "
+    "(serving asserts 0)",
+    labels=("site",))
+
+
+def note_recompile(site: str, count: int = 1, seconds: float = 0.0):
+    """Manual recompile report for backends without a countable cache."""
+    if not _registry.ENABLED or count <= 0:
+        return
+    RECOMPILES.inc(count, site=site)
+    if seconds > 0:
+        COMPILE_SECONDS.inc(seconds, site=site)
+
+
+def set_steady_state_recompiles(site: str, count: int):
+    """Publish the post-warmup recompile count for ``site``."""
+    if not _registry.ENABLED:
+        return
+    STEADY_STATE_RECOMPILES.set(count, site=site)

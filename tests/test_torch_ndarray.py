@@ -223,3 +223,99 @@ def test_array_dtypes_and_host_copies():
     assert b.asnumpy().dtype == np.float32 and float(b.asscalar()) == 1.5
     assert float((a - 1.0).mean().asscalar()) == pytest.approx(1.5)
     np.testing.assert_array_equal((10.0 - a).asnumpy(), 10.0 - a.asnumpy())
+
+
+# The integer cases of the scalar ops, the reductions and the comparison
+# operators, on the inputs that first showed the port computing with the
+# float scalar, widening integer sums and comparing by identity. Integer
+# results must match exactly, dtype included; float results at TOL.
+_INT_IN = np.array([[5, -3, 7], [2, 9, -4]], np.int32)
+_UINT_IN = np.array([[5, 3, 7], [2, 9, 4]], np.uint8)
+_SCALAR_CASES = {
+    "_plus_scalar": 1.5, "_minus_scalar": 1.5, "_rminus_scalar": 1.5,
+    "_mul_scalar": 1.5, "_div_scalar": 2.0, "_rdiv_scalar": 2.0,
+    "_mod_scalar": -2.5, "_rmod_scalar": 3.0, "_power_scalar": 1.5,
+    "_rpower_scalar": 2.0, "_equal_scalar": 7.0, "_not_equal_scalar": 7.0,
+    "_greater_scalar": 2.5, "_greater_equal_scalar": 2.0,
+    "_lesser_scalar": 2.5, "_lesser_equal_scalar": 2.0,
+}
+
+
+def _same(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if np.issubdtype(want.dtype, np.floating):
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint8"])
+@pytest.mark.parametrize("op", sorted(_SCALAR_CASES))
+def test_integer_scalar_op_matches_jax(op, dtype):
+    x = _INT_IN if dtype == "int32" else _UINT_IN
+    s = _SCALAR_CASES[op]
+    if dtype == "uint8" and s < 0:
+        s = -s
+    want = jmx.nd.invoke(op, jmx.nd.array(x, ctx=jmx.cpu(), dtype=dtype),
+                         scalar=s).asnumpy()
+    got = nd.invoke(op, nd.array(x, ctx=mx.cpu(), dtype=dtype),
+                    scalar=s).asnumpy()
+    _same(got, want)
+
+
+@pytest.mark.parametrize("s", [-1.0, 300.0])
+def test_uint8_scalar_out_of_range_raises_as_jax(s):
+    with pytest.raises(OverflowError, match="out of bounds for uint8"):
+        jmx.nd.invoke("_plus_scalar", jmx.nd.array(
+            _UINT_IN, ctx=jmx.cpu(), dtype="uint8"), scalar=s)
+    with pytest.raises(OverflowError, match="out of bounds for uint8"):
+        nd.invoke("_plus_scalar", nd.array(_UINT_IN, ctx=mx.cpu(),
+                                           dtype="uint8"), scalar=s)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint8"])
+@pytest.mark.parametrize("op", ["sum", "mean"])
+def test_integer_reduction_matches_jax(op, dtype):
+    x = _INT_IN if dtype == "int32" else _UINT_IN
+    for axis in (1, None):
+        kw = {} if axis is None else {"axis": axis}
+        want = getattr(jmx.nd, op)(jmx.nd.array(x, ctx=jmx.cpu(),
+                                                dtype=dtype), **kw)
+        got = getattr(nd, op)(nd.array(x, ctx=mx.cpu(), dtype=dtype), **kw)
+        _same(got.asnumpy(), want.asnumpy())
+
+
+_OPERATORS = {
+    "eq": lambda a, b: a == b, "ne": lambda a, b: a != b,
+    "gt": lambda a, b: a > b, "ge": lambda a, b: a >= b,
+    "lt": lambda a, b: a < b, "le": lambda a, b: a <= b,
+    "mod": lambda a, b: a % b, "pow": lambda a, b: a ** b,
+}
+
+
+@pytest.mark.parametrize("rhs", ["array", "scalar", "reflected"])
+@pytest.mark.parametrize("name", sorted(_OPERATORS))
+def test_comparison_and_power_operators_match_jax(name, rhs):
+    fn = _OPERATORS[name]
+    x, y = np.array([1, 2, 3], np.float32), np.array([1, 0, 3], np.float32)
+
+    def run(pkg, ctx):
+        a = pkg.nd.array(x, ctx=ctx)
+        if rhs == "array":
+            return fn(a, pkg.nd.array(y, ctx=ctx)).asnumpy()
+        if rhs == "scalar":
+            return fn(a, 2).asnumpy()
+        if name in ("mod", "pow"):  # __rmod__ / __rpow__
+            return fn(7, a).asnumpy()
+        return fn(2, a).asnumpy()  # reflected comparison
+
+    _same(run(mx, mx.cpu()), run(jmx, jmx.cpu()))
+
+
+def test_equality_with_none_and_hash_by_identity():
+    a = nd.array([1, 2, 3], ctx=mx.cpu())
+    b = nd.array([1, 2, 3], ctx=mx.cpu())
+    assert (a == None) is False and (a != None) is True  # noqa: E711
+    assert hash(a) == id(a) and len({a, b}) == 2
+    np.testing.assert_array_equal((a == b).asnumpy(), [1, 1, 1])
