@@ -96,6 +96,40 @@ Phases, each printing one line of its own (any failure exits non-zero):
     (64, 10) and (8192, 1024): host and device time, bound, plain version
     and ``torch.softmax`` (host and device time).
 
+17. fused_apply: the fused optimizer apply (``fastpath``) on resnet50_v1's
+    193 trainable parameters (25.58 M values) with random gradients, SGD
+    (momentum 0.9, wd 1e-4) and Adam: two fused applies must equal two
+    passes of the per-parameter loop (what ``MXNET_FASTPATH=0`` runs) bit
+    for bit; each path's device kernels and device ms an apply
+    (profiler) and host ms an apply;
+18. resnet_parity: the slice's main path, the JAX package's bench.py
+    training headline (resnet50_v1, batch 32, 224 x 224, 1000 classes,
+    SGD 0.05 with momentum 0.9, data from RandomState(0)): one step of
+    ``parallel.TrainStep`` captured as a CUDA graph against the same step
+    run eagerly (``capture=False``) from the same weights: the loss, every
+    weight, the momentum states and the BatchNorm moving statistics
+    within 1e-4; then ``InferStep``'s captured output against the net's
+    eager inference forward; it counts the step's FLOPs
+    (``torch.utils.flop_counter``);
+19. resnet_train: ``TrainStep.multi_call`` at K = 16 (bench.py's
+    configuration): a warm call (the capture), then calls for 5 s; img/s,
+    ms a step, ``compile_count`` (1) and ``steady_state_recompiles`` (0),
+    graph replays, each call's mean loss (all finite, the last below the
+    first), peak device memory and the step's fp32 bound (its FLOPs over
+    67 TFLOP/s); then ``InferStep.multi_call`` at K = 16 (img/s);
+20. resnet_profile: torch.profiler over 5 steps of the eager path
+    (``autograd.record``, ``backward``, ``Trainer.step`` through the fused
+    apply) and of the captured ``TrainStep``: wall and device-busy ms a
+    step, busy share, device operations and host launches a step, the top
+    device operations. ``python3 chip_smoke.py --resnet`` runs phases
+    17-20 only; ``--profiles`` builds the kernels and runs train_profile
+    and ssd_profile only (to compare two checkouts in one call, copy the
+    script into each and run it there).
+
+The training phases' optimizer updates (train_profile, ssd_profile) run
+through the fused apply; their lines count the optimizer dispatches of
+the traced steps (``opt_dispatches``).
+
 The flash-attention kernel is checked (phase 3) against its plain
 version on the GPT shape, ragged and long shapes (S = 1, 63, 65, 129,
 1000 and 2048 around its 128-row q tiles and 64-token kv tiles), head
@@ -233,6 +267,17 @@ KERNEL_5 = "softmax_fwd"
 # shared-prefix phase (96 requests over 8 system prompts of 512 tokens)
 SPEC_K, SPEC_N, SPEC_OUT = 4, 32, 48
 SP_SYSTEMS, SP_SYS_LEN, SP_N, SP_OUT, SP_CHUNK = 8, 512, 96, 16, 64
+# the ResNet slice: the JAX package's bench.py training headline
+# (resnet50_v1, batch 32, 224 x 224, 1000 classes, SGD 0.05 with momentum
+# 0.9, K = 16 steps a multi_call, data from RandomState(0))
+RESNET_BATCH, RESNET_SIDE, RESNET_CLASSES, RESNET_K = 32, 224, 1000, 16
+RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+# a captured step against the same step run eagerly, fp32: the same torch
+# calls in the same order, but cuDNN may pick other algorithms (other
+# summation orders) inside a capture, and its weight-gradient kernels may
+# accumulate with atomics
+RESNET_TOL = 1e-4
+RESNET_TRAIN_S, RESNET_INFER_S = 5.0, 2.0
 
 
 def fail(msg):
@@ -1534,6 +1579,7 @@ def ssd_profile(steps=5):
             mod.forward_backward(batch)
             mod.update()
         torch.cuda.synchronize()
+        before = _opt_dispatches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for batch in batches[2:]:
@@ -1541,6 +1587,7 @@ def ssd_profile(steps=5):
                 mod.update()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        after = _opt_dispatches()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_name = {}  # device op name -> [ms, launches]
@@ -1560,6 +1607,7 @@ def ssd_profile(steps=5):
           device_busy_share=busy_ms / wall_ms, nms_ms=nms_ms,
           nms_share_of_busy=nms_ms / busy_ms,
           device_ops_per_step=sum(n for _, n in by_name.values()) / steps,
+          opt_dispatches={k: after[k] - before[k] for k in after},
           top_device_ms=[[k[:140], ms, n] for k, (ms, n) in top])
 
 
@@ -2102,12 +2150,14 @@ def train_profile(steps=10):
     for _ in range(3):  # warm up
         _train_step(net, lossfn, batch, trainer)
     torch.cuda.synchronize()
+    before = _opt_dispatches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             _train_step(net, lossfn, batch, trainer)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    after = _opt_dispatches()
     by_name = {}  # device op name -> [ms, launches]
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -2129,6 +2179,7 @@ def train_profile(steps=10):
           flash_share_of_busy=flash_ms / busy_ms,
           device_kernels_per_step=sum(n for _, n in by_name.values())
           / steps,
+          opt_dispatches={k: after[k] - before[k] for k in after},
           # [name (long enough to show the functor), ms, launches]
           top_device_ms=[[k[:140], ms, n] for k, (ms, n) in top])
 
@@ -2217,6 +2268,309 @@ def profile_ticks(eng, reqs, new_tokens=64, case="decode"):
     return out
 
 
+def _opt_dispatches():
+    """The optimizer-update calls so far by path; empty for a package
+    from before the fused apply (``--profiles`` in an older checkout)."""
+    try:
+        from mxnet_tpu_torch.telemetry import OPT_DISPATCHES
+    except ImportError:
+        return {}
+    return {p: OPT_DISPATCHES.value(path=p) for p in ("fused", "perparam")}
+
+
+def _device_profile(run, steps):
+    """torch.profiler (device activity and the host's CUDA runtime calls)
+    over ``steps`` runs of ``run()``: wall ms, device busy ms, device
+    operations, host launches and copies, each per step, and the top
+    device operations [name, ms a step, launches a step]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, host = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = by_name.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+        elif e.name.startswith("cu"):  # a CUDA API call of the host
+            host[e.name] = host.get(e.name, 0) + 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    if busy_ms <= 0.0:
+        fail("the profiler saw no device time in the traced steps")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return dict(
+        steps=steps, per_step_wall_ms=wall_ms / steps,
+        per_step_busy_ms=busy_ms / steps, device_busy_share=busy_ms / wall_ms,
+        device_ops_per_step=sum(n for _, n in by_name.values()) / steps,
+        host_launches_per_step=sum(
+            n for k, n in host.items() if "Launch" in k) / steps,
+        host_copies_per_step=sum(
+            n for k, n in host.items()
+            if "Memcpy" in k or "Memset" in k) / steps,
+        top_device_ms=[[k[:120], ms / steps, n / steps]
+                       for k, (ms, n) in top])
+
+
+def _resnet50(seed=0):
+    """resnet50_v1 on the card, Uniform weights drawn after
+    ``mx.random.seed(seed)``, its deferred shapes resolved."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    mx.random.seed(seed)
+    net = vision.resnet50_v1(classes=RESNET_CLASSES)
+    net.initialize()  # no ctx given: the card
+    net(nd.array(np.zeros((1, 3, 64, 64), np.float32)))
+    return net
+
+
+def _resnet_data(k):
+    """bench.py's data: K batches of images and labels from
+    RandomState(0)."""
+    rng = np.random.RandomState(0)
+    xs = rng.rand(k, RESNET_BATCH, 3, RESNET_SIDE,
+                  RESNET_SIDE).astype(np.float32)
+    ys = rng.randint(0, RESNET_CLASSES, (k, RESNET_BATCH))
+    return xs, ys
+
+
+def fused_apply():
+    """The fused optimizer apply on resnet50_v1's trainable parameters
+    with random gradients, for SGD (momentum 0.9, wd 1e-4) and Adam: two
+    fused applies and two passes of the per-parameter loop (what
+    MXNET_FASTPATH=0 runs) from the same state must give the same bits;
+    each path's device kernels and device ms an apply (profiler) and host
+    ms an apply."""
+    import torch
+
+    from mxnet_tpu_torch import fastpath, optimizer as opt
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    net = _resnet50()
+    params = list(net.collect_params().values())
+    train_params = [p for p in params if p.grad_req != "null"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    grads = [torch.randn(p.shape, device="cuda", generator=gen)
+             for p in train_params]
+    fields = dict(params=len(params), trainable=len(train_params),
+                  values=sum(p.data().size for p in train_params))
+    for name, kw in (("sgd", dict(learning_rate=0.05, momentum=0.9,
+                                  wd=1e-4)),
+                     ("adam", dict(learning_rate=1e-3, wd=1e-4))):
+        runs = {}
+        for path in ("fused", "perparam"):
+            upd = opt.get_updater(opt.create(name, **kw))
+            ws = [NDArray(p.data()._data.detach().clone())
+                  for p in train_params]
+            triples = [(i, NDArray(g), w)
+                       for i, (g, w) in enumerate(zip(grads, ws))]
+            if path == "fused":
+                def apply(upd=upd, triples=triples):
+                    fastpath.apply_updater(upd, triples)
+            else:
+                def apply(upd=upd, triples=triples):
+                    for t in triples:
+                        upd(*t)
+            apply()
+            apply()
+            torch.cuda.synchronize()
+            leaves = [w._data for w in ws]
+            for i in range(len(ws)):
+                s = upd.states[i]
+                leaves += list(s) if isinstance(s, tuple) else [s]
+            runs[path] = (leaves, apply)
+        for a, b in zip(runs["fused"][0], runs["perparam"][0]):
+            if not torch.equal(a, b):
+                fail("fused_apply %s: the fused apply and the per-parameter "
+                     "loop differ (max %.3g)"
+                     % (name, float((a - b).abs().max())))
+        for path, (_, apply) in runs.items():
+            events = _profiled_us(apply, 5, lambda n: True)
+            fields["%s_%s" % (name, path)] = dict(
+                device_kernels=sum(n for _, n in events.values()) / 5,
+                device_ms=sum(us for us, _ in events.values()) / 1e3 / 5,
+                host_ms=host_ms(apply, iters=20))
+    phase("fused_apply", bitwise_equal=True, **fields)
+
+
+def resnet_parity():
+    """One captured TrainStep step of resnet50_v1 at bench.py's shapes
+    against the same step run eagerly (``capture=False``) from the same
+    weights: loss, every weight, the momentum states and the BatchNorm
+    moving statistics within RESNET_TOL; then InferStep's captured output
+    against the net's eager inference forward. Returns the eager step's
+    FLOPs (convolutions and products, forward and backward, counted by
+    torch.utils.flop_counter from their shapes)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mxnet_tpu_torch import autograd, gluon, nd, parallel
+
+    xs, ys = _resnet_data(1)
+    x, y = nd.array(xs[0]), nd.array(ys[0])
+    steps = [parallel.TrainStep(
+        _resnet50(), gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        parallel.device_mesh(1), optimizer_params=dict(RESNET_SGD),
+        capture=capture) for capture in (True, False)]
+    loss_g = float(steps[0](x, y).asnumpy())
+    counter = FlopCounterMode(display=False)
+    with counter:
+        loss_e = float(steps[1](x, y).asnumpy())
+    flops = counter.get_total_flops()
+    if steps[0].compile_count != 1 or steps[0].graph_replays != 1:
+        fail("resnet_parity: %d captures, %d replays"
+             % (steps[0].compile_count, steps[0].graph_replays))
+    errs = {"weights": 0.0, "momentum": 0.0, "moving_stats": 0.0}
+    # the two nets' names differ in their prefix only: same order
+    for (n, v), w in zip(steps[0].params.items(),
+                         steps[1].params.values()):
+        key = "moving_stats" if n.endswith(("running_mean", "running_var")) \
+            else "weights"
+        errs[key] = max(errs[key], float((v - w).detach().abs().max()))
+    for a, b in zip(steps[0]._states, steps[1]._states):
+        errs["momentum"] = max(errs["momentum"], float((a - b).abs().max()))
+    loss_err = abs(loss_g - loss_e)
+    if not np.isfinite(loss_g) or loss_err > RESNET_TOL or \
+            max(errs.values()) > RESNET_TOL:
+        fail("resnet_parity: loss %.6g vs %.6g, max errors %s"
+             % (loss_g, loss_e, errs))
+    net = steps[1].copy_to_net()
+    del steps
+    infer = parallel.InferStep(net, parallel.device_mesh(1))
+    got = infer(x).asnumpy()
+    with autograd.pause():
+        want = net(x).asnumpy()
+    infer_err = float(np.abs(got - want).max())
+    if infer_err > RESNET_TOL or infer.compile_count != 1:
+        fail("resnet_parity: InferStep differs from the net's forward by "
+             "%.3g (%d captures)" % (infer_err, infer.compile_count))
+    torch.cuda.synchronize()
+    phase("resnet_parity", model="resnet50_v1", batch=RESNET_BATCH,
+          side=RESNET_SIDE, classes=RESNET_CLASSES, loss=loss_g,
+          loss_abs_err=loss_err, max_abs_err=errs, infer_max_abs_err=infer_err,
+          tol=RESNET_TOL, step_gflop=flops / 1e9)
+    return flops
+
+
+def resnet_train(flops):
+    """bench.py's headline on the card: TrainStep.multi_call at K = 16,
+    batch 32, SGD 0.05 with momentum 0.9; a warm call (the capture), then
+    calls for RESNET_TRAIN_S seconds ending in a synchronize. Every call's
+    mean loss must be finite and the last below the first (the 16 batches
+    come back every call), with one capture and no recapture; then
+    InferStep.multi_call at K = 16. The bound is the step's FLOPs over
+    the card's fp32 rate (TF32 is off)."""
+    import torch
+
+    from mxnet_tpu_torch import gluon, nd, parallel
+
+    xs, ys = _resnet_data(RESNET_K)
+    data, labels = nd.array(xs), nd.array(ys)
+    del xs
+    net = _resnet50()
+    step = parallel.TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              "sgd", parallel.device_mesh(1),
+                              optimizer_params=dict(RESNET_SGD))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step.multi_call(data, labels)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    calls = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < RESNET_TRAIN_S:
+        losses.append(step.multi_call(data, labels))
+        calls += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    means = [float(v.asnumpy().mean()) for v in losses]
+    if step.compile_count != 1 or step.steady_state_recompiles != 0:
+        fail("resnet_train: %d captures, %d steady-state recompiles"
+             % (step.compile_count, step.steady_state_recompiles))
+    if step.graph_replays != RESNET_K * (calls + 1):
+        fail("resnet_train: %d graph replays for %d calls"
+             % (step.graph_replays, calls + 1))
+    if not all(np.isfinite(means)) or not means[-1] < means[0]:
+        fail("resnet_train: call mean losses %s" % means)
+    step_ms = wall * 1e3 / (calls * RESNET_K)
+    bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+    phase("resnet_train", model="resnet50_v1", batch=RESNET_BATCH,
+          side=RESNET_SIDE, k=RESNET_K, calls=calls, wall_s=wall,
+          img_per_s=RESNET_K * RESNET_BATCH * calls / wall, step_ms=step_ms,
+          warm_call_s=warm_s, compile_count=step.compile_count,
+          steady_state_recompiles=step.steady_state_recompiles,
+          graph_replays=step.graph_replays, call_mean_losses=means,
+          peak_memory_gb=peak / 1e9, step_gflop=flops / 1e9,
+          fp32_bound_ms=bound_ms, bound_share=bound_ms / step_ms)
+    step.copy_to_net()
+    del step
+    infer = parallel.InferStep(net, parallel.device_mesh(1))
+    infer.multi_call(data)
+    torch.cuda.synchronize()
+    calls = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < RESNET_INFER_S:
+        out = infer.multi_call(data)
+        calls += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not np.isfinite(out.asnumpy()).all() or \
+            infer.steady_state_recompiles != 0:
+        fail("resnet_train: InferStep output not finite, or recaptured")
+    phase("resnet_infer", model="resnet50_v1", batch=RESNET_BATCH, k=RESNET_K,
+          calls=calls, wall_s=wall,
+          img_per_s=RESNET_K * RESNET_BATCH * calls / wall,
+          compile_count=infer.compile_count)
+
+
+def resnet_profile(steps=5):
+    """Where a resnet50_v1 training step's time goes at bench.py's shapes,
+    traced with torch.profiler: (a) the eager path, autograd.record,
+    backward and Trainer.step through the fused apply; (b) the captured
+    TrainStep."""
+    from mxnet_tpu_torch import autograd, gluon, nd, parallel
+
+    xs, ys = _resnet_data(1)
+    x, y = nd.array(xs[0]), nd.array(ys[0])
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    net = _resnet50()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(RESNET_SGD))
+
+    def eager():
+        with autograd.record():
+            loss = lossfn(net(x), y)
+        loss.backward()
+        trainer.step(RESNET_BATCH)
+
+    for _ in range(3):  # warm up
+        eager()
+    before = _opt_dispatches()
+    out = {"eager": _device_profile(eager, steps)}
+    after = _opt_dispatches()
+    out["eager"]["opt_dispatches"] = {k: after[k] - before[k] for k in after}
+    if out["eager"]["opt_dispatches"]["fused"] != steps:
+        fail("resnet_profile: the eager steps did not run the fused apply "
+             "once a step: %s" % out["eager"]["opt_dispatches"])
+    del trainer, net
+    step = parallel.TrainStep(_resnet50(), lossfn, "sgd",
+                              parallel.device_mesh(1),
+                              optimizer_params=dict(RESNET_SGD))
+    for _ in range(3):
+        step(x, y)
+    out["captured"] = _device_profile(lambda: step(x, y), steps)
+    phase("resnet_profile", model="resnet50_v1", batch=RESNET_BATCH, **out)
+
+
 def main():
     import torch
 
@@ -2267,6 +2621,13 @@ def main():
         spec_serve(model, params, contract=False)
         chunked_serve(model, params, contract=False)
         return 0
+    if sys.argv[1:] == ["--resnet"]:
+        # only the ResNet slice's phases (no kernel is built: the path
+        # runs none)
+        fused_apply()
+        resnet_train(resnet_parity())
+        resnet_profile()
+        return 0
     if sys.argv[1:] == ["--nms-time"]:
         # only the NMS times, through the public wrapper of the package
         # beside this file: to compare two checkouts in one call, copy the
@@ -2280,6 +2641,14 @@ def main():
         nms_time(np.random.RandomState(44), per_call=len(kernels))
         return 0
     names, secs, ptxas = build_all()
+    if sys.argv[1:] == ["--profiles"]:
+        # only the GPT and SSD training steps' profiles, of the package
+        # beside this file: to compare two checkouts in one call, copy the
+        # script into each and run it there
+        phase("build", kernels=names, seconds=secs)
+        train_profile()
+        ssd_profile()
+        return 0
     from mxnet_tpu_torch.ops import _build
 
     phase("build", kernels=names, seconds=secs, ptxas=ptxas,
@@ -2313,6 +2682,10 @@ def main():
     nms_entry["launches"] = ssd_train()
     ssd_parity()
     ssd_profile()
+    fused_apply()
+    flops = resnet_parity()
+    resnet_train(flops)
+    resnet_profile()
     rtc_err = rtc_check()
     custom_softmax()
     rtc_launches = custom_rtc()

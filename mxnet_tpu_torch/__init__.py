@@ -23,7 +23,11 @@ of the SSD example (``sym``, ``executor``, ``module``, ``io``,
 with the NMS kernel (``ops.nms``), and the extension path (``rtc``,
 whose ``CudaModule`` compiles the user's CUDA-C kernels with NVRTC,
 ``operator``'s custom ops, ``autograd.Function``, ``metric``,
-``callback``, ``Module.fit``; ``example/numpy_ops/``). The training
+``callback``, ``Module.fit``; ``example/numpy_ops/``), and the ResNet
+training path of the JAX package's ``bench.py`` (``fastpath``'s fused
+optimizer apply, BatchNorm and the conv layers, ``gluon.model_zoo``'s
+ResNets, and ``parallel.TrainStep``/``InferStep`` captured as CUDA
+graphs; it runs no hand-written kernel). The training
 paths follow MXNet's entry points, with one departure: the default
 context is the card (``gpu(0)``), and without one, code that does not
 ask for ``mx.cpu()`` raises.
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 from . import autograd, gluon, initializer, ndarray, optimizer, random
 from . import attribute, executor, image, io, model, module, recordio
-from . import callback, contrib, metric, operator, rtc
+from . import callback, contrib, fastpath, metric, operator, parallel, rtc
 from . import ndarray as nd
 from . import symbol
 from . import symbol as sym
@@ -44,4 +48,4 @@ __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
            "autograd", "gluon", "initializer", "nd", "ndarray", "optimizer",
            "random", "attribute", "executor", "image", "io", "model",
            "module", "recordio", "sym", "symbol", "callback", "contrib",
-           "metric", "operator", "rtc"]
+           "metric", "operator", "rtc", "fastpath", "parallel"]

@@ -1,14 +1,18 @@
 """Basic Gluon layers: the port of the part of
-``mxnet_tpu/gluon/nn/basic_layers.py`` the GPT path uses: Sequential,
-HybridSequential, Dense, Activation, Embedding and LayerNorm."""
+``mxnet_tpu/gluon/nn/basic_layers.py`` the GPT and ResNet paths use:
+Sequential, HybridSequential, Dense, Activation, Dropout, BatchNorm,
+Embedding, Flatten and LayerNorm. ``InstanceNorm``, ``Lambda`` and
+``HybridLambda`` are not ported yet."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ... import autograd
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
-           "Embedding", "LayerNorm"]
+           "Dropout", "BatchNorm", "Embedding", "Flatten", "LayerNorm"]
 
 
 class Sequential(Block):
@@ -103,6 +107,75 @@ class Activation(HybridBlock):
         return F.Activation(x, act_type=self._act_type)
 
 
+class Dropout(HybridBlock):
+    """Dropout at ``rate``; ``axes`` share one draw (basic_layers.py:174)."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes or None)
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization with moving statistics (basic_layers.py:190).
+
+    In train mode (``autograd.record()`` or ``train_mode()``) the moving
+    mean and variance become ``momentum * moving + (1 - momentum) *
+    batch``, with the batch's biased variance, as in the JAX package. They
+    are written in place into the parameters' tensors, so their addresses
+    stay fixed: a captured step (``parallel.TrainStep``) replays the
+    update into the same memory."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        self._axis = axis
+        self._momentum = momentum
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True, differentiable=scale)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True, differentiable=center)
+        self.running_mean = self.params.get(
+            "running_mean", grad_req="null", shape=(in_channels,),
+            init=running_mean_initializer, allow_deferred_init=True,
+            differentiable=False)
+        self.running_var = self.params.get(
+            "running_var", grad_req="null", shape=(in_channels,),
+            init=running_variance_initializer, allow_deferred_init=True,
+            differentiable=False)
+
+    def shape_hint(self, x, *args):
+        if self.gamma.shape[0] == 0:
+            ch = x.shape[self._axis]
+            for p in (self.gamma, self.beta, self.running_mean,
+                      self.running_var):
+                p.shape = (ch,)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        y, mean, var = F.invoke("BatchNorm", x, gamma, beta, running_mean,
+                                running_var, **self._kwargs)
+        if autograd.is_training() and not self._kwargs["use_global_stats"]:
+            m = self._momentum
+            with torch.no_grad():
+                for run, batch in ((running_mean, mean),
+                                   (running_var, var)):
+                    run._data.copy_(m * run._data + (1 - m) * batch._data)
+        return y
+
+
 class Embedding(HybridBlock):
     """Index -> vector lookup; weight (input_dim, output_dim)."""
 
@@ -117,6 +190,13 @@ class Embedding(HybridBlock):
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, **self._kwargs)
+
+
+class Flatten(HybridBlock):
+    """Flatten to (batch, -1) (basic_layers.py:285)."""
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
 
 
 class LayerNorm(HybridBlock):

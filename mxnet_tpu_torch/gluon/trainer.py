@@ -2,16 +2,18 @@
 context.
 
 ``step`` = ``allreduce_grads`` (a no-op on one context, as in the JAX
-package) + ``update``: the per-parameter loop over the updaters
-(``trainer.py:227-234``), under the fresh-gradient contract
+package) + ``update``: one fused apply over every parameter
+(``fastpath.apply_updater``, ``trainer.py:212-224``), or with
+``MXNET_FASTPATH=0`` the per-parameter loop over the updater
+(``trainer.py:227-234``), both under the fresh-gradient contract
 (``trainer.py:189-206``): a gradient no backward has renewed since the
 last step raises unless ``ignore_stale_grad``, which then skips that
 parameter. Parameters on more than one context, or a kvstore, raise "not
-ported yet"; the fused all-parameter apply is not ported yet either.
+ported yet".
 """
 from __future__ import annotations
 
-from .. import optimizer as opt
+from .. import fastpath, optimizer as opt
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
 
@@ -108,7 +110,11 @@ class Trainer(object):
                     "ignore_stale_grad=True to suppress this warning and "
                     "skip updating of Parameters with stale gradient"
                     % (param.name, arr.context))
-            rows.append((i, param, arr))
-        for i, param, arr in rows:
-            self._updater(i, param.grad(), arr)
+            rows.append((i, param.grad(), arr))
+        for _i, _grad, arr in rows:
             arr._fresh_grad = False
+        if fastpath.enabled() and fastpath.supports(self._optimizer):
+            fastpath.apply_updater(self._updater, rows)
+            return
+        for i, grad, arr in rows:
+            self._updater(i, grad, arr)

@@ -18,7 +18,7 @@ import logging
 import numpy as np
 import torch
 
-from .. import optimizer as opt
+from .. import fastpath, optimizer as opt
 from ..base import MXNetError
 from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
@@ -235,16 +235,22 @@ class Module(BaseModule):
 
     def update(self):
         """One optimizer step on every parameter with a gradient, in
-        place (reference module.py:644 without a kvstore)."""
+        place (reference module.py:644 without a kvstore): one fused
+        apply, or with ``MXNET_FASTPATH=0`` the per-parameter loop."""
         self._require("binded", "params_initialized",
                       "optimizer_initialized")
         self._params_dirty = True
         e = self._exec_group.execs[0]
         names = [n for n in self._symbol.list_arguments()
                  if n in self._param_names]
-        for idx, name in enumerate(names):
-            if name in e.grad_dict:
-                self._updater(idx, e.grad_dict[name], e.arg_dict[name])
+        triples = [(idx, e.grad_dict[name], e.arg_dict[name])
+                   for idx, name in enumerate(names) if name in e.grad_dict]
+        if fastpath.enabled() and fastpath.supports(self._optimizer):
+            # one fused apply over every parameter (module.py:306-322)
+            fastpath.apply_updater(self._updater, triples)
+            return
+        for idx, grad, weight in triples:
+            self._updater(idx, grad, weight)
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         """Feed the last forward's outputs and ``labels`` to the metric

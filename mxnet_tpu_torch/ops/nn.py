@@ -1,5 +1,5 @@
-"""Neural-network ops: the part of ``mxnet_tpu/ops/nn.py`` the GPT and
-SSD training paths call, in PyTorch.
+"""Neural-network ops: the part of ``mxnet_tpu/ops/nn.py`` the GPT, SSD
+and ResNet training paths call, in PyTorch.
 
 ``FullyConnected`` (its product stays ``F.linear``: the JAX package leaves
 it to XLA outside any kernel), ``LayerNorm`` (three outputs: the result,
@@ -7,14 +7,19 @@ the mean and the variance), ``Activation``, ``softmax`` and
 ``log_softmax``; for the SSD path ``Convolution`` and ``Pooling``
 (channels-first; ``F.conv*d`` and ``F.*_pool*d``, where the JAX package
 leaves them to XLA) and ``SoftmaxOutput``, a ``torch.autograd.Function``
-with the reference's backward. The other ops of the JAX module are not
-ported yet.
+with the reference's backward; for the ResNet path ``BatchNorm`` (three
+outputs; the caller updates the moving statistics), ``Deconvolution``
+(``F.conv_transpose*d``), ``LeakyReLU`` and ``Dropout``, which draw from
+the port's explicit ``torch.Generator`` (``random.generator``). Train
+mode is ``autograd.is_training()``. The other ops of the JAX module are
+not ported yet.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .. import autograd, random as _random
 from ..base import MXNetError, torch_dtype
 from .registry import REQUIRED, register
 
@@ -64,6 +69,106 @@ def activation(attrs, data):
         return _ACTS[attrs.act_type](data)
     except KeyError:
         raise MXNetError("unknown act_type %r" % attrs.act_type)
+
+
+@register("LeakyReLU",
+          params={"act_type": (str, "leaky"), "slope": (float, 0.25),
+                  "lower_bound": (float, 0.125),
+                  "upper_bound": (float, 0.334)},
+          inputs=lambda attrs: ["data", "gamma"]
+          if attrs.get("act_type") == "prelu" else ["data"])
+def leaky_relu(attrs, data, *rest):
+    """leaky, elu, selu, gelu (exact), prelu (a learned slope per channel)
+    and rrelu (a uniform random slope in train mode, the bounds' mean
+    otherwise): ``mxnet_tpu/ops/nn.py:367``."""
+    t = attrs.act_type
+    if t == "leaky":
+        return torch.where(data >= 0, data, attrs.slope * data)
+    if t == "elu":
+        return torch.where(data >= 0, data, attrs.slope * torch.expm1(data))
+    if t == "selu":
+        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(data >= 0, data,
+                                   alpha * torch.expm1(data))
+    if t == "gelu":
+        return F.gelu(data)
+    if t == "prelu":
+        gamma = rest[0]
+        bshape = (1, -1) + (1,) * (data.dim() - 2) if data.dim() > 1 \
+            else (-1,)
+        return torch.where(data >= 0, data, gamma.reshape(bshape) * data)
+    if t == "rrelu":
+        lo, hi = attrs.lower_bound, attrs.upper_bound
+        if autograd.is_training():
+            slope = torch.rand(data.shape, dtype=data.dtype,
+                               device=data.device,
+                               generator=_random.generator(data.device))
+            slope = slope * (hi - lo) + lo
+        else:
+            slope = (lo + hi) / 2.0
+        return torch.where(data >= 0, data, slope * data)
+    raise MXNetError("unknown LeakyReLU act_type %r" % t)
+
+
+@register("Dropout",
+          params={"p": (float, 0.5), "mode": (str, "training"),
+                  "axes": (tuple, None), "cudnn_off": (bool, False)})
+def dropout(attrs, data):
+    """Inverted dropout: each value (each slice along ``axes``, which
+    share one draw) kept with probability ``1 - p`` and scaled by
+    ``1 / (1 - p)``; the identity at p = 0 and outside train mode unless
+    ``mode='always'``. The mask comes from the port's ``torch.Generator``
+    of the data's device, so its numbers differ from the JAX package's
+    PRNG keys (``mxnet_tpu/ops/nn.py:646-661``)."""
+    if attrs.p <= 0 or (not autograd.is_training()
+                        and attrs.mode != "always"):
+        return data
+    shape = data.shape
+    if attrs.axes:
+        axes = {a % data.dim() for a in attrs.axes}
+        shape = tuple(1 if i in axes else s for i, s in enumerate(shape))
+    keep = 1.0 - attrs.p
+    draw = torch.rand(shape, device=data.device,
+                      generator=_random.generator(data.device))
+    return torch.where(draw < keep, data / keep, torch.zeros_like(data))
+
+
+@register("BatchNorm",
+          params={"eps": (float, 1e-3), "momentum": (float, 0.9),
+                  "fix_gamma": (bool, True),
+                  "use_global_stats": (bool, False),
+                  "output_mean_var": (bool, False), "axis": (int, 1),
+                  "cudnn_off": (bool, False)},
+          inputs=("data", "gamma", "beta", "moving_mean", "moving_var"),
+          num_outputs=3)
+def batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
+    """``(out, mean, var)``, as ``mxnet_tpu/ops/nn.py:254-283``: in train
+    mode (unless ``use_global_stats``) the batch's mean and *biased*
+    variance over every axis but ``axis``, else the moving statistics;
+    ``fix_gamma`` pins gamma to 1 (gamma then gets no gradient). The
+    moving statistics are not written here: the caller (the gluon layer)
+    updates them from the returned mean and variance, which is why this
+    does not leave the update to ``F.batch_norm`` (that one would use the
+    unbiased variance). The normalisation itself is ``torch.batch_norm``
+    (cuDNN on the card) with the channel axis moved to 1."""
+    ax = attrs.axis % data.dim()
+    x = data if ax == 1 else data.movedim(ax, 1)
+    weight = None if attrs.fix_gamma else gamma
+    if autograd.is_training() and not attrs.use_global_stats:
+        red = tuple(i for i in range(data.dim()) if i != ax)
+        var, mean = torch.var_mean(data, dim=red, unbiased=False)
+        # torch.batch_norm, not F.batch_norm: the JAX op normalises a
+        # single value a channel too (to beta), where F.batch_norm raises
+        out = torch.batch_norm(x, weight, beta, None, None, True, 0.0,
+                               attrs.eps, torch.backends.cudnn.enabled)
+    else:
+        mean, var = moving_mean, moving_var
+        out = torch.batch_norm(x, weight, beta, moving_mean, moving_var,
+                               False, 0.0, attrs.eps,
+                               torch.backends.cudnn.enabled)
+    if ax != 1:
+        out = out.movedim(1, ax)
+    return out, mean, var
 
 
 _SOFTMAX_PARAMS = {"axis": (int, -1), "temperature": (float, None),
@@ -123,6 +228,36 @@ def convolution(attrs, data, weight, *rest):
                      padding=attrs.pad or (0,) * nd,
                      dilation=attrs.dilate or (1,) * nd,
                      groups=attrs.num_group)
+
+
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution",
+          params={"kernel": (tuple, REQUIRED), "stride": (tuple, None),
+                  "dilate": (tuple, None), "pad": (tuple, None),
+                  "adj": (tuple, None), "target_shape": (tuple, None),
+                  "num_filter": (int, REQUIRED), "num_group": (int, 1),
+                  "workspace": (int, 512), "no_bias": (bool, True),
+                  "cudnn_tune": (str, None), "cudnn_off": (bool, False),
+                  "layout": (str, None)},
+          inputs=lambda attrs: ["data", "weight"]
+          if attrs.get("no_bias", True) else ["data", "weight", "bias"])
+def deconvolution(attrs, data, weight, *rest):
+    """Transposed convolution, weight (in_channels, num_filter /
+    num_group, *kernel) as in the reference: the output side is
+    ``(in - 1) * stride - 2 * pad + dilate * (kernel - 1) + adj + 1``, as
+    the JAX package's input-dilated lowering gives (``mxnet_tpu/ops/
+    nn.py:107``). ``target_shape`` is ignored there and here."""
+    nd = len(attrs.kernel)
+    _channels_first(attrs.layout, nd)
+    bias = rest[0] if rest else None
+    return _DECONV[nd](data, weight, bias, stride=attrs.stride or (1,) * nd,
+                       padding=attrs.pad or (0,) * nd,
+                       output_padding=attrs.adj or (0,) * nd,
+                       groups=attrs.num_group,
+                       dilation=attrs.dilate or (1,) * nd)
 
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}

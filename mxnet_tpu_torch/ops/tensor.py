@@ -7,7 +7,7 @@ MXNet's special codes, ``transpose``, ``SliceChannel``/``split``,
 ``pick`` and ``Embedding``; and for the SSD path ``Flatten``,
 ``Concat``, ``BlockGrad``, ``MakeLoss`` (a ``torch.autograd.Function``
 with the reference's backward), ``smooth_l1`` and the rest of what
-Symbol's operator sugar emits. Index tensors are cast to int64 inside
+Symbol's operator sugar emits; for the ResNet slice's layers ``Pad``. Index tensors are cast to int64 inside
 ``pick`` and ``Embedding``: torch's gathers need it, and callers feed
 int32. Every other op of the JAX module is not ported yet: ``nd.<name>``
 does not exist for it, and ``invoke`` raises "not registered".
@@ -265,6 +265,37 @@ _reg("Reshape", _reshape, params={"shape": (tuple, None),
      aliases=("reshape",))
 _reg("Flatten", lambda attrs, x: x.reshape(x.shape[0], -1),
      aliases=("flatten",))
+
+
+def _pad(attrs, x):
+    """``Pad`` (``mxnet_tpu/ops/tensor.py:531``): ``pad_width`` holds a
+    (before, after) pair for every axis. ``constant`` pads any axis;
+    ``edge`` and ``reflect`` pad the axes after the first two, as MXNet's
+    own op does (a pad on the batch or channel axis raises)."""
+    pw = attrs.pad_width
+    if len(pw) != 2 * x.dim():
+        raise MXNetError("Pad: pad_width has %d entries, %d expected"
+                         % (len(pw), 2 * x.dim()))
+    first = 0 if attrs.mode == "constant" else 2
+    if any(pw[:2 * first]):
+        raise MXNetError("Pad: mode %r pads the axes after the first two "
+                         "only" % attrs.mode)
+    widths = []  # F.pad order: last axis first
+    for i in reversed(range(first, x.dim())):
+        widths += [pw[2 * i], pw[2 * i + 1]]
+    if attrs.mode == "constant":
+        return torch.nn.functional.pad(x, widths,
+                                       value=attrs.constant_value)
+    modes = {"edge": "replicate", "reflect": "reflect"}
+    if attrs.mode not in modes:
+        raise MXNetError("Pad: unknown mode %r" % attrs.mode)
+    return torch.nn.functional.pad(x, widths, mode=modes[attrs.mode])
+
+
+_reg("Pad", _pad,
+     params={"mode": (str, "constant"), "pad_width": (tuple, REQUIRED),
+             "constant_value": (float, 0.0)},
+     aliases=("pad",))
 _reg("Concat", lambda attrs, *xs: torch.cat(xs, dim=attrs.dim),
      params={"num_args": (int, 1), "dim": (int, 1)},
      inputs=lambda attrs: ["arg%d" % i

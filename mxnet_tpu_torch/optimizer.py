@@ -4,15 +4,20 @@
 As in the JAX package an optimizer is two pieces: a host-side scalar
 prologue :meth:`Optimizer._host_scalars` (per-index lr/wd multipliers and
 schedule transforms such as Adam's bias correction, computed in Python)
-and a per-parameter kernel :meth:`Optimizer._leaf_step`
-``(w, g, state, t, lr, wd) -> (new_w, new_state)`` on tensors.
+and a kernel :meth:`Optimizer._leaf_step`. Here the kernel runs over
+*lists* of parameters, written with ``torch._foreach_*`` ops that update
+the weights and states in place: ``fastpath.fused_apply`` calls it once
+over every parameter, and :meth:`Optimizer.update`, the per-parameter
+path, calls the same function with one-element lists, so the two paths
+are equal bit for bit (the JAX package gets that by sharing its
+per-parameter ``_leaf_step`` between them). :meth:`Optimizer.pure_step`
+is the same kernel with the learning rate and step count as 0-d device
+tensors: ``parallel.TrainStep`` captures it inside a CUDA graph.
 
-Departure: :meth:`Optimizer.update` runs the kernel per parameter and
-writes the new weight and state into the existing tensors in place,
-under ``torch.no_grad()``, where the JAX package jits it and rebinds new
-buffers. The fused ``_foreach`` apply over all parameters (the JAX
-package's ``fastpath``) is not ported yet. The other optimizers of the
-JAX module are not ported yet: :func:`create` raises for them.
+Departure: the weights and states are written in place, under
+``torch.no_grad()``, where the JAX package rebinds new buffers. The other
+optimizers of the JAX module are not ported yet: :func:`create` raises
+for them.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Dict
 import torch
 
 from .base import MXNetError
+from .telemetry import OPT_DISPATCHES
 
 __all__ = ["Optimizer", "register", "create", "get_updater", "Updater",
            "SGD", "Adam"]
@@ -84,24 +90,42 @@ class Optimizer(object):
         :meth:`_update_count`."""
         return self._get_lr(index), self._get_wd(index)
 
-    def _leaf_step(self, w, g, state, t, lr, wd):
-        """Per-parameter kernel on tensors: ``(new_w, new_state)``."""
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None):
+        """The kernel over parallel lists: weight tensors ``ws`` and their
+        states updated in place from gradients ``gs``; ``ts``, ``lrs`` and
+        ``wds`` are per-parameter Python numbers, and ``lr_scale`` an
+        optional 0-d device tensor multiplying every learning rate."""
         raise NotImplementedError("%s does not implement _leaf_step"
                                   % self.__class__.__name__)
 
+    @property
+    def fastpath_capable(self):
+        """Whether ``fastpath.fused_apply`` can fold this optimizer's whole
+        update into one call of its list kernel."""
+        return type(self)._leaf_step is not Optimizer._leaf_step
+
+    def pure_step(self, ws, gs, states, t, lr, lr_mults, wds):
+        """The kernel as ``parallel.TrainStep`` captures it: ``t`` (the
+        1-based step count) and ``lr`` are 0-d float32 device tensors, so
+        one CUDA graph serves every step; parameter ``i``'s learning rate
+        is ``lr * lr_mults[i]``. Optimizers with no schedule work alias it
+        to :meth:`_leaf_step`; Adam computes its bias correction from
+        ``t`` on the device."""
+        raise MXNetError(
+            "%s does not implement pure_step; it cannot be captured in a "
+            "train step - use Trainer/Updater instead"
+            % self.__class__.__name__)
+
     def update(self, index, weight, grad, state):
-        """Apply one parameter's update in place; returns the new state."""
+        """Apply one parameter's update in place: the list kernel over
+        one-element lists. Returns the state."""
         self._update_count(index)
         t = self._index_update_count[index]
         lr, wd = self._host_scalars(index)
-        w = _tensor(weight)
+        OPT_DISPATCHES.inc(path="perparam")
         with torch.no_grad():
-            new_w, new_state = self._leaf_step(w, _tensor(grad), state, t,
-                                               lr, wd)
-            w.copy_(new_w)
-            if state is not None:
-                for s, n in zip(_as_tuple(state), _as_tuple(new_state)):
-                    s.copy_(n)
+            self._leaf_step([_tensor(weight)], [_tensor(grad)], [state], [t],
+                            [lr], [wd])
         return state
 
     # -- lr / wd plumbing -------------------------------------------------
@@ -126,6 +150,19 @@ class Optimizer(object):
         self.num_update = max(self._index_update_count[index],
                               self.num_update)
 
+    def sync_num_update(self, t):
+        """Advance the step counter to ``t`` when a captured train step
+        (``parallel.TrainStep``) interleaves with eager updates: every
+        per-index count, and the count an index not seen yet starts from,
+        move up to ``t``, so the next eager update continues at ``t + 1``
+        (``mxnet_tpu/optimizer.py:316``)."""
+        t = int(t)
+        self.num_update = max(self.num_update, t)
+        self.begin_num_update = max(self.begin_num_update, t)
+        for idx in self._index_update_count:
+            self._index_update_count[idx] = max(
+                self._index_update_count[idx], t)
+
     def _get_lr(self, index):
         lr = self.lr
         if index in self.param_dict:
@@ -146,24 +183,33 @@ class Optimizer(object):
             wd *= self.wd_mult.get(self.idx2name[index], 1.0)
         return wd
 
-    # -- gradient prologues (traced into the kernel in the JAX package) ---
-    def _preprocess(self, grad, weight, wd):
-        """rescale -> clip -> + wd * weight (the sgd family)."""
-        grad = grad * self.rescale_grad
-        if self.clip_gradient is not None:
-            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
-        return grad + wd * weight
+    # -- gradient prologues, over lists -----------------------------------
+    def _preprocess(self, gs, ws, wds):
+        """rescale -> clip -> + wd * weight (the sgd family); new tensors,
+        the gradients are not written."""
+        gs = torch._foreach_mul(gs, self.rescale_grad)
+        self._clip(gs)
+        torch._foreach_add_(gs, torch._foreach_mul(ws, wds))
+        return gs
 
-    def _preprocess_wd_in_clip(self, grad, weight, wd):
+    def _preprocess_wd_in_clip(self, gs, ws, wds):
         """rescale -> + wd * weight -> clip (the adam family)."""
-        grad = grad * self.rescale_grad + wd * weight
+        gs = torch._foreach_mul(gs, self.rescale_grad)
+        torch._foreach_add_(gs, torch._foreach_mul(ws, wds))
+        self._clip(gs)
+        return gs
+
+    def _clip(self, gs):
         if self.clip_gradient is not None:
-            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
-        return grad
+            torch._foreach_clamp_min_(gs, -self.clip_gradient)
+            torch._foreach_clamp_max_(gs, self.clip_gradient)
 
-
-def _as_tuple(state):
-    return state if isinstance(state, tuple) else (state,)
+    @staticmethod
+    def _scale_lr_(xs, lrs, lr_scale):
+        """``x_i *= lr_i`` in place (and by ``lr_scale`` if given)."""
+        torch._foreach_mul_(xs, lrs)
+        if lr_scale is not None:
+            torch._foreach_mul_(xs, lr_scale)
 
 
 register = Optimizer.register
@@ -172,7 +218,8 @@ create = Optimizer.create_optimizer
 
 @register
 class SGD(Optimizer):
-    """SGD with optional momentum."""
+    """SGD with optional momentum: ``m = momentum * m - lr * g`` then
+    ``w += m`` (MXNet's form, not ``torch.optim.SGD``'s)."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
@@ -184,18 +231,25 @@ class SGD(Optimizer):
             return None
         return torch.zeros_like(_tensor(weight))
 
-    def _leaf_step(self, w, g, state, t, lr, wd):
-        g = self._preprocess(g, w, wd)
-        if state is None:
-            return w - lr * g, None
-        m = self.momentum * state - lr * g
-        return w + m, m
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None):
+        step = self._preprocess(gs, ws, wds)
+        self._scale_lr_(step, lrs, lr_scale)
+        if states[0] is None:
+            torch._foreach_sub_(ws, step)
+            return
+        torch._foreach_mul_(states, self.momentum)
+        torch._foreach_sub_(states, step)
+        torch._foreach_add_(ws, states)
+
+    def pure_step(self, ws, gs, states, t, lr, lr_mults, wds):
+        self._leaf_step(ws, gs, states, None, lr_mults, wds, lr_scale=lr)
 
 
 @register
 class Adam(Optimizer):
     """Adam; the bias correction is a host-side transform of the learning
-    rate (``mxnet_tpu/optimizer.py:664-676``)."""
+    rate (``mxnet_tpu/optimizer.py:664-676``), computed on the device from
+    the step count in :meth:`pure_step`."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
@@ -215,13 +269,26 @@ class Adam(Optimizer):
         lr = lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
         return lr, self._get_wd(index)
 
-    def _leaf_step(self, w, g, state, t, lr, wd):
-        b1, b2, eps = self.beta1, self.beta2, self.epsilon
-        m, v = state
-        g = self._preprocess_wd_in_clip(g, w, wd)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        return w - lr * m / (torch.sqrt(v) + eps), (m, v)
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None):
+        b1, b2 = self.beta1, self.beta2
+        ms = [s[0] for s in states]
+        vs = [s[1] for s in states]
+        gs = self._preprocess_wd_in_clip(gs, ws, wds)
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, gs, alpha=1 - b1)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+        denom = torch._foreach_sqrt(vs)
+        torch._foreach_add_(denom, self.epsilon)
+        step = torch._foreach_div(ms, denom)
+        self._scale_lr_(step, lrs, lr_scale)
+        torch._foreach_sub_(ws, step)
+
+    def pure_step(self, ws, gs, states, t, lr, lr_mults, wds):
+        b1, b2 = self.beta1, self.beta2
+        scale = lr * torch.sqrt(1.0 - torch.pow(b2, t)) \
+            / (1.0 - torch.pow(b1, t))
+        self._leaf_step(ws, gs, states, None, lr_mults, wds, lr_scale=scale)
 
 
 class Updater(object):

@@ -8,14 +8,17 @@ of a CUDA graph (:class:`~mxnet_tpu_torch.serving.DecodeEngine`):
   reports by hand, at its site (``mxnet_recompiles_total{site=}``), and
   its wall seconds (``mxnet_compile_seconds_total{site=}``);
 * :func:`set_steady_state_recompiles` is the serving-facing gauge: after
-  ``warmup()`` it must stay 0.
+  ``warmup()`` it must stay 0;
+* ``OPT_DISPATCHES`` counts optimizer updates by path (``fused``: one
+  call over every parameter; ``perparam``: one a parameter), as the JAX
+  package's counter of that name.
 """
 from __future__ import annotations
 
 from . import registry as _registry
 
 __all__ = ["RECOMPILES", "COMPILE_SECONDS", "STEADY_STATE_RECOMPILES",
-           "note_recompile", "set_steady_state_recompiles"]
+           "OPT_DISPATCHES", "note_recompile", "set_steady_state_recompiles"]
 
 RECOMPILES = _registry.counter(
     "mxnet_recompiles_total",
@@ -32,6 +35,13 @@ STEADY_STATE_RECOMPILES = _registry.gauge(
     "recompiles after warmup at a site that promised compile-once "
     "(serving asserts 0)",
     labels=("site",))
+
+
+OPT_DISPATCHES = _registry.counter(
+    "mxnet_optimizer_update_dispatches_total",
+    "optimizer-update calls by path: perparam = one kernel call per "
+    "parameter, fused = one call over every parameter of a step",
+    labels=("path",))
 
 
 def note_recompile(site: str, count: int = 1, seconds: float = 0.0):
