@@ -119,12 +119,48 @@ Phases, each printing one line of its own (any failure exits non-zero):
     67 TFLOP/s); then ``InferStep.multi_call`` at K = 16 (img/s);
 20. resnet_profile: torch.profiler over 5 steps of the eager path
     (``autograd.record``, ``backward``, ``Trainer.step`` through the fused
-    apply) and of the captured ``TrainStep``: wall and device-busy ms a
+    apply), of the captured ``TrainStep``, and of the captured
+    ``TrainStep`` of the net cast to bfloat16: wall and device-busy ms a
     step, busy share, device operations and host launches a step, the top
-    device operations. ``python3 chip_smoke.py --resnet`` runs phases
-    17-20 only; ``--profiles`` builds the kernels and runs train_profile
-    and ssd_profile only (to compare two checkouts in one call, copy the
-    script into each and run it there).
+    device operations;
+21. resnet_bf16_parity: the same net cast to bfloat16 (``Block.cast``):
+    one captured bf16 ``TrainStep`` step against the same step run
+    eagerly from the same weights (loss, every weight, momentum and BN
+    statistic within BF16_RTOL of the tensor's largest magnitude), then
+    one step of ``trainplane.TrainPlane`` under ``MXNET_TRAIN_DTYPE=bf16``
+    on its graph plane against the same step on its eager plane
+    (``MXNET_TRAINSTEP=0``): per-sample losses, weights and the float32
+    masters, the same tolerance;
+22. resnet_bf16_train: bench.py's ``train_bf16``, ``TrainStep.multi_call``
+    of the bf16 net at K = 16, batch 32, timed as resnet_train and held to
+    the same checks: ms a step, img/s, the share of the step's bf16 bound
+    (its FLOPs over 989 TFLOP/s), peak memory; then
+    resnet_bf16_infer: ``InferStep.multi_call`` in bf16 (img/s);
+23. resnet_percall: bench.py's ``train_percall`` and
+    ``infer_fp32_percall``, ``TrainStep.__call__`` and
+    ``InferStep.__call__`` at batch 32, fp32 (img/s);
+24. resnet_fused_opt: bench.py's ``train_fused_opt``, the hybridized net
+    under the eager record / backward / ``Trainer.step`` loop at batch 32:
+    img/s and ``OPT_DISPATCHES`` a step (exactly one fused dispatch a
+    step, or the phase fails);
+25. train_plane_bf16: bench.py's ``mfu_train_bf16``, ``TrainPlane`` under
+    ``MXNET_TRAIN_DTYPE=bf16`` (fp32 master weights) at batches 32, 64,
+    128 and 256: img/s, the share of the bf16 bound (22.91 GFLOP an image,
+    counted in resnet_parity, at 989 TFLOP/s) and peak memory a batch;
+    bench's gate fails the run unless the plane is ``graph``, the timed
+    window counts exactly one ``STEP_DISPATCHES{plane="graph"}`` a step
+    and no ``OPT_DISPATCHES``, no demotion was counted, the weights are
+    bf16 and the masters fp32;
+26. remat_memory: ``TrainStep(remat=False)`` and ``TrainStep(remat=True)``
+    on the same fp32 net and batch: ``memory_analysis()``'s
+    ``temp_size_in_bytes`` of each (the step's peak above what was
+    resident, measured in the eager pass before the capture) and their
+    losses, which must agree within RESNET_TOL.
+
+``python3 chip_smoke.py --resnet`` runs phases 17-26 only;
+``--profiles`` builds the kernels and runs train_profile and ssd_profile
+only (to compare two checkouts in one call, copy the script into each
+and run it there).
 
 The training phases' optimizer updates (train_profile, ssd_profile) run
 through the fused apply; their lines count the optimizer dispatches of
@@ -278,6 +314,12 @@ RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9}
 # accumulate with atomics
 RESNET_TOL = 1e-4
 RESNET_TRAIN_S, RESNET_INFER_S = 5.0, 2.0
+# bf16: one bfloat16 rounding step, of the compared tensor's largest
+# magnitude (a captured step may run other cuDNN algorithms than the eager
+# one, so a weight may round the other way)
+BF16_RTOL = 2.0 ** -7
+RESNET_PERCALL_S = 3.0
+PLANE_BATCHES, PLANE_S = (32, 64, 128, 256), 2.5
 
 
 def fail(msg):
@@ -2537,7 +2579,7 @@ def resnet_profile(steps=5):
     """Where a resnet50_v1 training step's time goes at bench.py's shapes,
     traced with torch.profiler: (a) the eager path, autograd.record,
     backward and Trainer.step through the fused apply; (b) the captured
-    TrainStep."""
+    TrainStep; (c) the captured TrainStep of the net cast to bf16."""
     from mxnet_tpu_torch import autograd, gluon, nd, parallel
 
     xs, ys = _resnet_data(1)
@@ -2568,7 +2610,375 @@ def resnet_profile(steps=5):
     for _ in range(3):
         step(x, y)
     out["captured"] = _device_profile(lambda: step(x, y), steps)
+    del step
+    xb = x.astype("bfloat16")
+    step = parallel.TrainStep(_resnet50_bf16(), lossfn, "sgd",
+                              parallel.device_mesh(1),
+                              optimizer_params=dict(RESNET_SGD))
+    for _ in range(3):
+        step(xb, y)
+    out["captured_bf16"] = _device_profile(lambda: step(xb, y), steps)
     phase("resnet_profile", model="resnet50_v1", batch=RESNET_BATCH, **out)
+
+
+def _bf16_err(a, b):
+    """max |a - b| over max |b|, as float32."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _resnet50_bf16(seed=0):
+    net = _resnet50(seed)
+    net.cast("bfloat16")
+    return net
+
+
+def _plane_run(batch, graph, xs, ys, steps=0, seconds=0.0):
+    """A fresh resnet50_v1 through ``TrainPlane`` under
+    MXNET_TRAIN_DTYPE=bf16 (``graph`` False: MXNET_TRAINSTEP=0): one step
+    (the activation and capture), then ``steps`` steps or steps for
+    ``seconds``; returns (plane, the first step's loss, steps timed, wall
+    s)."""
+    import torch
+
+    from mxnet_tpu_torch import gluon, nd, trainplane
+
+    env = {"MXNET_TRAIN_DTYPE": "bf16",
+           "MXNET_TRAINSTEP": "1" if graph else "0"}
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        net = _resnet50()
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                dict(RESNET_SGD))
+        plane = trainplane.TrainPlane(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                      trainer)
+        x, y = nd.array(xs[:batch]), nd.array(ys[:batch])
+        first = plane.step(x, y)
+        torch.cuda.synchronize()
+        n = 0
+        t0 = time.perf_counter()
+        while n < steps or time.perf_counter() - t0 < seconds:
+            plane.step(x, y)
+            n += 1
+        torch.cuda.synchronize()
+        return plane, first, n, time.perf_counter() - t0
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def resnet_bf16_parity():
+    """bf16 (``Block.cast``): one captured TrainStep step against the
+    same step run eagerly from the same weights; then the training
+    plane's graph step against its eager plane in bf16 mode."""
+    import torch
+
+    from mxnet_tpu_torch import gluon, nd, parallel
+
+    xs, ys = _resnet_data(1)
+    x, y = nd.array(xs[0]).astype("bfloat16"), nd.array(ys[0])
+    steps = [parallel.TrainStep(
+        _resnet50_bf16(), gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        parallel.device_mesh(1), optimizer_params=dict(RESNET_SGD),
+        capture=capture) for capture in (True, False)]
+    losses = [s(x, y)._data for s in steps]
+    if steps[0].compile_count != 1 or steps[0].graph_replays != 1:
+        fail("resnet_bf16_parity: %d captures, %d replays"
+             % (steps[0].compile_count, steps[0].graph_replays))
+    errs = {"loss": _bf16_err(losses[0], losses[1]), "weights": 0.0,
+            "momentum": 0.0, "moving_stats": 0.0}
+    dtypes = set()
+    for (n, v), w in zip(steps[0].params.items(),
+                         steps[1].params.values()):
+        key = "moving_stats" if n.endswith(("running_mean", "running_var")) \
+            else "weights"
+        errs[key] = max(errs[key], _bf16_err(v, w))
+        dtypes.add(str(v.dtype))
+    for a, b in zip(steps[0]._states, steps[1]._states):
+        errs["momentum"] = max(errs["momentum"], _bf16_err(a, b))
+        dtypes.add("state " + str(a.dtype))
+    loss = float(losses[0].float())
+    del steps
+    if not np.isfinite(loss) or max(errs.values()) > BF16_RTOL or \
+            dtypes != {"torch.bfloat16", "state torch.float32"}:
+        fail("resnet_bf16_parity: TrainStep captured vs eager: loss %.6g, "
+             "relative errors %s, dtypes %s" % (loss, errs, dtypes))
+    runs = [_plane_run(RESNET_BATCH, graph, xs[0], ys[0])
+            for graph in (True, False)]
+    (pg, lg, _, _), (pe, le, _, _) = runs
+    if pg.plane != "graph" or pe.plane != "eager":
+        fail("resnet_bf16_parity: planes %s / %s" % (pg.plane, pe.plane))
+    plane_errs = {"loss": _bf16_err(lg._data, le._data), "weights": 0.0,
+                  "masters": 0.0}
+    for pa, pb in zip(pg._net.collect_params().values(),
+                      pe._net.collect_params().values()):
+        plane_errs["weights"] = max(plane_errs["weights"], _bf16_err(
+            pa.data()._data, pb.data()._data))
+    sg, se = pg._trainer._updater.states, pe._trainer._updater.states
+    for i in sg:
+        plane_errs["masters"] = max(plane_errs["masters"],
+                                    _bf16_err(sg[i][0], se[i][0]))
+    if max(plane_errs.values()) > BF16_RTOL:
+        fail("resnet_bf16_parity: TrainPlane graph vs eager: relative "
+             "errors %s" % plane_errs)
+    del runs, pg, pe
+    torch.cuda.synchronize()
+    phase("resnet_bf16_parity", model="resnet50_v1", batch=RESNET_BATCH,
+          loss=loss, trainstep_rel_err=errs, plane_rel_err=plane_errs,
+          tol=BF16_RTOL)
+
+
+def _timed_calls(fn, seconds):
+    """Call ``fn`` for ``seconds`` (after one warm call), ending in a
+    synchronize; returns (calls, wall s, the last result)."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    calls = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        out = fn()
+        calls += 1
+    torch.cuda.synchronize()
+    return calls, time.perf_counter() - t0, out
+
+
+def resnet_bf16_train(flops):
+    """bench.py's train_bf16 and infer_bf16: the bf16 net's
+    TrainStep.multi_call at K = 16, batch 32, and InferStep.multi_call,
+    as resnet_train runs the fp32 one."""
+    import torch
+
+    from mxnet_tpu_torch import gluon, nd, parallel
+
+    xs, ys = _resnet_data(RESNET_K)
+    data, labels = nd.array(xs).astype("bfloat16"), nd.array(ys)
+    del xs
+    net = _resnet50_bf16()
+    step = parallel.TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              "sgd", parallel.device_mesh(1),
+                              optimizer_params=dict(RESNET_SGD))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step.multi_call(data, labels)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    calls = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < RESNET_TRAIN_S:
+        losses.append(step.multi_call(data, labels))
+        calls += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    means = [float(v._data.float().mean()) for v in losses]
+    if step.compile_count != 1 or step.steady_state_recompiles != 0:
+        fail("resnet_bf16_train: %d captures, %d steady-state recompiles"
+             % (step.compile_count, step.steady_state_recompiles))
+    if not all(np.isfinite(means)) or not means[-1] < means[0]:
+        fail("resnet_bf16_train: call mean losses %s" % means)
+    if any(v.dtype != torch.bfloat16 for v in step.params.values()):
+        fail("resnet_bf16_train: a weight left bfloat16")
+    step_ms = wall * 1e3 / (calls * RESNET_K)
+    bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+    phase("resnet_bf16_train", model="resnet50_v1", batch=RESNET_BATCH,
+          side=RESNET_SIDE, k=RESNET_K, calls=calls, wall_s=wall,
+          img_per_s=RESNET_K * RESNET_BATCH * calls / wall, step_ms=step_ms,
+          warm_call_s=warm_s, compile_count=step.compile_count,
+          steady_state_recompiles=step.steady_state_recompiles,
+          graph_replays=step.graph_replays, call_mean_losses=means,
+          peak_memory_gb=peak / 1e9, step_gflop=flops / 1e9,
+          bf16_bound_ms=bound_ms, bound_share=bound_ms / step_ms)
+    step.copy_to_net()
+    del step
+    infer = parallel.InferStep(net, parallel.device_mesh(1))
+    calls, wall, out = _timed_calls(lambda: infer.multi_call(data),
+                                    RESNET_INFER_S)
+    if out._data.dtype != torch.bfloat16 or \
+            not torch.isfinite(out._data).all() or \
+            infer.steady_state_recompiles != 0:
+        fail("resnet_bf16_infer: output not bfloat16 and finite, or "
+             "recaptured")
+    phase("resnet_bf16_infer", model="resnet50_v1", batch=RESNET_BATCH,
+          k=RESNET_K, calls=calls, wall_s=wall,
+          img_per_s=RESNET_K * RESNET_BATCH * calls / wall,
+          compile_count=infer.compile_count)
+
+
+def resnet_percall():
+    """bench.py's train_percall and infer_fp32_percall: one
+    TrainStep.__call__ and one InferStep.__call__ a batch, fp32."""
+    from mxnet_tpu_torch import gluon, nd, parallel
+
+    xs, ys = _resnet_data(1)
+    x, y = nd.array(xs[0]), nd.array(ys[0])
+    net = _resnet50()
+    step = parallel.TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              "sgd", parallel.device_mesh(1),
+                              optimizer_params=dict(RESNET_SGD))
+    t_calls, t_wall, loss = _timed_calls(lambda: step(x, y),
+                                         RESNET_PERCALL_S)
+    if step.steady_state_recompiles != 0 or \
+            not np.isfinite(float(loss.asnumpy())):
+        fail("resnet_percall: the step recaptured or its loss is not "
+             "finite")
+    step.copy_to_net()
+    del step
+    infer = parallel.InferStep(net, parallel.device_mesh(1))
+    i_calls, i_wall, _ = _timed_calls(lambda: infer(x), RESNET_PERCALL_S)
+    phase("resnet_percall", model="resnet50_v1", batch=RESNET_BATCH,
+          train_calls=t_calls, train_img_per_s=RESNET_BATCH * t_calls
+          / t_wall, train_step_ms=t_wall * 1e3 / t_calls,
+          infer_calls=i_calls,
+          infer_img_per_s=RESNET_BATCH * i_calls / i_wall)
+
+
+def resnet_fused_opt():
+    """bench.py's train_fused_opt: the hybridized fp32 net under the eager
+    loop (record, backward, Trainer.step) at batch 32; exactly one fused
+    optimizer dispatch a step."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    xs, ys = _resnet_data(1)
+    x, y = nd.array(xs[0]), nd.array(ys[0])
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    net = _resnet50()
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(RESNET_SGD),
+                            kvstore="device")
+    steps = [0]
+
+    def step():
+        steps[0] += 1
+        with autograd.record():
+            loss = lossfn(net(x), y)
+        loss.backward()
+        trainer.step(RESNET_BATCH)
+        return loss
+
+    step()
+    before = _opt_dispatches()
+    steps[0] = 0
+    calls, wall, loss = _timed_calls(step, RESNET_PERCALL_S)
+    after = _opt_dispatches()
+    per_step = {k: (after[k] - before[k]) / steps[0] for k in after}
+    if per_step != {"fused": 1.0, "perparam": 0.0}:
+        fail("resnet_fused_opt: optimizer dispatches a step %s" % per_step)
+    if not np.isfinite(loss.asnumpy()).all():
+        fail("resnet_fused_opt: loss not finite")
+    phase("resnet_fused_opt", model="resnet50_v1", batch=RESNET_BATCH,
+          steps=calls, wall_s=wall, img_per_s=RESNET_BATCH * calls / wall,
+          step_ms=wall * 1e3 / calls, opt_dispatches_per_step=per_step)
+
+
+def train_plane_bf16(flops):
+    """bench.py's mfu_train_bf16: TrainPlane in bf16 mode (fp32 master
+    weights) at batches 32, 64, 128 and 256, with bench's gate
+    (``bench.py:2458-2470``): the graph plane, exactly one step dispatch
+    a step and no optimizer dispatch in the timed window."""
+    import torch
+
+    from mxnet_tpu_torch import telemetry
+
+    gflop_img = flops / RESNET_BATCH / 1e9
+    rng = np.random.RandomState(0)
+    xs = rng.rand(max(PLANE_BATCHES), 3, RESNET_SIDE,
+                  RESNET_SIDE).astype(np.float32)
+    ys = rng.randint(0, RESNET_CLASSES, (max(PLANE_BATCHES),))
+    sweep = []
+    for batch in PLANE_BATCHES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fb0 = sum(r["value"] for r in
+                  telemetry.TRAINPLANE_FALLBACKS.series())
+        g0 = telemetry.STEP_DISPATCHES.value(plane="graph")
+        o0 = _opt_dispatches()
+        plane, first, n, wall = _plane_run(batch, True, xs, ys,
+                                           steps=3, seconds=PLANE_S)
+        graph_steps = telemetry.STEP_DISPATCHES.value(plane="graph") - g0
+        o1 = _opt_dispatches()
+        opt_steps = sum(o1[k] - o0[k] for k in o1)
+        fb = sum(r["value"] for r in
+                 telemetry.TRAINPLANE_FALLBACKS.series()) - fb0
+        states = plane._trainer._updater.states
+        weights_bf16 = all(p.data()._data.dtype == torch.bfloat16
+                           for p in plane._net.collect_params().values())
+        masters_fp32 = all(s[0].dtype == torch.float32
+                           for s in states.values())
+        entry = dict(batch=batch, steps=n, wall_s=wall,
+                     img_per_s=batch * n / wall,
+                     step_ms=wall * 1e3 / n, plane=plane.plane,
+                     dispatches_per_step=(graph_steps - 1) / n,
+                     opt_dispatches=opt_steps, fallbacks=fb,
+                     compile_count=plane.compile_count,
+                     first_loss=float(first._data.float().mean()),
+                     peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        bound_ms = gflop_img * batch / (PEAK_BF16_FLOPS / 1e9) * 1e3
+        entry.update(bf16_bound_ms=bound_ms,
+                     bound_share=bound_ms / entry["step_ms"])
+        sweep.append(entry)
+        del plane, states
+        if entry["plane"] != "graph" or entry["dispatches_per_step"] != 1.0 \
+                or opt_steps != 0 or fb != 0 or entry["compile_count"] != 1 \
+                or not (weights_bf16 and masters_fp32) \
+                or not np.isfinite(entry["first_loss"]):
+            fail("train_plane_bf16: bench's gate at batch %d: %s (weights "
+                 "bf16 %s, masters fp32 %s)"
+                 % (batch, entry, weights_bf16, masters_fp32))
+    best = max(sweep, key=lambda e: e["img_per_s"])
+    phase("train_plane_bf16", model="resnet50_v1", gflop_per_img=gflop_img,
+          sweep=sweep, best_batch=best["batch"],
+          best_img_per_s=best["img_per_s"])
+
+
+def remat_memory():
+    """TrainStep(remat=False) against TrainStep(remat=True) on the same
+    fp32 net and batch: memory_analysis()'s temp of each and the
+    losses."""
+    import torch
+
+    from mxnet_tpu_torch import gluon, nd, parallel
+
+    xs, ys = _resnet_data(1)
+    x, y = nd.array(xs[0]), nd.array(ys[0])
+    out = {}
+    for remat in (False, True):
+        step = parallel.TrainStep(
+            _resnet50(), gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            parallel.device_mesh(1), optimizer_params=dict(RESNET_SGD),
+            remat=remat)
+        loss = float(step(x, y).asnumpy())
+        stats = step.memory_analysis()
+        out[remat] = dict(loss=loss, temp_gb=stats.temp_size_in_bytes / 1e9,
+                          argument_gb=stats.argument_size_in_bytes / 1e9,
+                          alias_gb=stats.alias_size_in_bytes / 1e9)
+        del step
+        torch.cuda.synchronize()
+    err = abs(out[True]["loss"] - out[False]["loss"])
+    if err > RESNET_TOL or not np.isfinite(out[False]["loss"]):
+        fail("remat_memory: losses %s" % out)
+    phase("remat_memory", model="resnet50_v1", batch=RESNET_BATCH,
+          no_remat=out[False], remat=out[True], loss_abs_err=err,
+          temp_ratio=out[True]["temp_gb"] / out[False]["temp_gb"])
+
+
+def resnet_phases():
+    """Every ResNet phase, old and new."""
+    fused_apply()
+    flops = resnet_parity()
+    resnet_train(flops)
+    resnet_profile()
+    resnet_bf16_parity()
+    resnet_bf16_train(flops)
+    resnet_percall()
+    resnet_fused_opt()
+    train_plane_bf16(flops)
+    remat_memory()
 
 
 def main():
@@ -2622,11 +3032,9 @@ def main():
         chunked_serve(model, params, contract=False)
         return 0
     if sys.argv[1:] == ["--resnet"]:
-        # only the ResNet slice's phases (no kernel is built: the path
+        # only the ResNet slices' phases (no kernel is built: the path
         # runs none)
-        fused_apply()
-        resnet_train(resnet_parity())
-        resnet_profile()
+        resnet_phases()
         return 0
     if sys.argv[1:] == ["--nms-time"]:
         # only the NMS times, through the public wrapper of the package
@@ -2682,10 +3090,7 @@ def main():
     nms_entry["launches"] = ssd_train()
     ssd_parity()
     ssd_profile()
-    fused_apply()
-    flops = resnet_parity()
-    resnet_train(flops)
-    resnet_profile()
+    resnet_phases()
     rtc_err = rtc_check()
     custom_softmax()
     rtc_launches = custom_rtc()

@@ -26,8 +26,11 @@ whose ``CudaModule`` compiles the user's CUDA-C kernels with NVRTC,
 ``callback``, ``Module.fit``; ``example/numpy_ops/``), and the ResNet
 training path of the JAX package's ``bench.py`` (``fastpath``'s fused
 optimizer apply, BatchNorm and the conv layers, ``gluon.model_zoo``'s
-ResNets, and ``parallel.TrainStep``/``InferStep`` captured as CUDA
-graphs; it runs no hand-written kernel). The training
+ResNets, ``parallel.TrainStep``/``InferStep`` captured as CUDA graphs,
+in float32 and bfloat16, with ``remat`` and ``memory_analysis``;
+``optimizer``'s ``multi_precision`` and ``lr_scheduler``; and
+``trainplane.TrainPlane``, the whole Trainer step as one CUDA graph; it
+runs no hand-written kernel). The training
 paths follow MXNet's entry points, with one departure: the default
 context is the card (``gpu(0)``), and without one, code that does not
 ask for ``mx.cpu()`` raises.
@@ -37,6 +40,7 @@ from __future__ import annotations
 from . import autograd, gluon, initializer, ndarray, optimizer, random
 from . import attribute, executor, image, io, model, module, recordio
 from . import callback, contrib, fastpath, metric, operator, parallel, rtc
+from . import lr_scheduler, trainplane
 from . import ndarray as nd
 from . import symbol
 from . import symbol as sym
@@ -48,4 +52,5 @@ __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
            "autograd", "gluon", "initializer", "nd", "ndarray", "optimizer",
            "random", "attribute", "executor", "image", "io", "model",
            "module", "recordio", "sym", "symbol", "callback", "contrib",
-           "metric", "operator", "rtc", "fastpath", "parallel"]
+           "metric", "operator", "rtc", "fastpath", "parallel",
+           "lr_scheduler", "trainplane"]

@@ -23,6 +23,7 @@ tape calls the user's backward.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional
 
@@ -39,6 +40,7 @@ class _State(threading.local):
     def __init__(self):
         self.recording = False
         self.training = False
+        self.recomputing = False
 
 
 _STATE = _State()
@@ -46,6 +48,26 @@ _STATE = _State()
 
 def is_recording() -> bool:
     return _STATE.recording
+
+
+def is_recomputing() -> bool:
+    """Whether the forward is being run again for its backward
+    (``parallel.TrainStep(remat=True)``): a layer's side effects, such as
+    BatchNorm's moving statistics, happened in the first run and must not
+    happen twice."""
+    return _STATE.recomputing
+
+
+@contextlib.contextmanager
+def _recompute_scope(training: bool):
+    """Record, in train mode ``training``, flagged as a recompute."""
+    prev = (_STATE.recording, _STATE.training, _STATE.recomputing)
+    _STATE.recording, _STATE.training, _STATE.recomputing = \
+        True, training, True
+    try:
+        yield
+    finally:
+        _STATE.recording, _STATE.training, _STATE.recomputing = prev
 
 
 def is_training() -> bool:

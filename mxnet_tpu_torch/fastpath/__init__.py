@@ -8,16 +8,20 @@ a step, where the per-parameter loop calls it once per parameter.
 :func:`apply_updater`; ``MXNET_FASTPATH=0`` brings back the per-parameter
 loop.
 
+:func:`tree_kernel` is the kernel's composition over the parameters,
+``multi_precision`` pairs included; ``trainplane`` captures it inside its
+whole step.
+
 Not ported yet: buffer donation (the port updates in place, so there is
 no stale handle to guard), ``bucketing``, ``cache`` and ``zero``.
 """
 from __future__ import annotations
 
 from ..base import get_env
-from .fused import FusedApplyError, apply_updater, fused_apply
+from .fused import FusedApplyError, apply_updater, fused_apply, tree_kernel
 
 __all__ = ["enabled", "supports", "fused_apply", "apply_updater",
-           "FusedApplyError"]
+           "tree_kernel", "FusedApplyError"]
 
 
 def enabled() -> bool:
@@ -28,8 +32,12 @@ def enabled() -> bool:
 
 def supports(optimizer, n_positions: int = 1) -> bool:
     """Whether ``optimizer`` can be fused for a caller holding
-    ``n_positions`` device positions. The JAX package declines more than
-    one position for optimizers whose host prologue is order-sensitive
-    (Nadam, SGLD, an ``lr_scheduler``); the port has none of those, so
-    every optimizer with a list kernel fuses."""
-    return bool(getattr(optimizer, "fastpath_capable", False))
+    ``n_positions`` device positions. Optimizers whose host prologue is
+    order-sensitive (an ``lr_scheduler``, which reads the global
+    ``num_update``) fuse for one position only, as in the JAX package:
+    the fused path would reorder their prologue calls across positions."""
+    if not getattr(optimizer, "fastpath_capable", False):
+        return False
+    if n_positions <= 1:
+        return True
+    return getattr(optimizer, "lr_scheduler", None) is None

@@ -3,10 +3,19 @@
 and the eager ``hybrid_forward(F, ...)`` call with ``F`` the port's
 ``nd``).
 
-``hybridize()`` is not ported yet: the JAX package compiles the block
-into one jitted module there (its CachedOp), and the port's counterpart,
-a captured step, is later work. It raises rather than quietly running
-the eager path under the compiled path's name.
+``hybridize(active, static_alloc, static_shape, **kw)`` records its
+flags, as the JAX package's does (``mxnet_tpu/gluon/block.py:443-456``),
+and a hybridized block then runs the same eager torch calls as before,
+so it gives the same bits. The JAX package compiles a hybridized block
+into one jitted module; the port's
+compiled paths are whole steps instead, ``parallel.TrainStep``,
+``parallel.InferStep`` and ``trainplane.TrainPlane``, each a CUDA graph.
+A graph per block call would not do: a graph's output buffer is written
+again by its next replay, while the caller may still hold the last
+output.
+
+``cast(dtype)`` casts every parameter of the block and its children, the
+BatchNorm moving statistics included.
 """
 from __future__ import annotations
 
@@ -147,9 +156,18 @@ class Block(object):
         self.collect_params().initialize(init, ctx, verbose, force_reinit)
 
     def hybridize(self, active=True, **kwargs):
-        raise MXNetError(
-            "hybridize() is not ported yet: the port runs blocks eagerly "
-            "(the compiled whole-step path is later work)")
+        """Hybridize every child (a plain Block has nothing of its own to
+        hybridize)."""
+        for cld in self._children.values():
+            cld.hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        """Cast every parameter of this block and its children to
+        ``dtype``."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for _, param in self.params.items():
+            param.cast(dtype)
 
     def __call__(self, *args):
         return self.forward(*args)
@@ -161,7 +179,25 @@ class Block(object):
 class HybridBlock(Block):
     """Block written as ``hybrid_forward(self, F, x, *args, **params)``,
     with ``F`` the ``nd`` namespace and the block's parameters arriving as
-    keyword NDArrays, as in MXNet. Runs eagerly."""
+    keyword NDArrays, as in MXNet. Runs eagerly, hybridized or not (see
+    the module's docstring)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._flags = {}
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Record the flags (``static_alloc`` and ``static_shape`` are kept
+        for MXNet's API: a captured step is static by construction), then
+        hybridize the children. A port block caches no compiled path, so
+        there is none to clear."""
+        self._active = active
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape, **kwargs)
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
 
     def _eager_forward(self, x, *args):
         from .. import ndarray as F

@@ -127,7 +127,10 @@ class BatchNorm(HybridBlock):
     batch``, with the batch's biased variance, as in the JAX package. They
     are written in place into the parameters' tensors, so their addresses
     stay fixed: a captured step (``parallel.TrainStep``) replays the
-    update into the same memory."""
+    update into the same memory. In bfloat16 (after ``cast``) the batch
+    statistics and the moving ones are bfloat16, as ``jnp.mean`` and
+    ``jnp.var`` of bfloat16 give. The recompute of a ``remat`` step leaves
+    them alone: the first forward moved them."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -167,7 +170,8 @@ class BatchNorm(HybridBlock):
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         y, mean, var = F.invoke("BatchNorm", x, gamma, beta, running_mean,
                                 running_var, **self._kwargs)
-        if autograd.is_training() and not self._kwargs["use_global_stats"]:
+        if autograd.is_training() and not self._kwargs["use_global_stats"] \
+                and not autograd.is_recomputing():
             m = self._momentum
             with torch.no_grad():
                 for run, batch in ((running_mean, mean),

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import autograd, initializer as init_mod
-from ..base import MXNetError, np_dtype
+from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import Context, cpu, current_context
 from ..ndarray import ndarray as nd_mod
 from ..ndarray.ndarray import NDArray
@@ -181,8 +181,15 @@ class Parameter(object):
                                  % self.name)
             self._deferred_init = self._deferred_init[:3] + (data,)
             return
-        src = data._data if isinstance(data, NDArray) else torch.from_numpy(
-            np.array(data, np.dtype(np_dtype(self.dtype))))
+        if isinstance(data, NDArray):
+            src = data._data
+        elif np_dtype(self.dtype) is torch.bfloat16:
+            # numpy has no bfloat16: a bfloat16 array (ml_dtypes, as the
+            # JAX package's asnumpy gives) goes through float32 exactly
+            src = torch.from_numpy(np.array(data, np.float32))
+        else:
+            src = torch.from_numpy(np.array(data, np.dtype(
+                np_dtype(self.dtype))))
         for arr in self._data.values():
             with torch.no_grad():
                 arr._data.copy_(src.to(arr._data.device))
@@ -215,6 +222,25 @@ class Parameter(object):
             return
         for g in self._grad.values():
             g._data = torch.zeros_like(g._data)
+
+    def cast(self, dtype):
+        """Cast the data and the gradient to ``dtype``
+        (``mxnet_tpu/gluon/parameter.py:299-308``); a parameter whose
+        initialization is deferred takes ``dtype`` when it is made. The
+        data is a new tensor: a captured step made before holds the old
+        one, so a cast comes before the step's first call."""
+        self.dtype = np_dtype(dtype)
+        if self._data is None:
+            return
+        tdtype = torch_dtype(dtype)
+        with autograd.pause(), torch.no_grad():
+            for arr in self._data.values():
+                arr._data = arr._data.detach().to(tdtype)
+                if arr._marked:
+                    nd_mod._make_leaf(arr, arr._grad_req)
+            if self._grad is not None:
+                for g in self._grad.values():
+                    g._data = g._data.to(tdtype)
 
 
 class ParameterDict(object):

@@ -9,6 +9,12 @@ registered ``fcompute`` on the tensors and wraps the outputs. While
 with torch autograd on, so the outputs carry torch's graph; otherwise it
 runs under ``torch.no_grad()``.
 
+Inside :func:`no_host_reads`, ``asnumpy`` (and so ``asscalar``,
+``float()`` and ``int()``) raises: a captured step cannot read a value
+back to the host, and ``trainplane`` runs its first pass under it on
+every device, so a forward that reads back is refused on the CPU as the
+card's capture refuses it.
+
 Rebinding follows the JAX package: in-place operators (``+=``) and
 ``out=`` rebind ``_data`` to a new tensor and never write into the old
 one, so an op recorded earlier keeps the value it saw (and torch's
@@ -17,6 +23,7 @@ version counter never fires). Only the optimizer writes in place, under
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import weakref
 from typing import List, Optional, Tuple
@@ -28,7 +35,21 @@ from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import Context, current_context, from_device
 from ..ops.registry import get_op
 
-__all__ = ["NDArray", "invoke", "array", "zeros", "ones"]
+__all__ = ["NDArray", "invoke", "array", "zeros", "ones", "no_host_reads"]
+
+_HOST_READS = threading.local()
+
+
+@contextlib.contextmanager
+def no_host_reads(what):
+    """Make a read back to the host (``asnumpy``) raise inside, naming
+    ``what``."""
+    prev = getattr(_HOST_READS, "refused_by", None)
+    _HOST_READS.refused_by = what
+    try:
+        yield
+    finally:
+        _HOST_READS.refused_by = prev
 
 
 class NDArray:
@@ -76,6 +97,10 @@ class NDArray:
 
     # -- conversion / sync ------------------------------------------------
     def asnumpy(self) -> np.ndarray:
+        what = getattr(_HOST_READS, "refused_by", None)
+        if what is not None:
+            raise MXNetError("%s: the step reads a value back to the host, "
+                             "which a captured step cannot do" % what)
         t = self._data.detach()
         if t.dtype == torch.bfloat16:  # numpy has no bfloat16
             t = t.float()

@@ -123,6 +123,10 @@ def dropout(attrs, data):
     if attrs.p <= 0 or (not autograd.is_training()
                         and attrs.mode != "always"):
         return data
+    if autograd.is_recomputing():
+        raise MXNetError("Dropout under remat is not ported yet: its "
+                         "recompute would draw another mask from the "
+                         "port's generator")
     shape = data.shape
     if attrs.axes:
         axes = {a % data.dim() for a in attrs.axes}

@@ -14,10 +14,24 @@ per-parameter ``_leaf_step`` between them). :meth:`Optimizer.pure_step`
 is the same kernel with the learning rate and step count as 0-d device
 tensors: ``parallel.TrainStep`` captures it inside a CUDA graph.
 
-Departure: the weights and states are written in place, under
-``torch.no_grad()``, where the JAX package rebinds new buffers. The other
-optimizers of the JAX module are not ported yet: :func:`create` raises
-for them.
+``multi_precision`` keeps a float32 master copy of every float16 or
+bfloat16 weight (:func:`create_state_multi_precision`,
+:meth:`Optimizer.update_multi_precision`, ``mxnet_tpu/optimizer.py:
+58-110``): the kernel steps the master with the float32-cast gradient,
+and the weight is the master cast back. The states are float32 too
+(created from the master, as the reference MXNet's are).
+
+Where a float16 or bfloat16 step meets the learning rate the kernel
+promotes it to float32 first (:meth:`Optimizer._scale_lr`): JAX computes
+``lr * g`` in float32 when ``lr`` is a float32 array, as it is in every
+JAX update path, and a 0-d float32 tensor would not promote a bfloat16
+tensor in torch.
+
+Departures: the weights and states are written in place, under
+``torch.no_grad()``, where the JAX package rebinds new buffers, so a
+bfloat16 weight updated without ``multi_precision`` stays bfloat16 (the
+JAX update hands back a float32 one). The other optimizers of the JAX
+module are not ported yet: :func:`create` raises for them.
 """
 from __future__ import annotations
 
@@ -30,11 +44,71 @@ from .base import MXNetError
 from .telemetry import OPT_DISPATCHES
 
 __all__ = ["Optimizer", "register", "create", "get_updater", "Updater",
-           "SGD", "Adam"]
+           "SGD", "Adam", "ensure_mp_state"]
+
+_LOW_PRECISION = (torch.float16, torch.bfloat16)
 
 
 def _tensor(x):
     return getattr(x, "_data", x)
+
+
+def _is_mp_dtype(dtype):
+    """Dtypes that keep a float32 master copy under ``multi_precision``:
+    float16 and bfloat16."""
+    return dtype in _LOW_PRECISION
+
+
+def _structure(state):
+    """A state's layout: None, "tensor", or a tuple of layouts."""
+    if isinstance(state, (tuple, list)):
+        return tuple(_structure(s) for s in state)
+    return None if state is None else "tensor"
+
+
+def _base_state_structure(optimizer, index, weight):
+    """The layout ``create_state`` gives this weight, from a meta tensor
+    (no memory), cached per (shape, dtype) on the optimizer."""
+    w = _tensor(weight)
+    cache = optimizer.__dict__.setdefault("_state_struct_cache", {})
+    key = (tuple(w.shape), w.dtype)
+    if key not in cache:
+        cache[key] = _structure(optimizer.create_state(
+            index, torch.empty(w.shape, dtype=w.dtype, device="meta")))
+    return cache[key]
+
+
+def _is_mp_pair(optimizer, index, weight, state):
+    """Whether ``state`` is a ``(float32 master, base state)`` pair for
+    this weight, the layout :meth:`Optimizer.create_state_multi_precision`
+    makes. Adam's plain ``(m, v)`` is also a pair of float32 tensors of the
+    weight's shape; it is told apart by its layout: in a true pair the
+    second element has ``create_state``'s layout and the whole does not."""
+    w = _tensor(weight)
+    if not (isinstance(state, tuple) and len(state) == 2
+            and isinstance(state[0], torch.Tensor)
+            and state[0].dtype == torch.float32
+            and tuple(state[0].shape) == tuple(w.shape)):
+        return False
+    expected = _base_state_structure(optimizer, index, weight)
+    second = _structure(state[1])
+    if _structure(state) == expected and second != expected:
+        return False  # the state is a plain create_state tuple
+    return second == expected
+
+
+def ensure_mp_state(optimizer, index, weight, state):
+    """Adopt the master layout for a low-precision weight whose state
+    predates it (a run resumed onto weights cast after their states were
+    made): the current weight becomes the master, the state the base.
+    Unchanged when ``multi_precision`` does not apply or the state is a
+    pair already."""
+    w = _tensor(weight)
+    if not (optimizer.multi_precision and _is_mp_dtype(w.dtype)):
+        return state
+    if _is_mp_pair(optimizer, index, weight, state):
+        return state
+    return (w.detach().to(torch.float32, copy=True), state)
 
 
 class Optimizer(object):
@@ -57,12 +131,12 @@ class Optimizer(object):
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  begin_num_update=0, multi_precision=False, param_dict=None):
-        if lr_scheduler is not None:
-            raise MXNetError("lr_scheduler is not ported yet")
-        if multi_precision:
-            raise MXNetError("multi_precision is not ported yet")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.multi_precision = multi_precision
         self.wd = wd
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
@@ -84,6 +158,16 @@ class Optimizer(object):
         """Optimizer state for one parameter (None / tensor / tuple)."""
         return None
 
+    def create_state_multi_precision(self, index, weight):
+        """A float16 or bfloat16 weight under ``multi_precision`` gets
+        ``(float32 master, state)``, the state made from the master;
+        any other weight its plain state."""
+        w = _tensor(weight)
+        if self.multi_precision and _is_mp_dtype(w.dtype):
+            master = w.detach().to(torch.float32, copy=True)
+            return (master, self.create_state(index, master))
+        return self.create_state(index, weight)
+
     # -- the update protocol ----------------------------------------------
     def _host_scalars(self, index):
         """``(lr, wd)`` for this parameter's update, after
@@ -92,9 +176,11 @@ class Optimizer(object):
 
     def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None):
         """The kernel over parallel lists: weight tensors ``ws`` and their
-        states updated in place from gradients ``gs``; ``ts``, ``lrs`` and
-        ``wds`` are per-parameter Python numbers, and ``lr_scale`` an
-        optional 0-d device tensor multiplying every learning rate."""
+        states updated in place from gradients ``gs``; ``ts`` and ``lrs``
+        are per-parameter Python numbers (or 0-d float32 device tensors
+        holding them: ``trainplane`` captures the kernel so), ``wds``
+        Python numbers, and ``lr_scale`` an optional 0-d device tensor
+        multiplying every learning rate."""
         raise NotImplementedError("%s does not implement _leaf_step"
                                   % self.__class__.__name__)
 
@@ -128,12 +214,32 @@ class Optimizer(object):
                             [lr], [wd])
         return state
 
+    def update_multi_precision(self, index, weight, grad, state):
+        """A float16 or bfloat16 weight under ``multi_precision``: the
+        update steps the float32 master with the float32-cast gradient,
+        then the weight becomes the master cast back. Any other weight:
+        :meth:`update`. Returns the state."""
+        w = _tensor(weight)
+        if self.multi_precision and _is_mp_dtype(w.dtype):
+            master, base = ensure_mp_state(self, index, weight, state)
+            base = self.update(index, master,
+                               _tensor(grad).to(torch.float32), base)
+            with torch.no_grad():
+                w.copy_(master)
+            return (master, base)
+        return self.update(index, weight, grad, state)
+
     # -- lr / wd plumbing -------------------------------------------------
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError("LRScheduler of the optimizer has already been "
+                             "defined.")
         self.lr = lr
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     def set_wd_mult(self, args_wd_mult):
@@ -164,7 +270,10 @@ class Optimizer(object):
                 self._index_update_count[idx], t)
 
     def _get_lr(self, index):
-        lr = self.lr
+        if self.lr_scheduler is not None:
+            lr = self.lr_scheduler(self.num_update)
+        else:
+            lr = self.lr
         if index in self.param_dict:
             lr *= self.param_dict[index].lr_mult
         elif index in self.lr_mult:
@@ -205,11 +314,16 @@ class Optimizer(object):
             torch._foreach_clamp_max_(gs, self.clip_gradient)
 
     @staticmethod
-    def _scale_lr_(xs, lrs, lr_scale):
-        """``x_i *= lr_i`` in place (and by ``lr_scale`` if given)."""
+    def _scale_lr(xs, lrs, lr_scale):
+        """``x_i * lr_i`` (and ``* lr_scale`` if given), in place on a
+        float32 ``x_i``. A float16 or bfloat16 ``x_i`` is promoted to
+        float32 first, where JAX promotes ``lr * g``. Returns the list."""
+        xs = [x.to(torch.float32) if x.dtype in _LOW_PRECISION else x
+              for x in xs]
         torch._foreach_mul_(xs, lrs)
         if lr_scale is not None:
             torch._foreach_mul_(xs, lr_scale)
+        return xs
 
 
 register = Optimizer.register
@@ -232,8 +346,7 @@ class SGD(Optimizer):
         return torch.zeros_like(_tensor(weight))
 
     def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None):
-        step = self._preprocess(gs, ws, wds)
-        self._scale_lr_(step, lrs, lr_scale)
+        step = self._scale_lr(self._preprocess(gs, ws, wds), lrs, lr_scale)
         if states[0] is None:
             torch._foreach_sub_(ws, step)
             return
@@ -280,8 +393,7 @@ class Adam(Optimizer):
         torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
         denom = torch._foreach_sqrt(vs)
         torch._foreach_add_(denom, self.epsilon)
-        step = torch._foreach_div(ms, denom)
-        self._scale_lr_(step, lrs, lr_scale)
+        step = self._scale_lr(torch._foreach_div(ms, denom), lrs, lr_scale)
         torch._foreach_sub_(ws, step)
 
     def pure_step(self, ws, gs, states, t, lr, lr_mults, wds):
@@ -293,7 +405,7 @@ class Adam(Optimizer):
 
 class Updater(object):
     """Applies an optimizer to (index, grad, weight) triples and owns the
-    per-index state."""
+    per-index state (``mxnet_tpu/optimizer.py:890-910``)."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
@@ -301,9 +413,10 @@ class Updater(object):
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
-        self.states[index] = self.optimizer.update(index, weight, grad,
-                                                   self.states[index])
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+        self.states[index] = self.optimizer.update_multi_precision(
+            index, weight, grad, self.states[index])
 
 
 def get_updater(optimizer):

@@ -15,16 +15,34 @@ tensors), the step's own parameters, optimizer states and BatchNorm
 moving statistics. A call copies its batch into the static inputs and
 replays the graph; ``multi_call`` does that K times. Nothing in the step
 reads a value back to the host, and each graph has its own memory pool.
-A capture that fails raises: the step never goes on eagerly.
+A capture that fails raises: the step never goes on eagerly. The capture
+runs in CUDA's relaxed mode: inside it cuDNN may pick another algorithm
+than in the eager pass, whose kernel module CUDA then loads lazily, and
+the thread-local mode refuses that load (on the card a capture failed so,
+CUDNN_STATUS_INTERNAL_ERROR, after other steps had run in the process,
+and passed with ``CUDA_MODULE_LOADING=EAGER``). A read back to the host
+still fails the capture: it synchronizes the capturing stream.
 
 ``compile_count`` counts captures (on the CPU, where there are no graphs,
 the first run of each shape), and ``steady_state_recompiles`` the
 captures made after the first call, which stay 0 while the shapes do.
 
+A net cast to bfloat16 (``net.cast("bfloat16")``) trains as the JAX
+step trains it (``mxnet_tpu/parallel.py:552-563``, ``:605-610``): the
+optimizer states are made, then kept, in float32; the update's math runs
+in float32 (``Optimizer._scale_lr`` promotes where JAX does); the stored
+weight keeps the model's dtype; the loss is bfloat16.
+
+``TrainStep(remat=True)`` checkpoints the forward and the loss
+(``torch.utils.checkpoint``, non-reentrant) where the JAX step wraps
+them in ``jax.checkpoint``; the recompute leaves BatchNorm's moving
+statistics alone. ``memory_analysis()`` reports the last single-step
+path's memory under the attribute names of XLA's ``CompiledMemoryStats``
+(:class:`MemoryStats`).
+
 Departures: one device (``device_mesh`` of more raises "not ported
-yet"); fp32 only; ``remat`` and ``memory_analysis`` are not ported yet.
-The parameters are copied once at the first call and updated in place,
-where the JAX package donates and rebinds them.
+yet"). The parameters are copied once at the first call and updated in
+place, where the JAX package donates and rebinds them.
 """
 from __future__ import annotations
 
@@ -35,6 +53,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import autograd
 from .base import MXNetError, resolve_device
@@ -43,7 +62,8 @@ from .gluon.parameter import DeferredInitializationError
 from .ndarray.ndarray import NDArray
 from .telemetry import accounting as _accounting
 
-__all__ = ["Mesh", "device_mesh", "TrainStep", "InferStep"]
+__all__ = ["Mesh", "device_mesh", "TrainStep", "InferStep",
+           "MemoryStats"]
 
 
 class Mesh(object):
@@ -109,10 +129,74 @@ def _host_tensor(x) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x))
 
 
+class MemoryStats(object):
+    """A step's memory, under the attribute names of XLA's
+    ``CompiledMemoryStats`` that ``example/memcost/memonger.py`` reads.
+
+    ``temp_size_in_bytes`` is the memory the step needs beyond what was
+    resident before it, measured at the path's first run. On the card
+    that is the peak of ``torch.cuda.max_memory_allocated`` during the
+    eager pass that precedes the capture, less what was allocated before
+    it: activations kept for the backward, workspaces and gradients
+    together (the pass resets the device's peak statistics). On the CPU
+    it is the bytes of the tensors autograd saves for the backward
+    (``torch.autograd.graph.saved_tensors_hooks``, each storage once),
+    the parameters and the batch left out: the activation workspace
+    alone. ``argument_size_in_bytes`` counts the parameters, the
+    optimizer states, the batch and the step's scalars;
+    ``output_size_in_bytes`` the loss, the parameters and the states, as
+    the JAX step returns them; ``alias_size_in_bytes`` the parameters and
+    the states, which the port updates in place (the JAX step donates
+    them); ``generated_code_size_in_bytes`` is 0 (the port generates no
+    code)."""
+
+    def __init__(self, temp, argument, output, alias):
+        self.temp_size_in_bytes = int(temp)
+        self.argument_size_in_bytes = int(argument)
+        self.output_size_in_bytes = int(output)
+        self.alias_size_in_bytes = int(alias)
+        self.generated_code_size_in_bytes = 0
+
+    def __repr__(self):
+        return ("MemoryStats(temp=%d, argument=%d, output=%d, alias=%d)"
+                % (self.temp_size_in_bytes, self.argument_size_in_bytes,
+                   self.output_size_in_bytes, self.alias_size_in_bytes))
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _measure(device, fn, resident):
+    """Run ``fn`` once; return ``(its result, its temp bytes)`` as
+    :class:`MemoryStats` defines them. ``resident`` are the tensors the
+    step holds (left out of the count on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = fn()
+        torch.cuda.synchronize(device)
+        return out, torch.cuda.max_memory_allocated(device) - base
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        saved.setdefault(st.data_ptr(), st.nbytes())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    skip = {t.untyped_storage().data_ptr() for t in resident}
+    return out, sum(n for ptr, n in saved.items() if ptr not in skip)
+
+
 class _Path(object):
     """One shape: its static inputs, the function over them, and once
     ``ready`` its graph and the graph's output (no graph on the CPU, or
-    with ``capture=False``: the function runs at every call)."""
+    with ``capture=False``: the function runs at every call).
+    ``temp_bytes`` and ``out_bytes`` are measured at the function's first
+    run."""
 
     def __init__(self, inputs, fn):
         self.inputs = inputs
@@ -120,6 +204,8 @@ class _Path(object):
         self.ready = False
         self.graph = None
         self.out = None
+        self.temp_bytes = None
+        self.out_bytes = 0
 
 
 class _Executor(object):
@@ -184,10 +270,20 @@ class _Executor(object):
         if not path.ready:
             self._capture(path)
         if path.graph is None:
-            return path.fn()
+            return self._first_run(path)
         path.graph.replay()
         self._replays += 1
         return path.out
+
+    def _first_run(self, path: _Path):
+        """Run the path's function, measuring its memory at the first
+        run."""
+        if path.temp_bytes is not None:
+            return path.fn()
+        out, path.temp_bytes = _measure(
+            self._device, path.fn, self._state_tensors() + list(path.inputs))
+        path.out_bytes = _nbytes([out])
+        return out
 
     def _capture(self, path: _Path):
         """Capture ``path`` as a CUDA graph (on the CPU, only count it).
@@ -202,7 +298,7 @@ class _Executor(object):
             saved = [t.detach().clone() for t in state]
             stream.wait_stream(torch.cuda.current_stream(self._device))
             with torch.cuda.stream(stream):
-                path.fn()
+                self._first_run(path)
                 with torch.no_grad():
                     for t, s in zip(state, saved):
                         t.copy_(s)
@@ -211,7 +307,7 @@ class _Executor(object):
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph, stream=stream,
-                                      capture_error_mode="thread_local"):
+                                      capture_error_mode="relaxed"):
                     out = path.fn()
             except Exception as exc:
                 raise MXNetError("%s: capturing the step as a CUDA graph "
@@ -229,6 +325,24 @@ class _Executor(object):
             self._site, self.steady_state_recompiles)
 
 
+def _float32_state(state):
+    """A state with every floating tensor in float32."""
+    if isinstance(state, tuple):
+        return tuple(_float32_state(s) for s in state)
+    if isinstance(state, torch.Tensor) and state.is_floating_point():
+        return state.to(torch.float32)
+    return state
+
+
+def _remat_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recompute runs
+    with the recording and train state of the first forward (it may run
+    on autograd's device thread, whose state is the default), flagged as
+    a recompute."""
+    return contextlib.nullcontext(), autograd._recompute_scope(
+        autograd.is_training())
+
+
 class TrainStep(_Executor):
     """One training step (forward + mean loss + backward + the fused
     optimizer apply) captured as a CUDA graph per input shape.
@@ -244,6 +358,11 @@ class TrainStep(_Executor):
 
     ``capture=False`` runs the same step function eagerly on the card,
     for comparing against the captured step; it is never a fallback.
+
+    In bfloat16 the optimizer states are float32 and the update's math
+    too, the weights stay bfloat16 (see the module's docstring).
+    ``remat=True`` recomputes the forward in the backward instead of
+    keeping its activations.
     """
 
     _site = "parallel.TrainStep"
@@ -253,9 +372,8 @@ class TrainStep(_Executor):
                  capture=True):
         from . import optimizer as opt_mod
 
-        if remat:
-            raise MXNetError("remat=True is not ported yet")
         super().__init__(net, mesh, batch_axis)
+        self._remat = remat
         self._loss = loss_fn
         if isinstance(optimizer, str):
             optimizer = opt_mod.create(optimizer, **(optimizer_params or {}))
@@ -267,6 +385,7 @@ class TrainStep(_Executor):
         self._lr_mults = self._wds = ()
         self._t = 0
         self._t_dev = self._lr_dev = None
+        self._last_path = None
 
     def _ensure_init(self, data):
         if self._pvals is not None:
@@ -277,7 +396,9 @@ class TrainStep(_Executor):
                            if p.grad_req != "null")
         for n in self._diff:
             self._pvals[n].requires_grad_(True)
-        self._states = [opt.create_state(n, self._pvals[n])
+        # the states stay float32 whatever the weight's dtype (the JAX
+        # step casts them, mxnet_tpu/parallel.py:552-563)
+        self._states = [_float32_state(opt.create_state(n, self._pvals[n]))
                         for n in self._diff]
         self._lr_mults = [self._params[n].lr_mult for n in self._diff]
         self._wds = [opt.wd * self._params[n].wd_mult for n in self._diff]
@@ -293,15 +414,26 @@ class TrainStep(_Executor):
                 out += list(s) if isinstance(s, tuple) else [s]
         return out
 
+    def _mean_loss(self, data, label):
+        out = self._net(NDArray(data))
+        if isinstance(out, (tuple, list)):
+            out = out[0]
+        return self._loss(out, NDArray(label))._data.mean()
+
     def _step_fn(self, data, label):
         """The step on the static tensors: returns the 0-d mean loss."""
         ws = [self._pvals[n] for n in self._diff]
-        with _bound(self._params, self._pvals), autograd.record():
-            out = self._net(NDArray(data))
-            if isinstance(out, (tuple, list)):
-                out = out[0]
-            loss = self._loss(out, NDArray(label))._data.mean()
-        grads = torch.autograd.grad(loss, ws, allow_unused=True)
+        # the backward stays inside _bound: remat's recompute runs the net
+        # there, and must see the step's parameters
+        with _bound(self._params, self._pvals):
+            with autograd.record():
+                if self._remat:
+                    loss = torch.utils.checkpoint.checkpoint(
+                        self._mean_loss, data, label, use_reentrant=False,
+                        preserve_rng_state=False, context_fn=_remat_contexts)
+                else:
+                    loss = self._mean_loss(data, label)
+            grads = torch.autograd.grad(loss, ws, allow_unused=True)
         grads = [torch.zeros_like(w) if g is None else g
                  for w, g in zip(ws, grads)]
         with torch.no_grad():
@@ -336,7 +468,7 @@ class TrainStep(_Executor):
         self._t = max(self._t, self._optimizer.num_update) + 1
         self._optimizer.sync_num_update(self._t)
         self._lr_dev.fill_(float(self._optimizer.learning_rate))
-        path = self._path(data, label)
+        path = self._last_path = self._path(data, label)
         loss = self._replay_step(path, data, label, self._t).clone()
         self._end_call()
         return NDArray(loss)
@@ -346,7 +478,7 @@ class TrainStep(_Executor):
         ``datas``/``labels``: each slice is copied into the static inputs
         and the step replayed (the counterpart of the JAX package's
         ``lax.scan``). The learning rate is sampled once per call. Returns
-        the K losses as an NDArray of shape (K,)."""
+        the K losses as an NDArray of shape (K,), in the loss's dtype."""
         datas, labels = _host_tensor(datas), _host_tensor(labels)
         k = int(datas.shape[0])
         self._ensure_init(datas[0])
@@ -354,16 +486,32 @@ class TrainStep(_Executor):
         self._optimizer.sync_num_update(self._t)
         self._lr_dev.fill_(float(self._optimizer.learning_rate))
         path = self._path(datas[0], labels[0])
-        losses = torch.empty((k,), dtype=torch.float32, device=self._device)
         first = self._t - k + 1  # the first step's 1-based count
+        losses = None
         for i in range(k):
-            losses[i] = self._replay_step(path, datas[i], labels[i],
-                                          first + i)
+            loss = self._replay_step(path, datas[i], labels[i], first + i)
+            if losses is None:
+                losses = torch.empty((k,), dtype=loss.dtype,
+                                     device=self._device)
+            losses[i] = loss
         self._end_call()
         return NDArray(losses)
 
-    def memory_analysis(self):
-        raise MXNetError("memory_analysis() is not ported yet")
+    def memory_analysis(self) -> MemoryStats:
+        """The memory of the last single-step path (``__call__``'s), as
+        :class:`MemoryStats` defines it: on the card the step's peak
+        above what was resident before it, on the CPU the activations
+        saved for the backward. Raises before the first ``__call__``."""
+        path = self._last_path
+        if path is None or path.temp_bytes is None:
+            raise MXNetError("memory_analysis: run the step once first")
+        held = self._state_tensors()
+        scalars = [self._t_dev, self._lr_dev]
+        return MemoryStats(
+            temp=path.temp_bytes,
+            argument=_nbytes(held + list(path.inputs) + scalars),
+            output=_nbytes(held) + path.out_bytes,
+            alias=_nbytes(held))
 
     def copy_to_net(self):
         """Write the trained parameters (and moving statistics) back into

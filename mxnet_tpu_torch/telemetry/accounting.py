@@ -11,14 +11,20 @@ of a CUDA graph (:class:`~mxnet_tpu_torch.serving.DecodeEngine`):
   ``warmup()`` it must stay 0;
 * ``OPT_DISPATCHES`` counts optimizer updates by path (``fused``: one
   call over every parameter; ``perparam``: one a parameter), as the JAX
-  package's counter of that name.
+  package's counter of that name;
+* ``STEP_DISPATCHES`` counts the training plane's steps by plane
+  (``graph``: one replay of the whole captured step; ``eager``: forward,
+  backward and ``Trainer.step`` issued one by one), and
+  ``TRAINPLANE_FALLBACKS`` the plane's demotions to eager by reason
+  (``trainplane.FALLBACKS``), as the JAX package's counters.
 """
 from __future__ import annotations
 
 from . import registry as _registry
 
 __all__ = ["RECOMPILES", "COMPILE_SECONDS", "STEADY_STATE_RECOMPILES",
-           "OPT_DISPATCHES", "note_recompile", "set_steady_state_recompiles"]
+           "OPT_DISPATCHES", "STEP_DISPATCHES", "TRAINPLANE_FALLBACKS",
+           "note_recompile", "set_steady_state_recompiles"]
 
 RECOMPILES = _registry.counter(
     "mxnet_recompiles_total",
@@ -42,6 +48,19 @@ OPT_DISPATCHES = _registry.counter(
     "optimizer-update calls by path: perparam = one kernel call per "
     "parameter, fused = one call over every parameter of a step",
     labels=("path",))
+
+STEP_DISPATCHES = _registry.counter(
+    "mxnet_trainstep_dispatches_total",
+    "training-plane step executions by plane: graph = one replay of the "
+    "whole captured step (forward, loss, backward and update), eager = "
+    "forward, backward and update issued one by one; graph steps with no "
+    "optimizer dispatch in between prove one dispatch a step",
+    labels=("plane",))
+
+TRAINPLANE_FALLBACKS = _registry.counter(
+    "mxnet_trainplane_fallbacks_total",
+    "training-plane graph captures declined, by reason",
+    labels=("reason",))
 
 
 def note_recompile(site: str, count: int = 1, seconds: float = 0.0):

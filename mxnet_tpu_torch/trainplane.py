@@ -1,0 +1,489 @@
+"""The training plane: one captured step behind gluon's Trainer loop (the
+port of ``mxnet_tpu/trainplane.py``'s ``TrainPlane``, ``fit`` and knobs).
+
+``plane = TrainPlane(net, loss_fn, trainer)``, then ``loss =
+plane.step(data, label)`` replaces the eager loop body::
+
+    with autograd.record():
+        loss = loss_fn(net(data), label)
+    loss.backward()
+    trainer.step(batch_size)
+
+On the graph plane the whole step (forward, loss, backward and the fused
+optimizer apply) is one ``torch.cuda.CUDAGraph`` a (batch shape, dtype),
+over the Trainer's own parameters, its updater's states (float32 masters
+included) and BatchNorm's moving statistics, all updated in place. The
+update is ``fastpath.tree_kernel``, the fused apply's own kernel, and
+the step consumes the same host prologue (``_update_count`` and
+``_host_scalars`` per index, on the real optimizer), so the optimizer's
+counters stay the one source of truth and eager and graph steps
+interleave freely. The learning rates and counts are 0-d device tensors
+(one host-to-device copy a step, none while they stay the same), so one
+graph serves every step. The backward is seeded with ones, as
+``loss.backward()`` is. In float32 the graph plane gives the eager
+fastpath's bits.
+
+The first step of a shape runs the step once eagerly on a side stream
+(cuDNN picks its algorithms there) with reads back to the host refused
+(``ndarray.no_host_reads``), puts the state back, then captures, in
+CUDA's relaxed mode as ``parallel.TrainStep`` does (see there). On the
+CPU there is no graph: that first pass runs all the same, and the step
+function then runs eagerly at every step.
+
+Knobs (the JAX package's):
+
+* ``MXNET_TRAINSTEP``: ``auto`` (default) or ``1`` take the graph plane
+  where the model allows it, ``1`` warning when it does not; ``0`` runs
+  the eager loop (the caller's choice: not counted as a demotion, as in
+  the JAX package).
+* ``MXNET_TRAIN_DTYPE=bf16`` casts the net to bfloat16 once, at
+  activation, sets the optimizer's ``multi_precision`` (float32 masters
+  and states) and casts every floating batch to bfloat16, on both planes.
+* ``MXNET_SHARDED_FEED`` is read by :func:`sharded_feed`; with one device
+  there is nothing to shard, and :func:`fit` feeds batches as they come.
+
+The plane demotes to the eager loop only for the JAX package's reasons,
+each counted in ``FALLBACKS{reason}`` (``telemetry.TRAINPLANE_FALLBACKS``)
+and shown by :attr:`TrainPlane.plane`: ``MXNET_FASTPATH=0``, a plain
+``Block``, an optimizer without a list kernel, a ``grad_req`` other than
+``write``/``null``, a parameter the Trainer does not own, and a step that
+cannot be captured (a forward that reads back to the host), decided once
+at the capture. ``STEP_DISPATCHES{plane}`` counts the steps: a graph step
+is one replay and no ``OPT_DISPATCHES``.
+
+Not ported yet (they raise): ``MXNET_ZERO``, a mesh of several devices,
+``fit``'s elastic checkpoints, and ``module_plane`` (``Module.fit``
+through the plane). The JAX plane's out-of-memory survival and device
+profiling wait for the port's HBM governor and devprof.
+"""
+from __future__ import annotations
+
+import copy
+import logging
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from . import autograd, fastpath
+from .base import MXNetError, get_env
+from .fastpath.fused import _is_mp_state
+from .gluon.block import HybridBlock
+from .gluon.parameter import DeferredInitializationError
+from .ndarray.ndarray import NDArray, no_host_reads
+from .optimizer import ensure_mp_state
+from .telemetry import STEP_DISPATCHES, TRAINPLANE_FALLBACKS
+from .telemetry import accounting as _accounting
+
+__all__ = ["TrainPlane", "fit", "mode", "train_dtype", "sharded_feed",
+           "FALLBACKS"]
+
+_LOG = logging.getLogger(__name__)
+
+#: why planes fell back to eager, by reason
+FALLBACKS = TRAINPLANE_FALLBACKS
+
+
+def mode() -> str:
+    """``MXNET_TRAINSTEP``: ``auto`` | ``1`` | ``0`` (read at every call)."""
+    raw = str(get_env("MXNET_TRAINSTEP", "auto", str, cache=False)).lower()
+    return raw if raw in ("auto", "1", "0") else "auto"
+
+
+def train_dtype() -> str:
+    """``MXNET_TRAIN_DTYPE``: ``fp32`` (default) | ``bf16``."""
+    raw = str(get_env("MXNET_TRAIN_DTYPE", "fp32", str, cache=False)).lower()
+    return "bf16" if raw in ("bf16", "bfloat16") else "fp32"
+
+
+def sharded_feed() -> bool:
+    """``MXNET_SHARDED_FEED`` (default on)."""
+    return bool(get_env("MXNET_SHARDED_FEED", 1, int, cache=False))
+
+
+def _refuse_unported():
+    if get_env("MXNET_ZERO", 0, int, cache=False):
+        raise MXNetError("MXNET_ZERO (the sharded optimizer-state plane) "
+                         "is not ported yet")
+
+
+def _leaves(state):
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _leaves(s)]
+    return [state]
+
+
+class _Path(object):
+    """One batch signature: static inputs, the step over them, and on the
+    card its graph and the graph's loss output."""
+
+    def __init__(self, inputs, fn, ptrs):
+        self.inputs = inputs
+        self.fn = fn
+        self.ptrs = ptrs      # the addresses the graph baked in
+        self.graph = None
+        self.out = None
+
+
+class TrainPlane(object):
+    """One training step through whichever plane the model supports (see
+    the module's docstring). The Trainer stays the owner of the optimizer
+    and its states (``trainer._updater.states``).
+
+    Parameters
+    ----------
+    net : Block (a HybridBlock for the graph plane)
+    loss_fn : gluon Loss (or ``(out, label) -> loss`` NDArray)
+    trainer : gluon.Trainer over the net's parameters
+    mesh : ``parallel.device_mesh`` of one device, or None
+    batch_axis : 0 (other axes are not ported yet)
+    """
+
+    _site = "trainplane.TrainPlane"
+
+    def __init__(self, net, loss_fn, trainer, mesh=None, batch_axis=0):
+        if batch_axis != 0:
+            raise MXNetError("batch_axis %d is not ported yet (0 only)"
+                             % batch_axis)
+        if mesh is not None and len(mesh.devices) != 1:
+            raise MXNetError("a mesh of several devices is not ported yet")
+        self._net = net
+        self._loss = loss_fn
+        self._trainer = trainer
+        self._mesh = mesh
+        self._plane: Optional[str] = None  # 'graph' | 'eager'
+        self._why_eager: Optional[str] = None
+        self._cast = None                  # torch.bfloat16 under bf16 mode
+        self._rows = None                  # [(trainer index, Parameter)]
+        self._params = None                # the net's Parameters
+        self._paths: Dict[Any, _Path] = {}
+        self._device = None
+        self._stream = None
+        self._scalars = None               # (2, rows) float32: lrs, counts
+        self._lr_views = self._t_views = None  # its 0-d views a row
+        self._last_scalars = None
+        self._captures = 0
+        self.step_count = 0
+
+    # -- plane selection -----------------------------------------------
+    @property
+    def plane(self) -> str:
+        return self._plane or "undecided"
+
+    @property
+    def compile_count(self) -> int:
+        """Steps captured (on the CPU: batch signatures run) so far."""
+        return self._captures
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    def _demote(self, reason: str):
+        FALLBACKS.inc(reason=reason)
+        self._plane = "eager"
+        self._why_eager = reason
+        if mode() == "1":
+            _LOG.warning(
+                "MXNET_TRAINSTEP=1 but the graph plane is unavailable "
+                "(%s); training continues on the eager path", reason)
+
+    def _ineligible_reason(self) -> Optional[str]:
+        tr = self._trainer
+        if not fastpath.enabled():
+            return "MXNET_FASTPATH=0 (legacy escape hatch)"
+        if not isinstance(self._net, HybridBlock):
+            return "net is not a HybridBlock"
+        if not getattr(tr._optimizer, "fastpath_capable", False):
+            return "optimizer has no list kernel"
+        owned = {p.name for p in tr._params}
+        for name, p in self._net.collect_params().items():
+            if p.grad_req not in ("null", "write"):
+                return "grad_req %r on %s" % (p.grad_req, name)
+            if p.grad_req != "null" and name not in owned:
+                return "net parameter %s not owned by the trainer" % name
+        return None
+
+    def _materialize(self, data_nd):
+        """Finish deferred initialization so every parameter has a value."""
+        try:
+            for p in self._net.collect_params().values():
+                p.data()
+        except DeferredInitializationError:
+            with autograd.pause():
+                self._net(data_nd)
+
+    def _activate(self, data_nd):
+        # the dtype knob applies on both planes
+        if train_dtype() == "bf16":
+            self._cast = torch.bfloat16
+            self._materialize(data_nd)
+            params = list(self._net.collect_params().values())
+            if params and params[0].data()._data.dtype != torch.bfloat16:
+                self._net.cast("bfloat16")
+            self._trainer._optimizer.multi_precision = True
+        if mode() == "0":
+            self._plane = "eager"
+            self._why_eager = "MXNET_TRAINSTEP=0"
+            return
+        reason = self._ineligible_reason()
+        if reason is not None:
+            self._demote(reason)
+            return
+        self._materialize(data_nd)
+        self._rows = [(i, p) for i, p in enumerate(self._trainer._params)
+                      if p.grad_req != "null"]
+        if not self._rows:
+            self._demote("no trainable parameters")
+            return
+        self._params = list(self._net.collect_params().values())
+        self._device = self._rows[0][1].data()._data.device
+        self._scalars = torch.zeros((2, len(self._rows)),
+                                    dtype=torch.float32, device=self._device)
+        self._lr_views = list(self._scalars[0])
+        self._t_views = list(self._scalars[1])
+        self._plane = "graph"
+
+    # -- graph plane ----------------------------------------------------
+    def _ensure_states(self):
+        """States made exactly as the eager Updater makes them (the same
+        layout, the same master pairs), so either plane adopts them."""
+        opt = self._trainer._optimizer
+        states = self._trainer._updater.states
+        for i, p in self._rows:
+            w = p.data()
+            if i not in states:
+                states[i] = opt.create_state_multi_precision(i, w)
+            else:
+                states[i] = ensure_mp_state(opt, i, w, states[i])
+
+    def _held(self, states=None):
+        """Every tensor the step reads or writes outside its batch: the
+        net's parameters (moving statistics included) and the states."""
+        if states is None:
+            states = self._trainer._updater.states
+        out = [p.data()._data for p in self._params]
+        for i, _ in self._rows:
+            out += _leaves(states.get(i))
+        return out
+
+    def _prologue(self, opt):
+        """The eager fused apply's host prologue, in its order: per index
+        ``_update_count`` then ``_host_scalars``; returns the rows ``[lrs,
+        counts]`` of the step's scalars (the weight decays are the step's
+        key, read by ``_get_wd`` as ``_host_scalars`` reads them)."""
+        lrs, ts = [], []
+        for i, _ in self._rows:
+            opt._update_count(i)
+            lrs.append(opt._host_scalars(i)[0])
+            ts.append(opt._index_update_count[i])
+        return [lrs, ts]
+
+    def _probe_optimizer(self, opt):
+        """A throwaway copy for the first pass's prologue, which must not
+        advance the real counters or schedule (``param_dict`` holds live
+        Parameters: shared, only read)."""
+        pd, opt.param_dict = opt.param_dict, {}
+        try:
+            probe = copy.deepcopy(opt)
+        finally:
+            opt.param_dict = pd
+        probe.param_dict = pd
+        return probe
+
+    def _set_scalars(self, rows):
+        if rows != self._last_scalars:
+            self._scalars.copy_(torch.tensor(rows, dtype=torch.float32),
+                                non_blocking=True)
+            self._last_scalars = rows
+
+    def _step_fn(self, data, label, mp_flags, wds):
+        """The whole step on the static batch: forward, per-sample loss,
+        backward seeded with ones, and the fused update in place."""
+        opt = self._trainer._optimizer
+        states = self._trainer._updater.states
+        ws = [p.data()._data for _, p in self._rows]
+        if self._cast is not None and data.is_floating_point():
+            data = data.to(self._cast)
+        with autograd.record():
+            out = self._net(NDArray(data))
+            if isinstance(out, (tuple, list)):
+                out = out[0]
+            loss = self._loss(out, NDArray(label))._data
+        grads = torch.autograd.grad(loss, ws, torch.ones_like(loss),
+                                    allow_unused=True)
+        grads = [torch.zeros_like(w) if g is None else g
+                 for w, g in zip(ws, grads)]
+        fastpath.tree_kernel(
+            opt, ws, grads, [states[i] for i, _ in self._rows], mp_flags,
+            self._t_views, self._lr_views, wds)
+        return loss.detach()
+
+    def _capture(self, path, probe_rows):
+        """The first pass (eager, host reads refused) and, on the card,
+        the capture; the state the pass moved is put back. Returns None,
+        or the reason the step cannot be captured."""
+        t0 = time.perf_counter()
+        held = self._held()
+        saved = [t.detach().clone() for t in held]
+        self._set_scalars(probe_rows)
+        cuda = self._device.type == "cuda"
+        try:
+            if cuda:
+                if self._stream is None:
+                    self._stream = torch.cuda.Stream(self._device)
+                self._stream.wait_stream(
+                    torch.cuda.current_stream(self._device))
+                with torch.cuda.stream(self._stream), \
+                        no_host_reads("TrainPlane"):
+                    path.fn()
+                    self._restore(held, saved)
+                torch.cuda.current_stream(self._device).wait_stream(
+                    self._stream)
+                graph = torch.cuda.CUDAGraph()
+                with no_host_reads("TrainPlane"), torch.cuda.graph(
+                        graph, stream=self._stream,
+                        capture_error_mode="relaxed"):
+                    out = path.fn()
+                path.graph, path.out = graph, out
+            else:
+                with no_host_reads("TrainPlane"):
+                    path.fn()
+                self._restore(held, saved)
+        except Exception as exc:  # noqa: BLE001 - the documented demotion
+            if cuda:
+                torch.cuda.synchronize(self._device)
+            self._restore(held, saved)
+            return "capture: %s" % type(exc).__name__
+        self._captures += 1
+        _accounting.note_recompile(self._site, 1, time.perf_counter() - t0)
+        return None
+
+    @staticmethod
+    def _restore(held, saved):
+        with torch.no_grad():
+            for t, s in zip(held, saved):
+                t.copy_(s)
+
+    def _ptrs(self):
+        states = self._trainer._updater.states
+        return tuple(t.data_ptr() for t in self._held(states))
+
+    def _new_path(self, data, label, wds):
+        """States, static inputs and the step for a new batch signature,
+        first-passed and captured; None (the plane demoted) when the step
+        cannot be captured."""
+        opt = self._trainer._optimizer
+        self._ensure_states()
+        states = self._trainer._updater.states
+        mp_flags = tuple(_is_mp_state(opt, i, p.data(), states[i])
+                         for i, p in self._rows)
+        d = torch.empty(data.shape, dtype=data.dtype, device=self._device)
+        lab = torch.empty(label.shape, dtype=label.dtype, device=self._device)
+        d.copy_(data)
+        lab.copy_(label)
+        path = _Path((d, lab), lambda: self._step_fn(d, lab, mp_flags, wds),
+                     self._ptrs())
+        probe_rows = self._prologue(self._probe_optimizer(opt))
+        reason = self._capture(path, probe_rows)
+        if reason is not None:
+            self._demote(reason)
+            return None
+        return path
+
+    def _graph_step(self, data_nd, label_nd, batch_size):
+        tr = self._trainer
+        opt = tr._optimizer
+        opt.rescale_grad = tr._scale / batch_size  # Trainer.step parity
+        data, label = data_nd._data, label_nd._data
+        wds = tuple(opt._get_wd(i) for i, _ in self._rows)
+        key = (tuple(data.shape), data.dtype, tuple(label.shape),
+               label.dtype, opt.rescale_grad, opt.clip_gradient, wds)
+        path = self._paths.get(key)
+        if path is not None and path.ptrs != self._ptrs():
+            # a parameter or state was rebound since the capture (a cast,
+            # a restored state): the graph's addresses are stale
+            self._paths.clear()
+            path = None
+        if path is None:
+            path = self._new_path(data, label, wds)
+            if path is None:
+                return None
+            self._paths[key] = path
+        d, lab = path.inputs
+        d.copy_(data)
+        lab.copy_(label)
+        rows = self._prologue(opt)
+        self._set_scalars(rows)
+        if path.graph is not None:
+            path.graph.replay()
+            loss = path.out.clone()
+        else:
+            loss = path.fn()
+        STEP_DISPATCHES.inc(plane="graph")
+        return NDArray(loss)
+
+    # -- eager plane ----------------------------------------------------
+    def _eager_step(self, data_nd, label_nd, batch_size):
+        if self._cast is not None and data_nd._data.is_floating_point():
+            data_nd = NDArray(data_nd._data.to(self._cast))
+        with autograd.record():
+            out = self._net(data_nd)
+            loss = self._loss(out, label_nd)
+        loss.backward()
+        self._trainer.step(batch_size)
+        STEP_DISPATCHES.inc(plane="eager")
+        return loss
+
+    # -- entry ----------------------------------------------------------
+    def step(self, data, label, batch_size=None):
+        """Run one training step; returns the per-sample loss NDArray."""
+        _refuse_unported()
+        device = self._trainer._contexts[0].torch_device()
+        data_nd, label_nd = (x if isinstance(x, NDArray) else NDArray(
+            torch.as_tensor(np.asarray(x)).to(device)) for x in (data, label))
+        if batch_size is None:
+            batch_size = int(data_nd.shape[0])
+        if self._plane is None:
+            self._activate(data_nd)
+        self.step_count += 1
+        if self._plane == "graph":
+            loss = self._graph_step(data_nd, label_nd, batch_size)
+            if loss is not None:
+                return loss
+        return self._eager_step(data_nd, label_nd, batch_size)
+
+
+def fit(net, loss_fn, trainer, train_data, epochs=1, batch_axis=0,
+        mesh=None, batch_end_callback=None, checkpoint=None,
+        checkpoint_every=1, resume=True):
+    """Train ``net`` over ``train_data`` through the plane; returns the
+    :class:`TrainPlane` (``plane.plane`` says which ran).
+
+    ``train_data`` yields ``io.DataBatch``es (any ``DataIter``, reset
+    before every epoch but the first) or ``(data, label)`` pairs.
+    ``batch_end_callback(epoch, nbatch, loss)`` runs after each step.
+    ``checkpoint`` (the JAX package's elastic checkpoints) is not ported
+    yet."""
+    from . import io as io_mod
+
+    if checkpoint is not None:
+        raise MXNetError("fit(checkpoint=...) (elastic checkpoints) is not "
+                         "ported yet")
+    plane = TrainPlane(net, loss_fn, trainer, mesh=mesh,
+                       batch_axis=batch_axis)
+    for epoch in range(epochs):
+        if epoch and hasattr(train_data, "reset"):
+            train_data.reset()
+        for nbatch, batch in enumerate(train_data, 1):
+            if isinstance(batch, io_mod.DataBatch):
+                data, label = batch.data[0], batch.label[0]
+            else:
+                data, label = batch
+            loss = plane.step(data, label)
+            if batch_end_callback is not None:
+                batch_end_callback(epoch, nbatch, loss)
+    return plane

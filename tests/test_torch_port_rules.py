@@ -17,6 +17,9 @@
   example imports and takes a training step with ``jax`` and
   ``mxnet_tpu`` made unimportable;
 * ``chip_smoke.py`` refuses to run without a card, printing no result;
+* the training plane slice (``trainplane``, ``lr_scheduler``) is in the
+  scan and trains in bfloat16 with ``jax`` and ``mxnet_tpu`` made
+  unimportable;
 * the extension slice's modules (``rtc``, ``operator``, ``metric``,
   ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
   no module of the port defines ``PallasModule`` (Pallas source cannot
@@ -253,3 +256,44 @@ print("fitted", res["train_batches"])
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "fitted 4" in proc.stdout
+
+
+def test_scan_covers_the_training_plane_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ("mxnet_tpu_torch/trainplane.py",
+                 "mxnet_tpu_torch/lr_scheduler.py",
+                 "mxnet_tpu_torch/parallel.py",
+                 "mxnet_tpu_torch/fastpath/fused.py"):
+        assert path in names
+
+
+def test_training_plane_trains_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import os, sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+os.environ["MXNET_TRAIN_DTYPE"] = "bf16"
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import gluon, lr_scheduler, nd, trainplane
+with mx.cpu():
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(8, activation="relu"), gluon.nn.Dense(4))
+    net.initialize()
+    tr = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.1, "momentum": 0.9,
+        "lr_scheduler": lr_scheduler.FactorScheduler(step=2, factor=0.5)})
+    xs = np.random.RandomState(0).rand(32, 6).astype(np.float32)
+    it = mx.io.NDArrayIter(xs, xs[:, :4].argmax(1), batch_size=8)
+    plane = trainplane.fit(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr,
+                           it, epochs=2)
+assert plane.plane == "graph" and tr.optimizer.num_update == 8
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("plane", plane.plane)
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "plane graph" in proc.stdout
