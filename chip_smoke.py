@@ -88,10 +88,24 @@ Phases, each printing one line of its own (any failure exits non-zero):
     symbolic MLP ending in ``sym.Custom`` whose forward (row softmax) and
     backward ((prob - onehot) / n) are CUDA-C kernels launched through
     ``rtc.CudaModule``, trained by ``Module.fit`` (2 epochs, ``acc``,
-    ``Speedometer``), then ``score`` and ``predict``; the same graph with
-    the numpy op from the same seed must agree within 1e-5 after the
-    first batch, both must reach accuracy above 0.9, and the rtc kernels
-    must launch at least 2 x training batches + test batches times;
+    ``Speedometer``) on the module plane (``trainplane.module_plane``:
+    one CUDA graph a step, the rtc kernels inside it; one capture, a
+    graph step a batch, no optimizer dispatch, no demotion), then
+    ``score`` and ``predict``; the same graph with the numpy op from the
+    same seed must demote (``module-trace: MXNetError``: it reads back
+    to the host) and agree within 1e-5 after the first batch, both must
+    reach accuracy above 0.9, and the rtc kernels must launch at least
+    2 x training batches + test batches times, graph replays counted
+    (the launches a capture recorded, added at each replay); the
+    launches counted over RTC_TRACE_STEPS plane steps must equal the
+    profiler's; the rtc op's eager step (``MXNET_TRAINSTEP=0``) is timed
+    beside the graph step;
+    module_plane_parity: a LeNet-style symbolic net with BatchNorm
+    (batch 64): 10 module-plane steps against 10 eager
+    ``forward_backward`` + ``update`` steps from the same weights, with
+    cuDNN's deterministic algorithms: weights, momentum and moving
+    statistics bit for bit (PLANE_TOL at most), one capture; the same
+    with cuDNN's default algorithms, and two eager runs, printed beside;
 16. rtc_time: the softmax-forward kernel through ``Kernel.launch`` at
     (64, 10) and (8192, 1024): host and device time, bound, plain version
     and ``torch.softmax`` (host and device time).
@@ -157,7 +171,20 @@ Phases, each printing one line of its own (any failure exits non-zero):
     resident, measured in the eager pass before the capture) and their
     losses, which must agree within RESNET_TOL.
 
-``python3 chip_smoke.py --resnet`` runs phases 17-26 only;
+27. zoo_score: ``benchmark_score.py``'s networks (alexnet, vgg16,
+    squeezenet1_0, densenet121, inception_v3 at 299 x 299, mobilenet1_0,
+    mobilenet_v2_1_0, resnet152_v1) in fp32 at batches 32 and 1, and the
+    script's default sweep in bf16 at batch 32: img/s of the eager
+    hybridized forward (the script's build and timed loop) and of
+    ``parallel.InferStep``, whose output must agree with the eager one
+    (fp32: ZOO_TOL of the largest logit's magnitude, at least 1; bf16:
+    one bf16 step), GFLOP an image (``torch.utils.flop_counter``), the
+    share of the fp32 or bf16 bound, peak memory, and at fp32 batch 32
+    the top device operations of one InferStep call.
+
+``python3 chip_smoke.py --resnet`` runs phases 17-26 only; ``--zoo``
+runs zoo_score only; ``--module-plane`` runs custom_rtc and
+module_plane_parity only (no nvcc build);
 ``--profiles`` builds the kernels and runs train_profile and ssd_profile
 only (to compare two checkouts in one call, copy the script into each
 and run it there).
@@ -320,6 +347,29 @@ RESNET_TRAIN_S, RESNET_INFER_S = 5.0, 2.0
 BF16_RTOL = 2.0 ** -7
 RESNET_PERCALL_S = 3.0
 PLANE_BATCHES, PLANE_S = (32, 64, 128, 256), 2.5
+# the module plane: the rtc kernels' names as the profiler reports them,
+# and the plane steps traced to hold the counted launches against them
+RTC_KERNELS = ("softmax_fwd", "softmax_ce_bwd")
+RTC_TRACE_STEPS = 4
+# module_plane_parity: a LeNet-style symbolic net with BatchNorm (batch 64,
+# 1 x 28 x 28, 10 classes, SGD 0.1 with momentum 0.9 and wd 1e-4), 10 graph
+# steps against 10 eager ones; fp32 with TF32 off gives the same bits,
+# unless cuDNN runs another algorithm inside the capture, which may move a
+# value by at most PLANE_TOL
+PLANE_STEPS, PLANE_BATCH, PLANE_TOL = 10, 64, 1e-5
+PLANE_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# zoo_score: benchmark_score.py's networks on the card, fp32 (TF32 off) at
+# batches 32 and 1, and bf16 at batch 32 for its default sweep; seed-0
+# weights, RandomState(0) data, 1000 classes, 224 x 224 (Inception v3 299 x
+# 299); He-initialized weights (Xavier, gaussian, fan-in, magnitude 2), so
+# the logits keep a scale through the depth (the gluon default's Uniform(0.07)
+# brings MobileNet's to 1e-24); InferStep's captured forward within ZOO_TOL
+# of the eager one in fp32, of the largest logit's magnitude where above 1
+ZOO_NETS = ("alexnet", "vgg16", "squeezenet1_0", "densenet121",
+            "inception_v3", "mobilenet1_0", "mobilenet_v2_1_0",
+            "resnet152_v1")
+ZOO_TOL = 1e-4
+ZOO_S = 0.4  # the time budget of each timed loop
 
 
 def fail(msg):
@@ -1743,12 +1793,62 @@ def custom_softmax():
           verdict="LEARNED")
 
 
+def _plane_counts():
+    """(demotions by reason, graph steps, optimizer dispatches) so far."""
+    from mxnet_tpu_torch.telemetry import (OPT_DISPATCHES, STEP_DISPATCHES,
+                                           TRAINPLANE_FALLBACKS)
+
+    return ({r["labels"]["reason"]: r["value"]
+             for r in TRAINPLANE_FALLBACKS.series()},
+            STEP_DISPATCHES.value(plane="graph"),
+            sum(OPT_DISPATCHES.value(path=p) for p in ("fused", "perparam")))
+
+
+def _planes_made():
+    """Wrap ``trainplane.module_plane`` so the planes ``Module.fit`` makes
+    are kept in the returned list (None where it declined)."""
+    from mxnet_tpu_torch import trainplane
+
+    made, orig = [], trainplane.module_plane
+
+    def keep(module):
+        plane = orig(module)
+        made.append(plane)
+        return plane
+
+    trainplane.module_plane = keep
+    return made, orig
+
+
+def _fit_custom(args):
+    """``custom_softmax_rtc.run(args)``; returns its readings, the planes
+    its fit made, and the plane counters' moves during it."""
+    from mxnet_tpu_torch import trainplane
+    from mxnet_tpu_torch.example.numpy_ops import custom_softmax_rtc as cr
+
+    before = _plane_counts()
+    made, orig = _planes_made()
+    try:
+        res = cr.run(args)
+    finally:
+        trainplane.module_plane = orig
+    after = _plane_counts()
+    demoted = {k: v - before[0].get(k, 0.0) for k, v in after[0].items()
+               if v != before[0].get(k, 0.0)}
+    return res, made, demoted, after[1] - before[1], after[2] - before[2]
+
+
 def custom_rtc():
     """The extension slice's main path: the symbolic MLP with the rtc
-    softmax op, through Module.fit, score and predict on the card; then
-    the same graph with the numpy op from the same seed: the first
-    batch's outputs and updated weights must agree, both must learn,
-    and the rtc kernels must launch on every pass."""
+    softmax op, through Module.fit on the module plane (one captured step
+    a batch, the rtc kernels inside the graph), score and predict on the
+    card; then the same graph with the numpy op from the same seed, which
+    must demote at its first pass (it reads back to the host): the first
+    batch's outputs and updated weights must agree, both must learn, and
+    the rtc kernels must launch on every pass, counted through the graph
+    replays. The counted launches of a few plane steps are held against
+    the profiler's; the rtc op's eager step (MXNET_TRAINSTEP=0, the path
+    before the plane) is timed beside it."""
     import torch
 
     from mxnet_tpu_torch import rtc
@@ -1757,9 +1857,22 @@ def custom_rtc():
     cr.kernels(torch.device("cuda", torch.cuda.current_device()))  # compile
     args = cr.parse_args([])  # the defaults: the card, the rtc op
     _reset_launches()
-    res = cr.run(args)
+    res, made, demoted, graph_steps, opt = _fit_custom(args)
     launches = rtc.Kernel.total_launches
-    ref = cr.run(cr.parse_args(["--op", "np_softmax_ce"]))
+    plane = made[0] if made else None
+    if plane is None or demoted or graph_steps != res["train_batches"] \
+            or opt != 0 or plane.compile_count != 1:
+        fail("custom_rtc: the rtc op's fit did not run on the graph plane: "
+             "plane %s, demotions %s, %d graph steps for %d batches, %d "
+             "optimizer dispatches, %s captures"
+             % (plane, demoted, graph_steps, res["train_batches"], opt,
+                plane and plane.compile_count))
+    ref, ref_made, ref_demoted, _, _ = _fit_custom(
+        cr.parse_args(["--op", "np_softmax_ce"]))
+    if ref_made != [None] or \
+            ref_demoted != {"module-trace: MXNetError": 1.0}:
+        fail("custom_rtc: the numpy op did not demote with its reason: "
+             "planes %s, demotions %s" % (ref_made, ref_demoted))
     errs = {"prob": float(np.abs(res["first"]["prob"]
                                  - ref["first"]["prob"]).max())}
     for name, v in res["first"]["params"].items():
@@ -1777,13 +1890,262 @@ def custom_rtc():
         fail("custom_rtc: rtc kernels launched %d times for %d training and "
              "%d test batches" % (launches, res["train_batches"],
                                   res["test_batches"]))
-    phase("custom_rtc", train_batches=res["train_batches"],
-          test_batches=res["test_batches"], rtc_launches=launches,
+    # the counted launches of a few plane steps against the profiler's;
+    # a session has come back one kernel event short of the launches it
+    # ran (PERF.md), so a short session is traced again, five at most
+    batch = next(iter(_rtc_train_iter(args)))
+    sessions = []
+    for _ in range(5):
+        counted0 = rtc.Kernel.total_launches
+        prof = _device_profile(lambda: plane.step(batch), RTC_TRACE_STEPS,
+                               count=RTC_KERNELS)
+        counted = rtc.Kernel.total_launches - counted0
+        sessions.append(prof["kernel_events"])
+        if counted != 2 * RTC_TRACE_STEPS:
+            fail("custom_rtc: %d plane steps counted %d rtc launches"
+                 % (RTC_TRACE_STEPS, counted))
+        if sum(prof["kernel_events"].values()) == counted:
+            break
+    else:
+        fail("custom_rtc: %d plane steps counted %d rtc launches, the "
+             "profiler saw %s" % (RTC_TRACE_STEPS, counted, sessions))
+    os.environ["MXNET_TRAINSTEP"] = "0"
+    try:
+        eager, eager_made, _, _, _ = _fit_custom(args)
+    finally:
+        del os.environ["MXNET_TRAINSTEP"]
+    if eager_made != [None]:
+        fail("custom_rtc: MXNET_TRAINSTEP=0 made a plane")
+    phase("custom_rtc", plane="graph", train_batches=res["train_batches"],
+          test_batches=res["test_batches"], graph_steps=graph_steps,
+          opt_dispatches=opt, captures=plane.compile_count,
+          rtc_launches=launches, launches_per_replay={
+              k._name: v for k, v in plane._paths[
+                  next(iter(plane._paths))].launches.items()},
+          traced_steps=RTC_TRACE_STEPS, traced_launches_counted=counted,
+          traced_launches_seen=sessions,
+          numpy_demoted=ref_demoted,
           first_batch_max_abs_err=worst, tol=CUSTOM_TOL,
           rtc_score=res["score"], numpy_score=ref["score"],
           rtc_predict_acc=res["pred_acc"], numpy_predict_acc=ref["pred_acc"],
-          rtc_step_ms=res["step_ms"], numpy_step_ms=ref["step_ms"])
-    return launches
+          rtc_step_ms=res["step_ms"], numpy_step_ms=ref["step_ms"],
+          rtc_eager_step_ms=eager["step_ms"], rtc_eager_score=eager["score"],
+          plane_profile={k: v for k, v in prof.items()
+                         if k != "kernel_events"})
+    return launches, prof["kernel_device_ms_per_step"]
+
+
+def _rtc_train_iter(args):
+    """The example's training iterator over its own data (the first
+    batch is what the traced plane steps replay)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.numpy_ops import custom_softmax
+
+    with mx.gpu(0):
+        rs = np.random.RandomState(19)
+        xtr, ytr = custom_softmax.make_data(args.train_size, rs)
+        return mx.io.NDArrayIter(xtr, ytr, args.batch_size)
+
+
+def _lenet_symbol():
+    """Convolution, BatchNorm, relu, max pool, FullyConnected(10),
+    SoftmaxOutput."""
+    from mxnet_tpu_torch import sym
+
+    net = sym.Convolution(sym.var("data"), kernel=(5, 5), num_filter=20,
+                          name="conv1")
+    net = sym.BatchNorm(net, name="bn1")
+    net = sym.Activation(net, act_type="relu", name="relu1")
+    net = sym.Pooling(net, kernel=(2, 2), stride=(2, 2), pool_type="max",
+                      name="pool1")
+    net = sym.FullyConnected(net, num_hidden=10, name="fc1")
+    return sym.SoftmaxOutput(net, name="softmax")
+
+
+def module_plane_parity():
+    """PLANE_STEPS steps of the module plane (one captured step a batch)
+    against as many eager forward_backward + update steps from the same
+    weights on the same batches, on the card, with cuDNN's deterministic
+    algorithms (its default weight-gradient kernels accumulate with
+    atomics, so two eager runs differ): weights, momentum and the
+    BatchNorm moving statistics bit for bit (or within PLANE_TOL, with
+    the largest difference printed); one capture and no recapture. The
+    same two runs with cuDNN's default algorithms are printed beside,
+    with two eager runs for scale."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = False
+        default = dict(graph_vs_eager=_plane_runs(True),
+                       eager_vs_eager=_plane_runs(False))
+        torch.backends.cudnn.deterministic = True
+        out = _plane_runs(True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plane, errs, equal, steps, opt = out
+    if max(errs.values()) > PLANE_TOL or plane.compile_count != 1 or \
+            steps != PLANE_STEPS or opt != 0:
+        fail("module_plane_parity: max errors %s, %d captures, %d graph "
+             "steps, %d optimizer dispatches"
+             % (errs, plane.compile_count, steps, opt))
+    phase("module_plane_parity", steps=PLANE_STEPS, batch=PLANE_BATCH,
+          cudnn_deterministic=True, bitwise_equal=equal, max_abs_err=errs,
+          tol=PLANE_TOL, captures=plane.compile_count, graph_steps=steps,
+          cudnn_default={k: {"bitwise_equal": v[2], "max_abs_err": v[1]}
+                         for k, v in default.items()})
+
+
+def _plane_runs(graph):
+    """PLANE_STEPS steps of two modules from the same weights on the same
+    batches: the first on the module plane if ``graph``, else eagerly,
+    the second eagerly. Returns (the plane or None, the largest
+    differences by kind, whether every tensor is equal, graph steps,
+    optimizer dispatches of the first)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io, trainplane
+
+    rs = np.random.RandomState(0)
+    xs = rs.rand(PLANE_STEPS * PLANE_BATCH, 1, 28, 28).astype(np.float32)
+    ys = rs.randint(0, 10, PLANE_STEPS * PLANE_BATCH).astype(np.float32)
+    mods, src = [], (None, None)
+    for _ in range(2):  # the second module copies the first's weights
+        with mx.gpu(0):
+            it = io.NDArrayIter(xs, ys, PLANE_BATCH)
+            mod = mx.module.Module(_lenet_symbol())
+            mod.bind(it.provide_data, it.provide_label)
+            mx.random.seed(0)
+            mod.init_params(mx.initializer.Xavier(), arg_params=src[0],
+                            aux_params=src[1])
+            mod.init_optimizer(optimizer="sgd",
+                               optimizer_params=dict(PLANE_SGD))
+            src = mod.get_params()
+        mods.append((mod, it))
+    plane = None
+    if graph:
+        os.environ["MXNET_TRAINSTEP"] = "1"  # a demotion logs its error
+        try:
+            before = _plane_counts()
+            plane = trainplane.module_plane(mods[0][0])
+        finally:
+            del os.environ["MXNET_TRAINSTEP"]
+        if plane is None:
+            fail("module_plane_parity: the plane declined the module: %s"
+                 % {k: v - before[0].get(k, 0.0)
+                    for k, v in _plane_counts()[0].items()
+                    if v != before[0].get(k, 0.0)})
+    before = _plane_counts()
+    for batch in mods[0][1]:
+        if plane is not None:
+            plane.step(batch)
+        else:
+            mods[0][0].forward_backward(batch)
+            mods[0][0].update()
+    after = _plane_counts()
+    mod_e = mods[1][0]
+    for batch in mods[1][1]:
+        mod_e.forward_backward(batch)
+        mod_e.update()
+    torch.cuda.synchronize()
+    errs = {"weights": 0.0, "momentum": 0.0, "moving_stats": 0.0}
+    equal = True
+    (ga, gx), (ea, ex) = mods[0][0].get_params(), mod_e.get_params()
+    pairs = [("weights", ga[k]._data, ea[k]._data) for k in ga]
+    pairs += [("moving_stats", gx[k]._data, ex[k]._data) for k in gx]
+    for i, st in mods[0][0]._updater.states.items():
+        pairs.append(("momentum", st, mod_e._updater.states[i]))
+    for key, a, b in pairs:
+        equal = equal and torch.equal(a, b)
+        errs[key] = max(errs[key], float((a - b).abs().max()))
+    return (plane, errs, equal, after[1] - before[1],
+            after[2] - before[2] - (0 if graph else PLANE_STEPS))
+
+
+def _flops_per_image(net, x):
+    """The forward's FLOPs an image (convolutions and products, counted
+    by torch.utils.flop_counter from their shapes)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mxnet_tpu_torch import autograd
+
+    counter = FlopCounterMode(display=False)
+    with counter, autograd.pause():
+        net(x)
+    return counter.get_total_flops() / x.shape[0]
+
+
+def zoo_score():
+    """benchmark_score.py's networks on the card: for each, in fp32 at
+    batches 32 and 1 (and in bf16 at 32 for the script's default sweep),
+    img/s of the eager hybridized forward (the script's own build and
+    timed loop) and of parallel.InferStep (a CUDA graph a shape), whose
+    output must agree with the eager forward's (fp32: ZOO_TOL; bf16: one
+    bf16 step of the largest output); GFLOP an image, the share of the
+    bound and the peak memory of each; the top device operations of one
+    fp32 InferStep call at batch 32."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, parallel
+    from mxnet_tpu_torch.example.image_classification import (
+        benchmark_score as bs)
+
+    ctx = mx.gpu(0)
+    runs = [(n, "float32", b) for n in ZOO_NETS for b in (32, 1)]
+    runs += [(n, "bfloat16", 32) for n in bs.DEFAULT_NETS]
+    gflop = {}
+    t_phase = time.perf_counter()
+    for name, dtype, batch in runs:
+        side = 299 if name == "inception_v3" else 224
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mx.random.seed(0)
+        net, x = bs.build(name, batch, (3, side, side), dtype, ctx,
+                          init=mx.initializer.Xavier(
+                              rnd_type="gaussian", factor_type="in",
+                              magnitude=2))
+        if name not in gflop:
+            gflop[name] = _flops_per_image(net, x) / 1e9
+        eager_ips = bs.score_net(net, x, ZOO_S, ctx)
+        with autograd.pause():
+            want = net(x)._data.float()
+        infer = parallel.InferStep(net, parallel.device_mesh(1))
+        got = infer(x)._data.float()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        tol = ZOO_TOL * max(1.0, scale) if dtype == "float32" \
+            else BF16_RTOL * scale
+        if not np.isfinite(scale) or not err <= tol or \
+                tuple(got.shape) != (batch, 1000):
+            fail("zoo_score %s %s batch %d: InferStep against eager: max "
+                 "abs err %.3g (tol %.3g), shape %s"
+                 % (name, dtype, batch, err, tol, tuple(got.shape)))
+        calls, secs = bs.timed(lambda: infer(x), ZOO_S, ctx)
+        infer_ips = calls * batch / secs
+        peak = torch.cuda.max_memory_allocated()
+        peak_flops = PEAK_FP32_FLOPS if dtype == "float32" \
+            else PEAK_BF16_FLOPS
+        bound_ms = gflop[name] * 1e9 * batch / peak_flops * 1e3
+        fields = {}
+        if dtype == "float32" and batch == 32:
+            prof = _device_profile(lambda: infer(x), 3)
+            fields = dict(busy_share=prof["device_busy_share"],
+                          device_ops=prof["device_ops_per_step"],
+                          top_device_ms=prof["top_device_ms"][:5])
+        phase("zoo_score", model=name, dtype=dtype, batch=batch, side=side,
+              eager_img_per_s=eager_ips, inferstep_img_per_s=infer_ips,
+              inferstep_max_abs_err=err, output_max_abs=scale, tol=tol,
+              gflop_per_img=gflop[name], bound_ms=bound_ms,
+              eager_bound_share=bound_ms * eager_ips / batch / 1e3,
+              inferstep_bound_share=bound_ms * infer_ips / batch / 1e3,
+              peak_memory_gb=peak / 1e9,
+              seconds=time.perf_counter() - t0, **fields)
+        del net, x, infer, want, got
+    phase("zoo_score", runs=len(runs),
+          seconds=time.perf_counter() - t_phase)
 
 
 def rtc_time():
@@ -2320,11 +2682,12 @@ def _opt_dispatches():
     return {p: OPT_DISPATCHES.value(path=p) for p in ("fused", "perparam")}
 
 
-def _device_profile(run, steps):
+def _device_profile(run, steps, count=()):
     """torch.profiler (device activity and the host's CUDA runtime calls)
     over ``steps`` runs of ``run()``: wall ms, device busy ms, device
-    operations, host launches and copies, each per step, and the top
-    device operations [name, ms a step, launches a step]."""
+    operations, host launches and copies, each per step, the top device
+    operations [name, ms a step, launches a step], and with ``count`` the
+    device events whose name contains each of its strings."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2348,7 +2711,13 @@ def _device_profile(run, steps):
     if busy_ms <= 0.0:
         fail("the profiler saw no device time in the traced steps")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    return dict(
+    counted = {c: sum(n for k, (_, n) in by_name.items() if c in k)
+               for c in count}
+    counted_ms = {c: sum(ms for k, (ms, _) in by_name.items() if c in k)
+                  / steps for c in count}
+    return dict(**({"kernel_events": counted,
+                    "kernel_device_ms_per_step": counted_ms}
+                   if count else {}),
         steps=steps, per_step_wall_ms=wall_ms / steps,
         per_step_busy_ms=busy_ms / steps, device_busy_share=busy_ms / wall_ms,
         device_ops_per_step=sum(n for _, n in by_name.values()) / steps,
@@ -3031,6 +3400,17 @@ def main():
         spec_serve(model, params, contract=False)
         chunked_serve(model, params, contract=False)
         return 0
+    if sys.argv[1:] == ["--zoo"]:
+        # only the vision zoo's inference phase (no kernel is built: the
+        # path runs none)
+        zoo_score()
+        return 0
+    if sys.argv[1:] == ["--module-plane"]:
+        # only the module plane's phases (the rtc kernels compile through
+        # NVRTC; nvcc builds nothing)
+        custom_rtc()
+        module_plane_parity()
+        return 0
     if sys.argv[1:] == ["--resnet"]:
         # only the ResNet slices' phases (no kernel is built: the path
         # runs none)
@@ -3093,10 +3473,14 @@ def main():
     resnet_phases()
     rtc_err = rtc_check()
     custom_softmax()
-    rtc_launches = custom_rtc()
+    rtc_launches, rtc_plane_ms = custom_rtc()
+    module_plane_parity()
     rtc_entry = rtc_time()
     rtc_entry["launches"] = rtc_launches
+    # the two kernels' device ms a step inside the module plane's graph
+    rtc_entry["graph_device_ms"] = rtc_plane_ms
     rtc_entry["max_abs_err"] = max(rtc_entry["max_abs_err"], rtc_err)
+    zoo_score()
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
                                   nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,11 @@ Where the JAX executor jits the whole graph and takes a ``jax.vjp`` of it
   ``MakeLoss``) apply it. Gradients land in ``grad_dict`` under
   ``grad_req``: ``write`` rebinds, ``add`` accumulates, ``null`` skips.
 
-The graph is held from forward to backward and freed by it. A captured
-graph (the JAX package's one compiled step) is not ported yet.
+``forward(is_train=True)`` also moves the BatchNorm moving statistics,
+written in place into ``aux_dict`` (``executor.py:225-227`` rebinds
+them). The graph is held from forward to backward and freed by it.
+``trainplane.module_plane`` captures the same forward, backward and
+update as one CUDA graph a step.
 """
 from __future__ import annotations
 
@@ -98,24 +101,51 @@ class Executor(object):
         values = {n: a._data for n, a in self.arg_dict.items()}
         values.update((n, a._data) for n, a in self.aux_dict.items())
         self._heads = None
-        with autograd.train_mode() if is_train else autograd.predict_mode():
-            if is_train:
-                diff = [n for n in self.arg_names
-                        if self.grad_req.get(n, "null") != "null"
-                        and n in self.grad_dict]
-                leaves = []
-                for n in diff:
-                    leaf = values[n].detach().requires_grad_(True)
-                    values[n] = leaf
-                    leaves.append(leaf)
-                with torch.enable_grad():
-                    outs = self._symbol.eval_torch(values)
-                self._heads = (outs, leaves, diff)
-            else:
-                with torch.no_grad():
-                    outs = self._symbol.eval_torch(values)
+        if is_train:
+            diff = [n for n in self.arg_names
+                    if self.grad_req.get(n, "null") != "null"
+                    and n in self.grad_dict]
+            outs, leaves = self._train_forward(values, diff)
+            self._heads = (outs, leaves, diff)
+        else:
+            with autograd.predict_mode(), torch.no_grad():
+                outs = self._symbol.eval_torch(values)
         self.outputs = [NDArray(o.detach()) for o in outs]
         return self.outputs
+
+    def _train_forward(self, values, diff):
+        """The graph in train mode over ``values`` (name -> tensor), with
+        the arguments ``diff`` entered as fresh leaves sharing their
+        storage; the BatchNorm moving statistics are written in place into
+        the auxiliary arrays (their addresses stay: ``trainplane``'s
+        captured step replays this). Returns ``(outputs, leaves)``."""
+        leaves = []
+        for n in diff:
+            leaf = values[n].detach().requires_grad_(True)
+            values[n] = leaf
+            leaves.append(leaf)
+        aux_updates = {}
+        with autograd.train_mode(), torch.enable_grad():
+            outs = self._symbol.eval_torch(values, aux_updates=aux_updates)
+        with torch.no_grad():
+            for name, val in aux_updates.items():
+                if name in self.aux_dict:
+                    self.aux_dict[name]._data.copy_(val)
+        return outs, leaves
+
+    @staticmethod
+    def _head_grads(outs, leaves, cts):
+        """Gradients of ``outs`` seeded with ``cts`` with respect to
+        ``leaves``; zeros for a leaf no output reaches."""
+        pairs = [(o, c) for o, c in zip(outs, cts) if o.requires_grad]
+        if pairs and leaves:
+            grads = torch.autograd.grad([o for o, _ in pairs], leaves,
+                                        [c for _, c in pairs],
+                                        allow_unused=True)
+        else:
+            grads = [None] * len(leaves)
+        return [torch.zeros_like(leaf) if g is None else g
+                for leaf, g in zip(leaves, grads)]
 
     def backward(self, out_grads=None, is_train=True):
         """Gradients of the last ``forward(is_train=True)`` into
@@ -132,17 +162,9 @@ class Executor(object):
             cts = [g._data if isinstance(g, NDArray)
                    else torch.as_tensor(g, device=o.device)
                    for g, o in zip(out_grads, outs)]
-        pairs = [(o, c) for o, c in zip(outs, cts) if o.requires_grad]
-        if pairs and leaves:
-            grads = torch.autograd.grad([o for o, _ in pairs], leaves,
-                                        [c for _, c in pairs],
-                                        allow_unused=True)
-        else:
-            grads = [None] * len(leaves)
-        for name, leaf, g in zip(names, leaves, grads):
+        grads = self._head_grads(outs, leaves, cts)
+        for name, g in zip(names, grads):
             tgt = self.grad_dict[name]
-            if g is None:
-                g = torch.zeros_like(leaf)
             if self.grad_req[name] == "add":
                 tgt._data = tgt._data + g
             else:

@@ -1,6 +1,6 @@
 """Gluon: the imperative NN API, the port's part of ``mxnet_tpu/gluon/``
-(Block/HybridBlock run eagerly, Parameter, nn, loss, Trainer, the
-ResNets of ``model_zoo``) and
+(Block/HybridBlock run eagerly, Parameter, nn, ``contrib.nn``, loss,
+Trainer, the vision ``model_zoo``) and
 :func:`params_from_jax`, which carries a JAX-package net's weights over.
 """
 import re as _re
@@ -8,14 +8,15 @@ import re as _re
 import numpy as _np
 
 from ..base import MXNetError as _MXNetError
-from . import block, loss, model_zoo, nn, parameter, trainer
+from . import block, contrib, loss, model_zoo, nn, parameter, trainer
 from .block import Block, HybridBlock
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 from .trainer import Trainer
 
 __all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict",
            "DeferredInitializationError", "Trainer", "params_from_jax",
-           "block", "loss", "model_zoo", "nn", "parameter", "trainer"]
+           "block", "contrib", "loss", "model_zoo", "nn", "parameter",
+           "trainer"]
 
 _COUNTED = _re.compile(r"([A-Za-z]+)(\d+)")
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 from ....base import MXNetError
 from ... import nn
 from ...block import HybridBlock
-from ._builders import named_factory, seq as _seq
+from ._builders import named_factory, refuse_pretrained, seq as _seq
 
 __all__ = [
     "ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
@@ -241,10 +241,7 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     if version not in (1, 2):
         raise MXNetError(
             "Invalid resnet version: %d. Options are 1 and 2." % version)
-    if pretrained:
-        raise MXNetError("pretrained weights are not ported: the model "
-                         "store downloads them; load a local file, or carry "
-                         "a JAX net's weights with gluon.params_from_jax")
+    refuse_pretrained(pretrained)
     kind, layers, channels = resnet_spec[num_layers]
     net_cls = resnet_net_versions[version - 1]
     block_cls = resnet_block_versions[version - 1][kind]

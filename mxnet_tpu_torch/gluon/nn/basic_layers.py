@@ -1,18 +1,20 @@
 """Basic Gluon layers: the port of the part of
 ``mxnet_tpu/gluon/nn/basic_layers.py`` the GPT and ResNet paths use:
 Sequential, HybridSequential, Dense, Activation, Dropout, BatchNorm,
-Embedding, Flatten and LayerNorm. ``InstanceNorm``, ``Lambda`` and
-``HybridLambda`` are not ported yet."""
+Embedding, Flatten and LayerNorm; for the vision zoo's relatives
+InstanceNorm, Lambda and HybridLambda."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ... import autograd
+from ...base import MXNetError
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
-           "Dropout", "BatchNorm", "Embedding", "Flatten", "LayerNorm"]
+           "Dropout", "BatchNorm", "Embedding", "Flatten", "LayerNorm",
+           "InstanceNorm", "Lambda", "HybridLambda"]
 
 
 class Sequential(Block):
@@ -230,3 +232,92 @@ class LayerNorm(HybridBlock):
     def hybrid_forward(self, F, x, gamma, beta):
         return F.invoke("LayerNorm", x, gamma, beta, axis=self._axis,
                         eps=self._epsilon)[0]
+
+
+class InstanceNorm(HybridBlock):
+    """Instance normalization over ``axis`` (basic_layers.py:295): the
+    ``InstanceNorm`` op with the channels moved to axis 1 and back; gamma
+    takes no gradient unless ``scale``, beta none unless ``center``."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def shape_hint(self, x, *args):
+        if self.gamma.shape[0] == 0:
+            ch = x.shape[self._axis]
+            self.gamma.shape = (ch,)
+            self.beta.shape = (ch,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta,
+                              eps=self._epsilon).swapaxes(1, self._axis)
+
+
+def _nd_function(name):
+    from ... import ndarray as nd
+
+    if not hasattr(nd, name):
+        raise MXNetError("Function name %s is not found in ndarray." % name)
+    return getattr(nd, name)
+
+
+class Lambda(Block):
+    """A function (or the name of an ``nd`` function) as a Block
+    (basic_layers.py:374)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_impl = _nd_function(function)
+            self._func_name = function
+        elif callable(function):
+            self._func_impl = function
+            self._func_name = function.__name__
+        else:
+            raise ValueError("Unrecognized function in lambda: {} of type {}"
+                             .format(function, type(function)))
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return "%s(%s)" % (self.__class__.__name__, self._func_name)
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, x, *args)`` (or the name of an ``F`` function) as a
+    HybridBlock (basic_layers.py:401)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            impl = _nd_function(function)
+            self._func = lambda F, *args: impl(*args)
+            self._func_name = function
+        elif callable(function):
+            self._func = function
+            self._func_name = function.__name__
+        else:
+            raise ValueError("Unrecognized function in lambda: {} of type {}"
+                             .format(function, type(function)))
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def __repr__(self):
+        return "%s(%s)" % (self.__class__.__name__, self._func_name)

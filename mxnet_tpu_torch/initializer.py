@@ -48,8 +48,9 @@ def create(name, **kwargs):
 
 class Initializer(object):
     """Base initializer: ``init(desc, arr)`` fills ``arr`` by the name's
-    suffix — ``weight`` by :meth:`_init_weight`, ``bias``/``beta`` with
-    0, ``gamma`` with 1 — unless ``desc.attrs['__init__']`` names an
+    suffix — ``weight`` by :meth:`_init_weight`, ``bias``/``beta`` and a
+    moving (running) mean with 0, ``gamma`` and a moving variance with
+    1 — unless ``desc.attrs['__init__']`` names an
     initializer for this parameter."""
 
     def __init__(self, **kwargs):
@@ -70,6 +71,10 @@ class Initializer(object):
         elif desc.endswith("bias") or desc.endswith("beta"):
             self._set(arr, np.zeros(self._shape(arr)))
         elif desc.endswith("gamma"):
+            self._set(arr, np.ones(self._shape(arr)))
+        elif desc.endswith("running_mean") or desc.endswith("moving_mean"):
+            self._set(arr, np.zeros(self._shape(arr)))
+        elif desc.endswith("running_var") or desc.endswith("moving_var"):
             self._set(arr, np.ones(self._shape(arr)))
         else:
             raise MXNetError(

@@ -3,10 +3,12 @@
 ``python/mxnet/module/base_module.py``: fit :409, score, predict,
 forward_backward).
 
-``fit`` is the JAX package's epoch loop on its eager branch: each batch
-runs ``forward_backward`` and ``update`` (the JAX package's one compiled
-training step, ``trainplane.module_plane``, is not ported yet). A kvstore
-other than ``local`` or None, and ``monitor=``, raise. ``save_params``
+``fit`` is the JAX package's epoch loop: it asks
+``trainplane.module_plane`` once for the whole training step as one
+captured graph and steps every batch through it; where the plane
+declines (its reasons are counted in ``trainplane.FALLBACKS``), each batch
+runs ``forward_backward`` and ``update``. A kvstore other than ``local``
+or None, and ``monitor=``, raise. ``save_params``
 and ``load_params`` need the ``.params`` format, which is not ported
 yet: they raise.
 """
@@ -153,8 +155,9 @@ class BaseModule(object):
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None, sparse_row_id_fn=None):
         """Train the module (reference base_module.py:409): bind, init
-        params and optimizer, then per epoch ``forward_backward`` +
-        ``update`` + ``update_metric`` on every batch, the callbacks, and
+        params and optimizer, then per epoch one step of the graph plane
+        (``trainplane.module_plane``) or ``forward_backward`` + ``update``,
+        and ``update_metric``, on every batch, the callbacks, and
         ``score`` on ``eval_data``."""
         if num_epoch is None:
             raise MXNetError("fit: please specify number of epochs")
@@ -176,6 +179,13 @@ class BaseModule(object):
         eval_metric = _as_metric(eval_metric)
         validation_metric = validation_metric or eval_metric
 
+        # the training plane (mxnet_tpu/module/base_module.py:168-189): one
+        # captured forward + backward + update a batch where the module
+        # allows it, else the eager pair below
+        from .. import trainplane
+
+        plane = trainplane.module_plane(self)
+
         for epoch in range(begin_epoch, num_epoch):
             started = time.time()
             eval_metric.reset()
@@ -183,8 +193,11 @@ class BaseModule(object):
             epoch_vals = []
             for nbatch, batch in enumerate(train_data):
                 self.prepare(batch, sparse_row_id_fn=sparse_row_id_fn)
-                self.forward_backward(batch)
-                self.update()
+                if plane is not None:
+                    plane.step(batch)
+                else:
+                    self.forward_backward(batch)
+                    self.update()
                 self.update_metric(eval_metric, batch.label)
                 if batch_end_callback is not None:
                     # snapshot BEFORE callbacks: an auto-resetting

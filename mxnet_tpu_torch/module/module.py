@@ -5,8 +5,9 @@ forward/backward, update, get_outputs, get_params/set_params).
 One context (the card by default: ``context=None`` is the current
 context, which raises without a card unless a ``with mx.cpu():`` scope
 asks for the host), no kvstore, and :meth:`Module.update` applies the
-optimizer's per-parameter updater in place. The fused ``fastpath`` apply
-of the JAX package is not ported yet.
+optimizer in place through the fused ``fastpath`` apply
+(``MXNET_FASTPATH=0``: the per-parameter updater). ``fit`` steps through
+``trainplane.module_plane`` where the module allows it.
 
 :func:`params_from_jax` carries the JAX ``Module.get_params()`` into this
 package, so both can compute the same thing.
@@ -66,6 +67,8 @@ class Module(BaseModule):
         self._params_dirty = False
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
@@ -140,8 +143,12 @@ class Module(BaseModule):
                         raise MXNetError("%s: shape %s given, %s expected"
                                          % (name, tuple(data.shape),
                                             arr.shape))
+                    # a copy of its own, as the reference's set_params
+                    # copies: the update and the moving statistics are
+                    # written in place
                     arr._data = data.detach().to(
-                        device=arr._data.device, dtype=arr._data.dtype)
+                        device=arr._data.device, dtype=arr._data.dtype,
+                        copy=True)
                     return
                 if not allow_missing:
                     raise RuntimeError("%s is not presented" % name)
@@ -210,7 +217,8 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        _create_kvstore(kvstore, len(self._context), self._arg_params)
+        self._kvstore, self._update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
         if isinstance(optimizer, str):
             names = [n for n in self._symbol.list_arguments()
                      if n in self._param_names]

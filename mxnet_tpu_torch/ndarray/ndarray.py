@@ -208,6 +208,9 @@ class NDArray:
     def transpose(self, axes=None):
         return invoke("transpose", self, axes=axes)
 
+    def swapaxes(self, dim1, dim2):
+        return invoke("SwapAxis", self, dim1=dim1, dim2=dim2)
+
     def split(self, num_outputs, axis=1, squeeze_axis=False):
         return invoke("SliceChannel", self, num_outputs=num_outputs,
                       axis=axis, squeeze_axis=squeeze_axis)

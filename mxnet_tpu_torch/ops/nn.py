@@ -9,7 +9,7 @@ the mean and the variance), ``Activation``, ``softmax`` and
 leaves them to XLA) and ``SoftmaxOutput``, a ``torch.autograd.Function``
 with the reference's backward; for the ResNet path ``BatchNorm`` (three
 outputs; the caller updates the moving statistics), ``Deconvolution``
-(``F.conv_transpose*d``), ``LeakyReLU`` and ``Dropout``, which draw from
+(``F.conv_transpose*d``), ``LeakyReLU``, ``InstanceNorm`` and ``Dropout``, which draw from
 the port's explicit ``torch.Generator`` (``random.generator``). Train
 mode is ``autograd.is_training()``. The other ops of the JAX module are
 not ported yet.
@@ -52,6 +52,19 @@ def layer_norm(attrs, data, gamma, beta):
                    for i in range(data.dim()))
     out = (data - mean) * inv * gamma.reshape(bshape) + beta.reshape(bshape)
     return out, mean.squeeze(ax), var.squeeze(ax)
+
+
+@register("InstanceNorm", params={"eps": (float, 1e-3)},
+          inputs=("data", "gamma", "beta"))
+def instance_norm(attrs, data, gamma, beta):
+    """Each (sample, channel) normalised over its spatial axes with the
+    biased variance, then ``* gamma + beta`` by channel
+    (``mxnet_tpu/ops/nn.py:304-315``)."""
+    red = tuple(range(2, data.dim()))
+    var, mean = torch.var_mean(data, dim=red, unbiased=False, keepdim=True)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + attrs.eps) \
+        * gamma.reshape(bshape) + beta.reshape(bshape)
 
 
 _ACTS = {
@@ -157,7 +170,9 @@ def batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
     (cuDNN on the card) with the channel axis moved to 1."""
     ax = attrs.axis % data.dim()
     x = data if ax == 1 else data.movedim(ax, 1)
-    weight = None if attrs.fix_gamma else gamma
+    # fix_gamma: a weight of ones, as the JAX op's ones_like(gamma) (cuDNN's
+    # training backward fails on the card for a bias without a weight)
+    weight = torch.ones_like(gamma) if attrs.fix_gamma else gamma
     if autograd.is_training() and not attrs.use_global_stats:
         red = tuple(i for i in range(data.dim()) if i != ax)
         var, mean = torch.var_mean(data, dim=red, unbiased=False)
@@ -393,8 +408,10 @@ class _SoftmaxOutput(torch.autograd.Function):
             if a.use_ignore:
                 grad = grad * ignore.reshape(
                     (-1,) + (1,) * (prob.dim() - 1))
-        scale = torch.tensor(a.grad_scale, dtype=prob.dtype,
-                             device=prob.device)
+        # a fill on the device, not a copy from the host: a captured
+        # step (trainplane.module_plane) replays this backward
+        scale = torch.full((), a.grad_scale, dtype=prob.dtype,
+                           device=prob.device)
         if a.normalization == "batch":
             scale = scale / prob.shape[0]
         elif a.normalization == "valid" and a.use_ignore:

@@ -7,7 +7,9 @@ MXNet's special codes, ``transpose``, ``SliceChannel``/``split``,
 ``pick`` and ``Embedding``; and for the SSD path ``Flatten``,
 ``Concat``, ``BlockGrad``, ``MakeLoss`` (a ``torch.autograd.Function``
 with the reference's backward), ``smooth_l1`` and the rest of what
-Symbol's operator sugar emits; for the ResNet slice's layers ``Pad``. Index tensors are cast to int64 inside
+Symbol's operator sugar emits; for the ResNet slice's layers ``Pad``;
+for the vision zoo ``clip`` (MobileNet v2's ReLU6) and ``SwapAxis``
+(``InstanceNorm`` over another axis). Index tensors are cast to int64 inside
 ``pick`` and ``Embedding``: torch's gathers need it, and callers feed
 int32. Every other op of the JAX module is not ported yet: ``nd.<name>``
 does not exist for it, and ``invoke`` raises "not registered".
@@ -305,6 +307,14 @@ _reg("transpose",
      lambda attrs, x: x.permute(*attrs.axes) if attrs.axes
      else x.permute(*reversed(range(x.dim()))),
      params={"axes": (tuple, None)})
+_reg("SwapAxis",
+     lambda attrs, x: torch.swapaxes(x, attrs.dim1, attrs.dim2),
+     params={"dim1": (int, 0), "dim2": (int, 0)}, aliases=("swapaxes",))
+# torch.clamp passes the gradient at either bound, where jnp.clip's
+# max/min split it in halves: the two differ only on inputs exactly at a
+# bound
+_reg("clip", lambda attrs, x: torch.clamp(x, attrs.a_min, attrs.a_max),
+     params={"a_min": (float, REQUIRED), "a_max": (float, REQUIRED)})
 
 
 def _split(attrs, x):
@@ -368,7 +378,8 @@ class _MakeLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        s = torch.tensor(ctx.scale, dtype=g.dtype, device=g.device)
+        # a fill on the device, not a copy from the host: capturable
+        s = torch.full((), ctx.scale, dtype=g.dtype, device=g.device)
         if ctx.norm == "batch":
             s = s / x.shape[0]
         elif ctx.norm == "valid":

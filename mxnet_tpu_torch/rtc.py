@@ -49,7 +49,10 @@ package's ``PallasModule`` has no counterpart: Pallas source cannot run
 on the card.
 
 Launches are counted per kernel (``Kernel.launches``) and in all
-(``Kernel.total_launches``).
+(``Kernel.total_launches``). A launch recorded into a CUDA graph runs at
+each replay, not at the capture: the capturer reads the launches a
+capture recorded (:func:`launch_counts` before and after), takes them back
+and adds them at every replay (:func:`add_launches`).
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ import glob
 import os
 import re
 import threading
+import weakref
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
@@ -66,7 +70,8 @@ import torch
 from .base import MXNetError, np_dtype, torch_dtype
 from .ndarray.ndarray import NDArray
 
-__all__ = ["CudaModule", "Kernel", "versions"]
+__all__ = ["CudaModule", "Kernel", "versions", "launch_counts",
+           "add_launches"]
 
 # ---------------------------------------------------------------------------
 # signatures (the JAX package's _SIG_RE, _CTYPE_DT and _parse_signature)
@@ -515,6 +520,8 @@ class Kernel(object):
 
     #: launches of every kernel of every module
     total_launches = 0
+    #: every kernel made in this process (for :func:`launch_counts`)
+    _live = weakref.WeakSet()
 
     def __init__(self, module: "CudaModule", fn: ctypes.c_void_p, name: str,
                  spec: List[Param]):
@@ -526,6 +533,7 @@ class Kernel(object):
         self._tls = threading.local()
         self._smem_set = 48 * 1024  # what a launch may use without opting in
         self.launches = 0
+        Kernel._live.add(self)
 
     def _thread_state(self):
         """This thread's (holders, parameter array, context switch)."""
@@ -582,6 +590,22 @@ class Kernel(object):
         if len(outs) == 1:
             return args[outs[0]]
         return [args[i] for i in outs]
+
+
+def launch_counts():
+    """``{kernel: launches}`` of every live kernel."""
+    return {k: k.launches for k in list(Kernel._live)}
+
+
+def add_launches(counts, times=1):
+    """Add ``times`` x ``counts`` (``{kernel: launches}``, a difference of
+    two :func:`launch_counts`) to the launch counts: what a CUDA graph
+    launches when it replays the rtc kernels its capture recorded. The
+    wrappers ran only during the capture, which launches nothing, so the
+    capturer takes the capture's own counts back with ``times=-1``."""
+    for kernel, n in counts.items():
+        kernel.launches += n * times
+        Kernel.total_launches += n * times
 
 
 class CudaModule(object):

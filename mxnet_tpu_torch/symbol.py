@@ -342,10 +342,17 @@ class Symbol(object):
         return json.dumps(js, indent=2)
 
     # -- evaluation / binding ---------------------------------------------
-    def eval_torch(self, value_map: Dict[str, torch.Tensor]):
+    def eval_torch(self, value_map: Dict[str, torch.Tensor],
+                   aux_updates: Optional[Dict[str, torch.Tensor]] = None):
         """Output tensors of the graph given name -> tensor bindings; runs
         each op's ``fcompute`` in topological order (under whatever
-        autograd mode the caller set)."""
+        autograd mode the caller set). Given a dict ``aux_updates``, a
+        ``BatchNorm`` in train mode (without ``use_global_stats``) records
+        there its moving statistics' new values, ``momentum * moving +
+        (1 - momentum) * batch``, under the auxiliary variables' names,
+        as ``mxnet_tpu/symbol.py:462-471`` does; the caller writes them."""
+        from . import autograd
+
         vals: Dict[Tuple[int, int], Any] = {}
         for node in self._topo_nodes():
             if node.is_var():
@@ -361,6 +368,18 @@ class Symbol(object):
             outs = out if isinstance(out, (tuple, list)) else (out,)
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
+            if aux_updates is not None and node.op == "BatchNorm" \
+                    and autograd.is_training() \
+                    and not attrs.use_global_stats:
+                names = opdef.input_names(attrs)
+                m = attrs.momentum
+                with torch.no_grad():
+                    for slot, stat in (("moving_mean", outs[1]),
+                                       ("moving_var", outs[2])):
+                        src, _ = node.inputs[names.index(slot)]
+                        if src.is_var():
+                            old = vals[(id(src), 0)]
+                            aux_updates[src.name] = m * old + (1 - m) * stat
         return [vals[(id(n), i)] for n, i in self._outputs]
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
@@ -437,6 +456,10 @@ def _fill_param_shapes(node: _Node, in_shapes):
         put("weight", (attrs.num_filter, data[1] // attrs.num_group)
             + tuple(attrs.kernel))
         put("bias", (attrs.num_filter,))
+    elif op in ("BatchNorm", "InstanceNorm") and data is not None:
+        c = (data[attrs.get("axis", 1) % len(data)],)
+        for slot in ("gamma", "beta", "moving_mean", "moving_var"):
+            put(slot, c)
     elif op == "LayerNorm" and data is not None:
         c = (data[attrs.axis % len(data)],)
         put("gamma", c)
@@ -475,8 +498,8 @@ def _invoke(op_name: str, sym_inputs: List[Symbol], attrs: Dict[str, Any],
     if scope_attrs:
         node._extra_attrs.update(scope_attrs)
     n_out = opdef.num_outputs(parsed)
-    # LayerNorm's mean and variance outputs are internal
-    if op_name == "LayerNorm":
+    # BatchNorm's and LayerNorm's mean and variance outputs are internal
+    if op_name in ("BatchNorm", "LayerNorm"):
         n_out = 1
     return Symbol([(node, i) for i in range(n_out)])
 

@@ -51,10 +51,31 @@ cannot be captured (a forward that reads back to the host), decided once
 at the capture. ``STEP_DISPATCHES{plane}`` counts the steps: a graph step
 is one replay and no ``OPT_DISPATCHES``.
 
-Not ported yet (they raise): ``MXNET_ZERO``, a mesh of several devices,
-``fit``'s elastic checkpoints, and ``module_plane`` (``Module.fit``
-through the plane). The JAX plane's out-of-memory survival and device
-profiling wait for the port's HBM governor and devprof.
+:func:`module_plane` does the same for a bound ``Module``
+(``BaseModule.fit`` asks for it once and steps every batch through it):
+the Symbol graph's forward in train mode, a backward seeded with ones
+(``backward(out_grads=None)``), and ``fastpath.tree_kernel`` over the
+executor's own weights, the updater's states and the auxiliary states
+(BatchNorm's moving statistics), one CUDA graph a batch signature, built
+and fed as above; the executor's outputs are copies of the graph's, so a
+metric or a caller holding an earlier batch's outputs keeps them. It
+declines (returns None) for ``MXNET_TRAINSTEP=0`` and for a ``Module``
+subclass, uncounted, and demotes for the JAX package's reasons, each
+counted in ``FALLBACKS`` under the JAX label: ``MXNET_FASTPATH=0``,
+several contexts or
+executors, a kvstore, an updater that is not ``Updater``, an optimizer
+without a list kernel, ``state_names`` or ``inputs_need_grad``
+(``"module-config"``), and ``"module-trace: <error>"`` for a ``grad_req``
+other than ``write``/``null``, no trainable parameter, or a first pass
+that fails: a custom op that reads back to the host (a numpy op) demotes
+there. A CUDA graph replays device work only, so a custom op's Python
+side effects that read nothing back (a counter, a draw from a host RNG)
+run at the first pass and at the capture, and at no replay. The rtc kernels a capture records are
+counted at every replay (``rtc.add_launches``).
+
+Not ported yet (they raise): ``MXNET_ZERO``, a mesh of several devices
+and ``fit``'s elastic checkpoints. The JAX plane's out-of-memory survival
+and device profiling wait for the port's HBM governor and devprof.
 """
 from __future__ import annotations
 
@@ -66,18 +87,18 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from . import autograd, fastpath
+from . import autograd, fastpath, random as _random, rtc
 from .base import MXNetError, get_env
 from .fastpath.fused import _is_mp_state
 from .gluon.block import HybridBlock
 from .gluon.parameter import DeferredInitializationError
 from .ndarray.ndarray import NDArray, no_host_reads
-from .optimizer import ensure_mp_state
+from .optimizer import Updater, ensure_mp_state
 from .telemetry import STEP_DISPATCHES, TRAINPLANE_FALLBACKS
 from .telemetry import accounting as _accounting
 
-__all__ = ["TrainPlane", "fit", "mode", "train_dtype", "sharded_feed",
-           "FALLBACKS"]
+__all__ = ["TrainPlane", "fit", "module_plane", "mode", "train_dtype",
+           "sharded_feed", "FALLBACKS"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -118,7 +139,7 @@ def _leaves(state):
 
 class _Path(object):
     """One batch signature: static inputs, the step over them, and on the
-    card its graph and the graph's loss output."""
+    card its graph, the graph's outputs and the rtc launches it holds."""
 
     def __init__(self, inputs, fn, ptrs):
         self.inputs = inputs
@@ -126,9 +147,131 @@ class _Path(object):
         self.ptrs = ptrs      # the addresses the graph baked in
         self.graph = None
         self.out = None
+        self.launches = {}    # rtc kernel -> launches a replay
 
 
-class TrainPlane(object):
+class _Ineligible(Exception):
+    """The graph plane cannot serve this module."""
+
+
+class _PlaneBase(object):
+    """What the gluon and Module planes share (``mxnet_tpu/trainplane.py:
+    118-170``): the optimizer's host prologue, the step's scalars as 0-d
+    device tensors, and the first pass and capture of a path. A plane
+    sets ``_rows`` (``[(optimizer index, ...)]``), ``_device`` and
+    ``_held()`` (every tensor the step writes outside its batch)."""
+
+    _site = "trainplane"
+
+    def _init_scalars(self):
+        self._stream = None
+        self._scalars = torch.zeros((2, len(self._rows)),
+                                    dtype=torch.float32, device=self._device)
+        self._lr_views = list(self._scalars[0])
+        self._t_views = list(self._scalars[1])
+        self._last_scalars = None
+        self._captures = 0
+
+    def _prologue(self, opt):
+        """The eager fused apply's host prologue, in its order: per index
+        ``_update_count`` then ``_host_scalars``; returns the rows ``[lrs,
+        counts]`` of the step's scalars (the weight decays are the step's
+        key, read by ``_get_wd`` as ``_host_scalars`` reads them)."""
+        lrs, ts = [], []
+        for i, _ in self._rows:
+            opt._update_count(i)
+            lrs.append(opt._host_scalars(i)[0])
+            ts.append(opt._index_update_count[i])
+        return [lrs, ts]
+
+    @staticmethod
+    def _probe_optimizer(opt):
+        """A throwaway copy for the first pass's prologue, which must not
+        advance the real counters or schedule (``param_dict`` holds live
+        Parameters: shared, only read)."""
+        pd, opt.param_dict = opt.param_dict, {}
+        try:
+            probe = copy.deepcopy(opt)
+        finally:
+            opt.param_dict = pd
+        probe.param_dict = pd
+        return probe
+
+    def _set_scalars(self, rows):
+        if rows != self._last_scalars:
+            self._scalars.copy_(torch.tensor(rows, dtype=torch.float32),
+                                non_blocking=True)
+            self._last_scalars = rows
+
+    def _capture(self, path, probe_rows):
+        """The first pass (eager, host reads refused) and, on the card,
+        the capture; the state the pass moved (the held tensors and the
+        device's generator) is put back. Returns None, or the exception
+        that stopped the pass or the capture."""
+        t0 = time.perf_counter()
+        held = self._held()
+        saved = [t.detach().clone() for t in held]
+        gen = _random.generator(self._device)
+        rng = gen.get_state()
+        self._set_scalars(probe_rows)
+        cuda = self._device.type == "cuda"
+        try:
+            if cuda:
+                if self._stream is None:
+                    self._stream = torch.cuda.Stream(self._device)
+                self._stream.wait_stream(
+                    torch.cuda.current_stream(self._device))
+                with torch.cuda.stream(self._stream), \
+                        no_host_reads(self._site):
+                    path.fn()
+                    self._restore(held, saved)
+                torch.cuda.current_stream(self._device).wait_stream(
+                    self._stream)
+                gen.set_state(rng)
+                graph = torch.cuda.CUDAGraph()
+                before = rtc.launch_counts()
+                with no_host_reads(self._site), torch.cuda.graph(
+                        graph, stream=self._stream,
+                        capture_error_mode="relaxed"):
+                    out = path.fn()
+                after = rtc.launch_counts()
+                path.launches = {k: n - before.get(k, 0)
+                                 for k, n in after.items()
+                                 if n != before.get(k, 0)}
+                # the capture launched nothing: the replays will
+                rtc.add_launches(path.launches, -1)
+                path.graph, path.out = graph, out
+            else:
+                with no_host_reads(self._site):
+                    path.fn()
+                self._restore(held, saved)
+                gen.set_state(rng)
+        except Exception as exc:  # noqa: BLE001 - the documented demotion
+            if cuda:
+                torch.cuda.synchronize(self._device)
+            self._restore(held, saved)
+            gen.set_state(rng)
+            return exc
+        self._captures += 1
+        _accounting.note_recompile(self._site, 1, time.perf_counter() - t0)
+        return None
+
+    @staticmethod
+    def _restore(held, saved):
+        with torch.no_grad():
+            for t, s in zip(held, saved):
+                t.copy_(s)
+
+    def _ptrs(self):
+        return tuple(t.data_ptr() for t in self._held())
+
+    @staticmethod
+    def _replay(path):
+        path.graph.replay()
+        rtc.add_launches(path.launches)
+
+
+class TrainPlane(_PlaneBase):
     """One training step through whichever plane the model supports (see
     the module's docstring). The Trainer stays the owner of the optimizer
     and its states (``trainer._updater.states``).
@@ -161,10 +304,6 @@ class TrainPlane(object):
         self._params = None                # the net's Parameters
         self._paths: Dict[Any, _Path] = {}
         self._device = None
-        self._stream = None
-        self._scalars = None               # (2, rows) float32: lrs, counts
-        self._lr_views = self._t_views = None  # its 0-d views a row
-        self._last_scalars = None
         self._captures = 0
         self.step_count = 0
 
@@ -241,10 +380,7 @@ class TrainPlane(object):
             return
         self._params = list(self._net.collect_params().values())
         self._device = self._rows[0][1].data()._data.device
-        self._scalars = torch.zeros((2, len(self._rows)),
-                                    dtype=torch.float32, device=self._device)
-        self._lr_views = list(self._scalars[0])
-        self._t_views = list(self._scalars[1])
+        self._init_scalars()  # (2, rows) float32 lrs and counts, 0-d views
         self._plane = "graph"
 
     # -- graph plane ----------------------------------------------------
@@ -270,36 +406,6 @@ class TrainPlane(object):
             out += _leaves(states.get(i))
         return out
 
-    def _prologue(self, opt):
-        """The eager fused apply's host prologue, in its order: per index
-        ``_update_count`` then ``_host_scalars``; returns the rows ``[lrs,
-        counts]`` of the step's scalars (the weight decays are the step's
-        key, read by ``_get_wd`` as ``_host_scalars`` reads them)."""
-        lrs, ts = [], []
-        for i, _ in self._rows:
-            opt._update_count(i)
-            lrs.append(opt._host_scalars(i)[0])
-            ts.append(opt._index_update_count[i])
-        return [lrs, ts]
-
-    def _probe_optimizer(self, opt):
-        """A throwaway copy for the first pass's prologue, which must not
-        advance the real counters or schedule (``param_dict`` holds live
-        Parameters: shared, only read)."""
-        pd, opt.param_dict = opt.param_dict, {}
-        try:
-            probe = copy.deepcopy(opt)
-        finally:
-            opt.param_dict = pd
-        probe.param_dict = pd
-        return probe
-
-    def _set_scalars(self, rows):
-        if rows != self._last_scalars:
-            self._scalars.copy_(torch.tensor(rows, dtype=torch.float32),
-                                non_blocking=True)
-            self._last_scalars = rows
-
     def _step_fn(self, data, label, mp_flags, wds):
         """The whole step on the static batch: forward, per-sample loss,
         backward seeded with ones, and the fused update in place."""
@@ -322,56 +428,6 @@ class TrainPlane(object):
             self._t_views, self._lr_views, wds)
         return loss.detach()
 
-    def _capture(self, path, probe_rows):
-        """The first pass (eager, host reads refused) and, on the card,
-        the capture; the state the pass moved is put back. Returns None,
-        or the reason the step cannot be captured."""
-        t0 = time.perf_counter()
-        held = self._held()
-        saved = [t.detach().clone() for t in held]
-        self._set_scalars(probe_rows)
-        cuda = self._device.type == "cuda"
-        try:
-            if cuda:
-                if self._stream is None:
-                    self._stream = torch.cuda.Stream(self._device)
-                self._stream.wait_stream(
-                    torch.cuda.current_stream(self._device))
-                with torch.cuda.stream(self._stream), \
-                        no_host_reads("TrainPlane"):
-                    path.fn()
-                    self._restore(held, saved)
-                torch.cuda.current_stream(self._device).wait_stream(
-                    self._stream)
-                graph = torch.cuda.CUDAGraph()
-                with no_host_reads("TrainPlane"), torch.cuda.graph(
-                        graph, stream=self._stream,
-                        capture_error_mode="relaxed"):
-                    out = path.fn()
-                path.graph, path.out = graph, out
-            else:
-                with no_host_reads("TrainPlane"):
-                    path.fn()
-                self._restore(held, saved)
-        except Exception as exc:  # noqa: BLE001 - the documented demotion
-            if cuda:
-                torch.cuda.synchronize(self._device)
-            self._restore(held, saved)
-            return "capture: %s" % type(exc).__name__
-        self._captures += 1
-        _accounting.note_recompile(self._site, 1, time.perf_counter() - t0)
-        return None
-
-    @staticmethod
-    def _restore(held, saved):
-        with torch.no_grad():
-            for t, s in zip(held, saved):
-                t.copy_(s)
-
-    def _ptrs(self):
-        states = self._trainer._updater.states
-        return tuple(t.data_ptr() for t in self._held(states))
-
     def _new_path(self, data, label, wds):
         """States, static inputs and the step for a new batch signature,
         first-passed and captured; None (the plane demoted) when the step
@@ -388,9 +444,9 @@ class TrainPlane(object):
         path = _Path((d, lab), lambda: self._step_fn(d, lab, mp_flags, wds),
                      self._ptrs())
         probe_rows = self._prologue(self._probe_optimizer(opt))
-        reason = self._capture(path, probe_rows)
-        if reason is not None:
-            self._demote(reason)
+        exc = self._capture(path, probe_rows)
+        if exc is not None:
+            self._demote("capture: %s" % type(exc).__name__)
             return None
         return path
 
@@ -419,7 +475,7 @@ class TrainPlane(object):
         rows = self._prologue(opt)
         self._set_scalars(rows)
         if path.graph is not None:
-            path.graph.replay()
+            self._replay(path)
             loss = path.out.clone()
         else:
             loss = path.fn()
@@ -487,3 +543,191 @@ def fit(net, loss_fn, trainer, train_data, epochs=1, batch_axis=0,
             if batch_end_callback is not None:
                 batch_end_callback(epoch, nbatch, loss)
     return plane
+
+
+# ---------------------------------------------------------------------------
+# Module plane (Module.fit)
+# ---------------------------------------------------------------------------
+
+
+class _ModulePlane(_PlaneBase):
+    """The whole training step of a bound one-context ``Module`` (the port
+    of ``mxnet_tpu/trainplane.py:838-1013``): the executor's train-mode
+    forward (BatchNorm's moving statistics written in place), the
+    all-ones-seeded backward and ``fastpath.tree_kernel`` over the
+    executor's own weights and the updater's states, one CUDA graph a
+    batch signature. The first pass of the bound signature runs here, as
+    the JAX plane traces its step at construction; a failure raises and
+    :func:`module_plane` demotes."""
+
+    _site = "trainplane.module_plane"
+
+    def __init__(self, module):
+        self._m = module
+        self._exec = exec_ = module._exec_group.execs[0]
+        names = [n for n in module._symbol.list_arguments()
+                 if n in module._param_names]
+        self._rows = []
+        for idx, name in enumerate(names):
+            req = exec_.grad_req.get(name, "null")
+            if name in exec_.grad_dict and req == "write":
+                self._rows.append((idx, name))
+            elif req not in ("null", "write"):
+                # 'add' accumulates across calls, which the step cannot
+                # honour; the eager path would keep training the parameter
+                raise _Ineligible("grad_req %r on %s" % (req, name))
+        if not self._rows:
+            raise _Ineligible("no trainable parameters")
+        group = module._exec_group
+        self._inputs = list(group.data_names) + list(group.label_names)
+        self._device = exec_.arg_dict[self._rows[0][1]]._data.device
+        self._paths: Dict[Any, _Path] = {}
+        self._init_scalars()
+        # the first pass (and on the card the capture) of the bound shapes
+        path, exc = self._path([exec_.arg_dict[n]._data
+                                for n in self._inputs])
+        if exc is not None:
+            raise exc
+
+    @property
+    def compile_count(self) -> int:
+        """Steps captured (on the CPU: batch signatures run) so far."""
+        return self._captures
+
+    def _ensure_states(self):
+        """States made as ``fastpath.apply_updater`` makes them, so the
+        eager ``Module.update`` adopts them and the other way round."""
+        opt = self._m._optimizer
+        states = self._m._updater.states
+        for i, name in self._rows:
+            w = self._exec.arg_dict[name]
+            if i not in states:
+                states[i] = opt.create_state_multi_precision(i, w)
+            else:
+                states[i] = ensure_mp_state(opt, i, w, states[i])
+
+    def _held(self):
+        """Every tensor the step writes outside its batch: the weights,
+        the auxiliary states and the optimizer states."""
+        exec_ = self._exec
+        states = self._m._updater.states
+        out = [exec_.arg_dict[n]._data for _, n in self._rows]
+        out += [a._data for a in exec_.aux_dict.values()]
+        for i, _ in self._rows:
+            out += _leaves(states.get(i))
+        return out
+
+    def _step_fn(self, inputs, mp_flags, wds):
+        """The whole step on the static batch; returns the outputs."""
+        exec_ = self._exec
+        opt = self._m._optimizer
+        states = self._m._updater.states
+        values = {n: a._data for n, a in exec_.arg_dict.items()}
+        values.update(zip(self._inputs, inputs))
+        values.update((n, a._data) for n, a in exec_.aux_dict.items())
+        diff = [n for _, n in self._rows]
+        ws = [values[n] for n in diff]
+        outs, leaves = exec_._train_forward(values, diff)
+        # backward(out_grads=None) parity: all-ones head gradients
+        grads = exec_._head_grads(outs, leaves,
+                                  [torch.ones_like(o) for o in outs])
+        fastpath.tree_kernel(
+            opt, ws, grads, [states[i] for i, _ in self._rows], mp_flags,
+            self._t_views, self._lr_views, wds)
+        return [o.detach() for o in outs]
+
+    def _path(self, batch):
+        """The path of this batch signature (made, first-passed and
+        captured if new); ``(path, None)``, or ``(None, exception)`` when
+        the step cannot run without the host or cannot be captured."""
+        opt = self._m._optimizer
+        wds = tuple(opt._get_wd(i) for i, _ in self._rows)
+        self._ensure_states()
+        states = self._m._updater.states
+        mp_flags = tuple(
+            _is_mp_state(opt, i, self._exec.arg_dict[n], states[i])
+            for i, n in self._rows)
+        key = (tuple((tuple(t.shape), t.dtype) for t in batch),
+               opt.rescale_grad, opt.clip_gradient, wds, mp_flags)
+        path = self._paths.get(key)
+        if path is not None and path.ptrs != self._ptrs():
+            # a weight or state was rebound since the capture
+            # (set_params, init_params(force_init=True), a cast)
+            self._paths.clear()
+            path = None
+        if path is not None:
+            return path, None
+        inputs = [torch.empty(t.shape, dtype=t.dtype, device=self._device)
+                  for t in batch]
+        for dst, src in zip(inputs, batch):
+            dst.copy_(src)
+        path = _Path(inputs, lambda: self._step_fn(inputs, mp_flags, wds),
+                     self._ptrs())
+        exc = self._capture(path, self._prologue(self._probe_optimizer(opt)))
+        if exc is not None:
+            return None, exc
+        self._paths[key] = path
+        return path, None
+
+    def step(self, batch):
+        """One training step on a ``DataBatch``; fills the executor's
+        outputs (copies: the graph's own are written again by its next
+        replay) so ``update_metric`` reads them as usual."""
+        m, exec_ = self._m, self._exec
+        tensors = list(batch.data)
+        if self._m._exec_group.label_names and batch.label:
+            tensors += list(batch.label)
+        tensors = [t._data for t in tensors]
+        path, exc = self._path(tensors)
+        if exc is not None:
+            raise MXNetError("module_plane: a new batch signature cannot be "
+                             "captured: %s: %s" % (type(exc).__name__, exc))
+        for dst, src in zip(path.inputs, tensors):
+            dst.copy_(src)
+        self._set_scalars(self._prologue(m._optimizer))
+        if path.graph is not None:
+            self._replay(path)
+            outs = [o.clone() for o in path.out]
+        else:
+            outs = path.fn()
+        exec_.outputs = [NDArray(o) for o in outs]
+        exec_._heads = None
+        m._params_dirty = True
+        STEP_DISPATCHES.inc(plane="graph")
+        return exec_.outputs
+
+
+def module_plane(module):
+    """The whole-step graph plane of a bound ``Module`` whose optimizer is
+    initialized, or None where the eager executor path must run (see the
+    module's docstring for the reasons and their labels).
+    ``BaseModule.fit`` calls this once a fit and falls back silently:
+    routing never breaks training."""
+    if mode() == "0":
+        return None
+    from .module.module import Module
+
+    if type(module) is not Module:
+        return None
+    try:
+        group = module._exec_group
+        if not fastpath.enabled() \
+                or len(module._context) != 1 \
+                or getattr(module, "_kvstore", None) is not None \
+                or getattr(module, "_update_on_kvstore", False) \
+                or not isinstance(module._updater, Updater) \
+                or not getattr(module._optimizer, "fastpath_capable", False) \
+                or group is None or len(group.execs) != 1 \
+                or getattr(group, "state_names", None) \
+                or module.inputs_need_grad:
+            FALLBACKS.inc(reason="module-config")
+            return None
+        return _ModulePlane(module)
+    except Exception as exc:  # noqa: BLE001 - the fallback contract
+        FALLBACKS.inc(reason="module-trace: %s" % type(exc).__name__)
+        if mode() == "1":
+            _LOG.warning(
+                "MXNET_TRAINSTEP=1 but Module.fit cannot use the graph "
+                "plane (%s: %s); the eager executor path runs instead",
+                type(exc).__name__, exc, exc_info=exc)
+        return None

@@ -249,6 +249,10 @@ def _fit_module(epochs=1):
 
 def test_module_update_dispatches_once_a_batch_and_matches_the_loop(
         monkeypatch):
+    # Module.update is fit's eager branch: with the graph plane on, fit
+    # steps through trainplane.module_plane instead, whose update makes no
+    # optimizer dispatch and gives the same bits
+    monkeypatch.setenv("MXNET_TRAINSTEP", "0")
     monkeypatch.setenv("MXNET_FASTPATH", "0")
     p0 = OPT_DISPATCHES.value(path="perparam")
     legacy = _fit_module()
@@ -260,3 +264,7 @@ def test_module_update_dispatches_once_a_batch_and_matches_the_loop(
     assert fused == 4  # 32 rows / batch 8
     assert perparam == 4 * 4  # fc1 and fc2, weight and bias
     assert legacy == fused_run
+    monkeypatch.setenv("MXNET_TRAINSTEP", "auto")
+    f0 = OPT_DISPATCHES.value(path="fused")
+    assert _fit_module() == fused_run
+    assert OPT_DISPATCHES.value(path="fused") == f0

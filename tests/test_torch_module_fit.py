@@ -12,8 +12,12 @@ then ``score`` and ``predict`` on 64 test samples.
 
 The JAX package's ``fit`` takes its graph plane here (one compiled
 step per batch, ``trainplane.module_plane``; the numpy op runs in a
-host callback inside it); the port's runs the eager
-``forward_backward`` + ``update`` branch. Tolerances, fp32 on the CPU:
+host callback inside it); the port's plane refuses the numpy op at its
+first pass (the op reads back to the host, which a CUDA graph cannot
+replay), counts ``FALLBACKS{reason="module-trace: MXNetError"}`` and
+runs the eager ``forward_backward`` + ``update`` branch; the rtc op
+takes the port's plane (on the CPU through its kernels' plain
+versions), one graph step a batch. Tolerances, fp32 on the CPU:
 the final parameters and the predictions within 1e-5 (sums in other
 orders, carried by the momentum over 16 steps), the scores exactly
 (both are counts of argmax hits). ``Speedometer`` logs the JAX
@@ -84,13 +88,23 @@ def _fit(pkg, symbol, ctx, caplog):
             lines)
 
 
+def _demotions():
+    return {r["labels"]["reason"]: r["value"]
+            for r in mx.trainplane.FALLBACKS.series()}
+
+
 def test_fit_score_predict_match_jax(caplog):
     _jax_example()
     jmod, jparams, jscore, jpred, jlines = _fit(jmx, _jax_symbol(),
                                                 jmx.cpu(), caplog)
     assert jmx.trainplane.module_plane(jmod) is not None  # the graph plane
+    before = _demotions()
+    graph0 = mx.telemetry.STEP_DISPATCHES.value(plane="graph")
     _, tparams, tscore, tpred, tlines = _fit(
         mx, port_cr.get_symbol("np_softmax_ce"), mx.cpu(), caplog)
+    reason = "module-trace: MXNetError"
+    assert _demotions()[reason] == before.get(reason, 0.0) + 1
+    assert mx.telemetry.STEP_DISPATCHES.value(plane="graph") == graph0
     assert sorted(tparams) == sorted(jparams)
     for name in jparams:
         np.testing.assert_allclose(tparams[name], jparams[name], **TOL)
@@ -109,7 +123,10 @@ def test_rtc_example_fits_on_the_cpu_through_the_plain_versions():
     its kernels' plain versions there, learns, and predicts the whole
     test set; it agrees with the numpy op after the first batch."""
     args = ["--device", "cpu", "--epochs", "1", "--train-size", "512"]
+    graph0 = mx.telemetry.STEP_DISPATCHES.value(plane="graph")
     res = port_cr.run(port_cr.parse_args(args))
+    # the rtc op's fit runs on the module plane, one step a batch
+    assert mx.telemetry.STEP_DISPATCHES.value(plane="graph") - graph0 == 8
     ref = port_cr.run(port_cr.parse_args(args + ["--op", "np_softmax_ce"]))
     assert res["train_batches"] == 8 and res["test_batches"] == 8
     assert res["learned"] and ref["learned"]

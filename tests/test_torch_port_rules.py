@@ -20,6 +20,10 @@
 * the training plane slice (``trainplane``, ``lr_scheduler``) is in the
   scan and trains in bfloat16 with ``jax`` and ``mxnet_tpu`` made
   unimportable;
+* the module plane and vision zoo slice (``trainplane.module_plane``,
+  ``gluon/contrib/``, the zoo families, ``benchmark_score``) is in the
+  scan, and fits a module on the plane, builds every zoo name and scores
+  a net with ``jax`` and ``mxnet_tpu`` made unimportable;
 * the extension slice's modules (``rtc``, ``operator``, ``metric``,
   ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
   no module of the port defines ``PallasModule`` (Pallas source cannot
@@ -297,3 +301,47 @@ print("plane", plane.plane)
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "plane graph" in proc.stdout
+
+
+def test_scan_covers_the_zoo_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    zoo = "mxnet_tpu_torch/gluon/model_zoo/vision/"
+    for path in [zoo + f for f in ("alexnet.py", "vgg.py", "squeezenet.py",
+                                   "densenet.py", "inception.py",
+                                   "mobilenet.py")] + [
+            "mxnet_tpu_torch/gluon/contrib/nn/basic_layers.py",
+            "mxnet_tpu_torch/example/image_classification/"
+            "benchmark_score.py"]:
+        assert path in names
+
+
+def test_zoo_slice_runs_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import sym, telemetry
+from mxnet_tpu_torch.gluon.model_zoo import vision
+from mxnet_tpu_torch.example.image_classification import benchmark_score
+nets = [vision.get_model(n) for n in sorted(vision._MODELS)]
+rate = benchmark_score.score("mobilenet0_25", 1, (3, 32, 32), "float32",
+                             0.01, ctx=mx.cpu())
+net = sym.FullyConnected(sym.var("data"), num_hidden=4, name="fc")
+net = sym.SoftmaxOutput(net, name="softmax")
+xs = np.random.RandomState(0).rand(32, 6).astype(np.float32)
+with mx.cpu():
+    it = mx.io.NDArrayIter(xs, xs[:, :4].argmax(1), batch_size=8)
+    mx.module.Module(net).fit(it, num_epoch=1)
+steps = telemetry.STEP_DISPATCHES.value(plane="graph")
+assert rate > 0 and steps == 4, (rate, steps)
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("zoo", len(nets), "plane steps", int(steps))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "zoo 34 plane steps 4" in proc.stdout

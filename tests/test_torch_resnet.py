@@ -305,8 +305,11 @@ def test_compile_count_flat_on_repeat_calls():
 def test_pretrained_and_other_families_raise():
     with pytest.raises(MXNetError, match="pretrained"):
         vision.resnet50_v1(pretrained=True)
-    with pytest.raises(MXNetError, match="not ported"):
-        vision.get_model("vgg16")
+    # the other families are ported now: they build, and refuse
+    # pretrained weights as the ResNets do
+    assert isinstance(vision.get_model("vgg16"), vision.VGG)
+    with pytest.raises(MXNetError, match="pretrained"):
+        vision.get_model("vgg16", pretrained=True)
     with pytest.raises(MXNetError, match="not supported"):
         vision.get_model("resnet19_v1")
     with pytest.raises(MXNetError, match="not ported"):
