@@ -182,7 +182,33 @@ Phases, each printing one line of its own (any failure exits non-zero):
     share of the fp32 or bf16 bound, peak memory, and at fp32 batch 32
     the top device operations of one InferStep call.
 
-``python3 chip_smoke.py --resnet`` runs phases 17-26 only; ``--zoo``
+28. ckpt_resnet: bench.py's resnet50_v1 (batch 32, 224 x 224, SGD 0.05
+    with momentum 0.9, RandomState(0) data) through ``TrainPlane``, in
+    fp32 and in bf16 mode with float32 masters, with cuDNN's deterministic
+    algorithms: 3 steps, ``save_parameters`` and ``Trainer.save_states``,
+    3 more steps (run A); a fresh net of other weights and a fresh Trainer
+    load both files and take the same 3 steps (run B); the live net and
+    Trainer of A load them again and take the 3 steps once more, through
+    the graph A captured (no new capture, the same addresses). B and the
+    rewind must equal A bit for bit (losses, weights, moving statistics,
+    momentum, masters); bytes, save and load seconds and MB/s are printed;
+29. ckpt_module_rtc: the custom_rtc path (the rtc kernels inside the
+    module plane's graph) at its defaults: one epoch with
+    ``callback.module_checkpoint(..., save_optimizer_states=True)``, then
+    ``Module.load(prefix, 1, load_optimizer_states=True)`` and
+    ``fit(begin_epoch=1, num_epoch=2)``: weights and momentum bit for bit
+    those of an uninterrupted 2-epoch fit (deterministic cuDNN), one
+    capture, two rtc launches a replay, counted and seen by the profiler
+    alike;
+30. ckpt_ssd: ssd_train's module checkpointed after its last epoch by
+    ``callback.do_checkpoint``; ``mx.load_checkpoint`` of that epoch
+    into a new Module bound for inference, whose ``predict`` over the
+    dataset must equal the trained module's bit for bit, the detections
+    through the NMS kernel included.
+
+``python3 chip_smoke.py --resnet`` runs phases 17-26 only; ``--ckpt``
+runs phases 28-30 only (building the NMS kernel, training the SSD example
+first); ``--zoo``
 runs zoo_score only; ``--module-plane`` runs custom_rtc and
 module_plane_parity only (no nvcc build);
 ``--profiles`` builds the kernels and runs train_profile and ssd_profile
@@ -370,6 +396,9 @@ ZOO_NETS = ("alexnet", "vgg16", "squeezenet1_0", "densenet121",
             "resnet152_v1")
 ZOO_TOL = 1e-4
 ZOO_S = 0.4  # the time budget of each timed loop
+# the checkpoint phases: ckpt_resnet saves after CKPT_STEPS TrainPlane
+# steps, then a resumed run and a rewound one repeat the next CKPT_STEPS
+CKPT_STEPS = 3
 
 
 def fail(msg):
@@ -1559,7 +1588,8 @@ def _ssd_rec():
 def ssd_train():
     """The detection slice's main path: the port's train_ssd example at
     its defaults on the card; it must learn and run the NMS kernel on
-    every forward pass."""
+    every forward pass. Returns the NMS launches and the example's
+    readings."""
     import shutil
 
     from mxnet_tpu_torch.example.ssd import train_ssd
@@ -1585,7 +1615,7 @@ def ssd_train():
           last_loss=res["last_loss"], det_shape=list(res["det_shape"]),
           detections_image0=res["detections"],
           best_score_image0=res["best_score"], nms_launches=launches)
-    return launches
+    return launches, res
 
 
 def _ssd_on_card(rec):
@@ -1890,25 +1920,8 @@ def custom_rtc():
         fail("custom_rtc: rtc kernels launched %d times for %d training and "
              "%d test batches" % (launches, res["train_batches"],
                                   res["test_batches"]))
-    # the counted launches of a few plane steps against the profiler's;
-    # a session has come back one kernel event short of the launches it
-    # ran (PERF.md), so a short session is traced again, five at most
     batch = next(iter(_rtc_train_iter(args)))
-    sessions = []
-    for _ in range(5):
-        counted0 = rtc.Kernel.total_launches
-        prof = _device_profile(lambda: plane.step(batch), RTC_TRACE_STEPS,
-                               count=RTC_KERNELS)
-        counted = rtc.Kernel.total_launches - counted0
-        sessions.append(prof["kernel_events"])
-        if counted != 2 * RTC_TRACE_STEPS:
-            fail("custom_rtc: %d plane steps counted %d rtc launches"
-                 % (RTC_TRACE_STEPS, counted))
-        if sum(prof["kernel_events"].values()) == counted:
-            break
-    else:
-        fail("custom_rtc: %d plane steps counted %d rtc launches, the "
-             "profiler saw %s" % (RTC_TRACE_STEPS, counted, sessions))
+    counted, sessions, prof = _traced_rtc_steps(plane, batch, "custom_rtc")
     os.environ["MXNET_TRAINSTEP"] = "0"
     try:
         eager, eager_made, _, _, _ = _fit_custom(args)
@@ -1933,6 +1946,30 @@ def custom_rtc():
           plane_profile={k: v for k, v in prof.items()
                          if k != "kernel_events"})
     return launches, prof["kernel_device_ms_per_step"]
+
+
+def _traced_rtc_steps(plane, batch, what):
+    """The rtc launches counted over RTC_TRACE_STEPS steps of the module
+    ``plane`` on ``batch``, against the profiler's kernel events; a
+    session has come back one kernel event short of the launches it ran
+    (PERF.md), so a short session is traced again, five at most. Returns
+    (launches counted, the sessions' events, the last profile)."""
+    from mxnet_tpu_torch import rtc
+
+    sessions = []
+    for _ in range(5):
+        counted0 = rtc.Kernel.total_launches
+        prof = _device_profile(lambda: plane.step(batch), RTC_TRACE_STEPS,
+                               count=RTC_KERNELS)
+        counted = rtc.Kernel.total_launches - counted0
+        sessions.append(prof["kernel_events"])
+        if counted != 2 * RTC_TRACE_STEPS:
+            fail("%s: %d plane steps counted %d rtc launches"
+                 % (what, RTC_TRACE_STEPS, counted))
+        if sum(prof["kernel_events"].values()) == counted:
+            return counted, sessions, prof
+    fail("%s: %d plane steps counted %d rtc launches, the profiler saw %s"
+         % (what, RTC_TRACE_STEPS, counted, sessions))
 
 
 def _rtc_train_iter(args):
@@ -2990,6 +3027,21 @@ def resnet_profile(steps=5):
     phase("resnet_profile", model="resnet50_v1", batch=RESNET_BATCH, **out)
 
 
+def _swap_env(env):
+    """Set ``env``; returns what to give :func:`_restore_env`."""
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    return prev
+
+
+def _restore_env(prev):
+    for k, v in prev.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
 def _bf16_err(a, b):
     """max |a - b| over max |b|, as float32."""
     a, b = a.detach().float(), b.detach().float()
@@ -3012,10 +3064,8 @@ def _plane_run(batch, graph, xs, ys, steps=0, seconds=0.0):
 
     from mxnet_tpu_torch import gluon, nd, trainplane
 
-    env = {"MXNET_TRAIN_DTYPE": "bf16",
-           "MXNET_TRAINSTEP": "1" if graph else "0"}
-    prev = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    prev = _swap_env({"MXNET_TRAIN_DTYPE": "bf16",
+                      "MXNET_TRAINSTEP": "1" if graph else "0"})
     try:
         net = _resnet50()
         trainer = gluon.Trainer(net.collect_params(), "sgd",
@@ -3033,11 +3083,7 @@ def _plane_run(batch, graph, xs, ys, steps=0, seconds=0.0):
         torch.cuda.synchronize()
         return plane, first, n, time.perf_counter() - t0
     finally:
-        for k, v in prev.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        _restore_env(prev)
 
 
 def resnet_bf16_parity():
@@ -3336,6 +3382,301 @@ def remat_memory():
           temp_ratio=out[True]["temp_gb"] / out[False]["temp_gb"])
 
 
+def _max_err(xs, ys):
+    """The largest |x - y| over two lists of tensors, as float32."""
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(xs, ys))
+
+
+def _ckpt_resnet_run(mode):
+    """One ``ckpt_resnet`` run in ``mode`` (``fp32`` or ``bf16``, the
+    MXNET_TRAIN_DTYPE of TrainPlane); returns its readings."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch import gluon, nd, trainplane
+
+    prev = _swap_env({"MXNET_TRAIN_DTYPE": mode, "MXNET_TRAINSTEP": "1"})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        xs, ys = _resnet_data(2 * CKPT_STEPS)
+        batches = [(nd.array(x), nd.array(y)) for x, y in zip(xs, ys)]
+        del xs, ys
+        files = {k: os.path.join(tmp, "resnet50." + k)
+                 for k in ("params", "states")}
+
+        def make(seed):
+            net = _resnet50(seed)
+            trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                    dict(RESNET_SGD))
+            return trainplane.TrainPlane(
+                net, gluon.loss.SoftmaxCrossEntropyLoss(), trainer)
+
+        def steps(plane, lo):
+            losses = [plane.step(*batches[k])._data
+                      for k in range(lo, lo + CKPT_STEPS)]
+            torch.cuda.synchronize()
+            return losses
+
+        def held(plane):
+            return [t.detach().clone() for t in plane._held()]
+
+        def timed(*calls):
+            out = []
+            for fn, path in calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(path)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+            return out
+
+        # run A: 3 steps, save, 3 steps
+        a = make(0)
+        steps(a, 0)
+        save_s = timed((a._net.save_parameters, files["params"]),
+                       (a._trainer.save_states, files["states"]))
+        loss_a = steps(a, CKPT_STEPS)
+        held_a = held(a)
+        # run B: a fresh net of other weights and a fresh trainer load
+        # both files, then take the same 3 steps
+        b = make(1)
+        load_s = timed((b._net.load_parameters, files["params"]),
+                       (b._trainer.load_states, files["states"]))
+        loss_b = steps(b, CKPT_STEPS)
+        held_b = held(b)
+        # the live plane rewound by the same files: in place, no capture
+        captures, ptrs = a.compile_count, a._ptrs()
+        rewind_s = timed((a._net.load_parameters, files["params"]),
+                         (a._trainer.load_states, files["states"]))
+        same_ptrs = a._ptrs() == ptrs
+        loss_r = steps(a, CKPT_STEPS)
+        held_r = held(a)
+        nbytes = {k: os.path.getsize(f) for k, f in files.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _restore_env(prev)
+    equal_b = all(torch.equal(x, y) for x, y in zip(loss_a + held_a,
+                                                    loss_b + held_b))
+    equal_r = all(torch.equal(x, y) for x, y in zip(loss_a + held_a,
+                                                    loss_r + held_r))
+    total = sum(nbytes.values())
+    out = dict(
+        plane_a=a.plane, plane_b=b.plane, held_tensors=len(held_a),
+        bytes_params=nbytes["params"], bytes_states=nbytes["states"],
+        save_params_s=save_s[0], save_states_s=save_s[1],
+        save_mb_per_s=total / sum(save_s) / 1e6,
+        load_fresh_params_s=load_s[0], load_fresh_states_s=load_s[1],
+        load_fresh_mb_per_s=total / sum(load_s) / 1e6,
+        load_live_params_s=rewind_s[0], load_live_states_s=rewind_s[1],
+        load_live_mb_per_s=total / sum(rewind_s) / 1e6,
+        captures_a=captures, captures_b=b.compile_count,
+        captures_after_rewind=a.compile_count, same_ptrs=same_ptrs,
+        resumed_bitwise_equal=equal_b, rewound_bitwise_equal=equal_r,
+        resumed_max_abs_err=_max_err(loss_a + held_a, loss_b + held_b),
+        rewound_max_abs_err=_max_err(loss_a + held_a, loss_r + held_r),
+        losses=[float(x.float().mean()) for x in loss_a])
+    if not (equal_b and equal_r and same_ptrs and captures == 1
+            and b.compile_count == 1 and a.compile_count == captures
+            and a.plane == b.plane == "graph"
+            and len(held_a) == len(held_b)):
+        fail("ckpt_resnet (%s): %s" % (mode, out))
+    return out
+
+
+def ckpt_resnet():
+    """bench.py's resnet50_v1 through TrainPlane (fp32, then bf16 with
+    float32 masters), with deterministic cuDNN: CKPT_STEPS steps,
+    ``save_parameters`` and ``save_states``, CKPT_STEPS more (run A); a
+    fresh net of other weights and a fresh Trainer load both files and
+    take the same steps (run B), and so does the live plane of A after
+    loading them again (in place: the same addresses, no new capture).
+    B and the rewound run must equal A bit for bit: losses, weights,
+    moving statistics, states and masters."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {mode: _ckpt_resnet_run(mode) for mode in ("fp32", "bf16")}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    phase("ckpt_resnet", model="resnet50_v1", batch=RESNET_BATCH,
+          side=RESNET_SIDE, steps=CKPT_STEPS, cudnn_deterministic=True,
+          **runs)
+
+
+def _rtc_ckpt_fit(args, prefix, num_epoch, begin_epoch=0, resume=False):
+    """The custom_rtc path's ``Module.fit`` (the example's data, seed,
+    optimizer and initializer) for epochs ``begin_epoch`` to
+    ``num_epoch``: a new module, checkpointing every epoch to ``prefix``
+    (with its states) if given, or with ``resume`` the module of ``prefix``'s
+    checkpoint at ``begin_epoch`` with its states. Returns the module."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.numpy_ops import custom_softmax
+    from mxnet_tpu_torch.example.numpy_ops import custom_softmax_rtc as cr
+
+    with mx.gpu(0):
+        mx.random.seed(7)
+        rs = np.random.RandomState(19)
+        xtr, ytr = custom_softmax.make_data(args.train_size, rs)
+        train = mx.io.NDArrayIter(xtr, ytr, args.batch_size, shuffle=True)
+        callback = None
+        if resume:
+            mod = mx.module.Module.load(prefix, begin_epoch,
+                                        load_optimizer_states=True)
+        else:
+            mod = mx.module.Module(cr.get_symbol(args.op))
+            if prefix is not None:
+                callback = mx.callback.module_checkpoint(
+                    mod, prefix, save_optimizer_states=True)
+        mod.fit(train, eval_metric="acc", optimizer="sgd",
+                optimizer_params={"learning_rate": 0.2, "momentum": 0.9,
+                                  "rescale_grad": 1.0},
+                initializer=mx.initializer.Xavier(), begin_epoch=begin_epoch,
+                num_epoch=num_epoch, epoch_end_callback=callback)
+    return mod
+
+
+def _module_tensors(mod):
+    """A module's weights, auxiliary states and optimizer states."""
+    args, aux = mod.get_params()
+    out = [args[k]._data for k in sorted(args)]
+    out += [aux[k]._data for k in sorted(aux)]
+    for i in sorted(mod._updater.states):
+        st = mod._updater.states[i]
+        out += list(st) if isinstance(st, (tuple, list)) else [st]
+    return out
+
+
+def ckpt_module_rtc():
+    """The custom_rtc path (the rtc kernels inside the module plane's
+    graph) at its defaults, with deterministic cuDNN: one epoch with
+    ``callback.module_checkpoint(..., save_optimizer_states=True)``, then
+    ``Module.load(prefix, 1, load_optimizer_states=True)`` and
+    ``fit(begin_epoch=1, num_epoch=2)``; the resumed module must equal an
+    uninterrupted 2-epoch fit bit for bit (weights and momentum), its
+    plane must capture once, and each replay must launch the two rtc
+    kernels, counted and seen by the profiler alike."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch import rtc, trainplane
+    from mxnet_tpu_torch.example.numpy_ops import custom_softmax_rtc as cr
+
+    cr.kernels(torch.device("cuda", torch.cuda.current_device()))  # compile
+    args = cr.parse_args([])  # the defaults: the card, the rtc op
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    prefix = os.path.join(tmp, "rtc")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    made, orig = _planes_made()
+    try:
+        _reset_launches()
+        whole = _rtc_ckpt_fit(args, None, 2)
+        _rtc_ckpt_fit(args, prefix, 1)
+        files = sorted(os.listdir(tmp))
+        resumed = _rtc_ckpt_fit(args, prefix, 2, begin_epoch=1, resume=True)
+        torch.cuda.synchronize()
+        launches = rtc.Kernel.total_launches
+        plane = made[-1]
+        if plane is None or any(p is None for p in made):
+            fail("ckpt_module_rtc: a fit did not run on the module plane: "
+                 "%s" % made)
+        per_replay = {k._name: v for k, v in plane._paths[
+            next(iter(plane._paths))].launches.items()}
+        a, b = _module_tensors(whole), _module_tensors(resumed)
+        equal = len(a) == len(b) and all(torch.equal(x, y)
+                                         for x, y in zip(a, b))
+        err = _max_err(a, b)
+        batch = next(iter(_rtc_train_iter(args)))
+        counted, sessions, _ = _traced_rtc_steps(plane, batch,
+                                                 "ckpt_module_rtc")
+    finally:
+        trainplane.module_plane = orig
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = ["rtc-0001.params", "rtc-0001.states", "rtc-symbol.json"]
+    if not equal or plane.compile_count != 1 \
+            or sum(per_replay.values()) != 2 \
+            or not set(want) <= set(files):
+        fail("ckpt_module_rtc: resumed equal %s (max abs err %.3g), %d "
+             "captures, launches a replay %s, files %s"
+             % (equal, err, plane.compile_count, per_replay, files))
+    phase("ckpt_module_rtc", epochs=2, resumed_at=1,
+          batch=args.batch_size, samples=args.train_size, files=want,
+          resumed_bitwise_equal=equal, max_abs_err=err, tensors=len(a),
+          cudnn_deterministic=True, captures=plane.compile_count,
+          launches_per_replay=per_replay, rtc_launches=launches,
+          traced_steps=RTC_TRACE_STEPS, traced_launches_counted=counted,
+          traced_launches_seen=sessions)
+    return launches
+
+
+def ckpt_ssd(res):
+    """The SSD module that ssd_train trained, checkpointed after its last
+    epoch by ``callback.do_checkpoint``: ``mx.load_checkpoint`` of that
+    epoch, a new Module bound for inference, and ``predict`` over the
+    dataset (in order, no augmentation) beside the trained module's
+    ``predict``, with deterministic cuDNN: every output, the detections
+    from the NMS kernel among them, must be equal bit for bit."""
+    import shutil
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import nms
+
+    tmp, rec = _ssd_rec()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        trained = res["module"]
+        prefix, epoch = os.path.join(tmp, "ssd"), len(res["epochs"])
+        mx.callback.do_checkpoint(prefix)(epoch - 1, trained.symbol,
+                                          *trained.get_params())
+        it = mx.image.ImageDetIter(batch_size=8, data_shape=(3, 64, 64),
+                                   path_imgrec=rec, mean=True, std=True)
+        sym, arg_params, aux_params = mx.load_checkpoint(prefix, epoch)
+        loaded = mx.module.Module(sym, data_names=("data",),
+                                  label_names=("label",))
+        loaded.bind(data_shapes=it.provide_data,
+                    label_shapes=it.provide_label, for_training=False)
+        loaded.set_params(arg_params, aux_params)
+        _reset_launches()
+        outs_t = trained.predict(it)
+        outs_l = loaded.predict(it)
+        torch.cuda.synchronize()
+        launches = nms.nms_keep_cuda.launches
+        it.reset()
+        batches = sum(1 for _ in it)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    equal = [torch.equal(x._data, y._data) for x, y in zip(outs_t, outs_l)]
+    det = outs_l[3].asnumpy()
+    if not all(equal) or launches < 2 * batches:
+        fail("ckpt_ssd: outputs equal %s, %d NMS launches for 2 x %d "
+             "batches" % (equal, launches, batches))
+    phase("ckpt_ssd", epoch=epoch, batches=batches,
+          outputs_bitwise_equal=equal, det_shape=list(det.shape),
+          detections=int((det[..., 0] >= 0).sum()),
+          cudnn_deterministic=True, nms_launches=launches)
+    return launches
+
+
+def ckpt_phases(ssd_res):
+    """The checkpoint phases, ``ssd_res`` being ssd_train's readings.
+    Returns the NMS and rtc launches of the phases."""
+    ckpt_resnet()
+    rtc_launches = ckpt_module_rtc()
+    return ckpt_ssd(ssd_res), rtc_launches
+
+
 def resnet_phases():
     """Every ResNet phase, old and new."""
     fused_apply()
@@ -3416,6 +3757,16 @@ def main():
         # runs none)
         resnet_phases()
         return 0
+    if sys.argv[1:] == ["--ckpt"]:
+        # only the checkpoint phases (nvcc builds the NMS kernel, which
+        # ckpt_ssd runs; the rtc kernels compile through NVRTC)
+        from mxnet_tpu_torch.ops import _build
+
+        t0 = time.perf_counter()
+        _build.load("nms")
+        phase("build", kernels=["nms"], seconds=time.perf_counter() - t0)
+        ckpt_phases(ssd_train()[1])
+        return 0
     if sys.argv[1:] == ["--nms-time"]:
         # only the NMS times, through the public wrapper of the package
         # beside this file: to compare two checkouts in one call, copy the
@@ -3467,7 +3818,7 @@ def main():
     flash_entry["launches"] = train()
     train_parity()
     train_profile()
-    nms_entry["launches"] = ssd_train()
+    nms_launches, ssd_res = ssd_train()
     ssd_parity()
     ssd_profile()
     resnet_phases()
@@ -3475,8 +3826,10 @@ def main():
     custom_softmax()
     rtc_launches, rtc_plane_ms = custom_rtc()
     module_plane_parity()
+    ckpt_nms, ckpt_rtc = ckpt_phases(ssd_res)
+    nms_entry["launches"] = nms_launches + ckpt_nms
     rtc_entry = rtc_time()
-    rtc_entry["launches"] = rtc_launches
+    rtc_entry["launches"] = rtc_launches + ckpt_rtc
     # the two kernels' device ms a step inside the module plane's graph
     rtc_entry["graph_device_ms"] = rtc_plane_ms
     rtc_entry["max_abs_err"] = max(rtc_entry["max_abs_err"], rtc_err)

@@ -30,7 +30,11 @@ ResNets, ``parallel.TrainStep``/``InferStep`` captured as CUDA graphs,
 in float32 and bfloat16, with ``remat`` and ``memory_analysis``;
 ``optimizer``'s ``multi_precision`` and ``lr_scheduler``; and
 ``trainplane.TrainPlane``, the whole Trainer step as one CUDA graph; it
-runs no hand-written kernel). The training
+runs no hand-written kernel), and checkpoints: the ``.params`` container
+(``nd.save``/``nd.load``, byte for byte the JAX package's), symbol files,
+``Block``/``Trainer``/``Module`` checkpoints restored in place into a
+captured training plane, ``model.FeedForward`` and the atomic commit
+(``elastic``). The training
 paths follow MXNet's entry points, with one departure: the default
 context is the card (``gpu(0)``), and without one, code that does not
 ask for ``mx.cpu()`` raises.
@@ -40,12 +44,13 @@ from __future__ import annotations
 from . import autograd, gluon, initializer, ndarray, optimizer, random
 from . import attribute, executor, image, io, model, module, recordio
 from . import callback, contrib, fastpath, metric, operator, parallel, rtc
-from . import lr_scheduler, trainplane
+from . import elastic, lr_scheduler, trainplane
 from . import ndarray as nd
 from . import symbol
 from . import symbol as sym
 from .base import MXNetError, fetch_host, get_env, resolve_device
 from .context import Context, cpu, current_context, gpu, num_gpus
+from .model import load_checkpoint, save_checkpoint
 
 __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
            "Context", "cpu", "gpu", "current_context", "num_gpus",
@@ -53,4 +58,5 @@ __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
            "random", "attribute", "executor", "image", "io", "model",
            "module", "recordio", "sym", "symbol", "callback", "contrib",
            "metric", "operator", "rtc", "fastpath", "parallel",
-           "lr_scheduler", "trainplane"]
+           "lr_scheduler", "trainplane", "elastic", "save_checkpoint",
+           "load_checkpoint"]

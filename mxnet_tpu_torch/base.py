@@ -2,9 +2,10 @@
 
 The PyTorch/CUDA counterpart of ``mxnet_tpu/base.py``: the same
 :class:`MXNetError`, the same ``MXNET_*`` knob reader, and a
-:func:`fetch_host` that is one batched device->host copy. Device choice
-is explicit: :func:`resolve_device` sends everything to the card unless
-the caller asks for the CPU, and refuses to fall back quietly. The dtype
+:func:`fetch_host` that is one batched device->host copy (pinned, one
+synchronisation). Device choice is explicit: :func:`resolve_device`
+sends everything to the card unless the caller asks for the CPU, and
+refuses to fall back quietly. The dtype
 helpers (:func:`np_dtype`, :func:`dtype_name`, :func:`torch_dtype`) and
 the attribute parsers (:func:`parser_for`) are the port's own copies of
 the JAX package's, for the op registry.
@@ -73,10 +74,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def fetch_host(tensors) -> list:
-    """ONE batched device->host copy for a sequence of tensors: same-dtype
-    tensors are flattened into one device buffer and copied in a single
-    transfer, then split back on the host. Returns numpy arrays in the
-    input order. Runs under the resilience retry policy at the chaos site
+    """ONE batched device->host copy for a sequence of tensors: each device
+    tensor is copied without blocking into its slice of one pinned host
+    buffer a dtype, and one synchronisation waits for all of them; host
+    tensors are copied on the host. Returns numpy arrays in the input
+    order; a bfloat16 tensor comes back as float32 (numpy has no
+    bfloat16). Runs under the resilience retry policy at the chaos site
     ``transfer.fetch_host``, like the JAX package's."""
     from . import resilience
 
@@ -91,18 +94,28 @@ def fetch_host(tensors) -> list:
 
 def _copy_to_host(tensors) -> list:
     out: list = [None] * len(tensors)
-    by_dtype: Dict[torch.dtype, list] = {}
+    staged: Dict[torch.dtype, list] = {}
+    devices = set()
     for i, t in enumerate(tensors):
-        by_dtype.setdefault(t.dtype, []).append(i)
-    for idx in by_dtype.values():
-        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        host = flat.cpu().numpy()
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        if t.device.type == "cuda":
+            staged.setdefault(t.dtype, []).append((i, t))
+            devices.add(t.device)
+        else:
+            out[i] = t.numpy().copy()
+    for dtype, items in staged.items():
+        buf = torch.empty(sum(t.numel() for _, t in items), dtype=dtype,
+                          pin_memory=True)
         off = 0
-        for i in idx:
-            n = tensors[i].numel()
-            out[i] = np.array(host[off:off + n]).reshape(
-                tuple(tensors[i].shape))
-            off += n
+        for i, t in items:
+            dst = buf[off:off + t.numel()].view(t.shape)
+            dst.copy_(t, non_blocking=True)
+            out[i] = dst.numpy()
+            off += t.numel()
+    for dev in devices:  # the copies went on each device's current stream
+        torch.cuda.current_stream(dev).synchronize()
     return out
 
 

@@ -5,33 +5,50 @@ Contracts: epoch-end callbacks are called as ``cb(epoch, symbol,
 arg_params, aux_params)``; batch-end callbacks receive a
 ``BatchEndParam``-style object with ``epoch``, ``nbatch``,
 ``eval_metric`` and ``locals`` attributes. The log lines are the JAX
-package's, word for word. The checkpoint callbacks (``module_checkpoint``,
-``do_checkpoint``) need the ``.params`` format, which is not ported yet:
-they raise.
+package's, word for word. The checkpoint callbacks write at the end of
+every ``period``-th epoch, numbered from 1: ``module_checkpoint`` through
+``Module.save_checkpoint``, ``do_checkpoint`` through
+``model.save_checkpoint``.
 """
 from __future__ import annotations
 
 import logging
 import time
 
-from .base import MXNetError
-
 __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
            "Speedometer", "ProgressBar", "LogValidationMetricsCallback"]
 
 
+def _every(period):
+    """Normalized positive period for the *-checkpoint factories."""
+    return max(1, int(period))
+
+
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    """Epoch-end checkpoint of a Module (reference callback.py:27): not
-    ported yet."""
-    raise MXNetError("callback.module_checkpoint is not ported yet (it "
-                     "needs the .params format)")
+    """Epoch-end callback checkpointing a Module (reference callback.py:27)."""
+    n = _every(period)
+
+    def _cb(epoch, sym=None, arg=None, aux=None):
+        done = epoch + 1
+        if done % n == 0:
+            mod.save_checkpoint(prefix, done, save_optimizer_states)
+
+    return _cb
 
 
 def do_checkpoint(prefix, period=1):
-    """Epoch-end checkpoint to ``prefix-symbol.json`` and
-    ``prefix-NNNN.params`` (reference callback.py:55): not ported yet."""
-    raise MXNetError("callback.do_checkpoint is not ported yet (it needs "
-                     "the .params format)")
+    """Epoch-end callback writing ``prefix-symbol.json`` and
+    ``prefix-NNNN.params`` (reference callback.py:55)."""
+    from . import model
+
+    n = _every(period)
+
+    def _cb(epoch, sym, arg, aux):
+        done = epoch + 1
+        if done % n == 0:
+            model.save_checkpoint(prefix, done, sym, arg, aux)
+
+    return _cb
 
 
 def log_train_metric(period, auto_reset=False):

@@ -179,7 +179,8 @@ def batch_losses(outs):
 
 
 def run(args):
-    """Train, then detect on one batch; returns the run's readings."""
+    """Train, then detect on one batch; returns the run's readings and
+    the trained module."""
     ctx = mx.gpu(0) if args.device == "gpu" else mx.cpu()
     with ctx:
         mx.random.seed(0)  # deterministic weights, shuffling and flips
@@ -237,7 +238,8 @@ def run(args):
             "first_loss": first, "last_loss": last,
             "improved": last < first, "det_shape": det.shape,
             "detections": int(len(kept)),
-            "best_score": float(kept[:, 1].max()) if len(kept) else -1.0}
+            "best_score": float(kept[:, 1].max()) if len(kept) else -1.0,
+            "module": mod}
 
 
 def main(argv=None):

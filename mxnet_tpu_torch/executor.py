@@ -172,15 +172,24 @@ class Executor(object):
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
-        """Bind parameter values (reference executor.py:copy_params_from):
-        a value on this executor's device is shared, not copied."""
+        """Copy parameter values into the bound arrays (reference
+        executor.py:copy_params_from), in place where the value has the
+        bound array's shape and dtype, so a CUDA graph holding the array
+        replays with the new value; a value of another shape or dtype is
+        rebound (on this executor's device) instead."""
         dev = self._ctx.torch_device()
         for src, dst, what in ((arg_params, self.arg_dict, "arguments"),
                                (aux_params or {}, self.aux_dict,
                                 "auxiliary states")):
             for name, array in src.items():
                 if name in dst:
-                    dst[name]._data = array._data.detach().to(dev)
+                    held, value = dst[name]._data, array._data.detach()
+                    if held.shape == value.shape and \
+                            held.dtype == value.dtype:
+                        with torch.no_grad():
+                            held.copy_(value)
+                    else:
+                        dst[name]._data = value.to(dev)
                 elif not allow_extra_params:
                     raise MXNetError("Found name \"%s\" that is not in the "
                                      "%s" % (name, what))

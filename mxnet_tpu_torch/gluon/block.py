@@ -16,6 +16,13 @@ output.
 
 ``cast(dtype)`` casts every parameter of the block and its children, the
 BatchNorm moving statistics included.
+
+``save_parameters``/``load_parameters`` (aliases ``save_params``/
+``load_params``) write and read a ``.params`` file keyed by attribute
+path (``features.0.weight``), as the JAX package's do; a file of full
+names without a dot (``ParameterDict.save``) loads through the legacy
+path. A load copies into the parameters' tensors in place (see
+``gluon/parameter.py``).
 """
 from __future__ import annotations
 
@@ -141,6 +148,64 @@ class Block(object):
         for cld in self._children.values():
             ret.update(cld.collect_params(select=select))
         return ret
+
+    def _collect_params_with_prefix(self, prefix=""):
+        """Parameters keyed by their attribute path from this block
+        (``mxnet_tpu/gluon/block.py:198``)."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename):
+        """Save the parameters keyed by attribute path (loadable without
+        the block's name prefix; ``mxnet_tpu/gluon/block.py:207-216``)."""
+        from ..ndarray import io_utils
+
+        params = self._collect_params_with_prefix()
+        io_utils.save(filename, {key: val.data()
+                                 for key, val in params.items()})
+
+    save_params = save_parameters
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False):
+        """Load a ``save_parameters`` file, or a legacy file of full names
+        (``mxnet_tpu/gluon/block.py:218-245``); a missing or extra name
+        raises unless allowed."""
+        from ..context import Context
+        from ..ndarray import io_utils
+
+        loaded = io_utils.load(filename, ctx[0] if isinstance(
+            ctx, (list, tuple)) else ctx)
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if not any("." in i for i in loaded.keys()):
+            # legacy format: full parameter names
+            del loaded
+            self.collect_params().load(
+                filename, ctx, allow_missing, ignore_extra, self.prefix)
+            return
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        if not allow_missing:
+            for name in params.keys():
+                if name not in loaded:
+                    raise MXNetError("Parameter '%s' is missing in file "
+                                     "'%s'." % (name, filename))
+        for name in loaded:
+            if name not in params:
+                if not ignore_extra:
+                    raise MXNetError(
+                        "Parameter '%s' loaded from file '%s' is not present "
+                        "in this block." % (name, filename))
+                continue
+            params[name]._load_init(loaded[name], ctx)
+
+    load_params = load_parameters
 
     def register_child(self, block, name=None):
         if name is None:

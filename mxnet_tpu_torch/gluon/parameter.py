@@ -7,6 +7,14 @@ unknown (0) dimension defer initialization to the first forward, which
 fills them in call order; since every weight is drawn from the one host
 stream ``random.np_rng()``, that order fixes the values, and it is the
 JAX package's order.
+
+``ParameterDict.save``/``load`` write and read the ``.params`` container
+(``nd.save``/``nd.load``). A loaded value is copied into the parameter's
+own tensor, cast to its dtype (``Parameter._load_init``), so a captured
+step that holds the tensor's address replays with it; the JAX package
+rebinds and takes the file's dtype. A ``.params`` file holds no bfloat16,
+and the copy is what lets a bfloat16 net take a float32 file back in
+place.
 """
 from __future__ import annotations
 
@@ -102,6 +110,43 @@ class Parameter(object):
             "Parameter '%s' has not been initialized. You should initialize "
             "parameters with Block.collect_params().initialize()."
             % self.name)
+
+    def _load_init(self, data, ctx):
+        """Initialize from loaded data (``mxnet_tpu/gluon/parameter.py:
+        123-150``): the rank and shape checks, unknown (0) dims taken from
+        the data. A parameter with a value takes the data in place (copied
+        into each context's tensor under ``no_grad``, cast to its dtype);
+        one without (deferred or never initialized) is initialized from
+        it."""
+        if self.shape:
+            if len(self.shape) != len(data.shape):
+                raise MXNetError(
+                    "Failed loading Parameter '%s' from saved params: "
+                    "rank mismatch expected %s vs saved %s"
+                    % (self.name, str(self.shape), str(data.shape)))
+            for self_dim, data_dim in zip(self.shape, data.shape):
+                if self_dim != 0 and self_dim != data_dim:
+                    raise MXNetError(
+                        "Failed loading Parameter '%s' from saved params: "
+                        "shape incompatible expected %s vs saved %s"
+                        % (self.name, str(self.shape), str(data.shape)))
+            self.shape = tuple(
+                self_dim if self_dim != 0 else data_dim
+                for self_dim, data_dim in zip(self.shape, data.shape))
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        src = data._data if isinstance(data, NDArray) \
+            else torch.as_tensor(np.asarray(data))
+        if self._data is None:
+            if not ctx:
+                ctx = self._deferred_init[1] if self._deferred_init \
+                    else [current_context()]
+            self._init_impl(NDArray(src.to(torch_dtype(self.dtype))), ctx)
+        else:
+            with torch.no_grad():
+                for arr in self._data.values():
+                    arr._data.copy_(src)
+        self._deferred_init = ()
 
     def _finish_deferred_init(self):
         if not self._deferred_init:
@@ -326,3 +371,47 @@ class ParameterDict(object):
     def zero_grad(self):
         for p in self.values():
             p.zero_grad()
+
+    def save(self, filename, strip_prefix=""):
+        """Save every parameter to a ``.params`` file under its name less
+        ``strip_prefix`` (``mxnet_tpu/gluon/parameter.py:484-499``)."""
+        from ..ndarray import io_utils
+
+        arg_dict = {}
+        for param in self.values():
+            if param._data is None:
+                raise MXNetError("Parameter %s not initialized" % param.name)
+            if not param.name.startswith(strip_prefix):
+                raise MXNetError(
+                    "Prefix '%s' is to be stripped before saving, but "
+                    "Parameter's name '%s' does not start with it."
+                    % (strip_prefix, param.name))
+            arg_dict[param.name[len(strip_prefix):]] = param.data()
+        io_utils.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load a ``.params`` file, each name prefixed with
+        ``restore_prefix`` (an ``arg:``/``aux:`` tag dropped), into the
+        parameters of the same names (``mxnet_tpu/gluon/parameter.py:
+        501-518``); a missing or extra name raises unless allowed."""
+        from ..ndarray import io_utils
+
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        arg_dict = io_utils.load(filename, ctx[0] if ctx else None)
+        arg_dict = {restore_prefix + k.split(":", 1)[-1]: v
+                    for k, v in arg_dict.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise MXNetError("Parameter '%s' is missing in file "
+                                     "'%s'" % (name, filename))
+        for name in arg_dict:
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError(
+                        "Parameter '%s' loaded from file '%s' is not present "
+                        "in ParameterDict" % (name, filename))
+                continue
+            self[name]._load_init(arg_dict[name], ctx)

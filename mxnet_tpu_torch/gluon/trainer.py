@@ -10,6 +10,13 @@ package) + ``update``: one fused apply over every parameter
 last step raises unless ``ignore_stale_grad``, which then skips that
 parameter. Parameters on more than one context, or a kvstore, raise "not
 ported yet".
+
+``save_states``/``load_states`` (``trainer.py:236-259``) write and read
+the updater's states with the optimizer: numpy arrays and plain Python
+(``Updater.get_states``), copied back into the live state tensors where
+they have the shape, with the optimizer's counters and schedule. The
+file names the optimizer's class by its module path, so a Trainer's
+states file loads in the package that wrote it only.
 """
 from __future__ import annotations
 
@@ -81,6 +88,24 @@ class Trainer(object):
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
+
+    def save_states(self, fname):
+        """Save the updater's states and the optimizer to ``fname``."""
+        with open(fname, "wb") as fout:
+            fout.write(self._updater.get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Load ``save_states``'s file: the states into the live state
+        tensors (new ones on the parameters' context where there are
+        none), and its optimizer, with this Trainer's parameters as its
+        ``param_dict``."""
+        with open(fname, "rb") as f:
+            states = f.read()
+        device = self._contexts[0].torch_device() if self._contexts \
+            else None
+        self._updater.set_states(states, device=device)
+        self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))
 
     def step(self, batch_size, ignore_stale_grad=False):
         """allreduce (nothing to reduce on one context) + update."""

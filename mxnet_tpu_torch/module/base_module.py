@@ -8,9 +8,9 @@ forward_backward).
 captured graph and steps every batch through it; where the plane
 declines (its reasons are counted in ``trainplane.FALLBACKS``), each batch
 runs ``forward_backward`` and ``update``. A kvstore other than ``local``
-or None, and ``monitor=``, raise. ``save_params``
-and ``load_params`` need the ``.params`` format, which is not ported
-yet: they raise.
+or None, and ``monitor=``, raise. ``save_params``/``load_params``
+write and read the ``.params`` container with ``arg:``/``aux:`` names
+(``mxnet_tpu/module/base_module.py:272-290``).
 """
 from __future__ import annotations
 
@@ -241,12 +241,15 @@ class BaseModule(object):
     def symbol(self):
         return self._symbol
 
-    def _not_ported(self, what):
-        raise MXNetError("Module.%s is not ported yet (it needs the .params "
-                         "format)" % what)
-
     def save_params(self, fname):
-        self._not_ported("save_params")
+        """Save the parameters and auxiliary states as ``arg:<name>`` and
+        ``aux:<name>``."""
+        from .. import model
+
+        model._save_params(fname, *self.get_params())
 
     def load_params(self, fname):
-        self._not_ported("load_params")
+        """Load a ``save_params`` file through ``set_params``."""
+        from .. import model
+
+        self.set_params(*model._load_params(fname))

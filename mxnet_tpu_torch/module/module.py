@@ -9,6 +9,19 @@ optimizer in place through the fused ``fastpath`` apply
 (``MXNET_FASTPATH=0``: the per-parameter updater). ``fit`` steps through
 ``trainplane.module_plane`` where the module allows it.
 
+Checkpoints (``mxnet_tpu/module/module.py:72-93, 346-363``):
+``save_checkpoint`` writes ``prefix-symbol.json``, ``prefix-NNNN.params``
+and, if asked, ``prefix-NNNN.states`` (the updater's states without the
+optimizer, committed atomically); :meth:`Module.load` reads them back.
+``set_params``, and so ``load_params``, copies into the executor's
+tensors in place where a value has the bound shape and dtype
+(``Executor.copy_params_from``), so a captured module plane replays with
+it and makes no new capture; ``load_optimizer_states`` copies into the
+live states.
+``Module.load(..., load_optimizer_states=True)`` applies the states in
+``init_optimizer``, as MXNet 1.3 does; the JAX package records the file
+but never reads it.
+
 :func:`params_from_jax` carries the JAX ``Module.get_params()`` into this
 package, so both can compute the same thing.
 """
@@ -72,6 +85,34 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        self._preload_opt_states = None
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module of ``prefix``'s checkpoint at ``epoch``: its symbol and
+        parameters (on the current context), and with
+        ``load_optimizer_states`` its ``.states`` file, applied by
+        ``init_optimizer``."""
+        from .. import model
+
+        sym, args, auxs = model.load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Save ``prefix-symbol.json`` and ``prefix-NNNN.params`` (and
+        with ``save_optimizer_states`` ``prefix-NNNN.states``)."""
+        from .. import model
+
+        model.save_checkpoint(prefix, epoch, self._symbol,
+                              *self.get_params())
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
 
     # -- properties -------------------------------------------------------
     @property
@@ -231,6 +272,27 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            # MXNet 1.3's init_optimizer applies Module.load's states
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    def save_optimizer_states(self, fname):
+        """Commit the updater's states (no optimizer) to ``fname``
+        atomically under the ``ckpt.commit`` retry policy."""
+        from ..elastic import commit_bytes
+
+        self._require("optimizer_initialized")
+        commit_bytes(fname, self._updater.get_states(), kind="states")
+
+    def load_optimizer_states(self, fname):
+        """Load ``save_optimizer_states``'s file (of either package) into
+        the updater: in place into the live states, new ones on the
+        module's context where there are none."""
+        self._require("optimizer_initialized")
+        with open(fname, "rb") as f:
+            self._updater.set_states(
+                f.read(), device=self._context[0].torch_device())
 
     # -- computation ------------------------------------------------------
     def forward(self, data_batch, is_train=None):

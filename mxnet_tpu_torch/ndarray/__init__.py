@@ -1,14 +1,17 @@
 """``mx.nd``: NDArray plus one function per registered op, generated from
 the registry as the JAX package's ``ndarray/__init__.py`` does,
-``invoke``, the way ``F.invoke`` reaches an op by name, and
-``nd.contrib``, the ``_contrib_*`` ops under their short names."""
+``invoke``, the way ``F.invoke`` reaches an op by name,
+``nd.contrib``, the ``_contrib_*`` ops under their short names, and
+``save``/``load`` of the ``.params`` container (:mod:`.io_utils`)."""
 import sys as _sys
 
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from ..ops.registry import OP_REGISTRY as _REG
+from . import io_utils  # noqa: F401
+from .io_utils import load, save
 from .ndarray import NDArray, array, invoke, ones, zeros
 
-__all__ = ["NDArray", "array", "invoke", "ones", "zeros"]
+__all__ = ["NDArray", "array", "invoke", "ones", "zeros", "save", "load"]
 
 
 def _make_op_func(_name):

@@ -27,6 +27,21 @@ promotes it to float32 first (:meth:`Optimizer._scale_lr`): JAX computes
 JAX update path, and a 0-d float32 tensor would not promote a bfloat16
 tensor in torch.
 
+``Updater.get_states``/``set_states`` serialize the states as the JAX
+package does (``mxnet_tpu/optimizer.py:913-966``): a pickle of ``{index:
+state}``, each state an array, a tuple, None, or ``(master, base)``
+under ``multi_precision``, optionally with the optimizer. The arrays are
+numpy, taken from the card in one batched transfer, and the optimizer
+pickles without its caches and its ``param_dict`` (live Parameters), so
+a states file holds numpy and plain Python only and loads without a
+card; a states file without the optimizer loads in either package.
+``set_states`` copies each array into the live state tensor of its
+shape, cast to its dtype, so a captured step holding the tensor replays
+with it; a state with no live tensor of its shape gets a new one. It
+unpickles numpy, plain builtins and this package's classes only, so a
+JAX ``Trainer.save_states`` file, which names the JAX optimizer's class,
+is refused with an ``MXNetError``.
+
 Departures: the weights and states are written in place, under
 ``torch.no_grad()``, where the JAX package rebinds new buffers, so a
 bfloat16 weight updated without ``multi_precision`` stays bfloat16 (the
@@ -35,9 +50,12 @@ module are not ported yet: :func:`create` raises for them.
 """
 from __future__ import annotations
 
+import io
 import math
+import pickle
 from typing import Dict
 
+import numpy as np
 import torch
 
 from .base import MXNetError
@@ -229,6 +247,16 @@ class Optimizer(object):
             return (master, base)
         return self.update(index, weight, grad, state)
 
+    def __getstate__(self):
+        """What a states file keeps: plain Python. The state-layout cache
+        and ``param_dict`` (live Parameters holding tensors) are dropped;
+        ``Trainer.load_states`` reattaches its own parameters
+        (``mxnet_tpu/optimizer.py:407-412``)."""
+        st = self.__dict__.copy()
+        st.pop("_state_struct_cache", None)
+        st["param_dict"] = {}
+        return st
+
     # -- lr / wd plumbing -------------------------------------------------
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -417,6 +445,109 @@ class Updater(object):
                 self.optimizer.create_state_multi_precision(index, weight)
         self.states[index] = self.optimizer.update_multi_precision(
             index, weight, grad, self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        """The states as bytes: a pickle of ``{index: state}`` with numpy
+        leaves (one batched transfer from the card), and with
+        ``dump_optimizer`` the pair ``(states, optimizer)``."""
+        from .base import fetch_host
+
+        leaves = [t for s in self.states.values() for t in _state_leaves(s)]
+        it = iter(fetch_host(leaves))
+        host = {k: _rebuild_state(s, it) for k, s in self.states.items()}
+        return pickle.dumps((host, self.optimizer) if dump_optimizer
+                            else host)
+
+    def set_states(self, states, device=None):
+        """Restore :meth:`get_states` bytes (of either package). A state
+        array goes into the live state tensor of the same index and place
+        when it has that shape (copied in place, cast to its dtype), else
+        into a new tensor on ``device`` (by default the live state's
+        device, else the current context). A pickled optimizer replaces
+        this one."""
+        from .context import current_context
+        from .ndarray.io_utils import device_arrays
+
+        obj = _StatesUnpickler(io.BytesIO(states)).load()
+        if isinstance(obj, tuple) and len(obj) == 2:
+            obj, self.optimizer = obj
+        live = self.states
+        pairs = [pair for k, v in obj.items()
+                 for pair in _state_pairs(live.get(k), v)]
+        if device is None:
+            device = next((t.device for t, _ in pairs if t is not None),
+                          None)
+        if device is None:
+            device = current_context().torch_device()
+        tensors = iter(device_arrays([a for _, a in pairs], device))
+        restored = []
+        with torch.no_grad():
+            for old, _ in pairs:
+                new = next(tensors)
+                if old is None:
+                    restored.append(new)
+                else:
+                    old.copy_(new)
+                    restored.append(old)
+        it = iter(restored)
+        self.states = {k: _rebuild_state(v, it) for k, v in obj.items()}
+
+
+_PLAIN_BUILTINS = frozenset((
+    "bool", "int", "float", "complex", "str", "bytes", "bytearray", "tuple",
+    "list", "dict", "set", "frozenset", "slice", "range"))
+
+
+class _StatesUnpickler(pickle.Unpickler):
+    """Unpickles what a states file of the port may name: numpy (and
+    ml_dtypes' numpy types), plain builtins and this package's classes. A
+    JAX ``Trainer.save_states`` file names the JAX optimizer's class, and
+    is refused here without importing the JAX package."""
+
+    def find_class(self, module, name):
+        top = module.split(".")[0]
+        if top in ("numpy", "ml_dtypes", "mxnet_tpu_torch") or (
+                module == "builtins" and name in _PLAIN_BUILTINS):
+            return super().find_class(module, name)
+        raise MXNetError(
+            "the states file names %s.%s: a states file of this package "
+            "holds numpy, plain Python and its own optimizer only, and a "
+            "Trainer.save_states file loads only in the package that wrote "
+            "it" % (module, name))
+
+
+def _state_leaves(state):
+    """A state's tensors, depth first."""
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _state_leaves(s)]
+    return [state]
+
+
+def _rebuild_state(state, values):
+    """``state``'s layout with its leaves taken in order from ``values``
+    (tuples stay tuples, lists lists, None None)."""
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return type(state)(_rebuild_state(s, values) for s in state)
+    return next(values)
+
+
+def _state_pairs(live, saved):
+    """``(live tensor or None, saved array)`` for each array of a saved
+    state, depth first: the live tensor at the same place when it has the
+    array's shape."""
+    if saved is None:
+        return []
+    if isinstance(saved, (tuple, list)):
+        same = isinstance(live, (tuple, list)) and len(live) == len(saved)
+        return [p for i, s in enumerate(saved)
+                for p in _state_pairs(live[i] if same else None, s)]
+    keep = isinstance(live, torch.Tensor) and \
+        tuple(live.shape) == tuple(np.shape(saved))
+    return [(live if keep else None, saved)]
 
 
 def get_updater(optimizer):

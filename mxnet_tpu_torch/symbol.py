@@ -4,7 +4,9 @@
 The graph is a small Python DAG over the op registry, as in the JAX
 package, and JSON keeps the reference's ``*-symbol.json`` format (nodes,
 arg_nodes and heads with ``[node_id, out_idx, version]`` inputs), so a
-graph written by either package loads in the other.
+graph written by either package loads in the other. ``Symbol.save``
+commits that JSON atomically (``elastic.commit_bytes``: tmp, fsync,
+rename), and :func:`load` reads it, as in the JAX package.
 
 Two departures in how a graph runs:
 
@@ -34,7 +36,7 @@ from .base import MXNetError, dtype_name
 from .name import NameManager
 from .ops.registry import OP_REGISTRY, get_op
 
-__all__ = ["Symbol", "var", "Variable", "Group", "load_json"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -341,6 +343,14 @@ class Symbol(object):
         }
         return json.dumps(js, indent=2)
 
+    def save(self, fname):
+        """Write :meth:`tojson` to ``fname`` as one atomic commit under the
+        ``ckpt.commit`` retry policy (``mxnet_tpu/symbol.py:408``): a
+        crash mid-save leaves the old file or the new one."""
+        from .elastic import commit_bytes
+
+        commit_bytes(fname, self.tojson().encode("utf-8"), kind="symbol")
+
     # -- evaluation / binding ---------------------------------------------
     def eval_torch(self, value_map: Dict[str, torch.Tensor],
                    aux_updates: Optional[Dict[str, torch.Tensor]] = None):
@@ -573,6 +583,12 @@ def Group(symbols) -> Symbol:
     for s in symbols:
         outputs.extend(s._outputs)
     return Symbol(outputs)
+
+
+def load(fname) -> Symbol:
+    """The Symbol of a ``*-symbol.json`` file (``mxnet_tpu/symbol.py:862``)."""
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def load_json(json_str: str) -> Symbol:

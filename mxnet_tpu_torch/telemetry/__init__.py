@@ -5,15 +5,16 @@ plane needs it: :mod:`.registry` (Counter/Gauge/Histogram with labels,
 thread-safe, free when ``MXNET_TELEMETRY=0``); each metric's
 ``series()`` reads it back; and :mod:`.accounting`'s recompile gauges,
 which the CUDA-graph captures feed, its optimizer-dispatch counter and
-the training plane's step and demotion counters. The exporters
+the training plane's step and demotion counters, and the checkpoint
+commits' byte counter. The exporters
 (Prometheus text, snapshots), tracing, the flight recorder, SLOs, the
 HTTP endpoint and device-time profiling wait for later slices.
 """
 from __future__ import annotations
 
 from . import accounting, registry
-from .accounting import (COMPILE_SECONDS, OPT_DISPATCHES, RECOMPILES,
-                         STEADY_STATE_RECOMPILES, STEP_DISPATCHES,
+from .accounting import (CKPT_BYTES, COMPILE_SECONDS, OPT_DISPATCHES,
+                         RECOMPILES, STEADY_STATE_RECOMPILES, STEP_DISPATCHES,
                          TRAINPLANE_FALLBACKS, note_recompile,
                          set_steady_state_recompiles)
 from .registry import (Counter, Gauge, Histogram, Registry, REGISTRY,
@@ -24,5 +25,5 @@ __all__ = [
     "counter", "gauge", "histogram", "enabled", "set_enabled",
     "RECOMPILES", "COMPILE_SECONDS", "STEADY_STATE_RECOMPILES",
     "OPT_DISPATCHES", "STEP_DISPATCHES", "TRAINPLANE_FALLBACKS",
-    "note_recompile", "set_steady_state_recompiles",
+    "CKPT_BYTES", "note_recompile", "set_steady_state_recompiles",
 ]

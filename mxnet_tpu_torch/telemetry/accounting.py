@@ -16,7 +16,9 @@ of a CUDA graph (:class:`~mxnet_tpu_torch.serving.DecodeEngine`):
   (``graph``: one replay of the whole captured step; ``eager``: forward,
   backward and ``Trainer.step`` issued one by one), and
   ``TRAINPLANE_FALLBACKS`` the plane's demotions to eager by reason
-  (``trainplane.FALLBACKS``), as the JAX package's counters.
+  (``trainplane.FALLBACKS``), as the JAX package's counters;
+* ``CKPT_BYTES`` counts the bytes a checkpoint commit wrote, by kind
+  (``elastic.commit_bytes``: ``symbol``, ``states``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from . import registry as _registry
 
 __all__ = ["RECOMPILES", "COMPILE_SECONDS", "STEADY_STATE_RECOMPILES",
            "OPT_DISPATCHES", "STEP_DISPATCHES", "TRAINPLANE_FALLBACKS",
-           "note_recompile", "set_steady_state_recompiles"]
+           "CKPT_BYTES", "note_recompile", "set_steady_state_recompiles"]
 
 RECOMPILES = _registry.counter(
     "mxnet_recompiles_total",
@@ -61,6 +63,12 @@ TRAINPLANE_FALLBACKS = _registry.counter(
     "mxnet_trainplane_fallbacks_total",
     "training-plane graph captures declined, by reason",
     labels=("reason",))
+
+CKPT_BYTES = _registry.counter(
+    "mxnet_ckpt_bytes_total",
+    "bytes committed to checkpoint storage by kind: symbol (the "
+    "symbol's JSON), states (the optimizer's states)",
+    labels=("kind",))
 
 
 def note_recompile(site: str, count: int = 1, seconds: float = 0.0):

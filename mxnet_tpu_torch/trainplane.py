@@ -461,7 +461,8 @@ class TrainPlane(_PlaneBase):
         path = self._paths.get(key)
         if path is not None and path.ptrs != self._ptrs():
             # a parameter or state was rebound since the capture (a cast,
-            # a restored state): the graph's addresses are stale
+            # a state restored into another layout): the graph's
+            # addresses are stale
             self._paths.clear()
             path = None
         if path is None:
@@ -651,8 +652,8 @@ class _ModulePlane(_PlaneBase):
                opt.rescale_grad, opt.clip_gradient, wds, mp_flags)
         path = self._paths.get(key)
         if path is not None and path.ptrs != self._ptrs():
-            # a weight or state was rebound since the capture
-            # (set_params, init_params(force_init=True), a cast)
+            # a weight or state was rebound since the capture (a value
+            # of another shape or dtype given to set_params, a cast)
             self._paths.clear()
             path = None
         if path is not None:

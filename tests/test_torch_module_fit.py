@@ -147,4 +147,5 @@ def test_fit_refuses_what_is_not_ported():
         with pytest.raises(MXNetError, match="monitor"):
             mod.fit(train, num_epoch=1, monitor=object())
         with pytest.raises(MXNetError, match="not ported"):
-            mx.callback.do_checkpoint("prefix")
+            mx.module.Module(port_cr.get_symbol("np_softmax_ce"),
+                             group2ctxs=[{"dev1": mx.cpu()}])

@@ -276,14 +276,17 @@ def test_fit_on_the_plane_matches_the_jax_plane(monkeypatch):
 
 
 def test_single_steps_and_a_rebound_weight_recapture():
-    """Plane steps interleave with eager ones and a ``set_params`` (which
-    rebinds the weights) makes a new path; every step equals the eager
-    module's."""
+    """Plane steps interleave with eager ones; a ``set_params`` of the
+    bound shapes writes the executor's tensors in place and keeps the
+    captured path, and a rebound weight (a new tensor in the executor)
+    makes a new path; every step equals the eager module's."""
     mods = [_bound(mx, "lenet_bn") for _ in range(2)]
     (gm, it), (em, _) = mods
     plane = trainplane.module_plane(gm)
     assert plane.compile_count == 1
     batches = list(it)
+    assert len(batches) > 3
+    counts = []
     with mx.cpu():
         for i, batch in enumerate(batches):
             if i == 2:
@@ -292,6 +295,9 @@ def test_single_steps_and_a_rebound_weight_recapture():
                 aux = {k: v.copy() for k, v in aux.items()}
                 gm.set_params(args, aux)
                 em.set_params(args, aux)
+            if i == 3:
+                w = gm._exec_group.execs[0].arg_dict["fc1_weight"]
+                w._data = w._data.clone()
             if i == 1:  # an eager step on the plane's module
                 gm.forward_backward(batch)
                 gm.update()
@@ -299,6 +305,8 @@ def test_single_steps_and_a_rebound_weight_recapture():
                 plane.step(batch)
             em.forward_backward(batch)
             em.update()
+            counts.append(plane.compile_count)
+    assert counts[:4] == [1, 1, 1, 2]
     assert plane.compile_count == 2
     for got, want in zip(gm.get_params(), em.get_params()):
         for name in want:

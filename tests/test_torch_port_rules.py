@@ -24,6 +24,10 @@
   ``gluon/contrib/``, the zoo families, ``benchmark_score``) is in the
   scan, and fits a module on the plane, builds every zoo name and scores
   a net with ``jax`` and ``mxnet_tpu`` made unimportable;
+* the checkpoint slice (``ndarray/io_utils``, ``elastic``, ``model``) is
+  in the scan, and fits a module with ``module_checkpoint``, resumes it
+  through ``Module.load`` and predicts with ``jax`` and ``mxnet_tpu``
+  made unimportable;
 * the extension slice's modules (``rtc``, ``operator``, ``metric``,
   ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
   no module of the port defines ``PallasModule`` (Pallas source cannot
@@ -345,3 +349,43 @@ print("zoo", len(nets), "plane steps", int(steps))
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "zoo 34 plane steps 4" in proc.stdout
+
+
+def test_scan_covers_the_checkpoint_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ("mxnet_tpu_torch/ndarray/io_utils.py",
+                 "mxnet_tpu_torch/elastic.py", "mxnet_tpu_torch/model.py"):
+        assert path in names
+
+
+def test_checkpoint_slice_runs_with_jax_and_mxnet_tpu_blocked(tmp_path):
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+import os
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import sym
+prefix = os.path.join(sys.argv[1], "fc")
+net = sym.FullyConnected(sym.var("data"), num_hidden=4, name="fc")
+net = sym.SoftmaxOutput(net, name="softmax")
+xs = np.random.RandomState(0).rand(32, 6).astype(np.float32)
+with mx.cpu():
+    it = mx.io.NDArrayIter(xs, xs[:, :4].argmax(1), batch_size=8)
+    mod = mx.module.Module(net)
+    mod.fit(it, num_epoch=1, epoch_end_callback=mx.callback.module_checkpoint(
+        mod, prefix, save_optimizer_states=True))
+    back = mx.module.Module.load(prefix, 1, load_optimizer_states=True)
+    back.fit(it, num_epoch=2, begin_epoch=1)
+    out = back.predict(it).asnumpy()
+assert out.shape == (32, 4) and np.isfinite(out).all()
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("files", len(os.listdir(sys.argv[1])))
+"""
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=str(REPO), env=subprocess_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "files 3" in proc.stdout
