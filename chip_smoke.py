@@ -108,7 +108,9 @@ Phases, each printing one line of its own (any failure exits non-zero):
     with cuDNN's default algorithms, and two eager runs, printed beside;
 16. rtc_time: the softmax-forward kernel through ``Kernel.launch`` at
     (64, 10) and (8192, 1024): host and device time, bound, plain version
-    and ``torch.softmax`` (host and device time).
+    and ``torch.softmax`` (host and device time; at (64, 10) also its
+    device time replayed inside a CUDA graph, as the module plane runs the
+    kernel).
 
 17. fused_apply: the fused optimizer apply (``fastpath``) on resnet50_v1's
     193 trainable parameters (25.58 M values) with random gradients, SGD
@@ -205,6 +207,47 @@ Phases, each printing one line of its own (any failure exits non-zero):
     into a new Module bound for inference, whose ``predict`` over the
     dataset must equal the trained module's bit for bit, the detections
     through the NMS kernel included.
+
+31. rnn_op_check: the word language model slice's ``RNN`` op on the
+    card, cuDNN (through ``torch._VF``) against its plain version (the
+    step loop of the JAX op's arithmetic, MXNet's gate order) on the card:
+    ``lstm``, ``gru``, ``rnn_tanh`` and ``rnn_relu``, 2 layers,
+    unidirectional and bidirectional, (T, N, C) = (35, 32, 650), hidden
+    650; the outputs, the final states and the gradients of the data, the
+    flat parameters and the initial states, each within RNN_OP_TOL of the
+    tensor's largest magnitude (at least 1; rnn_relu's gradients in
+    float64, RNN_OP_TOL_F64); device and CUDA-event ms of a forward and
+    backward of each path at the unidirectional LSTM case, and of
+    ``torch.nn.LSTM`` with its weights flattened (cuDNN without the op's
+    copy of its weight views), beside the bound of its matmuls;
+32. word_lm_parity: the port's word LM (``example/gluon/
+    word_language_model/train.py``: width 650, 2 layers, tied, dropout 0,
+    vocabulary 2,000) from the same weights, 3 of the example's own
+    training steps on the card and on the CPU: losses, the gradient norms
+    ``clip_global_norm`` returns and every final weight within
+    WORD_LM_TOL;
+33. word_lm: upstream MXNet's "medium" PTB command (``--tied --nhid 650
+    --emsize 650 --dropout 0.5``; lr 20, clip 0.25, batch 32, bptt 35, 2
+    layers) through the example's ``run`` on a synthetic Zipf corpus of
+    400,000 tokens at PTB's vocabulary of 10,000, 2 epochs: validation
+    perplexity must fall from epoch 1 to epoch 2 and stay below 10,000;
+    tokens/s, ms a step and peak memory; then torch.profiler over 10 more
+    steps: busy share, host launches a step and the top device operations;
+34. word_lm_example: ``python3 mxnet_tpu_torch/example/gluon/
+    word_language_model/train.py`` at its defaults, on the card, as a user
+    runs it: it must exit 0;
+35. nd_ops_card: every name of the port's ``ops/tensor.py`` and
+    ``ops/random_ops.py``, the ``Sequence*`` ops, ``_rnn_param_concat``
+    and ``RNN`` on the card, at the small shapes of the CPU sweep
+    (``tests/torch_op_cases.py``), against the same op in the port on the
+    CPU: forward and gradients in float32 (ND_OPS_TOL; the RNN op, cuDNN
+    against the loop, RNN_OP_TOL of each tensor's largest magnitude),
+    int32 wherever the JAX op takes it (exact); the samplers by their
+    moments at 10,000 draws and by replay after ``mx.random.set_state``;
+    the count of ops checked.
+
+``python3 chip_smoke.py --word-lm`` runs phases 31-35 only (no nvcc
+build: the path runs no hand-written kernel).
 
 ``python3 chip_smoke.py --resnet`` runs phases 17-26 only; ``--ckpt``
 runs phases 28-30 only (building the NMS kernel, training the SSD example
@@ -399,6 +442,26 @@ ZOO_S = 0.4  # the time budget of each timed loop
 # the checkpoint phases: ckpt_resnet saves after CKPT_STEPS TrainPlane
 # steps, then a resumed run and a rewound one repeat the next CKPT_STEPS
 CKPT_STEPS = 3
+# the word language model slice: the RNN op's check at the medium PTB
+# model's shape, (T, N, C) and hidden 650, 2 layers; cuDNN against the
+# step loop in fp32 with TF32 off, each tensor within RNN_OP_TOL of its
+# largest magnitude (at least 1): 35 recurrent steps and two summation
+# orders of every product. rnn_relu's gradient jumps where a unit's
+# pre-activation crosses 0, and fp32 rounding moves a few units across
+# between the two orders (its fp32 gradients differed by up to 4 % of
+# their largest value on the card), so its gradients are held in float64,
+# where RNN_OP_TOL_F64 applies to every tensor
+RNN_OP_SHAPE, RNN_OP_HIDDEN, RNN_OP_TOL = (35, 32, 650), 650, 1e-4
+RNN_OP_TOL_F64 = 1e-9
+# word_lm: upstream MXNet 1.3's medium PTB command on PTB's vocabulary
+WORD_LM_ARGS = ["--tied", "--nhid", "650", "--emsize", "650", "--dropout",
+                "0.5", "--lr", "20", "--epochs", "2"]
+WORD_LM_CORPUS = dict(synth_tokens=400000, synth_vocab=10000)
+WORD_LM_PROFILE_STEPS = 10
+# word_lm_parity: card against CPU, 3 steps from the same weights
+WORD_LM_PARITY_VOCAB, WORD_LM_TOL = 2000, 1e-4
+# nd_ops_card: the port's ops on the card against the port on the CPU
+ND_OPS_TOL = 1e-5
 
 
 def fail(msg):
@@ -1950,18 +2013,21 @@ def custom_rtc():
 
 def _traced_rtc_steps(plane, batch, what):
     """The rtc launches counted over RTC_TRACE_STEPS steps of the module
-    ``plane`` on ``batch``, against the profiler's kernel events; a
-    session has come back one kernel event short of the launches it ran
-    (PERF.md), so a short session is traced again, five at most. Returns
-    (launches counted, the sessions' events, the last profile)."""
+    ``plane`` on ``batch``, against the profiler's kernel events over
+    those steps; each session first runs one plane step of its own, not
+    read (a session has come back one kernel event short, the first rtc
+    kernel's, PERF.md), and a short session is traced again, five at
+    most. Returns (launches counted, the sessions' events, the last
+    profile)."""
     from mxnet_tpu_torch import rtc
 
     sessions = []
     for _ in range(5):
-        counted0 = rtc.Kernel.total_launches
-        prof = _device_profile(lambda: plane.step(batch), RTC_TRACE_STEPS,
-                               count=RTC_KERNELS)
-        counted = rtc.Kernel.total_launches - counted0
+        marks = []
+        prof = _device_profile(
+            lambda: plane.step(batch), RTC_TRACE_STEPS, count=RTC_KERNELS,
+            warm=1, mark=lambda: marks.append(rtc.Kernel.total_launches))
+        counted = rtc.Kernel.total_launches - marks[0]
         sessions.append(prof["kernel_events"])
         if counted != 2 * RTC_TRACE_STEPS:
             fail("%s: %d plane steps counted %d rtc launches"
@@ -2228,10 +2294,26 @@ def rtc_time():
               bound_by=bound_by, max_abs_err=err, block=cr.fwd_block(cols),
               library="torch.softmax(x, 1)")
         if entry is None:  # the custom_rtc path's shape
+            # torch.softmax inside a CUDA graph, as the module plane runs
+            # the rtc kernel: the device time of one replay
+            torch.softmax(x._data, 1)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                held = torch.softmax(x._data, 1)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.allclose(held, torch.softmax(x._data, 1)):
+                fail("torch.softmax in a CUDA graph gave another result")
+            library_graph_device_ms = call_device_ms(graph.replay)
+            phase("rtc_time", case="softmax_fwd_%dx%d_library_in_graph"
+                  % (rows, cols), library_graph_device_ms=(
+                      library_graph_device_ms), bound_ms=bound_ms)
             entry = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=library_ms,
-                         library_device_ms=library_device_ms)
+                         library_device_ms=library_device_ms,
+                         library_graph_device_ms=library_graph_device_ms)
     return {"name": "rtc", "route": "nvrtc",
             "source": "mxnet_tpu_torch/example/numpy_ops/"
                       "custom_softmax_rtc.py",
@@ -2719,25 +2801,44 @@ def _opt_dispatches():
     return {p: OPT_DISPATCHES.value(path=p) for p in ("fused", "perparam")}
 
 
-def _device_profile(run, steps, count=()):
+def _device_profile(run, steps, count=(), warm=0, mark=None):
     """torch.profiler (device activity and the host's CUDA runtime calls)
     over ``steps`` runs of ``run()``: wall ms, device busy ms, device
     operations, host launches and copies, each per step, the top device
     operations [name, ms a step, launches a step], and with ``count`` the
-    device events whose name contains each of its strings."""
+    device events whose name contains each of its strings. With ``warm``,
+    that many runs go first inside the same session, followed by a
+    synchronisation and ``mark()``, and only the device events that start
+    after them are read (the first rtc kernel of a session has gone
+    unrecorded: PERF.md §7)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
+    # the host's activity too when a range must mark the traced steps
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if warm else [])
+    with profile(activities=acts) as prof:
+        for _ in range(warm):
             run()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        if mark is not None:
+            mark()
+        with record_function("chip_smoke.traced_steps"):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    start = min((e.time_range.start for e in events
+                 if e.name == "chip_smoke.traced_steps"), default=None)
+    if warm and start is None:
+        fail("the profiler recorded no range of the traced steps")
     by_name, host = {}, {}
-    for e in prof.events():
+    for e in events:
+        if warm and e.time_range.start < start:
+            continue
         if e.device_type == DeviceType.CUDA:
             row = by_name.setdefault(e.name, [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3
@@ -3691,6 +3792,411 @@ def resnet_phases():
     remat_memory()
 
 
+# ---------------------------------------------------------------------------
+# the word language model slice
+# ---------------------------------------------------------------------------
+
+
+def _rel_err(a, b):
+    """max |a - b| over the larger of 1 and b's largest magnitude."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def _rnn_op_run(impl, mode, bidir, ins, heads):
+    """One forward and backward of the RNN op through ``impl``: the
+    outputs, then the gradients of the data, the flat parameters and the
+    initial states under the ``heads`` weighting."""
+    import torch
+
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+    out, ht, ct = ops_nn.rnn_forward(
+        mode, leaves[0], leaves[1], leaves[2],
+        leaves[3] if mode == "lstm" else None, 2, RNN_OP_HIDDEN,
+        bidirectional=bidir, p_dropout=0.0, train=True, impl=impl)
+    outs = [out, ht] + ([ct] if mode == "lstm" else [])
+    loss = sum((o * w).sum() for o, w in zip(outs, heads))
+    return [o.detach() for o in outs] + list(torch.autograd.grad(loss,
+                                                                 leaves))
+
+
+def rnn_op_check():
+    """cuDNN's RNN against the plain loop on the card, every mode, uni-
+    and bidirectional, then the two paths' times at the LSTM case."""
+    import torch
+
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    t, n, c = RNN_OP_SHAPE
+    h = RNN_OP_HIDDEN
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    worst = 0.0
+    timed = None
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        for bidir in (False, True):
+            d = 2 if bidir else 1
+            size = ops_nn.rnn_param_size(mode, c, h, 2, bidir)
+            k = 1.0 / h ** 0.5
+
+            def rnd(*shape, scale=1.0):
+                return torch.randn(*shape, device="cuda",
+                                   generator=gen) * scale
+
+            ins = [rnd(t, n, c),
+                   (torch.rand(size, device="cuda", generator=gen) * 2
+                    - 1) * k, rnd(2 * d, n, h, scale=0.5)]
+            if mode == "lstm":
+                ins.append(rnd(2 * d, n, h, scale=0.5))
+            heads = [rnd(t, n, d * h), rnd(2 * d, n, h)] + (
+                [rnd(2 * d, n, h)] if mode == "lstm" else [])
+            got = _rnn_op_run("cudnn", mode, bidir, ins, heads)
+            want = _rnn_op_run("plain", mode, bidir, ins, heads)
+            names = ["out", "h_n"] + (["c_n"] if mode == "lstm" else []) \
+                + ["d_data", "d_params", "d_state"] + (
+                    ["d_state_cell"] if mode == "lstm" else [])
+            errs = {k2: _rel_err(g, w) for k2, g, w in zip(names, got,
+                                                          want)}
+            held = {k2: v for k2, v in errs.items()
+                    if mode != "rnn_relu" or not k2.startswith("d_")}
+            fields = {}
+            if mode == "rnn_relu":
+                # the units whose sign differs between the two forwards
+                fields["out_sign_flips"] = int(((got[0] > 0)
+                                                != (want[0] > 0)).sum())
+                dbl = [x.double() for x in ins]
+                hdbl = [x.double() for x in heads]
+                errs64 = {k2: _rel_err(g, w) for k2, g, w in zip(
+                    names, _rnn_op_run("cudnn", mode, bidir, dbl, hdbl),
+                    _rnn_op_run("plain", mode, bidir, dbl, hdbl))}
+                fields["errs_float64"] = errs64
+                if not max(errs64.values()) <= RNN_OP_TOL_F64:
+                    fail("RNN op %s (bidirectional %s): cuDNN and the "
+                         "plain loop disagree in float64: %s"
+                         % (mode, bidir, errs64))
+            err = max(held.values())
+            phase("rnn_op_check", mode=mode, bidirectional=bidir,
+                  shape=[t, n, c], hidden=h, layers=2, max_rel_err=err,
+                  errs=errs, tol=RNN_OP_TOL, **fields)
+            if not err <= RNN_OP_TOL:
+                fail("RNN op %s (bidirectional %s): cuDNN and the plain "
+                     "loop disagree: %s" % (mode, bidir, errs))
+            worst = max(worst, err)
+            if mode == "lstm" and not bidir:
+                timed = (ins, heads)
+    ins, heads = timed
+    fields = {}
+    for impl in ("cudnn", "plain"):
+        def run(impl=impl):
+            _rnn_op_run(impl, "lstm", False, ins, heads)
+
+        fields[impl + "_ms"] = time_ms(run, iters=5, warm=1)
+        fields[impl + "_device_ms"] = call_device_ms(run, iters=3)
+    # the same forward and backward through torch.nn.LSTM, whose weights
+    # are one buffer in cuDNN's layout (flatten_parameters): what the
+    # op's copy of its weight views into such a buffer costs, a call
+    lstm = torch.nn.LSTM(c, h, 2).cuda()
+    with torch.no_grad():
+        packs = ops_nn._unpack_rnn("lstm", ins[1], c, h, 2, 1)
+        for layer, pack in enumerate(packs):
+            for name, w in zip(("weight_ih", "weight_hh", "bias_ih",
+                                "bias_hh"), pack[0]):
+                getattr(lstm, "%s_l%d" % (name, layer)).copy_(w)
+    lstm.flatten_parameters()
+
+    def run_flat():
+        x = ins[0].detach().clone().requires_grad_(True)
+        out, (ht, ct) = lstm(x, (ins[2], ins[3]))
+        loss = (out * heads[0]).sum() + (ht * heads[1]).sum() \
+            + (ct * heads[2]).sum()
+        torch.autograd.grad(loss, [x] + list(lstm.parameters()))
+
+    fields["library_ms"] = time_ms(run_flat, iters=5, warm=1)
+    fields["library_device_ms"] = call_device_ms(run_flat, iters=3)
+    # the matmuls of a forward and backward: 2 x (input and recurrent
+    # products) a layer, forward once and backward twice
+    flops = 3 * sum(2 * t * n * 4 * h * ((c if layer == 0 else h) + h)
+                    for layer in range(2))
+    fields["bound_ms"] = flops / PEAK_FP32_FLOPS * 1e3
+    phase("rnn_op_time", mode="lstm", shape=[t, n, c], hidden=h, layers=2,
+          what="forward and backward", gflop=flops / 1e9,
+          bound_by="operations", library="torch.nn.LSTM, flattened weights",
+          **fields)
+    return worst
+
+
+def _word_lm_parity_run(ctx, ids, weights=None, steps=3):
+    """The example's model (width 650, tied, dropout 0) on ``ctx``:
+    ``steps`` of the example's training steps; returns the mean losses,
+    the gradient norms and the final weights (numpy, in parameter
+    order)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.example.gluon.word_language_model import train as wlm
+
+    bptt, batch = 35, 32
+    with ctx:
+        mx.random.seed(0)
+        model = wlm.RNNModel(WORD_LM_PARITY_VOCAB, 650, 650, 2, 0.0, True)
+        model.initialize(mx.initializer.Xavier())
+        params = list(model.collect_params().values())
+        if weights is not None:
+            for p, w in zip(params, weights):
+                p.set_data(w)
+        trainer = gluon.Trainer(model.collect_params(), "sgd",
+                                {"learning_rate": 1.0, "momentum": 0,
+                                 "wd": 0})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        data = wlm.batchify(ids, batch)
+        hidden = model.begin_state(func=mx.nd.zeros, batch_size=batch)
+        first = [p.data().asnumpy() for p in params]
+        losses, norms = [], []
+        for step in range(steps):
+            x, y = wlm.get_batch(data, step * bptt, bptt)
+            loss, hidden, norm = wlm.train_step(model, trainer, loss_fn, x,
+                                                y, hidden, 0.25, batch,
+                                                bptt)
+            losses.append(float(loss.mean().asscalar()))
+            norms.append(norm)
+        return losses, norms, first, [p.data().asnumpy() for p in params]
+
+
+def word_lm_parity():
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.gluon.word_language_model import train as wlm
+
+    ids, _ = wlm.load_corpus(None, synth_tokens=32 * 35 * 4,
+                             synth_vocab=WORD_LM_PARITY_VOCAB)
+    t0 = time.perf_counter()
+    l_cpu, n_cpu, w0, w_cpu = _word_lm_parity_run(mx.cpu(), ids)
+    cpu_s = time.perf_counter() - t0
+    l_gpu, n_gpu, _, w_gpu = _word_lm_parity_run(mx.gpu(0), ids, w0)
+    loss_err = max(abs(a - b) for a, b in zip(l_gpu, l_cpu))
+    norm_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(n_gpu, n_cpu))
+    w_err = max(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+                for a, b in zip(w_gpu, w_cpu))
+    phase("word_lm_parity", steps=3, width=650, vocab=WORD_LM_PARITY_VOCAB,
+          tied=True, losses_card=l_gpu, losses_cpu=l_cpu,
+          grad_norms_card=n_gpu, grad_norms_cpu=n_cpu,
+          loss_max_abs_err=loss_err, grad_norm_max_rel_err=norm_err,
+          weight_max_rel_err=w_err, tol=WORD_LM_TOL, cpu_s=cpu_s)
+    if not max(loss_err, norm_err, w_err) <= WORD_LM_TOL:
+        fail("word LM: the card and the CPU disagree (losses %.3g, norms "
+             "%.3g, weights %.3g)" % (loss_err, norm_err, w_err))
+
+
+def word_lm():
+    """The medium PTB model through the example's run, then a profile of
+    WORD_LM_PROFILE_STEPS more training steps."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.gluon.word_language_model import train as wlm
+
+    args = wlm.parse_args(WORD_LM_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(0)
+    corpus = wlm.load_corpus(None, **WORD_LM_CORPUS)
+    res = wlm.run(args, corpus=corpus)
+    ppl = res["val_ppl"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (ppl[1] < ppl[0] and max(ppl) < 10000):
+        fail("word_lm: validation perplexity %s does not fall below 10,000"
+             % (ppl,))
+    model, trainer = res["model"], res["trainer"]
+    data = res["train_data"]
+    state = {"hidden": model.begin_state(func=mx.nd.zeros,
+                                         batch_size=args.batch_size),
+             "i": 0}
+
+    def step():
+        with mx.gpu(0):
+            x, y = wlm.get_batch(data, state["i"] * args.bptt, args.bptt)
+            loss, state["hidden"], _ = wlm.train_step(
+                model, trainer, res["loss_fn"], x, y, state["hidden"],
+                args.clip, args.batch_size, args.bptt)
+            float(mx.nd.sum(loss).asnumpy())  # the example's own read
+            state["i"] += 1
+
+    prof = _device_profile(step, WORD_LM_PROFILE_STEPS)
+    phase("word_lm", config="medium PTB: tied, 650/650, 2 layers, dropout "
+          "0.5, lr 20, clip 0.25", vocab=res["vocab"],
+          corpus_tokens=WORD_LM_CORPUS["synth_tokens"], epochs=args.epochs,
+          batch=args.batch_size, bptt=args.bptt, steps=res["steps"],
+          train_s=res["train_s"], tokens_per_s=res["tokens_per_s"],
+          step_ms=res["step_ms"], val_ppl=ppl, peak_gb=peak_gb,
+          profile=prof)
+
+
+def word_lm_example():
+    """The example at its defaults, as a user runs it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join("mxnet_tpu_torch", "example", "gluon",
+                          "word_language_model", "train.py")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, script], cwd=here,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    phase("word_lm_example", rc=proc.returncode, seconds=secs,
+          last=lines[-1] if lines else "")
+    if proc.returncode != 0:
+        fail("word_lm_example exited %d: %s" % (proc.returncode,
+                                               proc.stderr[-2000:]))
+
+
+def _op_run(op, inputs, attrs, dev, grad):
+    """The port's op on numpy ``inputs`` on ``dev``: the outputs and the
+    gradients of the float inputs under a fixed random weighting."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    ctx = mx.cpu() if dev == "cpu" else mx.gpu(0)
+    with ctx:
+        arrs = [nd.array(a, dtype=a.dtype) for a in inputs]
+        diff = [a for a, x in zip(arrs, inputs)
+                if grad and x.dtype == np.float32]
+        for a in diff:
+            a.attach_grad()
+        with autograd.record():
+            out = nd.invoke(op, *arrs, **attrs)
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            head = None
+            for k, o in enumerate(outs):
+                if not diff or o.dtype != np.float32:
+                    continue
+                w = nd.array(np.asarray(np.random.RandomState(100 + k)
+                                        .randn(*o.shape), np.float32))
+                term = (o * w).sum()
+                head = term if head is None else head + term
+        if head is not None:
+            head.backward()
+        return [o.asnumpy() for o in outs] + (
+            [a.grad.asnumpy() for a in diff] if head is not None else [])
+
+
+def _op_agree(got, want, rel_tol=None):
+    """Whether the card's outputs equal the CPU's: integers exactly,
+    floats within ND_OPS_TOL (``rel_tol``: within it of each tensor's
+    largest magnitude, at least 1, for cuDNN's RNN against the loop)."""
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return False
+        if rel_tol is not None:
+            scale = max(1.0, float(np.abs(w).max()))
+            if not float(np.abs(g - w).max()) <= rel_tol * scale:
+                return False
+        elif np.issubdtype(w.dtype, np.floating):
+            if not np.allclose(g, w, rtol=ND_OPS_TOL, atol=ND_OPS_TOL,
+                               equal_nan=True):
+                return False
+        elif not np.array_equal(g, w):
+            return False
+    return len(got) == len(want)
+
+
+def nd_ops_card():
+    """Every name of the slice's op families on the card against the
+    port on the CPU, then the samplers."""
+    import inspect
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops.registry import OP_REGISTRY
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_op_cases as cases
+
+    table = dict(cases.CASES, **cases.NN_CASES)
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        ins, attrs = cases.rnn_case(mode, mode == "gru")
+        table["RNN_" + mode] = ("RNN", ins, attrs,
+                                {"int": False, "grad": True})
+    modules = {"mxnet_tpu_torch.ops.tensor"}
+    names = sorted(n for n, o in OP_REGISTRY.items()
+                   if inspect.getmodule(o.fcompute).__name__ in modules)
+    names += ["SequenceMask", "SequenceLast", "SequenceReverse",
+              "_rnn_param_concat", "RNN"]
+    by_op = {}
+    for key in sorted(table):
+        by_op.setdefault(id(OP_REGISTRY[table[key][0]]), []).append(key)
+    checked, bad = 0, []
+    for name in names:
+        for key in by_op.get(id(OP_REGISTRY[name]), []):
+            _, specs, attrs, flags = table[key]
+            int_form = flags["int"] and any(
+                not isinstance(sp, np.ndarray) and sp[0] not in ("idx", "fidx")
+                for sp in specs)
+            for dtype in ["float32"] + (["int32"] if int_form else []):
+                inputs = cases.make_inputs(specs, dtype, seed=11)
+                grad = flags["grad"] and dtype == "float32"
+                got = _op_run(name, inputs, attrs, "cuda", grad)
+                want = _op_run(name, inputs, attrs, "cpu", grad)
+                checked += 1
+                if not _op_agree(got, want, RNN_OP_TOL if name == "RNN"
+                                 else None):
+                    bad.append("%s[%s, %s]: max abs err %s" % (
+                        name, key, dtype,
+                        [float(np.abs(np.asarray(g, np.float64) - w).max())
+                         if g.shape == w.shape else "shape"
+                         for g, w in zip(got, want)]))
+            if name != table[key][0]:
+                break  # an alias runs its op's first case
+    # the samplers: moments at RANDOM_N draws, replay through the state
+    sampled = 0
+    with mx.gpu(0):
+        for op, (arrays, attrs, _, _) in sorted(cases.RANDOM_CASES.items()):
+            params = [nd.array(a) for a in arrays]
+            shape = (cases.RANDOM_N,)
+            state = mx.random.get_state()
+            out = nd.invoke(op, *params, shape=shape, **attrs)
+            out = out[0] if isinstance(out, list) else out
+            vals = out.asnumpy()
+            mx.random.set_state(state)
+            again = nd.invoke(op, *params, shape=shape, **attrs)
+            again = again[0] if isinstance(again, list) else again
+            if not np.array_equal(vals, again.asnumpy()):
+                bad.append("%s: no replay after set_state" % op)
+            if out._data.device.type != "cuda":
+                bad.append("%s: drawn off the card" % op)
+            try:
+                cases.check_support(op, vals)
+                cases.check_moments(op, vals.reshape(-1, cases.RANDOM_N)
+                                    if arrays else vals[None])
+            except AssertionError as e:
+                bad.append("%s: %s" % (op, e))
+            sampled += 1
+        probs = nd.array(cases.MULTINOMIAL_P)
+        draws = nd.random.multinomial(probs, shape=(cases.RANDOM_N,))
+        freq = np.stack([(draws.asnumpy() == j).mean(axis=1)
+                         for j in range(3)], axis=1)
+        if not np.allclose(freq, cases.MULTINOMIAL_P, atol=0.02):
+            bad.append("_sample_multinomial: frequencies %s" % freq)
+        perm = nd.random.shuffle(nd.arange(1000)).asnumpy()
+        if not np.array_equal(np.sort(perm), np.arange(1000)):
+            bad.append("_shuffle: not a permutation")
+        sampled += 2
+    phase("nd_ops_card", names=len(names), checks=checked,
+          samplers=sampled, tol=ND_OPS_TOL, failed=bad,
+          generator_device=str(mx.random.generator("cuda").device))
+    if bad:
+        fail("nd_ops_card: the card disagrees with the CPU: %s" % bad)
+    return checked
+
+
+def word_lm_phases():
+    rnn_op_check()
+    word_lm_parity()
+    word_lm()
+    word_lm_example()
+    nd_ops_card()
+
+
 def main():
     import torch
 
@@ -3751,6 +4257,14 @@ def main():
         # NVRTC; nvcc builds nothing)
         custom_rtc()
         module_plane_parity()
+        return 0
+    if sys.argv[1:] == ["--word-lm"]:
+        # only the word language model slice's phases (no kernel is
+        # built: the path runs none)
+        word_lm_phases()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if sys.argv[1:] == ["--resnet"]:
         # only the ResNet slices' phases (no kernel is built: the path
@@ -3834,6 +4348,7 @@ def main():
     rtc_entry["graph_device_ms"] = rtc_plane_ms
     rtc_entry["max_abs_err"] = max(rtc_entry["max_abs_err"], rtc_err)
     zoo_score()
+    word_lm_phases()
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
                                   nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

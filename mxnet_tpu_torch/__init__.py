@@ -34,7 +34,13 @@ runs no hand-written kernel), and checkpoints: the ``.params`` container
 (``nd.save``/``nd.load``, byte for byte the JAX package's), symbol files,
 ``Block``/``Trainer``/``Module`` checkpoints restored in place into a
 captured training plane, ``model.FeedForward`` and the atomic commit
-(``elastic``). The training
+(``elastic``), and the word language model: the NDArray surface, every
+op of ``ops/tensor.py``, the random samplers (``nd.random``,
+``mx.random.get_state``/``set_state``), ``gluon.rnn`` over the ``RNN``
+op (cuDNN through torch on the card), ``gluon.utils`` and
+``example/gluon/word_language_model/train.py``; it runs no hand-written
+kernel. The top-level aliases ``mx.mod``, ``mx.NDArray``, ``mx.Symbol``,
+``mx.var`` and ``mx.AttrScope`` are the JAX package's. The training
 paths follow MXNet's entry points, with one departure: the default
 context is the card (``gpu(0)``), and without one, code that does not
 ask for ``mx.cpu()`` raises.
@@ -51,6 +57,10 @@ from . import symbol as sym
 from .base import MXNetError, fetch_host, get_env, resolve_device
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .model import load_checkpoint, save_checkpoint
+from .attribute import AttrScope
+from .ndarray import NDArray
+from .symbol import Symbol, var
+from . import module as mod
 
 __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
            "Context", "cpu", "gpu", "current_context", "num_gpus",
@@ -59,4 +69,4 @@ __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
            "module", "recordio", "sym", "symbol", "callback", "contrib",
            "metric", "operator", "rtc", "fastpath", "parallel",
            "lr_scheduler", "trainplane", "elastic", "save_checkpoint",
-           "load_checkpoint"]
+           "load_checkpoint", "AttrScope", "NDArray", "Symbol", "var", "mod"]

@@ -33,7 +33,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "Function"]
+           "backward", "grad", "get_symbol", "Function"]
 
 
 class _State(threading.local):
@@ -201,6 +201,56 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         else:
             leaf._grad._data = g
         leaf._fresh_grad = True
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of ``heads`` with respect to ``variables`` (reference
+    autograd.py:270), returned as new NDArrays; no ``.grad`` buffer is
+    touched. A variable the heads do not reach gets zeros. With
+    ``create_graph=True`` the gradients are themselves in the graph
+    (``torch.autograd.grad(..., create_graph=True)``): an op on them
+    inside ``record()`` can be differentiated again."""
+    from .ndarray.ndarray import NDArray
+
+    if isinstance(heads, NDArray):
+        heads = [heads]
+    single = isinstance(variables, NDArray)
+    if single:
+        variables = [variables]
+    if head_grads is None:
+        hgs = [torch.ones_like(h._data) for h in heads]
+    else:
+        if not isinstance(head_grads, (list, tuple)):
+            head_grads = [head_grads]
+        hgs = [g._data if isinstance(g, NDArray) else torch.as_tensor(g)
+               for g in head_grads]
+    # the tensor the graph holds for each variable: a marked leaf's own
+    # leaf (its _data may have been rebound since)
+    wrt = [v._leaf if v._leaf is not None else v._data for v in variables]
+    if not any(h._data.requires_grad for h in heads):
+        raise MXNetError(
+            "cannot differentiate: no recorded graph reaches the heads (did "
+            "you call attach_grad() and compute inside autograd.record()?)")
+    with torch.enable_grad():
+        gs = torch.autograd.grad(
+            [h._data for h in heads], wrt, hgs,
+            retain_graph=create_graph if retain_graph is None
+            else bool(retain_graph),
+            create_graph=create_graph, allow_unused=True)
+    out = []
+    for v, g in zip(variables, gs):
+        if g is None:
+            g = torch.zeros_like(v._data)
+        out.append(NDArray(g if create_graph else g.detach()))
+    return out
+
+
+def get_symbol(x):
+    """Not supported, as in the JAX package: a recorded graph is torch's
+    tape, not a Symbol (build a HybridBlock or a Symbol instead)."""
+    raise MXNetError("autograd.get_symbol is not supported; build the "
+                     "network as a Symbol or a gluon HybridBlock instead")
 
 
 class _FunctionBridge(torch.autograd.Function):

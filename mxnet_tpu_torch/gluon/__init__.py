@@ -1,6 +1,7 @@
 """Gluon: the imperative NN API, the port's part of ``mxnet_tpu/gluon/``
 (Block/HybridBlock run eagerly, Parameter, nn, ``contrib.nn``, loss,
-Trainer, the vision ``model_zoo``) and
+Trainer, the vision ``model_zoo``, ``rnn``'s cells and fused layers,
+``utils``) and
 :func:`params_from_jax`, which carries a JAX-package net's weights over.
 """
 import re as _re
@@ -8,7 +9,8 @@ import re as _re
 import numpy as _np
 
 from ..base import MXNetError as _MXNetError
-from . import block, contrib, loss, model_zoo, nn, parameter, trainer
+from . import block, contrib, loss, model_zoo, nn, parameter, rnn, trainer
+from . import utils
 from .block import Block, HybridBlock
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 from .trainer import Trainer
@@ -16,7 +18,7 @@ from .trainer import Trainer
 __all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict",
            "DeferredInitializationError", "Trainer", "params_from_jax",
            "block", "contrib", "loss", "model_zoo", "nn", "parameter",
-           "trainer"]
+           "rnn", "trainer", "utils"]
 
 _COUNTED = _re.compile(r"([A-Za-z]+)(\d+)")
 

@@ -4,7 +4,9 @@
 An :class:`NDArray` holds one tensor on the CPU or the card; its context
 is the tensor's device. :func:`invoke` is the eager op dispatch of the
 JAX package (``ndarray.py:552-641``): it parses the op's attrs, runs the
-registered ``fcompute`` on the tensors and wraps the outputs. While
+registered ``fcompute`` on the tensors and wraps the outputs (an op with
+no array input, ``_zeros`` or ``_random_uniform``, makes its result on
+the context of ``ctx=`` or the current one). While
 ``autograd.record()`` is active and an input is in the graph, it runs
 with torch autograd on, so the outputs carry torch's graph; otherwise it
 runs under ``torch.no_grad()``.
@@ -30,12 +32,19 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.dlpack
 
 from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import Context, current_context, from_device
 from ..ops.registry import get_op
+from ..ops.tensor import out_device
 
-__all__ = ["NDArray", "invoke", "array", "zeros", "ones", "no_host_reads"]
+__all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
+           "arange", "eye", "concat", "stack", "waitall", "onehot_encode",
+           "concatenate", "moveaxis", "histogram", "logical_and",
+           "logical_or", "logical_xor", "modulo", "true_divide", "imdecode",
+           "to_dlpack_for_read", "to_dlpack_for_write", "from_dlpack",
+           "no_host_reads"]
 
 _HOST_READS = threading.local()
 
@@ -92,6 +101,16 @@ class NDArray:
     ctx = context
 
     @property
+    def stype(self) -> str:
+        """The storage type: always ``'default'`` (dense) in the port."""
+        return "default"
+
+    @property
+    def T(self) -> "NDArray":
+        """The transpose (all axes reversed); differentiable."""
+        return invoke("transpose", self)
+
+    @property
     def grad(self) -> Optional["NDArray"]:
         return self._grad
 
@@ -104,7 +123,10 @@ class NDArray:
         t = self._data.detach()
         if t.dtype == torch.bfloat16:  # numpy has no bfloat16
             t = t.float()
-        return t.cpu().numpy()
+        # a copy, as MXNet's: a host tensor's numpy() shares its memory,
+        # which an in-place optimizer step would then write into
+        return t.numpy().copy() if t.device.type == "cpu" \
+            else t.cpu().numpy()
 
     def asscalar(self):
         if self.size != 1:
@@ -147,6 +169,40 @@ class NDArray:
             other._data = self._data.detach().to(other._data.device)
             return other
         raise MXNetError("copyto: unsupported target %r" % (other,))
+
+    def as_in_context(self, ctx: Context) -> "NDArray":
+        """This array if it is on ``ctx`` already, else a copy there."""
+        if ctx == self.context:
+            return self
+        return self.copyto(ctx)
+
+    as_in_ctx = as_in_context
+
+    def wait_to_read(self):
+        """Wait until the work queued on this array's stream is done (its
+        device's current stream; the host's arrays are always ready)."""
+        if self._data.is_cuda:
+            torch.cuda.current_stream(self._data.device).synchronize()
+
+    wait_to_write = wait_to_read
+
+    def tostype(self, stype):
+        """``'default'`` gives a copy; sparse storage is not ported."""
+        if stype == "default":
+            return self.copy()
+        raise MXNetError("tostype(%r): not ported yet (sparse)" % (stype,))
+
+    def to_dlpack_for_read(self):
+        """A DLPack capsule sharing this array's memory, after its stream
+        is done (``torch.utils.dlpack``)."""
+        self.wait_to_read()
+        return torch.utils.dlpack.to_dlpack(self._data.detach())
+
+    def to_dlpack_for_write(self):
+        """A DLPack capsule through which the consumer may write this
+        array's memory in place, as MXNet's (the JAX package refuses it:
+        XLA buffers are immutable)."""
+        return self.to_dlpack_for_read()
 
     # -- autograd ---------------------------------------------------------
     def attach_grad(self, grad_req: str = "write", stype=None):
@@ -237,6 +293,105 @@ class NDArray:
 
     def abs(self):
         return invoke("abs", self)
+
+    def reshape_like(self, other):
+        return invoke("reshape_like", self, other)
+
+    def expand_dims(self, axis):
+        return invoke("expand_dims", self, axis=axis)
+
+    def squeeze(self, axis=None):
+        return invoke("squeeze", self, axis=axis)
+
+    def flatten(self):
+        return invoke("Flatten", self)
+
+    def flip(self, axis):
+        return invoke("reverse", self, axis=axis)
+
+    def slice(self, begin, end, step=None):
+        return invoke("slice", self, begin=begin, end=end, step=step)
+
+    def slice_axis(self, axis, begin, end):
+        return invoke("slice_axis", self, axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip"):
+        return invoke("take", self, indices, axis=axis, mode=mode)
+
+    def one_hot(self, depth, **kw):
+        return invoke("one_hot", self, depth=depth, **kw)
+
+    def tile(self, reps):
+        return invoke("tile", self, reps=reps)
+
+    def repeat(self, repeats, axis=None):
+        return invoke("repeat", self, repeats=repeats, axis=axis)
+
+    def broadcast_to(self, shape):
+        return invoke("broadcast_to", self, shape=shape)
+
+    def broadcast_like(self, other):
+        return invoke("broadcast_like", self, other)
+
+    def pad(self, mode, pad_width, constant_value=0.0):
+        return invoke("Pad", self, mode=mode, pad_width=pad_width,
+                      constant_value=constant_value)
+
+    def clip(self, a_min, a_max):
+        return invoke("clip", self, a_min=a_min, a_max=a_max)
+
+    def sign(self):
+        return invoke("sign", self)
+
+    def sqrt(self):
+        return invoke("sqrt", self)
+
+    def exp(self):
+        return invoke("exp", self)
+
+    def log(self):
+        return invoke("log", self)
+
+    def relu(self):
+        return invoke("relu", self)
+
+    def sigmoid(self):
+        return invoke("sigmoid", self)
+
+    def tanh(self):
+        return invoke("tanh", self)
+
+    def prod(self, axis=None, keepdims=False):
+        return invoke("prod", self, axis=axis, keepdims=keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        return invoke("max", self, axis=axis, keepdims=keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return invoke("min", self, axis=axis, keepdims=keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return invoke("norm", self, ord=ord, axis=axis, keepdims=keepdims)
+
+    def argmax(self, axis=None, keepdims=False):
+        return invoke("argmax", self, axis=axis, keepdims=keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        return invoke("argmin", self, axis=axis, keepdims=keepdims)
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return invoke("argsort", self, axis=axis, is_ascend=is_ascend)
+
+    def sort(self, axis=-1, is_ascend=True):
+        return invoke("sort", self, axis=axis, is_ascend=is_ascend)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return invoke("topk", self, axis=axis, k=k, ret_typ=ret_typ,
+                      is_ascend=is_ascend)
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return invoke("dot", self, other, transpose_a=transpose_a,
+                      transpose_b=transpose_b)
 
     # -- arithmetic (broadcast semantics) ---------------------------------
     def _binop(self, other, op, scalar_op, reverse=False):
@@ -389,8 +544,12 @@ def invoke(op_name: str, *inputs, out=None, **kwargs):
     nds: List[Optional[NDArray]] = [i if isinstance(i, NDArray) else None
                                     for i in inputs]
     first = next((nd for nd in nds if nd is not None), None)
-    dev = first._data.device if first is not None \
-        else current_context().torch_device()
+    if first is not None:
+        dev = first._data.device
+    else:  # no array input: the op makes its result on ctx= or the
+        # current context (ops/tensor.py:out_device)
+        dev = out_device(attrs)
+        attrs["__device__"] = dev
     datas = []
     for i, nd in zip(inputs, nds):
         if nd is not None:
@@ -460,3 +619,132 @@ def zeros(shape, ctx=None, dtype=None, **kw) -> NDArray:
 def ones(shape, ctx=None, dtype=None, **kw) -> NDArray:
     return NDArray(torch.ones(shape, dtype=_dtype(dtype),
                               device=_device(ctx)))
+
+
+def full(shape, val, ctx=None, dtype=None, **kw) -> NDArray:
+    return NDArray(torch.full(shape if isinstance(shape, (tuple, list))
+                              else (shape,), val, dtype=_dtype(dtype),
+                              device=_device(ctx)))
+
+
+def empty(shape, ctx=None, dtype=None) -> NDArray:
+    """Zeros, as the JAX package's ``empty``."""
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
+           dtype=None) -> NDArray:
+    """numpy's ``arange`` (each value ``repeat`` times), on ``ctx``."""
+    a = np.arange(start, stop, step, dtype=np.dtype(np_dtype(
+        dtype or "float32")))
+    if repeat > 1:
+        a = np.repeat(a, repeat)
+    return array(a, ctx=ctx, dtype=dtype or a.dtype)
+
+
+def eye(N, M=0, k=0, ctx=None, dtype=None) -> NDArray:
+    return array(np.eye(N, M or None, k), ctx=ctx, dtype=dtype or "float32")
+
+
+def concat(*args, dim=1, num_args=None):
+    """Join the arrays (or one list of them) along ``dim``; ``num_args``,
+    the op's attribute, may be given as it is to ``nd.Concat``."""
+    arrs = args[0] if len(args) == 1 and isinstance(args[0], (list, tuple)) \
+        else args
+    return invoke("Concat", *arrs, num_args=len(arrs), dim=dim)
+
+
+def stack(*args, axis=0, num_args=None):
+    arrs = args[0] if len(args) == 1 and isinstance(args[0], (list, tuple)) \
+        else args
+    return invoke("stack", *arrs, num_args=len(arrs), axis=axis)
+
+
+def waitall():
+    """Wait for all queued work on every card (MXNet's
+    ``Engine::WaitForAll``)."""
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def onehot_encode(indices, out):
+    """Write the one-hot rows of ``indices`` into ``out`` (rebinds it)."""
+    res = invoke("one_hot", indices, depth=out.shape[1])
+    out._data = res._data
+    return out
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """Concatenate along an axis (the result is always a new tensor)."""
+    return invoke("Concat", *arrays, dim=axis, num_args=len(arrays))
+
+
+def moveaxis(tensor, source, destination):
+    """Move axes as ``np.moveaxis``, through ``transpose``."""
+    ndim = len(tensor.shape)
+    src = [source] if isinstance(source, int) else list(source)
+    dst = [destination] if isinstance(destination, int) \
+        else list(destination)
+    src = [s % ndim for s in src]
+    dst = [d % ndim for d in dst]
+    order = [a for a in range(ndim) if a not in src]
+    for d, s in sorted(zip(dst, src)):
+        order.insert(d, s)
+    return invoke("transpose", tensor, axes=tuple(order))
+
+
+def histogram(a, bins=10, range=None):
+    """(counts, bin_edges) of ``a``: ``bins`` edges as an NDArray, or a
+    count of equal bins over ``range`` (the data's min and max by
+    default, read back to the host)."""
+    if isinstance(bins, NDArray):
+        return tuple(invoke("_histogram", a, bins,
+                            bin_cnt=bins.shape[0] - 1))
+    if range is None:
+        amin = float(a.min().asnumpy())
+        amax = float(a.max().asnumpy())
+        range = (amin, amax if amax > amin else amin + 1.0)
+    edges = np.linspace(range[0], range[1], bins + 1).astype(np.float32)
+    return tuple(invoke("_histogram", a, array(edges, ctx=a.context),
+                        bin_cnt=bins))
+
+
+def logical_and(lhs, rhs):
+    return invoke("broadcast_logical_and", lhs, rhs)
+
+
+def logical_or(lhs, rhs):
+    return invoke("broadcast_logical_or", lhs, rhs)
+
+
+def logical_xor(lhs, rhs):
+    return invoke("broadcast_logical_xor", lhs, rhs)
+
+
+def modulo(lhs, rhs):
+    return lhs % rhs
+
+
+def true_divide(lhs, rhs):
+    return lhs / rhs
+
+
+def imdecode(buf, **kwargs):
+    """Not ported yet: JPEG decoding is a later item of the port."""
+    raise MXNetError("nd.imdecode: not ported yet (JPEG decoding)")
+
+
+def to_dlpack_for_read(data: NDArray):
+    return data.to_dlpack_for_read()
+
+
+def to_dlpack_for_write(data: NDArray):
+    return data.to_dlpack_for_write()
+
+
+def from_dlpack(obj, ctx: Optional[Context] = None) -> NDArray:
+    """An NDArray over a DLPack capsule or an object with ``__dlpack__``
+    (a torch tensor, a numpy array), sharing its memory; its context is
+    the memory's device."""
+    return NDArray(torch.utils.dlpack.from_dlpack(obj))

@@ -12,9 +12,9 @@ its plain PyTorch version.
   (CUDA C++, ``csrc/nms.cu``), replacing the Pallas ``_nms_kernel``; the
   detection ops of :mod:`.detection` call it.
 
-:mod:`.registry` holds the op registry; :mod:`.tensor`, :mod:`.nn` and
-:mod:`.detection` register the plain PyTorch ops the GPT and SSD training
-paths call.
+:mod:`.registry` holds the op registry; :mod:`.tensor`, :mod:`.nn`,
+:mod:`.random_ops` and :mod:`.detection` register the plain PyTorch ops
+(the ``RNN`` op of :mod:`.nn` runs on cuDNN through torch on the card).
 
 Kernels are built by :mod:`._build` at first use, never at import.
 The ``Custom`` op of :mod:`mxnet_tpu_torch.operator` is registered here
@@ -23,9 +23,9 @@ too, so that ``nd.Custom`` and ``sym.Custom`` are generated.
 from __future__ import annotations
 
 from . import (detection, flash_attention, nms, nn, paged_attention,
-               registry, tensor)
+               random_ops, registry, tensor)
 
 __all__ = ["detection", "flash_attention", "nms", "nn", "paged_attention",
-           "registry", "tensor"]
+           "random_ops", "registry", "tensor"]
 
 from .. import operator as _operator  # noqa: E402,F401  (registers Custom)

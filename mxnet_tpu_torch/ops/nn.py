@@ -10,9 +10,12 @@ leaves them to XLA) and ``SoftmaxOutput``, a ``torch.autograd.Function``
 with the reference's backward; for the ResNet path ``BatchNorm`` (three
 outputs; the caller updates the moving statistics), ``Deconvolution``
 (``F.conv_transpose*d``), ``LeakyReLU``, ``InstanceNorm`` and ``Dropout``, which draw from
-the port's explicit ``torch.Generator`` (``random.generator``). Train
-mode is ``autograd.is_training()``. The other ops of the JAX module are
-not ported yet.
+the port's explicit ``torch.Generator`` (``random.generator``); for the
+word language model the ``Sequence*`` ops, ``_rnn_param_concat`` and the
+fused ``RNN`` op (cuDNN through ``torch._VF`` on the card, a step loop
+of the JAX op's arithmetic on the CPU, picked by the tensor's device).
+Train mode is ``autograd.is_training()``. The other ops of the JAX
+module are not ported yet.
 """
 from __future__ import annotations
 
@@ -430,3 +433,264 @@ def softmax_output(attrs, data, label):
     """Softmax with a built-in cross-entropy gradient; no gradient to the
     label."""
     return _SoftmaxOutput.apply(data, label.detach(), attrs)
+
+
+# ---------------------------------------------------------------------------
+# sequence ops (mxnet_tpu/ops/nn.py:695-755, reference sequence_*.cc)
+# ---------------------------------------------------------------------------
+
+
+def _seq_inputs(attrs):
+    return ["data", "sequence_length"] if attrs.get("use_sequence_length") \
+        else ["data"]
+
+
+@register("SequenceMask",
+          params={"use_sequence_length": (bool, False),
+                  "value": (float, 0.0), "axis": (int, 0)},
+          inputs=_seq_inputs)
+def sequence_mask(attrs, data, *rest):
+    """Steps at or past each sequence's length set to ``value``; time is
+    ``axis`` 0 (T, N, ...) or 1 (N, T, ...)."""
+    if not attrs.use_sequence_length:
+        return data
+    maxlen = data.shape[attrs.axis]
+    steps = torch.arange(maxlen, device=data.device,
+                         dtype=torch.float32).unsqueeze(1)
+    mask = (steps < rest[0].to(torch.float32).unsqueeze(0)).to(data.dtype)
+    if attrs.axis != 0:
+        mask = mask.t()
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (data.dim() - 2))
+    return data * mask + attrs.value * (1 - mask)
+
+
+@register("SequenceLast",
+          params={"use_sequence_length": (bool, False), "axis": (int, 0)},
+          inputs=_seq_inputs)
+def sequence_last(attrs, data, *rest):
+    """Each sequence's last valid step (the last step without lengths; a
+    length of 0 takes the last step, as the JAX op's index -1 does)."""
+    ax = attrs.axis
+    if not attrs.use_sequence_length:
+        return data.select(ax, data.shape[ax] - 1)
+    last = rest[0].to(torch.int64) - 1
+    batch = torch.arange(last.shape[0], device=data.device)
+    return data[last, batch] if ax == 0 else data[batch, last]
+
+
+@register("SequenceReverse",
+          params={"use_sequence_length": (bool, False), "axis": (int, 0)},
+          inputs=_seq_inputs)
+def sequence_reverse(attrs, data, *rest):
+    """Each sequence's first ``length`` steps reversed along axis 0, the
+    rest in place; the whole axis 0 flipped without lengths (the JAX op
+    reverses axis 0 whatever ``axis`` says)."""
+    if not attrs.use_sequence_length:
+        return torch.flip(data, (0,))
+    lens = rest[0].to(torch.int64).unsqueeze(0)
+    idx = torch.arange(data.shape[0], device=data.device).unsqueeze(1)
+    rev = torch.where(idx < lens, lens - 1 - idx, idx)
+    rev = rev.reshape(tuple(rev.shape) + (1,) * (data.dim() - 2))
+    return torch.gather(data, 0, rev.expand(data.shape))
+
+
+# ---------------------------------------------------------------------------
+# the fused RNN op (mxnet_tpu/ops/nn.py:808-935, reference rnn-inl.h,
+# cudnn_rnn-inl.h)
+# ---------------------------------------------------------------------------
+
+_NGATES = {"lstm": 4, "gru": 3, "rnn_tanh": 1, "rnn_relu": 1}
+
+
+def rnn_param_size(mode, input_size, state_size, num_layers,
+                   bidirectional=False):
+    """The packed parameter count (reference rnn-inl.h GetParamSize)."""
+    ng, d, h = _NGATES[mode], 2 if bidirectional else 1, state_size
+    size = 0
+    for layer in range(num_layers):
+        in_size = input_size if layer == 0 else h * d
+        size += d * (ng * h * in_size + ng * h * h)
+    return size + num_layers * d * 2 * ng * h
+
+
+def _unpack_rnn(mode, params, input_size, h, num_layers, d):
+    """Views of the flat vector in MXNet's (and cuDNN's) packing: every
+    layer's and direction's (i2h, h2h) weights, layer-major and
+    direction-minor, then all the (i2h, h2h) biases in the same order.
+    Returns ``[layer][direction] = (wx, wh, bx, bh)``."""
+    ng = _NGATES[mode]
+    off = 0
+
+    def take(*shape):
+        nonlocal off
+        n = 1
+        for s in shape:
+            n *= s
+        out = params[off:off + n].view(shape)
+        off += n
+        return out
+
+    weights = [[(take(ng * h, input_size if layer == 0 else h * d),
+                 take(ng * h, h)) for _ in range(d)]
+               for layer in range(num_layers)]
+    biases = [[(take(ng * h), take(ng * h)) for _ in range(d)]
+              for _ in range(num_layers)]
+    if off != params.numel():
+        raise MXNetError("RNN: %d parameters given, %d expected"
+                         % (params.numel(), off))
+    return [[weights[layer][k] + biases[layer][k] for k in range(d)]
+            for layer in range(num_layers)]
+
+
+def _rnn_dropout(x, p):
+    """Inverted dropout between layers, its mask from the port's
+    generator of the device (the JAX op's ``bernoulli(keep)``)."""
+    keep = 1.0 - p
+    draw = torch.rand(x.shape, device=x.device,
+                      generator=_random.generator(x.device))
+    return torch.where(draw < keep, x / keep, torch.zeros_like(x))
+
+
+def _rnn_steps(mode, xs, h, c, wx, wh, bx, bh):
+    """One direction of one layer, step by step, as the JAX op's
+    ``_rnn_layer_scan`` (``mxnet_tpu/ops/nn.py:779-805``): the input
+    projection for every step at once, then one h2h product a step.
+    LSTM gates i, f, g, o; GRU gates r, z, n with
+    ``n = tanh(x_n + r * (W_hn h + b_hn))``."""
+    proj = F.linear(xs, wx, bx)
+    ys = []
+    for t in range(xs.shape[0]):
+        hp = F.linear(h, wh, bh)
+        if mode == "lstm":
+            i, f, g, o = (proj[t] + hp).chunk(4, -1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+        elif mode == "gru":
+            rx, zx, nx = proj[t].chunk(3, -1)
+            rh, zh, nh = hp.chunk(3, -1)
+            r = torch.sigmoid(rx + rh)
+            z = torch.sigmoid(zx + zh)
+            n = torch.tanh(nx + r * nh)
+            h = (1 - z) * n + z * h
+        elif mode == "rnn_tanh":
+            h = torch.tanh(proj[t] + hp)
+        else:
+            h = torch.relu(proj[t] + hp)
+        ys.append(h)
+    return torch.stack(ys), h, c
+
+
+def _rnn_plain(mode, data, packs, state, state_cell, d, p, train):
+    x = data
+    h_out, c_out = [], []
+    for layer, pack in enumerate(packs):
+        outs = []
+        for k in range(d):
+            wx, wh, bx, bh = pack[k]
+            h0 = state[layer * d + k]
+            c0 = state_cell[layer * d + k] if state_cell is not None \
+                else torch.zeros_like(h0)
+            xs = torch.flip(x, (0,)) if k == 1 else x
+            ys, ht, ct = _rnn_steps(mode, xs, h0, c0, wx, wh, bx, bh)
+            outs.append(torch.flip(ys, (0,)) if k == 1 else ys)
+            h_out.append(ht)
+            c_out.append(ct)
+        x = outs[0] if d == 1 else torch.cat(outs, dim=-1)
+        if p > 0 and train and layer < len(packs) - 1:
+            x = _rnn_dropout(x, p)
+    return x, torch.stack(h_out), torch.stack(c_out)
+
+
+def _rnn_cudnn(mode, data, packs, state, state_cell, d, p, train):
+    """cuDNN's fused RNN through ``torch._VF`` (what ``nn.LSTM.forward``
+    calls), the weights handed over as views of the flat vector: cuDNN
+    copies them into one buffer at each call. Its own dropout would draw
+    from torch's global generator, so with dropout in training the layers
+    run one call each, the port's mask between them."""
+    fn = getattr(torch._VF, mode)
+    # cuDNN keeps what its backward needs only in training mode
+    need_grad = torch.is_grad_enabled()
+
+    def run(x, group, first):
+        flat = [w for pack in group for ws in pack for w in ws]
+        n = len(group) * d
+        h0 = state[first * d:first * d + n]
+        if mode == "lstm":
+            return fn(x, (h0, state_cell[first * d:first * d + n]), flat,
+                      True, len(group), 0.0, need_grad, d == 2, False)
+        y, ht = fn(x, h0, flat, True, len(group), 0.0, need_grad, d == 2,
+                   False)
+        return y, ht, None
+
+    if not (p > 0 and train and len(packs) > 1):
+        return run(data, packs, 0)
+    x, hs, cs = data, [], []
+    for layer in range(len(packs)):
+        x, ht, ct = run(x, packs[layer:layer + 1], layer)
+        hs.append(ht)
+        cs.append(ct)
+        if layer < len(packs) - 1:
+            x = _rnn_dropout(x, p)
+    return x, torch.cat(hs), (torch.cat(cs) if mode == "lstm" else None)
+
+
+def rnn_forward(mode, data, params, state, state_cell, num_layers,
+                state_size, bidirectional=False, p_dropout=0.0, train=False,
+                impl=None):
+    """The fused multi-layer RNN: data (T, N, C), state (L * D, N, H),
+    the flat ``params`` in MXNet's packing; returns (out, hT, cT), cT
+    None unless ``mode`` is ``lstm``. ``impl`` is ``'cudnn'`` (a CUDA
+    tensor's default) or ``'plain'`` (the CPU's; the step loop of the
+    JAX op's arithmetic)."""
+    d = 2 if bidirectional else 1
+    packs = _unpack_rnn(mode, params, data.shape[2], state_size,
+                        num_layers, d)
+    if impl is None:
+        impl = "cudnn" if data.is_cuda else "plain"
+    run = {"cudnn": _rnn_cudnn, "plain": _rnn_plain}[impl]
+    out, ht, ct = run(mode, data, packs, state,
+                      state_cell if mode == "lstm" else None, d, p_dropout,
+                      train)
+    return out, ht, (ct if mode == "lstm" else None)
+
+
+@register("RNN",
+          params={"state_size": (int, REQUIRED),
+                  "num_layers": (int, REQUIRED),
+                  "bidirectional": (bool, False), "mode": (str, REQUIRED),
+                  "p": (float, 0.0), "state_outputs": (bool, False),
+                  "projection_size": (int, None),
+                  "lstm_state_clip_min": (float, None),
+                  "lstm_state_clip_max": (float, None),
+                  "lstm_state_clip_nan": (bool, False)},
+          inputs=lambda attrs: ["data", "parameters", "state",
+                                "state_cell"]
+          if attrs.get("mode") == "lstm"
+          else ["data", "parameters", "state"],
+          num_outputs=lambda attrs: (3 if attrs.get("mode") == "lstm"
+                                     else 2)
+          if attrs.get("state_outputs") else 1)
+def rnn(attrs, data, parameters, state, *rest):
+    """``lstm``, ``gru``, ``rnn_tanh`` or ``rnn_relu``, multi-layer and
+    optionally bidirectional; dropout ``p`` between layers in train mode.
+    On the card cuDNN runs it; on the CPU the step loop."""
+    if attrs.mode not in _NGATES:
+        raise MXNetError("RNN: unknown mode %r" % attrs.mode)
+    out, ht, ct = rnn_forward(
+        attrs.mode, data, parameters, state, rest[0] if rest else None,
+        attrs.num_layers, attrs.state_size,
+        bidirectional=attrs.bidirectional, p_dropout=attrs.p,
+        train=autograd.is_training())
+    if not attrs.state_outputs:
+        return out
+    return (out, ht, ct) if attrs.mode == "lstm" else (out, ht)
+
+
+@register("_rnn_param_concat",
+          params={"num_args": (int, 1), "dim": (int, 0)},
+          inputs=lambda attrs: ["arg%d" % i
+                                for i in range(attrs.get("num_args", 1))])
+def rnn_param_concat(attrs, *xs):
+    """Every array flattened and joined: the RNN op's flat vector (the
+    gradient reaches each piece)."""
+    return torch.cat([x.reshape(-1) for x in xs])

@@ -466,6 +466,10 @@ def _fill_param_shapes(node: _Node, in_shapes):
         put("weight", (attrs.num_filter, data[1] // attrs.num_group)
             + tuple(attrs.kernel))
         put("bias", (attrs.num_filter,))
+    elif op == "Deconvolution" and data is not None:
+        put("weight", (data[1], attrs.num_filter // attrs.num_group)
+            + tuple(attrs.kernel))
+        put("bias", (attrs.num_filter,))
     elif op in ("BatchNorm", "InstanceNorm") and data is not None:
         c = (data[attrs.get("axis", 1) % len(data)],)
         for slot in ("gamma", "beta", "moving_mean", "moving_var"):
@@ -476,6 +480,19 @@ def _fill_param_shapes(node: _Node, in_shapes):
         put("beta", c)
     elif op == "Embedding":
         put("weight", (attrs.input_dim, attrs.output_dim))
+    elif op == "LeakyReLU" and data is not None \
+            and attrs.act_type == "prelu":
+        put("gamma", (data[1] if len(data) > 1 else data[0],))
+    elif op == "RNN" and data is not None:
+        from .ops.nn import rnn_param_size
+
+        put("parameters", (rnn_param_size(
+            attrs.mode, data[2], attrs.state_size, attrs.num_layers,
+            attrs.bidirectional),))
+        st = (attrs.num_layers * (2 if attrs.bidirectional else 1),
+              data[1], attrs.state_size)
+        put("state", st)
+        put("state_cell", st)
     elif op in ("SoftmaxOutput", "Softmax") and data is not None:
         put("label", data[:-1])
     elif op == "Custom":  # what the user's prop says (a loss op's label)

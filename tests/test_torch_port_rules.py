@@ -28,6 +28,12 @@
   in the scan, and fits a module with ``module_checkpoint``, resumes it
   through ``Module.load`` and predicts with ``jax`` and ``mxnet_tpu``
   made unimportable;
+* the word language model slice (``gluon/rnn/``, ``gluon/utils``,
+  ``ops/random_ops``, ``ndarray/random``, ``example/gluon/``) is in the
+  scan and trains with ``jax`` and ``mxnet_tpu`` made unimportable, and no
+  module of the port draws from torch's global generator (every
+  ``torch.rand*``/``normal``/``multinomial``/... call passes
+  ``generator=``);
 * the extension slice's modules (``rtc``, ``operator``, ``metric``,
   ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
   no module of the port defines ``PallasModule`` (Pallas source cannot
@@ -389,3 +395,73 @@ print("files", len(os.listdir(sys.argv[1])))
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "files 3" in proc.stdout
+
+
+def test_scan_covers_the_word_lm_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ("mxnet_tpu_torch/example/gluon/__init__.py",
+                 "mxnet_tpu_torch/example/gluon/word_language_model/"
+                 "__init__.py",
+                 "mxnet_tpu_torch/example/gluon/word_language_model/"
+                 "train.py",
+                 "mxnet_tpu_torch/gluon/rnn/rnn_cell.py",
+                 "mxnet_tpu_torch/gluon/rnn/rnn_layer.py",
+                 "mxnet_tpu_torch/gluon/utils.py",
+                 "mxnet_tpu_torch/ops/random_ops.py",
+                 "mxnet_tpu_torch/ndarray/random.py"):
+        assert path in names
+
+
+# torch's sampling calls and in-place samplers: each takes the port's
+# generator (random.generator), never torch's global one
+_SAMPLERS = {"rand", "randn", "randint", "randperm", "normal", "multinomial",
+             "poisson", "bernoulli", "_standard_gamma", "rand_like",
+             "randn_like", "randint_like"}
+_INPLACE_SAMPLERS = {"uniform_", "normal_", "exponential_", "random_",
+                     "bernoulli_", "geometric_", "cauchy_", "log_normal_"}
+
+
+def _global_draws(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)):
+            continue
+        if "generator" in {k.arg for k in node.keywords}:
+            continue
+        f = node.func
+        if (isinstance(f.value, ast.Name) and f.value.id == "torch"
+                and f.attr in _SAMPLERS) or f.attr in _INPLACE_SAMPLERS:
+            out.append((str(path.relative_to(REPO)), node.lineno, f.attr))
+    return out
+
+
+def test_no_draw_takes_torchs_global_generator():
+    assert [d for f in _port_files() for d in _global_draws(f)] == []
+    bad = REPO / "mxnet_tpu_torch" / "ops" / "random_ops.py"
+    assert len([n for n in ast.walk(ast.parse(bad.read_text()))
+                if isinstance(n, ast.keyword)
+                and n.arg == "generator"]) >= 6  # the scan sees them
+
+
+def test_word_lm_slice_trains_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+from mxnet_tpu_torch.example.gluon.word_language_model import train
+res = train.run(train.parse_args(
+    ["--device", "cpu", "--epochs", "1", "--nhid", "8", "--emsize", "8",
+     "--synth-tokens", "2000", "--bptt", "5", "--batch-size", "8",
+     "--tied"]))
+assert res["steps"] > 0 and res["val_ppl"][0] > 0
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("steps", res["steps"])
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "steps 45" in proc.stdout

@@ -42,7 +42,13 @@ def _jax_example():
 
 @pytest.fixture(scope="module")
 def symbols():
-    return _jax_example().get_symbol_train(3), port_ssd.get_symbol_train(3)
+    # each under a fresh NameManager: the unnamed ops' names (transpose0,
+    # ...) count from 0 whatever symbols the process made before
+    with jmx.name.NameManager():
+        jsym = _jax_example().get_symbol_train(3)
+    with mx.name.NameManager():
+        tsym = port_ssd.get_symbol_train(3)
+    return jsym, tsym
 
 
 def test_ssd_symbol_lists_shapes_and_json_match(symbols):
@@ -202,3 +208,57 @@ def test_convolution_matches_jax(kw):
         got = mx.nd.Convolution(*[mx.nd.array(a) for a in args],
                                 **kw).asnumpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _param_op(pkg, which):
+    data = pkg.sym.var("data")
+    if which == "deconv":
+        out = pkg.sym.Deconvolution(data, kernel=(2, 2), stride=(2, 2),
+                                    num_filter=2, name="dc")
+    else:
+        out = pkg.sym.LeakyReLU(data, act_type="prelu", name="pr")
+    return out, pkg.sym.make_loss(pkg.sym.sum(pkg.sym.square(out)))
+
+
+def _module_step(pkg, which, x, weights, ctx):
+    out, net = _param_op(pkg, which)
+    mod = pkg.mod.Module(net, data_names=("data",), label_names=None,
+                         context=ctx)
+    mod.bind(data_shapes=[("data", x.shape)])
+    mod.init_params()
+    mod.set_params({k: pkg.nd.array(v, ctx=ctx) for k, v in weights.items()},
+                   {})
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.01})
+    mod.forward_backward(pkg.io.DataBatch(data=[pkg.nd.array(x, ctx=ctx)],
+                                          label=None))
+    mod.update()
+    loss = mod.get_outputs()[0].asnumpy()
+    return loss, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+@pytest.mark.parametrize("which,param,shape,out_shape", [
+    ("deconv", "dc_weight", (3, 2, 2, 2), (2, 2, 12, 12)),
+    ("prelu", "pr_gamma", (3,), (2, 3, 6, 6)),
+])
+def test_deconvolution_and_prelu_shapes_fill_as_in_jax(which, param, shape,
+                                                       out_shape):
+    # the port's _fill_param_shapes left both unfilled, so simple_bind and
+    # Module.bind failed on any symbol holding either op
+    out, _ = _param_op(mx, which)
+    jout, _ = _param_op(jmx, which)
+    got = out.infer_shape(data=(2, 3, 6, 6))
+    want = jout.infer_shape(data=(2, 3, 6, 6))
+    assert got == want
+    args = dict(zip(out.list_arguments(), got[0]))
+    assert args[param] == shape and got[1] == [out_shape]
+    rs = np.random.RandomState(5)
+    x = rs.randn(2, 3, 6, 6).astype(np.float32)
+    weights = {param: rs.uniform(0.1, 0.5, shape).astype(np.float32)}
+    want_loss, want_params = _module_step(jmx, which, x, weights, jmx.cpu())
+    got_loss, got_params = _module_step(mx, which, x, weights, mx.cpu())
+    np.testing.assert_allclose(got_loss, want_loss, rtol=2e-5, atol=2e-5)
+    assert sorted(got_params) == sorted(want_params) == [param]
+    np.testing.assert_allclose(got_params[param], want_params[param],
+                               rtol=2e-5, atol=2e-5)
+    assert not np.allclose(got_params[param], weights[param])  # it moved
