@@ -246,8 +246,44 @@ Phases, each printing one line of its own (any failure exits non-zero):
     moments at 10,000 draws and by replay after ``mx.random.set_state``;
     the count of ops checked.
 
-``python3 chip_smoke.py --word-lm`` runs phases 31-35 only (no nvcc
-build: the path runs no hand-written kernel).
+36. mnist_parity: the MNIST slice (BASELINE workload 1), 5 steps of the
+    example's Module (mlp, SGD 0.05 with momentum 0.9 and wd 1e-4, He
+    init) through a ``KVStoreLocal`` with ``update_on_kvstore`` on the
+    card against the same on the CPU, from the same seed and batches:
+    outputs, weights and the store's momentum within MNIST_TOL;
+37. mnist: ``example/image_classification/train_mnist.py`` at its
+    defaults on the card (mlp, 60,000 synthetic examples, 2 epochs,
+    batch 64: 1,876 steps through ``common/fit.py``'s ``Module.fit`` with
+    a ``local`` KVStore object): validation accuracy of each epoch (the
+    last at least MNIST_ACC), img/s and ms a step, exactly one
+    ``module-config`` demotion and kvstore push and pull counts of steps
+    x 6 keys; torch.profiler over 10 more steps (busy share, device
+    operations, host launches, top device operations);
+38. mnist_plane: the same net, data and schedule through ``Module.fit(
+    kvstore="local")`` (one device: no store), every step on the module
+    plane (graph steps = steps), img/s beside mnist's, and a trace;
+39. mnist_lenet: ``--network lenet``, 1 epoch: img/s and accuracy;
+40. mnist_idx: the synthetic set written as MNIST idx files, plain and
+    ``.gz``; ``MNISTIter``'s batches against the arrays written, then
+    one epoch of the example reading the ``.gz`` files;
+41. mnist_options: ``--monitor 50`` (2 rows of ``softmax_output`` over
+    100 batches), ``--gc-type 2bit``, ``--model-prefix`` then
+    ``--load-epoch 1`` (the resumed run's first batch equals the
+    uninterrupted run's second epoch's first, by the monitor's
+    statistic), ``--test-io 1`` (no training);
+42. optimizers_card: each of the 17 optimizers (RMSProp plain and
+    centered): 3 updates on the card against the CPU (SGLD, whose noise
+    is each device's draw, excepted), fused against per-parameter bit
+    for bit, bf16 under ``multi_precision`` (weights the float32 masters
+    cast back), a captured ``TrainStep`` against eager ``Trainer`` steps
+    where the class has ``pure_step``; the 12 update ops on the card
+    against the CPU; then ``train_mnist --optimizer <name>`` on 6,000
+    examples, 1 epoch: finite weights that moved, and for sgd the
+    accuracy bar.
+
+``python3 chip_smoke.py --word-lm`` runs phases 31-35 only, and
+``--mnist`` phases 36-42 only (no nvcc build: the paths run no
+hand-written kernel).
 
 ``python3 chip_smoke.py --resnet`` runs phases 17-26 only; ``--ckpt``
 runs phases 28-30 only (building the NMS kernel, training the SSD example
@@ -4197,6 +4233,641 @@ def word_lm_phases():
     nd_ops_card()
 
 
+# -- the MNIST slice (BASELINE workload 1) ------------------------------------
+
+MNIST_TOL = 1e-5           # the card against the CPU, fp32 with TF32 off
+MNIST_ACC = 0.98           # validation accuracy after the default 2 epochs
+MNIST_PARITY_STEPS = 5
+MNIST_TRACE_STEPS = 10
+MNIST_SHORT = ["--num-examples", "6400", "--num-epochs", "1"]
+MNIST_OPT_EXAMPLES = 6000
+MNIST_OPTIMIZERS = (
+    ("sgd", {"momentum": 0.9}), ("ccsgd", {"momentum": 0.9}), ("adam", {}),
+    ("nag", {"momentum": 0.9}), ("rmsprop", {"centered": True}),
+    ("rmsprop", {}), ("ftrl", {}), ("adadelta", {}), ("adagrad", {}),
+    ("adamax", {}), ("ftml", {}), ("nadam", {}), ("sgld", {}),
+    ("signum", {"momentum": 0.9}), ("signsgd", {}),
+    ("dcasgd", {"momentum": 0.9}), ("lbsgd", {"momentum": 0.9}),
+    ("test", {}))
+MNIST_OPS = {  # op -> (state inputs after weight and grad, attrs)
+    "sgd_update": (0, {"lr": 0.1, "wd": 0.01}),
+    "sgd_mom_update": (1, {"lr": 0.1, "momentum": 0.9}),
+    "mp_sgd_update": (1, {"lr": 0.1}),
+    "mp_sgd_mom_update": (2, {"lr": 0.1, "momentum": 0.9}),
+    "adam_update": (2, {"lr": 0.01, "wd": 0.01, "clip_gradient": 0.5}),
+    "ftml_update": (3, {"lr": 0.1, "t": 2}),
+    "ftrl_update": (2, {"lr": 0.1}),
+    "rmsprop_update": (1, {"lr": 0.01}),
+    "rmspropalex_update": (3, {"lr": 0.01}),
+    "signsgd_update": (0, {"lr": 0.1}),
+    "signum_update": (1, {"lr": 0.1, "momentum": 0.9, "wd_lh": 0.01}),
+    "_sparse_adagrad_update": (1, {"lr": 0.1}),
+}
+
+
+class _LogLines(object):
+    """Collects the root logger's INFO lines while open."""
+
+    def __enter__(self):
+        import logging
+
+        self.lines = []
+        lines = self.lines
+
+        class _H(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        self._h = _H(logging.INFO)
+        root = logging.getLogger()
+        self._level = root.level
+        root.addHandler(self._h)
+        root.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        root = logging.getLogger()
+        root.removeHandler(self._h)
+        root.setLevel(self._level)
+        return False
+
+    def epochs(self, what):
+        """``Epoch[k] <what>=v`` values in epoch order."""
+        return [float(line.rsplit("=", 1)[1]) for line in self.lines
+                if line.startswith("Epoch[") and ("] %s=" % what) in line]
+
+    def monitor_rows(self):
+        return [line for line in self.lines if line.startswith("Batch:")]
+
+
+def _mnist_counts():
+    from mxnet_tpu_torch.kvstore import OPS
+    from mxnet_tpu_torch.telemetry import STEP_DISPATCHES, TRAINPLANE_FALLBACKS
+
+    return (OPS.value(op="push"), OPS.value(op="pull"),
+            TRAINPLANE_FALLBACKS.value(reason="module-config"),
+            STEP_DISPATCHES.value(plane="graph"))
+
+
+def _mnist_main(argv, seed=0):
+    """The example's ``main`` on the card (its default device), seeded;
+    returns (module, log lines, wall seconds, counter moves)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.image_classification import train_mnist
+
+    mx.random.seed(seed)
+    before = _mnist_counts()
+    with _LogLines() as log:
+        t0 = time.perf_counter()
+        mod = train_mnist.main(list(argv))
+        secs = time.perf_counter() - t0
+    after = _mnist_counts()
+    moved = dict(zip(("push", "pull", "module_config", "graph_steps"),
+                     (a - b for a, b in zip(after, before))))
+    return mod, log, secs, moved
+
+
+def _mnist_batches(n, seed=7, batch=64):
+    from mxnet_tpu_torch.example.image_classification import train_mnist
+
+    img, lab = train_mnist._synthetic_mnist(n, seed)
+    return [(img[i:i + batch], lab[i:i + batch])
+            for i in range(0, n, batch)]
+
+
+def _mnist_parity_run(ctx, batches, seed=0):
+    """MNIST_PARITY_STEPS of the example's Module (mlp, SGD 0.05, momentum
+    0.9, wd 1e-4, He init) through a ``KVStoreLocal`` with
+    ``update_on_kvstore`` on ``ctx``: the outputs, the weights and the
+    store's momentum, as numpy."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.image_classification.symbols import mlp
+
+    with ctx:
+        mx.random.seed(seed)
+        mod = mx.mod.Module(mlp.get_symbol(10), context=ctx)
+        mod.bind(data_shapes=[("data", (64, 1, 28, 28))],
+                 label_shapes=[("softmax_label", (64,))])
+        mod.init_params(mx.initializer.Xavier(
+            rnd_type="gaussian", factor_type="in", magnitude=2))
+        kv = mx.kv.create("local")
+        mod.init_optimizer(kvstore=kv, optimizer="sgd", optimizer_params={
+            "learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4})
+        outs = []
+        for x, y in batches:
+            batch = mx.io.DataBatch([mx.nd.array(x)], [mx.nd.array(y)])
+            mod.forward_backward(batch)
+            mod.update()
+            outs.append(mod.get_outputs()[0].asnumpy())
+        args, _ = mod.get_params()
+        return (outs, {k: v.asnumpy() for k, v in args.items()},
+                {k: s.cpu().numpy() for k, s in kv._updater.states.items()},
+                mod._update_on_kvstore)
+
+
+def mnist_parity():
+    import mxnet_tpu_torch as mx
+
+    batches = _mnist_batches(64 * MNIST_PARITY_STEPS)
+    o_cpu, w_cpu, m_cpu, _ = _mnist_parity_run(mx.cpu(), batches)
+    o_gpu, w_gpu, m_gpu, on_kv = _mnist_parity_run(mx.gpu(0), batches)
+    err = {
+        "outputs": max(float(np.abs(a - b).max())
+                       for a, b in zip(o_gpu, o_cpu)),
+        "weights": max(float(np.abs(w_gpu[k] - w_cpu[k]).max())
+                       for k in w_cpu),
+        "momentum": max(float(np.abs(m_gpu[k] - m_cpu[k]).max())
+                        for k in m_cpu)}
+    phase("mnist_parity", steps=MNIST_PARITY_STEPS, update_on_kvstore=on_kv,
+          keys=len(m_cpu), max_abs_err=err, tol=MNIST_TOL)
+    if not on_kv or len(m_cpu) != 6:
+        fail("mnist_parity: the store did not take the update (%s, %d keys)"
+             % (on_kv, len(m_cpu)))
+    if not max(err.values()) <= MNIST_TOL:
+        fail("mnist_parity: the card and the CPU disagree: %s" % err)
+
+
+def _mnist_trace(mod, plane=None, n=MNIST_TRACE_STEPS):
+    """torch.profiler over ``n`` training steps of the fitted ``mod`` as
+    ``fit`` runs them: the eager pair (or ``plane.step``), then the
+    metric's update."""
+    import mxnet_tpu_torch as mx
+
+    with mx.gpu(0):
+        batches = [mx.io.DataBatch([mx.nd.array(x)], [mx.nd.array(y)])
+                   for x, y in _mnist_batches(64 * (n + 2), seed=11)]
+        metric = mx.metric.create("accuracy")
+    state = {"i": 0}
+
+    def step():
+        batch = batches[state["i"] % len(batches)]
+        state["i"] += 1
+        if plane is not None:
+            plane.step(batch)
+        else:
+            mod.forward_backward(batch)
+            mod.update()
+        mod.update_metric(metric, batch.label)
+
+    step()
+    step()
+    return _device_profile(step, n)
+
+
+def _mnist_rates(log, steps_per_epoch, batch=64):
+    costs = log.epochs("Time cost")
+    return dict(epoch_s=costs,
+                img_per_s=[steps_per_epoch * batch / c for c in costs],
+                ms_per_step=[1e3 * c / steps_per_epoch for c in costs])
+
+
+def mnist():
+    """The example at its defaults (mlp, 60,000 synthetic examples, 2
+    epochs, batch 64, SGD 0.05 momentum 0.9 wd 1e-4, ``--kv-store
+    local``) on the card, then a trace of MNIST_TRACE_STEPS of its steps."""
+    mod, log, secs, moved = _mnist_main([])
+    per_epoch = -(-60000 // 64)
+    steps = 2 * per_epoch
+    acc = log.epochs("Validation-accuracy")
+    rates = _mnist_rates(log, per_epoch)
+    prof = _mnist_trace(mod)
+    phase("mnist", config="mlp 784-128-64-10, batch 64, 60,000 synthetic "
+          "examples, 2 epochs, SGD lr 0.05 momentum 0.9 wd 1e-4, "
+          "kv-store local (update_on_kvstore)", steps=steps, seconds=secs,
+          val_accuracy=acc, train_accuracy=log.epochs("Train-accuracy"),
+          demotions_module_config=moved["module_config"],
+          kvstore_push=moved["push"], kvstore_pull=moved["pull"],
+          graph_steps=moved["graph_steps"], profile=prof, **rates)
+    if len(acc) != 2 or not acc[-1] >= MNIST_ACC:
+        fail("mnist: validation accuracy %s below %.2f" % (acc, MNIST_ACC))
+    if moved["module_config"] != 1:
+        fail("mnist: %s module-config demotions, not 1"
+             % moved["module_config"])
+    if moved["push"] != steps * 6 or moved["pull"] != steps * 6:
+        fail("mnist: kvstore push %s / pull %s, not %d each"
+             % (moved["push"], moved["pull"], steps * 6))
+    return rates
+
+
+def mnist_plane(store_rates):
+    """The same net, data and schedule through ``Module.fit(kvstore=
+    "local")``: one device, so no store, and every step on the module
+    plane."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import trainplane
+    from mxnet_tpu_torch.example.image_classification import train_mnist
+
+    args = train_mnist.parse_args([])
+    made, orig = _planes_made()
+    before = _mnist_counts()
+    try:
+        with mx.gpu(0), _LogLines() as log:
+            mx.random.seed(0)
+            train, val = train_mnist.get_mnist_iter(args, None)
+            mod = mx.mod.Module(train_mnist.get_symbol(args),
+                                context=mx.gpu(0))
+            sched = mx.lr_scheduler.MultiFactorScheduler(
+                step=[(60000 // 64) * 10], factor=0.1)
+            t0 = time.perf_counter()
+            mod.fit(train, eval_data=val, eval_metric=["accuracy"],
+                    kvstore="local", optimizer="sgd",
+                    optimizer_params={"learning_rate": 0.05, "wd": 1e-4,
+                                      "momentum": 0.9,
+                                      "lr_scheduler": sched},
+                    initializer=mx.initializer.Xavier(
+                        rnd_type="gaussian", factor_type="in", magnitude=2),
+                    batch_end_callback=[mx.callback.Speedometer(64, 100)],
+                    num_epoch=2)
+            secs = time.perf_counter() - t0
+    finally:
+        trainplane.module_plane = orig
+    after = _mnist_counts()
+    per_epoch = -(-60000 // 64)
+    graph_steps = after[3] - before[3]
+    acc = log.epochs("Validation-accuracy")
+    rates = _mnist_rates(log, per_epoch)
+    plane = made[0] if made else None
+    prof = _mnist_trace(mod, plane=plane) if plane is not None else None
+    phase("mnist_plane", steps=2 * per_epoch, seconds=secs,
+          graph_steps=graph_steps, val_accuracy=acc,
+          img_per_s_store=store_rates["img_per_s"], profile=prof, **rates)
+    if plane is None or graph_steps != 2 * per_epoch:
+        fail("mnist_plane: %s graph steps, not %d" % (graph_steps,
+                                                      2 * per_epoch))
+    if not acc[-1] >= MNIST_ACC:
+        fail("mnist_plane: validation accuracy %s" % (acc,))
+
+
+def mnist_lenet():
+    """``--network lenet``, one epoch: img/s and accuracy, unbarred (at
+    the example's defaults, lr 0.05 with momentum 0.9, the JAX example's
+    LeNet does not learn this set either)."""
+    per_epoch = -(-60000 // 64)
+    mod, log, secs, moved = _mnist_main(["--network", "lenet",
+                                         "--num-epochs", "1"])
+    acc = log.epochs("Validation-accuracy")
+    finite = all(np.isfinite(v.asnumpy()).all()
+                 for v in mod.get_params()[0].values())
+    phase("mnist_lenet", steps=per_epoch, seconds=secs, val_accuracy=acc,
+          train_accuracy=log.epochs("Train-accuracy"), finite=finite,
+          kvstore_push=moved["push"], **_mnist_rates(log, per_epoch))
+    if not acc:
+        fail("mnist_lenet: no validation accuracy was logged")
+    if moved["push"] != per_epoch * 8:
+        fail("mnist_lenet: %s pushes, not %d" % (moved["push"],
+                                                 per_epoch * 8))
+
+
+def _write_idx(d, name, img8, lab8, gz):
+    import gzip
+    import struct
+
+    suffix = ".gz" if gz else ""
+
+    def opener(path):
+        return gzip.open(path, "wb", compresslevel=1) if gz \
+            else open(path, "wb")
+
+    paths = (os.path.join(d, "%s-images-idx3-ubyte%s" % (name, suffix)),
+             os.path.join(d, "%s-labels-idx1-ubyte%s" % (name, suffix)))
+    with opener(paths[0]) as f:
+        f.write(struct.pack(">IIII", 2051, len(img8), 28, 28))
+        f.write(img8.tobytes())
+    with opener(paths[1]) as f:
+        f.write(struct.pack(">II", 2049, len(lab8)))
+        f.write(lab8.tobytes())
+    return paths
+
+
+def mnist_idx():
+    """The synthetic set written as MNIST idx files, plain and ``.gz``:
+    ``MNISTIter``'s batches against the arrays written, then one epoch of
+    the example reading the ``.gz`` files."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.image_classification import train_mnist
+
+    sets = {}
+    for name, n, seed in (("train", 60000, 7), ("t10k", 10000, 8)):
+        img, lab = train_mnist._synthetic_mnist(n, seed)
+        sets[name] = (np.clip(img[:, 0] / img.max() * 255.0, 0, 255)
+                      .astype(np.uint8), lab.astype(np.uint8))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        checked = 0
+        for gz in (False, True):
+            d = os.path.join(tmp, "gz" if gz else "plain")
+            os.makedirs(d)
+            for name, (img8, lab8) in sets.items():
+                paths = _write_idx(d, name, img8, lab8, gz)
+            img8, lab8 = sets["t10k"]
+            with mx.gpu(0):
+                it = mx.io.MNISTIter(image=paths[0], label=paths[1],
+                                     batch_size=64, shuffle=False)
+                for k, batch in enumerate(it):
+                    rows = np.arange(k * 64, (k + 1) * 64) % len(lab8)
+                    if not (np.array_equal(
+                            batch.data[0].asnumpy()[:, 0],
+                            img8[rows].astype(np.float32) / 255.0)
+                            and np.array_equal(batch.label[0].asnumpy(),
+                                               lab8[rows].astype(np.float32))):
+                        fail("mnist_idx: batch %d of %s differs from the "
+                             "arrays written" % (k, d))
+                    checked += 1
+        write_s = time.perf_counter() - t0
+        mod, log, secs, moved = _mnist_main([
+            "--data-dir", os.path.join(tmp, "gz"), "--num-epochs", "1"])
+    acc = log.epochs("Validation-accuracy")
+    per_epoch = -(-60000 // 64)
+    phase("mnist_idx", batches_checked=checked, write_and_check_s=write_s,
+          train_s=secs, val_accuracy=acc, kvstore_push=moved["push"],
+          used_mnist_iter=not any("synthetic" in line for line in log.lines),
+          **_mnist_rates(log, per_epoch))
+    if any("synthetic" in line for line in log.lines):
+        fail("mnist_idx: the example did not read the idx files")
+    if not acc or not acc[-1] >= MNIST_ACC:
+        fail("mnist_idx: validation accuracy %s" % (acc,))
+
+
+def mnist_options():
+    """``--monitor 50``, ``--gc-type 2bit``, ``--model-prefix`` then
+    ``--load-epoch 1``, and ``--test-io 1``, each a short run."""
+    import tempfile
+
+    import torch
+
+    out = {}
+    _, log, secs, _ = _mnist_main(MNIST_SHORT + ["--monitor", "50"])
+    rows = log.monitor_rows()
+    out["monitor"] = dict(rows=len(rows), first=rows[:1], seconds=secs)
+    if len(rows) != 2 or not all("softmax_output" in r for r in rows):
+        fail("mnist_options: --monitor 50 over 100 batches logged %s"
+             % rows)
+    mod, log, secs, moved = _mnist_main(MNIST_SHORT + ["--gc-type", "2bit"])
+    acc = log.epochs("Validation-accuracy")
+    finite = all(np.isfinite(v.asnumpy()).all()
+                 for v in mod.get_params()[0].values())
+    out["gc_2bit"] = dict(val_accuracy=acc, finite=finite, seconds=secs,
+                          push=moved["push"])
+    if not finite or not acc:
+        fail("mnist_options: --gc-type 2bit: %s" % out["gc_2bit"])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "mnist")
+            two = ["--num-examples", "6400", "--num-epochs", "2",
+                   "--model-prefix", prefix, "--monitor", "100"]
+            _, whole, _, _ = _mnist_main(two)
+            _, resumed, _, _ = _mnist_main(two + ["--load-epoch", "1"])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    w_rows = [r.split()[-1] for r in whole.monitor_rows()]
+    r_rows = [r.split()[-1] for r in resumed.monitor_rows()]
+    out["resume"] = dict(whole_first_batches=w_rows,
+                         resumed_first_batch=r_rows)
+    if len(w_rows) != 2 or len(r_rows) != 1 or r_rows[0] != w_rows[1]:
+        fail("mnist_options: the resumed run's first batch %s is not the "
+             "uninterrupted run's %s" % (r_rows, w_rows))
+    mod, log, secs, moved = _mnist_main(MNIST_SHORT + ["--test-io", "1"])
+    out["test_io"] = dict(returned=mod, seconds=secs, push=moved["push"])
+    if mod is not None or moved["push"]:
+        fail("mnist_options: --test-io 1 trained")
+    phase("mnist_options", **out)
+
+
+def _opt_run(name, kw, dev, path="perparam", dtype=None, steps=3, seed=5):
+    """``steps`` updates of optimizer ``name`` over three parameters on
+    ``dev``: the weights and the updater."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fastpath, optimizer as opt
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    dtype = dtype or torch.float32
+    rs = np.random.RandomState(0)
+    shapes = [(128, 784), (64,), (10, 64)]
+    wv = [rs.randn(*s).astype(np.float32) for s in shapes]
+    gv = [[(rs.randn(*s) + 0.1 * np.sign(rs.randn(*s))).astype(np.float32)
+           for s in shapes] for _ in range(steps)]
+    o = opt.create(name, learning_rate=0.05, wd=0.01, **kw)
+    upd = opt.get_updater(o)
+    ws = [NDArray(torch.from_numpy(w).to(dev, dtype)) for w in wv]
+    mx.random.seed(seed)
+    for s in range(steps):
+        gs = [NDArray(torch.from_numpy(g).to(dev, dtype)) for g in gv[s]]
+        if path == "fused":
+            fastpath.apply_updater(upd, [(i, gs[i], ws[i])
+                                         for i in range(len(ws))])
+        else:
+            for i in range(len(ws)):
+                upd(i, gs[i], ws[i])
+    return ws, upd
+
+
+def _opt_err(a, b):
+    """Largest |difference| of weights and states over the larger of 1
+    and the tensor's largest magnitude."""
+    from mxnet_tpu_torch.optimizer import _state_leaves
+
+    (wa, ua), (wb, ub) = a, b
+    pairs = [(x._data, y._data) for x, y in zip(wa, wb)]
+    for i in ua.states:
+        pairs += list(zip(_state_leaves(ua.states[i]),
+                          _state_leaves(ub.states[i])))
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               / max(1.0, float(y.float().abs().max())) for x, y in pairs)
+
+
+def _opt_bitwise(a, b):
+    from mxnet_tpu_torch.optimizer import _state_leaves
+
+    (wa, ua), (wb, ub) = a, b
+    pairs = [(x._data, y._data) for x, y in zip(wa, wb)]
+    for i in ua.states:
+        pairs += list(zip(_state_leaves(ua.states[i]),
+                          _state_leaves(ub.states[i])))
+    return all(bool((x == y).all()) for x, y in pairs)
+
+
+def _opt_trainstep(name, kw):
+    """A captured ``TrainStep`` of a small net against eager ``Trainer``
+    steps from the same weights: the largest weight difference."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd, parallel
+
+    rs = np.random.RandomState(1)
+    xs = rs.randn(3, 64, 20).astype(np.float32)
+    ys = xs[:, :, :10].argmax(-1).astype(np.float32)
+    params = dict(kw, learning_rate=0.05, wd=0.01)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def net():
+        mx.random.seed(3)
+        n = gluon.nn.HybridSequential()
+        n.add(gluon.nn.Dense(32, activation="tanh", in_units=20),
+              gluon.nn.Dense(10, in_units=32))
+        n.initialize(mx.initializer.Xavier())
+        return n
+
+    with mx.gpu(0):
+        eager = net()
+        trainer = gluon.Trainer(eager.collect_params(), name, dict(params))
+        for x, y in zip(xs, ys):
+            with autograd.record():
+                loss = loss_fn(eager(nd.array(x)), nd.array(y))
+            loss.backward()
+            trainer.step(len(x))
+        graph = net()
+        step = parallel.TrainStep(graph, loss_fn, name, parallel.device_mesh(
+            1, devices=[mx.gpu(0)]), optimizer_params=params)
+        for x, y in zip(xs, ys):
+            step(nd.array(x), nd.array(y))
+        step.copy_to_net()
+        captured = step.compile_count
+    err = max(float(np.abs(a.data().asnumpy() - b.data().asnumpy()).max())
+              for a, b in zip(eager.collect_params().values(),
+                              graph.collect_params().values()))
+    return err, captured
+
+
+def _op_inputs(name, n_state, dev):
+    import torch
+
+    rs = np.random.RandomState(len(name))
+    shape = (128, 784)
+    w = rs.randn(*shape).astype(np.float32)
+    g = (rs.randn(*shape) + 0.2 * np.sign(rs.randn(*shape))) \
+        .astype(np.float32)
+    states = [np.abs(rs.randn(*shape)).astype(np.float32) + 0.5
+              for _ in range(n_state)]
+    if name == "rmspropalex_update":
+        states[1] *= 0.1
+    arrays = [w, g] + states
+    tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+    if name.startswith("mp_"):
+        tensors[0] = tensors[0].half()
+        tensors[1] = tensors[1].half()
+    return tensors
+
+
+def optimizers_card():
+    """Every optimizer and update op on the card: 3 updates against the
+    port on the CPU, fused against per-parameter bit for bit, bf16 under
+    ``multi_precision``, a captured ``TrainStep`` against eager ``Trainer``
+    steps (where the class has ``pure_step``); the 12 ops against the
+    CPU; then ``train_mnist --optimizer <name>`` on 6,000 examples."""
+    import torch
+
+    from mxnet_tpu_torch import optimizer as opt
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray, invoke
+
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    rows, bad = [], []
+    t0 = time.perf_counter()
+    for name, kw in MNIST_OPTIMIZERS:
+        row = {"name": name, "kw": kw}
+        card = _opt_run(name, kw, cuda)
+        if name != "sgld":  # the noise comes from each device's generator
+            row["card_vs_cpu"] = _opt_err(card, _opt_run(name, kw, cpu))
+            if not row["card_vs_cpu"] <= MNIST_TOL:
+                bad.append("%s card vs cpu %.3g" % (name,
+                                                     row["card_vs_cpu"]))
+        row["fused_bitwise"] = _opt_bitwise(card, _opt_run(name, kw, cuda,
+                                                           "fused"))
+        if not row["fused_bitwise"]:
+            bad.append("%s fused differs from per-parameter" % name)
+        ws, upd = _opt_run(name, dict(kw, multi_precision=True), cuda,
+                           dtype=torch.bfloat16)
+        masters = [upd.states[i][0] for i in range(len(ws))]
+        row["bf16_mp"] = all(w._data.dtype == torch.bfloat16
+                             and m.dtype == torch.float32
+                             and torch.equal(w._data, m.to(torch.bfloat16))
+                             and bool(torch.isfinite(m).all())
+                             for w, m in zip(ws, masters))
+        if not row["bf16_mp"]:
+            bad.append("%s bf16 multi_precision" % name)
+        if type(opt.create(name)).pure_step is not opt.Optimizer.pure_step:
+            err, captured = _opt_trainstep(name, kw)
+            row["trainstep_vs_trainer"] = err
+            row["captures"] = captured
+            if not err <= 1e-4 or captured != 1:
+                bad.append("%s TrainStep vs Trainer %.3g (%d captures)"
+                           % (name, err, captured))
+        rows.append(row)
+    op_err = {}
+    for op, (n_state, attrs) in MNIST_OPS.items():
+        outs = []
+        for dev in (cuda, cpu):
+            res = invoke(op, *[NDArray(t) for t in _op_inputs(op, n_state,
+                                                                dev)],
+                         **attrs)
+            res = res if isinstance(res, (list, tuple)) else [res]
+            outs.append([r._data.float().cpu() for r in res])
+        op_err[op] = max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in zip(*outs))
+        if not op_err[op] <= MNIST_TOL:
+            bad.append("op %s card vs cpu %.3g" % (op, op_err[op]))
+    check_s = time.perf_counter() - t0
+    trained = {}
+    for name, _kw in MNIST_OPTIMIZERS:
+        if name in trained:
+            continue
+        argv = ["--optimizer", name, "--num-examples",
+                str(MNIST_OPT_EXAMPLES), "--num-epochs", "1"]
+        start = _mnist_initial(argv)
+        mod, log, secs, _ = _mnist_main(argv)
+        args, _ = mod.get_params()
+        final = {k: v.asnumpy() for k, v in args.items()}
+        acc = log.epochs("Validation-accuracy")
+        moved = max(float(np.abs(final[k] - start[k]).max()) for k in start)
+        finite = all(np.isfinite(v).all() for v in final.values())
+        trained[name] = dict(val_accuracy=acc[-1] if acc else None,
+                             moved=moved, finite=finite, seconds=secs)
+        if not finite or not moved > 0:
+            bad.append("train_mnist --optimizer %s: finite %s, moved %.3g"
+                       % (name, finite, moved))
+        if name == "sgd" and not (acc and acc[-1] >= MNIST_ACC):
+            bad.append("train_mnist --optimizer sgd: accuracy %s" % acc)
+    phase("optimizers_card", optimizers=rows, ops_max_rel_err=op_err,
+          check_s=check_s, train_mnist=trained, tol=MNIST_TOL)
+    if bad:
+        fail("optimizers_card: %s" % "; ".join(bad))
+
+
+def _mnist_initial(argv, seed=0):
+    """The weights ``_mnist_main(argv, seed)`` starts from: the same draws
+    in the same order (the iterator's shuffle, then the initializer)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.image_classification import train_mnist
+
+    args = train_mnist.parse_args(argv)
+    with mx.gpu(0):
+        mx.random.seed(seed)
+        train, _ = train_mnist.get_mnist_iter(args, None)
+        mod = mx.mod.Module(train_mnist.get_symbol(args), context=mx.gpu(0))
+        mod.bind(data_shapes=train.provide_data,
+                 label_shapes=train.provide_label)
+        mod.init_params(mx.initializer.Xavier(
+            rnd_type="gaussian", factor_type="in", magnitude=2))
+        args_, _ = mod.get_params()
+        return {k: v.asnumpy() for k, v in args_.items()}
+
+
+def mnist_phases():
+    mnist_parity()
+    rates = mnist()
+    mnist_plane(rates)
+    mnist_lenet()
+    mnist_idx()
+    mnist_options()
+    optimizers_card()
+
+
 def main():
     import torch
 
@@ -4257,6 +4928,14 @@ def main():
         # NVRTC; nvcc builds nothing)
         custom_rtc()
         module_plane_parity()
+        return 0
+    if sys.argv[1:] == ["--mnist"]:
+        # only the MNIST slice's phases (no kernel is built: the path runs
+        # none)
+        mnist_phases()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if sys.argv[1:] == ["--word-lm"]:
         # only the word language model slice's phases (no kernel is
@@ -4346,9 +5025,17 @@ def main():
     rtc_entry["launches"] = rtc_launches + ckpt_rtc
     # the two kernels' device ms a step inside the module plane's graph
     rtc_entry["graph_device_ms"] = rtc_plane_ms
+    # the least time of each in-graph kernel at the path's (64, 10): its
+    # bytes once (forward: x read, y written; backward: prob and label
+    # read, dx written) over the card's memory rate
+    rows, cols = RTC_SHAPES[0]
+    rtc_entry["graph_bound_ms"] = {
+        "softmax_fwd": 2 * rows * cols * 4 / PEAK_BYTES_S * 1e3,
+        "softmax_ce_bwd": (2 * rows * cols + rows) * 4 / PEAK_BYTES_S * 1e3}
     rtc_entry["max_abs_err"] = max(rtc_entry["max_abs_err"], rtc_err)
     zoo_score()
     word_lm_phases()
+    mnist_phases()
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
                                   nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

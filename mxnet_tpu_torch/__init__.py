@@ -39,8 +39,13 @@ op of ``ops/tensor.py``, the random samplers (``nd.random``,
 ``mx.random.get_state``/``set_state``), ``gluon.rnn`` over the ``RNN``
 op (cuDNN through torch on the card), ``gluon.utils`` and
 ``example/gluon/word_language_model/train.py``; it runs no hand-written
-kernel. The top-level aliases ``mx.mod``, ``mx.NDArray``, ``mx.Symbol``,
-``mx.var`` and ``mx.AttrScope`` are the JAX package's. The training
+kernel; and the Module/kvstore training path of
+``example/image_classification/train_mnist.py`` through
+``common/fit.py``: ``kvstore`` on one process (``mx.kv`` its alias),
+``monitor``, ``io.MNISTIter`` and the 17 optimizers with their 12 update
+ops (``ops/optimizer_ops.py``); it runs no hand-written kernel. The
+top-level aliases ``mx.mod``, ``mx.NDArray``, ``mx.Symbol``, ``mx.var``
+and ``mx.AttrScope`` are the JAX package's. The training
 paths follow MXNet's entry points, with one departure: the default
 context is the card (``gpu(0)``), and without one, code that does not
 ask for ``mx.cpu()`` raises.
@@ -50,7 +55,8 @@ from __future__ import annotations
 from . import autograd, gluon, initializer, ndarray, optimizer, random
 from . import attribute, executor, image, io, model, module, recordio
 from . import callback, contrib, fastpath, metric, operator, parallel, rtc
-from . import elastic, lr_scheduler, trainplane
+from . import elastic, kvstore, lr_scheduler, monitor, trainplane
+from . import kvstore as kv
 from . import ndarray as nd
 from . import symbol
 from . import symbol as sym
@@ -68,5 +74,6 @@ __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
            "random", "attribute", "executor", "image", "io", "model",
            "module", "recordio", "sym", "symbol", "callback", "contrib",
            "metric", "operator", "rtc", "fastpath", "parallel",
-           "lr_scheduler", "trainplane", "elastic", "save_checkpoint",
+           "lr_scheduler", "trainplane", "elastic", "kvstore", "kv",
+           "monitor", "save_checkpoint",
            "load_checkpoint", "AttrScope", "NDArray", "Symbol", "var", "mod"]

@@ -19,7 +19,8 @@ Where the JAX executor jits the whole graph and takes a ``jax.vjp`` of it
 
 ``forward(is_train=True)`` also moves the BatchNorm moving statistics,
 written in place into ``aux_dict`` (``executor.py:225-227`` rebinds
-them). The graph is held from forward to backward and freed by it.
+them). A callback set by :meth:`Executor.set_monitor_callback` (a
+``Monitor``) gets each output by name after every forward. The graph is held from forward to backward and freed by it.
 ``trainplane.module_plane`` captures the same forward, backward and
 update as one CUDA graph a step.
 """
@@ -74,6 +75,7 @@ class Executor(object):
 
         self.outputs: List[NDArray] = []
         self._heads = None  # (output tensors, leaves, names) for backward
+        self._monitor_callback = None
 
     @staticmethod
     def _as_dict(vals, names, what, allow_missing=False):
@@ -111,7 +113,17 @@ class Executor(object):
             with autograd.predict_mode(), torch.no_grad():
                 outs = self._symbol.eval_torch(values)
         self.outputs = [NDArray(o.detach()) for o in outs]
+        if self._monitor_callback is not None:
+            # the graph's outputs, as the JAX executor hands them
+            # (mxnet_tpu/executor.py:231-233)
+            for name, out in zip(self.output_names, self.outputs):
+                self._monitor_callback(name, out)
         return self.outputs
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Call ``callback(name, array)`` for each output after every
+        forward (reference executor.py:set_monitor_callback)."""
+        self._monitor_callback = callback
 
     def _train_forward(self, values, diff):
         """The graph in train mode over ``values`` (name -> tensor), with

@@ -33,11 +33,14 @@ def enabled() -> bool:
 def supports(optimizer, n_positions: int = 1) -> bool:
     """Whether ``optimizer`` can be fused for a caller holding
     ``n_positions`` device positions. Optimizers whose host prologue is
-    order-sensitive (an ``lr_scheduler``, which reads the global
-    ``num_update``) fuse for one position only, as in the JAX package:
-    the fused path would reorder their prologue calls across positions."""
+    order-sensitive (``_host_scalars_stateful``: Nadam's schedule, SGLD's
+    draws; or an ``lr_scheduler``, which reads the global ``num_update``)
+    fuse for one position only, as in the JAX package
+    (``mxnet_tpu/fastpath/__init__.py:76-92``): the fused path would
+    reorder their prologue calls across positions."""
     if not getattr(optimizer, "fastpath_capable", False):
         return False
     if n_positions <= 1:
         return True
-    return getattr(optimizer, "lr_scheduler", None) is None
+    return not (getattr(optimizer, "_host_scalars_stateful", False)
+                or getattr(optimizer, "lr_scheduler", None) is not None)

@@ -3,10 +3,11 @@
 The per-parameter path (``Optimizer.update`` from ``Updater.__call__``
 in a Python loop) runs an optimizer's list kernel once per parameter, six
 to nine small device kernels each. Here the host prologue (update
-counting, lr/wd multipliers, schedule scalars) runs per parameter exactly
-as the loop runs it, and the kernel runs once over the lists of every
-parameter: each ``torch._foreach_*`` op of it is one multi-tensor launch
-per chunk of parameters. Because both paths call the same kernel, they
+counting, lr/wd multipliers, schedule scalars and extras) runs per
+parameter exactly as the loop runs it, in the same parameter order, and
+the kernel runs once over the lists of every parameter: each
+``torch._foreach_*`` op of it is one multi-tensor launch per chunk of
+parameters. Because both paths call the same kernel, they
 give the same bits.
 
 A ``multi_precision`` pair (a float16 or bfloat16 weight with its float32
@@ -38,12 +39,15 @@ def _is_mp_state(optimizer, index, weight, state):
             and _is_mp_pair(optimizer, index, weight, state))
 
 
-def tree_kernel(optimizer, ws, gs, states, mp_flags, ts, lrs, wds):
+def tree_kernel(optimizer, ws, gs, states, mp_flags, ts, lrs, wds,
+                extras=None):
     """One call of ``optimizer._leaf_step`` over every parameter, in place,
     under ``torch.no_grad()``: tensors ``ws``/``gs``, their ``states``,
-    and per parameter whether its state is a master pair. A pair steps its
-    master with the float32-cast gradient, then the master is cast back
-    into the weight."""
+    per parameter whether its state is a master pair, and the prologue's
+    counts, learning rates, weight decays and extras (``_host_scalars``'
+    third item: Nadam's schedule). A pair steps its master with the
+    float32-cast gradient, then the master is cast back into the
+    weight."""
     kw, kg, ks, back = [], [], [], []
     with torch.no_grad():
         for w, g, s, mp in zip(ws, gs, states, mp_flags):
@@ -57,7 +61,9 @@ def tree_kernel(optimizer, ws, gs, states, mp_flags, ts, lrs, wds):
                 kw.append(w)
                 kg.append(g)
                 ks.append(s)
-        optimizer._leaf_step(kw, kg, ks, ts, lrs, wds)
+        optimizer._leaf_step(kw, kg, ks, ts, lrs, wds,
+                             extras=extras if extras is not None
+                             else [()] * len(kw))
         for w, master in back:
             w.copy_(master)
 
@@ -78,18 +84,20 @@ def fused_apply(optimizer, indices, grads, weights, states):
         raise FusedApplyError(
             "%s has no list kernel; use the per-parameter path"
             % type(optimizer).__name__)
-    ts, lrs, wds, mp_flags = [], [], [], []
+    ts, lrs, wds, extras, mp_flags = [], [], [], [], []
     for i, w, s in zip(indices, weights, states):
         optimizer._update_count(i)
-        lr, wd = optimizer._host_scalars(i)
+        lr, wd, ex = optimizer._host_scalars(i)
         ts.append(optimizer._index_update_count[i])
         lrs.append(lr)
         wds.append(wd)
+        extras.append(tuple(ex))
         mp_flags.append(_is_mp_state(optimizer, i, w, s))
     states = list(states)
     OPT_DISPATCHES.inc(path="fused")
     tree_kernel(optimizer, [_tensor(w) for w in weights],
-                [_tensor(g) for g in grads], states, mp_flags, ts, lrs, wds)
+                [_tensor(g) for g in grads], states, mp_flags, ts, lrs, wds,
+                extras)
     return states
 
 

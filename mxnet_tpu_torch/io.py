@@ -1,12 +1,13 @@
 """Data iterators: the port of the part of ``mxnet_tpu/io.py`` the SSD
-path uses: ``DataDesc``, ``DataBatch``, ``DataIter`` and ``NDArrayIter``.
+and MNIST paths use: ``DataDesc``, ``DataBatch``, ``DataIter``,
+``NDArrayIter`` and ``MNISTIter`` (idx files, plain or ``.gz``).
 
 An iterator fixes its context when it is made (the current context, so
 the card unless a ``with mx.cpu():`` scope asks for the host, and an
 error without a card) and hands out batches there. Shuffling draws from
 :func:`mx.random.np_rng`, as the JAX package does, so one seed gives the
-same order in both. The prefetching, CSV, MNIST, LibSVM and record
-iterators of the JAX module are not ported yet.
+same order in both. The prefetching, CSV, LibSVM and record iterators
+of the JAX module are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from .context import current_context
 from .ndarray import ndarray as nd_mod
 from .ndarray.ndarray import NDArray
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -197,3 +198,38 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+def _read_idx(path, header):
+    """The payload of an idx file (``.gz`` by its name) after its
+    big-endian header of ``header`` int32s, with the header."""
+    import gzip
+    import struct
+
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as fin:
+        head = struct.unpack(">" + "I" * header, fin.read(4 * header))
+        return head, fin.read()
+
+
+class MNISTIter(NDArrayIter):
+    """The MNIST idx-file iterator (reference src/io/iter_mnist.cc,
+    ``mxnet_tpu/io.py:492-512``): images as float32 in [0, 1] shaped
+    ``(n, 1, rows, cols)``, or ``(n, rows * cols)`` with ``flat``, or
+    ``(n,) + input_shape``; labels as float32. ``shuffle`` draws from
+    :func:`mx.random.np_rng` as ``NDArrayIter`` does (``seed`` and
+    ``silent`` are taken and unused, as in the JAX package)."""
+
+    def __init__(self, image, label, batch_size=128, shuffle=True,
+                 flat=False, silent=False, seed=None, input_shape=None,
+                 **kwargs):
+        _, raw = _read_idx(label, 2)
+        lab = np.frombuffer(raw, dtype=np.uint8).astype(np.float32)
+        (_, n, r, c), raw = _read_idx(image, 4)
+        img = np.frombuffer(raw, dtype=np.uint8).astype(np.float32) / 255.0
+        img = img.reshape(n, 1, r, c)
+        if flat:
+            img = img.reshape(n, r * c)
+        elif input_shape is not None:
+            img = img.reshape((n,) + tuple(input_shape))
+        super().__init__(img, lab, batch_size=batch_size, shuffle=shuffle)

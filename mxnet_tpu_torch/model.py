@@ -2,10 +2,14 @@
 ``_create_kvstore``, the checkpoint functions and the legacy
 ``FeedForward``.
 
-With one device and a kvstore name without ``dist`` there is no kvstore,
-and the module updates its parameters itself (``mxnet_tpu/model.py:
-25-45``). Every other case needs the kvstore, which is not ported yet,
-and raises.
+:func:`_create_kvstore` is the JAX package's rule
+(``mxnet_tpu/model.py:25-45``): one device and a kvstore name without
+``dist`` mean no kvstore, and the module updates its parameters itself;
+a ``KVStore`` object (what ``common/fit.py`` passes) is used as it is,
+with ``update_on_kvstore`` (the store's updater applies the optimizer),
+unless a ``local`` store is made by name for a parameter above 16 M
+elements. :func:`_update_params_on_kvstore` and :func:`_update_params`
+are the two exchanges (``mxnet_tpu/model.py:48-110``).
 
 :func:`save_checkpoint` writes ``prefix-symbol.json`` and
 ``prefix-NNNN.params`` (``arg:``/``aux:`` names) and
@@ -19,20 +23,96 @@ from __future__ import annotations
 
 import logging
 
-from .base import MXNetError
+import numpy as np
+
+from . import optimizer as opt_mod
 from .ndarray import io_utils
 
 __all__ = ["save_checkpoint", "load_checkpoint", "FeedForward"]
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
-    """``(kvstore, update_on_kvstore)``: ``(None, False)`` for one device
-    without a distributed store."""
-    if kvstore is None or (isinstance(kvstore, str) and num_device == 1
-                           and "dist" not in kvstore):
-        return None, False
-    raise MXNetError("kvstore %r over %d devices is not ported yet"
-                     % (kvstore, num_device))
+    """``(kvstore, update_on_kvstore)`` (reference
+    model.py:_create_kvstore)."""
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            from . import kvstore as kvs_mod
+
+            kv = kvs_mod.create(kvstore)
+            if kvstore == "local":
+                max_size = max(int(np.prod(param.shape))
+                               for param in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        kv = kvstore
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              param_names):
+    """push(grad), the store's update, pull(weight) for every parameter
+    with a gradient (reference model.py:145-155): one
+    ``pushpull_update_multi`` where the store allows it (fastpath on, an
+    updater, no compression), else the per-key pair."""
+    from . import fastpath
+
+    entries = [(index, arg_list, grad_list) for index, (arg_list, grad_list)
+               in enumerate(zip(param_arrays, grad_arrays))
+               if grad_list[0] is not None]
+    if (fastpath.enabled() and getattr(kvstore, "_updater", None) is not None
+            and getattr(kvstore, "_compression", None) is None):
+        kvstore.pushpull_update_multi([i for i, _, _ in entries],
+                                      [g for _, _, g in entries],
+                                      [a for _, a, _ in entries])
+        return
+    for index, arg_list, grad_list in entries:
+        kvstore.push(index, grad_list, priority=-index)
+        kvstore.pull(index, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None, param_names=None):
+    """The kvstore's reduce (if any), then the updater (reference
+    model.py:_update_params): the exchange as one ``pushpull_multi``
+    where the store allows it, and the update as one fused apply per
+    device position where ``fastpath`` takes the optimizer."""
+    from . import fastpath
+
+    entries = [(i, arg_list, grad_list) for i, (arg_list, grad_list)
+               in enumerate(zip(param_arrays, grad_arrays))
+               if grad_list[0] is not None]
+    if kvstore:
+        if kvstore._can_fuse_pushpull():
+            grad_lists = [g for _, _, g in entries]
+            kvstore.pushpull_multi([i for i, _, _ in entries],
+                                   grad_lists, grad_lists)
+        else:
+            for index, _, grad_list in entries:
+                kvstore.push(index, grad_list, priority=-index)
+                kvstore.pull(index, grad_list, priority=-index)
+    n_pos = max((len(a) for _, a, _ in entries), default=1)
+    if (fastpath.enabled() and isinstance(updater, opt_mod.Updater)
+            and fastpath.supports(updater.optimizer, n_positions=n_pos)):
+        by_pos = {}
+        for index, arg_list, grad_list in entries:
+            for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+                by_pos.setdefault(k, []).append(
+                    (index * num_device + k, g, w))
+        for k in sorted(by_pos):
+            fastpath.apply_updater(updater, by_pos[k],
+                                   positions=len(by_pos))
+        return
+    for index, arg_list, grad_list in entries:
+        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+            updater(index * num_device + k, g, w)
 
 
 def _save_params(fname, arg_params, aux_params):

@@ -6,9 +6,11 @@ forward_backward).
 ``fit`` is the JAX package's epoch loop: it asks
 ``trainplane.module_plane`` once for the whole training step as one
 captured graph and steps every batch through it; where the plane
-declines (its reasons are counted in ``trainplane.FALLBACKS``), each batch
-runs ``forward_backward`` and ``update``. A kvstore other than ``local``
-or None, and ``monitor=``, raise. ``save_params``/``load_params``
+declines (its reasons are counted in ``trainplane.FALLBACKS``: a
+``KVStore`` object demotes as ``module-config``), each batch runs
+``forward_backward`` and ``update``. A ``monitor=`` is installed on the
+executor and forces the eager pair (its ``tic``/``toc_print`` bracket
+every batch), as in the JAX package. ``save_params``/``load_params``
 write and read the ``.params`` container with ``arg:``/``aux:`` names
 (``mxnet_tpu/module/base_module.py:272-290``).
 """
@@ -161,15 +163,12 @@ class BaseModule(object):
         ``score`` on ``eval_data``."""
         if num_epoch is None:
             raise MXNetError("fit: please specify number of epochs")
-        if monitor is not None:
-            raise MXNetError("fit(monitor=...) is not ported yet")
-        if kvstore not in ("local", None):
-            raise MXNetError("fit: kvstore %r is not ported yet (local or "
-                             "None)" % (kvstore,))
 
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer or Uniform(0.01),
                          arg_params=arg_params, aux_params=aux_params,
                          allow_missing=allow_missing, force_init=force_init)
@@ -181,10 +180,13 @@ class BaseModule(object):
 
         # the training plane (mxnet_tpu/module/base_module.py:168-189): one
         # captured forward + backward + update a batch where the module
-        # allows it, else the eager pair below
-        from .. import trainplane
+        # allows it, else the eager pair below; a monitor needs the
+        # executor's forward, so it forces the eager pair
+        plane = None
+        if monitor is None:
+            from .. import trainplane
 
-        plane = trainplane.module_plane(self)
+            plane = trainplane.module_plane(self)
 
         for epoch in range(begin_epoch, num_epoch):
             started = time.time()
@@ -193,12 +195,16 @@ class BaseModule(object):
             epoch_vals = []
             for nbatch, batch in enumerate(train_data):
                 self.prepare(batch, sparse_row_id_fn=sparse_row_id_fn)
+                if monitor is not None:
+                    monitor.tic()
                 if plane is not None:
                     plane.step(batch)
                 else:
                     self.forward_backward(batch)
                     self.update()
                 self.update_metric(eval_metric, batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     # snapshot BEFORE callbacks: an auto-resetting
                     # Speedometer on the final batch would otherwise leave

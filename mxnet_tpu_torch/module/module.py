@@ -4,10 +4,18 @@ forward/backward, update, get_outputs, get_params/set_params).
 
 One context (the card by default: ``context=None`` is the current
 context, which raises without a card unless a ``with mx.cpu():`` scope
-asks for the host), no kvstore, and :meth:`Module.update` applies the
+asks for the host). Without a kvstore :meth:`Module.update` applies the
 optimizer in place through the fused ``fastpath`` apply
-(``MXNET_FASTPATH=0``: the per-parameter updater). ``fit`` steps through
-``trainplane.module_plane`` where the module allows it.
+(``MXNET_FASTPATH=0``: the per-parameter updater). With a ``KVStore``
+object (``model._create_kvstore``: what ``common/fit.py`` passes) the
+store holds a copy of every parameter and, under ``update_on_kvstore``,
+the optimizer: each update pushes every gradient to the store, whose
+updater steps its copy, and pulls the weight back into the executor's
+tensor in place (``mxnet_tpu/module/module.py:270-287``); the optimizer
+states are saved and loaded through the store. ``compression_params``
+set the store's gradient compression. ``fit`` steps through
+``trainplane.module_plane`` where the module allows it (not with a
+kvstore).
 
 Checkpoints (``mxnet_tpu/module/module.py:72-93, 346-363``):
 ``save_checkpoint`` writes ``prefix-symbol.json``, ``prefix-NNNN.params``
@@ -54,9 +62,10 @@ class Module(BaseModule):
             context = current_context()
         if isinstance(context, Context):
             context = [context]
-        if group2ctxs or state_names or compression_params:
-            raise MXNetError("Module: group2ctxs, state_names and "
-                             "compression_params are not ported yet")
+        if group2ctxs or state_names:
+            raise MXNetError("Module: group2ctxs and state_names are not "
+                             "ported yet")
+        self._compression_params = compression_params
         self._context = list(context)
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
@@ -250,19 +259,21 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Set up the optimizer (reference module.py:474): one device, no
-        kvstore, ``rescale_grad`` 1 / batch size unless given."""
+        """Set up the optimizer and the kvstore (reference module.py:474,
+        ``mxnet_tpu/module/module.py:223-262``): ``rescale_grad`` 1 /
+        batch size unless given; with a store, every parameter is
+        ``init``-ed into it, and under ``update_on_kvstore`` the store
+        takes the optimizer and the module makes no updater."""
         from ..model import _create_kvstore
 
         self._require("binded", "params_initialized")
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        self._kvstore, self._update_on_kvstore = _create_kvstore(
+        kv, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
+        names = self._ordered_param_names()
         if isinstance(optimizer, str):
-            names = [n for n in self._symbol.list_arguments()
-                     if n in self._param_names]
             optimizer_params = dict(optimizer_params)
             optimizer_params.setdefault(
                 "rescale_grad", 1.0 / self._exec_group.batch_size)
@@ -270,7 +281,20 @@ class Module(BaseModule):
                                    param_idx2name=dict(enumerate(names)),
                                    **optimizer_params)
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kv
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kv:
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            # the store takes a copy of the executor's current weights
+            params = self._exec_group.execs[0].arg_dict
+            for idx, name in enumerate(names):
+                kv.init(idx, params[name])
+            if update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
+        if not update_on_kvstore:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             # MXNet 1.3's init_optimizer applies Module.load's states
@@ -279,20 +303,35 @@ class Module(BaseModule):
 
     def save_optimizer_states(self, fname):
         """Commit the updater's states (no optimizer) to ``fname``
-        atomically under the ``ckpt.commit`` retry policy."""
+        atomically under the ``ckpt.commit`` retry policy; under
+        ``update_on_kvstore``, the store's."""
         from ..elastic import commit_bytes
 
         self._require("optimizer_initialized")
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         commit_bytes(fname, self._updater.get_states(), kind="states")
 
     def load_optimizer_states(self, fname):
         """Load ``save_optimizer_states``'s file (of either package) into
-        the updater: in place into the live states, new ones on the
-        module's context where there are none."""
+        the updater (the store's under ``update_on_kvstore``): in place
+        into the live states, new ones on the module's context where
+        there are none."""
         self._require("optimizer_initialized")
         with open(fname, "rb") as f:
-            self._updater.set_states(
-                f.read(), device=self._context[0].torch_device())
+            states = f.read()
+        updater = self._kvstore._updater if self._update_on_kvstore \
+            else self._updater
+        updater.set_states(states, device=self._context[0].torch_device())
+        if self._update_on_kvstore:
+            self._optimizer = updater.optimizer
+
+    def install_monitor(self, mon):
+        """Hand ``mon`` the executor's outputs after each forward
+        (``mxnet_tpu/module/module.py:366-368``)."""
+        self._require("binded")
+        self._exec_group.install_monitor(mon)
 
     # -- computation ------------------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -303,18 +342,41 @@ class Module(BaseModule):
         self._require("binded", "params_initialized")
         self._exec_group.backward(out_grads=out_grads)
 
+    def _ordered_param_names(self):
+        return [n for n in self._symbol.list_arguments()
+                if n in self._param_names]
+
     def update(self):
         """One optimizer step on every parameter with a gradient, in
-        place (reference module.py:644 without a kvstore): one fused
-        apply, or with ``MXNET_FASTPATH=0`` the per-parameter loop."""
+        place (reference module.py:644). Under ``update_on_kvstore``, per
+        parameter a push of its gradient (the store's updater steps the
+        store's weight) and a pull of the weight into the executor;
+        with a store and a module-side updater, the store's reduce then
+        the update; without a store, one fused apply, or with
+        ``MXNET_FASTPATH=0`` the per-parameter loop."""
         self._require("binded", "params_initialized",
                       "optimizer_initialized")
         self._params_dirty = True
         e = self._exec_group.execs[0]
-        names = [n for n in self._symbol.list_arguments()
-                 if n in self._param_names]
+        names = self._ordered_param_names()
+        if self._update_on_kvstore and self._kvstore:
+            for idx, name in enumerate(names):
+                if name not in e.grad_dict:
+                    continue
+                self._kvstore.push(idx, [e.grad_dict[name]], priority=-idx)
+                self._kvstore.pull(idx, [e.arg_dict[name]], priority=-idx)
+            return
         triples = [(idx, e.grad_dict[name], e.arg_dict[name])
                    for idx, name in enumerate(names) if name in e.grad_dict]
+        if self._kvstore is not None:
+            kv = self._kvstore
+            if kv._can_fuse_pushpull():
+                grads = [[g] for _, g, _ in triples]
+                kv.pushpull_multi([i for i, _, _ in triples], grads, grads)
+            else:
+                for idx, g, _ in triples:
+                    kv.push(idx, [g], priority=-idx)
+                    kv.pull(idx, [g], priority=-idx)
         if fastpath.enabled() and fastpath.supports(self._optimizer):
             # one fused apply over every parameter (module.py:306-322)
             fastpath.apply_updater(self._updater, triples)

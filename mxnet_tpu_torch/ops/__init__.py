@@ -13,7 +13,8 @@ its plain PyTorch version.
   detection ops of :mod:`.detection` call it.
 
 :mod:`.registry` holds the op registry; :mod:`.tensor`, :mod:`.nn`,
-:mod:`.random_ops` and :mod:`.detection` register the plain PyTorch ops
+:mod:`.random_ops`, :mod:`.optimizer_ops` (the fused optimizer updates)
+and :mod:`.detection` register the plain PyTorch ops
 (the ``RNN`` op of :mod:`.nn` runs on cuDNN through torch on the card).
 
 Kernels are built by :mod:`._build` at first use, never at import.
@@ -22,10 +23,10 @@ too, so that ``nd.Custom`` and ``sym.Custom`` are generated.
 """
 from __future__ import annotations
 
-from . import (detection, flash_attention, nms, nn, paged_attention,
-               random_ops, registry, tensor)
+from . import (detection, flash_attention, nms, nn, optimizer_ops,
+               paged_attention, random_ops, registry, tensor)
 
-__all__ = ["detection", "flash_attention", "nms", "nn", "paged_attention",
-           "random_ops", "registry", "tensor"]
+__all__ = ["detection", "flash_attention", "nms", "nn", "optimizer_ops",
+           "paged_attention", "random_ops", "registry", "tensor"]
 
 from .. import operator as _operator  # noqa: E402,F401  (registers Custom)

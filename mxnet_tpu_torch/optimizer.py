@@ -1,10 +1,11 @@
-"""Optimizers: the port of ``mxnet_tpu/optimizer.py``'s protocol, with
-``SGD`` and ``Adam``.
+"""Optimizers: the port of ``mxnet_tpu/optimizer.py``, all 17 of its
+registered names.
 
 As in the JAX package an optimizer is two pieces: a host-side scalar
-prologue :meth:`Optimizer._host_scalars` (per-index lr/wd multipliers and
-schedule transforms such as Adam's bias correction, computed in Python)
-and a kernel :meth:`Optimizer._leaf_step`. Here the kernel runs over
+prologue :meth:`Optimizer._host_scalars` (per-index lr/wd multipliers,
+schedule transforms such as Adam's bias correction, and the extra scalars
+a kernel takes, Nadam's momentum schedule, all computed in Python) and a
+kernel :meth:`Optimizer._leaf_step`. Here the kernel runs over
 *lists* of parameters, written with ``torch._foreach_*`` ops that update
 the weights and states in place: ``fastpath.fused_apply`` calls it once
 over every parameter, and :meth:`Optimizer.update`, the per-parameter
@@ -12,7 +13,9 @@ path, calls the same function with one-element lists, so the two paths
 are equal bit for bit (the JAX package gets that by sharing its
 per-parameter ``_leaf_step`` between them). :meth:`Optimizer.pure_step`
 is the same kernel with the learning rate and step count as 0-d device
-tensors: ``parallel.TrainStep`` captures it inside a CUDA graph.
+tensors: ``parallel.TrainStep`` captures it inside a CUDA graph. Every
+class has one where the JAX class has one (all but ``SGLD`` and
+``Nadam``, whose prologue is a host recurrence or a host stream).
 
 ``multi_precision`` keeps a float32 master copy of every float16 or
 bfloat16 weight (:func:`create_state_multi_precision`,
@@ -45,8 +48,11 @@ is refused with an ``MXNetError``.
 Departures: the weights and states are written in place, under
 ``torch.no_grad()``, where the JAX package rebinds new buffers, so a
 bfloat16 weight updated without ``multi_precision`` stays bfloat16 (the
-JAX update hands back a float32 one). The other optimizers of the JAX
-module are not ported yet: :func:`create` raises for them.
+JAX update hands back a float32 one). ``SGLD`` draws its noise from the
+port's generator of the weight's device (``random.generator``), in
+parameter order, so its numbers differ from the JAX draws (a kept
+deviation, as for the samplers); the fused and per-parameter paths draw
+alike.
 """
 from __future__ import annotations
 
@@ -62,7 +68,9 @@ from .base import MXNetError
 from .telemetry import OPT_DISPATCHES
 
 __all__ = ["Optimizer", "register", "create", "get_updater", "Updater",
-           "SGD", "Adam", "ensure_mp_state"]
+           "SGD", "NAG", "Signum", "SignSGD", "FTML", "DCASGD", "SGLD",
+           "LBSGD", "Adam", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
+           "Adamax", "Nadam", "Test", "ensure_mp_state"]
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
 
@@ -144,7 +152,7 @@ class Optimizer(object):
     def create_optimizer(name, **kwargs):
         if name.lower() in Optimizer.opt_registry:
             return Optimizer.opt_registry[name.lower()](**kwargs)
-        raise MXNetError("Cannot find optimizer %s (not ported yet?)" % name)
+        raise MXNetError("Cannot find optimizer %s" % name)
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -188,19 +196,27 @@ class Optimizer(object):
 
     # -- the update protocol ----------------------------------------------
     def _host_scalars(self, index):
-        """``(lr, wd)`` for this parameter's update, after
-        :meth:`_update_count`."""
-        return self._get_lr(index), self._get_wd(index)
+        """``(lr, wd, extras)`` for this parameter's update, after
+        :meth:`_update_count`: ``extras`` is a tuple of the further
+        numbers the kernel takes (Nadam's schedule), empty for most."""
+        return self._get_lr(index), self._get_wd(index), ()
 
-    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None):
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
         """The kernel over parallel lists: weight tensors ``ws`` and their
         states updated in place from gradients ``gs``; ``ts`` and ``lrs``
         are per-parameter Python numbers (or 0-d float32 device tensors
         holding them: ``trainplane`` captures the kernel so), ``wds``
-        Python numbers, and ``lr_scale`` an optional 0-d device tensor
-        multiplying every learning rate."""
+        Python numbers, ``lr_scale`` an optional 0-d device tensor
+        multiplying every learning rate, and ``extras`` the per-parameter
+        tuples of :meth:`_host_scalars` (numbers or 0-d tensors)."""
         raise NotImplementedError("%s does not implement _leaf_step"
                                   % self.__class__.__name__)
+
+    #: True where :meth:`_host_scalars` moves optimizer state or draws
+    #: from a stream (Nadam's ``m_schedule``, SGLD's noise): the order of
+    #: its calls is then observable (``fastpath.supports``).
+    _host_scalars_stateful = False
 
     @property
     def fastpath_capable(self):
@@ -213,23 +229,30 @@ class Optimizer(object):
         1-based step count) and ``lr`` are 0-d float32 device tensors, so
         one CUDA graph serves every step; parameter ``i``'s learning rate
         is ``lr * lr_mults[i]``. Optimizers with no schedule work alias it
-        to :meth:`_leaf_step`; Adam computes its bias correction from
+        to :meth:`_pure_leaf`; Adam computes its bias correction from
         ``t`` on the device."""
         raise MXNetError(
             "%s does not implement pure_step; it cannot be captured in a "
             "train step - use Trainer/Updater instead"
             % self.__class__.__name__)
 
+    def _pure_leaf(self, ws, gs, states, t, lr, lr_mults, wds):
+        """:meth:`pure_step` for a kernel with no host schedule work: the
+        kernel itself, every count ``t`` and the learning rate scaled by
+        ``lr``."""
+        self._leaf_step(ws, gs, states, [t] * len(ws), list(lr_mults), wds,
+                        lr_scale=lr)
+
     def update(self, index, weight, grad, state):
         """Apply one parameter's update in place: the list kernel over
         one-element lists. Returns the state."""
         self._update_count(index)
         t = self._index_update_count[index]
-        lr, wd = self._host_scalars(index)
+        lr, wd, extras = self._host_scalars(index)
         OPT_DISPATCHES.inc(path="perparam")
         with torch.no_grad():
             self._leaf_step([_tensor(weight)], [_tensor(grad)], [state], [t],
-                            [lr], [wd])
+                            [lr], [wd], extras=[extras])
         return state
 
     def update_multi_precision(self, index, weight, grad, state):
@@ -269,6 +292,10 @@ class Optimizer(object):
         if self.lr_scheduler is not None:
             return self.lr_scheduler(self.num_update)
         return self.lr
+
+    def set_lr_mult(self, args_lr_mult):
+        """Learning-rate multipliers by index or name."""
+        self.lr_mult = dict(args_lr_mult)
 
     def set_wd_mult(self, args_wd_mult):
         self.wd_mult = {}
@@ -336,6 +363,13 @@ class Optimizer(object):
         self._clip(gs)
         return gs
 
+    def _preprocess_no_wd(self, gs):
+        """rescale -> clip; the weight decay is applied at the update
+        (AdaGrad, AdaDelta, DCASGD)."""
+        gs = torch._foreach_mul(gs, self.rescale_grad)
+        self._clip(gs)
+        return gs
+
     def _clip(self, gs):
         if self.clip_gradient is not None:
             torch._foreach_clamp_min_(gs, -self.clip_gradient)
@@ -352,6 +386,30 @@ class Optimizer(object):
         if lr_scale is not None:
             torch._foreach_mul_(xs, lr_scale)
         return xs
+
+
+def _eff_lrs(lrs, lr_scale):
+    """The per-parameter learning rates with ``lr_scale`` folded in."""
+    if lr_scale is None:
+        return list(lrs)
+    return [lr * lr_scale for lr in lrs]
+
+
+def _sqrt(x):
+    return x.sqrt() if isinstance(x, torch.Tensor) else math.sqrt(x)
+
+
+def _one_minus_pow(b, t):
+    """``1 - b ** t`` for a count ``t`` that is a number or a 0-d
+    tensor."""
+    if isinstance(t, torch.Tensor):
+        return 1.0 - torch.pow(b, t)
+    return 1.0 - b ** t
+
+
+def _copy_all(dsts, srcs):
+    for d, s in zip(dsts, srcs):
+        d.copy_(s)
 
 
 register = Optimizer.register
@@ -373,7 +431,8 @@ class SGD(Optimizer):
             return None
         return torch.zeros_like(_tensor(weight))
 
-    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None):
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
         step = self._scale_lr(self._preprocess(gs, ws, wds), lrs, lr_scale)
         if states[0] is None:
             torch._foreach_sub_(ws, step)
@@ -408,9 +467,10 @@ class Adam(Optimizer):
         t = self._index_update_count[index]
         lr = self._get_lr(index)
         lr = lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
-        return lr, self._get_wd(index)
+        return lr, self._get_wd(index), ()
 
-    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None):
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
         b1, b2 = self.beta1, self.beta2
         ms = [s[0] for s in states]
         vs = [s[1] for s in states]
@@ -429,6 +489,504 @@ class Adam(Optimizer):
         scale = lr * torch.sqrt(1.0 - torch.pow(b2, t)) \
             / (1.0 - torch.pow(b1, t))
         self._leaf_step(ws, gs, states, None, lr_mults, wds, lr_scale=scale)
+
+
+@register
+class Test(Optimizer):
+    """The debug optimizer: ``w -= lr * g * rescale_grad``; the state is a
+    zero tensor that no step reads (``mxnet_tpu/optimizer.py:420``)."""
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(_tensor(weight))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        step = torch._foreach_mul(gs, self.rescale_grad)
+        torch._foreach_sub_(ws, self._scale_lr(step, lrs, lr_scale))
+
+    pure_step = Optimizer._pure_leaf
+
+
+@register
+class ccSGD(SGD):  # noqa: N801 - MXNet's name
+    """The deprecated alias of SGD."""
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD: ``m = momentum * m + g`` then ``w -= lr
+    * (momentum * m + g)``."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(_tensor(weight))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        lrs = _eff_lrs(lrs, lr_scale)
+        gs = self._preprocess(gs, ws, wds)
+        if states[0] is None:
+            torch._foreach_sub_(ws, self._scale_lr(gs, lrs, None))
+            return
+        torch._foreach_mul_(states, self.momentum)
+        torch._foreach_add_(states, gs)
+        ahead = torch._foreach_mul(states, self.momentum)
+        torch._foreach_add_(ahead, gs)
+        torch._foreach_sub_(ws, self._scale_lr(ahead, lrs, None))
+
+    pure_step = Optimizer._pure_leaf
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: ``w -= lr / 2 * g`` plus
+    normal noise of variance ``lr``, drawn from the port's generator of
+    the weight's device, one draw a parameter in parameter order."""
+
+    _host_scalars_stateful = True  # draws from the device's stream
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        from .random import generator
+
+        lrs = _eff_lrs(lrs, lr_scale)
+        gs = self._preprocess(gs, ws, wds)
+        half = self._scale_lr(gs, [lr / 2 for lr in lrs], None)
+        torch._foreach_sub_(ws, half)
+        for w, lr in zip(ws, lrs):
+            noise = torch.randn(w.shape, generator=generator(w.device),
+                                device=w.device, dtype=w.dtype)
+            w.add_(noise * _sqrt(lr))
+
+
+@register
+class SignSGD(Optimizer):
+    """``w -= lr * (sign(g) + wd * w)`` on the rescaled, clipped
+    gradient."""
+
+    def _sign_step(self, ws, gs, lrs, wds):
+        gs = torch._foreach_mul(gs, self.rescale_grad)
+        self._clip(gs)
+        step = torch._foreach_sign(gs)
+        torch._foreach_add_(step, torch._foreach_mul(ws, wds))
+        torch._foreach_sub_(ws, self._scale_lr(step, lrs, None))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        self._sign_step(ws, gs, _eff_lrs(lrs, lr_scale), wds)
+
+    pure_step = Optimizer._pure_leaf
+
+
+@register
+class Signum(SignSGD):
+    """Sign of the momentum: ``m = momentum * m - (1 - momentum) * g``
+    then ``w += lr * sign(m) - lr * wd_lh * w``; without momentum,
+    SignSGD's step."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(_tensor(weight))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        lrs = _eff_lrs(lrs, lr_scale)
+        if states[0] is None:
+            self._sign_step(ws, gs, lrs, wds)
+            return
+        gs = self._preprocess(gs, ws, wds)
+        torch._foreach_mul_(states, self.momentum)
+        torch._foreach_add_(states, gs, alpha=-(1 - self.momentum))
+        decay = None
+        if self.wd_lh:
+            decay = self._scale_lr(torch._foreach_mul(ws, self.wd_lh), lrs,
+                                   None)
+        torch._foreach_add_(ws, self._scale_lr(torch._foreach_sign(states),
+                                               lrs, None))
+        if decay is not None:
+            torch._foreach_sub_(ws, decay)
+
+
+@register
+class FTML(Optimizer):
+    """Follow the Moving Leader; the bias corrections come from each
+    parameter's count."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        w = _tensor(weight)
+        return (torch.zeros_like(w), torch.zeros_like(w),
+                torch.zeros_like(w))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        b1, b2 = self.beta1, self.beta2
+        lrs = _eff_lrs(lrs, lr_scale)
+        ds = [s[0] for s in states]
+        vs = [s[1] for s in states]
+        zs = [s[2] for s in states]
+        gs = self._preprocess_wd_in_clip(gs, ws, wds)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+        d_t = torch._foreach_div(vs, [_one_minus_pow(b2, t) for t in ts])
+        torch._foreach_sqrt_(d_t)
+        torch._foreach_add_(d_t, self.epsilon)
+        torch._foreach_mul_(d_t, [_one_minus_pow(b1, t) / lr
+                                  for t, lr in zip(ts, lrs)])
+        sigma = torch._foreach_sub(d_t, torch._foreach_mul(ds, b1))
+        torch._foreach_mul_(zs, b1)
+        torch._foreach_add_(zs, gs, alpha=1 - b1)
+        torch._foreach_sub_(zs, torch._foreach_mul(sigma, ws))
+        _copy_all(ds, d_t)
+        new_w = torch._foreach_div(zs, d_t)
+        torch._foreach_neg_(new_w)
+        _copy_all(ws, new_w)
+
+    pure_step = Optimizer._pure_leaf
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated SGD: the step adds ``lamda * g * g * (w -
+    previous w)``; the state keeps the weight before the step."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        w = _tensor(weight)
+        if self.momentum == 0.0:
+            return (None, w.detach().clone())
+        return (torch.zeros_like(w), w.detach().clone())
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        lrs = _eff_lrs(lrs, lr_scale)
+        moms = [s[0] for s in states]
+        prevs = [s[1] for s in states]
+        gs = self._preprocess_no_wd(gs)
+        comp = torch._foreach_mul(gs, self.lamda)
+        torch._foreach_mul_(comp, gs)
+        torch._foreach_mul_(comp, torch._foreach_sub(ws, prevs))
+        term = torch._foreach_add(gs, torch._foreach_mul(ws, wds))
+        torch._foreach_add_(term, comp)
+        step = self._scale_lr(term, lrs, None)
+        _copy_all(prevs, ws)
+        if moms[0] is None:
+            torch._foreach_sub_(ws, step)
+            return
+        torch._foreach_mul_(moms, self.momentum)
+        torch._foreach_sub_(moms, step)
+        torch._foreach_add_(ws, moms)
+
+    pure_step = Optimizer._pure_leaf
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD with the LARS layer-wise rate ``|w| / (|g| +
+    1e-9)`` (1 where a norm is 0), the JAX package's simplified core."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(multi_precision=multi_precision, **kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(_tensor(weight))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        lrs = _eff_lrs(lrs, lr_scale)
+        gs = self._preprocess(gs, ws, wds)
+        wnorms = torch._foreach_norm(ws)
+        gnorms = torch._foreach_norm(gs)
+        eff = [lr * torch.where((wn > 0) & (gn > 0), wn / (gn + 1e-9),
+                                torch.ones_like(wn))
+               for lr, wn, gn in zip(lrs, wnorms, gnorms)]
+        step = self._scale_lr(gs, eff, None)
+        if states[0] is None:
+            torch._foreach_sub_(ws, step)
+            return
+        torch._foreach_mul_(states, self.momentum)
+        torch._foreach_sub_(states, step)
+        torch._foreach_add_(ws, states)
+
+    pure_step = Optimizer._pure_leaf
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: ``h += g * g``, ``w -= lr * (g / sqrt(h + eps) + wd *
+    w)``; the weight decay stays out of the history."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(_tensor(weight))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        gs = self._preprocess_no_wd(gs)
+        torch._foreach_addcmul_(states, gs, gs)
+        den = torch._foreach_add(states, self.float_stable_eps)
+        torch._foreach_sqrt_(den)
+        step = torch._foreach_div(gs, den)
+        torch._foreach_add_(step, torch._foreach_mul(ws, wds))
+        torch._foreach_sub_(ws, self._scale_lr(step, lrs, lr_scale))
+
+    pure_step = Optimizer._pure_leaf
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain (state ``(n,)``) or centered after Graves (state
+    ``(n, mean g, delta)``), with optional ``clip_weights``."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        w = _tensor(weight)
+        if self.centered:
+            return (torch.zeros_like(w), torch.zeros_like(w),
+                    torch.zeros_like(w))
+        return (torch.zeros_like(w),)
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        g1 = self.gamma1
+        gs = self._preprocess_wd_in_clip(gs, ws, wds)
+        ns = [s[0] for s in states]
+        torch._foreach_mul_(ns, g1)
+        torch._foreach_addcmul_(ns, gs, gs, value=1 - g1)
+        if len(states[0]) == 1:
+            den = torch._foreach_add(ns, self.epsilon)
+            torch._foreach_sqrt_(den)
+            step = self._scale_lr(torch._foreach_div(gs, den), lrs,
+                                  lr_scale)
+            torch._foreach_sub_(ws, step)
+        else:
+            mgs = [s[1] for s in states]
+            deltas = [s[2] for s in states]
+            torch._foreach_mul_(mgs, g1)
+            torch._foreach_add_(mgs, gs, alpha=1 - g1)
+            den = torch._foreach_sub(ns, torch._foreach_mul(mgs, mgs))
+            torch._foreach_add_(den, self.epsilon)
+            torch._foreach_sqrt_(den)
+            step = self._scale_lr(torch._foreach_div(gs, den), lrs,
+                                  lr_scale)
+            torch._foreach_mul_(deltas, self.gamma2)
+            torch._foreach_sub_(deltas, step)
+            torch._foreach_add_(ws, deltas)
+        if self.clip_weights:
+            torch._foreach_clamp_min_(ws, -self.clip_weights)
+            torch._foreach_clamp_max_(ws, self.clip_weights)
+
+    pure_step = Optimizer._pure_leaf
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta; no learning rate, the weight decay applied at the
+    update."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        w = _tensor(weight)
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        rho, eps = self.rho, self.epsilon
+        gs = self._preprocess_no_wd(gs)
+        acc_g = [s[0] for s in states]
+        acc_d = [s[1] for s in states]
+        torch._foreach_mul_(acc_g, rho)
+        torch._foreach_addcmul_(acc_g, gs, gs, value=1 - rho)
+        delta = torch._foreach_add(acc_d, eps)
+        torch._foreach_sqrt_(delta)
+        den = torch._foreach_add(acc_g, eps)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(delta, den)
+        torch._foreach_mul_(delta, gs)
+        torch._foreach_mul_(acc_d, rho)
+        torch._foreach_addcmul_(acc_d, delta, delta, value=1 - rho)
+        torch._foreach_add_(delta, torch._foreach_mul(ws, wds))
+        torch._foreach_sub_(ws, delta)
+
+    pure_step = Optimizer._pure_leaf
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal; state ``(z, n)``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        w = _tensor(weight)
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        l1, beta = self.lamda1, self.beta
+        lrs = _eff_lrs(lrs, lr_scale)
+        gs = self._preprocess_no_wd(gs)
+        zs = [s[0] for s in states]
+        ns = [s[1] for s in states]
+        gg = torch._foreach_mul(gs, gs)
+        sigma = torch._foreach_add(ns, gg)
+        torch._foreach_sqrt_(sigma)
+        torch._foreach_sub_(sigma, torch._foreach_sqrt(ns))
+        torch._foreach_div_(sigma, lrs)
+        torch._foreach_add_(zs, gs)
+        torch._foreach_sub_(zs, torch._foreach_mul(sigma, ws))
+        torch._foreach_add_(ns, gg)
+        for w, z, n, lr, wd in zip(ws, zs, ns, lrs, wds):
+            shrunk = -(z - torch.sign(z) * l1) / ((beta + n.sqrt()) / lr + wd)
+            w.copy_(torch.where(z.abs() > l1, shrunk,
+                                torch.zeros_like(shrunk)))
+
+    pure_step = Optimizer._pure_leaf
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax: the infinity-norm Adam; the bias correction ``lr / (1 -
+    beta1 ** t)`` is a host-side transform of the learning rate."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def _host_scalars(self, index):
+        t = self._index_update_count[index]
+        lr = self._get_lr(index) / (1.0 - self.beta1 ** t)
+        return lr, self._get_wd(index), ()
+
+    def create_state(self, index, weight):
+        w = _tensor(weight)
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        b1, b2 = self.beta1, self.beta2
+        gs = self._preprocess_wd_in_clip(gs, ws, wds)
+        ms = [s[0] for s in states]
+        us = [s[1] for s in states]
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, gs, alpha=1 - b1)
+        torch._foreach_mul_(us, b2)
+        torch._foreach_maximum_(us, torch._foreach_abs(gs))
+        den = torch._foreach_add(us, 1e-8)
+        step = self._scale_lr(torch._foreach_div(ms, den), lrs, lr_scale)
+        torch._foreach_sub_(ws, step)
+
+    def pure_step(self, ws, gs, states, t, lr, lr_mults, wds):
+        scale = lr / (1.0 - torch.pow(self.beta1, t))
+        self._leaf_step(ws, gs, states, None, lr_mults, wds, lr_scale=scale)
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam. The momentum schedule is a host recurrence
+    (``m_schedule`` multiplies up at every prologue call), so its four
+    numbers reach the kernel as :meth:`_host_scalars`' extras."""
+
+    _host_scalars_stateful = True  # m_schedule multiplies up per call
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        w = _tensor(weight)
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def _host_scalars(self, index):
+        t = self._index_update_count[index]
+        momentum_t = self.beta1 * (
+            1.0 - 0.5 * (0.96 ** (t * self.schedule_decay)))
+        momentum_t_1 = self.beta1 * (
+            1.0 - 0.5 * (0.96 ** ((t + 1) * self.schedule_decay)))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        return (self._get_lr(index), self._get_wd(index),
+                (momentum_t, momentum_t_1, self.m_schedule,
+                 m_schedule_next))
+
+    def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
+                   extras=None):
+        b1, b2 = self.beta1, self.beta2
+        mts = [e[0] for e in extras]
+        mt1s = [e[1] for e in extras]
+        ms_now = [e[2] for e in extras]
+        ms_next = [e[3] for e in extras]
+        ms = [s[0] for s in states]
+        vs = [s[1] for s in states]
+        gs = self._preprocess_wd_in_clip(gs, ws, wds)
+        g_prime = torch._foreach_div(gs, [1.0 - x for x in ms_now])
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, gs, alpha=1.0 - b1)
+        m_prime = torch._foreach_div(ms, [1.0 - x for x in ms_next])
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1.0 - b2)
+        v_prime = torch._foreach_div(vs, [_one_minus_pow(b2, t)
+                                          for t in ts])
+        torch._foreach_mul_(g_prime, [1.0 - x for x in mts])
+        torch._foreach_mul_(m_prime, mt1s)
+        torch._foreach_add_(g_prime, m_prime)
+        torch._foreach_sqrt_(v_prime)
+        torch._foreach_add_(v_prime, self.epsilon)
+        step = self._scale_lr(torch._foreach_div(g_prime, v_prime), lrs,
+                              lr_scale)
+        torch._foreach_sub_(ws, step)
 
 
 class Updater(object):

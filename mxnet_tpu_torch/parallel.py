@@ -411,7 +411,8 @@ class TrainStep(_Executor):
         out = list(self._pvals.values())
         for s in self._states:
             if s is not None:
-                out += list(s) if isinstance(s, tuple) else [s]
+                out += [t for t in s if t is not None] \
+                    if isinstance(s, tuple) else [s]
         return out
 
     def _mean_loss(self, data, label):

@@ -17,9 +17,10 @@ update is ``fastpath.tree_kernel``, the fused apply's own kernel, and
 the step consumes the same host prologue (``_update_count`` and
 ``_host_scalars`` per index, on the real optimizer), so the optimizer's
 counters stay the one source of truth and eager and graph steps
-interleave freely. The learning rates and counts are 0-d device tensors
-(one host-to-device copy a step, none while they stay the same), so one
-graph serves every step. The backward is seeded with ones, as
+interleave freely. The learning rates and counts (and the extras of
+``_host_scalars``: Nadam's schedule) are 0-d device tensors (one
+host-to-device copy a step, none while they stay the same), so one graph
+serves every step. The backward is seeded with ones, as
 ``loss.backward()`` is. In float32 the graph plane gives the eager
 fastpath's bits.
 
@@ -45,7 +46,9 @@ Knobs (the JAX package's):
 The plane demotes to the eager loop only for the JAX package's reasons,
 each counted in ``FALLBACKS{reason}`` (``telemetry.TRAINPLANE_FALLBACKS``)
 and shown by :attr:`TrainPlane.plane`: ``MXNET_FASTPATH=0``, a plain
-``Block``, an optimizer without a list kernel, a ``grad_req`` other than
+``Block``, a Trainer that updates on its kvstore, a kvstore with
+gradient compression (the step would skip it; the JAX plane skips it),
+an optimizer without a list kernel, a ``grad_req`` other than
 ``write``/``null``, a parameter the Trainer does not own, and a step that
 cannot be captured (a forward that reads back to the host), decided once
 at the capture. ``STEP_DISPATCHES{plane}`` counts the steps: a graph step
@@ -165,24 +168,39 @@ class _PlaneBase(object):
 
     def _init_scalars(self):
         self._stream = None
-        self._scalars = torch.zeros((2, len(self._rows)),
-                                    dtype=torch.float32, device=self._device)
+        self._alloc_scalars(2)
+        self._captures = 0
+
+    def _alloc_scalars(self, n_rows):
+        """The step's scalars: ``n_rows`` float32 rows (learning rates,
+        counts, then one a ``_host_scalars`` extra) of one value a
+        parameter, and their 0-d views."""
+        n = len(self._rows)
+        self._scalars = torch.zeros((n_rows, n), dtype=torch.float32,
+                                    device=self._device)
         self._lr_views = list(self._scalars[0])
         self._t_views = list(self._scalars[1])
+        self._extra_views = [tuple(self._scalars[k][j]
+                                   for k in range(2, n_rows))
+                             for j in range(n)]
         self._last_scalars = None
-        self._captures = 0
 
     def _prologue(self, opt):
         """The eager fused apply's host prologue, in its order: per index
         ``_update_count`` then ``_host_scalars``; returns the rows ``[lrs,
-        counts]`` of the step's scalars (the weight decays are the step's
-        key, read by ``_get_wd`` as ``_host_scalars`` reads them)."""
-        lrs, ts = [], []
+        counts, extra 0, ...]`` of the step's scalars (the weight decays
+        are the step's key, read by ``_get_wd`` as ``_host_scalars`` reads
+        them; the extras are Nadam's schedule)."""
+        lrs, ts, extras = [], [], []
         for i, _ in self._rows:
             opt._update_count(i)
-            lrs.append(opt._host_scalars(i)[0])
+            lr, _wd, ex = opt._host_scalars(i)
+            lrs.append(lr)
             ts.append(opt._index_update_count[i])
-        return [lrs, ts]
+            extras.append(tuple(ex))
+        n_extra = len(extras[0]) if extras else 0
+        return [lrs, ts] + [[float(e[k]) for e in extras]
+                            for k in range(n_extra)]
 
     @staticmethod
     def _probe_optimizer(opt):
@@ -198,6 +216,10 @@ class _PlaneBase(object):
         return probe
 
     def _set_scalars(self, rows):
+        if len(rows) != self._scalars.shape[0]:
+            # the first prologue of an optimizer with extras, before any
+            # capture has taken the views' addresses
+            self._alloc_scalars(len(rows))
         if rows != self._last_scalars:
             self._scalars.copy_(torch.tensor(rows, dtype=torch.float32),
                                 non_blocking=True)
@@ -336,6 +358,13 @@ class TrainPlane(_PlaneBase):
             return "MXNET_FASTPATH=0 (legacy escape hatch)"
         if not isinstance(self._net, HybridBlock):
             return "net is not a HybridBlock"
+        if not tr._kv_initialized:
+            tr._init_kvstore()
+        if tr._update_on_kvstore:
+            return "update_on_kvstore"
+        if tr._kvstore is not None and tr._kvstore._compression is not None:
+            # the step would skip the store and so its compression
+            return "gradient compression"
         if not getattr(tr._optimizer, "fastpath_capable", False):
             return "optimizer has no list kernel"
         owned = {p.name for p in tr._params}
@@ -425,7 +454,7 @@ class TrainPlane(_PlaneBase):
                  for w, g in zip(ws, grads)]
         fastpath.tree_kernel(
             opt, ws, grads, [states[i] for i, _ in self._rows], mp_flags,
-            self._t_views, self._lr_views, wds)
+            self._t_views, self._lr_views, wds, self._extra_views)
         return loss.detach()
 
     def _new_path(self, data, label, wds):
@@ -634,7 +663,7 @@ class _ModulePlane(_PlaneBase):
                                   [torch.ones_like(o) for o in outs])
         fastpath.tree_kernel(
             opt, ws, grads, [states[i] for i, _ in self._rows], mp_flags,
-            self._t_views, self._lr_views, wds)
+            self._t_views, self._lr_views, wds, self._extra_views)
         return [o.detach() for o in outs]
 
     def _path(self, batch):

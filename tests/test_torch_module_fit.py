@@ -144,8 +144,8 @@ def test_fit_refuses_what_is_not_ported():
         mod = mx.module.Module(port_cr.get_symbol("np_softmax_ce"))
         with pytest.raises(MXNetError, match="kvstore"):
             mod.fit(train, num_epoch=1, kvstore="dist_sync")
-        with pytest.raises(MXNetError, match="monitor"):
-            mod.fit(train, num_epoch=1, monitor=object())
+        # a monitor is ported now: fit takes it (the eager path)
+        mod.fit(train, num_epoch=1, monitor=mx.monitor.Monitor(100))
         with pytest.raises(MXNetError, match="not ported"):
             mx.module.Module(port_cr.get_symbol("np_softmax_ce"),
                              group2ctxs=[{"dev1": mx.cpu()}])

@@ -34,6 +34,11 @@
   module of the port draws from torch's global generator (every
   ``torch.rand*``/``normal``/``multinomial``/... call passes
   ``generator=``);
+* the MNIST slice (``kvstore``, ``monitor``, ``ops/optimizer_ops``,
+  ``example/image_classification/train_mnist.py`` and ``common/``,
+  ``symbols/``) is in the scan, and the example trains through the
+  kvstore with a monitor and 2-bit compression with ``jax`` and
+  ``mxnet_tpu`` made unimportable;
 * the extension slice's modules (``rtc``, ``operator``, ``metric``,
   ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
   no module of the port defines ``PallasModule`` (Pallas source cannot
@@ -465,3 +470,40 @@ print("steps", res["steps"])
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "steps 45" in proc.stdout
+
+
+def test_scan_covers_the_mnist_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ("mxnet_tpu_torch/kvstore.py", "mxnet_tpu_torch/monitor.py",
+                 "mxnet_tpu_torch/ops/optimizer_ops.py",
+                 "mxnet_tpu_torch/example/image_classification/"
+                 "train_mnist.py",
+                 "mxnet_tpu_torch/example/image_classification/common/"
+                 "fit.py",
+                 "mxnet_tpu_torch/example/image_classification/symbols/"
+                 "mlp.py",
+                 "mxnet_tpu_torch/example/image_classification/symbols/"
+                 "lenet.py"):
+        assert path in names
+
+
+def test_mnist_slice_trains_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+from mxnet_tpu_torch.example.image_classification import train_mnist
+from mxnet_tpu_torch.kvstore import OPS
+mod = train_mnist.main(["--device", "cpu", "--num-examples", "320",
+                        "--num-epochs", "1", "--monitor", "2",
+                        "--gc-type", "2bit", "--optimizer", "nadam"])
+assert mod._update_on_kvstore and mod._kvstore is not None
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("pushes", int(OPS.value(op="push")))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "pushes 30" in proc.stdout

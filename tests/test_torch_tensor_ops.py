@@ -90,11 +90,6 @@ STILL_MISSING = {
            "SoftmaxActivation", "SyncBatchNorm", "UpSampling",
            "_contrib_CTCLoss", "_contrib_SyncBatchNorm", "_contrib_ctc_loss",
            "ctc_loss", "softmax_cross_entropy", "softmin"],
-    "optimizer_ops": [
-        "_sparse_adagrad_update", "adagrad_update", "adam_update",
-        "ftml_update", "ftrl_update", "mp_sgd_mom_update", "mp_sgd_update",
-        "rmsprop_update", "rmspropalex_update", "sgd_mom_update",
-        "sgd_update", "signsgd_update", "signum_update"],
     "quantization": [
         "_contrib_dequantize", "_contrib_quantize", "_contrib_quantized_conv",
         "_contrib_quantized_flatten", "_contrib_quantized_fully_connected",
@@ -125,4 +120,4 @@ def test_registry_gap_is_exactly_the_later_items():
         assert name in OP_REGISTRY
     assert not [n for n, f in _JAX_FILE.items()
                 if f == "random_ops" and n not in OP_REGISTRY]
-    assert sum(map(len, STILL_MISSING.values())) == 126
+    assert sum(map(len, STILL_MISSING.values())) == 113
