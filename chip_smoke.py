@@ -281,9 +281,47 @@ Phases, each printing one line of its own (any failure exits non-zero):
     examples, 1 epoch: finite weights that moved, and for sgd the
     accuracy bar.
 
-``python3 chip_smoke.py --word-lm`` runs phases 31-35 only, and
-``--mnist`` phases 36-42 only (no nvcc build: the paths run no
-hand-written kernel).
+43. sparse_lc: slice 18's sparse path, ``example/sparse/
+    linear_classification.py`` at its defaults (2,000 features, 512
+    samples, batch 64, 12 epochs; ``LibSVMIter``'s CSR batches and
+    ``sparse.dot``): ``IMPROVED``; 3 steps on the card against the CPU
+    (losses, w, b within TAIL_TOL); a trace of TAIL_TRACE_STEPS steps
+    (busy share, device operations, host launches);
+44. sparse_lc_avazu: the same example on an Avazu-shaped LibSVM file the
+    phase writes from a planted separator (seed 0; AVAZU: 1,000,000
+    features, 15 values a row, 65,536 rows) at ``--feature-dim 1000000
+    --batch-size 8192 --epochs 2``, as MXNet 1.3 runs Avazu: ms a step,
+    samples/s, a trace, and the phase's peak ``max_memory_allocated``,
+    which must stay under 1 GiB (a batch made dense would take 32.8 GB);
+    3 steps card against CPU;
+45. sparse_fm: ``example/sparse/fm.py`` with SGD (FM_SGD_ARGS: at the
+    defaults SGD diverges in both packages) and with AdaGrad at its
+    defaults: ``IMPROVED`` both; 3 steps card against CPU each (the loss a
+    sample and the weights; SGD within TAIL_TOL, AdaGrad FM_ADAGRAD_TOL);
+    a trace;
+46. ctc_ocr: ``example/ctc/lstm_ocr.py`` at its defaults (6 epochs, batch
+    64, 4,096 examples; cuDNN's bidirectional LSTM and the CTC op's
+    recursion): ``ocr LEARNED``; one step card against CPU (loss within
+    TAIL_TOL, weights TAIL_GRAD_TOL); the CTC op against ``F.ctc_loss``
+    (a yardstick the port does not call) on feasible labels at CTC_SHAPE,
+    losses, gradients and both times; a trace;
+47. svm_mnist: ``example/svm_mnist/svm_mnist.py`` at its defaults:
+    ``svm heads ALL LEARNED``; a trace of the L2-SVM head's step;
+48. ops_tail_card: every name slice 18 registers (``ops/linalg.py``,
+    ``ops/misc_tail.py``, ``ops/sparse.py``, the new ``nn`` names), at
+    the CPU sweep's cases (``tests/torch_tail_cases.py``), forward and
+    gradients on the card against the port on the CPU (TAIL_TOL,
+    gradients TAIL_GRAD_TOL, integers exactly; ``syevd`` and ``gelqf``
+    through sign-invariant forms), PNG decoding, the sparse ex path
+    (``dot`` with its gradient, ``cast_storage``, ``retain``,
+    ``_square_sum``, row_sparse add/sub, the scatter ops,
+    ``row_sparse_pull``), one Module SGD step of a small NHWC
+    Convolution/Pooling/Deconvolution net on the card against the CPU,
+    and that net's ms a step in NHWC and NCHW.
+
+``python3 chip_smoke.py --word-lm`` runs phases 31-35 only,
+``--mnist`` phases 36-42 only, and ``--ops-tail`` phases 43-48 only (no
+nvcc build: the paths run no hand-written kernel).
 
 ``python3 chip_smoke.py --resnet`` runs phases 17-26 only; ``--ckpt``
 runs phases 28-30 only (building the NMS kernel, training the SSD example
@@ -4083,9 +4121,11 @@ def word_lm_example():
                                                proc.stderr[-2000:]))
 
 
-def _op_run(op, inputs, attrs, dev, grad):
+def _op_run(op, inputs, attrs, dev, grad, squares=False):
     """The port's op on numpy ``inputs`` on ``dev``: the outputs and the
-    gradients of the float inputs under a fixed random weighting."""
+    gradients of the float inputs under a fixed random weighting of the
+    outputs (of their squares with ``squares``: a head that does not
+    depend on the signs a solver picks)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, nd
 
@@ -4105,7 +4145,7 @@ def _op_run(op, inputs, attrs, dev, grad):
                     continue
                 w = nd.array(np.asarray(np.random.RandomState(100 + k)
                                         .randn(*o.shape), np.float32))
-                term = (o * w).sum()
+                term = ((o * o if squares else o) * w).sum()
                 head = term if head is None else head + term
         if head is not None:
             head.backward()
@@ -4868,6 +4908,611 @@ def mnist_phases():
     optimizers_card()
 
 
+# -- slice 18: sparse storage and the operator tail ---------------------------
+
+TAIL_TOL, TAIL_GRAD_TOL = 1e-5, 1e-4   # the card against the CPU, fp32
+TAIL_TRACE_STEPS = 5
+# MXNet 1.3's example/sparse/linear_classification on Avazu: 1,000,000
+# features, about 15 stored values a row, batch 8192; 65,536 rows here
+AVAZU = dict(features=1000000, nnz=15, rows=65536, batch=8192, epochs=2)
+AVAZU_PEAK_BYTES = 1 << 30
+# fm with SGD diverges at its defaults in both packages; the JAX package's
+# own test runs it at these (tests/test_sparse_ops.py)
+FM_SGD_ARGS = ["--optimizer", "sgd", "--epochs", "12", "--num-samples",
+               "192", "--feature-dim", "300"]
+# fm's V gradient is a difference of two products, x (x V) - x^2 V, that
+# cancels, and AdaGrad scales each step by the root of its own history,
+# so the last bit of such a gradient (index_add's order on the card)
+# moves a weight by up to lr times its relative error: AdaGrad's 3 steps
+# are held to this, SGD's to TAIL_TOL
+FM_ADAGRAD_TOL = 1e-4
+CTC_SHAPE = (64, 16, 6, 3)  # the OCR example's batch, steps, classes, label
+NHWC_NET = dict(batch=32, side=32, channels=16)
+NHWC_TIME_STEPS = 20
+
+
+def _tail_err(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    return float(np.abs(a - b).max()) if a.size else 0.0
+
+
+def _tail_close(got, want, tol):
+    """Integers exactly, floats within ``tol`` (absolute and relative)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return False
+    if not np.issubdtype(want.dtype, np.floating):
+        return np.array_equal(got, want)
+    return bool(np.allclose(got, want, rtol=tol, atol=tol, equal_nan=True))
+
+
+def _write_avazu(path, seed=0):
+    """An Avazu-shaped LibSVM file from a planted separator: AVAZU's rows,
+    each with AVAZU['nnz'] distinct features out of AVAZU['features'],
+    normal values, the label the separator's sign."""
+    rs = np.random.RandomState(seed)
+    n, k, d = AVAZU["rows"], AVAZU["nnz"], AVAZU["features"]
+    w_true = rs.randn(d)
+    idx = np.sort(rs.randint(0, d, (n, k)), axis=1)
+    dup = np.where((np.diff(idx, axis=1) == 0).any(axis=1))[0]
+    for r in dup:  # a few rows draw the same feature twice: redraw them
+        idx[r] = np.sort(rs.choice(d, k, replace=False))
+    val = rs.randn(n, k)
+    label = ((val * w_true[idx]).sum(axis=1) > 0).astype(int)
+    with open(path, "w") as f:
+        for r in range(n):
+            f.write("%d %s\n" % (label[r], " ".join(
+                "%d:%.4f" % kv for kv in zip(idx[r], val[r]))))
+
+
+def _lc_parity(argv):
+    """3 steps of linear_classification on the card and on the CPU: every
+    step's log loss a sample (the example's reading), w and b, their
+    largest difference."""
+    from mxnet_tpu_torch.example.sparse import linear_classification as lc
+
+    runs = {}
+    for dev in ("gpu", "cpu"):
+        args = lc.parse_args(argv + ["--device", dev])
+        res = lc.run(args, max_steps=3)
+        runs[dev] = (np.asarray(res["losses"]) / args.batch_size,
+                     res["model"].w.asnumpy(), res["model"].b.asnumpy())
+    return {name: _tail_err(g, c) for name, g, c in zip(
+        ("losses", "w", "b"), runs["gpu"], runs["cpu"])}
+
+
+def _lc_trace(res):
+    """The example's step (with its read back) over TAIL_TRACE_STEPS
+    batches of its iterator: the profile, and how many of those CSR
+    batches built their dense value (none should)."""
+    import mxnet_tpu_torch as mx
+
+    it, model = res["iter"], res["model"]
+    it.reset()
+    batches = [b for _, b in zip(range(TAIL_TRACE_STEPS + 1), it)]
+    state = {"i": 0}
+
+    def step():
+        with mx.gpu(0):
+            loss = model.step(batches[state["i"] % len(batches)])
+            float(loss.asnumpy())
+        state["i"] += 1
+
+    step()
+    prof = _device_profile(step, TAIL_TRACE_STEPS)
+    return prof, sum(b.data[0].densified for b in batches)
+
+
+def sparse_lc():
+    """linear_classification at its defaults on the card (IMPROVED), 3
+    steps on the card against the CPU, a trace of its step."""
+    from mxnet_tpu_torch.example.sparse import linear_classification as lc
+
+    res = lc.run(lc.parse_args([]))
+    errs = _lc_parity([])
+    prof, densified = _lc_trace(res)
+    phase("sparse_lc", logloss=[res["first"], res["last"]],
+          improved=res["improved"], steps=res["steps"],
+          step_ms=res["step_ms"], epoch_step_ms=res["epoch_step_ms"],
+          samples_per_s=res["samples_per_s"],
+          card_vs_cpu_max_abs_err=errs, tol=TAIL_TOL,
+          densified_batches=densified, profile=prof)
+    if not res["improved"]:
+        fail("sparse_lc: log loss %.4f -> %.4f is not IMPROVED"
+             % (res["first"], res["last"]))
+    if not max(errs.values()) <= TAIL_TOL:
+        fail("sparse_lc: the card and the CPU disagree: %s" % errs)
+
+
+def sparse_lc_avazu():
+    """The example on an Avazu-shaped file (AVAZU), as MXNet 1.3 runs
+    Avazu: ms a step, samples/s, a trace, the phase's peak memory (under
+    AVAZU_PEAK_BYTES: no batch was made dense); 3 steps card against
+    CPU."""
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch.example.sparse import linear_classification as lc
+
+    path = os.path.join(tempfile.mkdtemp(), "avazu_shape.libsvm")
+    t0 = time.perf_counter()
+    _write_avazu(path)
+    write_s = time.perf_counter() - t0
+    argv = ["--data", path, "--feature-dim", str(AVAZU["features"]),
+            "--batch-size", str(AVAZU["batch"]), "--epochs",
+            str(AVAZU["epochs"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = lc.run(lc.parse_args(argv))
+    run_s = time.perf_counter() - t0
+    prof, densified = _lc_trace(res)
+    peak = torch.cuda.max_memory_allocated()
+    errs = _lc_parity(argv)
+    phase("sparse_lc_avazu", rows=AVAZU["rows"], features=AVAZU["features"],
+          nnz_per_row=AVAZU["nnz"], batch=AVAZU["batch"],
+          epochs=AVAZU["epochs"], write_s=write_s, run_s=run_s,
+          logloss=[res["first"], res["last"]], steps=res["steps"],
+          step_ms=res["step_ms"], epoch_step_ms=res["epoch_step_ms"],
+          samples_per_s=res["samples_per_s"],
+          peak_bytes=peak, resident_at_start_bytes=base,
+          peak_limit=AVAZU_PEAK_BYTES,
+          densified_batches=densified, card_vs_cpu_max_abs_err=errs,
+          tol=TAIL_TOL, profile=prof)
+    os.remove(path)
+    if densified or not peak - base < AVAZU_PEAK_BYTES:
+        fail("sparse_lc_avazu: peak memory %d bytes above the %d resident "
+             "at the start (limit %d), %d batches made dense"
+             % (peak - base, base, AVAZU_PEAK_BYTES, densified))
+    if not max(errs.values()) <= TAIL_TOL:
+        fail("sparse_lc_avazu: the card and the CPU disagree: %s" % errs)
+
+
+def sparse_fm():
+    """fm.py with SGD (at FM_SGD_ARGS) and with AdaGrad (at its defaults)
+    on the card: IMPROVED both; 3 steps card against CPU each; a trace of
+    the AdaGrad step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.sparse import fm
+
+    out, bad = {}, []
+    for name, argv, tol in (("sgd", FM_SGD_ARGS, TAIL_TOL),
+                            ("adagrad", ["--optimizer", "adagrad"],
+                             FM_ADAGRAD_TOL)):
+        res = fm.run(fm.parse_args(argv))
+        runs = {}
+        for dev in ("gpu", "cpu"):
+            args = fm.parse_args(argv + ["--device", dev])
+            r = fm.run(args, max_steps=3)
+            runs[dev] = [np.asarray(r["losses"]) / args.batch_size] + [
+                p.asnumpy() for p in r["model"].params]
+        errs = {k: _tail_err(g, c) for k, g, c in zip(
+            ("losses", "w1", "b", "v"), runs["gpu"], runs["cpu"])}
+        out[name] = dict(mse=[res["mse"][0], res["mse"][-1]],
+                         improved=res["improved"], steps=res["steps"],
+                         step_ms=res["step_ms"],
+                         epoch_step_ms=res["epoch_step_ms"],
+                         card_vs_cpu_max_abs_err=errs, tol=tol)
+        if not res["improved"]:
+            bad.append("%s: mse %s not IMPROVED" % (name, res["mse"]))
+        if not max(errs.values()) <= tol:
+            bad.append("%s: card against CPU %s" % (name, errs))
+    model, batches = res["model"], res["batches"]
+    state = {"i": 0}
+
+    def step():
+        with mx.gpu(0):
+            x, y = batches[state["i"] % len(batches)]
+            float(model.step(x, y).asnumpy())
+        state["i"] += 1
+
+    step()
+    prof = _device_profile(step, TAIL_TRACE_STEPS)
+    phase("sparse_fm", sgd_args=FM_SGD_ARGS, profile=prof, **out)
+    if bad:
+        fail("sparse_fm: %s" % bad)
+
+
+def _ocr_step_parity():
+    """One step of the OCR example's net from the same seeded weights on
+    the card and on the CPU: the loss and every weight after it."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.example.ctc import lstm_ocr
+
+    x, y = lstm_ocr.make_data(64, np.random.RandomState(21))
+    runs = {}
+    for dev, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        with ctx:
+            mx.random.seed(7)
+            net, lossfn, trainer = lstm_ocr.build()
+            loss = lstm_ocr.train_step(net, lossfn, trainer, nd.array(x),
+                                       nd.array(y))
+            runs[dev] = [loss.asnumpy()] + [
+                p.data().asnumpy() for p in net.collect_params().values()]
+    errs = [_tail_err(g, c) for g, c in zip(runs["card"], runs["cpu"])]
+    return {"loss": errs[0], "weights": max(errs[1:])}
+
+
+def _ctc_against_library():
+    """The CTC op against ``F.ctc_loss`` (a yardstick the port does not
+    call) at the OCR example's shape on feasible labels: the losses and
+    the data's gradients, and each one's forward + backward time."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.nn import ctc_loss
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    b, t, c, lab_len = CTC_SHAPE
+    rs = np.random.RandomState(3)
+    data = torch.tensor(rs.randn(b, t, c), dtype=torch.float32,
+                        device="cuda", requires_grad=True)
+    lab = torch.tensor(rs.randint(1, c, (b, lab_len)), device="cuda")
+    attrs = get_op("CTCLoss").parse_attrs({})
+    lengths = torch.full((b,), lab_len, dtype=torch.int64, device="cuda")
+    steps = torch.full((b,), t, dtype=torch.int64, device="cuda")
+
+    def ours():
+        loss = ctc_loss(attrs, data, lab.to(torch.float32))
+        return loss, torch.autograd.grad(loss.sum(), data)[0]
+
+    def library():
+        logp = torch.log_softmax(data, -1).transpose(0, 1)
+        loss = F.ctc_loss(logp, lab, steps, lengths, blank=0,
+                          reduction="none")
+        return loss, torch.autograd.grad(loss.sum(), data)[0]
+
+    (l1, g1), (l2, g2) = ours(), library()
+    return dict(shape=CTC_SHAPE,
+                loss_max_abs_err=_tail_err(l1.detach().cpu(),
+                                           l2.detach().cpu()),
+                grad_max_abs_err=_tail_err(g1.cpu(), g2.cpu()),
+                op_ms=time_ms(ours, iters=20),
+                f_ctc_loss_ms=time_ms(library, iters=20))
+
+
+def ctc_ocr():
+    """lstm_ocr.py at its defaults on the card (ocr LEARNED), one step
+    card against CPU, the CTC op against F.ctc_loss, a trace of its
+    step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.example.ctc import lstm_ocr
+
+    res = lstm_ocr.run(lstm_ocr.parse_args([]))
+    errs = _ocr_step_parity()
+    lib = _ctc_against_library()
+    x, y = lstm_ocr.make_data(64, np.random.RandomState(5))
+    with mx.gpu(0):
+        net, lossfn, trainer = lstm_ocr.build()
+        data, label = nd.array(x), nd.array(y)
+
+    def step():
+        with mx.gpu(0):
+            loss = lstm_ocr.train_step(net, lossfn, trainer, data, label)
+            float(loss.mean().asscalar())
+
+    step()
+    prof = _device_profile(step, TAIL_TRACE_STEPS)
+    phase("ctc_ocr", loss=[res["loss"][0], res["loss"][-1]],
+          per_char=res["per_char"], exact=res["exact"], steps=res["steps"],
+          step_ms=res["step_ms"], epoch_step_ms=res["epoch_step_ms"],
+          card_vs_cpu_max_abs_err=errs,
+          tol=TAIL_TOL, grad_tol=TAIL_GRAD_TOL, ctc_vs_f_ctc_loss=lib,
+          profile=prof)
+    if not res["ok"]:
+        fail("ctc_ocr: per-char accuracy %.3f, not LEARNED"
+             % res["per_char"])
+    if not (errs["loss"] <= TAIL_TOL and errs["weights"] <= TAIL_GRAD_TOL):
+        fail("ctc_ocr: the card and the CPU disagree: %s" % errs)
+    if not (lib["loss_max_abs_err"] <= 1e-4
+            and lib["grad_max_abs_err"] <= 1e-4):
+        fail("ctc_ocr: the op and F.ctc_loss disagree on feasible labels: "
+             "%s" % lib)
+
+
+def svm_mnist():
+    """svm_mnist.py at its defaults on the card (svm heads ALL LEARNED),
+    then a trace of the L2-SVM head's step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.example.svm_mnist import svm_mnist as svm
+
+    res = svm.run(svm.parse_args([]))
+    rs = np.random.RandomState(31)
+    x, y = svm.make_data(64, rs)
+    with mx.gpu(0):
+        net, lossfn, _, trainer = svm.build("l2svm")
+        data, label = nd.array(x), nd.array(svm.one_hot_pm1(y))
+
+    def step():
+        with mx.gpu(0):
+            svm.train_step(net, lossfn, trainer, data, label)
+
+    step()
+    prof = _device_profile(step, TAIL_TRACE_STEPS)
+    phase("svm_mnist", accuracy=res["accuracy"], steps=res["steps"],
+          seconds=res["seconds"], step_ms=res["step_ms"], profile=prof)
+    if not res["ok"]:
+        fail("svm_mnist: test accuracy %s, not ALL LEARNED"
+             % res["accuracy"])
+
+
+def _tail_sparse_checks():
+    """The sparse ex path on the card against the CPU: name -> (card's
+    arrays, CPU's arrays)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ndarray import sparse as mxs
+
+    rs = np.random.RandomState(17)
+    a = (rs.randn(12, 8) * (rs.rand(12, 8) < 0.3)).astype(np.float32)
+    a[4] = 0
+    dense = rs.randn(8, 5).astype(np.float32)
+    dense_t = rs.randn(12, 5).astype(np.float32)
+    vec = rs.randn(8).astype(np.float32)
+    ids = rs.randint(0, 12, (3, 4)).astype(np.int64)
+    w_emb = rs.randn(12, 6).astype(np.float32)
+    div = rs.uniform(0.5, 2.0, (12, 8)).astype(np.float32)
+
+    def parts(x):
+        if x.stype == "default":
+            return [x.asnumpy()]
+        out = [x.data.asnumpy(), x.indices.asnumpy()]
+        return out + ([x.indptr.asnumpy()] if x.stype == "csr" else [])
+
+    def dot_grad(transpose_a):
+        csr = mxs.csr_matrix(a)
+        w = nd.array(dense_t if transpose_a else dense)
+        w.attach_grad()
+        with autograd.record():
+            y = mxs.dot(csr, w, transpose_a=transpose_a)
+            (y * y).sum().backward()
+        return [y.asnumpy(), w.grad.asnumpy(),
+                np.asarray(csr.densified)]
+
+    def embedding():
+        w = nd.array(w_emb)
+        w.attach_grad()
+        with autograd.record():
+            e = nd.invoke("_contrib_SparseEmbedding", nd.array(ids), w,
+                          input_dim=12, output_dim=6)
+            (e * e).sum().backward()
+        return [e.asnumpy(), w.grad.asnumpy()]
+
+    def rsp_ops():
+        ra = mxs.cast_storage(nd.array(a), "row_sparse")
+        rb = mxs.cast_storage(nd.array(np.flipud(a).copy()), "row_sparse")
+        out = []
+        for r in (nd.invoke("elemwise_add", ra, rb),
+                  nd.invoke("elemwise_sub", ra, rb),
+                  mxs.retain(ra, [0, 4, 7]),
+                  nd.invoke("_square_sum", ra, axis=(1,), keepdims=True),
+                  nd.invoke("_square_sum", ra, axis=(0,)),
+                  nd.invoke("_square_sum", ra)):
+            out += parts(r)
+        return out
+
+    def scatter():
+        out = []
+        for stype in ("row_sparse", "csr"):
+            s = mxs.cast_storage(nd.array(a), stype)
+            for r in (nd.invoke("_scatter_plus_scalar", s, scalar=1.5),
+                      nd.invoke("_scatter_minus_scalar", s, scalar=0.5),
+                      nd.invoke("_scatter_elemwise_div", s, nd.array(div))):
+                out += parts(r)
+        return out
+
+    def pull():
+        kv = mx.kv.create("local")
+        kv.init("w", nd.array(w_emb))
+        out = mxs.zeros("row_sparse", (12, 6))
+        kv.row_sparse_pull("w", out=out, row_ids=nd.array([7, 2, 7],
+                                                          dtype="int64"))
+        return parts(out)
+
+    cases = {
+        "cast_storage": lambda: parts(mxs.cast_storage(nd.array(a), "csr"))
+        + parts(mxs.cast_storage(nd.array(a), "row_sparse"))
+        + parts(mxs.cast_storage(mxs.csr_matrix(a), "row_sparse")),
+        "dot_csr_dense": lambda: dot_grad(False),
+        "dot_csr_t_dense": lambda: dot_grad(True),
+        "dot_csr_vector": lambda: [mxs.dot(mxs.csr_matrix(a),
+                                           nd.array(vec)).asnumpy()],
+        "row_sparse_ops": rsp_ops, "scatter_sparse": scatter,
+        "SparseEmbedding": embedding, "row_sparse_pull": pull,
+    }
+    out = {}
+    for name, fn in cases.items():
+        with mx.gpu(0):
+            got = fn()
+        with mx.cpu():
+            want = fn()
+        out[name] = (got, want)
+    return out
+
+
+def _tail_net(layout):
+    """Convolution, relu, max pool, Deconvolution, FullyConnected(10),
+    SoftmaxOutput, in ``layout``."""
+    from mxnet_tpu_torch import sym
+
+    y = sym.Convolution(sym.var("data"), kernel=(3, 3), pad=(1, 1),
+                        num_filter=16, layout=layout, name="conv")
+    y = sym.Activation(y, act_type="relu", name="relu")
+    y = sym.Pooling(y, kernel=(2, 2), stride=(2, 2), pool_type="max",
+                    layout=layout, name="pool")
+    y = sym.Deconvolution(y, kernel=(2, 2), stride=(2, 2), num_filter=8,
+                          layout=layout, name="deconv")
+    y = sym.FullyConnected(y, num_hidden=10, name="fc")
+    return sym.SoftmaxOutput(y, name="softmax")
+
+
+def _tail_module(ctx, layout, seed=0):
+    import mxnet_tpu_torch as mx
+
+    n, s, c = NHWC_NET["batch"], NHWC_NET["side"], NHWC_NET["channels"]
+    shape = (n, s, s, c) if layout == "NHWC" else (n, c, s, s)
+    with ctx:
+        mx.random.seed(seed)
+        mod = mx.mod.Module(_tail_net(layout), context=ctx)
+        mod.bind(data_shapes=[("data", shape)],
+                 label_shapes=[("softmax_label", (n,))])
+        mod.init_params(mx.initializer.Xavier())
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        rs = np.random.RandomState(seed + 1)
+        batch = mx.io.DataBatch([mx.nd.array(rs.rand(*shape))],
+                                [mx.nd.array(rs.randint(0, 10, n))])
+    return mod, batch
+
+
+def _nhwc_module_checks():
+    """One Module SGD step of the NHWC net on the card against the CPU,
+    and the net's ms a step in NHWC and NCHW on the card."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    runs = {}
+    for dev, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        mod, batch = _tail_module(ctx, "NHWC")
+        with ctx:
+            mod.forward_backward(batch)
+            mod.update()
+            args, _ = mod.get_params()
+            runs[dev] = (mod.get_outputs()[0].asnumpy(),
+                         {k: v.asnumpy() for k, v in args.items()})
+    errs = {"outputs": _tail_err(runs["card"][0], runs["cpu"][0]),
+            "weights": max(_tail_err(runs["card"][1][k], runs["cpu"][1][k])
+                           for k in runs["cpu"][1])}
+    ms = {}
+    for layout in ("NHWC", "NCHW"):
+        mod, batch = _tail_module(mx.gpu(0), layout)
+
+        def step():
+            with mx.gpu(0):
+                mod.forward_backward(batch)
+                mod.update()
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NHWC_TIME_STEPS):
+            step()
+        torch.cuda.synchronize()
+        ms[layout] = (time.perf_counter() - t0) * 1e3 / NHWC_TIME_STEPS
+    return errs, ms
+
+
+def ops_tail_card():
+    """Every name slice 18 registers, forward and gradient on the card
+    against the port on the CPU (tests/torch_tail_cases.py), the sparse
+    ex path, PNG decoding, and the NHWC Module step."""
+    import inspect
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_tail_cases as cases
+
+    from mxnet_tpu_torch import image
+    from mxnet_tpu_torch.ops.registry import OP_REGISTRY
+
+    bad, checked, names = [], 0, set()
+
+    def compare(label, got, want, grad_from=None):
+        nonlocal checked
+        checked += 1
+        for k, (g, w) in enumerate(zip(got, want)):
+            tol = TAIL_GRAD_TOL if grad_from is not None and k >= grad_from \
+                else TAIL_TOL
+            if not _tail_close(g, w, tol):
+                bad.append("%s[%d]: max abs err %s" % (label, k,
+                                                       _tail_err(g, w)))
+        if len(got) != len(want):
+            bad.append("%s: %d arrays against %d" % (label, len(got),
+                                                     len(want)))
+
+    def run_case(name, op, specs, attrs, flags):
+        from torch_op_cases import make_inputs
+
+        inputs = make_inputs(specs, "float32", seed=11)
+        sign_free = op in ("_linalg_syevd", "_linalg_gelqf")
+        got = _op_run(name, inputs, attrs, "cuda", flags["grad"], sign_free)
+        want = _op_run(name, inputs, attrs, "cpu", flags["grad"], sign_free)
+        n_out = len(want) - sum(flags["grad"] and x.dtype == np.float32
+                                for x in inputs)
+        if sign_free:  # the solver's signs: compare invariants
+            outs = cases.sign_invariant(op, want[:n_out])
+            got = cases.sign_invariant(op, got[:n_out]) + got[n_out:]
+            want, n_out = outs + want[n_out:], len(outs)
+        compare(name if name == op else "%s(%s)" % (name, op), got, want,
+                grad_from=n_out)
+        names.add(name)
+
+    for key in sorted(cases.TAIL_CASES):
+        op, specs, attrs, flags = cases.TAIL_CASES[key]
+        run_case(op, op, specs, attrs, flags)
+    for key, (op, inputs) in sorted(cases.SIGN_CASES.items()):
+        run_case(op, op, inputs, {}, {"grad": True})
+    for alias in sorted(n for v in cases.ALIASES.values() for n in v):
+        run_case(alias, *cases.canonical(alias, OP_REGISTRY))
+    # decoding: PNG bytes written by the port's encoder, and the file
+    import tempfile
+
+    img = np.random.RandomState(4).randint(0, 256, (9, 7, 3)).astype(
+        np.uint8)
+    raw = np.frombuffer(image.imencode(img, ".png"), np.uint8)
+    path = os.path.join(tempfile.mkdtemp(), "img.png")
+    with open(path, "wb") as f:
+        f.write(raw.tobytes())
+    for name in ("_cvimdecode", "imdecode_op"):
+        for flag in (0, 1):
+            compare("%s(flag=%d)" % (name, flag),
+                    _op_run(name, [raw], {"flag": flag}, "cuda", False),
+                    _op_run(name, [raw], {"flag": flag}, "cpu", False))
+        names.add(name)
+    compare("_cvimread", _op_run("_cvimread", [], {"filename": path},
+                                 "cuda", False), [img])
+    names.add("_cvimread")
+    os.remove(path)
+    sparse = _tail_sparse_checks()
+    for label, (got, want) in sparse.items():
+        compare("sparse:" + label, got, want, grad_from=1)
+    names |= {"_sparse_retain"}
+    errs, layout_ms = _nhwc_module_checks()
+    mods = {"mxnet_tpu_torch.ops.linalg", "mxnet_tpu_torch.ops.misc_tail",
+            "mxnet_tpu_torch.ops.sparse"}
+    registered = {n for n, o in OP_REGISTRY.items()
+                  if inspect.getmodule(o.fcompute).__name__ in mods}
+    missing = sorted((registered | set(cases.NN_NAMES)) - names)
+    phase("ops_tail_card", names=len(names), checks=checked,
+          tol=TAIL_TOL, grad_tol=TAIL_GRAD_TOL, failed=bad,
+          unchecked=missing, nhwc_module_step_max_abs_err=errs,
+          module_step_ms=layout_ms, nhwc_net=NHWC_NET)
+    if bad or missing:
+        fail("ops_tail_card: the card disagrees with the CPU: %s; not "
+             "checked: %s" % (bad, missing))
+    if not (errs["outputs"] <= TAIL_TOL and errs["weights"]
+            <= TAIL_GRAD_TOL):
+        fail("ops_tail_card: the NHWC Module step disagrees: %s" % errs)
+
+
+def tail_phases():
+    sparse_lc()
+    sparse_lc_avazu()
+    sparse_fm()
+    ctc_ocr()
+    svm_mnist()
+    ops_tail_card()
+
+
 def main():
     import torch
 
@@ -4933,6 +5578,13 @@ def main():
         # only the MNIST slice's phases (no kernel is built: the path runs
         # none)
         mnist_phases()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--ops-tail"]:
+        # only slice 18's phases (no kernel is built: the paths run none)
+        tail_phases()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5036,6 +5688,7 @@ def main():
     zoo_score()
     word_lm_phases()
     mnist_phases()
+    tail_phases()
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
                                   nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

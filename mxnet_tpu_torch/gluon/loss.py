@@ -1,12 +1,17 @@
-"""Gluon losses: the port of ``Loss``, ``L2Loss``, ``L1Loss`` and
-``SoftmaxCrossEntropyLoss`` from ``mxnet_tpu/gluon/loss.py``. The other
-losses of the JAX module are not ported yet."""
+"""Gluon losses: the port of ``mxnet_tpu/gluon/loss.py``, all twelve.
+
+``CTCLoss`` calls the ``CTCLoss`` op (``ops/nn.py``) with the op's
+default ``blank_label='first'``, as the JAX package's does; MXNet 1.3's
+gluon ``CTCLoss`` passes ``'last'``.
+"""
 from __future__ import annotations
 
 from .block import HybridBlock
 
-__all__ = ["Loss", "L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
-           "SoftmaxCELoss"]
+__all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
+           "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
+           "KLDivLoss", "CTCLoss", "HuberLoss", "HingeLoss",
+           "SquaredHingeLoss", "LogisticLoss", "TripletLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -58,6 +63,31 @@ class L1Loss(Loss):
         return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """Binary cross-entropy of a logit (the stable form ``relu(x) - x z
+    + softrelu(-|x|)``) or, with ``from_sigmoid``, of a probability."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        if not self._from_sigmoid:
+            loss = F.relu(pred) - pred * label + \
+                F.Activation(F.abs(pred) * -1.0, act_type="softrelu")
+        else:
+            eps = 1e-12
+            loss = -(F.log(pred + eps) * label
+                     + F.log(1.0 - pred + eps) * (1.0 - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
+
+
 class SoftmaxCrossEntropyLoss(Loss):
     """log_softmax -> -pick(label) -> mean over all but the batch axis
     (``mxnet_tpu/gluon/loss.py:102-121``)."""
@@ -82,3 +112,137 @@ class SoftmaxCrossEntropyLoss(Loss):
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    """label * (log(label + 1e-12) - pred), pred log-probabilities (or
+    logits without ``from_logits``)."""
+
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification through the ``CTCLoss`` op:
+    pred (N, T, C) (``layout='TNC'``: (T, N, C)), label (N, L) (or
+    ``'TN'``), optional lengths; one loss a sample."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise ValueError("Only 'NTC' and 'TNC' layouts for pred are "
+                             "supported.")
+        if label_layout not in ("NT", "TN"):
+            raise ValueError("Only 'NT' and 'TN' layouts for label are "
+                             "supported.")
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "TNC":
+            pred = pred.transpose((1, 0, 2))
+        if self._label_layout == "TN":
+            label = label.transpose((1, 0))
+        args = [pred, label]
+        if pred_lengths is not None:
+            args.append(pred_lengths)
+        if label_lengths is not None:
+            args.append(label_lengths)
+        loss = F.invoke("CTCLoss", *args,
+                        use_data_lengths=pred_lengths is not None,
+                        use_label_lengths=label_lengths is not None)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class HuberLoss(Loss):
+    """Smooth L1: |d| - rho / 2 above ``rho``, d^2 / (2 rho) below."""
+
+    def __init__(self, rho=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.abs(pred - label)
+        loss = F.where(loss > self._rho, loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class HingeLoss(Loss):
+    """max(0, margin - pred * label), labels -1 or 1."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class SquaredHingeLoss(Loss):
+    """max(0, margin - pred * label)^2, labels -1 or 1."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class LogisticLoss(Loss):
+    """log(1 + exp(-pred * label)): labels -1/1 (``signed``) or 0/1
+    (``binary``)."""
+
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+        if label_format not in ("signed", "binary"):
+            raise ValueError("label_format can only be signed or binary, "
+                             "received %s." % label_format)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = F.relu(pred) - pred * label + \
+            F.Activation(F.abs(pred) * -1.0, act_type="softrelu")
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class TripletLoss(Loss):
+    """max(0, margin + |pred - positive|^2 - |pred - negative|^2)."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative):
+        positive = positive.reshape(pred.shape)
+        negative = negative.reshape(pred.shape)
+        loss = F.sum(F.square(pred - positive) - F.square(pred - negative),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, None)

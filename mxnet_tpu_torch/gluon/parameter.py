@@ -42,7 +42,8 @@ class Parameter(object):
 
     def __init__(self, name, grad_req="write", shape=None, dtype=np.float32,
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False, differentiable=True):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self._data = None  # OrderedDict ctx -> NDArray
         self._grad = None
         self._ctx_list = None
@@ -61,10 +62,24 @@ class Parameter(object):
         self.wd_mult = wd_mult
         self.grad_req = grad_req
         self.init = init
+        if stype not in ("default", "row_sparse", "csr"):
+            raise MXNetError("invalid stype %r" % (stype,))
+        self._stype = stype
+        self._grad_stype = grad_stype
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
                                                       self.dtype)
+
+    @property
+    def stype(self):
+        """The storage the parameter declares (its value is dense, as in
+        the JAX package)."""
+        return self._stype
+
+    @property
+    def grad_stype(self):
+        return self._grad_stype
 
     @property
     def grad_req(self):
@@ -241,6 +256,17 @@ class Parameter(object):
 
     def data(self, ctx=None) -> NDArray:
         return self._check_and_get(self._data, ctx)
+
+    def row_sparse_data(self, row_id):
+        """The value for the rows ``row_id``: the dense value, as the JAX
+        package gives it (``mxnet_tpu/gluon/parameter.py:247``)."""
+        return self.data()
+
+    def list_row_sparse_data(self, row_id):
+        return self.list_data()
+
+    def list_data(self):
+        return self._check_and_get(self._data, list)
 
     def grad(self, ctx=None) -> NDArray:
         if self._data is not None and self._grad is None:

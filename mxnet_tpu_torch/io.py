@@ -1,26 +1,29 @@
-"""Data iterators: the port of the part of ``mxnet_tpu/io.py`` the SSD
-and MNIST paths use: ``DataDesc``, ``DataBatch``, ``DataIter``,
-``NDArrayIter`` and ``MNISTIter`` (idx files, plain or ``.gz``).
+"""Data iterators: the port of the part of ``mxnet_tpu/io.py`` the SSD,
+MNIST and sparse paths use: ``DataDesc``, ``DataBatch``, ``DataIter``,
+``NDArrayIter``, ``MNISTIter`` (idx files, plain or ``.gz``) and
+``LibSVMIter`` (CSR batches).
 
 An iterator fixes its context when it is made (the current context, so
 the card unless a ``with mx.cpu():`` scope asks for the host, and an
 error without a card) and hands out batches there. Shuffling draws from
 :func:`mx.random.np_rng`, as the JAX package does, so one seed gives the
-same order in both. The prefetching, CSV, LibSVM and record iterators
-of the JAX module are not ported yet.
+same order in both. The prefetching, CSV and record iterators of the
+JAX module are not ported yet.
 """
 from __future__ import annotations
 
 from collections import namedtuple
 
 import numpy as np
+import torch
 
 from .base import MXNetError
 from .context import current_context
 from .ndarray import ndarray as nd_mod
 from .ndarray.ndarray import NDArray
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter",
+           "LibSVMIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -233,3 +236,109 @@ class MNISTIter(NDArrayIter):
         elif input_shape is not None:
             img = img.reshape((n,) + tuple(input_shape))
         super().__init__(img, lab, batch_size=batch_size, shuffle=shuffle)
+
+
+def _parse_libsvm(path):
+    """(first label of each row, row offsets, column ids, values) of a
+    LibSVM text file: ``label[,label...] idx:value idx:value ...`` a
+    line, blank lines skipped."""
+    labels, indptr, indices, values = [], [0], [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            labels.append(float(parts[0].split(",")[0]))
+            for tok in parts[1:]:
+                k, _, v = tok.partition(":")
+                indices.append(int(k))
+                values.append(float(v))
+            indptr.append(len(indices))
+    return (np.asarray(labels, np.float32), np.asarray(indptr, np.int64),
+            np.asarray(indices, np.int64), np.asarray(values, np.float32))
+
+
+class LibSVMIter(DataIter):
+    """Sparse batches of a LibSVM file (reference ``src/iter_libsvm.cc``,
+    ``mxnet_tpu/io.py:633-735``): the data of a batch is a
+    ``CSRNDArray`` of shape (rows, prod(data_shape)), its triple copied
+    to the iterator's context once, never made dense; the label is the
+    line's first label, or with ``label_libsvm`` the dense rows of a
+    second LibSVM file (``label_shape`` wide, else its largest index + 1).
+    ``round_batch`` fills the last batch from the first rows (its
+    ``pad`` says how many); without it the last batch is short."""
+
+    def __init__(self, data_libsvm, data_shape, batch_size,
+                 label_libsvm=None, label_shape=None, round_batch=True,
+                 data_name="data", label_name="softmax_label", **_ignored):
+        super().__init__(batch_size)
+        self._ctx = current_context()
+        self.data_shape = (data_shape,) if isinstance(data_shape, int) \
+            else tuple(data_shape)
+        self.num_features = int(np.prod(self.data_shape))
+        self.round_batch = round_batch
+        self.data_name = data_name
+        self.label_name = label_name
+        labels, self._indptr, self._indices, self._values = \
+            _parse_libsvm(data_libsvm)
+        self.num_rows = len(labels)
+        if label_libsvm:
+            _, lptr, lidx, lval = _parse_libsvm(label_libsvm)
+            if len(lptr) - 1 != self.num_rows:
+                raise MXNetError("label_libsvm row count mismatch")
+            counts = np.diff(lptr)
+            width = int(np.prod(label_shape)) if label_shape else max(
+                [int(lidx[e - 1]) + 1 if c else 1
+                 for c, e in zip(counts, lptr[1:])])
+            labels = np.zeros((self.num_rows, width), np.float32)
+            labels[np.repeat(np.arange(self.num_rows), counts), lidx] = lval
+        self._labels = labels
+        self.cur = 0
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self.data_name, (self.batch_size,
+                                          self.num_features))]
+
+    @property
+    def provide_label(self):
+        shape = (self.batch_size,) if self._labels.ndim == 1 \
+            else (self.batch_size, self._labels.shape[1])
+        return [DataDesc(self.label_name, shape)]
+
+    def reset(self):
+        self.cur = 0
+
+    def iter_next(self):
+        return self.cur < self.num_rows
+
+    def _rows(self, lo, hi):
+        """The CSR triple of rows lo..hi, offsets from 0."""
+        a, b = self._indptr[lo], self._indptr[hi]
+        return (self._values[a:b], self._indices[a:b],
+                self._indptr[lo:hi + 1] - a)
+
+    def next(self):
+        from .ndarray.sparse import CSRNDArray
+
+        if self.cur >= self.num_rows:
+            raise StopIteration
+        end = min(self.cur + self.batch_size, self.num_rows)
+        values, indices, indptr = self._rows(self.cur, end)
+        labels = self._labels[self.cur:end]
+        pad = self.batch_size - (end - self.cur)
+        if pad and self.round_batch:
+            wv, wi, wp = self._rows(0, pad)  # wrap, as the reference
+            values = np.concatenate([values, wv])
+            indices = np.concatenate([indices, wi])
+            indptr = np.concatenate([indptr, wp[1:] + indptr[-1]])
+            labels = np.concatenate([labels, self._labels[:pad]], axis=0)
+        self.cur = end
+        dev = self._ctx.torch_device()
+        data = CSRNDArray(torch.from_numpy(values).to(dev),
+                          torch.from_numpy(indices).to(dev),
+                          torch.from_numpy(indptr).to(dev),
+                          (len(indptr) - 1, self.num_features))
+        return DataBatch([data], [nd_mod.array(labels, ctx=self._ctx)],
+                         pad=pad, provide_data=self.provide_data,
+                         provide_label=self.provide_label)

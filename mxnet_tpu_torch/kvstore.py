@@ -168,9 +168,13 @@ class KVStore(object):
                 _copy_into(dst, data)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        """Pull the rows ``row_ids`` (reference kvstore.py:314): each out
-        gets the full-shape value with the other rows zero, a dense
-        gather as in the JAX package."""
+        """Pull the rows ``row_ids`` (reference kvstore.py:314). A
+        ``RowSparseNDArray`` out takes those rows (sorted, once each) as
+        its stored rows; a dense out gets the full-shape value with the
+        other rows zero, copied into its own tensor in place (a captured
+        plane holds that address), as the JAX package's dense gather."""
+        from .ndarray.sparse import RowSparseNDArray
+
         if out is None or row_ids is None:
             raise MXNetError("row_sparse_pull needs out= and row_ids=")
         for k, o in _key_value_pairs(key, out):
@@ -185,6 +189,14 @@ class KVStore(object):
             for dst, rid in zip(outs, rids):
                 rows = _tensor(rid).to(device=full.device,
                                        dtype=torch.int64)
+                if isinstance(dst, RowSparseNDArray):
+                    rows = torch.unique(rows.reshape(-1))
+                    dev = dst._values.device
+                    dst._values = full[rows].to(dev)
+                    dst._indices = rows.to(dev)
+                    dst._full_shape = tuple(full.shape)
+                    dst._dense = None  # built again from the new rows
+                    continue
                 gathered = torch.zeros_like(full)
                 gathered[rows] = full[rows]
                 _copy_into(dst, gathered)

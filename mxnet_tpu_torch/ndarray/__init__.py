@@ -4,9 +4,9 @@ the registry as the JAX package's ``ndarray/__init__.py`` does,
 module-level functions (``full``, ``arange``, ``stack``, ``waitall``,
 ``moveaxis``, ``histogram``, the dlpack pair, ...) and the reference's
 aliases (``power``, ``maximum``, ``equal``, ...), ``nd.random`` (the
-samplers), ``nd.contrib``, the ``_contrib_*`` ops under their short
-names, and ``save``/``load`` of the ``.params`` container
-(:mod:`.io_utils`)."""
+samplers), ``nd.sparse`` (CSR and row_sparse storage), ``nd.contrib``,
+the ``_contrib_*`` ops under their short names, and ``save``/``load`` of
+the ``.params`` container (:mod:`.io_utils`)."""
 import sys as _sys
 
 from .. import ops as _ops  # noqa: F401  (registers the ops)
@@ -19,13 +19,16 @@ from .ndarray import (NDArray, arange, array, concat, concatenate, empty,
                       onehot_encode, ones, stack, to_dlpack_for_read,
                       to_dlpack_for_write, true_divide, waitall, zeros)
 from . import random  # noqa: F401
+from . import sparse  # noqa: F401
+from .sparse import CSRNDArray, RowSparseNDArray
 
 __all__ = ["NDArray", "array", "invoke", "ones", "zeros", "full", "empty",
            "arange", "eye", "concat", "stack", "waitall", "onehot_encode",
            "concatenate", "moveaxis", "histogram", "logical_and",
            "logical_or", "logical_xor", "modulo", "true_divide", "imdecode",
            "to_dlpack_for_read", "to_dlpack_for_write", "from_dlpack",
-           "random", "save", "load"]
+           "random", "save", "load", "sparse", "RowSparseNDArray",
+           "CSRNDArray"]
 
 
 def _make_op_func(_name):

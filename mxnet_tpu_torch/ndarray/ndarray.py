@@ -187,10 +187,13 @@ class NDArray:
     wait_to_write = wait_to_read
 
     def tostype(self, stype):
-        """``'default'`` gives a copy; sparse storage is not ported."""
+        """``'default'`` gives a copy; ``'csr'`` or ``'row_sparse'`` the
+        sparse array (``cast_storage``)."""
         if stype == "default":
             return self.copy()
-        raise MXNetError("tostype(%r): not ported yet (sparse)" % (stype,))
+        from .sparse import cast_storage
+
+        return cast_storage(self, stype)
 
     def to_dlpack_for_read(self):
         """A DLPack capsule sharing this array's memory, after its stream
@@ -206,7 +209,11 @@ class NDArray:
 
     # -- autograd ---------------------------------------------------------
     def attach_grad(self, grad_req: str = "write", stype=None):
-        """Mark this array as a gradient leaf with a zero ``.grad``."""
+        """Mark this array as a gradient leaf with a zero ``.grad``. The
+        gradient is dense whatever ``stype`` asks, as in the JAX package
+        (a sparse dot's gradient reaches a dense weight densely)."""
+        if stype not in (None, "default", "row_sparse", "csr"):
+            raise MXNetError("attach_grad: unknown stype %r" % (stype,))
         _make_leaf(self, grad_req)
         self._grad = NDArray(torch.zeros_like(self._data))
         # a leaf no backward has reached yet is stale (Trainer's
@@ -541,6 +548,24 @@ def invoke(op_name: str, *inputs, out=None, **kwargs):
 
     opdef = get_op(op_name)
     attrs = opdef.parse_attrs(kwargs)
+    if opdef.fcompute_ex is not None:
+        from .sparse import BaseSparseNDArray
+
+        if opdef.dispatch_ex_always or any(
+                isinstance(i, BaseSparseNDArray) for i in inputs):
+            # an ex op without a gradient must not drop the tape: while
+            # recording with a dense input in the graph, an op whose
+            # dense fcompute is a full equivalent takes that path (the
+            # sparse input's dense value read on the way)
+            dense_tape = (opdef.ex_grad_fallback
+                          and not opdef.ex_differentiable
+                          and not opdef.dispatch_ex_always
+                          and autograd.is_recording()
+                          and any(isinstance(i, NDArray)
+                                  and not isinstance(i, BaseSparseNDArray)
+                                  and i._in_graph for i in inputs))
+            if not dense_tape:
+                return _invoke_ex(opdef, attrs, inputs, out)
     nds: List[Optional[NDArray]] = [i if isinstance(i, NDArray) else None
                                     for i in inputs]
     first = next((nd for nd in nds if nd is not None), None)
@@ -569,9 +594,60 @@ def invoke(op_name: str, *inputs, out=None, **kwargs):
     return _bind_out(out, result)
 
 
+def _invoke_ex(opdef, attrs, inputs, out):
+    """The storage-type path: sparse inputs go in as ``SparseRep``s of
+    their components, a ``SparseRep`` output comes back as a sparse
+    NDArray. A ``differentiable`` ex op runs with autograd on while
+    recording with a dense input in the graph; a sparse input's
+    components carry no gradient (``mxnet_tpu/ndarray/ndarray.py:705``)."""
+    from .. import autograd
+    from ..ops.sparse import SparseRep
+    from .sparse import BaseSparseNDArray, _wrap
+
+    dev = next((i.context.torch_device() for i in inputs
+                if isinstance(i, NDArray)), None)
+    datas = []
+    for i in inputs:
+        if isinstance(i, BaseSparseNDArray):
+            datas.append(i.rep())
+        elif isinstance(i, NDArray):
+            datas.append(i._data)
+        elif i is None:
+            datas.append(None)
+        else:
+            datas.append(torch.as_tensor(np.asarray(i), device=dev))
+    record = (opdef.ex_differentiable and autograd.is_recording()
+              and any(isinstance(i, NDArray)
+                      and not isinstance(i, BaseSparseNDArray)
+                      and i._in_graph for i in inputs))
+    with torch.set_grad_enabled(record):
+        outputs = opdef.fcompute_ex(attrs, *datas)
+
+    def wrap(o):
+        return _wrap(o) if isinstance(o, SparseRep) else NDArray(o)
+
+    if isinstance(outputs, (tuple, list)) \
+            and not isinstance(outputs, SparseRep):
+        result = [wrap(o) for o in outputs]
+    else:
+        result = wrap(outputs)
+    return _bind_out(out, result)
+
+
 def _bind_out(out, result):
+    """Rebind ``out=`` to the result. Sparse storage is refused on either
+    side: a sparse array's components would go on describing the old
+    value."""
     if out is None:
         return result
+    from .sparse import BaseSparseNDArray
+
+    for o in (list(out) if isinstance(out, (list, tuple)) else [out]) + (
+            result if isinstance(result, list) else [result]):
+        if isinstance(o, BaseSparseNDArray):
+            raise MXNetError(
+                "out= is not supported for sparse storage; rebind the "
+                "result instead (sparse NDArrays are immutable views)")
     if isinstance(out, NDArray) and isinstance(result, NDArray):
         out._data = result._data
         return out

@@ -13,8 +13,10 @@ its plain PyTorch version.
   detection ops of :mod:`.detection` call it.
 
 :mod:`.registry` holds the op registry; :mod:`.tensor`, :mod:`.nn`,
-:mod:`.random_ops`, :mod:`.optimizer_ops` (the fused optimizer updates)
-and :mod:`.detection` register the plain PyTorch ops
+:mod:`.random_ops`, :mod:`.optimizer_ops` (the fused optimizer updates),
+:mod:`.detection`, :mod:`.linalg` (``torch.linalg``), :mod:`.misc_tail`
+and :mod:`.sparse` (the storage-type path of sparse NDArrays) register
+the plain PyTorch ops
 (the ``RNN`` op of :mod:`.nn` runs on cuDNN through torch on the card).
 
 Kernels are built by :mod:`._build` at first use, never at import.
@@ -23,10 +25,12 @@ too, so that ``nd.Custom`` and ``sym.Custom`` are generated.
 """
 from __future__ import annotations
 
-from . import (detection, flash_attention, nms, nn, optimizer_ops,
-               paged_attention, random_ops, registry, tensor)
+from . import (detection, flash_attention, linalg, misc_tail, nms, nn,
+               optimizer_ops, paged_attention, random_ops, registry, sparse,
+               tensor)
 
-__all__ = ["detection", "flash_attention", "nms", "nn", "optimizer_ops",
-           "paged_attention", "random_ops", "registry", "tensor"]
+__all__ = ["detection", "flash_attention", "linalg", "misc_tail", "nms",
+           "nn", "optimizer_ops", "paged_attention", "random_ops",
+           "registry", "sparse", "tensor"]
 
 from .. import operator as _operator  # noqa: E402,F401  (registers Custom)

@@ -14,8 +14,19 @@ the port's explicit ``torch.Generator`` (``random.generator``); for the
 word language model the ``Sequence*`` ops, ``_rnn_param_concat`` and the
 fused ``RNN`` op (cuDNN through ``torch._VF`` on the card, a step loop
 of the JAX op's arithmetic on the CPU, picked by the tensor's device).
-Train mode is ``autograd.is_training()``. The other ops of the JAX
-module are not ported yet.
+Slice 18 adds the rest of the JAX module: ``softmin``,
+``SoftmaxActivation``, ``softmax_cross_entropy``, ``L2Normalization``,
+``LRN``, ``UpSampling``, the output ops (``LinearRegressionOutput``,
+``LogisticRegressionOutput``, ``MAERegressionOutput``, ``SVMOutput``:
+each a ``torch.autograd.Function`` whose backward ignores the head
+gradient, as the JAX ``custom_vjp``), ``CTCLoss`` (the JAX op's log-space
+alpha recursion over the ``(B, 2L + 1)`` lattice, not ``F.ctc_loss``,
+whose results and gradients differ on infeasible labels and whose CUDA
+backward has no deterministic form), ``Pooling(pool_type='lp')``, the
+channels-last layouts (NWC, NHWC, NDHWC) of ``Convolution``,
+``Deconvolution`` and ``Pooling`` (the weight stays OIHW, as in the JAX
+package), and the legacy aliases (``SyncBatchNorm``, the ``*_v1`` ops).
+Train mode is ``autograd.is_training()``.
 """
 from __future__ import annotations
 
@@ -24,7 +35,7 @@ import torch.nn.functional as F
 
 from .. import autograd, random as _random
 from ..base import MXNetError, torch_dtype
-from .registry import REQUIRED, register
+from .registry import OP_REGISTRY, REQUIRED, register
 
 __all__ = []
 
@@ -217,19 +228,84 @@ def log_softmax(attrs, data):
     return _softmax_impl(attrs, data, log=True)
 
 
+@register("softmin", params=dict(_SOFTMAX_PARAMS))
+def softmin(attrs, data):
+    """softmax of -data."""
+    return _softmax_impl(attrs, -data, log=False)
+
+
+@register("SoftmaxActivation", params={"mode": (str, "instance")})
+def softmax_activation(attrs, data):
+    """softmax over the channel axis (``mode='channel'``) or over each
+    sample's values."""
+    if attrs.mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1) \
+        .reshape(data.shape)
+
+
+@register("softmax_cross_entropy", inputs=("data", "label"))
+def softmax_cross_entropy(attrs, data, label):
+    """-sum(log_softmax(data)[i, label[i]]) over the batch: a scalar."""
+    logprob = torch.log_softmax(data, dim=-1)
+    return -logprob.gather(-1, label.to(torch.int64)[:, None]).sum()
+
+
+@register("L2Normalization",
+          params={"eps": (float, 1e-10), "mode": (str, "instance")})
+def l2_normalization(attrs, data):
+    """data / sqrt(sum(data^2) + eps) over each sample (``instance``),
+    each position's channels (``channel``) or each channel's positions
+    (``spatial``)."""
+    if attrs.mode == "instance":
+        axes = tuple(range(1, data.dim()))
+    elif attrs.mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, data.dim()))
+    norm = torch.sqrt(torch.square(data).sum(dim=axes, keepdim=True)
+                      + attrs.eps)
+    return data / norm
+
+
+@register("LRN",
+          params={"alpha": (float, 1e-4), "beta": (float, 0.75),
+                  "knorm": (float, 2.0), "nsize": (int, REQUIRED)})
+def lrn(attrs, data):
+    """Local response normalisation across ``nsize`` channels:
+    data / (knorm + alpha * window_sum(data^2) / nsize) ** beta."""
+    sq = torch.square(data)
+    half = attrs.nsize // 2
+    c = data.shape[1]
+    widths = [0, 0] * (data.dim() - 2) + [half, half]
+    padded = F.pad(sq, widths)
+    window = sum(padded[:, i:i + c] for i in range(attrs.nsize))
+    return data / torch.pow(attrs.knorm + attrs.alpha * window / attrs.nsize,
+                            attrs.beta)
+
+
 # ---------------------------------------------------------------------------
-# convolution and pooling (channels-first, as the SSD symbol uses them)
+# convolution and pooling: channels-first (NCW, NCHW, NCDHW) or
+# channels-last (NWC, NHWC, NDHWC); the weight is OI + spatial either way
 # ---------------------------------------------------------------------------
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
-def _channels_first(layout, nd):
-    if layout and not layout.startswith("NC"):
-        raise MXNetError("layout %r is not ported yet (channels-first "
-                         "only)" % (layout,))
+def _channels_last(layout, nd):
+    """Whether ``layout`` puts the channels last (any layout not starting
+    with NC, as the JAX ``_conv_dims`` reads it)."""
     if nd not in _CONV:
         raise MXNetError("%d spatial dims: 1, 2 or 3 expected" % nd)
+    return bool(layout) and not layout.startswith("NC")
+
+
+def _to_first(x):
+    return x.movedim(-1, 1)
+
+
+def _to_last(x):
+    return x.movedim(1, -1)
 
 
 @register("Convolution",
@@ -242,14 +318,17 @@ def _channels_first(layout, nd):
           inputs=lambda attrs: ["data", "weight"] if attrs.get("no_bias")
           else ["data", "weight", "bias"])
 def convolution(attrs, data, weight, *rest):
-    """N-d convolution, weight (num_filter, C / num_group, *kernel)."""
+    """N-d convolution, weight (num_filter, C / num_group, *kernel); a
+    channels-last input is moved to channels-first and back."""
     nd = len(attrs.kernel)
-    _channels_first(attrs.layout, nd)
+    last = _channels_last(attrs.layout, nd)
     bias = rest[0] if rest else None
-    return _CONV[nd](data, weight, bias, stride=attrs.stride or (1,) * nd,
-                     padding=attrs.pad or (0,) * nd,
-                     dilation=attrs.dilate or (1,) * nd,
-                     groups=attrs.num_group)
+    out = _CONV[nd](_to_first(data) if last else data, weight, bias,
+                    stride=attrs.stride or (1,) * nd,
+                    padding=attrs.pad or (0,) * nd,
+                    dilation=attrs.dilate or (1,) * nd,
+                    groups=attrs.num_group)
+    return _to_last(out) if last else out
 
 
 _DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
@@ -273,13 +352,15 @@ def deconvolution(attrs, data, weight, *rest):
     the JAX package's input-dilated lowering gives (``mxnet_tpu/ops/
     nn.py:107``). ``target_shape`` is ignored there and here."""
     nd = len(attrs.kernel)
-    _channels_first(attrs.layout, nd)
+    last = _channels_last(attrs.layout, nd)
     bias = rest[0] if rest else None
-    return _DECONV[nd](data, weight, bias, stride=attrs.stride or (1,) * nd,
-                       padding=attrs.pad or (0,) * nd,
-                       output_padding=attrs.adj or (0,) * nd,
-                       groups=attrs.num_group,
-                       dilation=attrs.dilate or (1,) * nd)
+    out = _DECONV[nd](_to_first(data) if last else data, weight, bias,
+                      stride=attrs.stride or (1,) * nd,
+                      padding=attrs.pad or (0,) * nd,
+                      output_padding=attrs.adj or (0,) * nd,
+                      groups=attrs.num_group,
+                      dilation=attrs.dilate or (1,) * nd)
+    return _to_last(out) if last else out
 
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -294,13 +375,21 @@ _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
                   "p_value": (int, 2), "count_include_pad": (bool, True),
                   "layout": (str, None)})
 def pooling(attrs, data):
-    """Max, average and sum pooling. The padding is applied here (-inf
-    for max, 0 otherwise) and the pool runs unpadded, so the windows and
-    divisors are the JAX ``reduce_window``'s: ``pooling_convention=
+    """Max, average, sum and Lp pooling. The padding is applied here
+    (-inf for max, 0 otherwise) and the pool runs unpadded, so the windows
+    and divisors are the JAX ``reduce_window``'s: ``pooling_convention=
     'full'`` pads the high side up to a whole stride, and an average with
-    ``count_include_pad`` divides by the kernel size."""
+    ``count_include_pad`` divides by the kernel size. ``lp``: the window
+    sums of |x|^p, to the power 1/p. A channels-last input is moved to
+    channels-first and back."""
     nd = data.dim() - 2
-    _channels_first(attrs.layout, nd)
+    if _channels_last(attrs.layout, nd):
+        return _to_last(_pool_first(attrs, _to_first(data)))
+    return _pool_first(attrs, data)
+
+
+def _pool_first(attrs, data):
+    nd = data.dim() - 2
     spatial = tuple(range(2, 2 + nd))
     if attrs.global_pool:
         if attrs.pool_type == "max":
@@ -309,10 +398,10 @@ def pooling(attrs, data):
             return data.mean(dim=spatial, keepdim=True)
         if attrs.pool_type == "sum":
             return data.sum(dim=spatial, keepdim=True)
-        raise MXNetError("global pool_type %r is not ported yet"
+        raise MXNetError("unsupported global pool_type %r"
                          % attrs.pool_type)
-    if attrs.pool_type not in ("max", "avg", "sum"):
-        raise MXNetError("pool_type %r is not ported yet" % attrs.pool_type)
+    if attrs.pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError("unsupported pool_type %r" % attrs.pool_type)
     kernel = tuple(attrs.kernel)
     stride = tuple(attrs.stride or (1,) * nd)
     pad = tuple(attrs.pad or (0,) * nd)
@@ -328,6 +417,11 @@ def pooling(attrs, data):
     if attrs.pool_type == "max":
         x = F.pad(data, widths, value=-float("inf")) if padded else data
         return _MAX_POOL[nd](x, kernel, stride)
+    if attrs.pool_type == "lp":
+        p = float(attrs.p_value)
+        x = torch.abs(data) ** p
+        x = F.pad(x, widths) if padded else x
+        return _window_sum(x, kernel, stride) ** (1.0 / p)
     x = F.pad(data, widths) if padded else data
     if attrs.pool_type == "avg" and attrs.count_include_pad:
         return _AVG_POOL[nd](x, kernel, stride)
@@ -433,6 +527,212 @@ def softmax_output(attrs, data, label):
     """Softmax with a built-in cross-entropy gradient; no gradient to the
     label."""
     return _SoftmaxOutput.apply(data, label.detach(), attrs)
+
+
+# ---------------------------------------------------------------------------
+# regression and SVM outputs (mxnet_tpu/ops/nn.py:562-664, reference
+# regression_output-inl.h, svm_output.cc): the forward is the link, the
+# backward ignores the head gradient
+# ---------------------------------------------------------------------------
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """Forward ``link(data)``; backward ``grad_fn(out, label) *
+    grad_scale / n``, n the outputs per sample; no gradient to the
+    label."""
+
+    @staticmethod
+    def forward(ctx, data, label, link, grad_fn, scale):
+        out = link(data)
+        ctx.save_for_backward(out, label)
+        ctx.grad_fn, ctx.scale = grad_fn, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        n = 1
+        for d in out.shape[1:]:
+            n *= d
+        grad = ctx.grad_fn(out, label.reshape(out.shape).to(out.dtype))
+        return grad * (ctx.scale / n), None, None, None, None
+
+
+def _register_regression(name, link, grad_fn):
+    @register(name, params={"grad_scale": (float, 1.0)},
+              inputs=("data", "label"))
+    def _op(attrs, data, label):
+        return _RegressionOutput.apply(data, label.detach(), link, grad_fn,
+                                       attrs.grad_scale)
+
+    _op.__doc__ = "%s: forward the link, backward (out - label) scaled." \
+        % name
+    return _op
+
+
+_register_regression("LinearRegressionOutput", lambda x: x,
+                     lambda o, l: o - l)
+_register_regression("LogisticRegressionOutput", torch.sigmoid,
+                     lambda o, l: o - l)
+_register_regression("MAERegressionOutput", lambda x: x,
+                     lambda o, l: torch.sign(o - l))
+
+
+class _SVMOutput(torch.autograd.Function):
+    """Forward the identity; backward the L1 (``use_linear``) or L2 SVM
+    gradient for the label class and the others (reference
+    svm_output.cc; ``mxnet_tpu/ops/nn.py:596-645``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.margin, ctx.reg, ctx.use_linear = margin, reg, use_linear
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        margin, reg = ctx.margin, ctx.reg
+        flat = out.reshape(out.shape[0], -1)
+        onehot = _onehot(label.reshape(-1), flat.shape[-1], -1) \
+            .to(flat.dtype)
+        if ctx.use_linear:
+            g_target = -(margin > flat).to(flat.dtype) * reg
+            g_other = (margin > -flat).to(flat.dtype) * reg
+        else:
+            g_target = -2.0 * reg * torch.clamp_min(margin - flat, 0.0)
+            g_other = 2.0 * reg * torch.clamp_min(margin + flat, 0.0)
+        grad = onehot * g_target + (1.0 - onehot) * g_other
+        return grad.reshape(out.shape), None, None, None, None
+
+
+@register("SVMOutput",
+          params={"margin": (float, 1.0),
+                  "regularization_coefficient": (float, 1.0),
+                  "use_linear": (bool, False)},
+          inputs=("data", "label"))
+def svm_output(attrs, data, label):
+    """The identity, with the SVM loss's gradient in its backward."""
+    return _SVMOutput.apply(data, label.detach(), attrs.margin,
+                            attrs.regularization_coefficient,
+                            attrs.use_linear)
+
+
+# ---------------------------------------------------------------------------
+# UpSampling (mxnet_tpu/ops/nn.py:666-700)
+# ---------------------------------------------------------------------------
+
+
+@register("UpSampling",
+          params={"scale": (int, REQUIRED), "num_filter": (int, 0),
+                  "sample_type": (str, "nearest"),
+                  "multi_input_mode": (str, "concat"),
+                  "num_args": (int, 1), "workspace": (int, 512)},
+          inputs=lambda attrs: ["arg%d" % i
+                                for i in range(attrs.get("num_args", 1))])
+def upsampling(attrs, *xs):
+    """Each NCHW input scaled ``scale`` times in H and W, nearest or
+    bilinear (``jax.image.resize``'s weights), then joined on the
+    channels (``concat``) or summed."""
+    from .misc_tail import resize_axis
+
+    s = attrs.scale
+    outs = []
+    for x in xs:
+        if attrs.sample_type == "nearest":
+            out = x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+        else:
+            out = resize_axis(resize_axis(x, 2, x.shape[2] * s, 1), 3,
+                              x.shape[3] * s, 1)
+        outs.append(out)
+    if len(outs) == 1:
+        return outs[0]
+    if attrs.multi_input_mode == "concat":
+        return torch.cat(outs, dim=1)
+    return sum(outs[1:], outs[0])
+
+
+# ---------------------------------------------------------------------------
+# CTC loss (mxnet_tpu/ops/nn.py:935-1022, reference contrib/ctc_loss.cc):
+# the log-space alpha recursion over the (B, 2L + 1) lattice, floored at
+# -1e30 so an infeasible label gives a large finite loss and finite
+# gradients
+# ---------------------------------------------------------------------------
+
+_CTC_NEG = -1e30
+
+
+def _ctc_logaddexp(a, b):
+    """log(e^a + e^b). |a - b| as a ``where``, so that at a tie (two
+    floored alphas) the gradient is the JAX op's (``jnp.abs`` passes the
+    gradient at 0 as at a positive value; ``torch.abs`` gives 0)."""
+    m = torch.maximum(a, b)
+    d = a - b
+    return m + torch.log1p(torch.exp(-torch.where(d >= 0, d, -d)))
+
+
+def ctc_forward(logp, lab, pl, ll):
+    """Per-sample -log p(label | x): ``logp`` (B, T, C) log-probabilities,
+    blank 0; ``lab`` (B, L) labels; ``pl`` (B,) input lengths, ``ll``
+    (B,) label lengths. A step past a sample's length leaves its alphas
+    as they were."""
+    b, t_len, _ = logp.shape
+    s = 2 * lab.shape[1] + 1
+    ext = torch.zeros((b, s), dtype=torch.int64, device=logp.device)
+    ext[:, 1::2] = lab
+    neg = torch.full((b, 1), _CTC_NEG, dtype=logp.dtype, device=logp.device)
+    first = logp[:, 0, :].gather(1, ext[:, 1:2])
+    alpha = torch.cat([logp[:, 0, 0:1],
+                       torch.where((ll > 0)[:, None], first, neg),
+                       neg.expand(b, s - 2)], dim=1)
+    same = torch.cat([torch.ones((b, 2), dtype=torch.bool,
+                                 device=logp.device),
+                      ext[:, 2:] == ext[:, :-2]], dim=1)
+    for t in range(1, t_len):
+        one = torch.cat([neg, alpha[:, :-1]], dim=1)
+        two = torch.cat([neg, neg, alpha[:, :-2]], dim=1)
+        two = torch.where(same, neg, two)
+        merged = _ctc_logaddexp(_ctc_logaddexp(alpha, one), two)
+        new = merged + logp[:, t, :].gather(1, ext)
+        alpha = torch.where((t < pl)[:, None], new, alpha)
+    ext_len = 2 * ll + 1
+    last = (ext_len - 1).clamp(0, s - 1)[:, None]
+    prev = (ext_len - 2).clamp(0, s - 1)[:, None]
+    return -_ctc_logaddexp(alpha.gather(1, last)[:, 0],
+                           alpha.gather(1, prev)[:, 0])
+
+
+@register("CTCLoss",
+          params={"use_data_lengths": (bool, False),
+                  "use_label_lengths": (bool, False),
+                  "blank_label": (str, "first")},
+          inputs=lambda attrs: ["data", "label"]
+          + (["data_lengths"] if attrs.get("use_data_lengths") else [])
+          + (["label_lengths"] if attrs.get("use_label_lengths") else []),
+          aliases=("_contrib_CTCLoss", "ctc_loss", "_contrib_ctc_loss"))
+def ctc_loss(attrs, data, label, *rest):
+    """data (B, T, C) activations, label (B, L); without label lengths a
+    label ends at its first padding value (0 for ``blank_label='first'``,
+    -1 for ``'last'``). ``'last'`` rotates the classes so the blank is
+    index 0 and the labels up by one."""
+    b, t_len, _ = data.shape
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.detach().to(torch.int64)
+    i = 0
+    if attrs.use_data_lengths:
+        pl = rest[i].detach().to(torch.int64)
+        i += 1
+    else:
+        pl = torch.full((b,), t_len, dtype=torch.int64, device=data.device)
+    if attrs.use_label_lengths:
+        ll = rest[i].detach().to(torch.int64)
+    else:
+        pad = -1 if attrs.blank_label == "last" else 0
+        ll = (lab != pad).to(torch.int64).sum(dim=1)
+    if attrs.blank_label == "last":
+        logp = torch.cat([logp[..., -1:], logp[..., :-1]], dim=-1)
+        lab = torch.where(lab < 0, torch.full_like(lab, -1), lab) + 1
+    return ctc_forward(logp, lab, pl, ll)
 
 
 # ---------------------------------------------------------------------------
@@ -694,3 +994,13 @@ def rnn_param_concat(attrs, *xs):
     """Every array flattened and joined: the RNN op's flat vector (the
     gradient reaches each piece)."""
     return torch.cat([x.reshape(-1) for x in xs])
+
+
+# legacy names: the same OpDef as their modern op, as the JAX registry
+# holds them (mxnet_tpu/ops/vision.py:712-745)
+for _legacy, _modern in (("_contrib_SyncBatchNorm", "BatchNorm"),
+                         ("SyncBatchNorm", "BatchNorm"),
+                         ("BatchNorm_v1", "BatchNorm"),
+                         ("Convolution_v1", "Convolution"),
+                         ("Pooling_v1", "Pooling")):
+    OP_REGISTRY.setdefault(_legacy, OP_REGISTRY[_modern])

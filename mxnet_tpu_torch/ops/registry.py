@@ -13,6 +13,10 @@ active, and torch differentiates through it (the JAX package runs
 ``jax.vjp`` over the same ``fcompute`` instead). An op whose backward is
 not the autodiff of its forward (``_contrib_flash_attention``) wraps its
 ``fcompute`` in a ``torch.autograd.Function`` itself.
+
+An op may also carry an ``fcompute_ex`` (:func:`register_ex`), the
+storage-type path that :func:`mxnet_tpu_torch.ndarray.invoke` takes when
+an input is sparse (``ops/sparse.py``).
 """
 from __future__ import annotations
 
@@ -20,8 +24,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..base import MXNetError, dtype_name, parser_for
 
-__all__ = ["OpDef", "register", "get_op", "AttrDict", "OP_REGISTRY",
-           "REQUIRED"]
+__all__ = ["OpDef", "register", "register_ex", "get_op", "AttrDict",
+           "OP_REGISTRY", "REQUIRED"]
 
 OP_REGISTRY: Dict[str, "OpDef"] = {}
 
@@ -58,6 +62,11 @@ class OpDef:
         self._num_outputs = num_outputs
         self.aliases = tuple(aliases)
         self.doc = doc
+        # the storage-type path (register_ex)
+        self.fcompute_ex: Optional[Callable] = None
+        self.dispatch_ex_always = False
+        self.ex_differentiable = False
+        self.ex_grad_fallback = False
 
     def input_names(self, attrs: Optional[AttrDict] = None) -> List[str]:
         if callable(self._inputs):
@@ -140,6 +149,29 @@ def register(name: str, params: Optional[Dict[str, Tuple[Any, Any]]] = None,
         OP_REGISTRY[name] = opdef
         for a in aliases:
             OP_REGISTRY.setdefault(a, opdef)
+        return fn
+
+    return deco
+
+
+def register_ex(name: str, always: bool = False, differentiable: bool = False,
+                grad_fallback: bool = False):
+    """Attach an ``fcompute_ex(attrs, *inputs)`` to the registered op
+    ``name`` (``mxnet_tpu/ops/registry.py:227``): it takes a sparse
+    input as an ``ops.sparse.SparseRep`` and may return one. ``always``:
+    the op takes this path whatever its inputs (``cast_storage``, whose
+    output is the sparse one). ``differentiable``: under ``record()`` it
+    runs with autograd on, so the gradient reaches its dense inputs (a
+    sparse input's components never carry one). ``grad_fallback``: the
+    dense ``fcompute`` is a full equivalent, which ``invoke`` takes
+    instead while recording with a dense input in the graph."""
+
+    def deco(fn: Callable) -> Callable:
+        opdef = get_op(name)
+        opdef.fcompute_ex = fn
+        opdef.dispatch_ex_always = always
+        opdef.ex_differentiable = differentiable
+        opdef.ex_grad_fallback = grad_fallback
         return fn
 
     return deco

@@ -14,8 +14,9 @@ Two departures in how a graph runs:
   where the JAX package traces it with ``jax.eval_shape``; ops that read
   values (``MultiBoxTarget``, the NMS) have a shape rule of their own.
   Parameter shapes are back-filled from the op's attrs as in
-  ``_fill_param_shapes`` (Convolution, FullyConnected, LayerNorm,
-  Embedding, the ``SoftmaxOutput`` label), and for a ``Custom`` node from
+  ``_fill_param_shapes`` (Convolution and Deconvolution in either
+  channel layout, FullyConnected, LayerNorm, Embedding, the output ops'
+  labels), and for a ``Custom`` node from
   what its prop's ``infer_shape`` returns;
 * an executor walks the graph eagerly under torch autograd
   (:mod:`.executor`) where the JAX package jits it whole.
@@ -462,13 +463,17 @@ def _fill_param_shapes(node: _Node, in_shapes):
         in_units = int(np.prod(data[1:])) if attrs.flatten else data[-1]
         put("weight", (attrs.num_hidden, in_units))
         put("bias", (attrs.num_hidden,))
-    elif op == "Convolution" and data is not None:
-        put("weight", (attrs.num_filter, data[1] // attrs.num_group)
-            + tuple(attrs.kernel))
-        put("bias", (attrs.num_filter,))
-    elif op == "Deconvolution" and data is not None:
-        put("weight", (data[1], attrs.num_filter // attrs.num_group)
-            + tuple(attrs.kernel))
+    elif op in ("Convolution", "Deconvolution") and data is not None:
+        # the channels: axis 1, or the last axis of a channels-last layout
+        # (the weight is OI + spatial in both)
+        layout = attrs.layout or ""
+        c = data[1] if not layout or layout.startswith("NC") else data[-1]
+        if op == "Convolution":
+            put("weight", (attrs.num_filter, c // attrs.num_group)
+                + tuple(attrs.kernel))
+        else:
+            put("weight", (c, attrs.num_filter // attrs.num_group)
+                + tuple(attrs.kernel))
         put("bias", (attrs.num_filter,))
     elif op in ("BatchNorm", "InstanceNorm") and data is not None:
         c = (data[attrs.get("axis", 1) % len(data)],)
@@ -495,6 +500,9 @@ def _fill_param_shapes(node: _Node, in_shapes):
         put("state_cell", st)
     elif op in ("SoftmaxOutput", "Softmax") and data is not None:
         put("label", data[:-1])
+    elif op in ("LinearRegressionOutput", "LogisticRegressionOutput",
+                "MAERegressionOutput", "SVMOutput") and data is not None:
+        put("label", data)
     elif op == "Custom":  # what the user's prop says (a loss op's label)
         from .operator import fill_input_shapes
 

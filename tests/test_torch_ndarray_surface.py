@@ -109,8 +109,10 @@ def test_context_sync_storage_and_dlpack():
     assert a.stype == "default" == jmx.nd.array(M).stype
     b = a.tostype("default")
     assert b is not a and np.array_equal(b.asnumpy(), M)
-    with pytest.raises(MXNetError, match="not ported yet"):
-        a.tostype("csr")
+    c = a.tostype("csr")  # sparse storage since slice 18
+    assert c.stype == "csr" and np.array_equal(c.asnumpy(), M)
+    with pytest.raises(MXNetError, match="unknown stype"):
+        a.tostype("dense")
     back = nd.from_dlpack(a.to_dlpack_for_read())
     np.testing.assert_array_equal(back.asnumpy(), M)
     assert back.context == mx.cpu()

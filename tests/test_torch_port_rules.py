@@ -39,6 +39,12 @@
   ``symbols/``) is in the scan, and the example trains through the
   kvstore with a monitor and 2-bit compression with ``jax`` and
   ``mxnet_tpu`` made unimportable;
+* the sparse and operator-tail slice (``ndarray/sparse``,
+  ``ops/sparse``, ``ops/linalg``, ``ops/misc_tail``, the four examples
+  under ``example/sparse/``, ``example/ctc/``, ``example/svm_mnist/``)
+  is in the scan; the examples, ``LibSVMIter`` and the sparse
+  constructors run on the card unless asked for the host, and the four
+  examples train with ``jax`` and ``mxnet_tpu`` made unimportable;
 * the extension slice's modules (``rtc``, ``operator``, ``metric``,
   ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
   no module of the port defines ``PallasModule`` (Pallas source cannot
@@ -507,3 +513,68 @@ print("pushes", int(OPS.value(op="push")))
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "pushes 30" in proc.stdout
+
+
+_SPARSE_SLICE_EXAMPLES = ("sparse/linear_classification", "sparse/fm",
+                          "ctc/lstm_ocr", "svm_mnist/svm_mnist")
+
+
+def test_scan_covers_the_sparse_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ["mxnet_tpu_torch/ndarray/sparse.py",
+                 "mxnet_tpu_torch/ops/sparse.py",
+                 "mxnet_tpu_torch/ops/linalg.py",
+                 "mxnet_tpu_torch/ops/misc_tail.py"] + [
+            "mxnet_tpu_torch/example/%s.py" % e
+            for e in _SPARSE_SLICE_EXAMPLES]:
+        assert path in names
+
+
+def test_sparse_slice_defaults_to_the_card(tmp_path):
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    for ex in _SPARSE_SLICE_EXAMPLES:
+        mod = importlib.import_module("mxnet_tpu_torch.example."
+                                      + ex.replace("/", "."))
+        args = mod.parse_args([])
+        assert args.device == "gpu"
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            mod.run(args)
+    path = tmp_path / "d.libsvm"
+    path.write_text("1 0:1.5 3:2\n")
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mx.io.LibSVMIter(data_libsvm=str(path), data_shape=4, batch_size=1)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        nd.sparse.csr_matrix([[0.0, 1.0]])
+
+
+def test_sparse_slice_trains_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+from mxnet_tpu_torch.example.sparse import fm, linear_classification as lc
+from mxnet_tpu_torch.example.ctc import lstm_ocr
+from mxnet_tpu_torch.example.svm_mnist import svm_mnist
+steps = [
+    lc.run(lc.parse_args(["--device", "cpu", "--num-samples", "128",
+                          "--feature-dim", "100", "--epochs", "2"]))["steps"],
+    fm.run(fm.parse_args(["--device", "cpu", "--num-samples", "128",
+                          "--feature-dim", "100", "--epochs", "2",
+                          "--optimizer", "adagrad"]))["steps"],
+    lstm_ocr.run(lstm_ocr.parse_args(["--device", "cpu", "--epochs", "1",
+                                      "--train-size", "64",
+                                      "--batch-size", "32"]))["steps"],
+    svm_mnist.run(svm_mnist.parse_args(["--device", "cpu", "--epochs", "1",
+                                        "--train-size", "128"]))["steps"]]
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("steps", steps)
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "steps [4, 4, 2, 6]" in proc.stdout
