@@ -319,9 +319,45 @@ Phases, each printing one line of its own (any failure exits non-zero):
     Convolution/Pooling/Deconvolution net on the card against the CPU,
     and that net's ms a step in NHWC and NCHW.
 
+49. gluon_resnet: BASELINE workload 2, the port's
+    ``example/gluon/train_resnet.py`` at its defaults (resnet50_v1, batch
+    32, 224 x 224, 1000 classes, SGD 0.05 with momentum 0.9 and wd 1e-4,
+    one captured ``TrainStep``) for GLUON_RESNET_BATCHES batches: ms a
+    step with its spread and img/s beside PERF.md's TrainStep figure,
+    one capture; its ``--save-prefix`` export (file sizes, seconds); the
+    export's ``SymbolBlock.imports`` on the card against the trained
+    net's inference output on one batch (GLUON_EXPORT_TOL of the largest
+    magnitude); a trace of the script's loop body (busy share, host
+    launches and copies a step);
+50. gluon_export_cross: a small Conv/BatchNorm/Dense net exported on the
+    card: the files imported on the card give the net's output and the
+    CPU import's, the ``.params`` split ``arg:``/``aux:``;
+51. gluon_loader: an ImageFolderDataset of GLUON_LOADER_IMAGES PNGs the
+    phase writes, through RandomResizedCrop(224), a flip, ToTensor and
+    Normalize, ``DataLoader`` batches of 32 pinned: img/s with 0 and 4
+    worker threads (and with no worker on one torch thread), each
+    stage's ms, then resnet50_v1's captured step fed by the loader (0
+    and 4 workers) and by ``NDArrayIter`` (img/s, busy share); a
+    measurement, not a bar; then Resize, CenterCrop and
+    RandomResizedCrop on one decoded image on the card against the host
+    (GLUON_TRANSFORM_TOL of the largest magnitude, the output on the
+    card, ms an image on each);
+52. gluon_dcgan: ``example/gluon/dcgan.py`` at its defaults (it checks
+    its own adversarial mechanics), its first epoch on the CPU from the
+    same seed: each player's first step within GLUON_EXAMPLE_TOL;
+53. gluon_style: ``example/gluon/neural_style.py`` at its defaults
+    (IMPROVED), the CPU run's first GLUON_STYLE_STEPS losses within
+    GLUON_EXAMPLE_TOL;
+54. gluon_contrib: the nine conv-RNN cells and ``LSTMPCell`` unrolled 3
+    steps, card against CPU (GLUON_CONTRIB_TOL forward,
+    GLUON_CONTRIB_GRAD_TOL gradients), and the 8 new initializers, card
+    against CPU exactly. Each line carries the card's ``nvidia-smi``
+    name and power limit.
+
 ``python3 chip_smoke.py --word-lm`` runs phases 31-35 only,
-``--mnist`` phases 36-42 only, and ``--ops-tail`` phases 43-48 only (no
-nvcc build: the paths run no hand-written kernel).
+``--mnist`` phases 36-42 only, ``--ops-tail`` phases 43-48 only, and
+``--gluon`` phases 49-54 only (no nvcc build: the paths run no
+hand-written kernel).
 
 ``python3 chip_smoke.py --resnet`` runs phases 17-26 only; ``--ckpt``
 runs phases 28-30 only (building the NMS kernel, training the SSD example
@@ -3871,10 +3907,15 @@ def resnet_phases():
 # ---------------------------------------------------------------------------
 
 
-def _rel_err(a, b):
-    """max |a - b| over the larger of 1 and b's largest magnitude."""
+def _rel_err(a, b, floor=1.0):
+    """max |a - b| over the larger of ``floor`` and b's largest magnitude
+    (tensors or numpy arrays)."""
+    import torch
+
+    a, b = (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+            for v in (a, b))
     a, b = a.double(), b.double()
-    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+    return float((a - b).abs().max()) / max(floor, float(b.abs().max()))
 
 
 def _rnn_op_run(impl, mode, bidir, ins, heads):
@@ -5513,6 +5554,479 @@ def tail_phases():
     ops_tail_card()
 
 
+# -- slice 19: the rest of gluon -------------------------------------------
+# the card's nvidia-smi line (name, power limit), printed beside every number
+# of the slice's phases
+CARD = None
+# gluon_resnet: the port's example/gluon/train_resnet.py at its defaults
+# (resnet50_v1, batch 32, 224 x 224, 1000 classes, SGD 0.05 with momentum
+# 0.9 and wd 1e-4) for GLUON_RESNET_BATCHES batches, then its export; the
+# export's SymbolBlock on the card against the trained net's own inference
+# output within GLUON_EXPORT_TOL of the largest magnitude (fp32, TF32 off:
+# the same cuDNN calls, Symbol.eval_nd against the eager layers). PERF.md's
+# TrainStep figure for the same net and step (fp32, §5), so the script's
+# own overhead shows beside it
+GLUON_RESNET_BATCHES, GLUON_PROFILE_STEPS = 20, 5
+GLUON_EXPORT_TOL = 1e-5
+GLUON_TRAINSTEP_IMG_S = [559, 562]
+# gluon_loader: an ImageFolderDataset of GLUON_LOADER_IMAGES synthetic PNGs
+# (4 classes, sides 240-320) through RandomResizedCrop(224), a flip,
+# ToTensor and Normalize, DataLoader batches of 32 with pin_memory
+GLUON_LOADER_IMAGES, GLUON_LOADER_WORKERS = 256, (0, 4)
+# and the resizing transforms on one decoded image on the card against the
+# same on the host, seeded alike, of the largest magnitude (fp32, TF32 off)
+GLUON_TRANSFORM_TOL = 1e-5
+GLUON_MEAN, GLUON_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+# gluon_dcgan / gluon_style: the examples at their defaults on the card; the
+# first step of each player (dcgan) and the first GLUON_STYLE_STEPS steps
+# (neural_style) against the same run on the CPU, relative
+GLUON_EXAMPLE_TOL, GLUON_STYLE_STEPS = 1e-4, 3
+# gluon_contrib: card against CPU, forward of the largest magnitude and
+# gradients
+GLUON_CONTRIB_TOL, GLUON_CONTRIB_GRAD_TOL = 1e-5, 1e-4
+
+
+def _spread_ms(seconds):
+    ms = sorted(1e3 * s for s in seconds)
+    return {"median": float(np.median(ms)), "min": ms[0], "max": ms[-1],
+            "p10": float(np.percentile(ms, 10)),
+            "p90": float(np.percentile(ms, 90))}
+
+
+def gluon_resnet():
+    """The port's train_resnet.py at its defaults on the card, its export,
+    and the export's SymbolBlock against the trained net."""
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.example.gluon import train_resnet as tr
+
+    prefix = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_gluon_"),
+                          "resnet50_v1")
+    mx.random.seed(0)
+    args = tr.parse_args(["--num-batches", str(GLUON_RESNET_BATCHES),
+                          "--save-prefix", prefix])
+    t0 = time.perf_counter()
+    res = tr.run(args)
+    run_s = time.perf_counter() - t0
+    net, step, losses = res["net"], res["step"], res["losses"]
+    if not np.isfinite(losses).all():
+        fail("gluon_resnet: losses %s" % losses)
+    if step.compile_count != 1 or step.steady_state_recompiles != 0:
+        fail("gluon_resnet: %d captures, %d steady-state recompiles"
+             % (step.compile_count, step.steady_state_recompiles))
+    steady = res["step_s"][1:]  # the first step captures
+    spread = _spread_ms(steady)
+    sizes = {f: os.path.getsize(prefix + f)
+             for f in ("-symbol.json", "-0000.params")}
+    # the export on the card against the trained net, inference mode
+    t0 = time.perf_counter()
+    sb = gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                   prefix + "-0000.params")
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    x = nd.array(np.random.RandomState(5).rand(
+        args.batch_size, 3, args.image_size, args.image_size).astype(
+        np.float32))
+    want = net(x).asnumpy()
+    got = sb(x).asnumpy()
+    err = _rel_err(got, want, floor=1e-30)
+    sb_ms = time_ms(lambda: sb(x), iters=5, warm=1)
+    net_ms = time_ms(lambda: net(x), iters=5, warm=1)
+    # the script's own loop body (a batch from its NDArrayIter, the step,
+    # the loss metric's read-back) under the profiler
+    args.num_batches = GLUON_PROFILE_STEPS + 1
+    batches = iter(tr.data_iter(args))
+    metric = mx.metric.Loss()
+
+    def one():
+        batch = next(batches)
+        metric.update(None, [step(batch.data[0], batch.label[0])])
+
+    prof = _device_profile(one, GLUON_PROFILE_STEPS)
+    phase("gluon_resnet", card=CARD, model=args.model, batch=args.batch_size,
+          side=args.image_size, classes=args.num_classes,
+          batches=len(losses), run_s=run_s, capture_step_s=res["step_s"][0],
+          step_ms=spread, img_per_s=args.batch_size * 1e3
+          / spread["median"], losses_first_last=[losses[0], losses[-1]],
+          compile_count=step.compile_count,
+          trainstep_img_per_s_perf_md=GLUON_TRAINSTEP_IMG_S,
+          export_s=res["export_s"], export_bytes=sizes,
+          import_s=import_s, import_max_rel_err=err, tol=GLUON_EXPORT_TOL,
+          symbolblock_forward_ms=sb_ms, net_forward_ms=net_ms,
+          profile=prof)
+    if not err <= GLUON_EXPORT_TOL:
+        fail("gluon_resnet: the export's SymbolBlock differs from the net "
+             "by %.3g of the largest magnitude" % err)
+
+
+def _bn_net(mx):
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+                nn.BatchNorm(in_channels=8), nn.Activation("relu"),
+                nn.Flatten(), nn.Dense(16, in_units=8 * 16 * 16),
+                nn.BatchNorm(center=False, in_channels=16),
+                nn.Dense(10, in_units=16))
+    return net
+
+
+def gluon_export_cross():
+    """A small Conv/BatchNorm/Dense net exported on the card: its files
+    imported on the card give the net's output and the output of the same
+    files imported on the CPU."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    prefix = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_export_"),
+                          "bn")
+    mx.random.seed(3)
+    net = _bn_net(mx)
+    net.initialize(mx.initializer.Xavier())
+    xs = np.random.RandomState(4).rand(8, 3, 16, 16).astype(np.float32)
+    x = nd.array(xs)
+    with autograd.record():  # the moving statistics move
+        net(x)
+    net.export(prefix)
+    files = (prefix + "-symbol.json", "data", prefix + "-0000.params")
+    want = net(x).asnumpy()
+    got = gluon.SymbolBlock.imports(*files)(x).asnumpy()
+    with mx.cpu():
+        cpu = gluon.SymbolBlock.imports(*files)(nd.array(xs)).asnumpy()
+    keys = sorted(mx.nd.load(files[2]))
+    errs = {"card_import_vs_net": _rel_err(got, want, floor=1e-30),
+            "card_vs_cpu": _rel_err(got, cpu, floor=1e-30)}
+    phase("gluon_export_cross", card=CARD, params=keys,
+          max_rel_err=errs, tol=GLUON_EXPORT_TOL)
+    if not max(errs.values()) <= GLUON_EXPORT_TOL:
+        fail("gluon_export_cross: %s" % errs)
+    if sum(k.startswith("aux:") for k in keys) != 5:  # 4 stats, 1 beta
+        fail("gluon_export_cross: arg/aux split %s" % keys)
+
+
+def gluon_loader():
+    """The loader's img/s alone (0 and 4 worker threads, pinned), then
+    resnet50_v1's TrainStep fed by it (0 and 4 workers) against the same
+    step fed by NDArrayIter, each with its busy share. A measurement, not
+    a bar; then the resizing transforms, card against host."""
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, image, nd, parallel
+    from mxnet_tpu_torch.gluon.data.vision import ImageFolderDataset
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_loader_")
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    for i in range(GLUON_LOADER_IMAGES):
+        d = os.path.join(root, "class%d" % (i % 4))
+        os.makedirs(d, exist_ok=True)
+        h, w = rng.randint(240, 321, 2)
+        with open(os.path.join(d, "%04d.png" % i), "wb") as f:
+            f.write(image.imencode(rng.randint(0, 256, (h, w, 3)).astype(
+                np.uint8), ".png"))
+    write_s = time.perf_counter() - t0
+    mx.random.seed(0)
+    ds = ImageFolderDataset(root).transform_first(T.Compose([
+        T.RandomResizedCrop(224), T.RandomFlipLeftRight(), T.ToTensor(),
+        T.Normalize(GLUON_MEAN, GLUON_STD)]))
+    rates = {}
+
+    def loader(workers):
+        return gluon.data.DataLoader(ds, batch_size=RESNET_BATCH,
+                                     shuffle=True, num_workers=workers,
+                                     pin_memory=True, last_batch="discard")
+
+    stages = _loader_stages(ds, tf_parts=(
+        T.RandomResizedCrop(224), T.RandomFlipLeftRight(),
+        T.Compose([T.ToTensor(), T.Normalize(GLUON_MEAN, GLUON_STD)])))
+    threads = torch.get_num_threads()
+    for workers, one_thread in [(w, False) for w in GLUON_LOADER_WORKERS] \
+            + [(0, True)]:
+        if one_thread:  # does the host's torch thread pool cost the ops?
+            torch.set_num_threads(1)
+        n = 0
+        t0 = time.perf_counter()
+        for data, label in loader(workers):
+            n += data.shape[0]
+        torch.cuda.synchronize()
+        rates["workers_%d%s" % (workers, "_one_torch_thread" if one_thread
+                                else "")] = n / (time.perf_counter() - t0)
+        torch.set_num_threads(threads)
+        if data.shape != (RESNET_BATCH, 3, 224, 224) or \
+                not data._data.is_cuda or \
+                not np.isfinite(data.asnumpy()).all():
+            fail("gluon_loader: a batch %s on %s" % (data.shape,
+                                                     data.context))
+    net = _resnet50()
+    step = parallel.TrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              "sgd", parallel.device_mesh(1),
+                              optimizer_params=dict(RESNET_SGD))
+    def from_loader(batches):
+        data, label = next(batches)
+        # float labels, as NDArrayIter's: one captured path for both feeds
+        step(data, label.astype("float32"))
+
+    from_loader(iter(loader(GLUON_LOADER_WORKERS[-1])))  # the capture
+    steps = GLUON_LOADER_IMAGES // RESNET_BATCH - 1
+    by_loader = {}
+    for workers in GLUON_LOADER_WORKERS:
+        fed = iter(loader(workers))
+        by_loader["dataloader_%d_workers" % workers] = _device_profile(
+            lambda: from_loader(fed), steps)
+    xs, ys = _resnet_data(steps)
+    it = iter(mx.io.NDArrayIter(xs.reshape((-1, 3, RESNET_SIDE,
+                                            RESNET_SIDE)),
+                                ys.reshape(-1).astype(np.float32),
+                                RESNET_BATCH))
+
+    def from_iter():
+        batch = next(it)
+        step(batch.data[0], batch.label[0])
+
+    by_iter = _device_profile(from_iter, steps)
+    if step.steady_state_recompiles != 0:
+        fail("gluon_loader: the step recaptured")
+    by_feed = dict(by_loader, ndarrayiter=by_iter)
+    tf_errs, tf_ms = _transforms_card_vs_host(ds._data.items[0][0])
+    phase("gluon_loader", card=CARD, images=len(ds), write_s=write_s,
+          loader_img_per_s=rates, stage_ms_no_worker=stages,
+          transform_card_vs_host_max_rel_err=tf_errs,
+          transform_tol=GLUON_TRANSFORM_TOL, transform_ms_an_image=tf_ms,
+          torch_threads=threads, steps=steps,
+          trainstep_img_per_s={
+              k: RESNET_BATCH * 1e3 / p["per_step_wall_ms"]
+              for k, p in by_feed.items()},
+          busy_share={k: p["device_busy_share"]
+                      for k, p in by_feed.items()},
+          profiles=by_feed)
+    if not max(tf_errs.values()) <= GLUON_TRANSFORM_TOL:
+        fail("gluon_loader: a transform on the card differs from the host "
+             "by %s" % tf_errs)
+
+
+def _transforms_card_vs_host(path):
+    """Resize, CenterCrop (through its resize up) and RandomResizedCrop
+    on the image at ``path`` on the card against the same on the host,
+    seeded alike; fails unless the card's output stays on the card. The
+    errors of the largest magnitude, and ms an image on each side."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import image, nd
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+
+    host = image.imread(path)
+    card = nd.array(host.asnumpy(), dtype=host.dtype)
+    errs, ms = {}, {}
+    for name, tf in (("Resize", T.Resize(224)),
+                     ("CenterCrop", T.CenterCrop(352)),
+                     ("RandomResizedCrop", T.RandomResizedCrop(224))):
+        outs = []
+        for img in (card, host):
+            mx.random.seed(7)
+            out = tf(img)
+            if out.context != img.context:
+                fail("gluon_loader: %s moved an image from %s to %s"
+                     % (name, img.context, out.context))
+            outs.append(out.asnumpy())
+            ms["%s_%s" % (name, img.context.device_type)] = time_ms(
+                lambda: tf(img), iters=10, warm=2)
+        errs[name] = _rel_err(outs[0], outs[1], floor=1e-30)
+    return errs, ms
+
+
+def _loader_stages(ds, tf_parts, n=32):
+    """Where the loader's time goes, one thread, over the first ``n``
+    images: ms an image to read and decode, to crop and resize, to flip,
+    to make the normalized tensor; ms a batch of ``n`` to stack, pin and
+    copy to the card."""
+    import torch
+
+    from mxnet_tpu_torch import image
+    from mxnet_tpu_torch.gluon.data import dataloader
+
+    files = [f for f, _ in ds._data.items[:n]]
+    out, t = {}, time.perf_counter()
+    for i in range(n):  # the whole sample, as a loader's worker takes it
+        ds[i]
+    out["sample_ms"] = (time.perf_counter() - t) * 1e3 / n
+    t = time.perf_counter()
+    imgs = [image.imread(f) for f in files]
+    out["decode_ms"] = (time.perf_counter() - t) * 1e3 / n
+    for name, tf in zip(("crop_resize_ms", "flip_ms", "tensor_ms"),
+                        tf_parts):
+        t = time.perf_counter()
+        imgs = [tf(i) for i in imgs]
+        out[name] = (time.perf_counter() - t) * 1e3 / n
+    t = time.perf_counter()
+    batch = dataloader.default_batchify_fn(imgs)
+    out["stack_ms_a_batch"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    pinned = batch._data.pin_memory()
+    out["pin_ms_a_batch"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    pinned.to("cuda", non_blocking=True)
+    torch.cuda.synchronize()
+    out["copy_ms_a_batch"] = (time.perf_counter() - t) * 1e3
+    return out
+
+
+def gluon_dcgan():
+    """dcgan.py at its defaults on the card (the adversarial mechanics it
+    asserts itself), its first epoch on the CPU from the same seed: the
+    first step of each player within GLUON_EXAMPLE_TOL."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.gluon import dcgan
+
+    mx.random.seed(0)
+    card = dcgan.run(dcgan.parse_args([]))
+    mx.random.seed(0)
+    cpu = dcgan.run(dcgan.parse_args(["--device", "cpu", "--epochs", "1"]))
+    n = len(cpu["d_losses"])
+    d_err = [abs(a - b) / abs(b) for a, b in zip(card["d_losses"][:n],
+                                                 cpu["d_losses"])]
+    g_err = [abs(a - b) / abs(b) for a, b in zip(card["g_losses"][:n],
+                                                 cpu["g_losses"])]
+    phase("gluon_dcgan", card=CARD, steps=len(card["d_losses"]),
+          img_per_s=card["img_per_s"],
+          d_loss_first_last=[card["d_losses"][0], card["d_losses"][-1]],
+          g_loss_first_last=[card["g_losses"][0], card["g_losses"][-1]],
+          sample_range=card["sample_range"],
+          first_step_rel_err=[d_err[0], g_err[0]],
+          epoch1_max_rel_err=[max(d_err), max(g_err)],
+          tol=GLUON_EXAMPLE_TOL)
+    if not max(d_err[0], g_err[0]) <= GLUON_EXAMPLE_TOL:
+        fail("gluon_dcgan: the first step differs from the CPU's by %s"
+             % [d_err[0], g_err[0]])
+
+
+def gluon_style():
+    """neural_style.py at its defaults on the card (IMPROVED), and on the
+    CPU from the same seed: the first GLUON_STYLE_STEPS losses within
+    GLUON_EXAMPLE_TOL."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.gluon import neural_style
+
+    mx.random.seed(0)
+    t0 = time.perf_counter()
+    card = neural_style.run(neural_style.parse_args([]))
+    card_s = time.perf_counter() - t0
+    mx.random.seed(0)
+    cpu = neural_style.run(neural_style.parse_args(["--device", "cpu"]))
+    errs = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                cpu["losses"])]
+    phase("gluon_style", card=CARD, iters=len(card["losses"]),
+          run_s=card_s, ms_per_iter=card_s * 1e3 / len(card["losses"]),
+          loss_first_last=[card["losses"][0], card["losses"][-1]],
+          improved=card["improved"],
+          first_steps_rel_err=errs[:GLUON_STYLE_STEPS],
+          all_steps_max_rel_err=max(errs), tol=GLUON_EXAMPLE_TOL)
+    if not card["improved"]:
+        fail("gluon_style: NOT IMPROVED on the card")
+    if not max(errs[:GLUON_STYLE_STEPS]) <= GLUON_EXAMPLE_TOL:
+        fail("gluon_style: the first steps differ from the CPU's by %s"
+             % errs[:GLUON_STYLE_STEPS])
+
+
+def _cell_run(mx, make, xs, seed):
+    """``make()`` built after ``seed``, unrolled 3 steps on ``xs`` under a
+    fixed weighting of its outputs and states: outputs, the input's and
+    every weight's gradient (numpy)."""
+    from mxnet_tpu_torch import autograd, nd
+
+    mx.random.seed(seed)
+    cell = make()
+    cell.initialize(mx.initializer.Xavier())
+    x = nd.array(xs)
+    x.attach_grad()
+    with autograd.record():
+        outs, states = cell.unroll(xs.shape[1], x, merge_outputs=True)
+        flat = [outs] + list(states)
+        head = None
+        for k, o in enumerate(flat):
+            w = nd.array(np.random.RandomState(40 + k).randn(
+                *o.shape).astype(np.float32))
+            term = (o * w).sum()
+            head = term if head is None else head + term
+    head.backward()
+    return ([o.asnumpy() for o in flat],
+            [x.grad.asnumpy()] + [p.grad().asnumpy() for p in
+                                  cell.collect_params().values()])
+
+
+def gluon_contrib():
+    """The nine conv-RNN cells and LSTMPCell, card against CPU; the eight
+    new initializers, card against CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import initializer as init
+    from mxnet_tpu_torch.gluon.contrib import rnn
+
+    cases = {}
+    for dims, spatial in ((1, (32,)), (2, (16, 16)), (3, (6, 8, 8))):
+        for kind in ("RNN", "LSTM", "GRU"):
+            cls = getattr(rnn, "Conv%dD%sCell" % (dims, kind))
+            cases["conv%dd_%s" % (dims, kind.lower())] = (
+                lambda cls=cls, spatial=spatial: cls(
+                    (8,) + spatial, 16, 3, 3, i2h_pad=1), (4, 3, 8) + spatial)
+    cases["lstmp"] = (lambda: rnn.LSTMPCell(64, 32), (8, 3, 48))
+    errs = {}
+    for name, (make, shape) in cases.items():
+        xs = np.random.RandomState(1).randn(*shape).astype(np.float32)
+        outs, grads = _cell_run(mx, make, xs, 2)
+        with mx.cpu():
+            c_outs, c_grads = _cell_run(mx, make, xs, 2)
+        errs[name] = [max(_rel_err(a, b, floor=1e-30)
+                          for a, b in zip(outs, c_outs)),
+                      max(_rel_err(a, b, floor=1e-30)
+                          for a, b in zip(grads, c_grads))]
+    inits = {"constant": init.Constant(0.5), "orthogonal": init.Orthogonal(),
+             "msraprelu": init.MSRAPrelu(), "bilinear": init.Bilinear(),
+             "lstmbias": init.LSTMBias(), "fusedrnn": init.FusedRNN(
+                 init.Uniform(), 64, 1, "lstm"),
+             "load": init.Load({"x_weight": np.arange(
+                 4096, dtype=np.float32).reshape(64, 64)}),
+             "mixed": init.Mixed([".*"], [init.Orthogonal()])}
+    init_errs = {}
+    for name, ini in inits.items():
+        vals = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            mx.random.seed(7)
+            arr = mx.nd.zeros((64, 64, 2, 2) if name == "bilinear"
+                              else (64, 64), ctx=ctx)
+            desc = init.InitDesc("x_weight") if name != "lstmbias" else \
+                init.InitDesc("x_bias", {"__init__": ini.dumps()})
+            (ini if name != "lstmbias" else init.Uniform())(desc, arr)
+            if arr.context != ctx:
+                fail("gluon_contrib: %s left %s" % (name, ctx))
+            vals.append(arr.asnumpy())
+        init_errs[name] = float(np.abs(vals[0] - vals[1]).max())
+    phase("gluon_contrib", card=CARD, cells_fwd_grad_max_rel_err=errs,
+          initializers_max_abs_err=init_errs, tol=GLUON_CONTRIB_TOL,
+          grad_tol=GLUON_CONTRIB_GRAD_TOL)
+    bad = {k: v for k, v in errs.items() if v[0] > GLUON_CONTRIB_TOL
+           or v[1] > GLUON_CONTRIB_GRAD_TOL}
+    if bad or any(v != 0.0 for v in init_errs.values()):
+        fail("gluon_contrib: the card disagrees with the CPU: %s %s"
+             % (bad, init_errs))
+
+
+def gluon_phases():
+    gluon_resnet()
+    gluon_export_cross()
+    gluon_loader()
+    gluon_dcgan()
+    gluon_style()
+    gluon_contrib()
+
+
 def main():
     import torch
 
@@ -5533,6 +6047,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     if sys.argv[1:] == ["--wrapper-host"]:
         # only the paged wrappers' host time, of the package beside this
         # file: to compare two checkouts in one call, copy the script into
@@ -5585,6 +6101,13 @@ def main():
     if sys.argv[1:] == ["--ops-tail"]:
         # only slice 18's phases (no kernel is built: the paths run none)
         tail_phases()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--gluon"]:
+        # only slice 19's phases (no kernel is built: the paths run none)
+        gluon_phases()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5689,6 +6212,7 @@ def main():
     word_lm_phases()
     mnist_phases()
     tail_phases()
+    gluon_phases()
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
                                   nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

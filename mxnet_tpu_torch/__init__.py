@@ -43,7 +43,12 @@ kernel; and the Module/kvstore training path of
 ``example/image_classification/train_mnist.py`` through
 ``common/fit.py``: ``kvstore`` on one process (``mx.kv`` its alias),
 ``monitor``, ``io.MNISTIter`` and the 17 optimizers with their 12 update
-ops (``ops/optimizer_ops.py``); it runs no hand-written kernel. The
+ops (``ops/optimizer_ops.py``); it runs no hand-written kernel; and
+the rest of gluon with ``example/gluon/train_resnet.py`` (BASELINE
+workload 2): a block's symbolic trace, ``export`` and ``SymbolBlock``,
+``gluon.data`` with the vision datasets and transforms,
+``gluon.contrib``'s ``rnn`` and ``data``, every initializer, and the
+DCGAN and neural-style examples; it runs no hand-written kernel. The
 top-level aliases ``mx.mod``, ``mx.NDArray``, ``mx.Symbol``, ``mx.var``
 and ``mx.AttrScope`` are the JAX package's. The training
 paths follow MXNet's entry points, with one departure: the default

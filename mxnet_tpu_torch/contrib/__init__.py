@@ -1,5 +1,5 @@
 """Experimental / contrib packages (reference ``python/mxnet/contrib/``):
-the port has :mod:`.torch_bridge`."""
-from . import torch_bridge  # noqa: F401
+the port has :mod:`.torch_bridge` and :mod:`.text`'s ``Vocabulary``."""
+from . import text, torch_bridge  # noqa: F401
 
-__all__ = ["torch_bridge"]
+__all__ = ["text", "torch_bridge"]

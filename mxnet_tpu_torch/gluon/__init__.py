@@ -1,24 +1,27 @@
-"""Gluon: the imperative NN API, the port's part of ``mxnet_tpu/gluon/``
-(Block/HybridBlock run eagerly, Parameter, nn, ``contrib.nn``, loss,
-Trainer, the vision ``model_zoo``, ``rnn``'s cells and fused layers,
-``utils``) and
-:func:`params_from_jax`, which carries a JAX-package net's weights over.
+"""Gluon: the imperative NN API, the port of ``mxnet_tpu/gluon/``
+(Block/HybridBlock run eagerly, with hooks, ``summary``, a symbolic trace
+and ``export``; ``SymbolBlock``; Parameter, Constant; nn, ``contrib``'s
+``nn``, ``rnn`` and ``data``; loss, Trainer, the vision ``model_zoo``,
+``rnn``'s cells and fused layers, ``data`` with its vision datasets and
+transforms, ``utils``) and :func:`params_from_jax`, which carries a
+JAX-package net's weights over.
 """
 import re as _re
 
 import numpy as _np
 
 from ..base import MXNetError as _MXNetError
-from . import block, contrib, loss, model_zoo, nn, parameter, rnn, trainer
-from . import utils
-from .block import Block, HybridBlock
-from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from . import block, loss, model_zoo, nn, parameter, rnn, trainer
+from . import data, contrib, utils
+from .block import Block, HybridBlock, SymbolBlock
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
 from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict",
-           "DeferredInitializationError", "Trainer", "params_from_jax",
-           "block", "contrib", "loss", "model_zoo", "nn", "parameter",
-           "rnn", "trainer", "utils"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "Constant",
+           "ParameterDict", "DeferredInitializationError", "Trainer",
+           "params_from_jax", "block", "contrib", "data", "loss",
+           "model_zoo", "nn", "parameter", "rnn", "trainer", "utils"]
 
 _COUNTED = _re.compile(r"([A-Za-z]+)(\d+)")
 

@@ -1,5 +1,5 @@
-"""Gluon contrib (the port of ``mxnet_tpu/gluon/contrib/``, as far as its
-``nn`` layers; ``rnn`` and ``data`` are not ported yet)."""
-from . import nn
+"""Gluon contrib: the port of ``mxnet_tpu/gluon/contrib/`` (``nn``,
+``rnn`` and ``data``)."""
+from . import data, nn, rnn  # noqa: F401
 
-__all__ = ["nn"]
+__all__ = ["data", "nn", "rnn"]

@@ -10,6 +10,7 @@ import torch
 
 from ... import autograd
 from ...base import MXNetError
+from ...ndarray.ndarray import NDArray
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
@@ -129,7 +130,8 @@ class BatchNorm(HybridBlock):
     batch``, with the batch's biased variance, as in the JAX package. They
     are written in place into the parameters' tensors, so their addresses
     stay fixed: a captured step (``parallel.TrainStep``) replays the
-    update into the same memory. In bfloat16 (after ``cast``) the batch
+    update into the same memory. A symbolic trace gets the op's one
+    output and leaves the statistics to the graph's auxiliary states. In bfloat16 (after ``cast``) the batch
     statistics and the moving ones are bfloat16, as ``jnp.mean`` and
     ``jnp.var`` of bfloat16 give. The recompute of a ``remat`` step leaves
     them alone: the first forward moved them."""
@@ -170,8 +172,11 @@ class BatchNorm(HybridBlock):
                 p.shape = (ch,)
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
-        y, mean, var = F.invoke("BatchNorm", x, gamma, beta, running_mean,
-                                running_var, **self._kwargs)
+        out = F.invoke("BatchNorm", x, gamma, beta, running_mean,
+                       running_var, **self._kwargs)
+        if not isinstance(x, NDArray):
+            return out  # a symbolic trace: one output, the stats are aux
+        y, mean, var = out
         if autograd.is_training() and not self._kwargs["use_global_stats"] \
                 and not autograd.is_recomputing():
             m = self._momentum

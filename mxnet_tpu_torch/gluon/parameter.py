@@ -8,6 +8,12 @@ fills them in call order; since every weight is drawn from the one host
 stream ``random.np_rng()``, that order fixes the values, and it is the
 JAX package's order.
 
+``Parameter.var()`` is the parameter's Symbol variable (a block's
+symbolic trace, ``HybridBlock.export``); ``Constant`` is a parameter of
+fixed value without a gradient. ``reset_ctx`` moves a parameter to
+another context: see its docstring for what that does to a captured
+plane.
+
 ``ParameterDict.save``/``load`` write and read the ``.params`` container
 (``nd.save``/``nd.load``). A loaded value is copied into the parameter's
 own tensor, cast to its dtype (``Parameter._load_init``), so a captured
@@ -18,6 +24,7 @@ place.
 """
 from __future__ import annotations
 
+import json
 from collections import OrderedDict
 
 import numpy as np
@@ -29,7 +36,8 @@ from ..context import Context, cpu, current_context
 from ..ndarray import ndarray as nd_mod
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -48,6 +56,7 @@ class Parameter(object):
         self._grad = None
         self._ctx_list = None
         self._deferred_init = ()
+        self._var = None
         self.name = name
         self._differentiable = differentiable
         if not differentiable:
@@ -148,6 +157,8 @@ class Parameter(object):
             self.shape = tuple(
                 self_dim if self_dim != 0 else data_dim
                 for self_dim, data_dim in zip(self.shape, data.shape))
+        elif self.shape is None:  # a SymbolBlock's parameter: any shape
+            self.shape = tuple(data.shape)
         if isinstance(ctx, Context):
             ctx = [ctx]
         src = data._data if isinstance(data, NDArray) \
@@ -232,6 +243,41 @@ class Parameter(object):
         self._deferred_init = (init, ctx, default_init, None)
         self._finish_deferred_init()
 
+    def reset_ctx(self, ctx):
+        """Move the parameter to ``ctx`` (a Context or a list of one or
+        more; ``mxnet_tpu/gluon/parameter.py:222-234``). The value is kept
+        and the gradient restarts at zero; a reset to the contexts it is
+        on changes nothing. An initialized parameter keeps its NDArray
+        objects, whose tensors are rebound to the new device; a deferred
+        one records ``ctx`` for its initialization. A captured plane
+        (``parallel.TrainStep``, ``trainplane.TrainPlane``, the module
+        plane) made before a move holds the old tensors' addresses, so it
+        goes on training those and no longer this parameter: make the
+        plane after the move."""
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        ctx = list(ctx)
+        if self._data:
+            if list(self._data) == ctx:
+                return
+            if len(ctx) != 1 or len(self._data) != 1:
+                data = list(self._data.values())[0]
+                self._init_impl(data.copyto(cpu()), ctx)
+                return
+            arr = list(self._data.values())[0]
+            with autograd.pause(), torch.no_grad():
+                arr._data = arr._data.detach().to(ctx[0].torch_device())
+            self._data = OrderedDict([(ctx[0], arr)])
+            self._ctx_list = ctx
+            self._init_grad()
+        elif self._deferred_init:
+            init, _, default_init, data = self._deferred_init
+            self._deferred_init = (init, ctx, default_init, data)
+        else:
+            raise MXNetError("Cannot reset context for Parameter '%s' "
+                             "because it has not been initialized."
+                             % self.name)
+
     def set_data(self, data):
         """Set the value on every context (numpy or NDArray)."""
         self.shape = tuple(data.shape)
@@ -294,6 +340,18 @@ class Parameter(object):
         for g in self._grad.values():
             g._data = torch.zeros_like(g._data)
 
+    def var(self):
+        """The parameter's Symbol variable (made once), carrying its shape,
+        dtype, learning-rate and weight-decay multipliers and initializer
+        as attributes (``mxnet_tpu/gluon/parameter.py:289-297``)."""
+        if self._var is None:
+            from .. import symbol
+
+            self._var = symbol.var(self.name, shape=self.shape,
+                                   dtype=self.dtype, lr_mult=self.lr_mult,
+                                   wd_mult=self.wd_mult, init=self.init)
+        return self._var
+
     def cast(self, dtype):
         """Cast the data and the gradient to ``dtype``
         (``mxnet_tpu/gluon/parameter.py:299-308``); a parameter whose
@@ -312,6 +370,30 @@ class Parameter(object):
             if self._grad is not None:
                 for g in self._grad.values():
                     g._data = g._data.to(tdtype)
+
+
+class Constant(Parameter):
+    """A parameter of fixed value: ``grad_req='null'``, initialized from
+    ``value`` (numpy, a list or an NDArray) by an initializer registered
+    under a name of its own (``mxnet_tpu/gluon/parameter.py:311-337``)."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = nd_mod.array(np.asarray(value, np.float32), ctx=cpu())
+        self.value = value
+        init_name = "constant_{}_{}".format(name, id(self)).lower()
+        host = value.asnumpy()
+
+        class _ConstantInit(init_mod.Initializer):
+            def _init_weight(self, _, arr):
+                init_mod.Initializer._set(arr, host)
+
+            def dumps(self):
+                return json.dumps([init_name, {}])
+
+        init_mod._INIT_REGISTRY[init_name] = _ConstantInit
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=init_name)
 
 
 class ParameterDict(object):
@@ -377,6 +459,28 @@ class ParameterDict(object):
                     "'%s' vs stored '%s'." % (name, k, v, existing))
         return param
 
+    def get_constant(self, name, value=None) -> Constant:
+        """Get or create the Constant ``self.prefix + name``; a new one
+        needs ``value``, and an existing one must equal ``value`` when it
+        is given."""
+        name = self.prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise MXNetError(
+                    "No constant named '{name}'. Please specify value if "
+                    "you want to create a new constant.".format(name=name))
+            param = Constant(name, value)
+            self._params[name] = param
+        elif value is not None:
+            want = value.asnumpy() if isinstance(value, NDArray) \
+                else np.asarray(value, np.float32)
+            if not np.array_equal(param.value.asnumpy(), want):
+                raise MXNetError(
+                    "Constant '{name}' already exists but it's not equal to "
+                    "the requested value".format(name=name))
+        return param
+
     def update(self, other):
         for k, v in other.items():
             if k in self._params:
@@ -386,6 +490,17 @@ class ParameterDict(object):
                         "different Parameters with the same name '%s'" % k)
             else:
                 self._params[k] = v
+
+    def reset_ctx(self, ctx):
+        """``Parameter.reset_ctx`` on every parameter."""
+        for p in self.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` (``grad_req``, ``lr_mult``, ...) of every
+        parameter to ``value``."""
+        for p in self.values():
+            setattr(p, name, value)
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):

@@ -41,7 +41,7 @@ from .ndarray import ndarray as nd_mod
 from .ndarray.ndarray import NDArray
 
 __all__ = [
-    "imdecode", "imencode", "imresize", "resize_short",
+    "imdecode", "imread", "imencode", "imresize", "resize_short",
     "fixed_crop", "center_crop", "color_normalize", "Augmenter",
     "ResizeAug", "ForceResizeAug", "CenterCropAug",
     "HorizontalFlipAug", "CastAug", "ColorNormalizeAug", "CreateAugmenter",
@@ -136,6 +136,9 @@ def _png_decode(buf: bytes) -> np.ndarray:
     """(H, W, C) uint8 pixels of an 8-bit, non-interlaced gray, gray+alpha,
     RGB or RGBA PNG."""
     if buf[:8] != _PNG_SIG:
+        if buf[:2] == b"\xff\xd8":
+            _not_ported("imdecode: JPEG (not a PNG image; only the PNG "
+                        "codec is ported)")
         raise MXNetError("imdecode: not a PNG image (only the PNG codec is "
                          "ported; JPEG and other formats are not)")
     pos, idat, header = 8, [], None
@@ -196,6 +199,14 @@ def imdecode(buf, flag=1, to_rgb=1, to_numpy=False):
             img = img[:, :, ::-1]
     img = np.ascontiguousarray(img)
     return img if to_numpy else _to_nd(img)
+
+
+def imread(filename, flag=1, to_rgb=1, to_numpy=False):
+    """Read and decode an image file (reference image.py:imread): PNG
+    through the port's codec; JPEG raises "not ported yet", as
+    :func:`imdecode` does."""
+    with open(filename, "rb") as f:
+        return imdecode(f.read(), flag, to_rgb, to_numpy)
 
 
 def imencode(img, fmt=".jpg", quality=95):

@@ -8,7 +8,7 @@ the card unless a ``with mx.cpu():`` scope asks for the host, and an
 error without a card) and hands out batches there. Shuffling draws from
 :func:`mx.random.np_rng`, as the JAX package does, so one seed gives the
 same order in both. The prefetching, CSV and record iterators of the
-JAX module are not ported yet.
+JAX module are not ported yet: ``ImageRecordIter`` raises so.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from .ndarray import ndarray as nd_mod
 from .ndarray.ndarray import NDArray
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter",
-           "LibSVMIter"]
+           "LibSVMIter", "ImageRecordIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -342,3 +342,11 @@ class LibSVMIter(DataIter):
         return DataBatch([data], [nd_mod.array(labels, ctx=self._ctx)],
                          pad=pad, provide_data=self.provide_data,
                          provide_label=self.provide_label)
+
+
+def ImageRecordIter(**kwargs):
+    """The JAX package's RecordIO image iterator: not ported yet (it
+    needs the JPEG decoder and ``image_pipeline.py``, ROADMAP queue 1,
+    item 9); raises."""
+    raise MXNetError("io.ImageRecordIter is not ported yet (JPEG decoding "
+                     "and the image pipeline)")

@@ -248,7 +248,9 @@ class NDArray:
 
     def __setitem__(self, key, value):
         """``x[key] = value``: rebinds to a new tensor with the slice
-        replaced (an op recorded earlier keeps the value it saw)."""
+        replaced (an op recorded earlier keeps the value it saw). An array
+        marked by ``attach_grad`` stays a gradient leaf, with its
+        ``.grad``, as in the JAX package."""
         if isinstance(value, NDArray):
             v = value._data.detach()
         elif isinstance(value, (int, float, bool, np.generic)):
@@ -258,6 +260,8 @@ class NDArray:
         new = self._data.detach().clone()
         new[key] = v.to(new) if isinstance(v, torch.Tensor) else v
         self._data = new
+        if self._marked:
+            _make_leaf(self, self._grad_req)
 
     # -- op methods -------------------------------------------------------
     def reshape(self, *shape, **kwargs):

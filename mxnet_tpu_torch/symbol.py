@@ -19,7 +19,14 @@ Two departures in how a graph runs:
   labels), and for a ``Custom`` node from
   what its prop's ``infer_shape`` returns;
 * an executor walks the graph eagerly under torch autograd
-  (:mod:`.executor`) where the JAX package jits it whole.
+  (:mod:`.executor`) where the JAX package jits it whole;
+  :meth:`Symbol.eval_nd` (a ``SymbolBlock``'s forward) walks it on the
+  NDArray inputs' device, or on the card, without a gradient, as the
+  JAX package's unwraps its arrays.
+
+A variable marked ``_forced_aux`` (a block parameter with
+``grad_req='null'``, set by a ``HybridBlock``'s symbolic trace) is an
+auxiliary state wherever it is used, as in the JAX package.
 
 ``group2ctx``, shared executors, subgraph backends and symbolic control
 flow are not ported yet and raise.
@@ -37,13 +44,16 @@ from .base import MXNetError, dtype_name
 from .name import NameManager
 from .ops.registry import OP_REGISTRY, get_op
 
-__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
+           "invoke", "zeros", "ones", "full", "arange", "eye", "maximum",
+           "minimum", "hypot", "histogram"]
 
 
 class _Node:
     """One graph node: an op application or a variable (op=None)."""
 
-    __slots__ = ("op", "name", "attrs", "inputs", "_extra_attrs")
+    __slots__ = ("op", "name", "attrs", "inputs", "_extra_attrs",
+                 "_forced_aux")
 
     def __init__(self, op: Optional[str], name: str, attrs: Dict[str, Any],
                  inputs: List[Tuple["_Node", int]]):
@@ -52,6 +62,7 @@ class _Node:
         self.attrs = attrs
         self.inputs = inputs
         self._extra_attrs = {}  # user attrs (__lr_mult__ etc.)
+        self._forced_aux = False  # an aux state wherever it is used
 
     def is_var(self):
         return self.op is None
@@ -127,6 +138,18 @@ class Symbol(object):
         if index >= len(self):
             raise IndexError
         return Symbol([self._outputs[index]])
+
+    def get_internals(self):
+        """Every output of every node, in topological order, as one
+        grouped Symbol (reference symbol.py:get_internals)."""
+        return Group([Symbol([(node, i)]) for node in self._topo_nodes()
+                      for i in range(node.num_outputs())])
+
+    def get_children(self):
+        """The inputs of the output nodes as one Symbol, or None for a
+        variable."""
+        children = [entry for n, _ in self._outputs for entry in n.inputs]
+        return Symbol(children) if children else None
 
     # -- operators (reference symbol.py:141-210) ------------------------
     def _binop(self, other, op, scalar_op, reverse=False):
@@ -217,10 +240,13 @@ class Symbol(object):
         return order
 
     def _aux_ids(self) -> set:
-        """ids of the variables some op binds to an aux input slot."""
+        """ids of the variables marked ``_forced_aux`` or bound by some op
+        to an aux input slot."""
         aux = set()
         for n in self._topo_nodes():
             if n.is_var():
+                if n._forced_aux:
+                    aux.add(id(n))
                 continue
             opdef = get_op(n.op)
             names = opdef.input_names(opdef.parse_attrs(n.attrs))
@@ -250,10 +276,35 @@ class Symbol(object):
         return [n.name for n in self._topo_nodes()
                 if n.is_var() and id(n) in aux]
 
-    # -- shape inference --------------------------------------------------
+    def list_inputs(self) -> List[str]:
+        """Every variable, arguments and auxiliary states, in topological
+        order."""
+        return [n.name for n in self._topo_nodes() if n.is_var()]
+
+    # -- shape and type inference ------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """``(arg_shapes, out_shapes, aux_shapes)`` from the given input
         shapes (positional in ``list_arguments()`` order, or by name)."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """:meth:`infer_shape` that gives None for what it cannot infer,
+        where :meth:`infer_shape` raises: an op whose inputs are not all
+        known, or whose shape rule fails, leaves its outputs unknown."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def infer_type(self, *args, **kwargs):
+        """``(arg_types, out_types, aux_types)`` as numpy dtypes: every
+        argument and output in the first given type (float32 by
+        default), the auxiliary states in float32, as the JAX package
+        gives them (``mxnet_tpu/symbol.py:355-363``)."""
+        dtype = args[0] if args and args[0] is not None else np.float32
+        return ([np.dtype(dtype) for _ in self.list_arguments()],
+                [np.dtype(dtype) for _ in self._outputs],
+                [np.dtype(np.float32)
+                 for _ in self.list_auxiliary_states()])
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         known: Dict[str, Tuple] = {}
         for name, shape in zip(self.list_arguments(), args):
             if shape is not None:
@@ -298,6 +349,10 @@ class Symbol(object):
                 with torch.no_grad():
                     out = opdef.fcompute(attrs, *metas)
             except Exception as e:  # an op's own error names the problem
+                if partial:
+                    for i in range(node.num_outputs()):
+                        shapes[(id(node), i)] = None
+                    continue
                 raise MXNetError("shape inference failed at op %s(%s): %s"
                                  % (node.op, node.name, e)) from e
             outs = out if isinstance(out, (tuple, list)) else (out,)
@@ -311,7 +366,7 @@ class Symbol(object):
         out_shapes = [shapes.get((id(n), i)) for n, i in self._outputs]
         aux_shapes = [shapes.get((id(n), 0)) for n in self._topo_nodes()
                       if n.is_var() and id(n) in aux]
-        if any(s is None for s in out_shapes):
+        if not partial and any(s is None for s in out_shapes):
             raise MXNetError("infer_shape: insufficient information")
         return arg_shapes, out_shapes, aux_shapes
 
@@ -392,6 +447,48 @@ class Symbol(object):
                             old = vals[(id(src), 0)]
                             aux_updates[src.name] = m * old + (1 - m) * stat
         return [vals[(id(n), i)] for n, i in self._outputs]
+
+    def eval_nd(self, arg_dict, ctx=None):
+        """The outputs for ``arg_dict`` (name -> NDArray, tensor or numpy),
+        each a new NDArray; one output alone, several as a list. The graph
+        runs on the device of the first NDArray input; without one, on
+        ``ctx``, the current context (the card) by default. Inputs that
+        are not NDArrays are put on that device first, so numpy inputs
+        run on the card unless the host is asked for. The outputs are
+        moved to ``ctx`` when it is given. As the JAX package's
+        (``mxnet_tpu/symbol.py:474-484``), the inputs are unwrapped and
+        nothing is recorded: no gradient reaches them, and no moving
+        statistic is updated."""
+        from .context import current_context, from_device
+        from .ndarray.ndarray import NDArray
+
+        nds = [v for v in arg_dict.values() if isinstance(v, NDArray)]
+        run_ctx = from_device(nds[0]._data.device) if nds \
+            else (ctx or current_context())
+        dev = run_ctx.torch_device()
+        vm = {}
+        for k, v in arg_dict.items():
+            if isinstance(v, NDArray):
+                v = v._data
+            elif isinstance(v, torch.Tensor):
+                v = v.to(dev)
+            else:
+                v = torch.as_tensor(np.asarray(v), device=dev)
+            vm[k] = v.detach()
+        with run_ctx, torch.no_grad():
+            outs = self.eval_torch(vm)
+        if ctx is not None:
+            outs = [o.to(ctx.torch_device()) for o in outs]
+        nd_outs = [NDArray(o) for o in outs]
+        return nd_outs[0] if len(nd_outs) == 1 else nd_outs
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind and run forward in one call (reference symbol.py:eval):
+        :meth:`eval_nd` of the keyword arrays."""
+        return self.eval_nd(kwargs, ctx)
+
+    def save_checkpoint_compatible(self):
+        return True
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
@@ -653,3 +750,70 @@ for _opname in list(OP_REGISTRY):
 
 # the _contrib_* ops under their short names (mx.sym.contrib.MultiBoxPrior)
 from . import sym_contrib as contrib  # noqa: E402,F401
+
+
+def invoke(op_name, *sym_inputs, **kwargs):
+    """The Symbol of op ``op_name`` over ``sym_inputs`` with ``kwargs`` as
+    its attributes (``name=`` names the node): ``F.invoke`` of a block's
+    ``hybrid_forward`` when ``F`` is this module."""
+    name = kwargs.pop("name", None)
+    return _invoke(op_name, list(sym_inputs), kwargs, name=name)
+
+
+def zeros(shape, dtype=None, **kwargs):
+    return _invoke("_zeros", [], {"shape": shape}, name=kwargs.get("name"))
+
+
+def ones(shape, dtype=None, **kwargs):
+    return _invoke("_ones", [], {"shape": shape}, name=kwargs.get("name"))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype=None, **kwargs):
+    return _invoke("_arange", [], {"start": start, "stop": stop,
+                                   "step": step, "repeat": repeat},
+                   name=kwargs.get("name"))
+
+
+def eye(N, M=0, k=0, dtype=None, **kwargs):
+    attrs = dict(N=N, M=M or N, k=k, **kwargs)
+    if dtype is not None:
+        attrs["dtype"] = dtype
+    return _invoke("_eye", [], attrs)
+
+
+def full(shape, val, dtype=None, **kwargs):
+    attrs = dict(shape=shape, value=float(val), **kwargs)
+    if dtype is not None:
+        attrs["dtype"] = dtype
+    return _invoke("_full", [], attrs)
+
+
+def _sym_binop(broadcast_op, scalar_op):
+    def fn(left, right, **kwargs):
+        if isinstance(left, Symbol) and isinstance(right, Symbol):
+            return _invoke(broadcast_op, [left, right], kwargs)
+        if isinstance(left, Symbol):
+            return _invoke(scalar_op, [left],
+                           dict(scalar=float(right), **kwargs))
+        if isinstance(right, Symbol):
+            return _invoke(scalar_op, [right],
+                           dict(scalar=float(left), **kwargs))
+        raise TypeError("at least one argument must be a Symbol")
+    return fn
+
+
+maximum = _sym_binop("broadcast_maximum", "_maximum_scalar")
+minimum = _sym_binop("broadcast_minimum", "_minimum_scalar")
+hypot = _sym_binop("broadcast_hypot", "_hypot_scalar")
+
+
+def histogram(a, bins=10, range=None, **kwargs):
+    """Counts of ``a`` in ``bins`` equal bins over ``range``, which a
+    graph needs given (its edges are a constant subgraph)."""
+    if range is None:
+        raise MXNetError("symbol histogram requires an explicit range "
+                         "(shapes must be static in a graph)")
+    lo, hi = float(range[0]), float(range[1])
+    edges = _invoke("_arange", [], dict(start=0.0, stop=float(bins + 1),
+                                        step=1.0)) * ((hi - lo) / bins) + lo
+    return _invoke("_histogram", [a, edges], dict(bin_cnt=bins, **kwargs))

@@ -45,6 +45,12 @@
   is in the scan; the examples, ``LibSVMIter`` and the sparse
   constructors run on the card unless asked for the host, and the four
   examples train with ``jax`` and ``mxnet_tpu`` made unimportable;
+* the gluon slice (``gluon/data/``, ``gluon/contrib/data/`` and
+  ``rnn/``, ``contrib/text``, the three ``example/gluon/`` scripts) is in the
+  scan; the examples, ``DataLoader``, ``SymbolBlock.imports`` and
+  ``Constant`` run on the card unless asked for the host, and the
+  examples train, export, import and load data with ``jax`` and
+  ``mxnet_tpu`` made unimportable;
 * the extension slice's modules (``rtc``, ``operator``, ``metric``,
   ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
   no module of the port defines ``PallasModule`` (Pallas source cannot
@@ -57,12 +63,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import mxnet_tpu_torch as mx
 from conftest import subprocess_env
 from mxnet_tpu_torch import MXNetError, nd, serving
+from mxnet_tpu_torch.name import NameManager
 
 REPO = Path(__file__).resolve().parent.parent
 _BANNED = ("jax", "jaxlib", "mxnet_tpu")
@@ -578,3 +586,114 @@ print("steps", steps)
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "steps [4, 4, 2, 6]" in proc.stdout
+
+
+_GLUON_SLICE_EXAMPLES = ("train_resnet", "dcgan", "neural_style")
+
+
+def test_scan_covers_the_gluon_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ["mxnet_tpu_torch/gluon/data/%s.py" % m for m in (
+            "__init__", "dataset", "sampler", "dataloader",
+            "vision/__init__", "vision/datasets", "vision/transforms")] + [
+            "mxnet_tpu_torch/gluon/contrib/%s.py" % m for m in (
+                "data/__init__", "data/sampler", "data/text",
+                "rnn/__init__", "rnn/rnn_cell", "rnn/conv_rnn_cell")] + [
+            "mxnet_tpu_torch/contrib/text/__init__.py",
+            "mxnet_tpu_torch/contrib/text/vocab.py"] + [
+            "mxnet_tpu_torch/example/gluon/%s.py" % e
+            for e in _GLUON_SLICE_EXAMPLES]:
+        assert path in names
+
+
+def test_gluon_slice_defaults_to_the_card(tmp_path):
+    """The three examples, a DataLoader, a SymbolBlock import and a
+    Constant raise without a card unless the host is asked for: nothing
+    falls back to the CPU quietly."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    for ex in _GLUON_SLICE_EXAMPLES:
+        mod = importlib.import_module("mxnet_tpu_torch.example.gluon." + ex)
+        args = mod.parse_args(["--iters", "1"] if ex == "neural_style"
+                              else [])
+        assert args.device == "gpu"
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            mod.run(args)
+    ds = mx.gluon.data.SimpleDataset([1.0, 2.0])
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mx.gluon.data.DataLoader(ds, batch_size=1)
+    # a name scope of its own: the trace's node names must not move the
+    # process's counters, which tests comparing auto-named symbols share
+    with mx.cpu(), NameManager():
+        net = mx.gluon.nn.Dense(2, in_units=3)
+        net.initialize()
+        net.export(str(tmp_path / "d"))
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mx.gluon.SymbolBlock.imports(str(tmp_path / "d-symbol.json"),
+                                     "data", str(tmp_path / "d-0000.params"))
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mx.gluon.Constant("c", [1.0]).initialize()
+    # a graph fed numpy (or a host tensor) runs on the card by default:
+    # only NDArray inputs and an explicit ctx pick the host
+    sym = mx.sym.FullyConnected(mx.sym.var("x"), num_hidden=2, name="fc")
+    vals = {"x": np.ones((1, 3), np.float32),
+            "fc_weight": np.ones((2, 3), np.float32),
+            "fc_bias": torch.zeros(2)}
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        sym.eval(**vals)
+    out = sym.eval(ctx=mx.cpu(), **vals)
+    assert out.context == mx.cpu()
+    np.testing.assert_array_equal(out.asnumpy(), [[3.0, 3.0]])
+
+
+def test_gluon_slice_runs_with_jax_and_mxnet_tpu_blocked(tmp_path):
+    code = r"""
+import os
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import image
+from mxnet_tpu_torch.example.gluon import dcgan, neural_style, train_resnet
+from mxnet_tpu_torch.gluon.data.vision import ImageFolderDataset, transforms
+tmp = sys.argv[1]
+os.environ["HOME"] = tmp
+prefix = os.path.join(tmp, "r18")
+res = train_resnet.run(train_resnet.parse_args(
+    ["--device", "cpu", "--model", "resnet18_v1", "--batch-size", "4",
+     "--image-size", "64", "--num-classes", "10", "--num-batches", "1",
+     "--save-prefix", prefix]))
+with mx.cpu():
+    sb = mx.gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                      prefix + "-0000.params")
+    out = sb(mx.nd.array(np.ones((1, 3, 64, 64), np.float32))).asnumpy()
+    assert out.shape == (1, 10) and np.isfinite(out).all()
+    for c in ("a", "b"):
+        os.makedirs(os.path.join(tmp, "img", c))
+        with open(os.path.join(tmp, "img", c, "0.png"), "wb") as f:
+            f.write(image.imencode(np.full((8, 6, 3), 9, np.uint8), ".png"))
+    ds = ImageFolderDataset(os.path.join(tmp, "img")).transform_first(
+        transforms.Compose([transforms.RandomResizedCrop(4),
+                            transforms.ToTensor()]))
+    batches = list(mx.gluon.data.DataLoader(ds, batch_size=2,
+                                            num_workers=2))
+    cell = mx.gluon.contrib.rnn.Conv2DLSTMCell((2, 4, 4), 3, 3, 3, 1)
+    cell.initialize()
+    outs, _ = cell.unroll(2, mx.nd.ones((1, 2, 2, 4, 4)))
+d = dcgan.run(dcgan.parse_args(["--device", "cpu", "--epochs", "1",
+                                "--num-samples", "32"]))
+s = neural_style.run(neural_style.parse_args(["--device", "cpu", "--iters",
+                                              "3", "--size", "16"]))
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("ran", len(res["losses"]), batches[0][0].shape, len(outs),
+      len(d["d_losses"]), len(s["losses"]))
+"""
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=str(REPO), env=subprocess_env(),
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "ran 1 (2, 3, 4, 4) 2 1 3" in proc.stdout
