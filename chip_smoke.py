@@ -354,10 +354,40 @@ Phases, each printing one line of its own (any failure exits non-zero):
     against CPU exactly. Each line carries the card's ``nvidia-smi``
     name and power limit.
 
+55. bucketing_lstm: the port's ``example/rnn/bucketing_lstm.py`` at its
+    defaults (20 epochs over 40 batches of 16 in buckets 8/16/24, an
+    LSTM of 32 on cuDNN, SGD 0.5 with momentum 0.9): it must improve,
+    bind 3 buckets, and every parameter's argument, gradient and
+    auxiliary arrays must be one memory across the buckets' executors;
+    seq/s, ms a batch, and a trace of GRAPH_TRACE_BATCHES batches
+    (device operations and host launches a batch, busy share);
+56. bucketing_wide: the same model at the word LM's medium widths
+    (BUCKETING_WIDE: hidden 650, embed 650, batch 32): one batch a
+    bucket on the card against the CPU from the same weights, outputs
+    and weights within BUCKETING_TOL of each tensor's largest magnitude;
+    the same readings;
+57. sequential_module: a two-module ``SequentialModule`` (the second
+    taking the labels, wired to the first's output), 3 steps of forward,
+    backward through the chain and update, card against CPU within
+    GRAPH_TOL;
+58. control_flow_card: a foreach RNN, a while_loop and a cond on each
+    branch (one whose untaken branch is non-finite) forward and
+    backward, card against CPU within GRAPH_TOL; then ``Module.fit``
+    over a foreach + cond symbol on the module plane: one capture, a
+    graph step a batch, no demotion, weights within GRAPH_PLANE_TOL of
+    the eager fit's;
+59. subgraph_card: an MLP partitioned into one ``_subgraph_op`` against
+    the whole graph on the card, outputs and gradients (bit-equal
+    expected; the largest difference printed);
+60. memonger: the port's ``example/memcost/memonger.py`` at its defaults
+    (depth 32, width 256, batch 2048): both findings' MB and the ratio
+    (the JAX gate's verdict printed, not a bar); the scan's gradients
+    with and without remat within MEMONGER_GRAD_TOL.
+
 ``python3 chip_smoke.py --word-lm`` runs phases 31-35 only,
-``--mnist`` phases 36-42 only, ``--ops-tail`` phases 43-48 only, and
-``--gluon`` phases 49-54 only (no nvcc build: the paths run no
-hand-written kernel).
+``--mnist`` phases 36-42 only, ``--ops-tail`` phases 43-48 only,
+``--gluon`` phases 49-54 only, and ``--graph`` phases 55-60 only (no
+nvcc build: the paths run no hand-written kernel).
 
 ``python3 chip_smoke.py --resnet`` runs phases 17-26 only; ``--ckpt``
 runs phases 28-30 only (building the NMS kernel, training the SSD example
@@ -6027,6 +6057,422 @@ def gluon_phases():
     gluon_contrib()
 
 
+# ---------------------------------------------------------------------------
+# the bucketing and graph slice (slice 20)
+# ---------------------------------------------------------------------------
+
+# bucketing_wide: example/rnn/bucketing_lstm.py's model at the word LM's
+# medium widths (PR 16); card against CPU over one batch a bucket from the
+# same weights, each tensor within BUCKETING_TOL of its largest magnitude
+# (at least 1): the RNN op's bar (cuDNN against the step loop, fp32, TF32
+# off)
+BUCKETING_WIDE = ["--num-hidden", "650", "--num-embed", "650",
+                  "--batch-size", "32"]
+BUCKETING_TOL = RNN_OP_TOL
+GRAPH_TRACE_BATCHES = 9  # traced batches: three rounds of the 3 buckets
+# control_flow_card / sequential_module: card against CPU, of the largest
+# magnitude (at least 1); the module plane's fit against the eager fit
+GRAPH_TOL, GRAPH_PLANE_TOL = 1e-5, 1e-6
+GRAPH_PLANE_BATCHES, GRAPH_PLANE_EPOCHS = 8, 2
+# memonger: the scan's gradients with and without remat
+MEMONGER_GRAD_TOL = 1e-6
+
+
+def _bucket_batches(bl, batch_size, ctx, seed=1):
+    """One batch a bucket (8, 16, 24), drawn as the example draws its
+    batches, on ``ctx``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+
+    rs = np.random.RandomState(seed)
+    out = []
+    for bucket in bl.BUCKETS:
+        length = rs.randint(bucket // 2 + 1, bucket + 1)
+        seqs = rs.randint(1, bl.VOCAB, (batch_size, bucket)).astype(
+            np.float32)
+        seqs[:, length:] = 0
+        labels = (seqs == 7).any(axis=1).astype(np.float32)
+        out.append(DataBatch(
+            data=[mx.nd.array(seqs, ctx=ctx)],
+            label=[mx.nd.array(labels, ctx=ctx)],
+            provide_data=[DataDesc("data", (batch_size, bucket))],
+            provide_label=[DataDesc("softmax_label", (batch_size,))],
+            bucket_key=bucket))
+    return out
+
+
+def _bucket_sharing(mod):
+    """(buckets bound, parameter names whose argument, gradient or
+    auxiliary arrays are not one memory across the buckets' executors)."""
+    execs = [m._exec_group.execs[0] for m in mod._buckets.values()]
+    default = mod._buckets[mod._default_bucket_key]
+    apart = []
+    for name in default._param_names + default._aux_names:
+        for d in ("arg_dict", "grad_dict", "aux_dict"):
+            held = [getattr(e, d)[name] for e in execs
+                    if name in getattr(e, d)]
+            if held and len({a._data.data_ptr() for a in held}) != 1:
+                apart.append("%s:%s" % (d, name))
+    return len(execs), apart
+
+
+def _bucket_trace(bl, mod, batch_size):
+    """A trace of GRAPH_TRACE_BATCHES batches of the example's loop body,
+    the buckets in turn."""
+    import mxnet_tpu_torch as mx
+
+    import itertools
+
+    batches = _bucket_batches(bl, batch_size, mx.gpu(0), seed=2)
+    metric = mx.metric.Accuracy()
+    turn = itertools.cycle(batches)
+
+    def step():
+        bl.train_batch(mod, next(turn), metric)
+
+    for b in batches:  # every bucket bound before the trace
+        bl.train_batch(mod, b, metric)
+    return _device_profile(step, GRAPH_TRACE_BATCHES)
+
+
+def bucketing_lstm():
+    """The port's example/rnn/bucketing_lstm.py at its defaults on the
+    card: improved, 3 buckets bound, every parameter one memory."""
+    from mxnet_tpu_torch.example.rnn import bucketing_lstm as bl
+
+    args = bl.parse_args([])
+    res = bl.main([])
+    buckets, apart = _bucket_sharing(res["module"])
+    prof = _bucket_trace(bl, res["module"], args.batch_size)
+    steady = res["seconds"][1:] or res["seconds"]
+    phase("bucketing_lstm", card=CARD, epochs=args.epochs,
+          batches=res["batches"], batch=args.batch_size,
+          hidden=args.num_hidden, embed=args.num_embed,
+          accuracy_first=res["accuracy"][0], accuracy_last=res["accuracy"][-1],
+          improved=res["improved"], buckets=res["buckets"],
+          first_epoch_s=res["seconds"][0],
+          seq_per_s_median=float(np.median(res["seq_per_s"][1:]
+                                           or res["seq_per_s"])),
+          ms_per_batch_median=1e3 * float(np.median(steady))
+          / res["batches"], profile=prof)
+    if not res["improved"] or buckets != 3 or apart:
+        fail("bucketing_lstm: improved %s, %d buckets bound, arrays apart "
+             "across buckets %s" % (res["improved"], buckets, apart))
+
+
+def _wide_run(bl, ctx, start=None):
+    """bucketing_lstm's model at BUCKETING_WIDE on ``ctx``: one batch a
+    bucket, forward_backward and update; (the initial weights, each
+    batch's output, the final weights), numpy, by name."""
+    import mxnet_tpu_torch as mx
+
+    args = bl.parse_args(BUCKETING_WIDE + ["--device", "cpu"])
+    mx.random.seed(0)
+    mod = bl.build(args, ctx)
+    if start is not None:
+        mod.set_params({k: mx.nd.array(v, ctx=ctx) for k, v in
+                        start.items()}, {})
+    first = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    metric = mx.metric.Accuracy()
+    outs = []
+    for batch in _bucket_batches(bl, args.batch_size, ctx):
+        bl.train_batch(mod, batch, metric)
+        outs.append(mod.get_outputs()[0].asnumpy())
+    return mod, first, outs, {k: v.asnumpy()
+                              for k, v in mod.get_params()[0].items()}
+
+
+def bucketing_wide():
+    """The bucketed LSTM at the word LM's medium widths: card against CPU
+    over one batch a bucket, then a trace on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.rnn import bucketing_lstm as bl
+
+    _, start, out_cpu, w_cpu = _wide_run(bl, mx.cpu())
+    mod, _, out_gpu, w_gpu = _wide_run(bl, mx.gpu(0), start)
+    out_err = max(_rel_err(a, b) for a, b in zip(out_gpu, out_cpu))
+    w_err = max(_rel_err(w_gpu[k], w_cpu[k]) for k in w_cpu)
+    buckets, apart = _bucket_sharing(mod)
+    args = bl.parse_args(BUCKETING_WIDE)
+    prof = _bucket_trace(bl, mod, args.batch_size)
+    phase("bucketing_wide", card=CARD, hidden=args.num_hidden,
+          embed=args.num_embed, batch=args.batch_size, buckets=buckets,
+          output_max_rel_err=out_err, weight_max_rel_err=w_err,
+          tol=BUCKETING_TOL, profile=prof,
+          ms_per_batch=prof["per_step_wall_ms"],
+          seq_per_s=args.batch_size * 1e3 / prof["per_step_wall_ms"])
+    if max(out_err, w_err) > BUCKETING_TOL or buckets != 3 or apart:
+        fail("bucketing_wide: card against CPU %.3g / %.3g, %d buckets, "
+             "arrays apart %s" % (out_err, w_err, buckets, apart))
+
+
+def _chain(ctx, start=None):
+    """Two modules chained (FullyConnected + tanh, then FullyConnected +
+    SoftmaxOutput wired to its output), bound with input gradients."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import sym
+
+    net1 = sym.Activation(sym.FullyConnected(sym.var("data"), name="fc1",
+                                             num_hidden=512),
+                          act_type="tanh", name="act1")
+    net2 = sym.SoftmaxOutput(sym.FullyConnected(sym.var("data"), name="fc2",
+                                                num_hidden=10),
+                             name="softmax")
+    mod = mx.module.SequentialModule()
+    mod.add(mx.module.Module(net1, label_names=None, context=ctx))
+    mod.add(mx.module.Module(net2, context=ctx), take_labels=True,
+            auto_wiring=True)
+    mod.bind(data_shapes=[("data", (64, 256))],
+             label_shapes=[("softmax_label", (64,))], inputs_need_grad=True)
+    mx.random.seed(0)
+    mod.init_params(mx.initializer.Xavier())
+    if start is not None:
+        for m in mod._modules:
+            names = m._param_names
+            m.set_params({k: mx.nd.array(start[k], ctx=ctx) for k in names},
+                         {})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9})
+    return mod
+
+
+def _chain_run(ctx, start=None, steps=3):
+    import mxnet_tpu_torch as mx
+
+    mod = _chain(ctx, start)
+    first = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    rs = np.random.RandomState(0)
+    got = []
+    for _ in range(steps):
+        batch = mx.io.DataBatch(
+            data=[mx.nd.array(rs.randn(64, 256).astype(np.float32),
+                              ctx=ctx)],
+            label=[mx.nd.array(rs.randint(0, 10, 64).astype(np.float32),
+                               ctx=ctx)])
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        got += [mod.get_outputs()[0].asnumpy(),
+                mod.get_input_grads()[0].asnumpy()]
+        mod.update()
+    got += [v.asnumpy() for _, v in sorted(mod.get_params()[0].items())]
+    return first, got
+
+
+def sequential_module():
+    """A two-module chain, 3 steps of forward, backward through the chain
+    and update, card against CPU from the same weights."""
+    import mxnet_tpu_torch as mx
+
+    start, cpu = _chain_run(mx.cpu())
+    _, gpu = _chain_run(mx.gpu(0), start)
+    err = max(_rel_err(a, b) for a, b in zip(gpu, cpu))
+    phase("sequential_module", card=CARD, steps=3, max_rel_err=err,
+          tol=GRAPH_TOL)
+    if not err <= GRAPH_TOL:
+        fail("sequential_module: card against CPU %.3g" % err)
+
+
+def _cf_symbols():
+    """name -> (symbol, numpy inputs): a foreach RNN, the reference's
+    while_loop over tensors, and a cond on each side, one with a
+    non-finite untaken branch."""
+    from mxnet_tpu_torch import sym
+
+    rs = np.random.RandomState(0)
+    T, B, I, H = 16, 32, 64, 256
+    data, h0 = sym.var("data"), sym.var("h0")
+    wx, wh = sym.var("wx"), sym.var("wh")
+
+    def cell(x_t, states):
+        h = sym.tanh(sym.dot(x_t, wx) + sym.dot(states[0], wh))
+        return h, [h]
+
+    outs, _ = sym.contrib.foreach(cell, data, [h0])
+    rnn = sym.sum(outs)
+    rnn_in = {"data": rs.randn(T, B, I), "h0": np.zeros((B, H)),
+              "wx": rs.randn(I, H) * 0.1, "wh": rs.randn(H, H) * 0.05}
+    i0, s0 = sym.var("i0"), sym.var("s0")
+    w_outs, w_st = sym.contrib.while_loop(
+        lambda i, s: sym.sum(i) <= 5 * 64,
+        lambda i, s: ([i + s], [i + 1, s * 0.5 + i]), [i0, s0],
+        max_iterations=10)
+    loop = sym.Group([w_outs[0], w_st[0], w_st[1]])
+    loop_in = {"i0": np.zeros(64), "s0": rs.randn(64)}
+    x = sym.var("x")
+    cond = sym.contrib.cond(sym.sum(x) > 0, lambda: sym.log(x) * 3,
+                            lambda: x * x)
+    cases = {"foreach_rnn": (rnn, rnn_in), "while_loop": (loop, loop_in),
+             "cond_then": (cond, {"x": rs.rand(128) + 0.5}),
+             "cond_else_non_finite": (cond, {"x": -rs.rand(128)})}
+    return {k: (s, {n: v.astype(np.float32) for n, v in vals.items()})
+            for k, (s, vals) in cases.items()}
+
+
+def _cf_run(ctx, symbol, values):
+    ex = symbol.simple_bind(ctx, **{k: v.shape for k, v in values.items()})
+    for k, v in values.items():
+        ex.arg_dict[k][:] = v
+    outs = [o.asnumpy() for o in ex.forward(is_train=True)]
+    ex.backward()
+    return outs + [ex.grad_dict[k].asnumpy() for k in sorted(values)]
+
+
+def _cf_plane_symbol():
+    """A foreach RNN over the batch's time axis whose last state goes
+    through a cond into FullyConnected + SoftmaxOutput."""
+    from mxnet_tpu_torch import sym
+
+    tbi = sym.transpose(sym.var("data"), axes=(1, 0, 2))
+    wx = sym.var("rnn_wx_weight", shape=(32, 128))
+    wh = sym.var("rnn_wh_weight", shape=(128, 128))
+
+    def cell(x_t, states):
+        h = sym.tanh(sym.dot(x_t, wx) + sym.dot(states[0], wh))
+        return h, [h]
+
+    _, states = sym.contrib.foreach(cell, tbi, [sym.zeros((64, 128))])
+    h = states[0]
+    g = sym.contrib.cond(sym.sum(h) > 0, lambda: sym.log(sym.abs(h) + 1),
+                         lambda: h * 2)
+    return sym.SoftmaxOutput(sym.FullyConnected(g, num_hidden=4, name="fc"),
+                             name="softmax")
+
+
+def _cf_fit(plane_on):
+    """Module.fit over _cf_plane_symbol on the card; (module, the planes
+    its fit made, graph steps, demotions by reason during it)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import trainplane
+
+    rs = np.random.RandomState(3)
+    n = GRAPH_PLANE_BATCHES * 64
+    xs = rs.randn(n, 12, 32).astype(np.float32)
+    ys = rs.randint(0, 4, n).astype(np.float32)
+    made, orig = _planes_made()
+    prev = os.environ.get("MXNET_TRAINSTEP")
+    os.environ["MXNET_TRAINSTEP"] = "1" if plane_on else "0"
+    try:
+        with mx.gpu(0):
+            it = mx.io.NDArrayIter(xs, ys, 64)
+            mod = mx.mod.Module(_cf_plane_symbol())
+            mx.random.seed(0)
+            before = _plane_counts()
+            mod.fit(it, num_epoch=GRAPH_PLANE_EPOCHS,
+                    initializer=mx.initializer.Xavier(), optimizer="sgd",
+                    optimizer_params={"learning_rate": 0.1,
+                                      "momentum": 0.9})
+            after = _plane_counts()
+    finally:
+        trainplane.module_plane = orig
+        if prev is None:
+            del os.environ["MXNET_TRAINSTEP"]
+        else:
+            os.environ["MXNET_TRAINSTEP"] = prev
+    demoted = {k: v - before[0].get(k, 0.0) for k, v in after[0].items()
+               if v != before[0].get(k, 0.0)}
+    return mod, made, after[1] - before[1], demoted
+
+
+def control_flow_card():
+    """foreach, while_loop and cond forward and backward, card against
+    CPU; then a Module.fit over a foreach + cond symbol on the module
+    plane (one capture, a replay a batch, no demotion) against the eager
+    fit."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    errs = {}
+    for name, (symbol, values) in _cf_symbols().items():
+        cpu = _cf_run(mx.cpu(), symbol, values)
+        gpu = _cf_run(mx.gpu(0), symbol, values)
+        if not all(np.isfinite(a).all() for a in gpu):
+            fail("control_flow_card: %s gave non-finite values" % name)
+        errs[name] = max(_rel_err(a, b) for a, b in zip(gpu, cpu))
+    graph, made, steps, demoted = _cf_fit(True)
+    eager, _, eager_steps, _ = _cf_fit(False)
+    torch.cuda.synchronize()
+    (ga, _), (ea, _) = graph.get_params(), eager.get_params()
+    plane_err = max(float((ga[k]._data - ea[k]._data).abs().max())
+                    for k in ga)
+    plane = made[0] if made else None
+    captures = plane.compile_count if plane is not None else 0
+    want = GRAPH_PLANE_BATCHES * GRAPH_PLANE_EPOCHS
+    phase("control_flow_card", card=CARD, max_rel_err=errs, tol=GRAPH_TOL,
+          plane_captures=captures, plane_graph_steps=steps,
+          plane_batches=want, plane_demotions=demoted,
+          eager_graph_steps=eager_steps,
+          plane_vs_eager_max_abs_err=plane_err, plane_tol=GRAPH_PLANE_TOL)
+    if max(errs.values()) > GRAPH_TOL or captures != 1 or steps != want \
+            or demoted or eager_steps != 0 or plane_err > GRAPH_PLANE_TOL:
+        fail("control_flow_card: errors %s, %d captures, %d graph steps "
+             "of %d, demotions %s, plane against eager %.3g"
+             % (errs, captures, steps, want, demoted, plane_err))
+
+
+def subgraph_card():
+    """An MLP partitioned into one _subgraph_op against the whole graph
+    on the card: outputs and gradients (bit-equal expected: the fused
+    node runs the same ops in the same order)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import subgraph, sym
+
+    data, w1, w2 = sym.var("data"), sym.var("w1"), sym.var("w2")
+    h = sym.Activation(sym.FullyConnected(data, weight=w1, no_bias=True,
+                                          num_hidden=512, name="fc1"),
+                       act_type="relu", name="act1")
+    whole = sym.FullyConnected(h, weight=w2, no_bias=True, num_hidden=10,
+                               name="fc2")
+    part = subgraph.partition_graph(whole, ["FullyConnected", "Activation"])
+    rs = np.random.RandomState(4)
+    values = {"data": rs.randn(256, 1024), "w1": rs.randn(512, 1024) * 0.03,
+              "w2": rs.randn(10, 512) * 0.05}
+    values = {k: v.astype(np.float32) for k, v in values.items()}
+    got = {name: _cf_run(mx.gpu(0), s, values)
+           for name, s in (("whole", whole), ("partitioned", part))}
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(got["partitioned"], got["whole"]))
+    equal = all(np.array_equal(a, b)
+                for a, b in zip(got["partitioned"], got["whole"]))
+    ops = [n.op for n in part._topo_nodes() if not n.is_var()]
+    phase("subgraph_card", card=CARD, ops=ops, bitwise_equal=equal,
+          max_abs_diff=diff)
+    if ops != ["_subgraph_op"] or diff > GRAPH_TOL:
+        fail("subgraph_card: ops %s, partitioned against whole %.3g"
+             % (ops, diff))
+
+
+def memonger():
+    """The port's example/memcost/memonger.py at its defaults on the card:
+    both findings' MB and the ratio; bars only on the scan's gradients
+    with and without remat agreeing."""
+    from mxnet_tpu_torch.example.memcost import memonger as mem
+
+    args = mem.parse_args([])
+    res = mem.main([])
+    mb = 2.0 ** 20
+    phase("memonger", card=CARD, depth=args.depth, width=args.width,
+          batch=args.batch_size,
+          trainstep_mb={k: v / mb for k, v in res["trainstep_bytes"].items()},
+          scan_mb={k: v / mb for k, v in res["scan_bytes"].items()},
+          scan_seconds=res["scan_seconds"], ratio=res["ratio"],
+          jax_gate_sublinear=res["sublinear"],
+          grad_max_abs_diff=res["grad_max_abs_diff"],
+          tol=MEMONGER_GRAD_TOL)
+    if not res["grad_max_abs_diff"] <= MEMONGER_GRAD_TOL:
+        fail("memonger: the scan's gradients with and without remat "
+             "differ by %.3g" % res["grad_max_abs_diff"])
+
+
+def graph_phases():
+    bucketing_lstm()
+    bucketing_wide()
+    sequential_module()
+    control_flow_card()
+    subgraph_card()
+    memonger()
+
+
 def main():
     import torch
 
@@ -6108,6 +6554,13 @@ def main():
     if sys.argv[1:] == ["--gluon"]:
         # only slice 19's phases (no kernel is built: the paths run none)
         gluon_phases()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--graph"]:
+        # only slice 20's phases (no kernel is built: the paths run none)
+        graph_phases()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -6213,6 +6666,7 @@ def main():
     mnist_phases()
     tail_phases()
     gluon_phases()
+    graph_phases()
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
                                   nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

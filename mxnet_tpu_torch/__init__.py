@@ -48,9 +48,15 @@ the rest of gluon with ``example/gluon/train_resnet.py`` (BASELINE
 workload 2): a block's symbolic trace, ``export`` and ``SymbolBlock``,
 ``gluon.data`` with the vision datasets and transforms,
 ``gluon.contrib``'s ``rnn`` and ``data``, every initializer, and the
-DCGAN and neural-style examples; it runs no hand-written kernel. The
-top-level aliases ``mx.mod``, ``mx.NDArray``, ``mx.Symbol``, ``mx.var``
-and ``mx.AttrScope`` are the JAX package's. The training
+DCGAN and neural-style examples; it runs no hand-written kernel; and
+bucketing and graph features: ``module.BucketingModule`` with
+``example/rnn/bucketing_lstm.py``, ``module.SequentialModule``, shared
+executors and ``reshape``, symbolic and imperative control flow
+(``sym.contrib``/``nd.contrib`` ``foreach``, ``while_loop``, ``cond``)
+with ``example/memcost/memonger.py``, and ``subgraph``'s partitioning;
+it runs no hand-written kernel. The top-level aliases ``mx.mod``,
+``mx.NDArray``, ``mx.Symbol``, ``mx.var`` and ``mx.AttrScope`` are the
+JAX package's. The training
 paths follow MXNet's entry points, with one departure: the default
 context is the card (``gpu(0)``), and without one, code that does not
 ask for ``mx.cpu()`` raises.
@@ -65,6 +71,7 @@ from . import kvstore as kv
 from . import ndarray as nd
 from . import symbol
 from . import symbol as sym
+from . import subgraph
 from .base import MXNetError, fetch_host, get_env, resolve_device
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .model import load_checkpoint, save_checkpoint
@@ -77,7 +84,8 @@ __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
            "Context", "cpu", "gpu", "current_context", "num_gpus",
            "autograd", "gluon", "initializer", "nd", "ndarray", "optimizer",
            "random", "attribute", "executor", "image", "io", "model",
-           "module", "recordio", "sym", "symbol", "callback", "contrib",
+           "module", "recordio", "sym", "symbol", "subgraph", "callback",
+           "contrib",
            "metric", "operator", "rtc", "fastpath", "parallel",
            "lr_scheduler", "trainplane", "elastic", "kvstore", "kv",
            "monitor", "save_checkpoint",

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "get_env", "fetch_host", "resolve_device",
-           "np_dtype", "dtype_name", "torch_dtype", "parser_for"]
+           "np_dtype", "dtype_name", "torch_dtype", "parser_for",
+           "flatten_list", "regroup_list"]
 
 
 class MXNetError(RuntimeError):
@@ -255,3 +256,29 @@ _PARSERS = {
 
 def parser_for(typ) -> Callable:
     return _PARSERS.get(typ, typ if callable(typ) else parse_str)
+
+
+def flatten_list(args):
+    """Nested lists/tuples as ``(flat list, format tree)``: format 0 marks
+    one leaf, a list recurses (``mxnet_tpu/base.py:243``; the control-flow
+    front ends share it)."""
+    if not isinstance(args, (list, tuple)):
+        return [args], 0
+    flat, fmts = [], []
+    for a in args:
+        f, fmt = flatten_list(a)
+        flat.extend(f)
+        fmts.append(fmt)
+    return flat, fmts
+
+
+def regroup_list(flat, fmt):
+    """The inverse of :func:`flatten_list`: ``(tree, what is left of
+    flat)``."""
+    if isinstance(fmt, int):
+        return flat[0], flat[1:]
+    out = []
+    for f in fmt:
+        res, flat = regroup_list(flat, f)
+        out.append(res)
+    return out, flat

@@ -22,7 +22,8 @@ written in place into ``aux_dict`` (``executor.py:225-227`` rebinds
 them). A callback set by :meth:`Executor.set_monitor_callback` (a
 ``Monitor``) gets each output by name after every forward. The graph is held from forward to backward and freed by it.
 ``trainplane.module_plane`` captures the same forward, backward and
-update as one CUDA graph a step.
+update as one CUDA graph a step. :meth:`Executor.reshape` binds the graph
+anew for other input shapes, keeping every array whose shape holds.
 """
 from __future__ import annotations
 
@@ -36,6 +37,13 @@ from .context import Context, current_context
 from .ndarray.ndarray import NDArray
 
 __all__ = ["Executor"]
+
+
+def _same_memory(a, b):
+    """Whether tensors ``a`` and ``b`` are the same elements in memory."""
+    return a.data_ptr() == b.data_ptr() and a.device == b.device \
+        and a.shape == b.shape and a.dtype == b.dtype \
+        and a.stride() == b.stride()
 
 
 class Executor(object):
@@ -111,7 +119,8 @@ class Executor(object):
             self._heads = (outs, leaves, diff)
         else:
             with autograd.predict_mode(), torch.no_grad():
-                outs = self._symbol.eval_torch(values)
+                outs = self._symbol.eval_torch(
+                    values, device=self._ctx.torch_device())
         self.outputs = [NDArray(o.detach()) for o in outs]
         if self._monitor_callback is not None:
             # the graph's outputs, as the JAX executor hands them
@@ -138,7 +147,9 @@ class Executor(object):
             leaves.append(leaf)
         aux_updates = {}
         with autograd.train_mode(), torch.enable_grad():
-            outs = self._symbol.eval_torch(values, aux_updates=aux_updates)
+            outs = self._symbol.eval_torch(
+                values, aux_updates=aux_updates,
+                device=self._ctx.torch_device())
         with torch.no_grad():
             for name, val in aux_updates.items():
                 if name in self.aux_dict:
@@ -188,7 +199,9 @@ class Executor(object):
         executor.py:copy_params_from), in place where the value has the
         bound array's shape and dtype, so a CUDA graph holding the array
         replays with the new value; a value of another shape or dtype is
-        rebound (on this executor's device) instead."""
+        rebound (on this executor's device) instead. A value that is the
+        bound array's own memory (a bucket's executors share their
+        parameters) costs no copy."""
         dev = self._ctx.torch_device()
         for src, dst, what in ((arg_params, self.arg_dict, "arguments"),
                                (aux_params or {}, self.aux_dict,
@@ -196,6 +209,8 @@ class Executor(object):
             for name, array in src.items():
                 if name in dst:
                     held, value = dst[name]._data, array._data.detach()
+                    if _same_memory(held, value):
+                        continue
                     if held.shape == value.shape and \
                             held.dtype == value.dtype:
                         with torch.no_grad():
@@ -205,3 +220,40 @@ class Executor(object):
                 elif not allow_extra_params:
                     raise MXNetError("Found name \"%s\" that is not in the "
                                      "%s" % (name, what))
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor of the same graph for the input shapes in
+        ``kwargs`` (reference executor.py:372; ``mxnet_tpu/executor.py:
+        295-323``): every argument, gradient and auxiliary array whose
+        shape is unchanged is this executor's own NDArray, the others are
+        new zeros on this executor's device. ``partial_shaping`` and
+        ``allow_up_sizing`` are accepted and unused, as in the JAX
+        package: nothing is preallocated to outgrow."""
+        from .ndarray import ndarray as nd_mod
+
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+
+        def keep(old, shape):
+            if old is not None and tuple(old.shape) == tuple(shape):
+                return old
+            return nd_mod.zeros(shape, ctx=self._ctx, dtype=old.dtype)
+
+        new_args = {n: keep(self.arg_dict[n], s)
+                    for n, s in zip(self.arg_names, arg_shapes)}
+        new_grads = {n: keep(g, new_args[n].shape)
+                     for n, g in self.grad_dict.items()} or None
+        new_aux = {n: keep(self.aux_dict[n], s)
+                   for n, s in zip(self.aux_names, aux_shapes)}
+        return Executor(self._symbol, self._ctx, new_args, new_grads,
+                        self.grad_req, new_aux)
+
+    @property
+    def output_dict(self):
+        """name -> the last forward's output NDArray."""
+        return dict(zip(self.output_names, self.outputs))
+
+    def debug_str(self):
+        return ("Symbolic executor over %d args, %d outputs (an eager "
+                "graph walk under torch autograd)"
+                % (len(self.arg_names), len(self.output_names)))

@@ -81,13 +81,41 @@ class BaseModule(object):
         self.optimizer_initialized = False
         self._symbol = None
 
+    def _require(self, *what):
+        """Raise unless each state named (``binded``,
+        ``params_initialized``, ``optimizer_initialized``) is set."""
+        for w in what:
+            if not getattr(self, w):
+                raise MXNetError("%s: call %s first" % (
+                    type(self).__name__,
+                    {"binded": "bind()", "params_initialized": "init_params()",
+                     "optimizer_initialized": "init_optimizer()"}[w]))
+
     def forward_backward(self, data_batch):
         """forward + backward in one call (reference base_module.py:193)."""
         self.forward(data_batch, is_train=True)
         self.backward()
 
     def prepare(self, data_batch, sparse_row_id_fn=None):
-        pass
+        """Get ready for ``data_batch`` before its forward (``fit`` calls
+        it each batch): nothing here; ``BucketingModule`` switches to the
+        batch's bucket."""
+
+    def get_states(self, merge_multi_context=True):
+        """The module's state arrays: none, as in the JAX package
+        (``mxnet_tpu/module/base_module.py:294-297``)."""
+        self._require("binded", "params_initialized")
+        if merge_multi_context:
+            raise MXNetError("get_states: merge_multi_context is not "
+                             "supported")
+        return []
+
+    def set_states(self, states=None, value=None):
+        """Set the state arrays: there are none to set
+        (``mxnet_tpu/module/base_module.py:299-301``)."""
+        self._require("binded", "params_initialized")
+        if states or value:
+            raise MXNetError("set_states: the module has no states")
 
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, score_end_callback=None, reset=True,

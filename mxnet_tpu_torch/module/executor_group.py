@@ -3,8 +3,14 @@
 
 The JAX group slices each batch over its contexts (``:281-303``); the
 port's Module takes one context, so the group holds one executor, fed
-the whole batch. Several contexts need a kvstore (not ported yet) and
-raise.
+the whole batch. Several contexts (and ``_split_input_slice``) are not
+ported yet and raise.
+
+Given a ``shared_group`` (a bucketing module's default bucket), the
+executor is bound with the shared group's executor as ``shared_exec``
+over the parameter names (``:78-115``): its parameter, gradient and
+auxiliary arrays are the shared group's own NDArrays, so an update
+through one bucket is every bucket's, without a copy.
 """
 from __future__ import annotations
 
@@ -16,7 +22,8 @@ __all__ = ["DataParallelExecutorGroup"]
 class DataParallelExecutorGroup(object):
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write"):
+                 fixed_param_names=None, grad_req="write", shared_group=None,
+                 state_names=None):
         if len(contexts) != 1:
             raise MXNetError("Module over %d contexts is not ported yet (one "
                              "context)" % len(contexts))
@@ -25,6 +32,7 @@ class DataParallelExecutorGroup(object):
         self.param_names = param_names
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
+        self.state_names = list(state_names or [])
         fixed = set(fixed_param_names or [])
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -45,8 +53,12 @@ class DataParallelExecutorGroup(object):
                 self._grad_req[name] = "null"
         shapes = dict(data_shapes)
         shapes.update(dict(label_shapes or []))
-        self.execs = [symbol.simple_bind(contexts[0], grad_req=self._grad_req,
-                                         **shapes)]
+        shared = shared_group.execs[0] if shared_group is not None \
+            else None
+        self.execs = [symbol.simple_bind(
+            contexts[0], grad_req=self._grad_req, shared_exec=shared,
+            shared_arg_names=param_names if shared is not None else None,
+            **shapes)]
 
     def get_params(self, arg_params, aux_params):
         """Point ``arg_params``/``aux_params`` at the executor's current

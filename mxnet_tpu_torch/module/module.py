@@ -30,6 +30,14 @@ live states.
 ``init_optimizer``, as MXNet 1.3 does; the JAX package records the file
 but never reads it.
 
+``bind(shared_module=)`` binds over the shared module's parameter,
+gradient and auxiliary arrays (``BucketingModule``'s buckets share the
+default bucket's); ``init_params`` given an executor's own arrays (another
+bucket's ``get_params``) takes them as they are, so a bucket switch copies
+nothing. ``state_names`` are inputs the caller sets, not parameters.
+:meth:`Module.reshape` binds anew for other input shapes with the trained
+parameters. ``group2ctxs`` is not ported yet and raises.
+
 :func:`params_from_jax` carries the JAX ``Module.get_params()`` into this
 package, so both can compute the same thing.
 """
@@ -43,6 +51,7 @@ import torch
 from .. import fastpath, optimizer as opt
 from ..base import MXNetError
 from ..context import Context, current_context
+from ..executor import _same_memory
 from ..initializer import InitDesc, Uniform
 from ..ndarray import ndarray as nd_mod
 from ..ndarray.ndarray import NDArray
@@ -62,27 +71,32 @@ class Module(BaseModule):
             context = current_context()
         if isinstance(context, Context):
             context = [context]
-        if group2ctxs or state_names:
-            raise MXNetError("Module: group2ctxs and state_names are not "
-                             "ported yet")
+        if group2ctxs:
+            raise MXNetError("Module: group2ctxs is not ported yet")
         self._compression_params = compression_params
         self._context = list(context)
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
         label_names = list(label_names) if label_names is not None else []
+        state_names = list(state_names) if state_names is not None else []
         fixed_param_names = list(fixed_param_names or [])
         _check_input_names(symbol, data_names, "data", True)
         _check_input_names(symbol, label_names, "label", False)
+        _check_input_names(symbol, state_names, "state", True)
         _check_input_names(symbol, fixed_param_names, "fixed_param", True)
 
-        input_names = data_names + label_names
+        # the states are inputs the caller sets, not parameters
+        # (mxnet_tpu/module/module.py:41-56)
+        input_names = data_names + label_names + state_names
         self._param_names = [x for x in symbol.list_arguments()
                              if x not in input_names]
         self._fixed_param_names = fixed_param_names
         self._aux_names = symbol.list_auxiliary_states()
         self._data_names = data_names
         self._label_names = label_names
+        self._state_names = state_names
         self._output_names = symbol.list_outputs()
+        self._grad_req = "write"
 
         self._arg_params = None
         self._aux_params = None
@@ -148,21 +162,19 @@ class Module(BaseModule):
     def output_shapes(self):
         return list(zip(self._output_names, self._inferred_out_shapes))
 
-    def _require(self, *what):
-        for w in what:
-            if not getattr(self, w):
-                raise MXNetError("Module: call %s first" % {
-                    "binded": "bind()", "params_initialized": "init_params()",
-                    "optimizer_initialized": "init_optimizer()"}[w])
-
     # -- parameters -------------------------------------------------------
     def get_params(self):
         """``(arg_params, aux_params)``: name -> NDArray on the context."""
         self._require("binded", "params_initialized")
         if self._params_dirty:
-            self._exec_group.get_params(self._arg_params, self._aux_params)
-            self._params_dirty = False
+            self._sync_params_from_devices()
         return self._arg_params, self._aux_params
+
+    def _sync_params_from_devices(self):
+        """Point the module's parameter dicts at the executor's current
+        values (one context: no copy)."""
+        self._exec_group.get_params(self._arg_params, self._aux_params)
+        self._params_dirty = False
 
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
                     allow_missing=False, force_init=False, allow_extra=False):
@@ -183,6 +195,8 @@ class Module(BaseModule):
                                 for n, s in self._aux_shapes.items()}
         attrs = self._symbol.attr_dict()
 
+        e = self._exec_group.execs[0]
+
         def _impl(name, arr, cache):
             if cache is not None:
                 if name in cache:
@@ -193,6 +207,13 @@ class Module(BaseModule):
                         raise MXNetError("%s: shape %s given, %s expected"
                                          % (name, tuple(data.shape),
                                             arr.shape))
+                    bound = e.arg_dict.get(name, e.aux_dict.get(name))
+                    if bound is not None and _same_memory(data,
+                                                          bound._data):
+                        # the executor's own array (another bucket's
+                        # get_params over shared arrays): nothing to copy
+                        arr._data = bound._data
+                        return
                     # a copy of its own, as the reference's set_params
                     # copies: the update and the moving statistics are
                     # written in place
@@ -222,8 +243,6 @@ class Module(BaseModule):
         module.py:bind)."""
         from ..io import DataDesc
 
-        if shared_module is not None:
-            raise MXNetError("Module.bind(shared_module) is not ported yet")
         if force_rebind:
             self._exec_group = None
             self.binded = False
@@ -232,6 +251,7 @@ class Module(BaseModule):
             return
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
+        self._grad_req = grad_req
         data_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
                        for x in data_shapes]
         if label_shapes is not None:
@@ -248,13 +268,30 @@ class Module(BaseModule):
             n: s for n, s in zip(self._symbol.list_arguments(), arg_shapes)
             if n in self._param_names}
         self._aux_shapes = dict(zip(self._aux_names, aux_shapes))
+        shared_group = None
+        if shared_module is not None:
+            if not shared_module.binded:
+                raise MXNetError("shared_module must be binded first")
+            shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, data_shapes, label_shapes,
             self._param_names, for_training, inputs_need_grad,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            shared_group=shared_group, state_names=self._state_names)
         self.binded = True
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Bind again for new input shapes, keeping the parameters
+        (``mxnet_tpu/module/module.py:370``): the trained values are
+        read from the executor first, then copied into the new one."""
+        self._require("binded")
+        if self.params_initialized and self._params_dirty:
+            self._sync_params_from_devices()
+        self.bind(data_shapes, label_shapes, self.for_training,
+                  self.inputs_need_grad, force_rebind=True,
+                  grad_req=self._grad_req)
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),

@@ -14,6 +14,7 @@ its plain PyTorch version.
 
 :mod:`.registry` holds the op registry; :mod:`.tensor`, :mod:`.nn`,
 :mod:`.random_ops`, :mod:`.optimizer_ops` (the fused optimizer updates),
+:mod:`.control_flow` (``_foreach``, ``_while_loop``, ``_cond``),
 :mod:`.detection`, :mod:`.linalg` (``torch.linalg``), :mod:`.misc_tail`
 and :mod:`.sparse` (the storage-type path of sparse NDArrays) register
 the plain PyTorch ops
@@ -25,12 +26,12 @@ too, so that ``nd.Custom`` and ``sym.Custom`` are generated.
 """
 from __future__ import annotations
 
-from . import (detection, flash_attention, linalg, misc_tail, nms, nn,
-               optimizer_ops, paged_attention, random_ops, registry, sparse,
-               tensor)
+from . import (control_flow, detection, flash_attention, linalg, misc_tail,
+               nms, nn, optimizer_ops, paged_attention, random_ops, registry,
+               sparse, tensor)
 
-__all__ = ["detection", "flash_attention", "linalg", "misc_tail", "nms",
-           "nn", "optimizer_ops", "paged_attention", "random_ops",
-           "registry", "sparse", "tensor"]
+__all__ = ["control_flow", "detection", "flash_attention", "linalg",
+           "misc_tail", "nms", "nn", "optimizer_ops", "paged_attention",
+           "random_ops", "registry", "sparse", "tensor"]
 
 from .. import operator as _operator  # noqa: E402,F401  (registers Custom)

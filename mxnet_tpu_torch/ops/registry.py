@@ -108,9 +108,11 @@ class OpDef:
 
     def serialize_attrs(self, attrs: Dict[str, Any]) -> Dict[str, str]:
         """Declared attrs as strings for MXNet-format symbol JSON, as the
-        JAX package writes them: tuples of numbers as ``(a, b)`` with
-        integral values printed as ints, an unset optional attr left
-        out."""
+        JAX package writes them (``mxnet_tpu/ops/registry.py:162-185``):
+        a subgraph (a Symbol, of the control-flow and subgraph ops) as
+        its nested graph JSON, a tuple of names as ``a,b``, tuples of
+        numbers as ``(a, b)`` with integral values printed as ints, an
+        unset optional attr left out. The op's parser reads each back."""
         out = {}
         for k, v in attrs.items():
             if k not in self.params:
@@ -120,6 +122,11 @@ class OpDef:
                 continue
             if ptype == "dtype" and v is not None:
                 out[k] = dtype_name(v)
+            elif hasattr(v, "tojson"):
+                out[k] = v.tojson()
+            elif isinstance(v, (tuple, list)) and v \
+                    and all(isinstance(x, str) for x in v):
+                out[k] = ",".join(v)
             elif isinstance(v, (tuple, list)):
                 out[k] = "(" + ", ".join(
                     str(int(x)) if float(x).is_integer() else repr(float(x))

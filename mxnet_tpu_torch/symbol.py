@@ -25,11 +25,19 @@ Two departures in how a graph runs:
   JAX package's unwraps its arrays.
 
 A variable marked ``_forced_aux`` (a block parameter with
-``grad_req='null'``, set by a ``HybridBlock``'s symbolic trace) is an
-auxiliary state wherever it is used, as in the JAX package.
+``grad_req='null'``, set by a ``HybridBlock``'s symbolic trace, or an
+auxiliary state inside a control-flow body) is an auxiliary state
+wherever it is used, as in the JAX package.
 
-``group2ctx``, shared executors, subgraph backends and symbolic control
-flow are not ported yet and raise.
+The control-flow ops (``sym.contrib.foreach``/``while_loop``/``cond``)
+and ``_subgraph_op`` keep their subgraphs in their attrs; JSON nests each
+subgraph's graph JSON in its attr, and shape inference reaches into the
+subgraphs for the shapes of their free variables (a weight used inside a
+loop). ``simple_bind(shared_exec=)`` binds the shared executor's arrays
+themselves (a bucketing module's executors share one set of
+parameters); :meth:`Symbol.get_backend_symbol` partitions the graph with
+a registered ``subgraph`` property. ``group2ctx`` is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -222,6 +230,14 @@ class Symbol(object):
     def __neg__(self):
         return _invoke("negative", [self], {})
 
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, _):
+        """A new graph of new nodes, through JSON
+        (``mxnet_tpu/symbol.py:210-214``)."""
+        return load_json(self.tojson())
+
     # -- graph traversal --------------------------------------------------
     def _topo_nodes(self) -> List[_Node]:
         seen = set()
@@ -341,6 +357,8 @@ class Symbol(object):
                 continue
             opdef = get_op(node.op)
             attrs = opdef.parse_attrs(node.attrs)
+            if not node.inputs:  # a nullary op (_zeros) makes meta too
+                attrs["__device__"] = torch.device("meta")
             metas = [torch.empty(s, dtype=dtypes.get((id(n), i),
                                                      torch.float32),
                                  device="meta")
@@ -399,6 +417,19 @@ class Symbol(object):
         }
         return json.dumps(js, indent=2)
 
+    def get_backend_symbol(self, backend):
+        """This graph partitioned by a registered subgraph backend
+        (reference ``Symbol.get_backend_symbol``): a name registered with
+        ``subgraph.register_subgraph_property``."""
+        from . import subgraph
+
+        return subgraph.partition_graph(self, backend)
+
+    def grad(self, wrt):
+        raise MXNetError(
+            "Symbol.grad is not supported; gradients come from "
+            "Executor.backward (torch autograd over the graph)")
+
     def save(self, fname):
         """Write :meth:`tojson` to ``fname`` as one atomic commit under the
         ``ckpt.commit`` retry policy (``mxnet_tpu/symbol.py:408``): a
@@ -409,10 +440,14 @@ class Symbol(object):
 
     # -- evaluation / binding ---------------------------------------------
     def eval_torch(self, value_map: Dict[str, torch.Tensor],
-                   aux_updates: Optional[Dict[str, torch.Tensor]] = None):
+                   aux_updates: Optional[Dict[str, torch.Tensor]] = None,
+                   device: Optional[torch.device] = None):
         """Output tensors of the graph given name -> tensor bindings; runs
         each op's ``fcompute`` in topological order (under whatever
-        autograd mode the caller set). Given a dict ``aux_updates``, a
+        autograd mode the caller set). An op with no input and no ``ctx``
+        of its own (``_zeros``) makes its output on ``device`` when given
+        (an executor's, or a control-flow op's inputs'), else on the
+        current context. Given a dict ``aux_updates``, a
         ``BatchNorm`` in train mode (without ``use_global_stats``) records
         there its moving statistics' new values, ``momentum * moving +
         (1 - momentum) * batch``, under the auxiliary variables' names,
@@ -429,6 +464,9 @@ class Symbol(object):
                 continue
             opdef = get_op(node.op)
             attrs = opdef.parse_attrs(node.attrs)
+            if device is not None and not node.inputs \
+                    and not attrs.get("ctx"):
+                attrs["__device__"] = device
             out = opdef.fcompute(attrs, *[vals[(id(n), i)]
                                           for n, i in node.inputs])
             outs = out if isinstance(out, (tuple, list)) else (out,)
@@ -492,24 +530,33 @@ class Symbol(object):
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
+        """An executor over the given arrays. ``shared_exec`` is accepted
+        and unused, as in the JAX package: the arrays are the caller's."""
         from .executor import Executor
 
-        if group2ctx or shared_exec is not None:
-            raise MXNetError("bind: group2ctx and shared_exec are not "
-                             "ported yet")
+        if group2ctx:
+            raise MXNetError("bind: group2ctx is not ported yet")
         return Executor(self, ctx, args, args_grad, grad_req, aux_states)
 
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
                     stype_dict=None, group2ctx=None, shared_arg_names=None,
                     shared_exec=None, shared_buffer=None, **kwargs):
         """Allocate the argument, gradient and aux arrays on ``ctx`` from
-        the inferred shapes and bind (reference symbol.py:1289)."""
+        the inferred shapes and bind (reference symbol.py:1289).
+
+        With ``shared_exec``, an argument named in ``shared_arg_names``
+        (default: every argument of ``shared_exec``), its gradient and
+        every auxiliary state are ``shared_exec``'s own NDArrays where the
+        shape and dtype agree (``mxnet_tpu/symbol.py:519-565``, the
+        reference's shared data pool): an update through one executor is
+        the other's. ``group2ctx`` and ``shared_buffer`` are not ported
+        yet and raise."""
         from .executor import Executor
         from .ndarray import ndarray as nd_mod
 
-        if group2ctx or shared_exec is not None or shared_buffer is not None:
-            raise MXNetError("simple_bind: group2ctx and shared executors "
-                             "are not ported yet")
+        if group2ctx or shared_buffer is not None:
+            raise MXNetError("simple_bind: group2ctx and shared_buffer are "
+                             "not ported yet")
         if stype_dict and any(v != "default" for v in stype_dict.values()):
             raise MXNetError("simple_bind: sparse storage is not ported yet")
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
@@ -521,14 +568,35 @@ class Symbol(object):
         type_dict = type_dict or {}
         reqs = grad_req if isinstance(grad_req, dict) \
             else dict.fromkeys(arg_names, grad_req)
+        shared_args, shared_grads, shared_aux = {}, {}, {}
+        if shared_exec is not None:
+            share = set(shared_exec.arg_dict if shared_arg_names is None
+                        else shared_arg_names)
+            shared_args = {n: a for n, a in shared_exec.arg_dict.items()
+                           if n in share}
+            shared_grads = {n: g for n, g in shared_exec.grad_dict.items()
+                            if n in share and g is not None}
+            shared_aux = shared_exec.aux_dict
         args, args_grad = {}, {}
         for name, shape in zip(arg_names, arg_shapes):
             dt = type_dict.get(name, np.float32)
-            args[name] = nd_mod.zeros(shape, ctx=ctx, dtype=dt)
+
+            def fits(arr):
+                return arr is not None and tuple(arr.shape) == tuple(shape) \
+                    and arr.dtype == np.dtype(dt)
+
+            args[name] = shared_args[name] if fits(shared_args.get(name)) \
+                else nd_mod.zeros(shape, ctx=ctx, dtype=dt)
             if reqs.get(name, "null") != "null":
-                args_grad[name] = nd_mod.zeros(shape, ctx=ctx, dtype=dt)
-        aux = {name: nd_mod.zeros(shape, ctx=ctx) for name, shape in
-               zip(self.list_auxiliary_states(), aux_shapes)}
+                args_grad[name] = shared_grads[name] \
+                    if fits(shared_grads.get(name)) \
+                    else nd_mod.zeros(shape, ctx=ctx, dtype=dt)
+        aux = {}
+        for name, shape in zip(self.list_auxiliary_states(), aux_shapes):
+            held = shared_aux.get(name)
+            aux[name] = held if held is not None and \
+                tuple(held.shape) == tuple(shape) \
+                else nd_mod.zeros(shape, ctx=ctx)
         return Executor(self, ctx, args, args_grad or None, grad_req, aux)
 
 
@@ -604,9 +672,54 @@ def _fill_param_shapes(node: _Node, in_shapes):
         from .operator import fill_input_shapes
 
         return fill_input_shapes(attrs, in_shapes)
+    elif op in ("_foreach", "_while_loop", "_cond"):
+        if not _fill_from_subgraphs(op, attrs, in_shapes, named, put):
+            return None
     else:
         return None
     return out
+
+
+def _fill_from_subgraphs(op, attrs, in_shapes, named, put):
+    """A control-flow node's free-variable shapes (layer weights, moving
+    statistics used in a body) from partial inference inside its
+    subgraphs, given the interface variables' known shapes: a
+    ``_foreach`` data input's without its leading (time) axis
+    (``mxnet_tpu/symbol.py:684-726``; reference
+    ``subgraph_op_common.cc:InferSubgraphShape``). True if any was
+    found."""
+    if op == "_foreach":
+        dn, sn = attrs["data_names"], attrs["state_names"]
+        iface = list(dn) + list(sn)
+        subs = [attrs["__subgraph__"]]
+        known = {n: tuple(s[1:]) for n, s in zip(dn, in_shapes)
+                 if s is not None}
+        known.update((n, tuple(s)) for n, s in
+                     zip(sn, in_shapes[len(dn):]) if s is not None)
+    elif op == "_while_loop":
+        iface = list(attrs["loop_var_names"])
+        subs = [attrs["__cond__"], attrs["__func__"]]
+        known = {n: tuple(s) for n, s in zip(iface, in_shapes)
+                 if s is not None}
+    else:
+        iface = []
+        subs = [attrs["__pred__"], attrs["__then__"], attrs["__else__"]]
+        known = {n: tuple(s) for n, s in zip(attrs["input_names"],
+                                             in_shapes) if s is not None}
+    found_any = False
+    for sub in subs:
+        try:
+            arg_shapes, _, aux_shapes = sub.infer_shape_partial(**known)
+        except MXNetError:
+            continue
+        found = dict(zip(sub.list_arguments(), arg_shapes))
+        found.update(zip(sub.list_auxiliary_states(), aux_shapes))
+        for slot, shp in found.items():
+            if slot not in iface and shp is not None \
+                    and slot in named and named[slot] is None:
+                put(slot, shp)
+                found_any = True
+    return found_any
 
 
 def _invoke(op_name: str, sym_inputs: List[Symbol], attrs: Dict[str, Any],

@@ -51,6 +51,13 @@
   ``Constant`` run on the card unless asked for the host, and the
   examples train, export, import and load data with ``jax`` and
   ``mxnet_tpu`` made unimportable;
+* the bucketing and graph slice (``subgraph``, ``sym_contrib``,
+  ``ndarray/contrib``, ``ops/control_flow``, ``module/bucketing_module``
+  and ``sequential_module``, ``example/rnn/``, ``example/memcost/``) is
+  in the scan; ``BucketingModule``, a ``SequentialModule``'s modules and
+  the two examples run on the card unless asked for the host, and the
+  examples, a control-flow symbol and a partitioned graph train with
+  ``jax`` and ``mxnet_tpu`` made unimportable;
 * the extension slice's modules (``rtc``, ``operator``, ``metric``,
   ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
   no module of the port defines ``PallasModule`` (Pallas source cannot
@@ -697,3 +704,86 @@ print("ran", len(res["losses"]), batches[0][0].shape, len(outs),
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "ran 1 (2, 3, 4, 4) 2 1 3" in proc.stdout
+
+
+def test_scan_covers_the_graph_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ["mxnet_tpu_torch/%s.py" % m for m in (
+            "subgraph", "sym_contrib", "ndarray/contrib",
+            "ops/control_flow", "module/bucketing_module",
+            "module/sequential_module", "example/rnn/bucketing_lstm",
+            "example/memcost/memonger")]:
+        assert path in names
+
+
+def test_graph_slice_defaults_to_the_card():
+    """BucketingModule, a SequentialModule's modules and the two examples
+    raise without a card unless the host is asked for."""
+    from mxnet_tpu_torch.example.memcost import memonger
+    from mxnet_tpu_torch.example.rnn import bucketing_lstm
+    from mxnet_tpu_torch.module import (BucketingModule, Module,
+                                        SequentialModule)
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+
+    def gen(key):
+        return (mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2,
+                                      name="fc"), ("data",), None)
+
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        BucketingModule(gen, default_bucket_key=4)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        SequentialModule().add(Module(gen(4)[0], label_names=None))
+    for example in (bucketing_lstm, memonger):
+        assert example.parse_args([]).device == "gpu"
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            example.main(["--epochs", "1"] if example is bucketing_lstm
+                         else ["--depth", "1", "--width", "4",
+                               "--batch-size", "2"])
+    with mx.cpu():
+        mod = BucketingModule(gen, default_bucket_key=4)
+        seq = SequentialModule().add(Module(gen(4)[0], label_names=None))
+    assert mod._context == [mx.cpu()]
+    assert seq._modules[0]._context == [mx.cpu()]
+
+
+def test_graph_slice_trains_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import subgraph
+from mxnet_tpu_torch.example.memcost import memonger
+from mxnet_tpu_torch.example.rnn import bucketing_lstm
+res = bucketing_lstm.main(["--epochs", "1", "--device", "cpu"])
+mem = memonger.main(["--device", "cpu", "--depth", "2", "--width", "8",
+                     "--batch-size", "4"])
+with mx.cpu():
+    x = mx.sym.var("x")
+    h0, w = mx.sym.var("h0", shape=(3, 2)), mx.sym.var("w", shape=(2, 2))
+    outs, _ = mx.sym.contrib.foreach(
+        lambda xt, st: [mx.sym.tanh(mx.sym.dot(xt, w) + st[0])] * 2,
+        x, [h0])
+    loss = mx.sym.MakeLoss(mx.sym.sum(outs))
+    part = subgraph.partition_graph(mx.sym.load_json(loss.tojson()),
+                                    ["MakeLoss", "sum"])
+    mod = mx.mod.Module(part, data_names=("x",), label_names=None)
+    it = mx.io.NDArrayIter(np.ones((4, 3, 2), np.float32), batch_size=4)
+    mod.bind(data_shapes=[("x", (4, 3, 2))])
+    mod.init_params(arg_params={"h0": mx.nd.zeros((3, 2)),
+                                "w": mx.nd.ones((2, 2))})
+    mod.init_optimizer()
+    mod.forward_backward(next(iter(it)))
+    mod.update()
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("ran", res["buckets"], mem["ratio"], mod.get_outputs()[0].shape)
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "ran [8, 16, 24] 1.0 ()" in proc.stdout

@@ -68,14 +68,12 @@ def test_sweep_covers_every_tensor_name():
 
 # what later items of the port take, by JAX file (ROADMAP queue 1)
 STILL_MISSING = {
-    "control_flow": ["_cond", "_foreach", "_while_loop"],
     "detection": ["ROIAlign", "_contrib_ROIAlign",
                   "_contrib_bipartite_matching"],
     "quantization": [
         "_contrib_dequantize", "_contrib_quantize", "_contrib_quantized_conv",
         "_contrib_quantized_flatten", "_contrib_quantized_fully_connected",
         "_contrib_quantized_pooling", "_contrib_requantize"],
-    "subgraph": ["_default_subgraph_op", "_subgraph_op"],
     "vision": [
         "BilinearSampler", "Correlation", "Crop", "DeformableConvolution",
         "DeformablePSROIPooling", "GridGenerator",
@@ -100,7 +98,8 @@ def test_registry_gap_is_exactly_the_later_items():
         assert name in OP_REGISTRY
     assert not [n for n, f in _JAX_FILE.items()
                 if f == "random_ops" and n not in OP_REGISTRY]
-    for f in ("linalg", "misc_tail", "sparse"):  # slice 18
+    for f in ("linalg", "misc_tail", "sparse",  # slice 18
+              "control_flow", "subgraph"):  # slice 20
         assert not [n for n, g in _JAX_FILE.items()
                     if g == f and n not in OP_REGISTRY]
-    assert sum(map(len, STILL_MISSING.values())) == 40
+    assert sum(map(len, STILL_MISSING.values())) == 35
