@@ -384,6 +384,43 @@ Phases, each printing one line of its own (any failure exits non-zero):
     (the JAX gate's verdict printed, not a bar); the scan's gradients
     with and without remat within MEMONGER_GRAD_TOL.
 
+61. fleet_serve (run after chunked_serve): ``FleetRouter`` over
+    FLEET_REPLICAS replicas of the decode bench's engine (MODEL, SLOTS,
+    MAX_SEQ, PAGE; prefix cache, monolithic prefill, verify width SPEC_K
+    + 1), N_REQ requests over FLEET_SYSTEMS system prompts of
+    FLEET_SYS_LEN tokens with OUT_MIX (FLEET_DUPS repeat a prompt whole)
+    and FLEET_SPEC_N prompt-lookup requests of the one tenant whose
+    speculation cap is SPEC_K (``configure_speculation``). One engine
+    serves the traffic first (the baseline); then run A (sampling off)
+    and, after a rolling swap to the same weights that flushes the prefix
+    indexes, run B with ``tracing`` and ``devprof`` sampling at 1.0, the
+    main path whose launches the kernels line counts: both runs equal the
+    one engine's outputs, B the oracle's; the fleet's prefix hit ratio
+    equals the one engine's; every request of a system prompt lands on
+    one replica; every trace runs submit -> ... -> complete; devprof has
+    all four decode sites read by CUDA events, each timed tick's device
+    ms within its host wall; kernel 2 launched >= ticks x layers and
+    kernel 1 >= prefill chunks x layers; nothing recaptured. Then a
+    rolling swap under load, a replica killed under load and rebuilt
+    (every request answered once, ``memory_reserved`` within
+    FLEET_MEM_TOL of before), ``/metrics``, ``/healthz`` and
+    ``/debug/state`` over httpd, and each device path of one replica
+    replayed DEVPROF_REPLAYS times under torch.profiler: a site's event
+    ms at least DEVPROF_FLOOR of the profiler's kernel ms and at most the
+    replays' wall. Prints tokens/s of the one engine and of the fleet at
+    sampling 0 and 1.0, and ms a replica tick at each;
+62. hbm_governor: a 2 GiB allocation over an allocator capped with
+    ``set_per_process_memory_fraction`` raises ``torch.OutOfMemoryError``
+    (``classify``: ``device``); ``oom_survival`` latches red, /healthz
+    answers 503 and the latch releases after ``MXNET_HBM_RED_HOLD``
+    observations; a decode soak of HBM_SOAK_N requests under chaos
+    HBM_SOAK_SPEC stays oracle-exact (failed requests resubmitted with
+    chaos off) with the governed admit, red seen; a ``TrainPlane`` step
+    under chaos ``action=oom`` at ``jit.compile`` leaves a flight-recorder
+    dump (in a temporary directory) and demotes to eager. The
+    fraction is restored to 1.0 in a ``finally``.
+
+``python3 chip_smoke.py --fleet`` runs phases 61-62 only.
 ``python3 chip_smoke.py --word-lm`` runs phases 31-35 only,
 ``--mnist`` phases 36-42 only, ``--ops-tail`` phases 43-48 only,
 ``--gluon`` phases 49-54 only, and ``--graph`` phases 55-60 only (no
@@ -396,7 +433,10 @@ runs zoo_score only; ``--module-plane`` runs custom_rtc and
 module_plane_parity only (no nvcc build);
 ``--profiles`` builds the kernels and runs train_profile and ssd_profile
 only (to compare two checkouts in one call, copy the script into each
-and run it there).
+and run it there). ``--profiler-empties`` only counts the torch.profiler
+sessions that record no CUDA event, over short and long sessions of
+graph replays and of eager kernels (why ``_profiled_us`` and the devprof
+cross-check run an empty session again).
 
 The training phases' optimizer updates (train_profile, ssd_profile) run
 through the fused apply; their lines count the optimizer dispatches of
@@ -476,8 +516,10 @@ and prints no result.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -605,7 +647,11 @@ ND_OPS_TOL = 1e-5
 
 
 def fail(msg):
-    print("chip_smoke FAILED: %s" % msg, flush=True)
+    """Print why on both streams (a caller that keeps only the end of
+    one of them still reads it) and exit 1."""
+    line = "chip_smoke FAILED: %s" % msg
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -680,6 +726,52 @@ def _profiled_us(fn, iters, keep, per_call=None):
                 per_call in (None, len(out)):
             return out
     return {}
+
+
+def profiler_empties(short=(500, 20), long=(20, 2000)):
+    """How often a torch.profiler session (device activity only) records
+    no CUDA event: ``short[0]`` sessions of ``short[1]`` runs and
+    ``long[0]`` of ``long[1]``, each session ending in a synchronisation,
+    of four runs: a captured graph's replay and the same work eager, of
+    one kernel (``y = 2x``) and of two (``y = 2x + 1``). Prints each
+    kind's sessions, empty sessions and the fewest and most events a
+    session recorded, against the kernels its runs launched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.full((1 << 20,), 1.5, device="cuda")
+    y = torch.empty_like(x)
+    works = {1: lambda: torch.mul(x, 2.0, out=y),
+             2: lambda: torch.add(torch.mul(x, 2.0), 1.0, out=y)}
+    runs = {}
+    for kernels, work in works.items():
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            work()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            work()
+        runs[("graph", kernels)] = graph.replay
+        runs[("eager", kernels)] = work
+    torch.cuda.synchronize()
+    for sessions, n in (short, long):
+        for (kind, kernels), fn in runs.items():
+            counts = []
+            for _ in range(sessions):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+                counts.append(sum(e.device_type == DeviceType.CUDA
+                                  for e in prof.events()))
+            phase("profiler_empties", kind=kind, kernels_a_run=kernels,
+                  runs_a_session=n, sessions=sessions,
+                  empty=counts.count(0), fewest_events=min(counts),
+                  most_events=max(counts), launched=n * kernels,
+                  card=CARD)
 
 
 def device_ms_by_kernel(fn, kernel, iters=20, per_call=None):
@@ -6473,6 +6565,575 @@ def graph_phases():
     memonger()
 
 
+# ---------------------------------------------------------------------------
+# slice 21: the replica fleet and the HBM pressure governor
+# ---------------------------------------------------------------------------
+
+# fleet_serve: 2 replicas of the decode bench's engine (MODEL, SLOTS,
+# MAX_SEQ, PAGE), N_REQ requests over FLEET_SYSTEMS system prompts of
+# FLEET_SYS_LEN tokens (the last FLEET_DUPS repeat an earlier prompt whole:
+# their partial page is copied on write) and FLEET_SPEC_N prompt-lookup
+# requests of the tenant "spec", the only one speculating (k = SPEC_K)
+FLEET_REPLICAS, FLEET_SYSTEMS, FLEET_SYS_LEN = 2, 4, 64
+FLEET_DUPS, FLEET_SPEC_N = 4, 8
+FLEET_BUCKETS = (16, 32, 64, 128)
+FLEET_MEM_TOL = 64 * 2 ** 20  # memory_reserved after a rebuild vs before
+DEVPROF_FLOOR = 0.9  # event ms over the profiler's kernel ms, at least
+DEVPROF_REPLAYS = 20  # replays of each path in the per-site cross-check
+DEVPROF_SITES = {"step": "serving.decode_step",
+                 "prefill": "serving.decode_prefill",
+                 "chunk": "serving.decode_prefill_chunk",
+                 "cow": "serving.decode_cow"}
+# hbm_governor: the decode soak under chaos action=oom at prefill
+HBM_SOAK_N = 24
+HBM_SOAK_SPEC = "seed=5,site=serving.decode.prefill,p=0.15,action=oom"
+
+
+def _fleet_traffic():
+    """(prompt, max_new, tenant, system prompt index or None) of the
+    fleet's traffic, from RandomState(3)."""
+    rng = np.random.RandomState(3)
+    vocab = MODEL["vocab_size"]
+    systems = [rng.randint(1, vocab, FLEET_SYS_LEN).astype(np.int32)
+               for _ in range(FLEET_SYSTEMS)]
+    reqs = []
+    for i in range(N_REQ - FLEET_DUPS):
+        suffix = rng.randint(1, vocab, int(rng.randint(4, 24)))
+        reqs.append((np.concatenate([systems[i % FLEET_SYSTEMS],
+                                     suffix]).astype(np.int32),
+                     min(OUT_MIX[i % len(OUT_MIX)], OUT_CAP), None,
+                     i % FLEET_SYSTEMS))
+    for i in range(FLEET_DUPS):
+        prompt, _m, _t, system = reqs[i]
+        reqs.append((prompt, 16, None, system))
+    for _ in range(FLEET_SPEC_N):
+        motif = rng.randint(1, vocab, 4).astype(np.int32)
+        reqs.append((np.concatenate([motif, motif, motif[:2]]), SPEC_OUT,
+                     "spec", None))
+    return reqs
+
+
+def _fleet_engine(model, params, name):
+    """One replica: the decode bench's engine, speculating at SPEC_K with
+    prompt lookup for the tenant that asks (every other tenant's cap is
+    0), prefix cache on, monolithic prefill."""
+    from mxnet_tpu_torch import serving
+
+    eng = serving.DecodeEngine(
+        model, params, num_slots=SLOTS, max_seq_len=MAX_SEQ,
+        page_size=PAGE, timeout_ms=0, name=name,
+        prefill_buckets=FLEET_BUCKETS, prefix_cache=True, spec_k=SPEC_K,
+        spec_draft="prompt_lookup")
+    eng.set_tenant_spec_k("default", 0)
+    eng.set_tenant_spec_k("spec", SPEC_K)
+    return eng
+
+
+def _submit_all(door, reqs):
+    t0 = time.perf_counter()
+    futs = [door.submit(p, m, tenant=t) for p, m, t, _s in reqs]
+    outs = [f.result(timeout=600) for f in futs]
+    return outs, time.perf_counter() - t0
+
+
+def _ticks(stats_doc):
+    """Decode ticks of an engine's or a fleet's stats."""
+    if "replicas" in stats_doc:
+        return sum(s.get("ticks", 0) for s in stats_doc["replicas"].values())
+    return stats_doc["ticks"]
+
+
+def _http_get(port, path):
+    """GET ``path`` from the local httpd: (status, body). Straight to
+    127.0.0.1, never through a proxy the environment names."""
+    import urllib.error
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open("http://127.0.0.1:%d%s" % (port, path),
+                         timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _devprof_cross_check(eng):
+    """Each device path of ``eng`` replayed DEVPROF_REPLAYS times under
+    torch.profiler with devprof sampling every replay: a site's summed
+    CUDA-event ms must be at least DEVPROF_FLOOR of the profiler's summed
+    kernel time for the same replays (an event pair spans the kernels
+    and the gaps between them), and no more than the replays' host wall.
+    The replays run on the engine's worker, after the traffic (the paths
+    replay their last operands, whose writes land in pages no live
+    sequence holds); the profiler runs on this thread. A session in
+    which the profiler recorded no kernel is run again after a pause,
+    five sessions at most, as in ``_profiled_us``: the three readings
+    of a path come from one session."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.telemetry import devprof
+
+    def replays(path, site):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DEVPROF_REPLAYS):
+            eng._replay(path, site)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def session(path, site):
+        for attempt in range(5):
+            if attempt:
+                time.sleep(0.2)
+            before = devprof.DEVICE_SECONDS.value(site=site)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                wall_ms = eng._on_worker(lambda: replays(path, site))
+            event_ms = (devprof.DEVICE_SECONDS.value(site=site)
+                        - before) * 1e3
+            kernel_ms = sum(e.time_range.elapsed_us() / 1e3
+                            for e in prof.events()
+                            if e.device_type == DeviceType.CUDA)
+            if kernel_ms > 0.0:
+                break
+        return event_ms, kernel_ms, wall_ms, attempt + 1
+
+    sites = {}
+    devprof.set_sample(1.0)
+    try:
+        for key, path in list(eng._paths.items()):
+            if path.graph is None:
+                continue
+            site = DEVPROF_SITES[key[0]]
+            event_ms, kernel_ms, wall_ms, tries = session(path, site)
+            if kernel_ms <= 0.0:
+                fail("devprof cross-check %s: the profiler saw no kernel "
+                     "of the %s path in five sessions" % (site, key))
+            row = sites.setdefault(site, [0.0, 0.0, 0.0, 0])
+            row[0] += event_ms
+            row[1] += kernel_ms
+            row[2] += wall_ms
+            row[3] += tries
+    finally:
+        devprof.set_sample(0.0)
+    for site, (event_ms, kernel_ms, wall_ms, _n) in sites.items():
+        if event_ms < DEVPROF_FLOOR * kernel_ms:
+            fail("devprof cross-check %s: CUDA events read %.4f ms, under "
+                 "%.0f%% of the profiler's %.4f ms of kernels"
+                 % (site, event_ms, DEVPROF_FLOOR * 100, kernel_ms))
+        if event_ms > wall_ms:
+            fail("devprof cross-check %s: CUDA events read %.4f ms, more "
+                 "than the replays' host wall %.4f ms"
+                 % (site, event_ms, wall_ms))
+    return {site: {"event_ms": e, "profiler_kernel_ms": k, "wall_ms": w,
+                   "event_over_kernel": e / k, "profiler_sessions": n}
+            for site, (e, k, w, n) in sites.items()}
+
+
+def fleet_serve():
+    """Two replicas behind ``FleetRouter`` at the decode bench's width:
+    oracle-exact outputs, prefix affinity, traces, devprof's CUDA-event
+    sites, a rolling swap, a replica killed and rebuilt, httpd. Returns
+    the main run's launches of kernels 1 and 2."""
+    import torch
+
+    from mxnet_tpu_torch import serving, telemetry
+    from mxnet_tpu_torch.telemetry import devprof, tracing
+
+    model = serving.TinyDecoder(**MODEL)
+    params = model.init_params(0)  # no device given: the card
+    reqs = _fleet_traffic()
+    layers = MODEL["num_layers"]
+
+    # one engine on the same traffic: the baseline of tokens/s and of the
+    # prefix hit ratio
+    eng = _fleet_engine(model, params, "chip_smoke_fleet_single")
+    try:
+        eng.warmup()
+        single0 = eng.stats()
+        single_outs, single_wall = _submit_all(eng, reqs)
+        single = eng.stats()
+        single_ticks = single["ticks"] - single0["ticks"]
+    finally:
+        eng.close()
+        eng.release()
+    single_tokens = int(sum(len(o) for o in single_outs))
+
+    os.environ["MXNET_FLEET_SPILL_DEPTH"] = str(10 * len(reqs))  # no spill
+    fleet = serving.FleetRouter(
+        lambda name: _fleet_engine(model, params, name),
+        replicas=FLEET_REPLICAS, name="chip_smoke_fleet")
+    server = None
+    orig_note = devprof.note_decode_tick
+    ticks_seen = []
+    try:
+        for rep in fleet._replicas:
+            if rep.engine.device.type != "cuda":
+                fail("fleet replica %s runs on %s, not the card"
+                     % (rep.name, rep.engine.device))
+        warm = fleet.warmup()
+        fleet.configure_speculation("default", 0)
+        fleet.configure_speculation("spec", SPEC_K)
+        st0 = fleet.stats()
+        # run A: cold caches, sampling off
+        outs_a, wall_a = _submit_all(fleet, reqs)
+        st_a = fleet.stats()
+        ticks_a = _ticks(st_a) - _ticks(st0)
+        if st_a["prefix_hit_ratio"] != single["prefix_hit_ratio"]:
+            fail("fleet prefix hit ratio %.6f != one replica's %.6f on the "
+                 "same traffic" % (st_a["prefix_hit_ratio"],
+                                   single["prefix_hit_ratio"]))
+        # a rolling swap to the same weights flushes every prefix index:
+        # run B starts as cold as run A
+        swapped = fleet.rolling_swap(params, variant="same")
+        # run B, the main path: tracing and devprof sampling every request
+        # and every tick
+        tracing.clear()
+        tracing.set_sample(1.0)
+        devprof.reset()
+        devprof.set_sample(1.0)
+
+        def note(server_name, wall_ms, tokens=0):
+            device = sum(devprof.tick_device_ms().values())
+            ticks_seen.append((wall_ms, device))
+            orig_note(server_name, wall_ms, tokens)
+
+        devprof.note_decode_tick = note
+        st1 = fleet.stats()
+        _reset_launches()
+        outs_b, wall_b = _submit_all(fleet, reqs)
+        launches = _read_launches()
+        devprof.note_decode_tick = orig_note
+        devprof.set_sample(0.0)
+        tracing.set_sample(0.0)
+        st_b = fleet.stats()
+        ticks_b = _ticks(st_b) - _ticks(st1)
+        chunks_b = sum(s["prefill_chunks"]
+                       for s in st_b["replicas"].values()) \
+            - sum(s["prefill_chunks"] for s in st1["replicas"].values())
+        for what, outs in (("fleet run A", outs_a), ("fleet run B", outs_b)):
+            diff = [i for i, (a, b) in enumerate(zip(single_outs, outs))
+                    if not np.array_equal(a, b)]
+            if diff:
+                fail("%s outputs differ from one engine's (requests %s)"
+                     % (what, diff[:8]))
+        _check_oracle(model, params, [(p, m) for p, m, _t, _s in reqs],
+                      outs_b, "fleet_serve")
+        if st_b["steady_state_recompiles"] != 0 or \
+                sum(s["compile_count"] for s in st_b["replicas"].values()) \
+                != warm:
+            fail("fleet recaptured a path after warmup (a rolling swap "
+                 "included): steady %s" % st_b["steady_state_recompiles"])
+        # placement and traces
+        fleet_traces = []
+        for tid in tracing.trace_ids():
+            t = telemetry.get_trace(tid)
+            kinds = [e["kind"] for e in t["events"]]
+            if kinds[0] != "submit" or kinds[-1] != "complete" or \
+                    not t["done"]:
+                fail("trace %s (%s) runs %s, not submit -> ... -> complete"
+                     % (tid, t["plane"], kinds))
+            if t["plane"] == "fleet":
+                ev = t["events"]
+                fleet_traces.append((ev[0]["rid"], next(
+                    e["replica"] for e in ev if e["kind"] == "replica_route")))
+        planes = {telemetry.get_trace(t)["plane"]
+                  for t in tracing.trace_ids()}
+        if len(fleet_traces) != len(reqs) or planes != {"fleet", "decode"}:
+            fail("%d fleet traces for %d requests (planes %s)"
+                 % (len(fleet_traces), len(reqs), sorted(planes)))
+        fleet_traces.sort()
+        placed = {}
+        for (_rid, replica), (_p, _m, _t, system) in zip(fleet_traces, reqs):
+            if system is not None:
+                placed.setdefault(system, set()).add(replica)
+        split = {s: sorted(r) for s, r in placed.items() if len(r) > 1}
+        if split:
+            fail("system prompts placed on several replicas: %s" % split)
+        # devprof: all four sites, read by CUDA events, each tick's device
+        # time within its host wall
+        sites = {row["labels"]["site"]: row
+                 for row in devprof.DEVICE_TIME_MS.series()}
+        missing = sorted(set(DEVPROF_SITES.values()) - set(sites))
+        if missing:
+            fail("devprof recorded no %s in the sampled run" % missing)
+        for site, row in sites.items():
+            if not row["count"] or row["sum"] <= 0.0:
+                fail("devprof %s: %d readings summing %.6f ms"
+                     % (site, row["count"], row["sum"]))
+        over = [(w, d) for w, d in ticks_seen if d > w]
+        if not ticks_seen or over:
+            fail("devprof: %d timed ticks, %d with device ms above their "
+                 "host wall (first %s)" % (len(ticks_seen), len(over),
+                                           over[:1]))
+        if launches[1] < ticks_b * layers or \
+                launches[0] < chunks_b * layers or not launches[0]:
+            fail("fleet run B: kernel 1 launched %d times for %d prefill "
+                 "chunks, kernel 2 %d times for %d ticks, x %d layers"
+                 % (launches[0], chunks_b, launches[1], ticks_b, layers))
+        # a rolling swap under load drops nothing and recaptures nothing
+        load = [fleet.submit(p, m, tenant=t) for p, m, t, _s in reqs[:SLOTS]]
+        swapped += fleet.rolling_swap(params, variant="under_load")
+        got = [f.result(timeout=600) for f in load]
+        for i, o in enumerate(got):
+            if not np.array_equal(o, single_outs[i]):
+                fail("rolling swap under load changed request %d" % i)
+        # a replica killed under load: every request answered once, the
+        # rebuild captures its own graphs, the dead one's memory returns
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved_before = torch.cuda.memory_reserved()
+        done0 = fleet.stats()["router"]
+        load = [fleet.submit(p, m, tenant=t) for p, m, t, _s in reqs]
+        fleet.kill_replica(0, restart=True)
+        got = [f.result(timeout=600) for f in load]
+        for i, o in enumerate(got):
+            if not np.array_equal(o, single_outs[i]):
+                fail("kill_replica: request %d's output changed" % i)
+        deadline = time.time() + 300
+        while fleet.debug_state()["replicas"]["chip_smoke_fleet.r0"][
+                "state"] != "live":
+            if time.time() > deadline:
+                fail("the killed replica was not rebuilt in 300 s")
+            time.sleep(0.1)
+        done1 = fleet.stats()["router"]
+        answered = done1["completed"] - done0["completed"]
+        if answered != len(reqs) or done1["failed"] != done0["failed"]:
+            fail("kill_replica: %d of %d requests completed, %d failed"
+                 % (answered, len(reqs),
+                    done1["failed"] - done0["failed"]))
+        after_kill = fleet.stats()
+        rebuilt = after_kill["replicas"]["chip_smoke_fleet.r0"]
+        if rebuilt.get("steady_state_recompiles") != 0:
+            fail("the rebuilt replica recaptured after its warmup: %s"
+                 % rebuilt.get("steady_state_recompiles"))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved_after = torch.cuda.memory_reserved()
+        if abs(reserved_after - reserved_before) > FLEET_MEM_TOL:
+            fail("memory_reserved %d before the kill, %d after the rebuild"
+                 % (reserved_before, reserved_after))
+        # httpd
+        server = telemetry.start_httpd(port=0)
+        port = server.server_address[1]
+        code_m, body_m = _http_get(port, "/metrics")
+        code_h, body_h = _http_get(port, "/healthz")
+        code_s, body_s = _http_get(port, "/debug/state")
+        health = json.loads(body_h)
+        state = json.loads(body_s)
+        if code_m != 200 or b"mxnet_fleet_replicas" not in body_m or \
+                code_h not in (200, 503) or "status" not in health or \
+                code_s != 200 or "chip_smoke_fleet" not in state.get(
+                    "fleet", {}):
+            fail("httpd: /metrics %d, /healthz %d %s, /debug/state %d"
+                 % (code_m, code_h, health.get("status"), code_s))
+        cross = _devprof_cross_check(fleet._replicas[1].engine)
+    finally:
+        devprof.note_decode_tick = orig_note
+        devprof.set_sample(0.0)
+        tracing.set_sample(0.0)
+        if server is not None:
+            telemetry.stop_httpd()
+        fleet.close()
+        for rep in fleet._replicas:
+            rep.engine.release()
+        os.environ.pop("MXNET_FLEET_SPILL_DEPTH", None)
+    tokens = int(sum(len(o) for o in outs_b))
+    phase("fleet_serve", replicas=FLEET_REPLICAS, requests=len(reqs),
+          tokens=tokens, outputs_equal_oracle=True,
+          one_engine_tokens_per_s=single_tokens / single_wall,
+          one_engine_ticks=single_ticks,
+          one_engine_ms_per_tick=single_wall * 1e3 / max(single_ticks, 1),
+          fleet_tokens_per_s_sampling_0=tokens / wall_a,
+          fleet_tokens_per_s_sampling_1=tokens / wall_b,
+          ticks_sampling_0=ticks_a, ticks_sampling_1=ticks_b,
+          ms_per_replica_tick_sampling_0=wall_a * 1e3 * FLEET_REPLICAS
+          / max(ticks_a, 1),
+          ms_per_replica_tick_sampling_1=wall_b * 1e3 * FLEET_REPLICAS
+          / max(ticks_b, 1),
+          prefix_hit_ratio=st_a["prefix_hit_ratio"],
+          one_engine_prefix_hit_ratio=single["prefix_hit_ratio"],
+          placement={str(s): sorted(r) for s, r in placed.items()},
+          traces=len(tracing.trace_ids()), rolling_swaps=swapped,
+          devprof_sites={s: {"readings": r["count"], "ms": r["sum"]}
+                         for s, r in sites.items()},
+          timed_ticks=len(ticks_seen), devprof_cross_check=cross,
+          kill_answered=answered, reserved_before=reserved_before,
+          reserved_after=reserved_after, healthz=[code_h,
+                                                   health.get("status")],
+          kernel_launches=list(launches), prefill_chunks=chunks_b,
+          card=CARD)
+    return launches
+
+
+def hbm_governor():
+    """The pressure governor on the card: a real allocation over a capped
+    allocator raises ``torch.OutOfMemoryError``, which ``classify`` calls
+    ``device``; ``oom_survival`` latches red (/healthz 503) and the latch
+    releases after ``MXNET_HBM_RED_HOLD`` observations; a decode soak
+    under chaos ``action=oom`` at prefill stays oracle-exact with the
+    governed admit; a ``TrainPlane`` step that OOMs leaves a dump and
+    demotes to eager."""
+    import torch
+
+    from mxnet_tpu_torch import gluon, nd, serving, telemetry, trainplane
+    from mxnet_tpu_torch.resilience import chaos, hbm
+    from mxnet_tpu_torch.telemetry import flightrec
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_hbm_")
+    os.environ["MXNET_FLIGHTREC_PATH"] = os.path.join(out_dir,
+                                                      "flightrec_hbm.json")
+    hbm.reset()
+    gov = hbm.governor()
+    server = telemetry.start_httpd(port=0)
+    port = server.server_address[1]
+    fields = {}
+    try:
+        # a real OOM
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        cap = torch.cuda.memory_reserved() + 256 * 2 ** 20
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            torch.empty(2 * 2 ** 30, dtype=torch.uint8, device="cuda")
+        except torch.OutOfMemoryError as exc:
+            oom = exc
+        else:
+            fail("a 2 GiB allocation under a %d-byte cap did not raise"
+                 % cap)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        kind = hbm.classify(oom)
+        if kind != "device":
+            fail("classify(torch.OutOfMemoryError) = %r" % kind)
+        if not hbm.oom_survival("chip_smoke.hbm", oom, dump=True):
+            fail("oom_survival did not take the real OOM")
+        code, body = _http_get(port, "/healthz")
+        health = json.loads(body)
+        if code != 503 or not health["pressure"]["latched"]:
+            fail("/healthz %d %s after the OOM latch" % (code, health))
+        holds = 0
+        while gov.latched:
+            gov.observe(source="chip_smoke")
+            holds += 1
+            if holds > 100:
+                fail("the red latch held past 100 observations")
+        code, body = _http_get(port, "/healthz")
+        health = json.loads(body)
+        if health["pressure"]["latched"] or health["pressure"]["tier"] \
+                == "red" or holds != gov.red_hold:
+            fail("the latch released after %d observations (hold %d): %s"
+                 % (holds, gov.red_hold, health["pressure"]))
+        report = gov.oom_report()
+        fields.update(real_oom_kind=kind, latch_released_after=holds,
+                      healthz_after_release=[code, health["status"]],
+                      capacity_bytes=report["capacity_bytes"],
+                      device_memory=report["device_memory"])
+        # the decode soak under chaos action=oom at prefill
+        model = serving.TinyDecoder(**MODEL)
+        params = model.init_params(0)
+        rng = np.random.RandomState(6)
+        reqs = [(rng.randint(1, MODEL["vocab_size"],
+                             int(rng.randint(4, 40))).astype(np.int32),
+                 int(rng.choice([16, 32, 64]))) for _ in range(HBM_SOAK_N)]
+        # the OOMs are request-level failures that feed the tenant's
+        # breaker; held shut here so every request meets the governor
+        prev = _swap_env({"MXNET_TENANT_BREAKER_THRESHOLD": "1000000"})
+        eng = serving.DecodeEngine(
+            model, params, num_slots=SLOTS, max_seq_len=MAX_SEQ,
+            page_size=PAGE, timeout_ms=0, name="chip_smoke_hbm_soak",
+            prefill_buckets=(16, 32, 64), prefix_cache=True)
+        try:
+            warm = eng.warmup()
+            chaos.configure(HBM_SOAK_SPEC)
+            try:
+                futs = [eng.submit(p, m) for p, m in reqs]
+                outs, failed = {}, []
+                for i, f in enumerate(futs):
+                    try:
+                        outs[i] = f.result(timeout=600)
+                    except Exception as exc:  # noqa: BLE001 - tallied
+                        if hbm.classify(exc) is None:
+                            raise
+                        failed.append(i)
+            finally:
+                chaos.disable()
+            mid = eng.stats()
+            for i in failed:  # the recovery wave, chaos off
+                outs[i] = eng.submit(*reqs[i]).result(timeout=600)
+            st = eng.stats()
+        finally:
+            eng.close()
+            eng.release()
+            _restore_env(prev)
+        _check_oracle(model, params, reqs, [outs[i] for i in range(len(reqs))],
+                      "hbm_governor soak")
+        if not failed or "red" not in gov.tiers_seen() or \
+                mid["hbm"]["oom_count"] < 1:
+            fail("the soak saw %d OOM failures, tiers %s, oom_count %d"
+                 % (len(failed), gov.tiers_seen(), mid["hbm"]["oom_count"]))
+        if st["hbm"]["latched"] or st["hbm"]["tier"] == "red" or \
+                st.get("steady_state_recompiles") != 0 or \
+                st["compile_count"] != warm:
+            fail("after the soak: %s, steady %s" % (st["hbm"],
+                 st.get("steady_state_recompiles")))
+        fields.update(soak_requests=len(reqs), soak_oom_failures=len(failed),
+                      soak_evictions=st["evictions"],
+                      soak_tiers_seen=gov.tiers_seen(),
+                      soak_oom_count=st["hbm"]["oom_count"])
+        # a TrainPlane step that OOMs (chaos action=oom at the jit.compile
+        # site the graph step passes): a dump, and the eager plane
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(64, activation="relu"), gluon.nn.Dense(4))
+        net.initialize()
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.1})
+        plane = trainplane.TrainPlane(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(), trainer)
+        xs = np.random.RandomState(7).randn(32, 16).astype(np.float32)
+        ys = xs[:, :4].argmax(1).astype(np.float32)
+        dumps0 = flightrec.last_dump_path()
+        chaos.configure("seed=1,site=jit.compile,p=1.0,max=1,action=oom")
+        try:
+            loss = plane.step(nd.array(xs), nd.array(ys))
+        finally:
+            chaos.disable()
+        loss = float(np.asarray(loss.asnumpy()).mean())
+        path = flightrec.last_dump_path()
+        with open(path) as f:
+            doc = json.load(f)
+        if not np.isfinite(loss) or plane.plane != "eager" or \
+                not doc["reason"].startswith("hbm oom at trainplane.step") \
+                or not any(e["kind"] == "hbm.oom" for e in doc["events"]):
+            fail("TrainPlane OOM: loss %s, plane %s, dump %s (%s)"
+                 % (loss, plane.plane, path, doc.get("reason")))
+        while gov.latched:
+            gov.observe(source="chip_smoke")
+        fields.update(trainplane_plane=plane.plane, trainplane_loss=loss,
+                      trainplane_dump_events=len(doc["events"]),
+                      trainplane_reason=plane._why_eager,
+                      dumps_before=dumps0 is not None)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+        telemetry.stop_httpd()
+        chaos.disable()
+        os.environ.pop("MXNET_FLIGHTREC_PATH", None)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    phase("hbm_governor", card=CARD, **fields)
+
+
+def fleet_phases():
+    """The slice's two phases (``--fleet``): the paged kernels build at
+    first use."""
+    launches = fleet_serve()
+    hbm_governor()
+    return launches
+
+
 def main():
     import torch
 
@@ -6565,6 +7226,13 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--fleet"]:
+        # only slice 21's phases (the two paged kernels build at first use)
+        fleet_phases()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--word-lm"]:
         # only the word language model slice's phases (no kernel is
         # built: the path runs none)
@@ -6587,6 +7255,9 @@ def main():
         _build.load("nms")
         phase("build", kernels=["nms"], seconds=time.perf_counter() - t0)
         ckpt_phases(ssd_train()[1])
+        return 0
+    if sys.argv[1:] == ["--profiler-empties"]:
+        profiler_empties()
         return 0
     if sys.argv[1:] == ["--nms-time"]:
         # only the NMS times, through the public wrapper of the package
@@ -6636,6 +7307,9 @@ def main():
     params = model.init_params(0)  # no device given: the card
     spec_entry["launches"] = spec_serve(model, params)
     chunked_serve(model, params)
+    fleet_one, fleet_spec = fleet_phases()
+    entry["launches"] += fleet_one
+    spec_entry["launches"] += fleet_spec
     flash_entry["launches"] = train()
     train_parity()
     train_profile()

@@ -67,6 +67,7 @@ from . import autograd, gluon, initializer, ndarray, optimizer, random
 from . import attribute, executor, image, io, model, module, recordio
 from . import callback, contrib, fastpath, metric, operator, parallel, rtc
 from . import elastic, kvstore, lr_scheduler, monitor, trainplane
+from . import profiler, resilience, telemetry
 from . import kvstore as kv
 from . import ndarray as nd
 from . import symbol

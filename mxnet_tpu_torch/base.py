@@ -21,7 +21,13 @@ import torch
 
 __all__ = ["MXNetError", "get_env", "fetch_host", "resolve_device",
            "np_dtype", "dtype_name", "torch_dtype", "parser_for",
-           "flatten_list", "regroup_list"]
+           "flatten_list", "regroup_list", "string_types", "numeric_types",
+           "integer_types", "DTYPE_NAMES"]
+
+# the reference's python/mxnet/base.py type tuples, as the JAX package has
+string_types = (str,)
+numeric_types = (float, int, np.generic)
+integer_types = (int, np.integer)
 
 
 class MXNetError(RuntimeError):
@@ -81,8 +87,10 @@ def fetch_host(tensors) -> list:
     tensors are copied on the host. Returns numpy arrays in the input
     order; a bfloat16 tensor comes back as float32 (numpy has no
     bfloat16). Runs under the resilience retry policy at the chaos site
-    ``transfer.fetch_host``, like the JAX package's."""
-    from . import resilience
+    ``transfer.fetch_host``, like the JAX package's, and every transfer
+    is accounted in ``mxnet_host_transfer_bytes_total{path="fetch_host"}``
+    (host tensors included, as there)."""
+    from . import resilience, telemetry
 
     tensors = list(tensors)
 
@@ -90,7 +98,9 @@ def fetch_host(tensors) -> list:
         resilience.chaos.maybe_fail("transfer.fetch_host")
         return _copy_to_host(tensors)
 
-    return resilience.call("transfer.fetch_host", attempt)
+    out = resilience.call("transfer.fetch_host", attempt)
+    telemetry.record_transfer("fetch_host", out)
+    return out
 
 
 def _copy_to_host(tensors) -> list:
@@ -136,6 +146,8 @@ DTYPE_NP = {
     "int64": np.int64,
     "bool": np.bool_,
 }
+DTYPE_NAMES = {np.dtype(v).name if n != "bfloat16" else "bfloat16": n
+               for n, v in DTYPE_NP.items()}
 
 _TORCH_OF_NP = {
     np.dtype(np.float32): torch.float32,

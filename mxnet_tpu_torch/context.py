@@ -30,6 +30,12 @@ __all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
 class Context:
     """Execution device: ``Context('gpu', 0)`` is CUDA device 0."""
 
+    # dev_type codes kept for .params compat (reference context.py
+    # devtype2str), the JAX package's table; this port makes only cpu
+    # and gpu contexts
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned", 5: "cpu_shared",
+                   6: "tpu"}
+    devstr2type = {v: k for k, v in devtype2str.items()}
     _default_ctx = threading.local()
 
     def __init__(self, device_type, device_id: int = 0):
@@ -53,6 +59,18 @@ class Context:
         if self.device_type == "cpu":
             return torch.device("cpu")
         return torch.device("cuda", self.device_id)
+
+    @property
+    def device_typeid(self) -> int:
+        return self.devstr2type[self.device_type]
+
+    def empty_cache(self):
+        """Return the caching allocator's unused blocks on this card to
+        the device (reference ``Context.empty_cache``); a no-op for the
+        CPU."""
+        if self.device_type == "gpu":
+            with torch.cuda.device(self.device_id):
+                torch.cuda.empty_cache()
 
     def __eq__(self, other):
         return (isinstance(other, Context)

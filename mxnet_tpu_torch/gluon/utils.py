@@ -104,3 +104,15 @@ def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
     raise MXNetError(
         "download(%r): the port fetches nothing over the network; place "
         "the file at %r" % (url, fname))
+
+
+def _export_hook_handle():
+    """HookHandle lives with Block (block.py) but the reference exposes it
+    from gluon.utils; alias for API parity, as the JAX package's."""
+    from .block import _HookHandle
+
+    return _HookHandle
+
+
+HookHandle = _export_hook_handle()
+__all__.append("HookHandle")

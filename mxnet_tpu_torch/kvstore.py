@@ -30,7 +30,8 @@ several copies or processes and waits for the multi-device store.
 Counted in ``mxnet_kvstore_ops_total{op}``; the aggregate phases run
 under the ``resilience`` retry policy with the chaos sites
 ``kvstore.push``, ``kvstore.pull`` and ``kvstore.pushpull``. The
-``kvstore.*`` spans of the JAX package wait for the port's tracing.
+``kvstore.*`` spans of the JAX package (``telemetry.span``, ported) are
+not wired in yet.
 
 Not ported yet (``create`` raises): ``tpu`` and the ``dist*`` stores,
 which aggregate across devices and processes.

@@ -1,6 +1,6 @@
 """Model helpers: the port of ``mxnet_tpu/model.py``'s
-``_create_kvstore``, the checkpoint functions and the legacy
-``FeedForward``.
+``_create_kvstore``, the checkpoint functions, ``BatchEndParam`` and the
+legacy ``FeedForward``.
 
 :func:`_create_kvstore` is the JAX package's rule
 (``mxnet_tpu/model.py:25-45``): one device and a kvstore name without
@@ -22,13 +22,20 @@ current one, the card, where the JAX package's defaults to the host.
 from __future__ import annotations
 
 import logging
+from collections import namedtuple
 
 import numpy as np
 
 from . import optimizer as opt_mod
 from .ndarray import io_utils
 
-__all__ = ["save_checkpoint", "load_checkpoint", "FeedForward"]
+__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
+           "FeedForward"]
+
+#: what a batch-end callback receives (reference model.py), as in the JAX
+#: package
+BatchEndParam = namedtuple(
+    "BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
 
 
 def _create_kvstore(kvstore, num_device, arg_params):

@@ -91,6 +91,66 @@ class BaseModule(object):
                     {"binded": "bind()", "params_initialized": "init_params()",
                      "optimizer_initialized": "init_optimizer()"}[w]))
 
+    # -- the abstract surface (reference base_module.py), as the JAX
+    # package's: a concrete module implements each ----------------------
+    @property
+    def data_names(self):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    @property
+    def output_names(self):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    @property
+    def output_shapes(self):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def get_params(self):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False, allow_extra=False):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def install_monitor(self, mon):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def update(self):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def update_metric(self, eval_metric, labels, pre_sliced=False):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        raise NotImplementedError("implemented by the concrete Module")
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        raise NotImplementedError("implemented by the concrete Module")
+
     def forward_backward(self, data_batch):
         """forward + backward in one call (reference base_module.py:193)."""
         self.forward(data_batch, is_train=True)

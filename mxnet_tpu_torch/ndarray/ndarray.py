@@ -123,10 +123,28 @@ class NDArray:
         t = self._data.detach()
         if t.dtype == torch.bfloat16:  # numpy has no bfloat16
             t = t.float()
-        # a copy, as MXNet's: a host tensor's numpy() shares its memory,
-        # which an in-place optimizer step would then write into
-        return t.numpy().copy() if t.device.type == "cpu" \
-            else t.cpu().numpy()
+
+        def copy():
+            # a copy, as MXNet's: a host tensor's numpy() shares its
+            # memory, which an in-place optimizer step would write into
+            return t.numpy().copy() if t.device.type == "cpu" \
+                else t.cpu().numpy()
+
+        from .. import resilience, telemetry
+
+        # chaos site transfer.asnumpy, as the JAX package's: under an
+        # active schedule the copy can fault and retries under the policy;
+        # with chaos off this is one module-global boolean
+        if resilience.chaos.ENABLED:
+            def attempt():
+                resilience.chaos.maybe_fail("transfer.asnumpy")
+                return copy()
+
+            out = resilience.call("transfer.asnumpy", attempt)
+        else:
+            out = copy()
+        telemetry.record_transfer("asnumpy", (out,))
+        return out
 
     def asscalar(self):
         if self.size != 1:

@@ -1016,6 +1016,11 @@ class Updater(object):
         return pickle.dumps((host, self.optimizer) if dump_optimizer
                             else host)
 
+    def sync_state_context(self, state, context):
+        """Reference ``Updater.sync_state_context``: the state as it is,
+        as in the JAX package (a state lives where its weight lives)."""
+        return state
+
     def set_states(self, states, device=None):
         """Restore :meth:`get_states` bytes (of either package). A state
         array goes into the live state tensor of the same index and place

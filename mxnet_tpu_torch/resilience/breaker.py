@@ -1,7 +1,6 @@
 """Circuit breakers — stop hammering a dependency that is down.
 
-Ported as it is from ``mxnet_tpu/resilience/breaker.py`` (the flight
-recorder hook waits for the telemetry slice that ports it).
+Ported as it is from ``mxnet_tpu/resilience/breaker.py``.
 
 A :class:`CircuitBreaker` guards one *site* (a serving engine, in
 practice) with the classic three-state machine:
@@ -113,6 +112,11 @@ class CircuitBreaker:
         gauge, transitions = _metrics()
         gauge.set(STATE_VALUE[to], site=self.site)
         transitions.inc(site=self.site, to=to)
+        # black box: breaker trips are the canonical "what changed right
+        # before the death" event (telemetry resolved by _metrics above)
+        from ..telemetry import flightrec
+
+        flightrec.record("breaker", site=self.site, to=to)
 
     # ------------------------------------------------------------------
     def allow(self) -> bool:

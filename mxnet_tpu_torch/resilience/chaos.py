@@ -1,7 +1,6 @@
 """Deterministic fault injection — failures as a *tested, first-class input*.
 
-Ported as it is from ``mxnet_tpu/resilience/chaos.py`` (the flight
-recorder hook waits for the telemetry slice that ports it).
+Ported as it is from ``mxnet_tpu/resilience/chaos.py``.
 
 Every hardened path in the framework passes through a named **injection
 site** before doing its fault-prone work::
@@ -33,16 +32,30 @@ action    what an injection does (default ``fault``):
 
           * ``fault`` — raise :class:`FaultInjected` (a transient error,
             exercised by the retry/breaker machinery);
+          * ``kill`` — raise :class:`Killed`: an abrupt process death at
+            that call (kill-at-step preemption). NOT transient — nothing
+            retries it; it unwinds to the elastic supervisor
+            (``elastic.run_elastic``), which restarts from the last
+            committed checkpoint;
+          * ``torn-write`` — raise :class:`TornWrite`: the elastic shard
+            writer catches it and commits deliberately truncated bytes
+            (a silently torn write — bitrot, a filesystem that lied
+            about fsync), proving restore's content-hash fallback;
+          * ``drop-shard`` — raise :class:`DropShard`: the shard writer
+            skips that shard's file entirely (post-commit loss), proving
+            the missing-file fallback;
           * ``oom`` — raise :class:`OOMInjected`: a synthetic
             ``RESOURCE_EXHAUSTED`` allocator failure that
-            the retry policy classifies like a real allocator failure, so
-            an injected OOM takes the *identical* path as a real one
-            (eviction on the decode plane). Subclasses
+            :func:`~mxnet_tpu_torch.resilience.hbm.classify` recognizes, so an
+            injected OOM takes the *identical* survival path as a real
+            one (eviction + governor red latch on the decode plane,
+            diagnostic dump + fallback on the train planes). Subclasses
             :class:`FaultInjected` but is exempted from retry by the
             retry policy's OOM guard — retrying a failed allocation
             against a full device is not recovery. Aim it at the
             dispatch/transfer/page-write sites: ``serving.decode``
             (mid-tick), ``serving.decode.prefill`` (page writes),
+            ``jit.compile`` (any jitted dispatch, incl. train steps),
             ``transfer.fetch_host``.
 ========  ==================================================================
 
@@ -54,17 +67,21 @@ consume draws like any other call, which keeps retried schedules
 reproducible too.
 
 Registered sites in this package (grep ``maybe_fail`` for ground truth):
-``transfer.fetch_host``, ``serving.decode``, ``serving.decode.prefill``,
+``transfer.fetch_host``, ``transfer.asnumpy``, ``jit.compile`` (a
+captured path's replay: the decode engine's and the training plane's),
+``serving.decode``, ``serving.decode.prefill``,
 ``serving.decode.tenant.<id>`` (one site per tenant — scope a schedule to
 ONE tenant's requests with e.g. ``site=serving.decode.tenant.A`` to prove
-tenant isolation). The JAX package's ``kill``/``torn-write``/
-``drop-shard`` actions serve its elastic checkpoint sites and come with
-them in a later slice.
+tenant isolation),
+``serving.fleet.replica.<i>`` (one site per fleet replica — a fault
+there kills the whole replica at routing time and must cost zero
+requests: the router re-routes its in-flight set and restarts it),
+``ckpt.commit``.
 
 Injected faults raise :class:`FaultInjected` — a
 :class:`~mxnet_tpu_torch.resilience.policies.TransientError` — so they
-exercise exactly the retry/breaker machinery a real transient fault would, and
-every injection ticks ``mxnet_faults_injected_total{site}``.
+exercise exactly the retry/breaker machinery a real transient fault would,
+and every injection ticks ``mxnet_faults_injected_total{site}``.
 """
 from __future__ import annotations
 
@@ -76,8 +93,10 @@ from typing import Dict, List, Optional, Tuple
 from ..base import MXNetError, get_env
 from .policies import TransientError
 
-__all__ = ["FaultInjected", "OOMInjected", "maybe_fail", "configure",
-           "disable", "active", "parse_spec", "injected_counts", "ENABLED"]
+__all__ = ["FaultInjected", "ChaosAction", "Killed", "TornWrite",
+           "DropShard", "OOMInjected", "maybe_fail", "configure",
+           "disable", "active", "parse_spec", "injected_counts",
+           "summary", "ENABLED"]
 
 
 class FaultInjected(TransientError):
@@ -90,12 +109,48 @@ class FaultInjected(TransientError):
         self.call_index = call_index
 
 
+class ChaosAction(MXNetError):
+    """Base of the non-``fault`` schedule actions. Deliberately NOT a
+    :class:`TransientError`: a simulated process kill or torn write must
+    reach the layer that owns that failure mode (the elastic supervisor,
+    the shard writer) — a retry policy "recovering" it would fake the
+    very resilience the schedule exists to prove."""
+
+    action = "action"
+
+    def __init__(self, site: str, call_index: int):
+        super().__init__("chaos: injected %s at %s (call #%d)"
+                         % (self.action, site, call_index))
+        self.site = site
+        self.call_index = call_index
+
+
+class Killed(ChaosAction):
+    """Simulated abrupt process death (``action=kill`` — kill-at-step)."""
+
+    action = "kill"
+
+
+class TornWrite(ChaosAction):
+    """Simulated silently-torn file write (``action=torn-write``)."""
+
+    action = "torn-write"
+
+
+class DropShard(ChaosAction):
+    """Simulated post-commit loss of one shard file (``action=drop-shard``)."""
+
+    action = "drop-shard"
+
+
 class OOMInjected(FaultInjected):
     """Simulated allocator exhaustion (``action=oom``): the message
-    carries the literal ``RESOURCE_EXHAUSTED`` status text, and the retry
-    policy's OOM guard recognizes the type directly — injected and real
-    OOM share one code path. A :class:`FaultInjected` by inheritance, but
-    the retry policy's OOM guard refuses to retry it: allocation failures
+    carries the literal ``RESOURCE_EXHAUSTED`` status text of the JAX
+    package's, and ``hbm.classify`` recognizes the type directly —
+    injected and real OOM share one survival code path. A
+    :class:`FaultInjected` by inheritance (a handler of injected faults
+    sees it too), but the
+    retry policy's OOM guard refuses to retry it: allocation failures
     are cured by freeing memory, not by calling again."""
 
     def __init__(self, site: str, call_index: int):
@@ -108,7 +163,9 @@ class OOMInjected(FaultInjected):
         self.call_index = call_index
 
 
-_ACTIONS = {"fault": FaultInjected, "oom": OOMInjected}
+_ACTIONS = {"fault": None, "kill": Killed, "torn-write": TornWrite,
+            "torn": TornWrite, "drop-shard": DropShard, "drop": DropShard,
+            "oom": OOMInjected}
 
 
 #: THE disabled-path switch: ``maybe_fail`` reads this module global and
@@ -231,7 +288,16 @@ class _ChaosState:
                     rule.injected += 1
                     self._injected[site] = self._injected.get(site, 0) + 1
                     _faults_counter().inc(site=site)
-                    raise _ACTIONS[rule.action](site, n)
+                    # black box: the injected fault is very often THE
+                    # event that precedes a death — the dump must name it
+                    from ..telemetry import flightrec
+
+                    flightrec.record("chaos.fault", site=site,
+                                     action=rule.action, call=n)
+                    exc_cls = _ACTIONS.get(rule.action)
+                    if exc_cls is not None:
+                        raise exc_cls(site, n)
+                    raise FaultInjected(site, n)
 
     def injected_counts(self) -> Dict[str, int]:
         with self._lock:
@@ -293,6 +359,16 @@ def injected_counts() -> Dict[str, int]:
     when disabled — or when nothing fired yet)."""
     state = _STATE
     return state.injected_counts() if state is not None else {}
+
+
+def summary() -> Dict:
+    """One dict for bench/report lines: the active spec + per-site fault
+    counts (``{"enabled": False}`` when off)."""
+    state = _STATE
+    if not ENABLED or state is None:
+        return {"enabled": False}
+    return {"enabled": True, "spec": state.spec, "seed": state.seed,
+            "faults_injected": state.injected_counts()}
 
 
 # Import-time activation: a launcher exporting MXNET_CHAOS gets injection

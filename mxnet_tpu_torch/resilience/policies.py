@@ -1,7 +1,6 @@
-"""Retry policies — the *decide* half of the resilience layer.
+"""Retry policies and deadlines — the *decide* half of the resilience layer.
 
-Ported as it is from ``mxnet_tpu/resilience/policies.py``; only the OOM
-classification differs (see :func:`_is_oom`).
+Ported as it is from ``mxnet_tpu/resilience/policies.py``.
 
 The reference framework's fault handling lives in ps-lite (resender
 timeouts, scheduler heartbeats, ``is_recovery`` re-rendezvous); this stack
@@ -20,10 +19,10 @@ tests can set them after import). Every retry event lands in telemetry as
 
 * ``retry``     — one backoff sleep is about to happen;
 * ``recovered`` — the call succeeded after at least one retry;
-* ``exhausted`` — attempts or the sleep budget ran out; the last error is
+* ``exhausted`` — attempts/budget/deadline ran out; the last error is
   re-raised unchanged (callers keep their exception types);
 * ``oom``       — the failure classified as out-of-memory
-  (:func:`_is_oom`): surfaced immediately without a single retry, even
+  (``hbm.classify``): surfaced immediately without a single retry, even
   when transient-typed — re-dispatching an allocation against a full
   device is not recovery; the owning plane's survival path handles it.
 
@@ -40,7 +39,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 from ..base import MXNetError, get_env
 
-__all__ = ["TransientError", "RetryPolicy", "DEFAULT_RETRY_ON"]
+__all__ = ["TransientError", "Deadline", "RetryPolicy", "DEFAULT_RETRY_ON"]
 
 
 class TransientError(MXNetError):
@@ -64,18 +63,44 @@ _DEF_JITTER = 0.1
 _DEF_BUDGET_MS = 10000.0
 
 
+class Deadline:
+    """A wall-clock budget carried through a call chain. ``None`` timeout
+    means unbounded (``remaining()`` is ``inf``, never expires)."""
+
+    __slots__ = ("_end",)
+
+    def __init__(self, timeout_s: Optional[float] = None):
+        self._end = None if timeout_s is None else time.monotonic() + timeout_s
+
+    @classmethod
+    def after_ms(cls, timeout_ms: Optional[float]) -> "Deadline":
+        return cls(None if timeout_ms is None else float(timeout_ms) / 1e3)
+
+    def remaining(self) -> float:
+        if self._end is None:
+            return float("inf")
+        return max(0.0, self._end - time.monotonic())
+
+    def expired(self) -> bool:
+        return self._end is not None and time.monotonic() >= self._end
+
+    def __repr__(self) -> str:
+        if self._end is None:
+            return "Deadline(unbounded)"
+        return "Deadline(%.3fs remaining)" % self.remaining()
+
+
 def _is_oom(exc: BaseException) -> bool:
-    """True when ``exc`` is an out-of-memory failure: the card's
-    allocator (``torch.OutOfMemoryError``) or the chaos harness's
-    ``action=oom``. OOMs are the one transient-typed class the policy
-    refuses to retry — see the ``outcome="oom"`` branch in
-    :meth:`RetryPolicy.call`. (The JAX package's ``hbm.classify`` and its
-    pressure governor wait for a later slice.)"""
-    import torch
+    """True when ``exc`` classifies as an out-of-memory failure (lazy
+    import: :mod:`.hbm` sits above this module in the package graph).
+    OOMs are the one transient-typed class the policy refuses to retry
+    — see the ``outcome="oom"`` branch in :meth:`RetryPolicy.call`."""
+    try:
+        from . import hbm
 
-    from .chaos import OOMInjected
-
-    return isinstance(exc, (OOMInjected, torch.OutOfMemoryError))
+        return hbm.classify(exc) is not None
+    except Exception:  # noqa: BLE001 - the guard must never turn a
+        return False   # retryable failure into a policy crash
 
 
 _RETRIES = None
@@ -161,12 +186,12 @@ class RetryPolicy:
         return [self.delay_s(i) for i in range(1, self.max_attempts)]
 
     def call(self, fn: Callable, *args, site: str = "unspecified",
-             **kwargs):
+             deadline: Optional[Deadline] = None, **kwargs):
         """Invoke ``fn(*args, **kwargs)``, retrying transient failures.
 
         Non-transient exceptions (anything outside ``retry_on``) propagate
-        immediately. When retries run out — attempts or sleep budget —
-        the *last* exception is re-raised unchanged
+        immediately. When retries run out — attempts, sleep budget, or the
+        optional ``deadline`` — the *last* exception is re-raised unchanged
         and ``mxnet_retries_total{site,outcome="exhausted"}`` ticks.
         """
         spent = 0.0
@@ -181,7 +206,8 @@ class RetryPolicy:
                     # subclasses TransientError) but NOT retry-curable:
                     # the device is full, and re-dispatching the same
                     # allocation burns the backoff budget against a wall.
-                    # Surface it immediately to the owning plane.
+                    # Surface it immediately to the owning plane's
+                    # survival path (hbm.oom_survival).
                     retries_counter().inc(site=site, outcome="oom")
                     raise
                 if attempt >= self.max_attempts:
@@ -191,6 +217,9 @@ class RetryPolicy:
                 if self.jitter:
                     delay *= 1.0 + self.jitter * (2.0 * random.random() - 1.0)
                 if spent + delay > self.budget_s:
+                    retries_counter().inc(site=site, outcome="exhausted")
+                    raise
+                if deadline is not None and deadline.remaining() < delay:
                     retries_counter().inc(site=site, outcome="exhausted")
                     raise
                 retries_counter().inc(site=site, outcome="retry")

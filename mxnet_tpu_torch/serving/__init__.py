@@ -16,18 +16,23 @@ The port of ``mxnet_tpu.serving`` as far as this slice goes:
   device, host free-list allocator, refcounted prefix index;
 * :mod:`.tenancy`  — tenant registry, weighted-fair queue, per-tenant
   breakers and budgets;
+* :mod:`.fleet`    — :class:`FleetRouter`: N engines behind the
+  single-engine surface, with prefix-affinity placement, tenant-aware
+  spillover, per-replica breakers, drain/add/kill with rebuild, rolling
+  weight swaps and SLO-driven autoscaling;
 * :mod:`.stats`, :mod:`.buckets`, :mod:`.batcher` (error types).
 
-The request-granularity ``Server``, ring prefill and the replica fleet
-are later slices.
+The request-granularity ``Server`` (with ``BlockEngine`` and
+``StableHLOEngine``) and ring prefill are later slices.
 """
 from __future__ import annotations
 
 from .batcher import (EngineUnavailableError, QueueFullError,
                       RequestTimeoutError, ServerClosedError, ServingError)
-from .buckets import bucket_ladder, select_bucket
+from .buckets import bucket_ladder, pad_to_bucket, select_bucket
 from .decode import (DecodeEngine, PagedDecodeModel, TinyDecoder,
                      params_from_jax)
+from .fleet import FleetRouter
 from .kvcache import OutOfPagesError, PagedKVCache, PrefixMatch
 from .speculative import (DraftProposer, ModelDraft, PromptLookupDraft,
                           available_drafts, make_draft, register_draft)
@@ -40,7 +45,9 @@ __all__ = [
     "ServingError", "QueueFullError", "RequestTimeoutError",
     "ServerClosedError", "EngineUnavailableError",
     "ServingStats", "TenantStats", "bucket_ladder", "select_bucket",
+    "pad_to_bucket",
     "DecodeEngine", "PagedDecodeModel", "TinyDecoder", "params_from_jax",
+    "FleetRouter",
     "PagedKVCache", "OutOfPagesError", "PrefixMatch",
     "DraftProposer", "PromptLookupDraft", "ModelDraft",
     "register_draft", "make_draft", "available_drafts",

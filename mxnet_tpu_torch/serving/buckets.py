@@ -7,11 +7,13 @@ small and stable (the same shapes the JAX package compiles once each).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
+
+import numpy as np
 
 from ..base import MXNetError, get_env
 
-__all__ = ["bucket_ladder", "select_bucket"]
+__all__ = ["bucket_ladder", "select_bucket", "pad_to_bucket"]
 
 _DEFAULT_BUCKETS = "1,4,16,32"
 
@@ -49,3 +51,20 @@ def select_bucket(n: int, ladder: Sequence[int]) -> int:
         if n <= b:
             return b
     return ladder[-1]
+
+
+def pad_to_bucket(rows: List[np.ndarray], bucket: int,
+                  dtype=np.float32) -> np.ndarray:
+    """Stack per-request arrays and zero-pad the batch axis up to ``bucket``.
+
+    All rows must share one shape. Returns a ``(bucket, *sample_shape)``
+    array; rows ``[len(rows):]`` are zeros and their outputs are dropped
+    after the batched execution.
+    """
+    n = len(rows)
+    if n == 0 or n > bucket:
+        raise MXNetError("pad_to_bucket: %d rows into bucket %d" % (n, bucket))
+    out = np.zeros((bucket,) + tuple(rows[0].shape), dtype=dtype)
+    for i, row in enumerate(rows):
+        out[i] = row
+    return out

@@ -65,13 +65,41 @@ step retries transients, and a step that still fails evicts exactly the
 sequences in flight (pools zeroed, slots reset) under one circuit
 breaker whose open state sheds with :class:`EngineUnavailableError`.
 
+Observability (:mod:`~mxnet_tpu_torch.telemetry`), at the JAX engine's
+places: a sampled request (``MXNET_TRACE_SAMPLE``) carries a trace
+minted at :meth:`DecodeEngine.submit` through every hop — enqueue,
+admission-guard deferral verdicts, admission, prefill and its chunks,
+prefix hits/CoW, every decode tick, the terminal — queryable by
+``trace_id``; the flight recorder keeps each tick's in-flight request
+set plus evictions/swaps/faults, and the worker's catch-all dumps it;
+``stats()["alerts"]`` carries the live SLO engine's verdicts (the queue
+depth is registered as its bound); and with ``MXNET_DEVPROF_SAMPLE`` > 0
+each graph replay of a sampled tick is timed by a CUDA event pair under
+the JAX site names ``serving.decode_step``, ``serving.decode_prefill``,
+``serving.decode_prefill_chunk`` and ``serving.decode_cow``.
+
+Memory (:mod:`~mxnet_tpu_torch.resilience.hbm`): the engine registers
+its KV pools and its worst-case pending prefill with the HBM pressure
+governor and consults the governor's ladder at every admission pass —
+yellow sheds cached prefix pages, orange admits one sequence a pass and
+defers ``batch``-class tenants, red admits nothing while in-flight
+sequences keep decoding. A classified OOM (the allocator's
+``torch.OutOfMemoryError``, or chaos ``action=oom``) latches the governor
+red, evicts every sequence in flight (the pools are zeroed in place) and
+re-admits at a governed count until the governor is green again.
+
+Named weight variants (:meth:`DecodeEngine.register_variant`,
+:meth:`DecodeEngine.use_variant`) are written into the served parameter
+tensors in place, as :meth:`DecodeEngine.swap_params` is, so no graph is
+captured again. :class:`~mxnet_tpu_torch.serving.fleet.FleetRouter` puts
+several engines behind one door.
+
 Left for a later slice, and refused by the constructor rather than
-quietly ignored: ring prefill (``ring_prefill_len``). The HBM pressure
-governor, tracing, the flight recorder, SLO and device-time hooks and
-the replica fleet are not ported yet.
+quietly ignored: ring prefill (``ring_prefill_len``).
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 import time
@@ -84,17 +112,23 @@ import torch
 
 from .. import resilience, telemetry
 from ..telemetry import accounting as _accounting
+from ..telemetry import devprof as _devprof
+from ..telemetry import flightrec as _flightrec
+from ..telemetry import slo as _slo
+from ..telemetry import tracing as _tracing
 from ..base import MXNetError, fetch_host, get_env, resolve_device
 from ..ops import paged_attention as _pa
 from ..resilience import CircuitBreaker, chaos
+from ..resilience import hbm as _hbm
 from .batcher import (EngineUnavailableError, QueueFullError,
                       RequestTimeoutError, ServerClosedError)
 from .buckets import select_bucket
 from .kvcache import PagedKVCache, PrefixMatch, write_kv
 from .speculative import make_draft, sanitize
 from .stats import ServingStats
-from .tenancy import (SHARED_TENANT, Tenant, TenantRegistry,
-                      TenantUnavailableError, WeightedFairQueue)
+from .tenancy import (PRIORITY_CLASSES, SHARED_TENANT, Tenant,
+                      TenantRegistry, TenantUnavailableError,
+                      WeightedFairQueue)
 
 __all__ = ["DecodeEngine", "PagedDecodeModel", "TinyDecoder",
            "params_from_jax"]
@@ -123,6 +157,28 @@ _T_EVENTS = telemetry.counter(
     "evicted, shed_open_breaker, shed_tenant_breaker, deadline_evicted, "
     "weight_swap, cow_copy)",
     labels=("server", "event"))
+
+
+#: capture streams given back by released engines, per device. cuBLAS
+#: keeps a workspace for every stream it ran on for the life of the
+#: process (32 MiB on Hopper), so an engine rebuilt in place of a released
+#: one captures on its predecessor's stream instead of growing the card's
+#: reserved memory by a workspace a rebuild.
+_FREE_STREAMS: dict = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def _take_stream(device: torch.device):
+    with _STREAMS_LOCK:
+        free = _FREE_STREAMS.get(device)
+        if free:
+            return free.pop()
+    return torch.cuda.Stream(device)
+
+
+def _give_stream(device: torch.device, stream) -> None:
+    with _STREAMS_LOCK:
+        _FREE_STREAMS.setdefault(device, []).append(stream)
 
 
 def _tree_map(fn, tree):
@@ -254,11 +310,18 @@ class PagedDecodeModel:
         raise NotImplementedError
 
 
+#: process-wide request ids for the flight recorder's per-tick in-flight
+#: set — ALWAYS minted (unlike trace ids, which are sampled): the black
+#: box must identify every sequence on the failing tick, not just the
+#: sampled ones. itertools.count.__next__ is GIL-atomic — no lock.
+_RID = itertools.count(1)
+
+
 class _DecodeRequest:
     __slots__ = ("prompt", "max_new", "eos_id", "future", "t_submit",
                  "deadline", "tokens", "last_t", "slot", "tenant",
                  "match", "kv_cached", "filled", "prefilling", "seq",
-                 "epoch")
+                 "epoch", "rid", "trace")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  eos_id: Optional[int], deadline: Optional[float],
@@ -284,6 +347,10 @@ class _DecodeRequest:
         self.prefilling = False
         self.seq = 0
         self.epoch = 0  # weight-swap epoch at prefill start (stale guard)
+        self.rid = next(_RID)
+        # the sampled request trace (None = unsampled: every hop's
+        # tracing.event() is then a single `is None` check)
+        self.trace: Optional[_tracing.Trace] = None
 
 
 class DecodeEngine:
@@ -410,8 +477,34 @@ class DecodeEngine:
         self._wfq = WeightedFairQueue(
             self._tenants,
             cost_fn=lambda r: float(int(r.prompt.size) + r.max_new))
+        # the SLO engine's burn ratios divide by bounds the registry
+        # cannot carry — register this engine's queue capacity
+        _slo.note_bound("queue_depth", name, self._queue_depth)
+        # HBM pressure governor: register this engine's worst-case byte
+        # bounds and consult the degradation ladder at admission (see
+        # _admit/_admit_guard). The KV pools are allocated once, so
+        # their bound is a constant; pending prefill is a callable bound
+        # — every queued request may reserve up to max_seq_len of pages
+        # (total_queued() reads one int, safe from any thread).
+        self._governor = _hbm.governor()
+        pool_bytes = int(self._cache.k_pool.nbytes
+                         + self._cache.v_pool.nbytes)
+        self._governor.register_bound("serving.%s.kv_pool" % name,
+                                      pool_bytes)
+        page_bytes = pool_bytes // max(1, self._cache.num_pages)
+        worst_pages = self._cache.pages_for(self.max_seq_len)
+        self._governor.register_bound(
+            "serving.%s.pending_prefill" % name,
+            lambda: self._wfq.total_queued() * worst_pages * page_bytes)
+        #: post-OOM governed re-admission cap (admit FEWER sequences at
+        #: the same slot shapes); None = ungoverned. Worker-only.
+        self._governed_limit: Optional[int] = None
+        #: the tier _admit observed this pass; _admit_guard (same worker
+        #: pass, under _cv) reads it for the orange batch-defer rung
+        self._tick_tier = "green"
         self._params_sig = _tree_sig(self._params)
         self._pending_swaps: List[tuple] = []
+        self._variants: dict = {}
         self._active_variant: Optional[str] = None
         self._swaps = 0
         self._deadline_evictions = 0
@@ -517,17 +610,26 @@ class DecodeEngine:
         need = self._cache.pages_for(total)
         capacity = self._cache.num_pages - 1
         tobj = self._tenants.resolve(tenant)
+        # the trace is minted HERE — at submit(), the contract — so
+        # EVERY door-reject (pool capacity, budgets, breaker) and shed
+        # leaves a queryable chain too
+        trace = _tracing.start_trace("decode", self._name, tobj.tenant_id)
+        _tracing.event(trace, "submit", prompt_tokens=int(arr.size),
+                       max_new=max_new)
         if need > capacity:
+            _tracing.finish(trace, "rejected", reason="pool_capacity")
             raise MXNetError(
                 "prompt %d + max_new %d needs %d KV pages but the pool "
                 "only has %d: raise MXNET_KVCACHE_PAGES or shrink the "
                 "request" % (arr.size, max_new, need, capacity))
         if tobj.page_budget is not None and need > tobj.page_budget:
+            _tracing.finish(trace, "rejected", reason="page_budget")
             raise MXNetError(
                 "request needs %d KV pages but tenant %r's page budget "
                 "is %d: it could never be admitted"
                 % (need, tobj.tenant_id, tobj.page_budget))
         if tobj.rate > 0.0 and total > tobj.burst:
+            _tracing.finish(trace, "rejected", reason="burst_budget")
             raise MXNetError(
                 "request costs %d tokens but tenant %r's burst budget "
                 "is %.0f: it could never be admitted"
@@ -538,12 +640,14 @@ class DecodeEngine:
             # door while every other tenant keeps flowing
             tobj.stats.on_shed(breaker=True)
             _T_EVENTS.inc(server=self._name, event="shed_tenant_breaker")
+            _tracing.finish(trace, "shed", reason="tenant_breaker")
             raise TenantUnavailableError(tobj.tenant_id, state)
         timeout_s = (self._timeout_s if timeout_ms is None
                      else float(timeout_ms) / 1e3)
         deadline = (None if timeout_s <= 0
                     else time.perf_counter() + timeout_s)
         req = _DecodeRequest(arr, max_new, eos_id, deadline, tobj)
+        req.trace = trace
         shed = None
         depth = gdepth = 0
         with self._cv:
@@ -563,7 +667,10 @@ class DecodeEngine:
         if shed:
             self._stats.on_shed()
             tobj.stats.on_shed()
+            _tracing.finish(trace, "shed", reason="queue_full")
             raise QueueFullError(shed)
+        _tracing.event(trace, "enqueue", rid=req.rid, tenant_depth=depth,
+                       queue_depth=gdepth)
         self._stats.on_submit(gdepth)
         tobj.stats.on_submit(depth)
         return req.future
@@ -603,6 +710,26 @@ class DecodeEngine:
         if wait:
             fut.result(timeout)
         return fut
+
+    def register_variant(self, name: str, params) -> None:
+        """Register a named fine-tuned variant (same architecture) for
+        :meth:`use_variant` — N variants served from ONE engine, written
+        into the served parameter tensors between ticks."""
+        params = _tree_map(lambda x: x.to(self.device), params)
+        if _tree_sig(params) != self._params_sig:
+            raise MXNetError(
+                "variant %r: param signature differs from the served "
+                "model" % name)
+        self._variants[str(name)] = params
+
+    def use_variant(self, name: str, wait: bool = True,
+                    timeout: Optional[float] = None) -> Future:
+        """Swap a registered variant live (see :meth:`swap_params`)."""
+        if name not in self._variants:
+            raise MXNetError("unknown variant %r (registered: %s)"
+                             % (name, sorted(self._variants) or "none"))
+        return self.swap_params(self._variants[name], variant=str(name),
+                                wait=wait, timeout=timeout)
 
     @property
     def active_variant(self) -> Optional[str]:
@@ -739,26 +866,41 @@ class DecodeEngine:
             raise MXNetError("unknown device path %r" % (key,))
         return _Path(key, feed, fn)
 
-    def _run(self, path: _Path, *operand):
+    def _run(self, path: _Path, *operand, site: Optional[str] = None):
         """Fill ``path``'s static operand from ``operand`` (host arrays,
         concatenated) and run the path: on the card, replay its graph
         (captured here at the path's first run); on the CPU, call its
         function. Returns the path's device output, which the caller reads
         before the next run. Chaos and the retry policy stay around
-        this call, on the host."""
+        this call, on the host. ``site`` names the dispatch for devprof
+        and the ``jit.compile`` chaos site (the JAX engine's ``jit_call``
+        sites); ``warmup()`` passes none, as the JAX engine calls its
+        jits bare there."""
         path.feed.put(np.concatenate(
             [np.asarray(a, np.int32).ravel() for a in operand]))
-        return self._replay(path)
+        return self._replay(path, site)
 
-    def _replay(self, path: _Path):
+    def _replay(self, path: _Path, site: Optional[str] = None):
+        probe = None
+        if site is not None:
+            if chaos.ENABLED:
+                chaos.maybe_fail("jit.compile")
+            hook = _accounting._DEVPROF_HOOK
+            # a first run captures: its cost is compile cost, never timed
+            if hook is not None and path.ready:
+                probe = hook(site, self.device)
         if not path.ready:
             self._capture(path)
         if path.graph is None:  # the CPU: no graphs
-            return path.fn()
-        path.graph.replay()
-        _pa.add_launches(path.launches)
-        self._replays += 1
-        return path.out
+            out = path.fn()
+        else:
+            path.graph.replay()
+            _pa.add_launches(path.launches)
+            self._replays += 1
+            out = path.out
+        if probe is not None:
+            probe.stop()
+        return out
 
     def _capture(self, path: _Path):
         """Capture ``path`` as a CUDA graph (on the CPU, only count it).
@@ -771,7 +913,7 @@ class DecodeEngine:
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             if self._capture_stream is None:
-                self._capture_stream = torch.cuda.Stream(self.device)
+                self._capture_stream = _take_stream(self.device)
             stream = self._capture_stream
             stream.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(stream):
@@ -803,6 +945,11 @@ class DecodeEngine:
         """Requests queued but not yet slotted."""
         with self._cv:
             return self._wfq.total_queued()
+
+    def kvcache_stats(self) -> dict:
+        """The paged pool's counters alone (pages in use/free, prefix
+        hit ratio) — the cheap subset of :meth:`stats`."""
+        return self._cache.stats()
 
     def stats(self) -> dict:
         out = self._stats.snapshot()
@@ -847,8 +994,15 @@ class DecodeEngine:
                                           if self._spec_slot_ticks else 0.0),
                 },
             })
+            governed = self._governed_limit
         out["tenants"] = self._tenants.snapshot()
         out["kvcache"] = self._cache.stats()
+        # the governor's verdict rides every stats snapshot (the fleet's
+        # replica rows and /debug/state read it from here)
+        hv = self._governor.healthz_view()
+        hv["governed_limit"] = governed
+        hv["pressure_sheds"] = self._cache.pressure_sheds
+        out["hbm"] = hv
         out["prefix_cache_enabled"] = self._prefix_cache
         if self._prefix_cache:
             out["prefix_hit_ratio"] = out["kvcache"]["prefix_hit_ratio"]
@@ -866,6 +1020,8 @@ class DecodeEngine:
             out["steady_state_recompiles"] = steady
             _accounting.set_steady_state_recompiles(
                 "serving." + self._name, steady)
+        # live SLO verdicts over the series this snapshot just refreshed
+        out["alerts"] = _slo.evaluate()
         return out
 
     def close(self, drain: bool = True,
@@ -892,11 +1048,47 @@ class DecodeEngine:
             self._fail(req, exc)
         if self._thread is not threading.current_thread():
             self._thread.join(timeout)
+        # the governor outlives the engine (process-global): replace the
+        # live-state bounds with zeros so a closed engine neither skews
+        # pressure nor stays pinned through the pending-prefill closure
+        self._governor.register_bound(
+            "serving.%s.kv_pool" % self._name, 0)
+        self._governor.register_bound(
+            "serving.%s.pending_prefill" % self._name, 0)
         if not drain:
             return 0
         drained = max(0, self._stats.completed - before)
         self._stats.on_drain(drained)
         return drained
+
+    def release(self, timeout: Optional[float] = 60.0) -> bool:
+        """After :meth:`close`: wait (up to ``timeout`` seconds) for the
+        worker to exit, then give back the engine's device memory — the
+        captured graphs with their private memory pools, the KV pools and
+        the parameters — and return the freed blocks to the card
+        (``torch.cuda.empty_cache``). A fleet calls this on a killed or
+        drained replica, so a rebuild does not stack a second set of
+        pools on the first. :meth:`stats` still answers. Returns False
+        (nothing released) when the worker is still running, as it is
+        when the call comes from the worker itself."""
+        if not self._closed:
+            raise MXNetError("DecodeEngine %r: release() before close()"
+                             % self._name)
+        if self._thread is not threading.current_thread():
+            self._thread.join(timeout)
+        if self._thread.is_alive():
+            return False
+        self._paths = {}
+        if self._capture_stream is not None:
+            _give_stream(self.device, self._capture_stream)
+            self._capture_stream = None
+        self._params = None
+        self._draft = None
+        self._cache.release_pools()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+        return True
 
     def __enter__(self):
         return self
@@ -968,6 +1160,12 @@ class DecodeEngine:
                 time.sleep(0.005)
                 continue
             try:
+                # devprof tick scope: the sampling decision is drawn once
+                # for the whole tick so a timed tick's prefill/step/host-
+                # gap breakdown is coherent; one global read when off
+                tick_t0 = time.perf_counter()
+                tick_timed = _devprof.tick_begin()
+                toks_before = self._tokens_total
                 self._admit()
                 prefilling = [(i, r) for i, r in enumerate(self._slots)
                               if r is not None and r.prefilling]
@@ -991,12 +1189,27 @@ class DecodeEngine:
                 elif not prefilling:
                     # every queued tenant deferred (pages/rate/breaker)
                     # with nothing in flight: yield instead of spinning
+                    if tick_timed:
+                        _devprof.tick_end()
                     time.sleep(0.001)
+                    continue
+                if tick_timed:
+                    _devprof.note_decode_tick(
+                        self._name,
+                        (time.perf_counter() - tick_t0) * 1e3,
+                        self._tokens_total - toks_before)
             except Exception as exc:  # noqa: BLE001 - engine must survive
+                _devprof.tick_end()  # don't leak the tick scope into the
+                # eviction/recovery path's dispatches
                 # NO exception may kill the engine thread — that would
                 # hang every in-flight and queued future forever. Evict
-                # whatever was in flight and keep serving.
+                # whatever was in flight and keep serving. This is also a
+                # black-box moment: something unexpected reached the
+                # catch-all, so commit the ring before state is torn down.
                 _log.exception("decode engine %r: tick failed", self._name)
+                _flightrec.record("decode.engine_exception",
+                                  server=self._name, error=repr(exc))
+                _flightrec.dump("decode engine catch-all: %r" % (exc,))
                 self._breaker.on_failure()
                 self._evict([(i, r) for i, r in enumerate(self._slots)
                              if r is not None], exc)
@@ -1026,8 +1239,10 @@ class DecodeEngine:
                 # cached KV was computed under the OLD weights: a prompt
                 # prefilled under the new ones must not match it
                 self._cache.clear_prefix_index()
-        for _params, _variant, fut in swaps:
+        for _params, variant, fut in swaps:
             _T_EVENTS.inc(server=self._name, event="weight_swap")
+            _flightrec.record("decode.weight_swap", server=self._name,
+                              variant=variant)
             if fut.set_running_or_notify_cancel():
                 fut.set_result(True)
 
@@ -1038,6 +1253,7 @@ class DecodeEngine:
         for tenant, req in expired:
             self._stats.on_timeout()
             tenant.stats.on_timeout()
+            _tracing.finish(req.trace, "timeout", where="queued")
             self._fail(req, RequestTimeoutError(
                 "request spent > its deadline queued"))
 
@@ -1058,6 +1274,10 @@ class DecodeEngine:
             self._stats.on_timeout()
             req.tenant.stats.on_timeout()
             _T_EVENTS.inc(server=self._name, event="deadline_evicted")
+            _tracing.finish(req.trace, "timeout", where="mid_decode",
+                            tokens=len(req.tokens))
+            _flightrec.record("decode.deadline_evict", server=self._name,
+                              rid=req.rid, tenant=req.tenant.tenant_id)
             self._fail(req, RequestTimeoutError(
                 "deadline expired mid-decode after %d generated tokens: "
                 "evicted at the tick boundary" % len(req.tokens)))
@@ -1075,6 +1295,7 @@ class DecodeEngine:
         for tenant, req in dropped:
             tenant.stats.on_shed(breaker=True)
             _T_EVENTS.inc(server=self._name, event="shed_tenant_breaker")
+            _tracing.finish(req.trace, "shed", reason="tenant_breaker")
             self._fail(req, TenantUnavailableError(tenant.tenant_id,
                                                    "open"))
 
@@ -1088,6 +1309,7 @@ class DecodeEngine:
         for tenant, req in dropped:
             self._stats.on_unavailable(1)
             tenant.stats.on_shed()
+            _tracing.finish(req.trace, "shed", reason="engine_breaker")
             self._fail(req, exc)
             _T_EVENTS.inc(server=self._name, event="shed_open_breaker")
 
@@ -1096,7 +1318,20 @@ class DecodeEngine:
         """Per-tenant admission veto, called by the weighted-fair pick
         under ``self._cv``. False = defer THIS tenant (its turn passes;
         other tenants' heads still admit this round)."""
+        # non-consuming open-state check FIRST, so a deferred tenant's
+        # tokens are never charged for an admission its breaker would
+        # refuse anyway (the worker's shed pass drains it shortly)
         if tenant.breaker.state == "open":
+            _tracing.event(req.trace, "defer", reason="breaker")
+            return False
+        # orange-tier ladder rung: batch-class tenants defer while the
+        # governor reports pressure — a deferral, not a shed (the
+        # request stays queued and admits when the tier recedes), and
+        # it NEVER touches interactive/standard heads
+        if self._tick_tier in ("orange", "red") \
+                and tenant.priority >= PRIORITY_CLASSES["batch"]:
+            tenant.stats.on_defer("pressure")
+            _tracing.event(req.trace, "defer", reason="pressure")
             return False
         total = int(req.prompt.size) + req.max_new
         # the admission walk: map-able shared prefix pages reduce both
@@ -1110,22 +1345,62 @@ class DecodeEngine:
             need -= len(match.full)
         if not self._cache.can_admit_prefix(total, match):
             tenant.stats.on_defer("pages")
+            _tracing.event(req.trace, "defer", reason="pages_global")
             return False
         if not tenant.within_page_budget(need):
             tenant.stats.on_defer("pages")
+            _tracing.event(req.trace, "defer", reason="pages_budget")
             return False
         if not tenant.take_tokens(total):
             tenant.stats.on_defer("rate")
+            _tracing.event(req.trace, "defer", reason="rate")
             return False
         # allow() LAST: it may consume the half-open probe, so it must
         # only run when the pop really happens next; a veto refunds
         if not tenant.breaker.allow():
             tenant.refund_tokens(total)
+            _tracing.event(req.trace, "defer", reason="breaker")
             return False
+        _tracing.event(req.trace, "admission_verdict", pages_needed=need,
+                       matched_pages=len(match.full) if match else 0)
         return True
 
     def _admit(self):
+        # the governor's degradation ladder, consulted once per
+        # admission pass (observe() is pure host arithmetic over the
+        # bound registry — tick-rate cheap):
+        #   yellow+  shed cached-LRU ref-0 prefix pages proactively
+        #   orange   shrink the admission quantum to 1/pass and defer
+        #            batch-class tenants (_admit_guard, never interactive)
+        #   red      stop new admissions entirely; in-flight sequences
+        #            keep decoding — completion is what drains pressure
+        tier = self._governor.observe(source="decode.admit")
+        with self._cv:
+            # _cv guards both governor fields: _admit_guard reads
+            # _tick_tier under the pop's lock, stats() reads
+            # _governed_limit from caller threads
+            self._tick_tier = tier
+            if self._governed_limit is not None and tier == "green" \
+                    and not self._governor.latched:
+                self._governed_limit = None
+            governed = self._governed_limit
+        if tier != "green":
+            shed = self._cache.shed_cached()
+            if shed:
+                self._governor.note_shed(shed, self._cache.name)
+                _T_EVENTS.inc(server=self._name, event="pressure_shed")
+        if tier == "red":
+            return
+        limit = self.num_slots
+        if governed is not None:
+            # post-OOM governed re-admission: fewer sequences, same
+            # slot shapes, until the governor recovers green
+            limit = min(limit, governed)
+        quantum = 1 if tier == "orange" else self.num_slots
+        admitted = 0
         while True:
+            if sum(1 for r in self._slots if r is not None) >= limit:
+                return
             slot = next((i for i, r in enumerate(self._slots)
                          if r is None), None)
             if slot is None:
@@ -1142,11 +1417,47 @@ class DecodeEngine:
                 # per-request isolation: a prefill failure answers ONLY
                 # this future and feeds the TENANT breaker. Prefill writes
                 # only this slot's pages (and the null page), so the
-                # other sequences' KV is untouched.
+                # other sequences' KV is untouched...
                 self._release_slot(slot, req)
                 tenant.on_request_failure()
                 self._stats.on_error()
                 self._fail(req, exc)
+                if self._on_oom("serving.decode.prefill", exc):
+                    # ...unless the failure classified as an OOM (an
+                    # allocation died — every pool byte is suspect, and
+                    # the governor just latched red): evict every live
+                    # sequence onto zeroed pools (empty `active` still
+                    # re-zeroes)
+                    self._evict([(i, r) for i, r
+                                 in enumerate(self._slots)
+                                 if r is not None], exc)
+                    return
+            admitted += 1
+            if admitted >= quantum:
+                # orange's shrunk admission quantum: one admission per
+                # pass keeps new prefill load trickling while pressure
+                # is worked off
+                return
+
+    def _on_oom(self, plane: str, exc: BaseException) -> bool:
+        """OOM classification at a failure site: False (untouched) for a
+        non-OOM exception. A classified OOM — the allocator's
+        ``torch.OutOfMemoryError`` or the chaos harness's ``action=oom``
+        — runs the shared survival routine (``hbm.oom_survival``:
+        diagnostic into the flight recorder, governor latched red,
+        per-plane counter) and arms governed re-admission: after the
+        caller's full eviction, ``_admit`` re-admits at half the sequence
+        count that was in flight (``MXNET_HBM_RED_ADMIT`` overrides)
+        until the governor recovers green. Slot shapes never change —
+        fewer sequences, the same graphs, nothing captured again."""
+        if not _hbm.oom_survival(plane, exc, dump=False):
+            return False
+        active = sum(1 for r in self._slots if r is not None)
+        with self._cv:
+            self._governed_limit = self._governor.governed_admit(
+                max(1, active))
+        _T_EVENTS.inc(server=self._name, event="oom")
+        return True
 
     def _prefill(self, req: _DecodeRequest, slot: int):
         # tenant-scoped chaos site, OUTSIDE the retry policy: a fault
@@ -1167,6 +1478,14 @@ class DecodeEngine:
         if cow_src is not None:
             self._run_cow(cow_src, cow_dst)
         req.kv_cached = matched
+        _tracing.event(req.trace, "admit", slot=slot, ring=False,
+                       queue_wait_ms=round(
+                           (time.perf_counter() - req.t_submit) * 1e3, 3))
+        if matched:
+            _tracing.event(req.trace, "prefix_hit", tokens_cached=matched)
+        if cow_src is not None:
+            _tracing.event(req.trace, "cow_copy", src_page=cow_src,
+                           dst_page=cow_dst)
         # at least the LAST prompt position always runs through the
         # model: its logits are the first output token — a full hit
         # recomputes that one position over the shared/CoW pages
@@ -1193,6 +1512,8 @@ class DecodeEngine:
         dense causal attention. Returns the device argmax token."""
         p = int(req.prompt.size)
         rung = select_bucket(p, self._ladder)
+        _tracing.event(req.trace, "prefill", rung=rung, tokens=p,
+                       ring=False)
         pre = np.zeros((3, rung), np.int32)  # tokens, write pages, offsets
         pre[0, :p] = req.prompt
         wpg, woff = self._cache.write_slots(slot, 0, p)
@@ -1204,7 +1525,7 @@ class DecodeEngine:
 
         def attempt():
             chaos.maybe_fail("serving.decode.prefill")
-            return self._run(path, pre, [p])
+            return self._run(path, pre, [p], site="serving.decode_prefill")
 
         return policy.call(attempt, site="serving.decode.prefill")
 
@@ -1216,6 +1537,8 @@ class DecodeEngine:
         shared/CoW pages — writes go to the null page). Returns the device
         argmax token of position ``end - 1``."""
         n = end - start
+        _tracing.event(req.trace, "prefill_chunk", start=start, end=end,
+                       rung=rung)
         pre = np.zeros((3, rung), np.int32)
         pre[0, :n] = req.prompt[start:end]
         cached_n = max(0, min(req.kv_cached, end) - start)
@@ -1241,7 +1564,8 @@ class DecodeEngine:
 
         def attempt():
             chaos.maybe_fail("serving.decode.prefill")
-            return self._run(path, pre, row, [start, n])
+            return self._run(path, pre, row, [start, n],
+                             site="serving.decode_prefill_chunk")
 
         tok = policy.call(attempt, site="serving.decode.prefill")
         self._stats.on_prefill_chunk()
@@ -1252,7 +1576,8 @@ class DecodeEngine:
         layers) duplicated into the writer's own page BEFORE any of its
         writes can land there — sharers never observe each other's
         tokens. A device copy, captured like the other paths."""
-        self._run(self._path(("cow", 1)), [src, dst])
+        self._run(self._path(("cow", 1)), [src, dst],
+                  site="serving.decode_cow")
         with self._cv:
             self._cow_copies += 1
         _T_EVENTS.inc(server=self._name, event="cow_copy")
@@ -1272,6 +1597,9 @@ class DecodeEngine:
             req.tenant.on_request_failure()
             self._stats.on_error()
             self._fail(req, exc)
+            if self._on_oom("serving.decode.prefill", exc):
+                self._evict([(i, r) for i, r in enumerate(self._slots)
+                             if r is not None], exc)
             return
         req.filled = end
         if end >= p:
@@ -1299,6 +1627,7 @@ class DecodeEngine:
         first = int(fetch_host([tok])[0])
         now = time.perf_counter()
         ttft = (now - req.t_submit) * 1e3
+        _tracing.event(req.trace, "first_token", ttft_ms=round(ttft, 3))
         self._stats.on_first_token(ttft)
         req.tenant.stats.on_first_token(ttft)
         req.tokens.append(first)
@@ -1355,13 +1684,24 @@ class DecodeEngine:
                 packed[3, base + j] = \
                     self._cache.page_table[slot, (pos + j) // ps]
                 packed[4, base + j] = (pos + j) % ps
+        # black box: the in-flight set BEFORE the step executes, so a
+        # mid-tick death's dump names the failing tick's sequences and
+        # their tenants. One event per tick, one deque append — the
+        # enabled() guard keeps even the reqs-list BUILD off the
+        # MXNET_TELEMETRY=0 hot path.
+        if telemetry.enabled():
+            _flightrec.record(
+                "decode.tick", server=self._name, tick=self._ticks,
+                reqs=[[req.rid, req.tenant.tenant_id,
+                       "prefill" if req.prefilling else "decode"]
+                      for req in self._slots if req is not None])
         path = self._path(("step", s * w))
         self._sync_page_table()
         policy = self._retry or resilience.default_policy()
 
         def attempt():
             chaos.maybe_fail("serving.decode")
-            return self._run(path, packed)
+            return self._run(path, packed, site="serving.decode_step")
 
         try:
             sampled = policy.call(attempt, site="serving.decode")
@@ -1371,6 +1711,11 @@ class DecodeEngine:
             # tick like a failed step instead of killing the worker.
             toks = fetch_host([sampled])[0]
         except Exception as exc:  # noqa: BLE001 - evict, don't die
+            # OOM first: a classified OOM (or injected action=oom)
+            # additionally latches the governor red and arms governed
+            # re-admission before the same full-eviction path below
+            # reclaims every page
+            self._on_oom("serving.decode", exc)
             self._breaker.on_failure()
             # the pool re-zero kills EVERY in-flight sequence's KV —
             # chunked-prefilling slots included, not just this tick's
@@ -1416,9 +1761,16 @@ class DecodeEngine:
             self._cache.seq_lens[slot] += n_new
             accepted = min(a, n_new)
             total_new += n_new
-            # a multi-token tick amortizes the wall interval over its
-            # commits so TPOT keeps meaning time-per-OUTPUT-token
+            # every decode tick the sequence participates in is a hop of
+            # its (sampled) trace — the None path is one pointer check.
+            # A multi-token tick amortizes the wall interval over its
+            # commits so TPOT keeps meaning time-per-OUTPUT-token.
             per_tok = (now - req.last_t) * 1e3 / n_new
+            _tracing.event(req.trace, "tick",
+                           token_index=len(req.tokens),
+                           tpot_ms=round(per_tok, 3),
+                           **({"drafted": k_eff, "accepted": accepted}
+                              if self._spec_k else {}))
             tpots.extend([per_tok] * n_new)
             tenant_tpots.setdefault(req.tenant, []).extend(
                 [per_tok] * n_new)
@@ -1535,6 +1887,8 @@ class DecodeEngine:
     def _complete(self, req: _DecodeRequest, slot: int, now: float):
         self._release_slot(slot, req)
         _T_EVENTS.inc(server=self._name, event="completed")
+        _tracing.finish(req.trace, "complete", tokens=len(req.tokens),
+                        latency_ms=round((now - req.t_submit) * 1e3, 3))
         if req.future.done():
             # close(drain=False) raced the in-flight tick and already
             # failed this future; completing it now would raise
@@ -1550,6 +1904,10 @@ class DecodeEngine:
         in flight, reset their slots and zero the pools, and keep serving
         new traffic. A TICK-level fault: it feeds the engine breaker (the
         caller), not the tenants'."""
+        _flightrec.record(
+            "decode.evict", server=self._name, error=repr(exc),
+            reqs=[[req.rid, req.tenant.tenant_id]
+                  for _slot, req in active])
         for slot, req in active:
             self._slots[slot] = None
             self._release_slot(slot, req)
@@ -1557,11 +1915,16 @@ class DecodeEngine:
             req.tenant.stats.on_error()
             self._evictions += 1
             _T_EVENTS.inc(server=self._name, event="evicted")
+            _tracing.finish(req.trace, "evict",
+                            tokens=len(req.tokens), error=repr(exc))
             self._fail(req, exc)
         self._cache.reset_pools()
 
     @staticmethod
     def _fail(req: _DecodeRequest, exc: BaseException):
+        # generic terminal fallback: paths with a more specific verdict
+        # (evict/timeout/shed) finish the trace first and this no-ops
+        _tracing.finish(req.trace, "error", error=type(exc).__name__)
         if req.future.done():
             return
         if req.future.set_running_or_notify_cancel():

@@ -273,6 +273,11 @@ class PagedKVCache:
         """Pages a sequence of ``n_tokens`` occupies."""
         return -(-int(n_tokens) // self.page_size)
 
+    def pages_owned(self, slot: int) -> int:
+        """Pages currently mapped by ``slot`` (0 after :meth:`free`),
+        shared mappings included."""
+        return self._owned[int(slot)]
+
     def exclusive_pages(self, slot: int) -> int:
         """Pages ``slot`` owns EXCLUSIVELY (fresh reservations + its CoW
         copies) — the count charged to the owning tenant's page budget;
@@ -289,6 +294,10 @@ class PagedKVCache:
         never grow pages mid-tick and never exceeds the tenant page
         budget it was charged at admission."""
         return self._owned[int(slot)] * self.page_size
+
+    def can_admit(self, n_tokens: int) -> bool:
+        """Whether a full reservation for ``n_tokens`` fits right now."""
+        return self.pages_for(n_tokens) <= self.pages_available
 
     def can_admit_prefix(self, n_tokens: int,
                          match: Optional[PrefixMatch]) -> bool:
@@ -540,9 +549,9 @@ class PagedKVCache:
 
     def shed_cached(self, n: Optional[int] = None) -> int:
         """Proactively reclaim up to ``n`` (``None`` = all) cached-LRU
-        refcount-0 pages to the free list, oldest-first (the JAX
-        package's HBM governor calls this under pressure; the port's
-        governor is a later slice). Distinct from demand reclaim inside
+        refcount-0 pages to the free list, oldest-first (the decode
+        engine calls this at admission once the HBM pressure governor
+        leaves green). Distinct from demand reclaim inside
         ``_take_page`` (which takes cached pages only when a reservation
         needs them): shedding trades warm prefix capacity for free-list
         headroom *before* anything asks, so an admission under pressure
@@ -602,6 +611,30 @@ class PagedKVCache:
         pos = np.arange(n_tokens)
         return (np.zeros(n_tokens, np.int32),
                 (pos % self.page_size).astype(np.int32))
+
+    def swap_pools(self, k_pool, v_pool) -> None:
+        """Store ``k_pool``/``v_pool`` as the pools' contents. The JAX
+        cache rebinds to the arrays a jitted step returned; here the
+        captured graphs hold the pools' addresses, so the contents are
+        copied in place (same shapes and dtype, or :class:`MXNetError`)
+        and the tensors never change."""
+        for dst, src in ((self.k_pool, k_pool), (self.v_pool, v_pool)):
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise MXNetError(
+                    "swap_pools: pool %s %s does not match the cache's "
+                    "%s %s" % (tuple(src.shape), src.dtype,
+                               tuple(dst.shape), dst.dtype))
+        if k_pool is not self.k_pool:
+            self.k_pool.copy_(k_pool)
+        if v_pool is not self.v_pool:
+            self.v_pool.copy_(v_pool)
+
+    def release_pools(self) -> None:
+        """Drop the pools' device memory (a closed engine's cache, whose
+        graphs are gone too): afterwards the host allocator and the
+        counters still answer, the pools are empty tensors."""
+        self.k_pool = self.k_pool.new_empty(0)
+        self.v_pool = self.v_pool.new_empty(0)
 
     def reset_pools(self) -> None:
         """Zero both pools in place (same tensors, same shapes). The

@@ -5,8 +5,10 @@ Ported from ``mxnet_tpu/serving/stats.py`` for the decode plane:
 same Prometheus series (``mxnet_serving_requests_total{server=,event=}``,
 the ``mxnet_serving_latency_ms`` / TTFT / TPOT summaries, the queue-depth
 gauge, the speculative-decoding counters); :class:`TenantStats` is its
-per-tenant twin. The profiler bridge is dropped; the batch-server
-counters wait for the slice that ports that plane.
+per-tenant twin. Every update also feeds ``profiler`` Counters (queue
+depth) and Markers (shed, timeout), which no-op unless a profiling
+session is running, as the JAX package's do; the batch-server counters
+wait for the slice that ports that plane.
 
 Latency is held in a bounded ring (``MXNET_SERVING_LATENCY_WINDOW``,
 default 2048 most-recent requests) — percentiles over recent traffic,
@@ -20,7 +22,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from .. import telemetry
+from .. import profiler, telemetry
 from ..base import get_env
 
 __all__ = ["ServingStats", "TenantStats"]
@@ -121,23 +123,31 @@ class ServingStats:
         self.unavailable = 0
         self._queue_depth = 0
         self.name = name
+        # profiler bridge: zero-cost unless a profiling session is live
+        dom = profiler.Domain(name)
+        self._c_depth = dom.new_counter("queue_depth")
+        self._m_shed = dom.new_marker("shed")
+        self._m_timeout = dom.new_marker("timeout")
 
     # -- producers (called by the engine) ----------------------------------
     def on_submit(self, depth: int):
         with self._lock:
             self.submitted += 1
             self._queue_depth = depth
+        self._c_depth.set_value(depth)
         _T_REQS.inc(server=self.name, event="submitted")
         _T_DEPTH.set(depth, server=self.name)
 
     def on_shed(self):
         with self._lock:
             self.shed += 1
+        self._m_shed.mark()
         _T_REQS.inc(server=self.name, event="shed")
 
     def on_timeout(self):
         with self._lock:
             self.timeouts += 1
+        self._m_timeout.mark()
         _T_REQS.inc(server=self.name, event="timeout")
 
     def on_complete(self, latency_ms: float):
@@ -299,6 +309,7 @@ class TenantStats:
         self.errors = 0
         self.deferred_pages = 0
         self.deferred_rate = 0
+        self.deferred_pressure = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
         self._queue_depth = 0
@@ -342,12 +353,16 @@ class TenantStats:
         _T_TEN_REQS.inc(event="error", **self._labels())
 
     def on_defer(self, kind: str):
-        """One admission-guard deferral (``pages`` or ``rate``). Counts
-        *defer events* — the admission loop may defer the same head
-        request many times before it finally fits."""
+        """One admission-guard deferral (``pages``, ``rate`` or
+        ``pressure`` — the last is the HBM governor's orange-tier
+        batch-class rung). Counts *defer events* — the admission loop
+        may defer the same head request many times before it finally
+        fits."""
         with self._lock:
             if kind == "pages":
                 self.deferred_pages += 1
+            elif kind == "pressure":
+                self.deferred_pressure += 1
             else:
                 self.deferred_rate += 1
         _T_TEN_REQS.inc(event="deferred_" + kind, **self._labels())
@@ -416,6 +431,7 @@ class TenantStats:
                 "errors": self.errors,
                 "deferred_pages": self.deferred_pages,
                 "deferred_rate": self.deferred_rate,
+                "deferred_pressure": self.deferred_pressure,
                 "spec_proposed_tokens": self.spec_proposed,
                 "spec_accepted_tokens": self.spec_accepted,
                 "spec_acceptance_rate": (self.spec_accepted /

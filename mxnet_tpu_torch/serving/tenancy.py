@@ -2,9 +2,9 @@
 
 Ported from ``mxnet_tpu/serving/tenancy.py`` (no JAX there): the registry,
 the weighted-fair queue, the per-tenant breaker and the token bucket,
-and the per-tenant speculative cap (``spec_k``), as they are. The
-flight-recorder/SLO hooks and the fleet's snapshot aggregation wait for
-the slices that port those planes.
+the per-tenant speculative cap (``spec_k``), the flight-recorder and SLO
+hooks, and the fleet's snapshot aggregation (:func:`aggregate_snapshots`),
+as they are.
 
 One decode engine (or batch server) fronts many clients. Without a
 control plane the sharing is accidental: admission is FIFO, so a hot
@@ -27,7 +27,12 @@ This module makes the sharing *deliberate*:
   to arrival order. A tenant that cannot be admitted right now (page
   budget, rate budget, open breaker) is *deferred* — skipped without
   blocking the tenants behind it, which is exactly the head-of-line
-  coupling the FIFO had;
+  coupling the FIFO had. The HBM pressure governor
+  (:mod:`mxnet_tpu_torch.resilience.hbm`) adds one more deferral rung:
+  under ``orange``/``red`` tiers the engine defers ``batch``-class
+  tenants (``deferred_pressure`` in the stats snapshot) while
+  ``interactive`` traffic keeps flowing — degradation never inverts
+  priority;
 * **per-tenant circuit breakers** — :class:`TenantBreaker` counts a
   tenant's own request failures in a sliding window and sheds *that
   tenant alone* (:class:`TenantUnavailableError`) while the engine-level
@@ -64,6 +69,8 @@ import time
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 from .. import telemetry
+from ..telemetry import flightrec as _flightrec
+from ..telemetry import slo as _slo
 from ..base import MXNetError, get_env
 from ..resilience.breaker import STATE_VALUE
 from .batcher import EngineUnavailableError
@@ -71,7 +78,8 @@ from .stats import TenantStats
 
 __all__ = ["Tenant", "TenantRegistry", "TenantBreaker",
            "TenantUnavailableError", "WeightedFairQueue", "parse_tenants",
-           "PRIORITY_CLASSES", "DEFAULT_TENANT", "SHARED_TENANT"]
+           "aggregate_snapshots", "PRIORITY_CLASSES", "DEFAULT_TENANT",
+           "SHARED_TENANT"]
 
 #: The tenant untagged ``submit()`` calls ride.
 DEFAULT_TENANT = "default"
@@ -170,6 +178,10 @@ class TenantBreaker:
                        tenant=self.tenant_id)
         _T_BREAKER_TRANS.inc(server=self.server, tenant=self.tenant_id,
                              to=to)
+        # black box: "which tenant's breaker tripped right before the
+        # death" is the first question a post-mortem asks
+        _flightrec.record("tenant_breaker", server=self.server,
+                          tenant=self.tenant_id, to=to)
 
     def _prune(self, now: float) -> None:
         horizon = now - self.window_s
@@ -291,6 +303,13 @@ class Tenant:
         # rejected verify rows. Mutable at runtime
         # (DecodeEngine.set_tenant_spec_k); plain int read each tick.
         self.spec_k = None if spec_k is None else max(0, int(spec_k))
+        # the SLO engine divides the tenant burn/violation alerts by
+        # these (instance key mirrors the registry's sorted-label key:
+        # server/tenant)
+        inst = "%s/%s" % (registry.server, tenant_id)
+        _slo.note_bound("tenant_queue_depth", inst, self.queue_depth)
+        if self.page_budget is not None:
+            _slo.note_bound("tenant_pages", inst, self.page_budget)
         self.rate = max(0.0, float(rate))
         self.breaker = breaker
         self.stats = stats
@@ -559,6 +578,50 @@ class TenantRegistry:
 
     def snapshot(self) -> Dict[str, Dict]:
         return {t.tenant_id: t.snapshot() for t in self.tenants()}
+
+
+# counter-like per-tenant snapshot fields that sum across replicas; gauges
+# (queued, pages_in_use, slots_active, ...) also sum — each replica holds
+# its own share of the tenant's fleet-wide footprint
+_ADDITIVE_SNAPSHOT_FIELDS = (
+    "submitted", "completed", "shed", "shed_breaker", "timeouts", "errors",
+    "deferred_pages", "deferred_rate", "queued", "queue_depth",
+    "slots_active", "pages_in_use", "pages_in_use_now", "pages_in_use_max",
+    "pages_cached", "spec_proposed_tokens", "spec_accepted_tokens")
+
+
+def aggregate_snapshots(snapshots: List[Dict[str, Dict]]) -> Dict[str, Dict]:
+    """Merge per-replica :meth:`TenantRegistry.snapshot` dicts into one
+    fleet-wide per-tenant view (``FleetRouter.stats()["tenants"]``).
+
+    Counters and footprint gauges sum across replicas; latency
+    percentiles take the worst replica's value (a fleet p99 cannot be
+    recomputed from per-replica percentiles, and for an SLO read the
+    conservative bound is the honest one — the ``*_count`` fields say
+    how much traffic stands behind each); config fields (weight,
+    priority, budgets) and breaker state come from the first replica
+    that carries the tenant — every replica is built from the same spec.
+    """
+    out: Dict[str, Dict] = {}
+    for snap in snapshots:
+        for tenant_id, row in (snap or {}).items():
+            agg = out.get(tenant_id)
+            if agg is None:
+                out[tenant_id] = dict(row)
+                continue
+            for key, val in row.items():
+                if key in _ADDITIVE_SNAPSHOT_FIELDS \
+                        or key.endswith("_count"):
+                    agg[key] = agg.get(key, 0) + val
+                elif key.endswith("_ms") and isinstance(val, (int, float)):
+                    agg[key] = max(agg.get(key, 0.0), val)
+                elif key == "breaker":
+                    # surface the worst replica-local verdict: one open
+                    # breaker anywhere is fleet-visible
+                    order = {"closed": 0, "half_open": 1, "open": 2}
+                    if order.get(val, 0) > order.get(agg.get(key), 0):
+                        agg[key] = val
+    return out
 
 
 class WeightedFairQueue:

@@ -549,14 +549,17 @@ class Symbol(object):
         every auxiliary state are ``shared_exec``'s own NDArrays where the
         shape and dtype agree (``mxnet_tpu/symbol.py:519-565``, the
         reference's shared data pool): an update through one executor is
-        the other's. ``group2ctx`` and ``shared_buffer`` are not ported
-        yet and raise."""
+        the other's. ``shared_buffer`` (a dict, name -> NDArray) is the
+        other pool: an argument not shared through ``shared_exec`` takes
+        the buffer's array of its name where the shape and dtype agree,
+        and a newly made argument array is put into the buffer under its
+        name, as in the JAX package. ``group2ctx`` is not ported yet and
+        raises."""
         from .executor import Executor
         from .ndarray import ndarray as nd_mod
 
-        if group2ctx or shared_buffer is not None:
-            raise MXNetError("simple_bind: group2ctx and shared_buffer are "
-                             "not ported yet")
+        if group2ctx:
+            raise MXNetError("simple_bind: group2ctx is not ported yet")
         if stype_dict and any(v != "default" for v in stype_dict.values()):
             raise MXNetError("simple_bind: sparse storage is not ported yet")
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
@@ -585,8 +588,15 @@ class Symbol(object):
                 return arr is not None and tuple(arr.shape) == tuple(shape) \
                     and arr.dtype == np.dtype(dt)
 
-            args[name] = shared_args[name] if fits(shared_args.get(name)) \
-                else nd_mod.zeros(shape, ctx=ctx, dtype=dt)
+            if fits(shared_args.get(name)):
+                args[name] = shared_args[name]
+            elif shared_buffer is not None and \
+                    fits(shared_buffer.get(name)):
+                args[name] = shared_buffer[name]
+            else:
+                args[name] = nd_mod.zeros(shape, ctx=ctx, dtype=dt)
+                if shared_buffer is not None:
+                    shared_buffer[name] = args[name]
             if reqs.get(name, "null") != "null":
                 args_grad[name] = shared_grads[name] \
                     if fits(shared_grads.get(name)) \

@@ -17,8 +17,8 @@ priority order:
    ``serving.ServingStats``), so an unbounded run cannot grow the registry.
 
 Metric and label names must match the Prometheus data model
-(``[a-zA-Z_:][a-zA-Z0-9_:]*``) so every registered series stays exportable
-to Prometheus without mangling.
+(``[a-zA-Z_:][a-zA-Z0-9_:]*``) so every registered series is exportable by
+:func:`mxnet_tpu_torch.telemetry.render_prometheus` without mangling.
 """
 from __future__ import annotations
 
@@ -88,6 +88,11 @@ class _Metric:
     def _label_dict(self, key: Tuple[str, ...]) -> Dict[str, str]:
         return dict(zip(self.label_names, key))
 
+    def clear(self):
+        """Drop all recorded series (registration survives)."""
+        with self._lock:
+            self._series.clear()
+
     def series(self) -> List[Dict[str, Any]]:
         """Point-in-time list of per-labelset dicts (exporter feed)."""
         raise NotImplementedError
@@ -138,6 +143,9 @@ class Gauge(_Metric):
         key = self._key(labels)
         with self._lock:
             self._series[key] = self._series.get(key, 0.0) + value
+
+    def dec(self, value: float = 1.0, **labels):
+        self.inc(-value, **labels)
 
     def value(self, **labels) -> float:
         key = self._key(labels)
@@ -299,9 +307,16 @@ class Registry:
         with self._lock:
             return self._metrics.get(name)
 
+    def clear_data(self):
+        """Reset every metric's series, keeping registrations valid — the
+        module-level metric handles held by instrumented code keep working.
+        Test isolation."""
+        for m in self.metrics():
+            m.clear()
+
 
 #: The process-wide default registry every framework instrumentation point
-#: publishes into.
+#: publishes into and the exporters read from.
 REGISTRY = Registry()
 
 

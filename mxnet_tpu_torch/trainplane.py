@@ -76,9 +76,19 @@ side effects that read nothing back (a counter, a draw from a host RNG)
 run at the first pass and at the capture, and at no replay. The rtc kernels a capture records are
 counted at every replay (``rtc.add_launches``).
 
+Out of memory, as the JAX plane: a graph step that fails with a
+classified OOM (the allocator's ``torch.OutOfMemoryError``, in the
+capture or the replay, or chaos ``action=oom`` at the ``jit.compile``
+site a graph step passes before it dispatches) goes through
+``hbm.oom_survival`` — the structured diagnostic lands in a
+flight-recorder dump and the governor latches red — then the plane
+demotes to eager (reason ``"oom: <type>"``) and the step runs there.
+Anything else propagates. With ``MXNET_DEVPROF_SAMPLE`` > 0 a graph
+step is a devprof step scope: its replay is timed by a CUDA event pair
+(site ``trainplane.step``) into ``mxnet_train_step_ms``.
+
 Not ported yet (they raise): ``MXNET_ZERO``, a mesh of several devices
-and ``fit``'s elastic checkpoints. The JAX plane's out-of-memory survival
-and device profiling wait for the port's HBM governor and devprof.
+and ``fit``'s elastic checkpoints.
 """
 from __future__ import annotations
 
@@ -97,7 +107,10 @@ from .gluon.block import HybridBlock
 from .gluon.parameter import DeferredInitializationError
 from .ndarray.ndarray import NDArray, no_host_reads
 from .optimizer import Updater, ensure_mp_state
+from .resilience import chaos
+from .resilience import hbm as _hbm
 from .telemetry import STEP_DISPATCHES, TRAINPLANE_FALLBACKS
+from .telemetry import devprof as _devprof
 from .telemetry import accounting as _accounting
 
 __all__ = ["TrainPlane", "fit", "module_plane", "mode", "train_dtype",
@@ -475,11 +488,34 @@ class TrainPlane(_PlaneBase):
         probe_rows = self._prologue(self._probe_optimizer(opt))
         exc = self._capture(path, probe_rows)
         if exc is not None:
+            if _hbm.classify(exc) is not None:
+                raise exc  # the step's OOM survival (_graph_step_guarded)
             self._demote("capture: %s" % type(exc).__name__)
             return None
         return path
 
+    def _graph_step_guarded(self, data_nd, label_nd, batch_size):
+        """Never-a-crash at the graph plane's own dispatch: a step
+        failure that classifies as OOM first lands the structured HBM
+        diagnostic — per-plane registered bounds, watermark history, the
+        allocator's counters — in a flight-recorder dump
+        (``hbm.oom_survival``), then demotes to the eager plane; the
+        caller runs the step there. Anything non-OOM still propagates —
+        a programming error must fail fast, not hide behind a fallback.
+        Returns None after a demotion."""
+        try:
+            return self._graph_step(data_nd, label_nd, batch_size)
+        except Exception as exc:  # noqa: BLE001 - OOM-only survival
+            if not _hbm.oom_survival("trainplane.step", exc, dump=True):
+                raise
+            self._demote("oom: %s" % type(exc).__name__)
+            return None
+
     def _graph_step(self, data_nd, label_nd, batch_size):
+        if chaos.ENABLED:
+            # the JAX step's jit_call site: a fault here is raised before
+            # anything dispatches
+            chaos.maybe_fail("jit.compile")
         tr = self._trainer
         opt = tr._optimizer
         opt.rescale_grad = tr._scale / batch_size  # Trainer.step parity
@@ -504,11 +540,16 @@ class TrainPlane(_PlaneBase):
         lab.copy_(label)
         rows = self._prologue(opt)
         self._set_scalars(rows)
+        hook = _accounting._DEVPROF_HOOK
+        probe = hook("trainplane.step", self._device) \
+            if hook is not None else None
         if path.graph is not None:
             self._replay(path)
             loss = path.out.clone()
         else:
             loss = path.fn()
+        if probe is not None:
+            probe.stop()
         STEP_DISPATCHES.inc(plane="graph")
         return NDArray(loss)
 
@@ -537,7 +578,20 @@ class TrainPlane(_PlaneBase):
             self._activate(data_nd)
         self.step_count += 1
         if self._plane == "graph":
-            loss = self._graph_step(data_nd, label_nd, batch_size)
+            # devprof step scope: one coherent sampling decision for the
+            # whole step so its device/host_gap split is honest (one
+            # global read when devprof is off)
+            if _devprof.tick_begin():
+                t0 = time.perf_counter()
+                try:
+                    loss = self._graph_step_guarded(data_nd, label_nd,
+                                                    batch_size)
+                finally:
+                    _devprof.note_train_step(
+                        (time.perf_counter() - t0) * 1e3)
+            else:
+                loss = self._graph_step_guarded(data_nd, label_nd,
+                                                batch_size)
             if loss is not None:
                 return loss
         return self._eager_step(data_nd, label_nd, batch_size)

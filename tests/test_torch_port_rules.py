@@ -58,6 +58,12 @@
   the two examples run on the card unless asked for the host, and the
   examples, a control-flow symbol and a partitioned graph train with
   ``jax`` and ``mxnet_tpu`` made unimportable;
+* the observability, memory and fleet slice (``profiler``,
+  ``telemetry/``'s spans, flightrec, tracing, slo, exporters, httpd and
+  devprof, ``resilience/hbm``, ``serving/fleet``) is in the scan; a
+  two-replica fleet serves, traces and profiles with ``jax`` and
+  ``mxnet_tpu`` made unimportable, and ``FleetRouter``'s replicas run
+  on the card unless the factory asks for the host;
 * the extension slice's modules (``rtc``, ``operator``, ``metric``,
   ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
   no module of the port defines ``PallasModule`` (Pallas source cannot
@@ -787,3 +793,69 @@ print("ran", res["buckets"], mem["ratio"], mod.get_outputs()[0].shape)
                           text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "ran [8, 16, 24] 1.0 ()" in proc.stdout
+
+
+def test_scan_covers_the_fleet_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ["mxnet_tpu_torch/%s.py" % m for m in (
+            "profiler", "telemetry/spans", "telemetry/flightrec",
+            "telemetry/tracing", "telemetry/slo", "telemetry/exporters",
+            "telemetry/httpd", "telemetry/devprof", "resilience/hbm",
+            "serving/fleet")]:
+        assert path in names
+
+
+def test_fleet_slice_serves_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+import numpy as np
+from mxnet_tpu_torch import serving, telemetry
+from mxnet_tpu_torch.resilience import hbm
+from mxnet_tpu_torch.telemetry import devprof, tracing
+tracing.set_sample(1.0)
+devprof.set_sample(1.0)
+m = serving.TinyDecoder(vocab_size=16, num_layers=1, num_heads=2,
+                        head_dim=4)
+p = m.init_params(0, device="cpu")
+fleet = serving.FleetRouter(
+    lambda name: serving.DecodeEngine(
+        m, p, num_slots=2, max_seq_len=32, page_size=4,
+        prefill_buckets=(8,), timeout_ms=0, name=name, device="cpu"),
+    replicas=2, name="blocked")
+try:
+    fleet.warmup()
+    outs = [fleet.generate([1 + i, 2, 3, 4, 5], 3, timeout=60)
+            for i in range(4)]
+    fleet.kill_replica(0)
+    outs.append(fleet.generate([9, 9, 9], 2, timeout=60))
+finally:
+    fleet.close(timeout=60)
+for i, o in enumerate(outs[:4]):
+    assert np.array_equal(o, m.reference_generate(p, [1 + i, 2, 3, 4, 5], 3))
+assert devprof.DEVICE_TIME_MS.series() and tracing.trace_ids()
+assert "mxnet_fleet_replicas" in telemetry.render_prometheus()
+assert hbm.classify(RuntimeError("CUDA out of memory")) == "device"
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("fleet served", len(outs))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "fleet served 5" in proc.stdout
+
+
+def test_fleet_replicas_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    model = serving.TinyDecoder(vocab_size=16, num_layers=1, num_heads=2,
+                                head_dim=4)
+    params = model.init_params(0, device="cpu")
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        serving.FleetRouter(
+            lambda name: serving.DecodeEngine(model, params, num_slots=1,
+                                              max_seq_len=8, name=name),
+            replicas=2, name="card_default")
