@@ -208,24 +208,25 @@ class _Path(object):
         self.out_bytes = 0
 
 
-class _Executor(object):
-    """What TrainStep and InferStep share: the mesh's device, the snapshot
-    of the net's parameters, and the capture and replay of paths."""
+def _param_snapshot(params, device) -> OrderedDict:
+    """name -> a copy of each parameter's value on ``device``."""
+    return OrderedDict((n, p.data()._data.detach().to(device, copy=True))
+                       for n, p in params.items())
+
+
+class _Graphs(object):
+    """The capture and replay of paths, one CUDA graph a path, on one
+    device and a side stream: what the step executors here and the
+    serving engines (``serving/engine.py``) share. ``compile_count``
+    counts captures (on the CPU: paths run), ``graph_replays`` replays."""
 
     _site = "parallel"
 
-    def __init__(self, net, mesh, batch_axis):
-        if batch_axis != 0:
-            raise MXNetError("batch_axis %d is not ported yet (0 only)"
-                             % batch_axis)
-        self._net = net
-        self._mesh = mesh if mesh is not None else device_mesh()
-        self._device = self._mesh.device
-        self._pvals = None
+    def __init__(self, device):
+        self._device = device
         self._paths: Dict[Any, _Path] = {}
         self._stream = None
         self._captures = 0
-        self._first_call_captures = None
         self._replays = 0
 
     @property
@@ -234,37 +235,21 @@ class _Executor(object):
         return self._captures
 
     @property
-    def steady_state_recompiles(self) -> int:
-        """Captures made after the first call returned."""
-        if self._first_call_captures is None:
-            return 0
-        return self._captures - self._first_call_captures
-
-    @property
     def graph_replays(self) -> int:
         return self._replays
 
-    def _snapshot(self, data):
-        """The net's parameters as tensors on the mesh's device, after
-        finishing deferred initialization with one paused forward."""
-        params = self._net.collect_params()
-        try:
-            for p in params.values():
-                p.data()
-        except DeferredInitializationError:
-            with autograd.pause():
-                self._net(NDArray(data.to(self._device)))
-        return params, OrderedDict(
-            (n, p.data()._data.detach().to(self._device, copy=True))
-            for n, p in params.items())
-
-    def _static(self, x):
-        return torch.empty(x.shape, dtype=x.dtype, device=self._device)
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self._device)
+        return self._stream
 
     def _state_tensors(self):
         """Every tensor the path's function writes outside its graph's
         own pool (none for a forward)."""
         return []
+
+    def _first_run(self, path: _Path):
+        return path.fn()
 
     def _run(self, path: _Path):
         if not path.ready:
@@ -275,25 +260,13 @@ class _Executor(object):
         self._replays += 1
         return path.out
 
-    def _first_run(self, path: _Path):
-        """Run the path's function, measuring its memory at the first
-        run."""
-        if path.temp_bytes is not None:
-            return path.fn()
-        out, path.temp_bytes = _measure(
-            self._device, path.fn, self._state_tensors() + list(path.inputs))
-        path.out_bytes = _nbytes([out])
-        return out
-
     def _capture(self, path: _Path):
         """Capture ``path`` as a CUDA graph (on the CPU, only count it).
         The eager pass on the capture stream comes first, as PyTorch asks;
-        it changes the step's state, which is put back before capture."""
+        it changes the path's state, which is put back before capture."""
         t0 = time.perf_counter()
         if self._device.type == "cuda":
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(self._device)
-            stream = self._stream
+            stream = self._side_stream()
             state = self._state_tensors()
             saved = [t.detach().clone() for t in state]
             stream.wait_stream(torch.cuda.current_stream(self._device))
@@ -310,13 +283,62 @@ class _Executor(object):
                                       capture_error_mode="relaxed"):
                     out = path.fn()
             except Exception as exc:
-                raise MXNetError("%s: capturing the step as a CUDA graph "
-                                 "failed: %s" % (type(self).__name__,
-                                                 exc)) from exc
+                raise MXNetError(
+                    "%s: capturing the path over %s as a CUDA graph "
+                    "failed: %s" % (type(self).__name__,
+                                    [tuple(t.shape) for t in path.inputs],
+                                    exc)) from exc
             path.graph, path.out = graph, out
         path.ready = True
         self._captures += 1
         _accounting.note_recompile(self._site, 1, time.perf_counter() - t0)
+
+
+class _Executor(_Graphs):
+    """What TrainStep and InferStep share: the mesh's device, the snapshot
+    of the net's parameters, and the memory of each path's first run."""
+
+    def __init__(self, net, mesh, batch_axis):
+        if batch_axis != 0:
+            raise MXNetError("batch_axis %d is not ported yet (0 only)"
+                             % batch_axis)
+        self._mesh = mesh if mesh is not None else device_mesh()
+        super().__init__(self._mesh.device)
+        self._net = net
+        self._pvals = None
+        self._first_call_captures = None
+
+    @property
+    def steady_state_recompiles(self) -> int:
+        """Captures made after the first call returned."""
+        if self._first_call_captures is None:
+            return 0
+        return self._captures - self._first_call_captures
+
+    def _snapshot(self, data):
+        """The net's parameters as tensors on the mesh's device, after
+        finishing deferred initialization with one paused forward."""
+        params = self._net.collect_params()
+        try:
+            for p in params.values():
+                p.data()
+        except DeferredInitializationError:
+            with autograd.pause():
+                self._net(NDArray(data.to(self._device)))
+        return params, _param_snapshot(params, self._device)
+
+    def _static(self, x):
+        return torch.empty(x.shape, dtype=x.dtype, device=self._device)
+
+    def _first_run(self, path: _Path):
+        """Run the path's function, measuring its memory at the first
+        run."""
+        if path.temp_bytes is not None:
+            return path.fn()
+        out, path.temp_bytes = _measure(
+            self._device, path.fn, self._state_tensors() + list(path.inputs))
+        path.out_bytes = _nbytes([out])
+        return out
 
     def _end_call(self):
         if self._first_call_captures is None:

@@ -1,14 +1,14 @@
 """Serving observability: counters + latency reservoirs + registry series.
 
-Ported from ``mxnet_tpu/serving/stats.py`` for the decode plane:
-:class:`ServingStats` backs ``DecodeEngine.stats()`` and publishes the
+Ported from ``mxnet_tpu/serving/stats.py``: :class:`ServingStats`
+backs ``Server.stats()`` and ``DecodeEngine.stats()`` and publishes the
 same Prometheus series (``mxnet_serving_requests_total{server=,event=}``,
 the ``mxnet_serving_latency_ms`` / TTFT / TPOT summaries, the queue-depth
-gauge, the speculative-decoding counters); :class:`TenantStats` is its
+and batch-fill gauges, per-bucket batch counts, the engine-chain events,
+the speculative-decoding counters); :class:`TenantStats` is its
 per-tenant twin. Every update also feeds ``profiler`` Counters (queue
-depth) and Markers (shed, timeout), which no-op unless a profiling
-session is running, as the JAX package's do; the batch-server counters
-wait for the slice that ports that plane.
+depth, batch fill) and Markers (shed, timeout), which no-op unless a
+profiling session is running, as the JAX package's do.
 
 Latency is held in a bounded ring (``MXNET_SERVING_LATENCY_WINDOW``,
 default 2048 most-recent requests) — percentiles over recent traffic,
@@ -43,9 +43,18 @@ _T_DEPTH = telemetry.gauge(
     "mxnet_serving_queue_depth",
     "requests waiting in the submit queue",
     labels=("server",))
+_T_FILL = telemetry.gauge(
+    "mxnet_serving_batch_fill_pct",
+    "real rows over bucket size of the most recent batch, percent",
+    labels=("server",))
+_T_BATCHES = telemetry.counter(
+    "mxnet_serving_batches_total",
+    "device batch executions per bucket rung",
+    labels=("server", "bucket"))
 _T_ENGINE = telemetry.counter(
     "mxnet_serving_engine_events_total",
-    "engine-level resilience events (load-shed with the breaker open)",
+    "engine-level resilience events (failure after retries, fallback "
+    "serve, load-shed with every breaker open)",
     labels=("server", "engine", "event"))
 _T_TTFT = telemetry.histogram(
     "mxnet_serving_ttft_ms",
@@ -99,7 +108,8 @@ def _percentile_rows(out: Dict, pairs) -> None:
 
 
 class ServingStats:
-    """Thread-safe serving metrics collector for one engine."""
+    """Thread-safe serving metrics collector for one :class:`Server` or
+    decode engine."""
 
     def __init__(self, name: str = "serving", window: Optional[int] = None):
         if window is None:
@@ -109,7 +119,7 @@ class ServingStats:
         self._lat_ms = collections.deque(maxlen=max(1, int(window)))
         # decode-plane reservoirs: first-token latency (TTFT) and the
         # inter-token interval (TPOT) — the two numbers an LLM serving
-        # SLO is written in
+        # SLO is written in. Empty (and snapshot-zero) for batch servers.
         self._ttft_ms = collections.deque(maxlen=max(1, int(window)))
         self._tpot_ms = collections.deque(maxlen=max(1, int(window)))
         self.submitted = 0
@@ -117,19 +127,27 @@ class ServingStats:
         self.shed = 0
         self.timeouts = 0
         self.errors = 0
+        self.batches = 0
         self.prefill_chunks = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        self.padded_rows = 0
+        self.served_rows = 0
+        self.isolation_retries = 0
+        self.fallbacks = 0
         self.unavailable = 0
+        self.engine_failures: Dict[str, int] = {}
+        self.bucket_counts: Dict[int, int] = {}
         self._queue_depth = 0
         self.name = name
         # profiler bridge: zero-cost unless a profiling session is live
         dom = profiler.Domain(name)
         self._c_depth = dom.new_counter("queue_depth")
+        self._c_fill = dom.new_counter("batch_fill_pct")
         self._m_shed = dom.new_marker("shed")
         self._m_timeout = dom.new_marker("timeout")
 
-    # -- producers (called by the engine) ----------------------------------
+    # -- producers (called by the server or the decode engine) -------------
     def on_submit(self, depth: int):
         with self._lock:
             self.submitted += 1
@@ -156,6 +174,23 @@ class ServingStats:
             self._lat_ms.append(latency_ms)
         _T_REQS.inc(server=self.name, event="completed")
         _T_LATENCY.observe(latency_ms, server=self.name)
+
+    def on_batch(self, real: int, bucket: int, depth: Optional[int]):
+        """Record one device execution; ``depth=None`` (isolation reruns)
+        leaves the queue-depth gauge untouched."""
+        with self._lock:
+            self.batches += 1
+            self.served_rows += real
+            self.padded_rows += bucket - real
+            self.bucket_counts[bucket] = self.bucket_counts.get(bucket, 0) + 1
+            if depth is not None:
+                self._queue_depth = depth
+        if depth is not None:
+            self._c_depth.set_value(depth)
+            _T_DEPTH.set(depth, server=self.name)
+        self._c_fill.set_value(100.0 * real / bucket)
+        _T_FILL.set(100.0 * real / bucket, server=self.name)
+        _T_BATCHES.inc(server=self.name, bucket=bucket)
 
     def on_first_token(self, ttft_ms: float):
         """First generated token of a sequence delivered: submit-to-first-
@@ -207,8 +242,28 @@ class ServingStats:
         if n > 0:
             _T_DRAIN.inc(n, server=self.name)
 
+    def on_isolation_retry(self):
+        with self._lock:
+            self.isolation_retries += 1
+        _T_REQS.inc(server=self.name, event="isolation_retry")
+
+    def on_engine_failure(self, engine: str):
+        """One engine exhausted its retries on a batch (the breaker for it
+        has already been told); the batch may still be served by the next
+        engine in the chain."""
+        with self._lock:
+            self.engine_failures[engine] = \
+                self.engine_failures.get(engine, 0) + 1
+        _T_ENGINE.inc(server=self.name, engine=engine, event="failure")
+
+    def on_fallback(self, engine: str):
+        """A batch was served by a non-primary engine (degraded mode)."""
+        with self._lock:
+            self.fallbacks += 1
+        _T_ENGINE.inc(server=self.name, engine=engine, event="fallback")
+
     def on_unavailable(self, n_requests: int):
-        """Load shed at the engine layer: the breaker is open, ``n``
+        """Load shed at the engine layer: every breaker open, ``n``
         requests answered with ``EngineUnavailableError``."""
         with self._lock:
             self.unavailable += n_requests
@@ -217,7 +272,7 @@ class ServingStats:
 
     # -- consumer ----------------------------------------------------------
     def snapshot(self) -> Dict:
-        """Point-in-time dict of every serving metric."""
+        """Point-in-time dict of every serving metric (``Server.stats()``)."""
         with self._lock:
             lat = np.asarray(self._lat_ms)
             ttft = np.asarray(self._ttft_ms)
@@ -229,13 +284,21 @@ class ServingStats:
                 "shed": self.shed,
                 "timeouts": self.timeouts,
                 "errors": self.errors,
+                "batches": self.batches,
                 "prefill_chunks": self.prefill_chunks,
                 "spec_proposed_tokens": self.spec_proposed,
                 "spec_accepted_tokens": self.spec_accepted,
                 "spec_acceptance_rate": (self.spec_accepted /
                                          self.spec_proposed
                                          if self.spec_proposed else 0.0),
+                "isolation_retries": self.isolation_retries,
+                "fallbacks": self.fallbacks,
                 "unavailable": self.unavailable,
+                "engine_failures": dict(self.engine_failures),
+                "bucket_counts": dict(self.bucket_counts),
+                "batch_fill": (self.served_rows /
+                               (self.served_rows + self.padded_rows)
+                               if self.served_rows else 0.0),
             }
         if lat.size:
             p50, p99 = np.percentile(lat, [50.0, 99.0])

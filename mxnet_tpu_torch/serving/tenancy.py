@@ -669,6 +669,13 @@ class WeightedFairQueue:
     def queued(self, tenant: Tenant) -> int:
         return len(tenant.queue)
 
+    def oldest_submit(self) -> Optional[float]:
+        """Earliest ``t_submit`` among the sub-queue heads (the batch
+        window anchor of :class:`~mxnet_tpu_torch.serving.Server`). None
+        when empty."""
+        heads = [t.queue[0].t_submit for t in self._reg if t.queue]
+        return min(heads) if heads else None
+
     # -- the DRR pick ------------------------------------------------------
     def pop(self, guard: Optional[Callable] = None):
         """The next admissible ``(tenant, request)`` by priority + DRR,

@@ -38,11 +38,14 @@ piece                 what it gives you
                       and tokens-per-device-second gauges, HBM watermark
                       timeline, chrome-trace device lane
                       (``MXNET_DEVPROF_SAMPLE``-gated)
+:mod:`.regress`       bench-regression sentinel: per-(metric, config)
+                      trajectories over BENCH_*.json + emitter JSONL,
+                      median+MAD verdicts (``/debug/perf``'s
+                      ``perf_verdicts``)
 ====================  =====================================================
 
 The JAX package's ``jit_call``/``jit_cache_size`` have no counterpart
-(the port's dispatch sites are graph replays, probed by devprof), and its
-bench-regression sentinel ``regress`` is not ported.
+(the port's dispatch sites are graph replays, probed by devprof).
 
 Knobs (the JAX package's names): ``MXNET_TELEMETRY`` (default 1),
 ``MXNET_TELEMETRY_RESERVOIR`` (2048), ``MXNET_TELEMETRY_EMIT_SECS``
@@ -53,7 +56,7 @@ from __future__ import annotations
 
 from . import accounting, exporters, registry, spans
 from . import flightrec, httpd, slo, tracing
-from . import devprof
+from . import devprof, regress
 from .accounting import (CKPT_BYTES, CKPT_CORRUPTION, CKPT_RESTORE_MS,
                          CKPT_SAVE_MS, COMPILE_CACHE_HITS,
                          COMPILE_CACHE_MISSES, COMPILE_SECONDS,
@@ -87,7 +90,7 @@ __all__ = [
     "PREEMPTIONS", "CKPT_CORRUPTION", "ELASTIC_GOODPUT", "ELASTIC_RESTARTS",
     "render_prometheus", "snapshot", "Emitter", "start_emitter",
     "stop_emitter",
-    "tracing", "flightrec", "slo", "httpd", "devprof",
+    "tracing", "flightrec", "slo", "httpd", "devprof", "regress",
     "start_trace", "get_trace", "start_httpd", "stop_httpd",
 ]
 

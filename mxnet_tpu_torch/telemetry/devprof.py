@@ -478,10 +478,16 @@ def summary(top_n: int = 10) -> Dict[str, Any]:
 
 
 def _perf_view() -> Dict[str, Any]:
-    """The ``/debug/perf`` document: the attribution summary. (The JAX
-    package adds its bench sentinel's verdicts; ``regress`` is not
-    ported.)"""
-    return {"devprof": summary()}
+    """The ``/debug/perf`` document: attribution summary + the latest
+    bench-sentinel verdicts (lazy import: regress is a sibling)."""
+    doc: Dict[str, Any] = {"devprof": summary()}
+    try:
+        from . import regress
+
+        doc["perf_verdicts"] = regress.recent_verdicts()
+    except Exception as exc:  # noqa: BLE001 - the view must still render
+        doc["perf_verdicts"] = {"error": repr(exc)}
+    return doc
 
 
 def reset() -> None:
@@ -496,7 +502,7 @@ def reset() -> None:
 
 
 # activate from the env knob (usually off → hook stays None), and publish
-# the perf view regardless: the summary structure must be inspectable
+# the perf view regardless: verdict/summary structure must be inspectable
 # even before the first sample
 refresh()
 

@@ -276,5 +276,7 @@ def test_perf_debug_view_renders():
     from mxnet_tpu_torch.telemetry import httpd
 
     doc = httpd._debug_views()["perf"]
-    assert set(doc) == {"devprof"}
+    assert set(doc) == set(jdev._perf_view()) == {"devprof",
+                                                  "perf_verdicts"}
+    assert isinstance(doc["perf_verdicts"], list)
     assert set(doc["devprof"]) == set(jdev.summary())

@@ -859,3 +859,55 @@ def test_fleet_replicas_default_to_the_card():
             lambda name: serving.DecodeEngine(model, params, num_slots=1,
                                               max_seq_len=8, name=name),
             replicas=2, name="card_default")
+
+
+def test_scan_covers_the_request_server_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ["mxnet_tpu_torch/%s.py" % m for m in (
+            "aot", "_predict_embed", "serving/engine", "serving/batcher",
+            "telemetry/regress", "tools/benchwatch")]:
+        assert path in names
+
+
+def test_request_server_slice_serves_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys, tempfile
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import aot, gluon, nd, serving
+from mxnet_tpu_torch.telemetry import regress
+from mxnet_tpu_torch.tools import benchwatch
+with mx.cpu():
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(8, activation="relu"), gluon.nn.Dense(3))
+    net.initialize()
+    x = np.random.RandomState(0).rand(5, 4).astype(np.float32)
+    want = net(nd.array(x)).asnumpy()
+    srv = serving.serve_block(net, (4,), buckets=(1, 2, 4),
+                              max_delay_ms=1.0)
+    d = tempfile.mkdtemp()
+    aot.export_model(net, (1, 4), d, save_tf=False, poly_batch=True)
+    asrv = serving.serve_stablehlo(d, buckets=(1, 4), max_delay_ms=1.0)
+try:
+    assert srv.warmup() == 3 and asrv.warmup() == 2
+    got = np.stack([srv.submit(r).result(30) for r in x])
+    agot = np.stack([asrv.submit(r).result(30) for r in x])
+    assert srv.stats()["steady_state_recompiles"] == 0
+finally:
+    srv.close()
+    asrv.close()
+assert np.allclose(got, want, atol=1e-6) and np.allclose(agot, want,
+                                                          atol=1e-6)
+assert regress.config_signature({"metric": "m"})
+assert benchwatch.main([]) == 0
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("served", len(got), len(agot))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "served 5 5" in proc.stdout

@@ -88,7 +88,7 @@ def test_module_series_have_the_jax_name_kind_and_labels(name):
 
 def test_all_is_the_jax_all_less_what_is_not_ported():
     missing = set(jtel.__all__) - set(ttel.__all__)
-    assert missing == {"jit_call", "jit_cache_size", "regress"}
+    assert missing == {"jit_call", "jit_cache_size"}
 
 
 def test_same_series_through_module_metrics_render_the_jax_lines():
