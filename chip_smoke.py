@@ -444,8 +444,41 @@ was printed):
     it as fallback, off the block by more than BLOCK_AOT_TOL of the
     largest magnitude (or served by the fallback).
 
+64. rcnn_proposal (run after phase 63): Faster R-CNN's test-time RPN at
+    MXNet 1.3's ``example/rcnn`` settings for VGG-16 (a 600 x 1000 image,
+    the 37 x 62 conv5_3 map, 9 anchors a cell: 20,646, 6000 before NMS,
+    300 after, threshold 0.7, min size 16 at scale 1.6), seeded scores
+    and deltas: ``nd.contrib.Proposal`` (one image) and
+    ``MultiProposal`` (two) through the NMS kernels, which must launch
+    once an image, against the same calls with the plain NMS on the
+    card, RoIs and scores exactly equal; then ``ROIPooling`` (exactly)
+    and ``ROIAlign`` (within RCNN_ALIGN_TOL) over the 300 RoIs on a
+    (1, 512, 37, 62) map against the port on the CPU. Prints Proposal's
+    CUDA-event and wall ms, its device ms, the NMS kernels' device ms
+    inside it, and the RoI ops' ms and peak memory;
+65. vision_card: every name of the slice (``tests/torch_vision_cases.py``:
+    ops/vision.py's 25, ROIAlign and bipartite_matching, the 7 int8 ops),
+    forward and gradient on the card against the port on the CPU,
+    integers exactly;
+66. quant_resnet: resnet50_v1 (seed-0 weights) exported to a symbol and
+    quantized by ``contrib.quantization.quantize_model`` (naive, 2
+    batches of 32 at 224 x 224, on the card): 54 int8 layers; the float
+    and int8 forwards at batch 32 timed, their relative error and top-1
+    agreement; the int32 accumulators of the stem (K = 147), a 3 x 3
+    layer at 512 channels (K = 4608) and the dense layer bit-equal on the
+    card and the CPU; every node of the int8 symbol on the card from the
+    CPU's inputs against the CPU's outputs (int32 exactly, int8 within 1
+    step on at most QUANT_STEP_SHARE of the values, floats within
+    QUANT_FLOAT_TOL); the int8 logits on the card against the CPU's run
+    of the same symbol within QUANT_MAX_STEPS steps of the output's grid,
+    and nearer on average than int8 is to the float net;
+67. quantize_example: ``python3 mxnet_tpu_torch/example/quantization/
+    quantize_model.py --num-calib 128`` on the card exits 0
+    (ENTROPY_BEATS_NAIVE).
+
 ``python3 chip_smoke.py --fleet`` runs phases 61-62 only,
-``--block-serve`` phase 63 only (no nvcc build).
+``--block-serve`` phase 63 only (no nvcc build), ``--vision`` phases
+64-67 only (building only the NMS kernel).
 ``python3 chip_smoke.py --word-lm`` runs phases 31-35 only,
 ``--mnist`` phases 36-42 only, ``--ops-tail`` phases 43-48 only,
 ``--gluon`` phases 49-54 only, and ``--graph`` phases 55-60 only (no
@@ -7481,6 +7514,548 @@ def block_serve():
     del net, engine, infer
 
 
+# ---------------------------------------------------------------------------
+# slice 23: the last ops (Proposal through the NMS kernel, the RoI and
+# vision tail, int8 quantization)
+# ---------------------------------------------------------------------------
+
+# rcnn_proposal: Faster R-CNN's test-time RPN at MXNet 1.3's example/rcnn
+# settings for VGG-16 (Ren et al., 2015): a 600 x 1000 image, feature
+# stride 16 (conv5_3 is 37 x 62 after four floor-mode poolings), scales
+# 8/16/32 and ratios 0.5/1/2 (A = 9, 20,646 anchors), 6000 boxes before
+# NMS, 300 after, threshold 0.7, min size 16 at im_info's scale 1.6
+RCNN_MAP, RCNN_IMAGE = (37, 62), (600.0, 1000.0, 1.6)
+RCNN_ATTRS = {"feature_stride": 16, "scales": (8.0, 16.0, 32.0),
+              "ratios": (0.5, 1.0, 2.0), "rpn_pre_nms_top_n": 6000,
+              "rpn_post_nms_top_n": 300, "threshold": 0.7,
+              "rpn_min_size": 16}
+# the RoI ops over Proposal's 300 RoIs on a (1, 512, 37, 62) conv5_3 map:
+# 7 x 7 bins at 1/16; ROIPooling exactly the CPU's (a max), ROIAlign
+# within RCNN_ALIGN_TOL
+RCNN_FEAT, RCNN_POOL, RCNN_ALIGN_TOL = 512, (7, 7), 2e-5
+# quant_resnet: resnet50_v1 (1000 classes, seed-0 weights), naive
+# calibration on QUANT_CALIB batches of QUANT_BATCH at 224 x 224, the
+# float and int8 symbols at batch QUANT_BATCH on the card, and the int8
+# symbol on the card against the CPU at batch QUANT_CPU_BATCH. Node by
+# node, each op of the int8 symbol runs on the card from the CPU's values
+# of its inputs (teacher forcing: no difference carries from one node to
+# the next), and its outputs must match the CPU's: int32 exactly, int8 at
+# most 1 step off on at most QUANT_STEP_SHARE of the values, floats within
+# QUANT_FLOAT_TOL of the largest magnitude among the node's inputs and
+# outputs (at least 1). End to end, where a float layer's rounding may tip
+# one value across the next quantize's edge and the step cascades, the
+# card's int8 logits must be within QUANT_MAX_STEPS steps of the output's
+# grid (the last requantize's range over 127) of the CPU's everywhere,
+# and nearer the CPU's on average than the CPU's int8 logits are to its
+# float logits (PERF.md, slice 23)
+QUANT_BATCH, QUANT_CALIB, QUANT_CPU_BATCH = 32, 2, 2
+QUANT_STEP_SHARE, QUANT_FLOAT_TOL, QUANT_MAX_STEPS = 1e-4, 1e-5, 4.0
+
+
+def _rcnn_inputs(b, seed):
+    """Seeded RPN outputs at the test shape: cls_prob (B, 18, 37, 62) as a
+    softmax over each anchor's (background, foreground) pair, bbox_pred
+    (B, 36, 37, 62) at scale 0.1, im_info (B, 3)."""
+    h, w = RCNN_MAP
+    rs = np.random.RandomState(seed)
+    logits = rs.randn(b, 2, 9, h, w).astype(np.float32) * 2.0
+    e = np.exp(logits - logits.max(axis=1, keepdims=True))
+    cls = (e / e.sum(axis=1, keepdims=True)).reshape(b, 18, h, w)
+    bbox = (rs.randn(b, 36, h, w) * 0.1).astype(np.float32)
+    info = np.tile(np.asarray(RCNN_IMAGE, np.float32), (b, 1))
+    return [cls.astype(np.float32), bbox, info]
+
+
+def _peak_mb(fn):
+    """fn()'s result and the device memory it allocated above what was
+    allocated when it started, at its peak (MB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def rcnn_proposal():
+    """Proposal through the NMS kernel at Faster R-CNN's test shape against
+    the same op with the plain NMS on the card (RoIs exactly equal), then
+    MultiProposal at B = 2 the same way, then ROIPooling and ROIAlign over
+    the 300 RoIs against the port on the CPU; timed. Returns the kernel
+    launches of the path's run (the B = 1 and B = 2 calls)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops import nms, vision
+
+    t_phase = time.perf_counter()
+    one = [nd.array(a, ctx=mx.gpu(0)) for a in _rcnn_inputs(1, 23)]
+    two = [nd.array(a, ctx=mx.gpu(0)) for a in _rcnn_inputs(2, 24)]
+
+    def proposal(ins):
+        return nd.contrib.Proposal(*ins, output_score=True, **RCNN_ATTRS)
+
+    _reset_launches()  # the path: one image, then two
+    rois1, scores1 = proposal(one)
+    rois2, scores2 = nd.contrib.MultiProposal(*two, output_score=True,
+                                              **RCNN_ATTRS)
+    torch.cuda.synchronize()
+    launches = nms.nms_keep_cuda.launches
+    if launches != 3:
+        fail("rcnn_proposal: %d NMS kernel launches for one image and two "
+             "(3 expected)" % launches)
+    try:
+        vision.nms_keep = nms.nms_keep_reference
+        plain1 = proposal(one)
+        plain2 = nd.contrib.MultiProposal(*two, output_score=True,
+                                          **RCNN_ATTRS)
+        torch.cuda.synchronize()
+    finally:
+        vision.nms_keep = nms.nms_keep
+    if nms.nms_keep_cuda.launches != 3:
+        fail("rcnn_proposal: the plain run launched the kernel")
+    for what, got, want in (("B=1", (rois1, scores1), plain1),
+                            ("B=2", (rois2, scores2), plain2)):
+        for g, w in zip(got, want):
+            if not torch.equal(g._data, w._data):
+                fail("rcnn_proposal %s: the kernel's RoIs or scores differ "
+                     "from the plain NMS's" % what)
+    r1 = rois1.asnumpy()
+    if r1.shape != (300, 5) or not np.isfinite(r1).all():
+        fail("rcnn_proposal: RoIs of shape %s" % (r1.shape,))
+    boxes = r1[:, 1:]
+    if (boxes[:, 2] < boxes[:, 0]).any() or boxes.min() < 0 or \
+            (boxes[:, [0, 2]] > RCNN_IMAGE[1] - 1).any() or \
+            (boxes[:, [1, 3]] > RCNN_IMAGE[0] - 1).any():
+        fail("rcnn_proposal: a RoI outside the image or inverted")
+
+    # the NMS call inside Proposal (one image): its inputs and keep mask
+    # give the kernel's bound at this run's data; the plain NMS's time
+    seen = []
+
+    def recording(boxes, cls, valid, thresh, force):
+        keep = nms.nms_keep(boxes, cls, valid, thresh, force)
+        seen.append((boxes, cls, valid, keep, thresh, force))
+        return keep
+
+    try:
+        vision.nms_keep = recording
+        proposal(one)
+    finally:
+        vision.nms_keep = nms.nms_keep
+    bx, c, v, keep, thresh, force = seen[0]
+    bound_ms, bound_by, pairs = _nms_bound(bx, c, v, keep, force)
+    plain_nms_ms = time_ms(lambda: nms.nms_keep_reference(
+        bx, c, v, thresh, force), iters=2, warm=1)
+
+    ms = time_ms(lambda: proposal(one), iters=20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        proposal(one)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 20
+    nms_ms = device_ms_by_kernel(lambda: proposal(one), KERNEL_4,
+                                 per_call=len(NMS_KERNELS))
+    all_ms = call_device_ms(lambda: proposal(one))
+
+    # the RoI ops over those RoIs: card against the port on the CPU
+    feat = np.random.RandomState(25).randn(
+        1, RCNN_FEAT, *RCNN_MAP).astype(np.float32)
+    f_card = nd.array(feat, ctx=mx.gpu(0))
+    roi_fields = {}
+    for op, attrs in (("ROIPooling", {"pooled_size": RCNN_POOL,
+                                      "spatial_scale": 1.0 / 16}),
+                      ("ROIAlign", {"pooled_size": RCNN_POOL,
+                                    "spatial_scale": 1.0 / 16,
+                                    "sample_ratio": 2})):
+        out, peak = _peak_mb(lambda: nd.invoke(op, f_card, rois1, **attrs))
+        got = out.asnumpy()
+        with mx.cpu():
+            want = nd.invoke(op, nd.array(feat), nd.array(r1),
+                             **attrs).asnumpy()
+        err = float(np.abs(got - want).max())
+        bad = not np.array_equal(got, want) if op == "ROIPooling" \
+            else not err <= RCNN_ALIGN_TOL
+        if bad or got.shape != (300, RCNN_FEAT) + RCNN_POOL:
+            fail("rcnn_proposal: %s on the card against the CPU: max abs "
+                 "err %.3g, shape %s" % (op, err, got.shape))
+        roi_fields[op] = {"max_abs_err": err, "peak_mb": peak,
+                          "ms": time_ms(lambda: nd.invoke(
+                              op, f_card, rois1, **attrs), iters=10)}
+    phase("rcnn_proposal", card=CARD, anchors=RCNN_MAP[0] * RCNN_MAP[1] * 9,
+          pre_nms=RCNN_ATTRS["rpn_pre_nms_top_n"],
+          post_nms=RCNN_ATTRS["rpn_post_nms_top_n"],
+          rois_equal_plain_nms=True, kernel_launches=launches,
+          distinct_rois=int(np.unique(boxes, axis=0).shape[0]),
+          proposal_ms=ms, proposal_wall_ms=wall_ms,
+          proposal_device_ms=all_ms, nms_device_ms=sum(nms_ms.values()),
+          nms_device_ms_by_kernel=nms_ms, nms_boxes=int(v.shape[1]),
+          nms_valid=int(v.sum()), nms_kept=int(keep.sum()),
+          nms_bound_ms=bound_ms, nms_bound_by=bound_by,
+          nms_iou_pairs=pairs, nms_plain_ms=plain_nms_ms,
+          roi_ops=roi_fields,
+          align_tol=RCNN_ALIGN_TOL,
+          seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def vision_card():
+    """Every name of the slice (tests/torch_vision_cases.py: the 25 of
+    ops/vision.py, ROIAlign and bipartite_matching, the 7 quantization
+    ops), forward and gradient on the card against the port on the CPU;
+    integers exactly."""
+    import inspect
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_vision_cases as cases
+
+    from mxnet_tpu_torch.ops.registry import OP_REGISTRY
+
+    t_phase = time.perf_counter()
+    bad, checked, names = [], 0, set()
+
+    def run_case(name, op, specs, attrs, flags):
+        nonlocal checked
+        from torch_op_cases import make_inputs
+
+        inputs = make_inputs(specs, "float32", seed=11)
+        got = _op_run(name, inputs, attrs, "cuda", flags["grad"])
+        want = _op_run(name, inputs, attrs, "cpu", flags["grad"])
+        n_out = len(want) - sum(flags["grad"] and x.dtype == np.float32
+                                for x in inputs)
+        checked += 1
+        for k, (g, w) in enumerate(zip(got, want)):
+            tol = TAIL_GRAD_TOL if k >= n_out else TAIL_TOL
+            if g.dtype != w.dtype or not _tail_close(g, w, tol):
+                bad.append("%s[%d]: %s against %s, max abs err %s"
+                           % (name, k, g.dtype, w.dtype, _tail_err(g, w)))
+        if len(got) != len(want):
+            bad.append("%s: %d arrays against %d" % (name, len(got),
+                                                     len(want)))
+        names.add(name)
+
+    for key in sorted(cases.VISION_CASES):
+        op, specs, attrs, flags = cases.VISION_CASES[key]
+        run_case(op, op, specs, attrs, flags)
+    for alias in sorted(n for v in cases.ALIASES.values() for n in v):
+        run_case(alias, *cases.canonical(alias, OP_REGISTRY))
+    mods = {"mxnet_tpu_torch.ops.vision", "mxnet_tpu_torch.ops.quantization"}
+    slice_names = {n for n, o in OP_REGISTRY.items()
+                   if inspect.getmodule(o.fcompute).__name__ in mods} | {
+        "ROIAlign", "_contrib_ROIAlign", "_contrib_bipartite_matching"}
+    missing = sorted(slice_names - names)
+    phase("vision_card", card=CARD, names=len(names & slice_names),
+          checks=checked, tol=TAIL_TOL, grad_tol=TAIL_GRAD_TOL, failed=bad,
+          unchecked=missing, seconds=time.perf_counter() - t_phase)
+    if bad or missing or len(slice_names) != 35:
+        fail("vision_card: the card disagrees with the CPU: %s; not "
+             "checked: %s (of %d names)" % (bad, missing, len(slice_names)))
+
+
+def _quant_layer_checks(qarg, sym):
+    """quantized_conv's and quantized_fully_connected's int32 accumulators
+    on the same int8 inputs on the card and the CPU: the stem (K = 147),
+    a 3 x 3 layer at 512 channels (K = 4608) and the dense layer (2048 ->
+    1000), with the quantized net's own int8 weights. Bit-equal or
+    fail."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+
+    nodes = json.loads(sym.tojson())["nodes"]
+    layers = {}
+    for n in nodes:
+        a = n.get("attrs", {})
+        if n["op"] == "_contrib_quantized_fully_connected":
+            key = "dense_2048_1000"
+        elif n["op"] != "_contrib_quantized_conv":
+            continue
+        elif a.get("kernel") == "(7, 7)":
+            key = "stem_k147"
+        elif a.get("kernel") == "(3, 3)" and a.get("num_filter") == "512":
+            key = "conv3x3_512_k4608"
+        else:
+            continue
+        # the weight: the layer's second input, a variable
+        layers.setdefault(key, (n["name"], n, nodes[n["inputs"][1][0]]
+                                ["name"]))
+    if len(layers) != 3:
+        fail("quant_resnet: the quantized net lacks a checked layer: %s"
+             % sorted(layers))
+    rs = np.random.RandomState(26)
+    out = {}
+    for key, (name, n, wname) in sorted(layers.items()):
+        w = qarg[wname].asnumpy()
+        if key == "dense_2048_1000":
+            x = rs.randint(-127, 128, (QUANT_BATCH, 2048)).astype(np.int8)
+            attrs = {"num_hidden": 1000, "no_bias": True}
+            op = "_contrib_quantized_fully_connected"
+        else:
+            c = w.shape[1]
+            side, batch = (224, 4) if key == "stem_k147" else (7, 8)
+            x = rs.randint(-127, 128, (batch, c, side, side)).astype(np.int8)
+            a = n["attrs"]
+            attrs = {"kernel": a["kernel"], "stride": a.get("stride"),
+                     "pad": a.get("pad"), "num_filter": a["num_filter"],
+                     "no_bias": True}
+            op = "_contrib_quantized_conv"
+        ranges = [np.asarray([v], np.float32) for v in (-1.0, 1.0, -1.0,
+                                                        1.0)]
+        ins = [x, w] + ranges
+        res = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with ctx:
+                res.append(nd.invoke(op, *[nd.array(v, dtype=v.dtype)
+                                           for v in ins], **attrs)[0]
+                           .asnumpy())
+        card, cpu = res
+        if card.dtype != np.int32 or not np.array_equal(card, cpu):
+            fail("quant_resnet: %s's int32 accumulator on the card differs "
+                 "from the CPU's in %d places" % (key, int((card != cpu)
+                                                          .sum())))
+        out[key] = {"layer": name, "shape": list(card.shape),
+                    "k": int(np.prod(w.shape[1:])), "bit_equal": True,
+                    "max_abs_acc": int(np.abs(card).max())}
+    return out
+
+
+def _quantized_resnet50():
+    """resnet50_v1 (seed-0 weights) exported and loaded as a symbol, then
+    quantized by contrib.quantization.quantize_model with naive
+    calibration on the card: (float triple, int8 triple, an input batch,
+    the quantization's seconds)."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io as mxio
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.contrib import quantization
+
+    net = _resnet50(0)
+    net.hybridize()
+    shape = (QUANT_BATCH, 3, RESNET_SIDE, RESNET_SIDE)
+    rs = np.random.RandomState(27)
+    x = rs.rand(*shape).astype(np.float32)
+    net(nd.array(x))
+    prefix = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_quant_"),
+                          "resnet50_v1")
+    net.export(prefix)
+    del net
+    sym = mx.sym.load(prefix + "-symbol.json")
+    params = mx.nd.load(prefix + "-0000.params")
+    arg = {k[4:]: v for k, v in params.items() if k.startswith("arg:")}
+    aux = {k[4:]: v for k, v in params.items() if k.startswith("aux:")}
+    calib = rs.rand(QUANT_CALIB * QUANT_BATCH, *shape[1:]).astype(np.float32)
+    t0 = time.perf_counter()
+    quantized = quantization.quantize_model(
+        sym, arg, aux, calib_mode="naive",
+        calib_data=mxio.NDArrayIter(calib, np.zeros(len(calib), np.float32),
+                                    batch_size=QUANT_BATCH),
+        num_calib_examples=len(calib))  # ctx=None: the card
+    return (sym, arg, aux), quantized, x, time.perf_counter() - t0
+
+
+def _quant_exec(sym, arg, aux, ctx, batch):
+    """An executor of ``sym`` at batch ``batch`` of 224 x 224 images on
+    ``ctx``, with the params (a bias the rewrite dropped stays unused)."""
+    ex = sym.simple_bind(ctx, data=(batch, 3, RESNET_SIDE, RESNET_SIDE),
+                         grad_req="null")
+    ex.copy_params_from(arg, aux, allow_extra_params=True)
+    return ex
+
+
+def _quant_forward(ex, data):
+    ex.copy_params_from({"data": data})
+    return ex.forward(is_train=False)
+
+
+def quant_resnet():
+    """The port's zoo resnet50_v1 exported to a symbol and quantized by
+    contrib.quantization.quantize_model (naive calibration on the card),
+    the float and int8 symbols forward at batch 32 on the card; the int32
+    accumulators of three layers bit-equal on the card and the CPU; the
+    int8 logits on the card against the port's CPU run of the same
+    symbol within the bar."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+
+    t_phase = time.perf_counter()
+    (sym, arg, aux), (qsym, qarg, qaux), x, quantize_s = \
+        _quantized_resnet50()
+    n_q = sum(n["op"].startswith("_contrib_quantized_")
+              for n in json.loads(qsym.tojson())["nodes"])
+    if n_q != 54:  # 53 convolutions and the dense layer
+        fail("quant_resnet: %d quantized layers (54 expected)" % n_q)
+    xin = nd.array(x)
+    f_ex = _quant_exec(sym, arg, aux, mx.gpu(0), QUANT_BATCH)
+    q_ex = _quant_exec(qsym, qarg, qaux, mx.gpu(0), QUANT_BATCH)
+    ref = _quant_forward(f_ex, xin)[0].asnumpy()
+    got = _quant_forward(q_ex, xin)[0].asnumpy()
+    f_ms = time_ms(lambda: _quant_forward(f_ex, xin), iters=5, warm=1)
+    q_ms = time_ms(lambda: _quant_forward(q_ex, xin), iters=5, warm=1)
+    torch.cuda.synchronize()
+    if not (np.isfinite(got).all() and got.shape == (QUANT_BATCH, 1000)):
+        fail("quant_resnet: int8 logits of shape %s, finite %s"
+             % (got.shape, bool(np.isfinite(got).all())))
+    rel = float(np.abs(got - ref).mean() / (np.abs(ref).mean() + 1e-9))
+    agree = float((got.argmax(1) == ref.argmax(1)).mean())
+    layers = _quant_layer_checks(qarg, qsym)
+
+    # the same int8 symbol node by node (card from the CPU's inputs), then
+    # end to end, at batch QUANT_CPU_BATCH
+    xs = x[:QUANT_CPU_BATCH]
+    forced, cpu = _quant_teacher_forced(qsym, qarg, qaux, xs,
+                                        torch.device("cuda"))
+    card = _quant_forward(
+        _quant_exec(qsym, qarg, qaux, mx.gpu(0), QUANT_CPU_BATCH),
+        nd.array(xs))[0].asnumpy()
+    with mx.cpu():
+        f_cpu = _quant_forward(
+            _quant_exec(sym, arg, aux, mx.cpu(), QUANT_CPU_BATCH),
+            nd.array(xs))[0].asnumpy()
+    last = [n for n in json.loads(qsym.tojson())["nodes"]
+            if n["op"] == "_contrib_requantize"][-1]
+    step = float(last["attrs"]["max_calib_range"]) / 127.0
+    diff = np.abs(card - cpu)
+    own = float(np.abs(cpu - f_cpu).mean())
+    phase("quant_resnet", card=CARD, model="resnet50_v1", batch=QUANT_BATCH,
+          calib_batches=QUANT_CALIB, calib_mode="naive",
+          quantized_layers=n_q, quantize_s=quantize_s,
+          float_forward_ms=f_ms, int8_forward_ms=q_ms,
+          int8_vs_float_rel_err=rel, int8_vs_float_top1_agreement=agree,
+          accumulators=layers, cpu_batch=QUANT_CPU_BATCH,
+          teacher_forced=forced, step_share_bar=QUANT_STEP_SHARE,
+          float_tol=QUANT_FLOAT_TOL, output_step=step,
+          card_vs_cpu_max_steps=float(diff.max() / step),
+          card_vs_cpu_mean_abs=float(diff.mean()),
+          int8_vs_float_cpu_mean_abs=own, max_steps_bar=QUANT_MAX_STEPS,
+          seconds=time.perf_counter() - t_phase)
+    if forced["failed"]:
+        fail("quant_resnet: teacher-forced nodes off the CPU: %s"
+             % forced["failed"][:10])
+    if not (diff.max() <= QUANT_MAX_STEPS * step and diff.mean() < own):
+        fail("quant_resnet: the int8 logits on the card are %.3g steps "
+             "(mean %.3g) from the CPU's; the bar is %s steps, and a mean "
+             "below int8's own %.3g from the float net"
+             % (diff.max() / step, diff.mean(), QUANT_MAX_STEPS, own))
+
+
+def _quant_teacher_forced(qsym, qarg, qaux, x, device):
+    """Each node of the int8 symbol on ``device`` from the CPU's values of
+    its inputs, against the CPU's outputs of that node: int32 exactly, int8
+    and uint8 at most 1 step off on at most QUANT_STEP_SHARE of the
+    values, floats within QUANT_FLOAT_TOL of the largest magnitude among
+    the node's inputs and outputs (at least 1). Returns (the worst reading
+    of each kind with its node, the counts and the failed nodes; the CPU's
+    logits)."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ops.registry import OP_REGISTRY
+
+    graph = json.loads(qsym.tojson())
+    bound = {k: v.asnumpy() for k, v in list(qarg.items())
+             + list(qaux.items())}
+    bound["data"] = x
+    vals, failed = {}, []
+    worst = {"int32_values_off": [0, None], "int8_max_steps": [0, None],
+             "int8_share_off": [0.0, None], "float_err_of_scale": [0.0, None]}
+    counts = {"nodes": 0, "int32": 0, "int8": 0, "float": 0}
+
+    def note(kind, value, name):
+        if value > worst[kind][0]:
+            worst[kind] = [value, name]
+
+    with autograd.predict_mode(), torch.no_grad():
+        for i, n in enumerate(graph["nodes"]):
+            if n["op"] == "null":
+                vals[(i, 0)] = torch.as_tensor(bound[n["name"]])
+                continue
+            opdef = OP_REGISTRY[n["op"]]
+            ins = [vals[(j, k)] for j, k, *_ in n["inputs"]]
+            outs = []
+            for dev, args in ((torch.device("cpu"), ins),
+                              (device, [v.to(device) for v in ins])):
+                attrs = opdef.parse_attrs(n.get("attrs", {}))
+                if not args and not attrs.get("ctx"):
+                    # a constant: made on the side's device, as the
+                    # executor does (Symbol.eval_torch)
+                    attrs["__device__"] = dev
+                out = opdef.fcompute(attrs, *args)
+                outs.append(out if isinstance(out, (tuple, list))
+                            else (out,))
+            cpu, card = outs
+            counts["nodes"] += 1
+            scale = max([1.0] + [float(v.abs().max()) for v in ins
+                                 if v.is_floating_point() and v.numel()])
+            for k, (a, b) in enumerate(zip(cpu, card)):
+                vals[(i, k)] = a
+                b = b.cpu()
+                name = "%s:%d" % (n["name"], k)
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    failed.append((name, "dtype/shape"))
+                elif a.dtype == torch.int32:
+                    counts["int32"] += 1
+                    off = int((a != b).sum())
+                    note("int32_values_off", off, name)
+                    if off:
+                        failed.append((name, "int32", off))
+                elif a.dtype in (torch.int8, torch.uint8):
+                    counts["int8"] += 1
+                    d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+                    steps = int(d.max()) if d.numel() else 0
+                    share = float((d > 0).float().mean()) if d.numel() \
+                        else 0.0
+                    note("int8_max_steps", steps, name)
+                    note("int8_share_off", share, name)
+                    if steps > 1 or share > QUANT_STEP_SHARE:
+                        failed.append((name, "int8", steps, share))
+                else:
+                    counts["float"] += 1
+                    err = float((a - b).abs().max()) if a.numel() else 0.0
+                    top = max(scale, float(a.abs().max()) if a.numel()
+                              else 0.0)
+                    note("float_err_of_scale", err / top, name)
+                    if not err <= QUANT_FLOAT_TOL * top:
+                        failed.append((name, "float", err, top))
+    head = graph["heads"][0]
+    return (dict(worst, failed=failed, **counts),
+            vals[(head[0], head[1])].numpy())
+
+
+def quantize_example():
+    """The port's example/quantization/quantize_model.py on the card
+    (--num-calib 128): it exits 0 only on ENTROPY_BEATS_NAIVE."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "mxnet_tpu_torch", "example",
+                                      "quantization", "quantize_model.py"),
+         "--num-calib", "128"], capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    phase("quantize_example", card=CARD, rc=proc.returncode,
+          seconds=time.perf_counter() - t0, lines=lines)
+    if proc.returncode != 0 or not lines or \
+            lines[-1] != "ENTROPY_BEATS_NAIVE":
+        fail("quantize_example: rc %d, %s" % (proc.returncode,
+                                              proc.stderr[-2000:]))
+
+
+def vision_phases():
+    """The slice's four phases (``--vision``); returns rcnn_proposal's NMS
+    kernel launches."""
+    launches = rcnn_proposal()
+    vision_card()
+    quant_resnet()
+    quantize_example()
+    return launches
+
+
 def main():
     import torch
 
@@ -7583,6 +8158,19 @@ def main():
     if sys.argv[1:] == ["--block-serve"]:
         # only slice 22's phase (no kernel is built: the path runs none)
         block_serve()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--vision"]:
+        # only slice 23's phases (nvcc builds the NMS kernel, which
+        # Proposal runs)
+        from mxnet_tpu_torch.ops import _build
+
+        t0 = time.perf_counter()
+        _build.load("nms")
+        phase("build", kernels=["nms"], seconds=time.perf_counter() - t0)
+        vision_phases()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -7696,6 +8284,7 @@ def main():
     gluon_phases()
     graph_phases()
     block_serve()
+    nms_entry["launches"] += vision_phases()
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
                                   nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Experimental / contrib packages (reference ``python/mxnet/contrib/``):
-the port has :mod:`.torch_bridge` and :mod:`.text`'s ``Vocabulary``."""
-from . import text, torch_bridge  # noqa: F401
+the port has :mod:`.quantization` (``quantize_model``), :mod:`.torch_bridge`
+and :mod:`.text`'s ``Vocabulary``."""
+from . import quantization, text, torch_bridge  # noqa: F401
 
-__all__ = ["text", "torch_bridge"]
+__all__ = ["quantization", "text", "torch_bridge"]

@@ -29,9 +29,10 @@ several copies or processes and waits for the multi-device store.
 
 Counted in ``mxnet_kvstore_ops_total{op}``; the aggregate phases run
 under the ``resilience`` retry policy with the chaos sites
-``kvstore.push``, ``kvstore.pull`` and ``kvstore.pushpull``. The
-``kvstore.*`` spans of the JAX package (``telemetry.span``, ported) are
-not wired in yet.
+``kvstore.push``, ``kvstore.pull`` and ``kvstore.pushpull``. Each of
+``push``, ``pull``, ``pushpull_multi`` and ``pushpull_update_multi`` is
+a ``telemetry.span`` of category ``kvstore`` named ``kvstore.<op>``, as
+in the JAX package.
 
 Not ported yet (``create`` raises): ``tpu`` and the ``dist*`` stores,
 which aggregate across devices and processes.
@@ -43,7 +44,7 @@ from typing import Any, Dict, List
 import torch
 
 from . import optimizer as opt
-from . import resilience
+from . import resilience, telemetry
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 from .optimizer import _tensor
@@ -128,26 +129,28 @@ class KVStore(object):
         stored one (reference kvstore_local.h PushImpl, ``local =
         merged``)."""
         OPS.inc(op="push")
-        for k, v in _key_value_pairs(key, value):
-            if k not in self._store:
-                raise MXNetError("key %s has not been initialized" % k)
-            vals = v if isinstance(v, (list, tuple)) else [v]
+        with telemetry.span("kvstore.push", "kvstore"):
+            for k, v in _key_value_pairs(key, value):
+                if k not in self._store:
+                    raise MXNetError("key %s has not been initialized" % k)
+                vals = v if isinstance(v, (list, tuple)) else [v]
 
-            # the reduce is pure over the copies, so the retry policy
-            # re-runs it; the commit below (residuals, updater, store
-            # write) mutates and stays outside the retry
-            def attempt(_vals=vals):
-                chaos.maybe_fail("kvstore.push")
-                return self._reduce([_tensor(x) for x in _vals])
+                # the reduce is pure over the copies, so the retry policy
+                # re-runs it; the commit below (residuals, updater, store
+                # write) mutates and stays outside the retry
+                def attempt(_vals=vals):
+                    chaos.maybe_fail("kvstore.push")
+                    return self._reduce([_tensor(x) for x in _vals])
 
-            agg = resilience.call("kvstore.push", attempt)
-            if self._compression is not None:
-                agg = self._compression.compress(k, agg)
-            if self._updater is not None:
-                self._updater(_updater_key(k), NDArray(agg), self._store[k])
-            else:
-                with torch.no_grad():
-                    self._store[k]._data.copy_(agg)
+                agg = resilience.call("kvstore.push", attempt)
+                if self._compression is not None:
+                    agg = self._compression.compress(k, agg)
+                if self._updater is not None:
+                    self._updater(_updater_key(k), NDArray(agg),
+                                  self._store[k])
+                else:
+                    with torch.no_grad():
+                        self._store[k]._data.copy_(agg)
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Copy the stored values into ``out`` in place (reference
@@ -155,18 +158,19 @@ class KVStore(object):
         if out is None:
             raise MXNetError("pull needs out=")
         OPS.inc(op="pull")
-        for k, o in _key_value_pairs(key, out):
-            if k not in self._store:
-                raise MXNetError("key %s has not been initialized" % k)
-            outs = o if isinstance(o, (list, tuple)) else [o]
+        with telemetry.span("kvstore.pull", "kvstore"):
+            for k, o in _key_value_pairs(key, out):
+                if k not in self._store:
+                    raise MXNetError("key %s has not been initialized" % k)
+                outs = o if isinstance(o, (list, tuple)) else [o]
 
-            def attempt(_k=k):
-                chaos.maybe_fail("kvstore.pull")
-                return self._store[_k]._data
+                def attempt(_k=k):
+                    chaos.maybe_fail("kvstore.pull")
+                    return self._store[_k]._data
 
-            data = resilience.call("kvstore.pull", attempt)
-            for dst in outs:
-                _copy_into(dst, data)
+                data = resilience.call("kvstore.pull", attempt)
+                for dst in outs:
+                    _copy_into(dst, data)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         """Pull the rows ``row_ids`` (reference kvstore.py:314). A
@@ -226,21 +230,22 @@ class KVStore(object):
             raise MXNetError("pushpull_multi needs a store without an "
                              "updater and without compression")
         OPS.inc(op="pushpull_multi")
-        norm = self._norm_multi(keys, value_lists)
+        with telemetry.span("kvstore.pushpull_multi", "kvstore"):
+            norm = self._norm_multi(keys, value_lists)
 
-        def attempt():
-            chaos.maybe_fail("kvstore.pushpull")
-            return self._aggregate_multi([[_tensor(x) for x in v]
-                                          for _, v in norm])
+            def attempt():
+                chaos.maybe_fail("kvstore.pushpull")
+                return self._aggregate_multi([[_tensor(x) for x in v]
+                                              for _, v in norm])
 
-        totals = resilience.call("kvstore.pushpull", attempt)
-        with torch.no_grad():
-            for (kk, _), total in zip(norm, totals):
-                self._store[kk]._data.copy_(total)
-        for (kk, _), o in zip(norm, out_lists):
-            outs = o if isinstance(o, (list, tuple)) else [o]
-            for dst in outs:
-                _copy_into(dst, self._store[kk]._data)
+            totals = resilience.call("kvstore.pushpull", attempt)
+            with torch.no_grad():
+                for (kk, _), total in zip(norm, totals):
+                    self._store[kk]._data.copy_(total)
+            for (kk, _), o in zip(norm, out_lists):
+                outs = o if isinstance(o, (list, tuple)) else [o]
+                for dst in outs:
+                    _copy_into(dst, self._store[kk]._data)
 
     def pushpull_update_multi(self, keys, grad_lists, weight_lists):
         """push(grad), the store's update and pull(weight) over many keys:
@@ -254,27 +259,28 @@ class KVStore(object):
         from . import fastpath
 
         OPS.inc(op="pushpull_update_multi")
-        norm = self._norm_multi(keys, grad_lists)
+        with telemetry.span("kvstore.pushpull_update_multi", "kvstore"):
+            norm = self._norm_multi(keys, grad_lists)
 
-        def attempt():
-            chaos.maybe_fail("kvstore.pushpull")
-            return self._aggregate_multi([[_tensor(x) for x in v]
-                                          for _, v in norm])
+            def attempt():
+                chaos.maybe_fail("kvstore.pushpull")
+                return self._aggregate_multi([[_tensor(x) for x in v]
+                                              for _, v in norm])
 
-        totals = resilience.call("kvstore.pushpull", attempt)
-        triples = [(_updater_key(kk), NDArray(total), self._store[kk])
-                   for (kk, _), total in zip(norm, totals)]
-        opt_obj = getattr(self._updater, "optimizer", None)
-        if opt_obj is not None and fastpath.enabled() and \
-                fastpath.supports(opt_obj):
-            fastpath.apply_updater(self._updater, triples)
-        else:
-            for idx, g, w in triples:
-                self._updater(idx, g, w)
-        for (kk, _), o in zip(norm, weight_lists):
-            outs = o if isinstance(o, (list, tuple)) else [o]
-            for dst in outs:
-                _copy_into(dst, self._store[kk]._data)
+            totals = resilience.call("kvstore.pushpull", attempt)
+            triples = [(_updater_key(kk), NDArray(total), self._store[kk])
+                       for (kk, _), total in zip(norm, totals)]
+            opt_obj = getattr(self._updater, "optimizer", None)
+            if opt_obj is not None and fastpath.enabled() and \
+                    fastpath.supports(opt_obj):
+                fastpath.apply_updater(self._updater, triples)
+            else:
+                for idx, g, w in triples:
+                    self._updater(idx, g, w)
+            for (kk, _), o in zip(norm, weight_lists):
+                outs = o if isinstance(o, (list, tuple)) else [o]
+                for dst in outs:
+                    _copy_into(dst, self._store[kk]._data)
 
     def _norm_multi(self, keys, value_lists):
         norm = []

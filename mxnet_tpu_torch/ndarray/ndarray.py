@@ -562,6 +562,13 @@ def _make_leaf(arr: NDArray, grad_req: str):
 # ---------------------------------------------------------------------------
 
 
+from .. import profiler as _profiler  # noqa: E402
+
+
+# a profiler region of category "operator" named by the op, as the JAX
+# package's; with the profiler off the wrapper returns at once (one flag
+# read and one extra Python call an op)
+@_profiler.profiled("operator", lambda op_name, *i, **kw: op_name)
 def invoke(op_name: str, *inputs, out=None, **kwargs):
     """Run registered op ``op_name`` on ``inputs`` (NDArrays, ``None`` for
     an absent optional input, or array-likes) and return NDArray

@@ -617,6 +617,11 @@ def _str_attrs(node: _Node) -> Dict[str, str]:
     return opdef.serialize_attrs(opdef.parse_attrs(node.attrs))
 
 
+# the range inputs of the quantized compute ops, each of shape (1,)
+_QUANTIZED_RANGES = ("min_data", "max_data", "min_weight", "max_weight",
+                     "min_bias", "max_bias")
+
+
 def _fill_param_shapes(node: _Node, in_shapes):
     """Back-fill unknown parameter-input shapes from the op's attrs and
     its data shape (the JAX package's ``_fill_param_shapes``, for the ops
@@ -634,10 +639,19 @@ def _fill_param_shapes(node: _Node, in_shapes):
         if slot in in_names and named.get(slot) is None and shape is not None:
             out[in_names.index(slot)] = tuple(int(s) for s in shape)
 
-    if op == "FullyConnected" and data is not None:
+    if op in ("FullyConnected", "_contrib_quantized_fully_connected") \
+            and data is not None:
         in_units = int(np.prod(data[1:])) if attrs.flatten else data[-1]
         put("weight", (attrs.num_hidden, in_units))
         put("bias", (attrs.num_hidden,))
+        for slot in _QUANTIZED_RANGES:
+            put(slot, (1,))
+    elif op == "_contrib_quantized_conv" and data is not None:
+        put("weight", (attrs.num_filter, data[1] // attrs.num_group)
+            + tuple(attrs.kernel))
+        put("bias", (attrs.num_filter,))
+        for slot in _QUANTIZED_RANGES:
+            put(slot, (1,))
     elif op in ("Convolution", "Deconvolution") and data is not None:
         # the channels: axis 1, or the last axis of a channels-last layout
         # (the weight is OI + spatial in both)

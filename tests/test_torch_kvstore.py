@@ -379,3 +379,34 @@ def test_model_exchanges_match_jax(monkeypatch, fastpath_on):
         out[m.__name__] = [p[0].asnumpy() for p in params + mine]
     for a, b in zip(out["mxnet_tpu_torch"], out["mxnet_tpu"]):
         _same(a, b, 2e-5)
+
+
+def test_the_four_exchanges_are_kvstore_spans_as_in_jax():
+    from mxnet_tpu import profiler as jprof
+    from mxnet_tpu_torch import profiler as tprof
+
+    def spans(pkg, make, prof):
+        prof._events.clear()
+        prof.set_state("run")
+        try:
+            kv = pkg.kv.create("local")
+            kv.init([3, 5], [make(np.ones(SHAPE)), make(np.ones(SHAPE))])
+            kv.push(3, make(np.ones(SHAPE)))
+            out = make(np.zeros(SHAPE))
+            kv.pull(3, out=out)
+            kv.pushpull_multi([3, 5], [[make(np.ones(SHAPE))]] * 2,
+                              [[out], [make(np.zeros(SHAPE))]])
+            kv.set_optimizer(pkg.optimizer.SGD(learning_rate=0.1))
+            kv.pushpull_update_multi([3], [[make(np.ones(SHAPE))]], [[out]])
+        finally:
+            prof.set_state("stop")
+        got = [(e["name"], e["cat"]) for e in prof._events
+               if e.get("cat") == "kvstore"]
+        prof._events.clear()
+        return got
+
+    got = spans(mx, _p, tprof)
+    assert got == spans(jmx, _j, jprof)
+    assert got == [("kvstore.push", "kvstore"), ("kvstore.pull", "kvstore"),
+                   ("kvstore.pushpull_multi", "kvstore"),
+                   ("kvstore.pushpull_update_multi", "kvstore")]

@@ -64,6 +64,11 @@
   two-replica fleet serves, traces and profiles with ``jax`` and
   ``mxnet_tpu`` made unimportable, and ``FleetRouter``'s replicas run
   on the card unless the factory asks for the host;
+* the vision and int8 slice (``ops/vision``, ``ops/quantization``,
+  ``contrib/quantization``, ``example/quantization/``) is in the scan,
+  and ``Proposal``, ``ROIPooling`` and ``quantize_model`` with entropy
+  calibration run with ``jax`` and ``mxnet_tpu`` made unimportable;
+  ``chip_smoke.py`` defines each of its functions once;
 * the extension slice's modules (``rtc``, ``operator``, ``metric``,
   ``callback``, ``contrib/``, ``example/numpy_ops/``) are in the scan,
   no module of the port defines ``PallasModule`` (Pallas source cannot
@@ -911,3 +916,69 @@ print("served", len(got), len(agot))
                           text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "served 5 5" in proc.stdout
+
+
+def test_scan_covers_the_vision_and_int8_slice():
+    names = {str(f.relative_to(REPO)) for f in _port_files()}
+    for path in ("mxnet_tpu_torch/ops/vision.py",
+                 "mxnet_tpu_torch/ops/quantization.py",
+                 "mxnet_tpu_torch/contrib/quantization.py",
+                 "mxnet_tpu_torch/example/quantization/quantize_model.py"):
+        assert path in names
+
+
+def test_chip_smoke_defines_each_function_once():
+    # a later definition silently replaces an earlier one of the same
+    # name, which every phase calling the first would then run
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [n.name for n in tree.body if isinstance(n, ast.FunctionDef)]
+    assert sorted({n for n in names if names.count(n) > 1}) == []
+
+
+def test_vision_and_int8_slice_runs_with_jax_and_mxnet_tpu_blocked():
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import io as mxio, nd
+from mxnet_tpu_torch.contrib import quantization
+rs = np.random.RandomState(0)
+with mx.cpu():
+    rois = nd.contrib.Proposal(
+        nd.array(rs.rand(1, 6, 4, 4).astype(np.float32)),
+        nd.array(rs.randn(1, 12, 4, 4).astype(np.float32) * 0.1),
+        nd.array(np.array([[16.0, 16.0, 1.0]], np.float32)),
+        scales=(2.0,), ratios=(0.5, 1.0, 2.0), feature_stride=4,
+        rpn_pre_nms_top_n=40, rpn_post_nms_top_n=8, rpn_min_size=1)
+    pooled = nd.ROIPooling(nd.array(rs.randn(1, 2, 4, 4).astype(
+        np.float32)), rois, pooled_size=(2, 2), spatial_scale=0.25)
+    data = mx.sym.var("data")
+    net = mx.sym.FullyConnected(mx.sym.Activation(mx.sym.FullyConnected(
+        data, num_hidden=8, name="fc1"), act_type="relu"), num_hidden=3,
+        name="fc2")
+    arg = {"fc1_weight": nd.array(rs.randn(8, 4).astype(np.float32)),
+           "fc1_bias": nd.zeros((8,)),
+           "fc2_weight": nd.array(rs.randn(3, 8).astype(np.float32)),
+           "fc2_bias": nd.zeros((3,))}
+    x = rs.randn(8, 4).astype(np.float32)
+    qsym, qarg, _ = quantization.quantize_model(
+        net, arg, {}, calib_mode="entropy",
+        calib_data=mxio.NDArrayIter(x, np.zeros(8), batch_size=4))
+    ex = qsym.simple_bind(mx.cpu(), data=(8, 4), grad_req="null")
+    ex.copy_params_from(qarg)
+    ex.copy_params_from({"data": nd.array(x)})
+    out = ex.forward(is_train=False)[0].asnumpy()
+assert rois.shape == (8, 5) and pooled.shape == (8, 2, 2, 2)
+assert out.shape == (8, 3) and np.isfinite(out).all()
+assert qarg["fc1_weight"].dtype == np.int8
+assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
+               for k, v in sys.modules.items() if v is not None)
+print("quantized", out.shape)
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=subprocess_env(), capture_output=True,
+                          text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "quantized (8, 3)" in proc.stdout

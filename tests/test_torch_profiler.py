@@ -177,3 +177,35 @@ def test_profile_all_writes_a_torch_profiler_trace(tmp_path):
     assert os.path.exists(path)
     doc = json.load(open(path))
     assert doc["traceEvents"]
+
+
+def _eager_ops(pkg, prof):
+    """Three eager ops in a session of ``prof``; the op events it kept."""
+    import numpy as np
+
+    prof.set_state("run")
+    with pkg.cpu():
+        a = pkg.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3))
+        b = pkg.nd.invoke("relu", a)
+        pkg.nd.invoke("sum", pkg.nd.invoke("exp", b))
+    prof.set_state("stop")
+    return [(e["name"], e["cat"]) for e in prof._events
+            if e.get("cat") == "operator"]
+
+
+def test_eager_invoke_is_an_operator_region_as_in_jax():
+    import mxnet_tpu as jmx
+    import mxnet_tpu_torch as mx
+
+    want = _eager_ops(jmx, jprof)
+    got = _eager_ops(mx, tprof)
+    assert got == want
+    assert [n for n, _ in got] == ["relu", "exp", "sum"]
+    table = tprof.dumps()
+    assert all(name in table for name in ("relu", "exp", "sum"))
+    # with the profiler off, no event
+    for pkg, prof in ((mx, tprof), (jmx, jprof)):
+        prof._events.clear()
+        with pkg.cpu():
+            pkg.nd.invoke("relu", pkg.nd.array([1.0, -1.0]))
+        assert prof._events == []

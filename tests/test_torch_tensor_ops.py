@@ -7,7 +7,7 @@ it); this file holds the unary cases, and the ``test_torch_tensor_ops_*``
 files the other groups. Every name that no case runs (an alias such as
 ``_Plus``) runs its op's first case under that name. Then the registry
 gap: which JAX op names the port still lacks, grouped by the JAX file
-that registers them, pinned exactly.
+that registers them, pinned exactly (none since slice 23).
 """
 import collections
 import inspect
@@ -66,25 +66,10 @@ def test_sweep_covers_every_tensor_name():
         assert all(OP_REGISTRY[m] is OP_REGISTRY[n] for m in jax_twins), n
 
 
-# what later items of the port take, by JAX file (ROADMAP queue 1)
-STILL_MISSING = {
-    "detection": ["ROIAlign", "_contrib_ROIAlign",
-                  "_contrib_bipartite_matching"],
-    "quantization": [
-        "_contrib_dequantize", "_contrib_quantize", "_contrib_quantized_conv",
-        "_contrib_quantized_flatten", "_contrib_quantized_fully_connected",
-        "_contrib_quantized_pooling", "_contrib_requantize"],
-    "vision": [
-        "BilinearSampler", "Correlation", "Crop", "DeformableConvolution",
-        "DeformablePSROIPooling", "GridGenerator",
-        "IdentityAttachKLSparseReg", "MultiProposal", "PSROIPooling",
-        "Proposal", "ROIPooling", "SpatialTransformer",
-        "_contrib_AdaptiveAvgPooling2D", "_contrib_BilinearResize2D",
-        "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
-        "_contrib_MultiProposal", "_contrib_PSROIPooling",
-        "_contrib_Proposal", "_contrib_count_sketch", "_contrib_fft",
-        "_contrib_ifft", "count_sketch", "fft", "ifft"],
-}
+# what later items of the port take, by JAX file: nothing since slice 23
+# (vision, detection and quantization), so every name of the JAX registry
+# has its counterpart
+STILL_MISSING = {}
 
 
 def test_registry_gap_is_exactly_the_later_items():
@@ -99,7 +84,9 @@ def test_registry_gap_is_exactly_the_later_items():
     assert not [n for n, f in _JAX_FILE.items()
                 if f == "random_ops" and n not in OP_REGISTRY]
     for f in ("linalg", "misc_tail", "sparse",  # slice 18
-              "control_flow", "subgraph"):  # slice 20
+              "control_flow", "subgraph",  # slice 20
+              "vision", "detection", "quantization"):  # slice 23
         assert not [n for n, g in _JAX_FILE.items()
                     if g == f and n not in OP_REGISTRY]
-    assert sum(map(len, STILL_MISSING.values())) == 35
+    assert sum(map(len, STILL_MISSING.values())) == 0
+    assert set(JAX_REGISTRY) <= set(OP_REGISTRY)
