@@ -13,8 +13,9 @@ was printed):
    with and loads into; TF32 off for matmuls and cuDNN, so fp32 stays
    fp32;
 2. build: every kernel of the served, training and detection paths,
-   compiled with nvcc from the sources in this checkout (one nvcc per
-   source, all started together);
+   compiled with nvcc from the sources in this checkout, and the host
+   image codec with the host C++ compiler (one build per source, all
+   started together);
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the main path gives it (the one-row decode
    kernel on decode ticks and 32- and 64-row prefill chunks; the
@@ -475,7 +476,45 @@ was printed):
 67. quantize_example: ``python3 mxnet_tpu_torch/example/quantization/
     quantize_model.py --num-calib 128`` on the card exits 0
     (ENTROPY_BEATS_NAIVE).
+68. imgcodec: the port's JPEG codec and resampler as a host library
+    (``ops/csrc/imgcodec.cc``, built by the host C++ compiler in the build
+    phase) against the plain numpy version on a seeded corpus (gray,
+    4:4:4, 4:2:2, 4:2:0, 4:4:0, restart intervals, sizes 1 x 1 to
+    375 x 500, qualities 50, 75 and 95): encode byte for byte, decode and
+    Pillow's bilinear resample pixel for pixel; then the library's host
+    ms of a 500 x 375 4:2:0 q95 decode, a resize to short side 256 and to
+    224 x 224, and an encode, beside the plain version's, with the host's
+    CPU model and core count;
+69. imagenet_rec: IMAGENET_IMAGES seeded smooth-noise images at
+    ImageNet-like sizes (IMAGENET_SIZES) packed by the port's ``im2rec``
+    at quality 95 (timed); ``ImageRecordIter`` at (3, 224, 224),
+    ``resize=256``, ``rand_crop``, ``rand_mirror`` and ImageNet's mean and
+    std with 1 worker process (IMAGENET_ONE_WORKER_BATCHES batches), 4
+    and all host cores (an epoch each, which must hand out every record
+    once, every image through the library): img/s and the seconds to the
+    first batch; the first batch of the one-worker run must equal, bit
+    for bit, the same batch built by the pipeline's worker function on
+    the plain codec (the master's shuffle and the worker's draws
+    replayed);
+70. imagenet_train: ``example/gluon/train_resnet.py --rec`` (resnet50_v1,
+    batch 32, 224 x 224, its ``ImageRecordIter`` call: 4 worker
+    processes stretching each image) for two epochs of that .rec (80
+    batches, finite losses, one capture, every image decoded and resized
+    by the library): each epoch's img/s and the share of a step's wall
+    time spent waiting for the batch (the second epoch's headline; each
+    wait printed), beside the same captured step fed by the
+    example's ``NDArrayIter``; torch.profiler's device busy share over
+    IMAGENET_PROFILE_STEPS steps of ``NDArrayIter`` and over
+    IMAGENET_REC_PROFILE's steps of the record loop's second epoch
+    (after the batches its workers had prefetched).
+71. device_infeed: ``io.DevicePrefetchIter`` to the card over a host
+    ``NDArrayIter`` (8 batches of (32, 3, 64, 64)): every batch staged
+    through pinned memory on its side stream lands on the card equal to
+    the host's; ``set_state`` resumes after 5; a batch already on the
+    card passes through.
 
+``python3 chip_smoke.py --imagenet`` runs phases 68-71 only (the host
+compiler builds the codec; no nvcc build).
 ``python3 chip_smoke.py --fleet`` runs phases 61-62 only,
 ``--block-serve`` phase 63 only (no nvcc build), ``--vision`` phases
 64-67 only (building only the NMS kernel).
@@ -944,13 +983,14 @@ def spill_free_ptxas(log, kernels):
 
 
 def build_all():
-    """Start one nvcc per kernel source, all together, and wait."""
+    """Start one build per source (nvcc a kernel, the host compiler the
+    codec), all together, and wait."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mxnet_tpu_torch.ops import _build
 
-    names = sorted(f[:-3] for f in os.listdir(os.path.dirname(
-        _build.source_path("x"))) if f.endswith(".cu"))
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(
+        os.path.dirname(_build.source_path("x"))) if f.endswith((".cu", ".cc")))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         list(pool.map(_build.load, names))
@@ -8056,6 +8096,439 @@ def vision_phases():
     return launches
 
 
+
+# the ImageNet input path: the port's JPEG codec (host library against
+# the plain version), im2rec, MPImageRecordIter and train_resnet.py --rec
+IMAGENET_SIZES = ((375, 500), (500, 375), (333, 500), (480, 640),
+                  (375, 499), (281, 500), (500, 353), (427, 640))  # (h, w)
+IMAGENET_IMAGES = 1280  # 40 batches of 32: one epoch of train_resnet --rec
+IMAGENET_BATCH = 32
+IMAGENET_SHAPE = (3, 224, 224)
+IMAGENET_NORM = dict(mean_r=123.68, mean_g=116.28, mean_b=103.53,
+                     std_r=58.395, std_g=57.12, std_b=57.375)
+IMAGENET_ONE_WORKER_BATCHES = 8  # one worker is timed over these only
+IMAGENET_PROFILE_STEPS = 10
+# the --rec loop's profile skips the batches its workers prefetched
+# while the run was elsewhere, then reads a data-bound stretch
+IMAGENET_REC_PROFILE = dict(skip=8, steps=20)
+IMAGENET_SEED = 24
+
+
+def _host_cpu():
+    """The host's CPU model (as /proc/cpuinfo names it) and core count."""
+    model = "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return {"model": model, "cores": os.cpu_count()}
+
+
+def _imagenet_like(rs, h, w, noise):
+    """A seeded smooth-noise RGB image: a 4 x 5 colour grid stretched by
+    the resampler, plus a slice of a shared noise pool."""
+    from mxnet_tpu_torch import _imgcodec
+
+    grid = rs.randint(0, 256, (4, 5, 3)).astype(np.uint8)
+    base = _imgcodec.resize_bilinear(grid, w, h, lib=True).astype(np.int16)
+    off = rs.randint(0, noise.size - h * w * 3)
+    return np.clip(base + noise[off:off + h * w * 3].reshape(h, w, 3), 0,
+                   255).astype(np.uint8)
+
+
+def _codec_host_ms(fn, iters):
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def imgcodec():
+    """The host library against the plain codec on a seeded corpus:
+    encode byte for byte, decode and resample pixel for pixel; then the
+    library's host ms at ImageNet's size."""
+    from mxnet_tpu_torch import _imgcodec as C
+    from mxnet_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    C.library()
+    build_s = time.perf_counter() - t0
+    rs = np.random.RandomState(IMAGENET_SEED)
+    noise = rs.randint(-24, 25, 1 << 21).astype(np.int16)
+    cases = []
+    for h, w in ((1, 1), (7, 9), (17, 33), (40, 56), (64, 48), (375, 500)):
+        big = h * w > 64 * 64
+        for q in (95,) if big else (50, 75, 95):
+            for sub, restart in ((None, 0), ("444", 0), ("422", 0),
+                                 ("420", 0), ("440", 0), ("420", 3),
+                                 (None, 2)):
+                img = _imagenet_like(rs, max(h, 2), max(w, 2), noise)[:h, :w]
+                cases.append((img[..., :1] if sub is None else img, q, sub,
+                              restart))
+    n_enc = n_dec = n_res = 0
+    for img, q, sub, restart in cases:
+        what = "%s q%d %s restart %d" % (img.shape, q, sub, restart)
+        plain = C.encode_plain(img, q, sub, restart)
+        if C.encode(img, q, sampling=sub, restart=restart, lib=True) != plain:
+            fail("imgcodec: the library's JPEG bytes differ from the plain "
+                 "encoder's (%s)" % what)
+        n_enc += 1
+        dec = C.decode_plain(plain)
+        if not np.array_equal(C.decode(plain, lib=True), dec):
+            fail("imgcodec: the library's decode differs (%s)" % what)
+        n_dec += 1
+        if dec.shape[2] == 3:
+            h, w = dec.shape[:2]
+            for ow, oh in ((224, 224), (2 * w + 1, 3 * h),
+                           (max(1, w * 256 // max(1, min(h, w))),
+                            max(1, h * 256 // max(1, min(h, w))))):
+                if not np.array_equal(C.resize_bilinear(dec, ow, oh, lib=True),
+                                      C.resize_plain(dec, ow, oh)):
+                    fail("imgcodec: the library's resample differs (%s to "
+                         "%dx%d)" % (what, ow, oh))
+                n_res += 1
+    img = _imagenet_like(rs, 375, 500, noise)
+    jpg = C.encode(img, 95, lib=True)
+    dec = C.decode(jpg, lib=True)
+    t0 = time.perf_counter()
+    C.decode_plain(jpg)
+    plain_decode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    C.resize_plain(dec, 341, 256)
+    plain_resize_ms = (time.perf_counter() - t0) * 1e3
+    phase("imgcodec", card=CARD, host_cpu=_host_cpu(), build_s=build_s,
+          build_log=_build.build_log("imgcodec")[-400:],
+          encode_cases=n_enc, decode_cases=n_dec, resample_cases=n_res,
+          jpeg_bytes_500x375_q95=len(jpg),
+          decode_500x375_q95_420_host_ms=_codec_host_ms(
+              lambda: C.decode(jpg, lib=True), 100),
+          resize_to_short_256_host_ms=_codec_host_ms(
+              lambda: C.resize_bilinear(dec, 341, 256, lib=True), 100),
+          resize_to_224x224_host_ms=_codec_host_ms(
+              lambda: C.resize_bilinear(dec, 224, 224, lib=True), 100),
+          encode_500x375_q95_host_ms=_codec_host_ms(
+              lambda: C.encode(img, 95, lib=True), 50),
+          plain_decode_host_ms=plain_decode_ms,
+          plain_resize_host_ms=plain_resize_ms)
+
+
+def _imagenet_dataset():
+    """IMAGENET_IMAGES seeded images at ImageNet-like sizes, written as
+    JPEG files, then packed by the port's im2rec at quality 95: (.rec
+    path, pack seconds, .rec bytes). Record i's label is i % 1000."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch import _imgcodec
+    from mxnet_tpu_torch.tools import im2rec
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_imagenet_")
+    src = os.path.join(d, "src")
+    os.makedirs(src)
+    rs = np.random.RandomState(IMAGENET_SEED)
+    noise = rs.randint(-24, 25, 1 << 22).astype(np.int16)
+    plan = [(i, IMAGENET_SIZES[i % len(IMAGENET_SIZES)],
+             int(rs.randint(0, 2 ** 31 - 1))) for i in range(IMAGENET_IMAGES)]
+
+    def write(item):
+        i, (h, w), seed = item
+        img = _imagenet_like(np.random.RandomState(seed), h, w, noise)
+        with open(os.path.join(src, "%05d.jpg" % i), "wb") as f:
+            f.write(_imgcodec.encode(img, 100, lib=True))
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
+        list(pool.map(write, plan))
+    prefix = os.path.join(d, "train")
+    with open(prefix + ".lst", "w") as f:
+        for i in range(IMAGENET_IMAGES):
+            f.write("%d\t%f\t%05d.jpg\n" % (i, float(i % 1000), i))
+    t0 = time.perf_counter()
+    rc = im2rec.main([prefix, src, "--quality", "95", "--num-thread",
+                      str(os.cpu_count())])
+    pack_s = time.perf_counter() - t0
+    if rc != 0:
+        fail("imagenet_rec: im2rec exited %d" % rc)
+    shutil.rmtree(src)
+    return prefix + ".rec", pack_s, os.path.getsize(prefix + ".rec")
+
+
+def _epoch(it, batches=None):
+    """(labels handed out, seconds to the first batch, seconds of the
+    rest, batches): one epoch of ``it``, or its first ``batches``."""
+    labels, n = [], 0
+    t0 = time.perf_counter()
+    first = None
+    for batch in it:
+        if not batch.data[0]._data.is_cuda:
+            fail("imagenet_rec: a batch is not on the card")
+        keep = IMAGENET_BATCH - batch.pad
+        labels += batch.label[0].asnumpy()[:keep].tolist()
+        n += 1
+        if first is None:
+            first = time.perf_counter() - t0
+            t1 = time.perf_counter()
+        if batches is not None and n >= batches:
+            break
+    return labels, first, time.perf_counter() - t1, n
+
+
+def _plain_first_batch(rec, aug, seed):
+    """The first batch a one-worker MPImageRecordIter (``seed``) makes,
+    built here by the pipeline's own worker function on the plain codec:
+    (data, labels)."""
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.image_pipeline import _decode_augment
+
+    idx = os.path.splitext(rec)[0] + ".idx"
+    reader = recordio.MXIndexedRecordIO(idx, rec, "r")
+    order = list(reader.keys)
+    np.random.RandomState(seed).shuffle(order)  # the master's epoch plan
+    rng = np.random.RandomState(seed + 101)  # worker 0's draws
+    cfg = {"data_shape": aug["data_shape"], "rand_crop": aug["rand_crop"],
+           "rand_mirror": aug["rand_mirror"], "resize": aug["resize"],
+           "mean": np.asarray([aug["mean_r"], aug["mean_g"], aug["mean_b"]],
+                              np.float32),
+           "std": np.asarray([aug["std_r"], aug["std_g"], aug["std_b"]],
+                             np.float32)}
+    data, labels = [], []
+    for key in order[:aug["batch_size"]]:
+        img, lab = _decode_augment(reader.read_idx(key), cfg, rng, lib=False)
+        data.append(img)
+        labels.append(lab[0])
+    reader.close()
+    return np.stack(data), np.asarray(labels, np.float32)
+
+
+def imagenet_rec():
+    """The record pipeline at 1, 4 and all host cores, and its first
+    batch against the plain codec's; returns the .rec path."""
+    import collections
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.image_pipeline import MPImageRecordIter
+
+    rec, pack_s, rec_bytes = _imagenet_dataset()
+    aug = dict(data_shape=IMAGENET_SHAPE, batch_size=IMAGENET_BATCH,
+               shuffle=True, resize=256, rand_crop=True, rand_mirror=True,
+               prefetch_buffer=4, **IMAGENET_NORM)
+    want = collections.Counter(float(i % 1000)
+                               for i in range(IMAGENET_IMAGES))
+    rates = {}
+    first_lib = None
+    for n in (1, 4, os.cpu_count()):
+        if n == 1:
+            it = MPImageRecordIter(rec, preprocess_threads=1,
+                                   seed=IMAGENET_SEED, **aug)
+        else:  # io's rule picks the worker processes here
+            it = mx.io.ImageRecordIter(path_imgrec=rec, preprocess_threads=n,
+                                       seed=IMAGENET_SEED + n, **aug)
+            if not isinstance(it, MPImageRecordIter):
+                fail("imagenet_rec: ImageRecordIter chose %s"
+                     % type(it).__name__)
+        try:
+            if n == 1:
+                first_lib = it.next()
+            labels, first_s, rest_s, batches = _epoch(
+                it, IMAGENET_ONE_WORKER_BATCHES if n == 1 else None)
+            calls = dict(it.lib_calls)
+        finally:
+            it.close()
+        if n != 1 and collections.Counter(labels) != want:
+            fail("imagenet_rec: an epoch at %d workers did not hand out "
+                 "each record once" % n)
+        if calls["decode"] < len(labels):
+            fail("imagenet_rec: %d library decodes for %d images"
+                 % (calls["decode"], len(labels)))
+        rates[n] = {"workers": n, "first_batch_s": first_s,
+                    "img_per_s": (len(labels) - IMAGENET_BATCH) / rest_s,
+                    "batches": batches, "lib_calls": calls}
+    t0 = time.perf_counter()
+    plain_data, plain_labels = _plain_first_batch(rec, aug, IMAGENET_SEED)
+    plain_s = time.perf_counter() - t0
+    same = np.array_equal(first_lib.data[0].asnumpy(), plain_data) and \
+        np.array_equal(first_lib.label[0].asnumpy(), plain_labels)
+    phase("imagenet_rec", card=CARD, host_cpu=_host_cpu(),
+          images=IMAGENET_IMAGES, sizes=IMAGENET_SIZES, quality=95,
+          im2rec_pack_s=pack_s, im2rec_img_per_s=IMAGENET_IMAGES / pack_s,
+          rec_bytes=rec_bytes, data_shape=IMAGENET_SHAPE, resize=256,
+          pipeline=[rates[k] for k in sorted(rates)],
+          first_batch_equals_plain_codec=same,
+          plain_codec_first_batch_s=plain_s)
+    if not same:
+        fail("imagenet_rec: the first batch through the host library differs "
+             "from the plain codec's")
+    return rec
+
+
+def imagenet_train(rec):
+    """train_resnet.py --rec at resnet50_v1's full width for two epochs of
+    the .rec (80 batches), beside the same step fed by NDArrayIter."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.gluon import train_resnet as tr
+    from mxnet_tpu_torch.image_pipeline import MPImageRecordIter
+
+    mx.random.seed(0)
+    args = tr.parse_args(["--rec", rec, "--num-epochs", "2"])
+    with mx.gpu(0):
+        # the example's own call, made here so that its workers serve the
+        # profiled steps after the run too (one spawn, not two)
+        it = tr.data_iter(args)
+    if not isinstance(it, MPImageRecordIter):
+        fail("imagenet_train: --rec did not run the worker pipeline (%s)"
+             % type(it).__name__)
+    made = []
+    record_iter = mx.io.ImageRecordIter
+
+    def recording(**kw):
+        if made:  # the example makes the iterator again each epoch
+            it.reset()
+        made.append(kw)
+        return it
+
+    it.close = lambda: None  # the run's end must not stop the workers
+    mx.io.ImageRecordIter = recording
+    try:
+        t0 = time.perf_counter()
+        res = tr.run(args)
+        run_s = time.perf_counter() - t0
+    finally:
+        mx.io.ImageRecordIter = record_iter
+        del it.close  # the class's close again
+    losses, step, ctx = res["losses"], res["step"], res["ctx"]
+    calls = dict(it.lib_calls)
+    per_epoch = IMAGENET_IMAGES // IMAGENET_BATCH
+    if len(made) != args.num_epochs:
+        fail("imagenet_train: the example made %d record iterators"
+             % len(made))
+    if len(losses) != args.num_epochs * per_epoch \
+            or not np.isfinite(losses).all():
+        fail("imagenet_train: losses %s" % losses)
+    if calls["decode"] < len(losses) * IMAGENET_BATCH \
+            or calls["resize"] < len(losses) * IMAGENET_BATCH:
+        fail("imagenet_train: library calls %s for %d images"
+             % (calls, len(losses) * IMAGENET_BATCH))
+    skip = 3  # the workers' start-up, the capture and the first replays
+    epochs = []
+    for e, lo in enumerate((skip, per_epoch)):
+        w = res["wait_s"][lo:(e + 1) * per_epoch]
+        b = res["step_s"][lo:(e + 1) * per_epoch]
+        epochs.append({"epoch": e + 1, "batches": len(b),
+                       "img_per_s": IMAGENET_BATCH * len(b)
+                       / (sum(w) + sum(b)),
+                       "data_wait_share": sum(w) / (sum(w) + sum(b)),
+                       "wait_ms": _spread_ms(w), "step_ms": _spread_ms(b),
+                       "wait_ms_each": [round(1e3 * x, 1) for x in w]})
+    # the same captured step fed by NDArrayIter (the example's synthetic
+    # set), the same loop: wait for the batch, step, read the loss
+    nd_args = tr.parse_args(["--num-batches", str(
+        2 * (IMAGENET_PROFILE_STEPS + skip))])
+    with ctx:
+        nd_iter = tr.data_iter(nd_args)
+        nd_wait, nd_busy = [], []
+        for i, batch in enumerate(tr._timed(nd_iter, nd_wait)):
+            t0 = time.perf_counter()
+            float(step(batch.data[0], batch.label[0]).asnumpy())
+            nd_busy.append(time.perf_counter() - t0)
+            if i + 1 == IMAGENET_PROFILE_STEPS + skip:
+                break
+        nd_wall = sum(nd_wait[skip:]) + sum(nd_busy[skip:])
+        nd_rate = IMAGENET_BATCH * len(nd_busy[skip:]) / nd_wall
+        it.reset()
+        profiles = {}
+        try:
+            for name, source, warm, steps in (
+                    ("rec", it, IMAGENET_REC_PROFILE["skip"],
+                     IMAGENET_REC_PROFILE["steps"]),
+                    ("ndarray", nd_iter, skip, IMAGENET_PROFILE_STEPS)):
+                batches = iter(source)
+
+                def one():
+                    batch = next(batches)
+                    float(step(batch.data[0], batch.label[0]).asnumpy())
+
+                for _ in range(warm):
+                    one()
+                profiles[name] = _device_profile(one, steps)
+        finally:
+            it.close()
+    phase("imagenet_train", card=CARD, host_cpu=_host_cpu(),
+          model=args.model, batch=args.batch_size, side=args.image_size,
+          batches=len(losses), workers=len(it._workers), run_s=run_s,
+          loss_first_last=[losses[0], losses[-1]],
+          rec_img_per_s=epochs[-1]["img_per_s"],
+          rec_data_wait_share=epochs[-1]["data_wait_share"],
+          rec_epochs=epochs, ndarray_img_per_s=nd_rate,
+          ndarray_data_wait_share=sum(nd_wait[skip:]) / nd_wall,
+          rec_device_busy_share=profiles["rec"]["device_busy_share"],
+          ndarray_device_busy_share=profiles["ndarray"]["device_busy_share"],
+          profile=profiles, lib_calls=calls,
+          compile_count=step.compile_count)
+    if step.compile_count != 1:
+        fail("imagenet_train: %d captures" % step.compile_count)
+    torch.cuda.synchronize()
+
+
+def device_infeed():
+    """DevicePrefetchIter on the card: host batches staged through pinned
+    memory on its side stream equal the host's, land on the card, and a
+    resume skips on the host; a batch already there passes through."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    rs = np.random.RandomState(IMAGENET_SEED)
+    x = rs.rand(8 * IMAGENET_BATCH, 3, 64, 64).astype(np.float32)
+    y = rs.randint(0, 1000, 8 * IMAGENET_BATCH).astype(np.float32)
+    with mx.cpu():
+        want = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+                for b in mx.io.NDArrayIter(x, y, IMAGENET_BATCH)]
+        base = mx.io.NDArrayIter(x, y, IMAGENET_BATCH)
+    it = mx.io.DevicePrefetchIter(base, ctx=mx.gpu(0), depth=2)
+    t0 = time.perf_counter()
+    got = [b for b in it]
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    on_card = all(b.data[0]._data.is_cuda and b.label[0]._data.is_cuda
+                  for b in got)
+    same = len(got) == len(want) and all(
+        np.array_equal(b.data[0].asnumpy(), d)
+        and np.array_equal(b.label[0].asnumpy(), lab)
+        for b, (d, lab) in zip(got, want))
+    it.set_state({"delivered": 5})
+    resumed = [b.label[0].asnumpy() for b in it]
+    resume_ok = len(resumed) == 3 and all(
+        np.array_equal(r, want[5 + i][1]) for i, r in enumerate(resumed))
+    with mx.gpu(0):
+        card_base = mx.io.NDArrayIter(x[:64], y[:64], IMAGENET_BATCH)
+    first = card_base.next()
+    card_base.reset()
+    on_card_it = mx.io.DevicePrefetchIter(card_base, ctx=mx.gpu(0))
+    passed = on_card_it.next()
+    # no staging stream was made: nothing was copied
+    through = on_card_it._stream is None and np.array_equal(
+        passed.data[0].asnumpy(), first.data[0].asnumpy())
+    phase("device_infeed", batches=len(got), shape=list(x.shape[1:]),
+          staged_s=staged_s, on_card=on_card, equal=same,
+          resume_equal=resume_ok, pass_through_equal=through)
+    if not (on_card and same and resume_ok and through):
+        fail("device_infeed: staged batches wrong (on card %s, equal %s, "
+             "resume %s, pass-through %s)" % (on_card, same, resume_ok,
+                                              through))
+
+
+def imagenet_phases():
+    """The slice's four phases (``--imagenet``)."""
+    imgcodec()
+    imagenet_train(imagenet_rec())
+    device_infeed()
+
+
 def main():
     import torch
 
@@ -8158,6 +8631,14 @@ def main():
     if sys.argv[1:] == ["--block-serve"]:
         # only slice 22's phase (no kernel is built: the path runs none)
         block_serve()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--imagenet"]:
+        # only slice 24's phases (the host compiler builds the codec; no
+        # nvcc build: the path runs no CUDA kernel)
+        imagenet_phases()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -8285,6 +8766,7 @@ def main():
     graph_phases()
     block_serve()
     nms_entry["launches"] += vision_phases()
+    imagenet_phases()
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
                                   nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,6 @@ fall back quietly:
 from __future__ import annotations
 
 import threading
-from typing import Optional
 
 import torch
 
@@ -53,7 +52,6 @@ class Context:
                                 "only %d CUDA devices exist" % num_gpus()))
         self.device_type = device_type
         self.device_id = int(device_id)
-        self._old_ctx: Optional[Context] = None
 
     def torch_device(self) -> torch.device:
         if self.device_type == "cpu":
@@ -86,12 +84,16 @@ class Context:
     __str__ = __repr__
 
     def __enter__(self):
-        self._old_ctx = getattr(self._default_ctx, "value", None)
-        self._default_ctx.value = self
+        # a stack a thread: one context object may be entered again inside
+        # its own scope, or by several threads at once
+        stack = getattr(self._default_ctx, "stack", None)
+        if stack is None:
+            stack = self._default_ctx.stack = []
+        stack.append(self)
         return self
 
     def __exit__(self, *args):
-        self._default_ctx.value = self._old_ctx
+        self._default_ctx.stack.pop()
 
 
 def from_device(device: torch.device) -> Context:
@@ -119,5 +121,5 @@ def num_gpus() -> int:
 def current_context() -> Context:
     """The innermost ``with ctx:`` scope's context, else ``gpu(0)``
     (raises when there is no card)."""
-    ctx = getattr(Context._default_ctx, "value", None)
-    return ctx if ctx is not None else gpu(0)
+    stack = getattr(Context._default_ctx, "stack", None)
+    return stack[-1] if stack else gpu(0)

@@ -13,13 +13,16 @@ batch; the path runs no hand-written kernel.
 
 ``--device`` picks the context, the card by default, ``cpu`` to run on
 the host. ``--devices`` above 1 raises "not ported yet" (the port runs a
-step on one device), and ``--rec`` raises through ``io.ImageRecordIter``,
-which is not ported yet; without it the data is the JAX example's
-synthetic ImageNet-shaped set (``RandomState(0)``).
+step on one device). With ``--rec`` the data is ``io.ImageRecordIter``
+over that RecordIO file (its ``.idx`` beside it), called as the JAX
+example calls it: worker processes decode each JPEG with the port's
+codec, stretch it to ``--image-size`` with Pillow's bilinear resample
+and hand the batch to the card in one pinned copy. Without it the data
+is the JAX example's synthetic ImageNet-shaped set (``RandomState(0)``).
 
 Run:  python3 mxnet_tpu_torch/example/gluon/train_resnet.py
           [--model resnet50_v1] [--batch-size 32] [--num-batches 50]
-          [--save-prefix PREFIX] [--device gpu|cpu]
+          [--rec train.rec] [--save-prefix PREFIX] [--device gpu|cpu]
 """
 from __future__ import annotations
 
@@ -81,6 +84,18 @@ def data_iter(args):
                              last_batch_handle="discard")
 
 
+def _timed(it, wait_s):
+    """The batches of ``it``, each one's wait appended to ``wait_s``."""
+    while True:
+        t0 = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        wait_s.append(time.perf_counter() - t0)
+        yield batch
+
+
 def _sync(ctx):
     if ctx.device_type == "gpu":
         torch.cuda.synchronize(ctx.torch_device())
@@ -89,8 +104,9 @@ def _sync(ctx):
 def run(args):
     """Train (and export) as the JAX example's ``main`` does. Returns the
     readings: each batch's mean loss and wall seconds (the loss metric
-    reads every loss back, so a batch's time is its step's), the export's
-    seconds, and the net and step to go on with."""
+    reads every loss back, so a batch's time is its step's), the seconds
+    each batch was waited for (``wait_s``: the iterator's ``next``), the
+    export's seconds, and the net and step to go on with."""
     if args.devices > 1:
         raise MXNetError("--devices %d is not ported yet: the port runs a "
                          "step on one device" % args.devices)
@@ -107,12 +123,12 @@ def run(args):
             optimizer_params={"learning_rate": args.lr,
                               "momentum": args.mom, "wd": args.wd})
         metric = mx.metric.Loss()
-        losses, step_s = [], []
+        losses, step_s, wait_s = [], [], []
         for epoch in range(args.num_epochs):
             it = data_iter(args)
             tic = time.time()
             n_seen = 0
-            for i, batch in enumerate(it):
+            for i, batch in enumerate(_timed(it, wait_s)):
                 t0 = time.perf_counter()
                 loss = step(batch.data[0], batch.label[0])
                 metric.update(None, [loss])
@@ -127,6 +143,8 @@ def run(args):
                     metric.reset()
                     tic, n_seen = time.time(), 0
             logging.info("Epoch[%d] done", epoch)
+            if hasattr(it, "close"):  # the record pipeline's workers
+                it.close()
         step.copy_to_net()
         export_s = None
         if args.save_prefix:
@@ -136,8 +154,8 @@ def run(args):
             export_s = time.perf_counter() - t0
             logging.info("exported to %s-symbol.json / %s-0000.params",
                          args.save_prefix, args.save_prefix)
-    return {"losses": losses, "step_s": step_s, "export_s": export_s,
-            "net": net, "step": step, "ctx": ctx}
+    return {"losses": losses, "step_s": step_s, "wait_s": wait_s,
+            "export_s": export_s, "net": net, "step": step, "ctx": ctx}
 
 
 def main(argv=None):

@@ -13,8 +13,9 @@ there, ``root`` is created when it does not exist.
 
 Images are kept on the host (uint8 NDArrays of the CPU context, HWC)
 and labels as numpy int32; a sample is ``(image, label)`` through the
-optional ``transform(image, label)``. Decoding is the port's PNG codec
-(``image.imread``/``imdecode``): a JPEG raises "not ported yet".
+optional ``transform(image, label)``. Decoding is the port's JPEG and
+PNG codecs (``image.imread``/``imdecode``), the JPEG codec picked by the
+current context.
 """
 from __future__ import annotations
 

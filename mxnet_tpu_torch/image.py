@@ -1,6 +1,5 @@
 """Image pipeline: decode, resize, augmenters, ``ImageIter`` and
-``ImageDetIter``; the port of the part of ``mxnet_tpu/image.py`` the SSD
-example reads its data with.
+``ImageDetIter``; the port of ``mxnet_tpu/image.py``.
 
 Decoding and augmentation run on the host, as in MXNet (its CPU
 augmenter threads): an image is a CPU NDArray from decode to the end of
@@ -9,22 +8,25 @@ context in one copy. The context is fixed when the iterator is made (the
 current context: the card, unless a ``with mx.cpu():`` scope asks for the
 host; without a card that raises).
 
-Two parts are the port's own, since the card's machine has neither PIL
+Three parts are the port's own, since the card's machine has neither PIL
 nor OpenCV:
 
+* JPEG: the port's baseline codec (``_imgcodec``), equal to the pixels
+  and bytes PIL gives; the host library on the card's context, the plain
+  numpy version under ``mx.cpu()``;
 * a PNG codec on the standard library's ``zlib``: the encoder writes
   filter 0 on every row; the decoder takes 8-bit gray, gray+alpha, RGB
   and RGBA, non-interlaced, with all five row filters, and gives the
-  pixels PIL gives (gray from RGB by PIL's integer formula). JPEG raises;
+  pixels PIL gives (gray from RGB by PIL's integer formula, for JPEG
+  too);
 * :func:`imresize` is ``jax.image.resize`` (the JAX package's resize) in
   numpy: the same antialiased separable kernels, an axis whose size does
   not change is left as it is (so a resize to the same size is the
   identity), and integer images are rounded and clipped back.
 
-Random draws (shuffle, flips) come from :func:`mx.random.np_rng` in the
-JAX package's order, so one seed gives the same batches in both.
-Cropping and padding augmenters, color jitter, PCA noise and random gray
-are not ported yet and raise.
+Random draws (shuffles, crops, flips, jitters, PCA noise) come from
+:func:`mx.random.np_rng` in the JAX package's order, so one seed gives
+the same batches in both.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import zlib
 
 import numpy as np
 
+from . import _imgcodec
 from .base import MXNetError
 from .context import cpu, current_context
 from .io import DataBatch, DataDesc, DataIter
@@ -41,12 +44,16 @@ from .ndarray import ndarray as nd_mod
 from .ndarray.ndarray import NDArray
 
 __all__ = [
-    "imdecode", "imread", "imencode", "imresize", "resize_short",
-    "fixed_crop", "center_crop", "color_normalize", "Augmenter",
-    "ResizeAug", "ForceResizeAug", "CenterCropAug",
-    "HorizontalFlipAug", "CastAug", "ColorNormalizeAug", "CreateAugmenter",
-    "ImageIter", "DetAugmenter", "DetBorrowAug", "DetHorizontalFlipAug",
-    "DetForceResizeAug", "CreateDetAugmenter", "ImageDetIter",
+    "imdecode", "imencode", "imread", "imresize", "resize_short",
+    "fixed_crop", "random_crop", "center_crop", "color_normalize",
+    "random_size_crop", "Augmenter", "SequentialAug", "RandomOrderAug",
+    "ResizeAug", "ForceResizeAug", "RandomCropAug", "RandomSizedCropAug",
+    "CenterCropAug", "HorizontalFlipAug", "CastAug", "BrightnessJitterAug",
+    "ContrastJitterAug", "SaturationJitterAug", "HueJitterAug",
+    "ColorJitterAug", "LightingAug", "ColorNormalizeAug", "RandomGrayAug",
+    "CreateAugmenter", "ImageIter", "DetAugmenter", "DetBorrowAug",
+    "DetHorizontalFlipAug", "DetRandomCropAug", "DetRandomPadAug",
+    "DetForceResizeAug", "CreateDetAugmenter", "ImageDetIter", "scale_down",
 ]
 
 
@@ -65,10 +72,6 @@ def _to_nd(a) -> NDArray:
     host)."""
     a = np.ascontiguousarray(a)
     return nd_mod.array(a, ctx=cpu(), dtype=a.dtype)
-
-
-def _not_ported(what):
-    raise MXNetError("%s is not ported yet" % what)
 
 
 # ---------------------------------------------------------------------------
@@ -136,11 +139,8 @@ def _png_decode(buf: bytes) -> np.ndarray:
     """(H, W, C) uint8 pixels of an 8-bit, non-interlaced gray, gray+alpha,
     RGB or RGBA PNG."""
     if buf[:8] != _PNG_SIG:
-        if buf[:2] == b"\xff\xd8":
-            _not_ported("imdecode: JPEG (not a PNG image; only the PNG "
-                        "codec is ported)")
-        raise MXNetError("imdecode: not a PNG image (only the PNG codec is "
-                         "ported; JPEG and other formats are not)")
+        raise MXNetError("imdecode: neither a JPEG nor a PNG image (the "
+                         "port's two codecs)")
     pos, idat, header = 8, [], None
     while pos + 8 <= len(buf):
         (length,) = struct.unpack(">I", buf[pos:pos + 4])
@@ -176,14 +176,13 @@ def _png_decode(buf: bytes) -> np.ndarray:
     return out.reshape(h, w, c)
 
 
-def imdecode(buf, flag=1, to_rgb=1, to_numpy=False):
-    """Decode PNG bytes to an HWC uint8 image (reference image.py:imdecode):
-    ``flag=1`` gives RGB (BGR with ``to_rgb=0``), ``flag=0`` one gray
-    channel, as PIL converts them. A CPU NDArray, or numpy with
-    ``to_numpy``."""
-    if isinstance(buf, NDArray):
-        buf = buf.asnumpy().tobytes()
-    img = _png_decode(bytes(buf))
+def decode_pixels(buf: bytes, flag=1, to_rgb=1, lib=None) -> np.ndarray:
+    """JPEG or PNG bytes -> HWC uint8 numpy, as :func:`imdecode` converts
+    them; ``lib`` picks the JPEG codec (None: by the current context)."""
+    if buf[:2] == b"\xff\xd8":
+        img = _imgcodec.decode(buf, lib=lib)
+    else:
+        img = _png_decode(buf)
     c = img.shape[2]
     if flag == 0:
         if c >= 3:  # PIL's RGB -> L: (R 19595 + G 38470 + B 7471) / 2^16
@@ -197,26 +196,37 @@ def imdecode(buf, flag=1, to_rgb=1, to_numpy=False):
         img = img[..., :3] if c >= 3 else np.repeat(img[..., :1], 3, axis=2)
         if not to_rgb:
             img = img[:, :, ::-1]
-    img = np.ascontiguousarray(img)
+    return np.ascontiguousarray(img)
+
+
+def imdecode(buf, flag=1, to_rgb=1, to_numpy=False):
+    """Decode JPEG or PNG bytes to an HWC uint8 image (reference
+    image.py:imdecode): ``flag=1`` gives RGB (BGR with ``to_rgb=0``),
+    ``flag=0`` one gray channel, as PIL converts them. A CPU NDArray, or
+    numpy with ``to_numpy``. JPEG goes through the codec the current
+    context picks (the host library on the card, the plain version under
+    ``mx.cpu()``)."""
+    if isinstance(buf, NDArray):
+        buf = buf.asnumpy().tobytes()
+    img = decode_pixels(bytes(buf), flag, to_rgb)
     return img if to_numpy else _to_nd(img)
 
 
 def imread(filename, flag=1, to_rgb=1, to_numpy=False):
-    """Read and decode an image file (reference image.py:imread): PNG
-    through the port's codec; JPEG raises "not ported yet", as
-    :func:`imdecode` does."""
+    """Read and decode a JPEG or PNG file (reference image.py:imread)."""
     with open(filename, "rb") as f:
         return imdecode(f.read(), flag, to_rgb, to_numpy)
 
 
 def imencode(img, fmt=".jpg", quality=95):
-    """Encode an HWC image as PNG bytes (``fmt`` '.png'); JPEG raises."""
-    if fmt not in (".png", "png", ".PNG"):
-        raise MXNetError("imencode: %r is not ported yet (no JPEG codec "
-                         "without PIL or OpenCV): use '.png'" % (fmt,))
+    """Encode an HWC (or HW) image: baseline JPEG at ``quality`` for
+    '.jpg'/'.jpeg' (PIL's bytes, 4:2:0 for RGB; the codec the current
+    context picks), PNG otherwise, as the JAX package."""
     img = _host(img).astype(np.uint8)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[:, :, 0]
+    if fmt in (".jpg", ".jpeg"):
+        return _imgcodec.encode(img, quality)
     return _png_encode(img)
 
 
@@ -303,12 +313,47 @@ def fixed_crop(src, x0, y0, w, h, size=None, interp=2):
     return out
 
 
+def random_crop(src, size, interp=2):
+    """A random crop of ``size`` (w, h), resized if the image is smaller
+    (reference image.py:random_crop): (image, (x0, y0, w, h))."""
+    h, w = src.shape[0], src.shape[1]
+    new_w, new_h = min(size[0], w), min(size[1], h)
+    x0 = _np_rng().randint(0, w - new_w + 1)
+    y0 = _np_rng().randint(0, h - new_h + 1)
+    out = fixed_crop(src, x0, y0, new_w, new_h, size, interp)
+    return out, (x0, y0, new_w, new_h)
+
+
 def center_crop(src, size, interp=2):
     h, w = src.shape[0], src.shape[1]
     new_w, new_h = min(size[0], w), min(size[1], h)
     x0, y0 = (w - new_w) // 2, (h - new_h) // 2
     out = fixed_crop(src, x0, y0, new_w, new_h, size, interp)
     return out, (x0, y0, new_w, new_h)
+
+
+def random_size_crop(src, size, area, ratio, interp=2):
+    """A crop of random area (a fraction of the image's, drawn from
+    ``area``) and aspect ratio (log-uniform in ``ratio``), resized to
+    ``size``; ten tries, then the center crop (reference
+    image.py:random_size_crop)."""
+    h, w = src.shape[0], src.shape[1]
+    src_area = h * w
+    if isinstance(area, (int, float)):
+        area = (area, 1.0)
+    rng = _np_rng()
+    for _ in range(10):
+        target_area = rng.uniform(area[0], area[1]) * src_area
+        log_ratio = (np.log(ratio[0]), np.log(ratio[1]))
+        new_ratio = np.exp(rng.uniform(*log_ratio))
+        new_w = int(round(np.sqrt(target_area * new_ratio)))
+        new_h = int(round(np.sqrt(target_area / new_ratio)))
+        if new_w <= w and new_h <= h:
+            x0 = rng.randint(0, w - new_w + 1)
+            y0 = rng.randint(0, h - new_h + 1)
+            out = fixed_crop(src, x0, y0, new_w, new_h, size, interp)
+            return out, (x0, y0, new_w, new_h)
+    return center_crop(src, size, interp)
 
 
 def color_normalize(src, mean, std=None):
@@ -332,6 +377,32 @@ class Augmenter(object):
         raise NotImplementedError
 
 
+class SequentialAug(Augmenter):
+    """The augmenters of ``ts`` in order."""
+
+    def __init__(self, ts):
+        self.ts = ts
+
+    def __call__(self, src):
+        for aug in self.ts:
+            src = aug(src)
+        return src
+
+
+class RandomOrderAug(Augmenter):
+    """The augmenters of ``ts`` in an order shuffled at each call."""
+
+    def __init__(self, ts):
+        self.ts = ts
+
+    def __call__(self, src):
+        ts = list(self.ts)
+        _np_rng().shuffle(ts)
+        for t in ts:
+            src = t(src)
+        return src
+
+
 class ResizeAug(Augmenter):
     def __init__(self, size, interp=2):
         self.size = size
@@ -348,6 +419,27 @@ class ForceResizeAug(Augmenter):
 
     def __call__(self, src):
         return imresize(src, self.size[0], self.size[1], self.interp)
+
+
+class RandomCropAug(Augmenter):
+    def __init__(self, size, interp=2):
+        self.size = size
+        self.interp = interp
+
+    def __call__(self, src):
+        return random_crop(src, self.size, self.interp)[0]
+
+
+class RandomSizedCropAug(Augmenter):
+    def __init__(self, size, area, ratio, interp=2):
+        self.size = size
+        self.area = area
+        self.ratio = ratio
+        self.interp = interp
+
+    def __call__(self, src):
+        return random_size_crop(src, self.size, self.area, self.ratio,
+                                self.interp)[0]
 
 
 class CenterCropAug(Augmenter):
@@ -377,6 +469,100 @@ class CastAug(Augmenter):
         return src.astype(self.typ)
 
 
+_GRAY_COEF = np.array([[[0.299, 0.587, 0.114]]], dtype=np.float32)
+
+
+class BrightnessJitterAug(Augmenter):
+    """Scale by 1 + U(-brightness, brightness)."""
+
+    def __init__(self, brightness):
+        self.brightness = brightness
+
+    def __call__(self, src):
+        alpha = 1.0 + _np_rng().uniform(-self.brightness, self.brightness)
+        return src * alpha
+
+
+class ContrastJitterAug(Augmenter):
+    """Blend with the image's mean gray, weight 1 + U(-contrast,
+    contrast)."""
+
+    def __init__(self, contrast):
+        self.contrast = contrast
+        self.coef = _GRAY_COEF
+
+    def __call__(self, src):
+        alpha = 1.0 + _np_rng().uniform(-self.contrast, self.contrast)
+        gray = (src * _to_nd(self.coef)).sum()
+        gray = (3.0 * (1.0 - alpha) / float(np.prod(src.shape))) * gray
+        return src * alpha + gray
+
+
+class SaturationJitterAug(Augmenter):
+    """Blend with each pixel's gray, weight 1 + U(-saturation,
+    saturation)."""
+
+    def __init__(self, saturation):
+        self.saturation = saturation
+        self.coef = _GRAY_COEF
+
+    def __call__(self, src):
+        alpha = 1.0 + _np_rng().uniform(-self.saturation, self.saturation)
+        gray = (src * _to_nd(self.coef)).sum(axis=2, keepdims=True)
+        return src * alpha + gray * (1.0 - alpha)
+
+
+class HueJitterAug(Augmenter):
+    """Rotate the hue by U(-hue, hue) half-turns, in YIQ."""
+
+    def __init__(self, hue):
+        self.hue = hue
+        self.tyiq = np.array([[0.299, 0.587, 0.114],
+                              [0.596, -0.274, -0.321],
+                              [0.211, -0.523, 0.311]], dtype=np.float32)
+        self.ityiq = np.array([[1.0, 0.956, 0.621],
+                               [1.0, -0.272, -0.647],
+                               [1.0, -1.107, 1.705]], dtype=np.float32)
+
+    def __call__(self, src):
+        alpha = _np_rng().uniform(-self.hue, self.hue)
+        u = np.cos(alpha * np.pi)
+        w = np.sin(alpha * np.pi)
+        bt = np.array([[1.0, 0.0, 0.0], [0.0, u, -w], [0.0, w, u]],
+                      dtype=np.float32)
+        t = np.dot(np.dot(self.ityiq, bt), self.tyiq).T
+        return src.dot(_to_nd(t))
+
+
+class ColorJitterAug(RandomOrderAug):
+    """Brightness, contrast and saturation jitter in a random order."""
+
+    def __init__(self, brightness, contrast, saturation):
+        ts = []
+        if brightness > 0:
+            ts.append(BrightnessJitterAug(brightness))
+        if contrast > 0:
+            ts.append(ContrastJitterAug(contrast))
+        if saturation > 0:
+            ts.append(SaturationJitterAug(saturation))
+        super().__init__(ts)
+
+
+class LightingAug(Augmenter):
+    """AlexNet's PCA lighting noise (reference image.py:LightingAug)."""
+
+    def __init__(self, alphastd, eigval, eigvec):
+        self.alphastd = alphastd
+        self.eigval = np.asarray(eigval, dtype=np.float32)
+        self.eigvec = np.asarray(eigvec, dtype=np.float32)
+
+    def __call__(self, src):
+        alpha = _np_rng().normal(0, self.alphastd, size=(3,)).astype(
+            np.float32)
+        rgb = np.dot(self.eigvec * alpha, self.eigval)
+        return src + _to_nd(rgb.reshape((1, 1, 3)))
+
+
 class ColorNormalizeAug(Augmenter):
     def __init__(self, mean, std):
         self.mean = None if mean is None else _to_nd(
@@ -388,29 +574,60 @@ class ColorNormalizeAug(Augmenter):
         return color_normalize(src, self.mean, self.std)
 
 
+class RandomGrayAug(Augmenter):
+    """With probability ``p``, gray by (0.21, 0.72, 0.07) in every
+    channel."""
+
+    def __init__(self, p):
+        self.p = p
+        self.mat = np.array([[0.21, 0.21, 0.21],
+                             [0.72, 0.72, 0.72],
+                             [0.07, 0.07, 0.07]], dtype=np.float32)
+
+    def __call__(self, src):
+        if _np_rng().rand() < self.p:
+            src = src.dot(_to_nd(self.mat))
+        return src
+
+
 _MEAN = np.array([123.68, 116.28, 103.53])
 _STD = np.array([58.395, 57.12, 57.375])
+_PCA_EIGVAL = np.array([55.46, 4.794, 1.148])
+_PCA_EIGVEC = np.array([[-0.5675, 0.7192, 0.4009],
+                        [-0.5808, -0.0045, -0.8140],
+                        [-0.5836, -0.6948, 0.4203]])
 
 
 def CreateAugmenter(data_shape, resize=0, rand_crop=False, rand_resize=False,
                     rand_mirror=False, mean=None, std=None, brightness=0,
                     contrast=0, saturation=0, hue=0, pca_noise=0,
                     rand_gray=0, inter_method=2):
-    """The standard augmenter list (reference image.py:CreateAugmenter),
-    without its random crops and color augmenters (not ported yet)."""
-    if rand_crop or rand_resize:
-        _not_ported("CreateAugmenter(rand_crop / rand_resize)")
-    if brightness or contrast or saturation or hue or pca_noise or \
-            rand_gray:
-        _not_ported("CreateAugmenter color jitter, PCA noise, random gray")
+    """The standard augmenter list (reference image.py:CreateAugmenter)."""
     auglist = []
     if resize > 0:
         auglist.append(ResizeAug(resize, inter_method))
-    auglist.append(CenterCropAug((data_shape[2], data_shape[1]),
-                                 inter_method))
+    crop_size = (data_shape[2], data_shape[1])
+    if rand_resize:
+        if not rand_crop:
+            raise MXNetError("CreateAugmenter: rand_resize needs rand_crop")
+        auglist.append(RandomSizedCropAug(crop_size, (0.08, 1.0),
+                                          (3.0 / 4.0, 4.0 / 3.0),
+                                          inter_method))
+    elif rand_crop:
+        auglist.append(RandomCropAug(crop_size, inter_method))
+    else:
+        auglist.append(CenterCropAug(crop_size, inter_method))
     if rand_mirror:
         auglist.append(HorizontalFlipAug(0.5))
     auglist.append(CastAug())
+    if brightness or contrast or saturation:
+        auglist.append(ColorJitterAug(brightness, contrast, saturation))
+    if hue:
+        auglist.append(HueJitterAug(hue))
+    if pca_noise > 0:
+        auglist.append(LightingAug(pca_noise, _PCA_EIGVAL, _PCA_EIGVEC))
+    if rand_gray > 0:
+        auglist.append(RandomGrayAug(rand_gray))
     if mean is True:
         mean = _MEAN
     if std is True:
@@ -441,6 +658,7 @@ class ImageIter(DataIter):
             raise MXNetError("ImageIter: data_shape (1 or 3, H, W) "
                              "expected, got %s" % (data_shape,))
         self._ctx = current_context()
+        self._lib = _imgcodec.use_library(self._ctx)  # the JPEG codec
         self.data_shape = tuple(data_shape)
         self.label_width = label_width
         self.shuffle = shuffle
@@ -549,7 +767,8 @@ class ImageIter(DataIter):
     def next(self):
         def sample():
             label, s = self.next_sample()
-            img = imdecode(s, 1 if self.data_shape[0] == 3 else 0)
+            img = _to_nd(decode_pixels(bytes(s), 1 if self.data_shape[0] == 3
+                                       else 0, lib=self._lib))
             for aug in self.auglist:
                 img = aug(img)
             return img.asnumpy().transpose(2, 0, 1).astype(np.float32), label
@@ -598,6 +817,83 @@ class DetHorizontalFlipAug(DetAugmenter):
         return src, label
 
 
+class DetRandomCropAug(DetAugmenter):
+    """A random crop keeping the boxes that stay covered by at least
+    ``min_object_covered`` of their area (reference
+    detection.py:DetRandomCropAug, as the JAX package simplifies it)."""
+
+    def __init__(self, min_object_covered=0.3, min_crop_size=0.3,
+                 max_crop_size=1.0, max_attempts=25):
+        self.min_object_covered = min_object_covered
+        self.min_crop_size = min_crop_size
+        self.max_crop_size = max_crop_size
+        self.max_attempts = max_attempts
+
+    def __call__(self, src, label):
+        arr = _host(src)
+        h, w = arr.shape[:2]
+        rng = _np_rng()
+        for _ in range(self.max_attempts):
+            scale = rng.uniform(self.min_crop_size, self.max_crop_size)
+            cw, ch = int(w * scale), int(h * scale)
+            if cw < 1 or ch < 1:
+                continue
+            x0 = rng.randint(0, w - cw + 1)
+            y0 = rng.randint(0, h - ch + 1)
+            new_label = self._crop_boxes(label, x0 / w, y0 / h, cw / w,
+                                         ch / h)
+            if len(new_label):
+                return _to_nd(arr[y0:y0 + ch, x0:x0 + cw]), new_label
+        return src, label
+
+    def _crop_boxes(self, label, cx, cy, cw, ch):
+        out = []
+        for row in label:
+            _cls, xmin, ymin, xmax, ymax = row[:5]
+            ix0, iy0 = max(xmin, cx), max(ymin, cy)
+            ix1, iy1 = min(xmax, cx + cw), min(ymax, cy + ch)
+            area = max(0.0, xmax - xmin) * max(0.0, ymax - ymin)
+            inter = max(0.0, ix1 - ix0) * max(0.0, iy1 - iy0)
+            if area <= 0 or inter / area < self.min_object_covered:
+                continue
+            new = np.array(row, dtype=np.float32)
+            new[1] = (ix0 - cx) / cw
+            new[2] = (iy0 - cy) / ch
+            new[3] = (ix1 - cx) / cw
+            new[4] = (iy1 - cy) / ch
+            out.append(new)
+        return np.asarray(out, dtype=np.float32).reshape(-1, label.shape[1])
+
+
+class DetRandomPadAug(DetAugmenter):
+    """Random expansion onto a ``pad_val`` canvas up to
+    ``max_pad_scale``, boxes rescaled (reference
+    detection.py:DetRandomPadAug)."""
+
+    def __init__(self, max_pad_scale=2.0, pad_val=127):
+        self.max_pad_scale = max_pad_scale
+        self.pad_val = pad_val
+
+    def __call__(self, src, label):
+        arr = _host(src)
+        h, w = arr.shape[:2]
+        rng = _np_rng()
+        scale = rng.uniform(1.0, self.max_pad_scale)
+        nw, nh = int(w * scale), int(h * scale)
+        if nw <= w or nh <= h:
+            return src, label
+        x0 = rng.randint(0, nw - w + 1)
+        y0 = rng.randint(0, nh - h + 1)
+        canvas = np.full((nh, nw) + arr.shape[2:], self.pad_val, arr.dtype)
+        canvas[y0:y0 + h, x0:x0 + w] = arr
+        label = label.copy()
+        label[:, 1] = (label[:, 1] * w + x0) / nw
+        label[:, 2] = (label[:, 2] * h + y0) / nh
+        label[:, 3] = (label[:, 3] * w + x0) / nw
+        label[:, 4] = (label[:, 4] * h + y0) / nh
+        return _to_nd(canvas), label
+
+
 class DetForceResizeAug(DetAugmenter):
     """Resize to an exact size; normalized boxes are unchanged."""
 
@@ -614,19 +910,23 @@ def CreateDetAugmenter(data_shape, resize=0, rand_crop=0, rand_pad=0,
                        contrast=0, saturation=0, min_object_covered=0.3,
                        max_attempts=25, pad_val=127, inter_method=2):
     """The detection augmenter list (reference
-    detection.py:CreateDetAugmenter), without its random crop and pad and
-    its color jitter (not ported yet)."""
-    if rand_crop > 0 or rand_pad > 0:
-        _not_ported("CreateDetAugmenter(rand_crop / rand_pad)")
-    if brightness or contrast or saturation:
-        _not_ported("CreateDetAugmenter color jitter")
+    detection.py:CreateDetAugmenter)."""
     auglist = []
     if resize > 0:
         auglist.append(DetBorrowAug(ResizeAug(resize, inter_method)))
+    if rand_crop > 0:
+        auglist.append(DetRandomCropAug(
+            min_object_covered=min_object_covered,
+            max_attempts=max_attempts))
+    if rand_pad > 0:
+        auglist.append(DetRandomPadAug(pad_val=pad_val))
     if rand_mirror:
         auglist.append(DetHorizontalFlipAug(0.5))
     auglist.append(DetForceResizeAug((data_shape[2], data_shape[1]),
                                      inter_method))
+    if brightness or contrast or saturation:
+        auglist.append(DetBorrowAug(ColorJitterAug(brightness, contrast,
+                                                   saturation)))
     if mean is not None or std is not None:
         if mean is True or mean is None:
             mean = _MEAN
@@ -697,7 +997,8 @@ class ImageDetIter(ImageIter):
     def next(self):
         def sample():
             label, s = self.next_sample()
-            img = imdecode(s, 1 if self.data_shape[0] == 3 else 0)
+            img = _to_nd(decode_pixels(bytes(s), 1 if self.data_shape[0] == 3
+                                       else 0, lib=self._lib))
             parsed = self._parse_label(label)
             for aug in self.det_auglist:
                 img, parsed = aug(img, parsed)
@@ -713,3 +1014,15 @@ class ImageDetIter(ImageIter):
             self.data_shape = tuple(data_shape)
         if label_shape is not None:
             self.label_shape = tuple(label_shape)
+
+
+def scale_down(src_size, size):
+    """Clamp a crop size (w, h) to the image size, keeping its aspect
+    (reference image.py:scale_down)."""
+    w, h = size
+    sw, sh = src_size
+    if sh < h:
+        w, h = float(w * sh) / h, sh
+    if sw < w:
+        w, h = sw, float(h * sw) / w
+    return int(w), int(h)

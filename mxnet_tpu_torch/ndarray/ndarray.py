@@ -836,8 +836,10 @@ def true_divide(lhs, rhs):
 
 
 def imdecode(buf, **kwargs):
-    """Not ported yet: JPEG decoding is a later item of the port."""
-    raise MXNetError("nd.imdecode: not ported yet (JPEG decoding)")
+    """Decode an image byte buffer (JPEG or PNG): ``image.imdecode``."""
+    from .. import image as _image
+
+    return _image.imdecode(buf, **kwargs)
 
 
 def to_dlpack_for_read(data: NDArray):

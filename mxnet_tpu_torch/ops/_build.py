@@ -1,11 +1,17 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's CUDA kernels and host libraries at first use and
+load them with ctypes.
 
-Each kernel source under ``ops/csrc/`` is compiled by ``nvcc`` into a
-shared library with a plain ``extern "C"`` entry point (no PyTorch
-headers, so a build takes seconds):
+Each kernel source under ``ops/csrc/`` (``<name>.cu``) is compiled by
+``nvcc`` into a shared library with a plain ``extern "C"`` entry point
+(no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas=-v -o <lib> <source>
+
+A host-only source (``<name>.cc``, no CUDA) is compiled by the host C++
+compiler, the one ``nvcc`` drives (``c++``, else ``g++``):
+
+    c++ -std=c++17 -O3 -shared -fPIC -ffp-contract=off -o <lib> <source>
 
 The library lands in ``ops/_build/`` (listed in ``.gitignore``) under a
 name keyed by a hash of the source and the flags, so an edited source
@@ -29,7 +35,7 @@ from typing import Dict
 
 from ..base import MXNetError
 
-__all__ = ["build_log", "load", "source_path"]
+__all__ = ["build_log", "load", "source_path", "host_compiler"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -37,6 +43,9 @@ _OUT = os.path.join(_HERE, "_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                       "-Xptxas=-v")
+# no fused multiply-add: the host codec's double arithmetic (Pillow's
+# resample coefficients) must round as the plain version's does
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -44,8 +53,11 @@ _logs: Dict[str, str] = {}
 
 
 def source_path(name: str) -> str:
-    """Absolute path of ``ops/csrc/<name>.cu``."""
-    return os.path.join(_CSRC, name + ".cu")
+    """Absolute path of ``ops/csrc/<name>.cu``, or of ``<name>.cc`` where
+    the source is host code."""
+    cu = os.path.join(_CSRC, name + ".cu")
+    cc = os.path.join(_CSRC, name + ".cc")
+    return cc if not os.path.isfile(cu) and os.path.isfile(cc) else cu
 
 
 def build_log(name: str) -> str:
@@ -67,6 +79,22 @@ def _nvcc() -> str:
                      "bin): the port's CUDA kernels are built at first use")
 
 
+def host_compiler() -> str:
+    """The host C++ compiler (``c++``, else ``g++``, on PATH)."""
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise MXNetError("no host C++ compiler (c++ or g++ on PATH): the port's "
+                     "host libraries are built at first use")
+
+
+def _command(src: str, out: str):
+    if src.endswith(".cc"):
+        return [host_compiler(), *HOST_FLAGS, "-o", out, src]
+    return [_nvcc(), *FLAGS, "-o", out, src]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it if needed."""
     with _lock:
@@ -76,7 +104,8 @@ def load(name: str) -> ctypes.CDLL:
         src = source_path(name)
         with open(src, "rb") as f:
             blob = f.read()
-        key = hashlib.sha256(blob + " ".join(FLAGS).encode()).hexdigest()
+        flags = HOST_FLAGS if src.endswith(".cc") else FLAGS
+        key = hashlib.sha256(blob + " ".join(flags).encode()).hexdigest()
         out = os.path.join(_OUT, "%s-%s.so" % (name, key[:16]))
         if not os.path.isfile(out):
             _compile(src, out)
@@ -95,12 +124,12 @@ def _compile(src: str, out: str) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_OUT)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *FLAGS, "-o", tmp, src]
+        cmd = _command(src, tmp)
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise MXNetError("nvcc failed (%d) building %s:\n%s\n%s"
-                             % (proc.returncode, src, proc.stdout,
-                                proc.stderr))
+            raise MXNetError("%s failed (%d) building %s:\n%s\n%s"
+                             % (os.path.basename(cmd[0]), proc.returncode,
+                                src, proc.stdout, proc.stderr))
         with open(tmp + ".log", "w") as f:
             f.write(proc.stdout + proc.stderr)
         os.replace(tmp + ".log", out + ".log")  # the log first: a library

@@ -7,9 +7,9 @@ they touch only the stored values, through the ex path), and the image
 ops under their OpenCV names. The image ops run on the tensor's device
 (resizing with ``image``'s antialiased kernels, the JAX package's
 ``jax.image.resize``), except decoding: ``_cvimdecode``/``_cvimread``
-decode PNG on the host with the port's own codec (``image.py``; the card's
-machine has no PIL) and put the pixels on the buffer's device. JPEG is
-not ported yet and raises.
+decode JPEG or PNG on the host with the port's own codecs (``image.py``;
+the card's machine has no PIL), the JPEG codec picked by the output's
+device, and put the pixels on that device.
 """
 from __future__ import annotations
 
@@ -218,19 +218,17 @@ def _cv_copy_make_border(attrs, x):
 
 
 def _decode(raw: bytes, attrs, device):
-    from ..image import imdecode
+    from ..image import decode_pixels
 
-    if raw[:2] == b"\xff\xd8":
-        raise MXNetError("_cvimdecode: JPEG decoding is not ported yet "
-                         "(PNG only)")
-    img = imdecode(raw, flag=attrs.flag, to_rgb=attrs.to_rgb, to_numpy=True)
+    img = decode_pixels(raw, attrs.flag, attrs.to_rgb,
+                        lib=torch.device(device).type == "cuda")
     return torch.as_tensor(img, device=device)
 
 
 @register("_cvimdecode", params={"flag": (int, 1), "to_rgb": (bool, True)},
           inputs=("buf",), aliases=("imdecode_op",))
 def _cvimdecode(attrs, buf):
-    """Decode a uint8 byte buffer (PNG) to HWC uint8 pixels on the
+    """Decode a uint8 byte buffer (JPEG or PNG) to HWC uint8 pixels on the
     buffer's device: ``flag=0`` one gray channel, else RGB (BGR without
     ``to_rgb``). A host op, eager only, as every decode kernel."""
     raw = bytes(buf.detach().to(torch.uint8).cpu().numpy().tobytes())
@@ -241,8 +239,8 @@ def _cvimdecode(attrs, buf):
           params={"filename": (str, REQUIRED), "flag": (int, 1),
                   "to_rgb": (bool, True)}, inputs=())
 def _cvimread(attrs):
-    """Read and decode an image file (PNG), onto ``ctx=`` or the current
-    context."""
+    """Read and decode an image file (JPEG or PNG), onto ``ctx=`` or the
+    current context."""
     from .tensor import out_device
 
     with open(attrs.filename, "rb") as f:

@@ -186,7 +186,8 @@ def unpack(s):
 
 def pack_img(header, img, quality=95, img_fmt=".jpg"):
     """A header and an image array as one record, the image encoded by
-    :func:`mxnet_tpu_torch.image.imencode` (PNG; JPEG raises)."""
+    :func:`mxnet_tpu_torch.image.imencode` (JPEG at ``quality`` for
+    '.jpg', PNG for '.png')."""
     from . import image as image_mod
 
     return pack(header, image_mod.imencode(img, img_fmt, quality))

@@ -3,8 +3,8 @@
 * The vision datasets under ``MXNET_TPU_FAKE_DATA=1`` (the same
   synthetic images and labels), and on files the test writes: MNIST idx
   files (plain and ``.gz``), CIFAR10/100 pickled batches, a RecordIO file
-  of PNGs (``ImageRecordDataset``) and class folders of PNG and ``.npy``
-  images (``ImageFolderDataset``); a missing file raises in both, and
+  of PNGs (``ImageRecordDataset``) and class folders of PNG, JPEG and
+  ``.npy`` images (``ImageFolderDataset``); a missing file raises in both, and
   ``HOME`` points at the test's directory, so nothing is written outside
   it. Images are kept on the host (uint8, HWC).
 * The samplers and ``DataLoader``'s index order under one seed
@@ -17,12 +17,14 @@
   weights in numpy).
 """
 import gzip
+import io
 import os
 import pickle
 import struct
 
 import numpy as np
 import pytest
+from PIL import Image
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
@@ -173,11 +175,16 @@ def test_image_folder_dataset_reads_pngs_and_npy(tmp_path):
     assert [os.path.basename(f) for f, _ in got.items] == \
         [os.path.basename(f) for f, _ in want.items]
     _same_samples(_samples(got, range(5)), _samples(want, range(5)))
-    (tmp_path / "f" / "a_cats" / "y.jpg").write_bytes(
-        b"\xff\xd8\xff\xe0" + bytes(32))
-    ds = gdata.vision.ImageFolderDataset(str(tmp_path / "f"))
-    with pytest.raises(MXNetError, match="not ported yet"):
-        ds[[os.path.basename(f) for f, _ in ds.items].index("y.jpg")]
+    # a JPEG among them decodes to PIL's pixels, as in the JAX package
+    jpg = io.BytesIO()
+    Image.fromarray(rng.randint(0, 256, (7, 5, 3)).astype(np.uint8)).save(
+        jpg, format="JPEG", quality=90)
+    (tmp_path / "f" / "a_cats" / "y.jpg").write_bytes(jpg.getvalue())
+    got = gdata.vision.ImageFolderDataset(str(tmp_path / "f"))
+    want = jmx.gluon.data.vision.ImageFolderDataset(str(tmp_path / "f"))
+    i = [os.path.basename(f) for f, _ in got.items].index("y.jpg")
+    with mx.cpu():  # the plain JPEG codec
+        _same_samples(_samples(got, [i]), _samples(want, [i]))
 
 
 def test_transform_first_and_lazy_transform():

@@ -17,8 +17,11 @@ against the JAX script (CPU), both in this process, seeded alike, at
   the JAX script's export gives the JAX ``SymbolBlock``'s output on it,
   and the JAX package's import of the port's export gives the port's,
   each within 1e-5 relative;
-* ``--devices 2`` raises "not ported yet" and ``--rec`` raises through
-  ``ImageRecordIter``.
+* ``--devices 2`` raises "not ported yet"; with ``--rec`` (a .rec of
+  eight 64 x 64 JPEGs, so no resize runs, read by ``ImageRecordIter``'s
+  single process in both packages) the losses are the JAX script's,
+  step for step, within 2e-5 relative: the port's JPEG decoder gives
+  PIL's pixels.
 
 ``test_torch_port_rules.py`` runs the script with ``jax`` and
 ``mxnet_tpu`` blocked.
@@ -133,10 +136,47 @@ def test_each_export_imports_across_packages(runs, source):
     assert _rel_err(got, want) <= 1e-5
 
 
-def test_more_devices_and_rec_raise():
+def test_more_devices_and_rec_raise(tmp_path, monkeypatch):
     with pytest.raises(MXNetError, match="not ported yet"):
         train_resnet.run(train_resnet.parse_args(ARGS + [
             "--device", "cpu", "--devices", "2"]))
-    with pytest.raises(MXNetError, match="not ported yet"):
-        train_resnet.run(train_resnet.parse_args(ARGS + [
-            "--device", "cpu", "--rec", "missing.rec"]))
+    rec = str(tmp_path / "train.rec")
+    writer = mx.recordio.MXIndexedRecordIO(str(tmp_path / "train.idx"), rec,
+                                           "w")
+    rs = np.random.RandomState(5)
+    with mx.cpu():
+        for i in range(8):
+            img = (rs.rand(64, 64, 3) * 255).astype(np.uint8)
+            writer.write_idx(i, mx.recordio.pack_img(
+                mx.recordio.IRHeader(0, float(i % 10), i, 0), img))
+    writer.close()
+    # both packages read the records in one process (no spawned workers)
+    monkeypatch.setattr(sys.modules["__main__"], "__file__", None,
+                        raising=False)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    jax_losses = []
+
+    class Recording(jmx.parallel.TrainStep):
+        def __call__(self, data, label):
+            out = super().__call__(data, label)
+            jax_losses.append(float(out.asnumpy()))
+            return out
+
+    script = _load("_jax_train_resnet_rec",
+                   os.path.join(REPO, "example", "gluon", "train_resnet.py"))
+    try:
+        monkeypatch.setattr(jmx.parallel, "TrainStep", Recording)
+        monkeypatch.setattr(sys, "argv", ["train_resnet.py"] + ARGS + [
+            "--devices", "1", "--rec", rec])
+        jmx.random.seed(0)
+        script.main()
+        mx.random.seed(0)
+        res = train_resnet.run(train_resnet.parse_args(ARGS + [
+            "--device", "cpu", "--rec", rec]))
+    finally:
+        torch.set_num_threads(threads)
+    assert len(res["losses"]) == len(jax_losses) == 2
+    assert len(res["wait_s"]) == 2
+    for g, w in zip(res["losses"], jax_losses):
+        assert _rel_err(g, w) <= REL

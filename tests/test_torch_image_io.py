@@ -9,7 +9,9 @@ JAX package (CPU).
   epoch;
 * the PNG decoder gives PIL's pixels on PNGs that PIL wrote (every row
   filter PIL picks; gray, RGB, RGBA; gray from RGB by PIL's formula), and
-  the encoder's PNGs decode in PIL to the same pixels;
+  the encoder's PNGs decode in PIL to the same pixels; ``imencode`` to
+  '.jpg' writes PIL's JPEG bytes and ``imdecode`` gives PIL's pixels
+  (the JPEG codec itself: ``test_torch_imgcodec.py``);
 * ``imresize`` against the JAX package's (``jax.image.resize``) within
   one uint8 level, the identity at the same size;
 * records that embed the RecordIO magic word round-trip between the
@@ -133,10 +135,17 @@ def test_png_encoder_decodes_in_pil_and_jpeg_raises():
         np.testing.assert_array_equal(
             image.imdecode(buf, flag=0 if a.ndim == 2 or a.shape[2] == 1
                            else 1, to_numpy=True).reshape(got.shape), got)
-    with pytest.raises(MXNetError, match="JPEG"):
-        image.imencode(arr, ".jpg")
-    with pytest.raises(MXNetError, match="not a PNG"):
-        image.imdecode(b"\xff\xd8\xff" + bytes(20))
+    # JPEG: the port's encoder writes PIL's bytes, its decoder gives
+    # PIL's pixels (tolerance 0); anything else raises
+    pil = io.BytesIO()
+    Image.fromarray(arr).save(pil, format="JPEG", quality=95)
+    with mx.cpu():
+        assert image.imencode(arr, ".jpg") == pil.getvalue()
+        np.testing.assert_array_equal(
+            image.imdecode(pil.getvalue(), to_numpy=True),
+            np.asarray(Image.open(io.BytesIO(pil.getvalue()))))
+    with pytest.raises(MXNetError, match="neither a JPEG nor a PNG"):
+        image.imdecode(b"GIF89a" + bytes(20))
 
 
 @pytest.mark.parametrize("size,interp", [((48, 40), 2), ((20, 12), 2),

@@ -75,11 +75,22 @@ def test_cvimread_matches_jax(tmp_path):
 
 
 def test_cvimdecode_refuses_jpeg():
+    """JPEG now decodes: the port's op gives the JAX op's pixels (PIL's),
+    exactly, for RGB, BGR and gray."""
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(buf, format="JPEG")
+    img = np.random.RandomState(3).randint(0, 256, (9, 13, 3)).astype(
+        np.uint8)
+    Image.fromarray(img).save(buf, format="JPEG", quality=90)
     raw = np.frombuffer(buf.getvalue(), np.uint8)
-    with mx.cpu(), pytest.raises(MXNetError, match="JPEG"):
-        mx.nd.invoke("_cvimdecode", mx.nd.array(raw, dtype="uint8"))
+    for kw in ({}, {"to_rgb": False}, {"flag": 0}):
+        with mx.cpu():
+            got = mx.nd.invoke("_cvimdecode", mx.nd.array(raw, dtype="uint8"),
+                               **kw).asnumpy()
+        want = jmx.nd.invoke("_cvimdecode", jmx.nd.array(raw, dtype="uint8"),
+                             **kw).asnumpy()
+        np.testing.assert_array_equal(got, want)
+    with mx.cpu(), pytest.raises(MXNetError, match="neither"):
+        mx.nd.invoke("_cvimdecode", mx.nd.array(raw[2:], dtype="uint8"))
 
 
 def test_every_slice_18_name_has_a_parity_case():

@@ -182,8 +182,21 @@ def test_nd_function_matches_jax(name):
 
 def test_nd_functions_waitall_and_imdecode():
     nd.waitall()
-    with pytest.raises(MXNetError, match="not ported yet"):
-        nd.imdecode(b"\xff\xd8")
+    # JPEG decodes as in the JAX package (PIL's pixels, exactly); a
+    # stream of its SOI alone raises
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.RandomState(1).randint(
+        0, 256, (6, 10, 3)).astype(np.uint8)).save(buf, format="JPEG")
+    with mx.cpu():
+        got = nd.imdecode(buf.getvalue()).asnumpy()
+        with pytest.raises(MXNetError, match="JPEG"):
+            nd.imdecode(b"\xff\xd8")
+    np.testing.assert_array_equal(got,
+                                  jmx.nd.imdecode(buf.getvalue()).asnumpy())
     with mx.cpu():
         z = nd.random.uniform(shape=(2,), ctx=mx.cpu())
     assert z.context == mx.cpu()
