@@ -513,6 +513,29 @@ was printed):
     the host's; ``set_state`` resumes after 5; a batch already on the
     card passes through.
 
+After the distributed phases (``--dist``), the sharded-state and elastic
+slice (``--elastic`` runs only these; no nvcc build):
+
+72. zero_resnet: resnet50_v1 through ``dist_sync`` on 2 ranks sharing the
+    card (one ``--dist-rank zero`` job), SGD and Adam at ``MXNET_ZERO=1``
+    and bf16 SGD with ``multi_precision`` at ``MXNET_ZERO=2``, each
+    against the same job's ``MXNET_ZERO=0`` run: final weights and
+    materialized states bit for bit, the ranks' hashes after every step,
+    0 fallbacks, 1 materialization, the states a rank at most the
+    replicated figure over the ranks plus padding; ms a step, the
+    gather's ms and bytes, staged bytes, peak memory.
+73. zero_ckpt: the sharded save in the same job (0 materializations, a
+    shard file a rank), restores on 2 ranks and in this process equal to
+    the materialized states, torn-write and drop-shard falling back.
+74. elastic_resume: ``trainplane.fit(checkpoint=)`` of resnet50_v1 in
+    this process killed at a step boundary and resumed by
+    ``run_elastic``, bit for bit against the uninterrupted run; the zero
+    job's run preempted through a file only rank 0 watches, resumed by a
+    new 2-rank job (``--dist-rank resume``) bit for bit.
+75. elastic_kill: ``tests/nightly/torch_dist_elastic_kill.py`` on 3
+    ranks, every marker (this job and the resume job run beside the fit
+    runs of phase 74).
+
 ``python3 chip_smoke.py --imagenet`` runs phases 68-71 only (the host
 compiler builds the codec; no nvcc build).
 ``python3 chip_smoke.py --fleet`` runs phases 61-62 only,
@@ -611,6 +634,7 @@ last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the rest of the checkout beside it, the script exits non-zero
 and prints no result.
 """
+import gc
 import hashlib
 import json
 import os
@@ -720,6 +744,9 @@ PLANE_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 ZOO_NETS = ("alexnet", "vgg16", "squeezenet1_0", "densenet121",
             "inception_v3", "mobilenet1_0", "mobilenet_v2_1_0",
             "resnet152_v1")
+# batch 1 in fp32 for the small nets only, to keep the full script inside
+# its time limit (zoo_score is the first depth to cut)
+ZOO_BATCH1 = ("squeezenet1_0", "mobilenet1_0", "mobilenet_v2_1_0")
 ZOO_TOL = 1e-4
 ZOO_S = 0.4  # the time budget of each timed loop
 # the checkpoint phases: ckpt_resnet saves after CKPT_STEPS TrainPlane
@@ -2518,7 +2545,8 @@ def _flops_per_image(net, x):
 
 def zoo_score():
     """benchmark_score.py's networks on the card: for each, in fp32 at
-    batches 32 and 1 (and in bf16 at 32 for the script's default sweep),
+    batch 32 (and 1 for ZOO_BATCH1's nets; in bf16 at 32 for the script's
+    default sweep),
     img/s of the eager hybridized forward (the script's own build and
     timed loop) and of parallel.InferStep (a CUDA graph a shape), whose
     output must agree with the eager forward's (fp32: ZOO_TOL; bf16: one
@@ -2533,7 +2561,8 @@ def zoo_score():
         benchmark_score as bs)
 
     ctx = mx.gpu(0)
-    runs = [(n, "float32", b) for n in ZOO_NETS for b in (32, 1)]
+    runs = [(n, "float32", b) for n in ZOO_NETS
+            for b in ((32, 1) if n in ZOO_BATCH1 else (32,))]
     runs += [(n, "bfloat16", 32) for n in bs.DEFAULT_NETS]
     gflop = {}
     t_phase = time.perf_counter()
@@ -6987,7 +7016,10 @@ def fleet_serve():
                 fail("rolling swap under load changed request %d" % i)
         # a replica killed under load: every request answered once, the
         # rebuild captures its own graphs, the dead one's memory returns
+        # (both readings after a collection: an unreachable engine of an
+        # earlier phase holds its pools until the collector runs)
         torch.cuda.synchronize()
+        gc.collect()
         torch.cuda.empty_cache()
         reserved_before = torch.cuda.memory_reserved()
         done0 = fleet.stats()["router"]
@@ -7015,6 +7047,7 @@ def fleet_serve():
             fail("the rebuilt replica recaptured after its warmup: %s"
                  % rebuilt.get("steady_state_recompiles"))
         torch.cuda.synchronize()
+        gc.collect()
         torch.cuda.empty_cache()
         reserved_after = torch.cuda.memory_reserved()
         if abs(reserved_after - reserved_before) > FLEET_MEM_TOL:
@@ -8556,11 +8589,12 @@ DIST_RING_TOL = dict(rtol=2e-4, atol=2e-5)
 DIST_RING_ITERS = 3
 # dist_resnet: BASELINE workload 5's model (resnet50_v1, 224 x 224, 1000
 # classes, fp32, batch 32 a rank, SGD 0.05 with momentum 0.9 through a
-# dist_sync Trainer), 5 compared steps on seeded data; the 2-rank weights
+# dist_sync Trainer), 3 compared steps on seeded data (the full script's
+# time limit); the 2-rank weights
 # against one process that sums both shards' gradients in rank order,
 # within DIST_RESNET_TOL of each tensor's largest magnitude (bit for bit
 # expected: two summands add alike in any order)
-DIST_RESNET_STEPS, DIST_RESNET_TOL = 5, 1e-5
+DIST_RESNET_STEPS, DIST_RESNET_TOL = 3, 1e-5
 DIST_RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9}
 # ring_prefill_serve: the serve traffic with prompts of at least this many
 # tokens routed through the ring prefill (the system-prompt third reaches
@@ -8576,24 +8610,57 @@ def _dist_env():
     return env
 
 
-def _dist_job(what, n, argv, timeout=900):
-    """Run ``argv`` on ``n`` ranks through the port's launcher from this
-    checkout; fail (printing the job's tail) unless it exits 0. Returns
-    (stdout, wall seconds)."""
+def _dist_start(n, argv):
+    """Start ``argv`` on ``n`` ranks through the port's launcher from this
+    checkout; returns the job for :func:`_dist_wait`."""
     here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
     # the launcher by path: it imports only the standard library
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, os.path.join("mxnet_tpu_torch", "tools",
                                       "launch.py"), "-n", str(n), "--"] +
-        list(argv), cwd=here, env=_dist_env(),
-        capture_output=True, text=True, timeout=timeout)
+        list(argv), cwd=here, env=_dist_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def _dist_wait(what, n, job, timeout=900):
+    """Wait for a job of :func:`_dist_start`; fail (printing the job's
+    tail) unless it exits 0 within ``timeout`` seconds of its start.
+    Returns (stdout, wall seconds)."""
+    proc, t0 = job
+    try:
+        out, err = proc.communicate(
+            timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        _dist_stop(job)
+        fail("%s: the %d-rank job ran past %d s" % (what, n, timeout))
     secs = time.perf_counter() - t0
     if proc.returncode != 0:
-        print(proc.stdout[-6000:], flush=True)
-        print(proc.stderr[-3000:], file=sys.stderr, flush=True)
+        print(out[-6000:], flush=True)
+        print(err[-3000:], file=sys.stderr, flush=True)
         fail("%s: the %d-rank job exited %d" % (what, n, proc.returncode))
-    return proc.stdout, secs
+    return out, secs
+
+
+def _dist_stop(job):
+    """End a job of :func:`_dist_start` that is still running: SIGINT, on
+    which the launcher ends its ranks' process groups, then SIGKILL."""
+    import signal
+
+    proc, _t0 = job
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+
+
+def _dist_job(what, n, argv, timeout=900):
+    """Run ``argv`` on ``n`` ranks (:func:`_dist_start`,
+    :func:`_dist_wait`); returns (stdout, wall seconds)."""
+    return _dist_wait(what, n, _dist_start(n, argv), timeout)
 
 
 def _rank_lines(out, n, tag, each=1):
@@ -9129,10 +9196,618 @@ def dist_phases():
     ring_prefill_serve()
 
 
+# -- the optimizer states sharded over the ranks, elastic training -------
+# zero_resnet: dist_resnet's configuration (resnet50_v1, 224 x 224, 1000
+# classes, batch 32 a rank, dist_sync on 2 ranks sharing the card,
+# deterministic cuDNN, TF32 off, DIST_RESNET_STEPS steps on the same
+# shards), each case at MXNET_ZERO=0 and at its level in the same job; the
+# sharded run's weights and materialized states must equal the replicated
+# run's bit for bit
+ZERO_CASES = (
+    ("sgd_zero1", "sgd", {"learning_rate": 0.05, "momentum": 0.9}, 1,
+     None),
+    ("adam_zero1", "adam", {"learning_rate": 0.001}, 1, None),
+    ("sgd_bf16_zero2", "sgd", {"learning_rate": 0.05, "momentum": 0.9,
+                               "multi_precision": True}, 2, "bfloat16"))
+# zero_ckpt: the sharded save after ZERO_CKPT_STEPS steps of the SGD case;
+# the preemption case trains PREEMPT_STEPS steps, the notice (a file only
+# rank 0 watches) written after step PREEMPT_AT
+ZERO_CKPT_STEPS, PREEMPT_STEPS, PREEMPT_AT = 2, 4, 1
+# elastic_resume: trainplane.fit on one rank, ELASTIC_EPOCHS epochs of
+# ELASTIC_BATCHES batches of 32, chaos kill at the ELASTIC_KILL_AT-th step
+# boundary (entering the third step)
+ELASTIC_EPOCHS, ELASTIC_BATCHES, ELASTIC_KILL_AT = 3, 2, 4
+
+
+def _zero_net(ctx, opt, params, cast, kvstore="dist_sync"):
+    from mxnet_tpu_torch import gluon
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    with ctx:
+        mx.random.seed(0)
+        net = vision.resnet50_v1(classes=RESNET_CLASSES)
+        net.initialize(mx.initializer.Xavier(rnd_type="gaussian",
+                                             factor_type="in", magnitude=2))
+        net(mx.nd.zeros((1, 3, RESNET_SIDE, RESNET_SIDE)))
+        if cast:
+            net.cast(cast)
+        trainer = gluon.Trainer(net.collect_params(), opt, dict(params),
+                                kvstore=kvstore)
+    return net, trainer
+
+
+def _zero_step(net, trainer, step, r, n, ctx, loss_fn, cast):
+    from mxnet_tpu_torch import autograd
+
+    with ctx:
+        x, y = _resnet_shard(step, r, ctx)
+        if cast:
+            x = x.astype(cast)
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(RESNET_BATCH * n)
+
+
+def _digest(tensors):
+    """sha256 of the tensors' bytes, in order (bfloat16 as its bits)."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _bits_equal(xs, ys):
+    """Whether two tensor lists are equal bit for bit (a NaN equals
+    itself)."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return len(xs) == len(ys) and all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.view(ints[a.element_size()]), b.view(ints[b.element_size()]))
+        for a, b in zip(xs, ys))
+
+
+def _states_of(trainer):
+    from mxnet_tpu_torch.optimizer import _state_leaves
+
+    states = trainer._updater.states
+    return [t for i in sorted(states) for t in _state_leaves(states[i])]
+
+
+def _zero_counts():
+    from mxnet_tpu_torch.fastpath import zero
+
+    return (sum(s["value"] for s in zero.FALLBACKS.series()),
+            zero.MATERIALIZATIONS.value())
+
+
+def _zero_case(grp, ctx, loss_fn, opt, params, level, cast):
+    """One run of DIST_RESNET_STEPS steps at MXNET_ZERO=level: at a level
+    above 0 a weight hash after every step, and the readings (the last
+    step's all-gather timed by itself); returns (readings, weights,
+    materialized states)."""
+    import torch
+
+    from mxnet_tpu_torch import _dist
+    from mxnet_tpu_torch.fastpath import zero
+
+    r, n, dev = grp.rank, grp.world, grp.device
+    os.environ["MXNET_ZERO"] = str(level)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    net, tr = _zero_net(ctx, opt, params, cast)
+    f0, m0 = _zero_counts()
+    staged0 = grp.staged_bytes
+    gather0 = _dist.STAGED_BYTES.value(op="all_gather")
+    hashes, step_ms, gather_ms = [], [], []
+    for step in range(DIST_RESNET_STEPS):
+        plane = zero.plane_of(tr._updater)
+        if level and step == DIST_RESNET_STEPS - 1:
+            inner = plane.gather_weights
+
+            def timed(weights, inner=inner):
+                torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                inner(weights)
+                torch.cuda.synchronize(dev)
+                gather_ms.append((time.perf_counter() - t) * 1e3)
+
+            plane.gather_weights = timed
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _zero_step(net, tr, step, r, n, ctx, loss_fn, cast)
+        torch.cuda.synchronize(dev)
+        if 0 < step < DIST_RESNET_STEPS - 1:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        if level:
+            hashes.append(_digest([p.data()._data
+                                   for _k, p in _trainable(net)]))
+    upd = tr._updater
+    plane = zero.plane_of(upd)
+    if level and (plane is None or plane.dp != n or plane.level != level):
+        fail("zero_resnet: MXNET_ZERO=%d ran no plane over %d ranks"
+             % (level, n))
+    reading = dict(
+        step_ms=float(np.mean(step_ms)),
+        state_bytes=zero.state_bytes_on(dev, upd),
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        staged_bytes=grp.staged_bytes - staged0,
+        hashes=hashes)
+    if level:
+        reading.update(
+            gather_ms=gather_ms[0], gather_bytes=plane.gather_bytes(),
+            gather_staged_bytes=_dist.STAGED_BYTES.value(op="all_gather")
+            - gather0,
+            padded_elements=sum(
+                plane.plan.bucket_layout(b)[1] -
+                sum(plane.plan.bucket_layout(b)[0])
+                for b in range(len(plane.plan.buckets))))
+        zero.materialize_updater(upd)
+    f1, m1 = _zero_counts()
+    reading["fallbacks"], reading["materializations"] = f1 - f0, m1 - m0
+    if f1 != f0:
+        fail("zero_resnet: %d ZeRO fallbacks at MXNET_ZERO=%d"
+             % (f1 - f0, level))
+    if m1 - m0 != (1 if level else 0):
+        fail("zero_resnet: %d materializations at MXNET_ZERO=%d (the "
+             "phase's own: %d)" % (m1 - m0, level, 1 if level else 0))
+    weights = [p.data()._data.detach().clone() for _k, p in _trainable(net)]
+    states = [t.detach().clone() for t in _states_of(tr)]
+    del net, tr
+    os.environ.pop("MXNET_ZERO")
+    return reading, weights, states
+
+
+def _rank_zero(out_dir):
+    """A rank of the zero job: zero_resnet's three cases, zero_ckpt's
+    saves and restores, and the preemption case's uninterrupted and
+    preempted runs. Prints ``rank <r>: ZERO {json}``; fails the rank on a
+    mismatch."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist, gluon
+
+    torch.backends.cudnn.deterministic = True
+    grp = _dist.group()
+    ctx = mx.current_context()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    cases = {}
+    for name, opt, params, level, cast in ZERO_CASES:
+        rep, w0, s0 = _zero_case(grp, ctx, loss_fn, opt, params, 0, cast)
+        got, w1, s1 = _zero_case(grp, ctx, loss_fn, opt, params, level, cast)
+        if len(s0) != len(s1) or not _bits_equal(w0 + s0, w1 + s1):
+            fail("zero_resnet %s: MXNET_ZERO=%d differs from MXNET_ZERO=0"
+                 % (name, level))
+        del w0, s0, w1, s1
+        cases[name] = dict(level=level, replicated=rep, sharded=got)
+    res = dict(backend=grp.backend, world=grp.world, cases=cases,
+               ckpt=_rank_zero_ckpt(grp, ctx, loss_fn, out_dir),
+               preempt=_rank_preempt(grp, ctx, loss_fn, out_dir))
+    print("rank %d: ZERO %s" % (grp.rank, json.dumps(res)), flush=True)
+
+
+def _rank_zero_ckpt(grp, ctx, loss_fn, out_dir):
+    """The sharded save of the SGD case after ZERO_CKPT_STEPS steps (sync,
+    then async), the 2-rank restore, and torn-write then drop-shard saves
+    of the newest epoch, each restore falling back to epoch 1."""
+    import torch
+
+    from mxnet_tpu_torch import elastic, telemetry
+    from mxnet_tpu_torch.fastpath import zero
+    from mxnet_tpu_torch.resilience import chaos
+
+    r, n, dev = grp.rank, grp.world, grp.device
+    _name, opt, params, _lv, _cast = ZERO_CASES[0]
+    os.environ["MXNET_ZERO"] = "1"
+    torch.cuda.empty_cache()
+    net, tr = _zero_net(ctx, opt, params, None)
+    for step in range(ZERO_CKPT_STEPS):
+        _zero_step(net, tr, step, r, n, ctx, loss_fn, None)
+    d = os.path.join(out_dir, "ckpt")
+    cm = elastic.CheckpointManager(d, max_keep=0)
+    m0 = zero.MATERIALIZATIONS.value()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with ctx:
+        cm.save_training(0, net=net, trainer=tr)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with ctx:
+        cm.save_training(1, net=net, trainer=tr, async_save=True)
+    async_ms = (time.perf_counter() - t0) * 1e3
+    cm.wait()
+    async_total_ms = (time.perf_counter() - t0) * 1e3
+    if zero.MATERIALIZATIONS.value() != m0:
+        fail("zero_ckpt: the sharded save materialized the states")
+    manifest = json.load(open(cm._manifest_path(1)))
+    shard_files = sorted(s["file"] for s in manifest["shards"])
+    if shard_files != ["ckpt-0001.shard%d-of-%d" % (i, n)
+                       for i in range(n)] or not all(
+            os.path.isfile(os.path.join(d, f)) for f in shard_files):
+        fail("zero_ckpt: shard files %s" % shard_files)
+    shard_bytes = os.path.getsize(cm._shard_path(1, r, n))
+    zero.materialize_updater(tr._updater)
+    want = _digest(_states_of(tr))
+    net2, tr2 = _zero_net(ctx, opt, params, None)
+    t0 = time.perf_counter()
+    with ctx:
+        epoch = cm.restore_training(net=net2, trainer=tr2)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if epoch != 1 or _digest(_states_of(tr2)) != want:
+        fail("zero_ckpt: the 2-rank restore (epoch %d) differs" % epoch)
+    falls = {}
+    _zero_step(net, tr, ZERO_CKPT_STEPS, r, n, ctx, loss_fn, None)
+    for e, action in ((2, "torn-write"), (3, "drop-shard")):
+        with ctx, chaos.active("site=ckpt.shard,at=1,action=%s" % action):
+            cm.save_training(e, net=net, trainer=tr)
+        c0 = telemetry.CKPT_CORRUPTION.value()
+        with ctx:
+            got = cm.restore_training(net=net2, trainer=tr2)
+        falls[action] = dict(restored=got, latest=cm.latest_epoch(),
+                             corruption=telemetry.CKPT_CORRUPTION.value()
+                             - c0)
+        if got != 1 or falls[action]["corruption"] < 1 or \
+                _digest(_states_of(tr2)) != want:
+            fail("zero_ckpt: %s of epoch %d restored epoch %d (%s)"
+                 % (action, e, got, falls[action]))
+    os.environ.pop("MXNET_ZERO")
+    del net, tr, net2, tr2
+    return dict(dir=d, states_sha256=want, save_sync_ms=sync_ms,
+                save_async_caller_ms=async_ms,
+                save_async_total_ms=async_total_ms, restore_ms=restore_ms,
+                shard_bytes=shard_bytes, materializations_in_save=0,
+                fallbacks=falls)
+
+
+def _preempt_train_fn(grp, ctx, loss_fn, flag=None):
+    """PREEMPT_STEPS steps of the SGD case at MXNET_ZERO=1 from the newest
+    committed step of the manager; with ``flag``, rank 0 writes the
+    preemption notice after step PREEMPT_AT. Returns the final digests."""
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.fastpath import zero
+
+    r, n = grp.rank, grp.world
+    _name, opt, params, _lv, _cast = ZERO_CASES[0]
+
+    def train_fn(start_epoch, manager):
+        net, tr = _zero_net(ctx, opt, params, None)
+        with ctx:
+            manager.restore_training(net=net, trainer=tr)
+        extra = manager.last_restored_extra or {}
+        first = extra.get("step", -1) + 1
+        for step in range(first, PREEMPT_STEPS):
+            def save(s=step - 1):
+                with ctx:
+                    manager.save_training(s, net=net, trainer=tr,
+                                          extra={"step": s})
+
+            elastic.step_boundary(manager=manager, save_fn=save)
+            _zero_step(net, tr, step, r, n, ctx, loss_fn, None)
+            if flag and r == 0 and step == PREEMPT_AT:
+                open(flag, "w").close()
+        zero.materialize_updater(tr._updater)
+        aux = [p.data()._data for _k, p in _aux(net)]
+        return dict(weights=_digest([p.data()._data
+                                     for _k, p in _trainable(net)]),
+                    states=_digest(_states_of(tr)), aux=_digest(aux),
+                    num_update=tr._optimizer.num_update)
+
+    return train_fn
+
+
+def _rank_preempt(grp, ctx, loss_fn, out_dir):
+    """The uninterrupted run, then the run whose notice reaches rank 0
+    only: every rank must commit the same step and raise Preempted."""
+    from mxnet_tpu_torch import elastic
+
+    os.environ["MXNET_ZERO"] = "1"
+    ref = elastic.run_elastic(
+        _preempt_train_fn(grp, ctx, loss_fn),
+        elastic.CheckpointManager(os.path.join(out_dir, "preempt_ref")),
+        max_restarts=0, restart_delay=0)
+    d = os.path.join(out_dir, "preempt")
+    cm = elastic.CheckpointManager(d)
+    flag = os.path.join(out_dir, "evict-notice")
+    if grp.rank == 0:
+        os.environ["MXNET_PREEMPTION_FILE"] = flag
+    try:
+        elastic.run_elastic(_preempt_train_fn(grp, ctx, loss_fn, flag), cm,
+                            max_restarts=0, restart_delay=0)
+        fail("preempt: the run finished without the notice")
+    except elastic.Preempted:
+        pass
+    os.environ.pop("MXNET_PREEMPTION_FILE", None)
+    os.environ.pop("MXNET_ZERO")
+    elastic.clear_preemption()
+    grp.barrier()
+    if grp.rank == 0:
+        os.remove(flag)
+    return dict(ref=ref, dir=d, committed=cm.latest_epoch())
+
+
+def _rank_resume(ckpt_dir):
+    """A rank of the resume job: the preempted run of the zero job
+    resumed from its committed step to PREEMPT_STEPS."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist, elastic, gluon
+
+    torch.backends.cudnn.deterministic = True
+    grp = _dist.group()
+    os.environ["MXNET_ZERO"] = "1"
+    cm = elastic.CheckpointManager(ckpt_dir)
+    start = cm.latest_epoch()
+    got = elastic.run_elastic(
+        _preempt_train_fn(grp, mx.current_context(),
+                          gluon.loss.SoftmaxCrossEntropyLoss()),
+        cm, max_restarts=0, restart_delay=0)
+    got["resumed_after"] = start
+    print("rank %d: RESUME %s" % (grp.rank, json.dumps(got)), flush=True)
+
+
+def zero_resnet(ranks, secs):
+    """The zero job's cases: the ranks hash alike after every step, the
+    readings of both levels, and each rank's states at most the replicated
+    figure over the ranks plus the padding."""
+    cases = {}
+    for name, _opt, _p, level, cast in ZERO_CASES:
+        per = [rk["cases"][name] for rk in ranks]
+        if per[0]["sharded"]["hashes"] != per[1]["sharded"]["hashes"] or \
+                len(per[0]["sharded"]["hashes"]) != DIST_RESNET_STEPS:
+            fail("zero_resnet %s: the ranks' weights differ" % name)
+        for rk in per:
+            # every state slot of the three cases is float32, at most two
+            # a bucket; the padding is under one element a rank a bucket
+            rep, sh = rk["replicated"]["state_bytes"], \
+                rk["sharded"]["state_bytes"]
+            bound = rep / len(ranks) + rk["sharded"]["padded_elements"] * 8
+            if sh > bound:
+                fail("zero_resnet %s: %d state bytes a rank against %d "
+                     "replicated" % (name, sh, rep))
+        cases[name] = dict(
+            level=level, dtype=cast or "float32",
+            bit_equal_to_replicated=True, hashes_equal_across_ranks=True,
+            **{"rank%d" % i: {lv: {k: v for k, v in rk[lv].items()
+                                   if k != "hashes"}
+                              for lv in ("replicated", "sharded")}
+               for i, rk in enumerate(per)})
+    phase("zero_resnet", steps=DIST_RESNET_STEPS, batch_a_rank=RESNET_BATCH,
+          ranks=len(ranks), backend=ranks[0]["backend"], job_s=secs,
+          card=CARD, cases=cases)
+
+
+def zero_ckpt(ranks, secs):
+    """The zero job's sharded checkpoint: the save moved no
+    materialization, each rank's restore and fallbacks passed (checked in
+    the ranks), and a restore in this process (one rank, no plane) gives
+    the materialized states' digest."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import elastic
+
+    ck = [rk["ckpt"] for rk in ranks]
+    if ck[0]["states_sha256"] != ck[1]["states_sha256"]:
+        fail("zero_ckpt: the ranks' materialized states differ")
+    _name, opt, params, _lv, _cast = ZERO_CASES[0]
+    ctx = mx.current_context()
+    net, tr = _zero_net(ctx, opt, params, None, kvstore="device")
+    cm = elastic.CheckpointManager(ck[0]["dir"], max_keep=0)
+    t0 = time.perf_counter()
+    with ctx:
+        epoch = cm.restore_training(net=net, trainer=tr)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    if epoch != 1 or _digest(_states_of(tr)) != ck[0]["states_sha256"]:
+        fail("zero_ckpt: the 1-rank restore (epoch %d) differs" % epoch)
+    del net, tr
+    torch.cuda.empty_cache()
+    phase("zero_ckpt", ranks=len(ranks), job_s=secs, card=CARD,
+          one_rank_restore_ms=one_ms, one_rank_restore_equal=True,
+          two_rank_restore_equal=True,
+          **{"rank%d" % i: {k: v for k, v in c.items() if k != "dir"}
+             for i, c in enumerate(ck)})
+
+
+def _fit_run(ckpt_dir, kill):
+    """trainplane.fit(checkpoint=) of resnet50_v1 at batch 32 on this
+    process under run_elastic; with ``kill``, chaos kill at the
+    ELASTIC_KILL_AT-th step boundary. Returns the final digests, each
+    attempt's steps and captures (``mxnet_recompiles_total`` of the
+    plane's site) and the restarts."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import elastic, gluon, telemetry, trainplane
+    from mxnet_tpu_torch.resilience import chaos
+
+    ctx = mx.current_context()
+    n = ELASTIC_BATCHES * RESNET_BATCH
+    rs = np.random.RandomState(7)
+    xs = rs.rand(n, 3, RESNET_SIDE, RESNET_SIDE).astype(np.float32)
+    ys = rs.randint(0, RESNET_CLASSES, n).astype(np.float32)
+    cm = elastic.CheckpointManager(ckpt_dir)
+    site = trainplane.TrainPlane._site
+    attempts, final = [], {}
+
+    def train_fn(start_epoch, manager):
+        net, tr = _zero_net(ctx, "sgd", DIST_RESNET_SGD, None,
+                            kvstore="device")
+        with ctx:
+            it = mx.io.NDArrayIter(xs, ys, batch_size=RESNET_BATCH)
+        steps = []
+        c0 = telemetry.RECOMPILES.value(site=site)
+        try:
+            with ctx:
+                plane = trainplane.fit(
+                    net, gluon.loss.SoftmaxCrossEntropyLoss(), tr, it,
+                    epochs=ELASTIC_EPOCHS, checkpoint=manager,
+                    batch_end_callback=lambda *a: steps.append(1))
+        finally:
+            attempts.append(dict(
+                start_epoch=start_epoch, steps=len(steps),
+                captures=telemetry.RECOMPILES.value(site=site) - c0))
+        attempts[-1]["plane"] = plane.plane
+        final.update(net=net, tr=tr, it=it)
+        return "done"
+
+    r0 = telemetry.ELASTIC_RESTARTS.value(reason="exception")
+    t0 = time.perf_counter()
+    if kill:
+        with chaos.active("site=elastic.step,at=%d,action=kill"
+                          % ELASTIC_KILL_AT):
+            elastic.run_elastic(train_fn, cm, max_restarts=2,
+                                restart_delay=0)
+    else:
+        elastic.run_elastic(train_fn, cm, max_restarts=0, restart_delay=0)
+    wall = time.perf_counter() - t0
+    net, tr, it = final["net"], final["tr"], final["it"]
+    got = dict(weights=_digest([p.data()._data for _k, p in _trainable(net)]),
+               aux=_digest([p.data()._data for _k, p in _aux(net)]),
+               states=_digest(_states_of(tr)), cursor=int(it.cursor),
+               num_update=tr._optimizer.num_update,
+               counts=sorted(tr._optimizer._index_update_count.items()),
+               restarts=telemetry.ELASTIC_RESTARTS.value(
+                   reason="exception") - r0,
+               goodput=telemetry.ELASTIC_GOODPUT.value(),
+               attempts=attempts, latest=cm.latest_epoch(), wall_s=wall)
+    del net, tr, final
+    torch.cuda.empty_cache()
+    return got
+
+
+def elastic_resume(tmp):
+    """fit(checkpoint=) on one rank: killed at a step boundary and resumed
+    by run_elastic, bit for bit against the uninterrupted run (weights,
+    moving statistics, states, cursor, counters), one restart, the goodput
+    gauge set, one capture an attempt; then the preemption case's resume
+    job against its uninterrupted run."""
+    import torch
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = _fit_run(os.path.join(tmp, "fit_ref"), kill=False)
+        got = _fit_run(os.path.join(tmp, "fit_kill"), kill=True)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    for k in ("weights", "aux", "states", "cursor", "num_update", "counts",
+              "latest"):
+        if got[k] != ref[k]:
+            fail("elastic_resume: %s differs after the resume (%s, %s)"
+                 % (k, got[k], ref[k]))
+    if ref["restarts"] != 0 or got["restarts"] != 1:
+        fail("elastic_resume: %d restarts (1 expected)" % got["restarts"])
+    if not 0.0 < got["goodput"] <= 1.0:
+        fail("elastic_resume: goodput gauge %r" % got["goodput"])
+    tries = got["attempts"] + ref["attempts"]
+    if len(tries) != 3 or any(a["captures"] != 1 for a in tries) or \
+            any(a.get("plane", "graph") != "graph" for a in tries):
+        fail("elastic_resume: one capture an attempt on the graph plane "
+             "expected: %s" % tries)
+    return ref, got
+
+
+def _preempted(zero_ranks):
+    """The zero job's preempted run: both ranks committed step
+    PREEMPT_AT; returns each rank's readings."""
+    pre = [rk["preempt"] for rk in zero_ranks]
+    if pre[0]["committed"] != pre[1]["committed"] or \
+            pre[0]["committed"] != PREEMPT_AT:
+        fail("preempt: the ranks committed steps %s (%d expected)"
+             % ([p["committed"] for p in pre], PREEMPT_AT))
+    return pre
+
+
+def elastic_preempt_resume(pre, job):
+    """The zero job's preempted run resumed by a new 2-rank job (``job``,
+    started on ``pre[0]["dir"]``), against the uninterrupted run of the
+    zero job (trainable weights, states and counters on both ranks; rank
+    0's moving statistics, which the checkpoint holds)."""
+    out, secs = _dist_wait("elastic_resume", 2, job)
+    resumed = _rank_lines(out, 2, "RESUME")
+    for r, (got, p) in enumerate(zip(resumed, pre)):
+        keys = ("weights", "states", "num_update") + (("aux",) if r == 0
+                                                      else ())
+        for k in keys:
+            if got[k] != p["ref"][k]:
+                fail("preempt: rank %d's %s differs after the resume"
+                     % (r, k))
+        if got["resumed_after"] != PREEMPT_AT:
+            fail("preempt: rank %d resumed after step %d" % (
+                r, got["resumed_after"]))
+    return dict(committed_step=pre[0]["committed"], resume_job_s=secs,
+                bit_equal=True)
+
+
+def elastic_kill(job):
+    """The nightly kill script on 3 ranks sharing the card (``job``): rank
+    2 dies, every survivor detects it and resumes through run_elastic."""
+    out, secs = _dist_wait("elastic_kill", 3, job)
+    want = ["rank 2: DYING_NOW"] + [
+        "rank %d: %s" % (r, m) for r in (0, 1)
+        for m in ("DEAD_NODE_DETECTED", "ELASTIC_RESUME_OK")]
+    missing = [m for m in want if m not in out]
+    if missing:
+        print(out[-4000:], flush=True)
+        fail("elastic_kill: no %s" % missing)
+    phase("elastic_kill", ranks=3, job_s=secs, markers=len(want),
+          backend=_expected_backend(3), card=CARD)
+
+
+def elastic_phases():
+    """The sharded-state and elastic slice's phases (no kernel of the
+    five runs on these paths): one 2-rank job for zero_resnet, zero_ckpt
+    and the preempted run; then the resume job and the 3-rank kill job
+    run beside fit under run_elastic in this process (the script's time
+    limit: a job spends 13-22 s starting)."""
+    import torch
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    with tempfile.TemporaryDirectory() as tmp:
+        out, secs = _dist_job("zero_resnet", 2, [
+            sys.executable, "chip_smoke.py", "--dist-rank", "zero", tmp])
+        ranks = _rank_lines(out, 2, "ZERO")
+        zero_resnet(ranks, secs)
+        zero_ckpt(ranks, secs)
+        pre = _preempted(ranks)
+        resume_job = _dist_start(2, [
+            sys.executable, "chip_smoke.py", "--dist-rank", "resume",
+            pre[0]["dir"]])
+        kill_job = _dist_start(3, [
+            sys.executable, os.path.join("tests", "nightly",
+                                         "torch_dist_elastic_kill.py")])
+        try:
+            ref, got = elastic_resume(tmp)
+            preempt = elastic_preempt_resume(pre, resume_job)
+            phase("elastic_resume", batch=RESNET_BATCH,
+                  epochs=ELASTIC_EPOCHS, batches_an_epoch=ELASTIC_BATCHES,
+                  kill_at_boundary=ELASTIC_KILL_AT, bit_equal=True,
+                  restarts=got["restarts"], goodput=got["goodput"],
+                  attempts=got["attempts"], steady_state_recompiles=0,
+                  killed_wall_s=got["wall_s"],
+                  uninterrupted_wall_s=ref["wall_s"], preempt=preempt,
+                  card=CARD)
+            elastic_kill(kill_job)
+        finally:  # a failed check stops the jobs it left running
+            _dist_stop(resume_job)
+            _dist_stop(kill_job)
+
+
 def dist_rank(argv):
     """``chip_smoke.py --dist-rank nightly SCRIPT... | ring | resnet
-    OUT_DIR``: one rank of a dist_kvstore, dist_ring or dist_resnet job,
-    started by the port's launcher."""
+    OUT_DIR | zero OUT_DIR | resume CKPT_DIR``: one rank of a
+    dist_kvstore, dist_ring, dist_resnet, zero or resume job, started by
+    the port's launcher."""
     from mxnet_tpu_torch import kvstore
 
     if not kvstore.init_distributed():
@@ -9151,6 +9826,10 @@ def dist_rank(argv):
         _rank_ring()
     elif argv[0] == "resnet":
         _rank_resnet(argv[1])
+    elif argv[0] == "zero":
+        _rank_zero(argv[1])
+    elif argv[0] == "resume":
+        _rank_resume(argv[1])
     else:
         fail("--dist-rank: unknown job %r" % argv[0])
     return 0
@@ -9268,6 +9947,14 @@ def main():
         # only the distributed slice's phases (no kernel is built: the
         # paths run none)
         dist_phases()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--elastic"]:
+        # only the sharded-state and elastic phases (no kernel is built:
+        # the paths run none)
+        elastic_phases()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -9405,6 +10092,7 @@ def main():
     nms_entry["launches"] += vision_phases()
     imagenet_phases()
     dist_phases()
+    elastic_phases()
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
                                   nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,8 @@ import torch.distributed as dist
 from .base import MXNetError
 from .telemetry import registry as _registry
 
-__all__ = ["Group", "init", "group", "world_size", "rank", "STAGED_BYTES"]
+__all__ = ["Group", "init", "group", "world_size", "rank", "connect_store",
+           "store_barrier", "STAGED_BYTES"]
 
 #: bytes a collective moved between a card and pinned host memory (gloo
 #: with card tensors), by collective
@@ -156,10 +157,15 @@ class Group(object):
         return out
 
     def all_gather(self, out: torch.Tensor, inp: torch.Tensor):
-        """``out[j]`` = rank ``j``'s ``inp`` (``out``: world x inp)."""
+        """``out[j]`` = rank ``j``'s ``inp`` (``out``: world x inp,
+        contiguous). One collective into ``out``'s own memory (no copy a
+        rank): a flat bucket gathers as ``out.view(world, -1)``, and
+        ``inp`` may be this rank's row of ``out`` itself."""
         h_in, = self._down("all_gather", [inp])
         h_out, = self._down("all_gather", [out], slot0=1, copy=False)
-        dist.all_gather(list(h_out.unbind(0)), h_in)
+        gather = getattr(dist, "all_gather_single", None) or \
+            dist.all_gather_into_tensor
+        gather(h_out.view(-1), h_in.reshape(-1))
         self._up("all_gather", [out], [h_out])
         return out
 
@@ -189,6 +195,39 @@ class Group(object):
 
 def group() -> Optional[Group]:
     return _GROUP
+
+
+def connect_store(timeout: float = 30.0):
+    """A connection of this thread's own to the job's store (the prefix
+    of the job's token), for threads beside the main one (the heartbeat,
+    the checkpoint writer): a store client is not used from two threads
+    at once."""
+    host, port, token = _GROUP.address
+    return dist.PrefixStore("mxtpu/%s/" % (token or "job"), dist.TCPStore(
+        host, port, is_master=False, wait_for_workers=False,
+        timeout=datetime.timedelta(seconds=timeout)))
+
+
+def store_barrier(store, key: str, world: int, timeout: float, what: str,
+                  rank: int = 0, wait_all: bool = True):
+    """Every rank of ``world`` adds one to ``key``; the rank that makes the
+    count whole sets ``key/all``. With ``wait_all`` every rank then waits
+    for that mark, else only ``rank`` 0 does (its peers go on). Through
+    the store and not the training group's collectives, so it may run on
+    any thread while the main one runs the step's collectives. Raises
+    ``MXNetError`` naming ``what`` when the other ranks do not arrive
+    within ``timeout`` seconds."""
+    if store.add(key, 1) == world:
+        store.set(key + "/all", "1")
+    if not (wait_all or rank == 0):
+        return
+    try:
+        store.wait([key + "/all"], datetime.timedelta(seconds=timeout))
+    except RuntimeError as exc:  # the store's timeout
+        raise MXNetError(
+            "%s: rank %d waited %.0f s for the other ranks of %d to reach "
+            "it; every rank must call it together" % (what, rank, timeout,
+                                                      world)) from exc
 
 
 def world_size() -> int:

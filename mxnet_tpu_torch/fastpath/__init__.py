@@ -15,8 +15,11 @@ whole step.
 :mod:`.bucketing` packs small gradients into flat buckets for the
 kvstore's aggregate phase across copies or ranks.
 
-Not ported yet: buffer donation (the port updates in place, so there is
-no stale handle to guard), ``cache`` and ``zero``.
+:mod:`.zero` shards the optimizer states over the job's ranks
+(``MXNET_ZERO``); :func:`apply_updater` hands it the update first.
+
+Not ported: buffer donation (the port updates in place, so there is no
+stale handle to guard) and ``cache``.
 """
 from __future__ import annotations
 

@@ -107,21 +107,33 @@ def apply_updater(updater, triples, positions: int = 1):
     w)`` loop in Trainer and Module. Creates missing states as
     ``Updater.__call__`` would, and moves a state that predates its
     weight's master layout to it, as ``update_multi_precision`` does.
-    ``positions`` (the caller's device positions) is kept for the JAX
-    package's signature; the port trains on one."""
+    Under ``MXNET_ZERO`` the sharded plane (:mod:`.zero`) takes the
+    update first (``mxnet_tpu/fastpath/fused.py:253-283``); what it
+    declines, counted by reason, runs here replicated, its states
+    materialized first (a collective in a job, where a plane was
+    attached). ``positions`` is the caller's count of device positions;
+    the port trains on one."""
     if not triples:
         return
+    from . import zero
+
     opt = updater.optimizer
     for index, _grad, weight in triples:
         if index not in updater.states:
             updater.states[index] = opt.create_state_multi_precision(
                 index, weight)
-        else:
+        elif not zero.is_sharded(updater.states[index]):
             updater.states[index] = ensure_mp_state(
                 opt, index, weight, updater.states[index])
+    if zero.level() and zero.apply(updater, triples, positions):
+        return
     indices = [t[0] for t in triples]
+    # a declined sharded step (or the knob turned off) leaves plain
+    # states; a formerly sharded one may predate a multi_precision flip
+    states = [ensure_mp_state(opt, i, w, s) for (i, _g, w), s in
+              zip(triples, zero.ensure_materialized(updater, indices))]
     new_states = fused_apply(
         opt, indices, [t[1] for t in triples], [t[2] for t in triples],
-        [updater.states[i] for i in indices])
+        states)
     for i, s in zip(indices, new_states):
         updater.states[i] = s

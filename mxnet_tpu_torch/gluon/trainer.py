@@ -28,7 +28,10 @@ the updater's states with the optimizer: numpy arrays and plain Python
 (``Updater.get_states``), copied back into the live state tensors where
 they have the shape, with the optimizer's counters and schedule. The
 file names the optimizer's class by its module path, so a Trainer's
-states file loads in the package that wrote it only.
+states file loads in the package that wrote it only. Under ``MXNET_ZERO``
+in a job, ``save_states`` materializes the sharded states first
+(``fastpath.zero``: a collective, so every rank calls it), and
+``load_states`` drops the plane; the next step shards again.
 """
 from __future__ import annotations
 

@@ -166,14 +166,20 @@ def _init_data(data, allow_empty, default_name):
         if not data and not allow_empty:
             raise MXNetError("data must not be empty")
         if len(data) == 1:
-            data = [(default_name, data[0])]
+            data = OrderedDictItems([(default_name, data[0])])
         else:
-            data = [("_%d_%s" % (i, default_name), d)
-                    for i, d in enumerate(data)]
+            data = OrderedDictItems([("_%d_%s" % (i, default_name), d)
+                                     for i, d in enumerate(data)])
     if isinstance(data, dict):
-        data = sorted(data.items())
+        data = OrderedDictItems(sorted(data.items()))
     return [(k, v.asnumpy() if isinstance(v, NDArray) else np.asarray(v))
             for k, v in data]
+
+
+class OrderedDictItems(list):
+    """The ``(name, array)`` pairs of an iterator's inputs, in order
+    (``mxnet_tpu/io.py:172``): a list, so a list of pairs given as
+    ``data`` is told apart from a list of arrays."""
 
 
 class NDArrayIter(DataIter):

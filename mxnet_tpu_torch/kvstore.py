@@ -331,11 +331,16 @@ class KVStore(object):
     # ------------------------------------------------------------------
     def set_optimizer(self, optimizer):
         """Run ``optimizer`` inside the store at every push (reference
-        kvstore.py:450)."""
+        kvstore.py:450). The store's updater steps the store's own weight
+        copies, so it never takes the sharded plane (``fastpath.zero``):
+        it opts out as ``update_on_kvstore``, as in the JAX package."""
         self._updater = opt.get_updater(optimizer)
+        self._updater._zero_opt_out = "update_on_kvstore"
 
     def _set_updater(self, updater):
         self._updater = updater
+        if hasattr(updater, "states"):
+            updater._zero_opt_out = "update_on_kvstore"
 
     def _can_fuse_pushpull(self):
         """Whether callers may take :meth:`pushpull_multi`: no updater, no

@@ -1,10 +1,10 @@
-"""Auto-naming of blocks: the port of ``mxnet_tpu/name.py``'s
-``NameManager`` (the part Gluon's name scopes use)."""
+"""Auto-naming of blocks and symbols: the port of ``mxnet_tpu/name.py``
+(``NameManager`` and ``Prefix``)."""
 from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager"]
+__all__ = ["NameManager", "Prefix"]
 
 
 class NameManager(object):
@@ -36,3 +36,16 @@ class NameManager(object):
         if not hasattr(NameManager._current, "value"):
             NameManager._current.value = NameManager()
         return NameManager._current.value
+
+
+class Prefix(NameManager):
+    """Prepends ``prefix`` to every name it gives (reference
+    ``name.py:Prefix``, ``mxnet_tpu/name.py:49``)."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        name = super().get(name, hint)
+        return self._prefix + name

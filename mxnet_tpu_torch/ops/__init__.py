@@ -32,10 +32,11 @@ from __future__ import annotations
 from . import (control_flow, detection, flash_attention, linalg, misc_tail,
                nms, nn, optimizer_ops, paged_attention, quantization,
                random_ops, registry, sparse, tensor, vision)
+from .registry import OP_REGISTRY, get_op, list_ops
 
 __all__ = ["control_flow", "detection", "flash_attention", "linalg",
            "misc_tail", "nms", "nn", "optimizer_ops", "paged_attention",
            "quantization", "random_ops", "registry", "sparse", "tensor",
-           "vision"]
+           "vision", "OP_REGISTRY", "get_op", "list_ops"]
 
 from .. import operator as _operator  # noqa: E402,F401  (registers Custom)

@@ -24,8 +24,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..base import MXNetError, dtype_name, parser_for
 
-__all__ = ["OpDef", "register", "register_ex", "get_op", "AttrDict",
-           "OP_REGISTRY", "REQUIRED"]
+__all__ = ["OpDef", "register", "register_ex", "get_op", "list_ops",
+           "AttrDict", "OP_REGISTRY", "REQUIRED"]
 
 OP_REGISTRY: Dict[str, "OpDef"] = {}
 
@@ -189,3 +189,9 @@ def get_op(name: str) -> OpDef:
         return OP_REGISTRY[name]
     except KeyError:
         raise MXNetError("operator %r is not registered" % (name,))
+
+
+def list_ops() -> List[str]:
+    """Every registered operator name, sorted (``mxnet_tpu/ops/
+    registry.py:253``)."""
+    return sorted(OP_REGISTRY.keys())

@@ -218,6 +218,12 @@ class Optimizer(object):
     #: its calls is then observable (``fastpath.supports``).
     _host_scalars_stateful = False
 
+    #: True where :meth:`_leaf_step` is elementwise: each element of a
+    #: weight and its states depends on the same elements only, so the
+    #: kernel may run on any slice of them (``fastpath.zero``'s shards).
+    #: False for LBSGD (layer-wise norms) and SGLD (noise drawn by shape).
+    _leaf_step_pointwise = True
+
     @property
     def fastpath_capable(self):
         """Whether ``fastpath.fused_apply`` can fold this optimizer's whole
@@ -549,6 +555,7 @@ class SGLD(Optimizer):
     the weight's device, one draw a parameter in parameter order."""
 
     _host_scalars_stateful = True  # draws from the device's stream
+    _leaf_step_pointwise = False   # the noise draw depends on the shape
 
     def _leaf_step(self, ws, gs, states, ts, lrs, wds, lr_scale=None,
                    extras=None):
@@ -705,6 +712,8 @@ class DCASGD(Optimizer):
 class LBSGD(Optimizer):
     """Large-batch SGD with the LARS layer-wise rate ``|w| / (|g| +
     1e-9)`` (1 where a norm is 0), the JAX package's simplified core."""
+
+    _leaf_step_pointwise = False  # layer-wise w/g norms are cross-element
 
     def __init__(self, momentum=0.0, multi_precision=False,
                  warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
@@ -1001,15 +1010,28 @@ class Updater(object):
         if index not in self.states:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
+        elif getattr(self.states[index], "_is_zero_shard", False):
+            # an eager per-parameter update between sharded steps needs
+            # the plain layout: the whole plane materializes (a collective
+            # in a job: every rank makes this call) and the next sharded
+            # step adopts again
+            from .fastpath import zero
+
+            zero.materialize_updater(self)
         self.states[index] = self.optimizer.update_multi_precision(
             index, weight, grad, self.states[index])
 
     def get_states(self, dump_optimizer=False):
         """The states as bytes: a pickle of ``{index: state}`` with numpy
         leaves (one batched transfer from the card), and with
-        ``dump_optimizer`` the pair ``(states, optimizer)``."""
+        ``dump_optimizer`` the pair ``(states, optimizer)``. Sharded
+        states (``fastpath.zero``) are materialized first, so a states
+        file never depends on the ranks it was trained on; in a job that
+        is a collective, and every rank makes this call."""
         from .base import fetch_host
+        from .fastpath import zero
 
+        zero.materialize_updater(self)
         leaves = [t for s in self.states.values() for t in _state_leaves(s)]
         it = iter(fetch_host(leaves))
         host = {k: _rebuild_state(s, it) for k, s in self.states.items()}
@@ -1028,27 +1050,53 @@ class Updater(object):
         into a new tensor on ``device`` (by default the live state's
         device, else the current context). A pickled optimizer replaces
         this one."""
-        from .context import current_context
-        from .ndarray.io_utils import device_arrays
-
         obj = _StatesUnpickler(io.BytesIO(states)).load()
         if isinstance(obj, tuple) and len(obj) == 2:
             obj, self.optimizer = obj
+        self._install(obj, device)
+
+    def adopt_states(self, states, optimizer=None, device=None):
+        """Install plain per-index ``states`` (trees of numpy arrays or
+        tensors) with no pickle round trip: the restore of a sharded
+        checkpoint (``elastic``) rebuilds them from the shard files
+        (``fastpath.zero.states_from_export``) and hands them here. Any
+        attached sharded plane is dropped (the next sharded step adopts
+        again over the job's ranks); each array goes into the live state
+        tensor of its index and place where it has that shape (in place,
+        cast), else into a new tensor on ``device`` (as
+        :meth:`set_states`). ``optimizer``, when given, replaces this one,
+        with its step counters."""
+        if optimizer is not None:
+            self.optimizer = optimizer
+        self._install(dict(states), device)
+
+    def _install(self, obj, device):
+        from .context import current_context
+        from .ndarray.io_utils import device_arrays
+
+        plane = getattr(self, "_zero_plane", None)
+        self._zero_plane = None
         live = self.states
         pairs = [pair for k, v in obj.items()
                  for pair in _state_pairs(live.get(k), v)]
         if device is None:
             device = next((t.device for t, _ in pairs if t is not None),
                           None)
+        if device is None and plane is not None:
+            device = plane.device
         if device is None:
             device = current_context().torch_device()
-        tensors = iter(device_arrays([a for _, a in pairs], device))
+        arrays = [a for _, a in pairs]
+        host = [i for i, a in enumerate(arrays)
+                if not isinstance(a, torch.Tensor)]
+        moved = dict(zip(host, device_arrays([arrays[i] for i in host],
+                                             device)))
         restored = []
         with torch.no_grad():
-            for old, _ in pairs:
-                new = next(tensors)
+            for i, (old, a) in enumerate(pairs):
+                new = moved[i] if i in moved else a
                 if old is None:
-                    restored.append(new)
+                    restored.append(new.to(device))
                 else:
                     old.copy_(new)
                     restored.append(old)
@@ -1108,8 +1156,10 @@ def _state_pairs(live, saved):
         same = isinstance(live, (tuple, list)) and len(live) == len(saved)
         return [p for i, s in enumerate(saved)
                 for p in _state_pairs(live[i] if same else None, s)]
+    shape = saved.shape if isinstance(saved, torch.Tensor) \
+        else np.shape(saved)
     keep = isinstance(live, torch.Tensor) and \
-        tuple(live.shape) == tuple(np.shape(saved))
+        tuple(live.shape) == tuple(shape)
     return [(live if keep else None, saved)]
 
 

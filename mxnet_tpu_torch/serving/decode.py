@@ -107,6 +107,7 @@ the JAX engine does on one local device.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import logging
 import threading
@@ -929,6 +930,13 @@ class DecodeEngine:
             torch.cuda.current_stream(self.device).wait_stream(stream)
             graph = torch.cuda.CUDAGraph()
             before = _pa.launch_counts()
+            # no garbage collection inside the capture: a collection on
+            # this thread could destroy an unreachable engine's graph
+            # here, a call a thread_local capture refuses on its own
+            # thread (the capture is then invalidated); torch.cuda.graph
+            # collects once before it begins
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.graph(graph, stream=stream,
                                       capture_error_mode="thread_local"):
@@ -939,6 +947,8 @@ class DecodeEngine:
                     "graph failed: %s" % (self._name, path.key[0], path.key,
                                           exc)) from exc
             finally:
+                if collecting:
+                    gc.enable()
                 # the capture ran the wrappers but launched nothing
                 after = _pa.launch_counts()
                 launches = (after[0] - before[0], after[1] - before[1])

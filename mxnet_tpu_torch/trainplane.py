@@ -87,15 +87,23 @@ Anything else propagates. With ``MXNET_DEVPROF_SAMPLE`` > 0 a graph
 step is a devprof step scope: its replay is timed by a CUDA event pair
 (site ``trainplane.step``) into ``mxnet_train_step_ms``.
 
-Not ported yet (they raise): ``MXNET_ZERO``, a mesh of several devices,
-``fit``'s elastic checkpoints, and the planes across the ranks of a job:
-a ``TrainPlane``, and a module that would take the module plane, in a
-job of several ranks raise "across N ranks is not ported yet" (a captured
-step would need the gradient collective inside its graph) rather than
-train each rank on its own; a module with a kvstore takes the eager path
-through the store there, as on one process. ``TrainPlane.feed_sharding``
-gives the sharding batches should arrive in (``parallel.batch_sharding``
-over the plane's mesh).
+``MXNET_ZERO`` (``fastpath.zero``): the plane trains on one rank, where
+sharding is a no-op, so each step declines with the JAX package's
+"1-device mesh (sharding is a no-op)" reason, counted in
+``mxnet_zero_fallbacks_total``, and runs replicated, as the JAX plane
+does on a 1-device mesh. :func:`fit` takes ``checkpoint=`` (an
+``elastic.CheckpointManager``): it resumes from the last committed epoch,
+calls ``elastic.step_boundary`` before every batch and saves every
+``checkpoint_every`` epochs.
+
+Not ported yet (they raise): a mesh of several devices and the planes
+across the ranks of a job: a ``TrainPlane``, and a module that would take
+the module plane, in a job of several ranks raise "across N ranks is not
+ported yet" (a captured step would need the gradient collective inside
+its graph) rather than train each rank on its own; a module with a
+kvstore takes the eager path through the store there, as on one process.
+``TrainPlane.feed_sharding`` gives the sharding batches should arrive in
+(``parallel.batch_sharding`` over the plane's mesh).
 """
 from __future__ import annotations
 
@@ -109,6 +117,7 @@ import torch
 
 from . import _dist, autograd, fastpath, random as _random, rtc
 from .base import MXNetError, get_env
+from .fastpath import zero
 from .fastpath.fused import _is_mp_state
 from .gluon.block import HybridBlock
 from .gluon.parameter import DeferredInitializationError
@@ -144,12 +153,6 @@ def train_dtype() -> str:
 def sharded_feed() -> bool:
     """``MXNET_SHARDED_FEED`` (default on)."""
     return bool(get_env("MXNET_SHARDED_FEED", 1, int, cache=False))
-
-
-def _refuse_unported():
-    if get_env("MXNET_ZERO", 0, int, cache=False):
-        raise MXNetError("MXNET_ZERO (the sharded optimizer-state plane) "
-                         "is not ported yet")
 
 
 def _leaves(state):
@@ -540,6 +543,17 @@ class TrainPlane(_PlaneBase):
             self._demote("oom: %s" % type(exc).__name__)
             return None
 
+    def _zero_decline(self, opt):
+        """``MXNET_ZERO`` on the graph plane (``mxnet_tpu/trainplane.py:
+        463-482``): the plane trains on one rank, so the gate declines
+        with the "1-device mesh" reason, counted, and the step runs
+        replicated; a plane the eager path attached is materialized."""
+        if not zero.level():
+            return
+        updater = self._trainer._updater
+        zero.note_fallback(zero.eligible_reason(opt, _dist.world_size()))
+        zero.materialize_updater(updater)
+
     def _graph_step(self, data_nd, label_nd, batch_size):
         if chaos.ENABLED:
             # the JAX step's jit_call site: a fault here is raised before
@@ -547,6 +561,7 @@ class TrainPlane(_PlaneBase):
             chaos.maybe_fail("jit.compile")
         tr = self._trainer
         opt = tr._optimizer
+        self._zero_decline(opt)
         opt.rescale_grad = tr._scale / batch_size  # Trainer.step parity
         data, label = data_nd._data, label_nd._data
         wds = tuple(opt._get_wd(i) for i, _ in self._rows)
@@ -597,7 +612,6 @@ class TrainPlane(_PlaneBase):
     # -- entry ----------------------------------------------------------
     def step(self, data, label, batch_size=None):
         """Run one training step; returns the per-sample loss NDArray."""
-        _refuse_unported()
         device = self._trainer._contexts[0].torch_device()
         data_nd, label_nd = (x if isinstance(x, NDArray) else NDArray(
             torch.as_tensor(np.asarray(x)).to(device)) for x in (data, label))
@@ -635,26 +649,73 @@ def fit(net, loss_fn, trainer, train_data, epochs=1, batch_axis=0,
     ``train_data`` yields ``io.DataBatch``es (any ``DataIter``, reset
     before every epoch but the first) or ``(data, label)`` pairs.
     ``batch_end_callback(epoch, nbatch, loss)`` runs after each step.
-    ``checkpoint`` (the JAX package's elastic checkpoints) is not ported
-    yet."""
+
+    ``checkpoint`` (an ``elastic.CheckpointManager``) makes the loop
+    preemption-aware (``mxnet_tpu/trainplane.py:740-810``): with
+    ``resume`` it restores the net, the trainer, the iterator's cursor and
+    the RNG streams from the newest committed epoch (a mid-epoch
+    preemption save resumes mid-epoch, replaying nothing); it calls
+    ``elastic.step_boundary`` before every batch (the stall heartbeat, the
+    kill-at-step chaos site, the preemption checkpoint-now); and it saves
+    asynchronously every ``checkpoint_every`` epochs and after the last.
+    The restore writes into the parameters and states in place, so the
+    plane's captured steps stay valid. Wrap the call in
+    ``elastic.run_elastic`` for supervised restarts."""
     from . import io as io_mod
 
-    if checkpoint is not None:
-        raise MXNetError("fit(checkpoint=...) (elastic checkpoints) is not "
-                         "ported yet")
     plane = TrainPlane(net, loss_fn, trainer, mesh=mesh,
                        batch_axis=batch_axis)
-    for epoch in range(epochs):
-        if epoch and hasattr(train_data, "reset"):
-            train_data.reset()
-        for nbatch, batch in enumerate(train_data, 1):
+    feed = train_data
+    start, mid = 0, False
+    if checkpoint is not None and resume:
+        restored = checkpoint.restore_training(net=net, trainer=trainer,
+                                               train_iter=feed)
+        if restored >= 0:
+            extra = checkpoint.last_restored_extra or {}
+            mid = bool(extra.get("mid_epoch"))
+            start = restored if mid else restored + 1
+    first_pass = True
+    for epoch in range(start, epochs):
+        # reset before every epoch but the first pass over a fresh
+        # iterator, or one whose restored cursor is mid-epoch
+        if hasattr(feed, "reset") and (not first_pass
+                                       or (epoch and not mid)):
+            feed.reset()
+        first_pass = False
+        nbatch = 0
+        feed_iter = iter(feed)
+        while True:
+            if checkpoint is not None:
+                from . import elastic
+
+                # before the fetch: a preemption save here records a
+                # cursor where every consumed batch was trained
+                elastic.step_boundary(
+                    manager=checkpoint,
+                    save_fn=lambda: checkpoint.save_training(
+                        epoch, net=net, trainer=trainer, train_iter=feed,
+                        extra={"mid_epoch": True}))
+            try:
+                batch = next(feed_iter)
+            except StopIteration:
+                break
             if isinstance(batch, io_mod.DataBatch):
                 data, label = batch.data[0], batch.label[0]
             else:
                 data, label = batch
             loss = plane.step(data, label)
+            nbatch += 1
             if batch_end_callback is not None:
                 batch_end_callback(epoch, nbatch, loss)
+        if checkpoint is not None and (
+                (epoch + 1) % max(1, checkpoint_every) == 0
+                or epoch == epochs - 1):
+            checkpoint.save_training(epoch, net=net, trainer=trainer,
+                                     train_iter=feed,
+                                     extra={"mid_epoch": False},
+                                     async_save=True)
+    if checkpoint is not None:
+        checkpoint.wait()
     return plane
 
 

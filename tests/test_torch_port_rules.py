@@ -998,6 +998,7 @@ _DIST_FILES = ("mxnet_tpu_torch/_dist.py", "mxnet_tpu_torch/kvstore.py",
                "mxnet_tpu_torch/sequence_parallel.py",
                "mxnet_tpu_torch/elastic.py",
                "mxnet_tpu_torch/fastpath/bucketing.py",
+               "mxnet_tpu_torch/fastpath/zero.py",
                "mxnet_tpu_torch/tools/launch.py",
                "mxnet_tpu_torch/example/distributed_training/"
                "cifar10_dist.py")
@@ -1015,7 +1016,7 @@ def test_distributed_rank_scripts_import_no_jax_and_nothing_of_mxnet_tpu():
     files = sorted((REPO / "tests" / "nightly").glob("torch_dist_*.py")) + \
         [REPO / "tests" / "torch_dist_ranks.py",
          REPO / "tests" / "torch_dist_harness.py"]
-    assert len(files) == 5
+    assert len(files) == 6
     bad = [(str(f.relative_to(REPO)), root) for f in files
            for root in _imported_roots(f) if root in _BANNED]
     assert bad == []
@@ -1061,6 +1062,29 @@ with serving.DecodeEngine(m, p, num_slots=2, max_seq_len=32,
                           ring_prefill_len=4) as eng:
     got = list(eng.generate([3, 1, 4, 1, 5], 3, timeout=120))
 assert got == list(m.reference_generate(p, [3, 1, 4, 1, 5], 3))
+# the sharded-state and elastic slice: MXNET_ZERO on one rank declines,
+# counted; fit(checkpoint=) under run_elastic resumes after a kill
+import os, tempfile
+from mxnet_tpu_torch import elastic, gluon, trainplane
+from mxnet_tpu_torch.fastpath import zero
+from mxnet_tpu_torch.resilience import chaos
+os.environ["MXNET_ZERO"] = "1"
+xs = np.random.RandomState(0).rand(16, 6).astype(np.float32)
+def train_fn(start, manager):
+    with mx.cpu():
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(4))
+        net.initialize()
+        tr = gluon.Trainer(net.collect_params(), "adam", {})
+        it = mx.io.NDArrayIter(xs, xs[:, :4].argmax(1), batch_size=8)
+        trainplane.fit(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr, it,
+                       epochs=2, checkpoint=manager)
+    return "fit"
+cm = elastic.CheckpointManager(tempfile.mkdtemp())
+with chaos.active("site=elastic.step,at=4,action=kill"):
+    assert elastic.run_elastic(train_fn, cm, restart_delay=0) == "fit"
+assert cm.latest_epoch() == 1
+assert zero.FALLBACKS.value(reason="1-device mesh (sharding is a no-op)") > 0
 assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
                for k, v in sys.modules.items() if v is not None)
 print("distributed ok")

@@ -261,10 +261,531 @@ def case_ring_prefill(out, rank, n, cpu):
     out["rp_dense"] = model._dense_causal(q, k, v, model.scale).numpy()
 
 
+# -- ZeRO (fastpath.zero) --------------------------------------------------
+
+ZERO_B = 8  # a power of two: 1 / (2 * B) loss scaling is exact
+ZERO_STEPS = 5
+ZERO_SHAPES = ((16, 6), (16,), (8, 16), (8,))
+ZERO_OPTS = (("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+             ("adam", {"learning_rate": 0.01}))
+ZERO_MP_OPTS = (("sgd", {"momentum": 0.9, "multi_precision": True}),
+                ("adam", {"multi_precision": True}))
+ZERO_INELIGIBLE = (("nadam", {}, "order-sensitive host prologue (Nadam)"),
+                   ("sgld", {}, "order-sensitive host prologue (SGLD)"),
+                   ("lbsgd", {"momentum": 0.9},
+                    "non-pointwise _leaf_step (LBSGD)"))
+
+
+def zero_data(seed=3):
+    """``tests/test_zero.py``'s batches: 5 of B rows of 6 features."""
+    rs = np.random.RandomState(seed)
+    return (rs.rand(ZERO_STEPS * ZERO_B, 6).astype(np.float32),
+            rs.randint(0, 8, (ZERO_STEPS * ZERO_B,)))
+
+
+def zero_tensors(seed):
+    """``tests/test_zero.py``'s weights and gradients over ZERO_SHAPES."""
+    rs = np.random.RandomState(seed)
+    return ([rs.rand(*s).astype(np.float32) for s in ZERO_SHAPES],
+            [rs.rand(*s).astype(np.float32) for s in ZERO_SHAPES])
+
+
+def _zero_counts():
+    from mxnet_tpu_torch.fastpath import zero
+
+    return (sum(s["value"] for s in zero.FALLBACKS.series()),
+            zero.MATERIALIZATIONS.value())
+
+
+def _state_arrays(out, key, states):
+    from mxnet_tpu_torch.optimizer import _state_leaves
+
+    for i in sorted(states):
+        for j, t in enumerate(_state_leaves(states[i])):
+            out["%s_s%d_%d" % (key, i, j)] = t.detach().float().numpy().copy()
+
+
+def _zero_mlp(prefix, init, xs):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(nn.Dense(16, activation="relu"))
+        net.add(nn.Dense(8))
+    net.initialize()
+    with mx.autograd.pause():
+        net(nd.array(xs[:ZERO_B]))
+    # by position: the JAX net's prefix differs
+    params = list(net.collect_params().values())
+    assert len(params) == len(init)
+    for p, v in zip(params, init.values()):
+        p.set_data(nd.array(v))
+    net.hybridize()
+    return net
+
+
+def case_zero_mlp(out, rank, n, cpu, init_file):
+    """The MLP of ``tests/test_zero.py`` through a dist_sync Trainer at
+    MXNET_ZERO 0, 1 and 2: every rank trains on the whole batch and steps
+    with 2 B, so the reduced gradient is one process's; the weights, the
+    materialized states and the plane's readings a run."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.fastpath import zero
+
+    init = dict(np.load(init_file))
+    xs, ys = zero_data()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for opt, params in ZERO_OPTS:
+        for lv in (0, 1, 2):
+            key = "zm_%s%d" % (opt, lv)
+            os.environ["MXNET_ZERO"] = str(lv)
+            with cpu:
+                net = _zero_mlp("zm%s%d_" % (opt, lv), init, xs)
+                tr = gluon.Trainer(net.collect_params(), opt, dict(params),
+                                   kvstore="dist_sync")
+                f0, m0 = _zero_counts()
+                for s in range(ZERO_STEPS):
+                    rows = slice(s * ZERO_B, (s + 1) * ZERO_B)
+                    with mx.autograd.record():
+                        loss = loss_fn(net(nd.array(xs[rows])),
+                                       nd.array(ys[rows]))
+                    loss.backward()
+                    tr.step(2 * ZERO_B)
+            upd = tr._updater
+            plane = zero.plane_of(upd)
+            out[key + "_bytes"] = np.asarray(
+                [zero.state_bytes_on("cpu", upd)])
+            if lv:
+                assert plane is not None and plane.dp == n
+                assert plane.level == lv
+                assert all(zero.is_sharded(st) for st in upd.states.values())
+                zero.materialize_updater(upd)
+            else:
+                assert plane is None
+            f1, m1 = _zero_counts()
+            out[key + "_counts"] = np.asarray([f1 - f0, m1 - m0])
+            for i, p in enumerate(tr._params):
+                out["%s_w%d" % (key, i)] = p.data().asnumpy()
+            _state_arrays(out, key, upd.states)
+    os.environ.pop("MXNET_ZERO")
+
+
+def case_zero_bf16(out, rank, n, cpu):
+    """``tests/test_zero.py``'s bf16 weights with float32 masters through
+    ``fastpath.apply_updater`` at MXNET_ZERO 0, 1 and 2 (the same
+    gradients on every rank: the reduced ones), 5 steps; the master
+    slot's length a rank, the weights and the materialized states."""
+    import torch
+
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.fastpath import fused, zero
+
+    ws, gs = zero_tensors(1)
+    for opt, kwargs in ZERO_MP_OPTS:
+        for lv in (0, 1, 2):
+            key = "zb_%s%d" % (opt, lv)
+            os.environ["MXNET_ZERO"] = str(lv)
+            u = opt_mod.get_updater(opt_mod.create(opt, **kwargs))
+            wl = [torch.tensor(w).to(torch.bfloat16) for w in ws]
+            gl = [torch.tensor(g).to(torch.bfloat16) for g in gs]
+            for _ in range(ZERO_STEPS):
+                fused.apply_updater(u, list(zip(range(len(ws)), gl, wl)))
+            plane = zero.plane_of(u)
+            if lv:
+                out[key + "_master_len"] = np.asarray(
+                    [plane.buckets[0][0].numel(),
+                     plane.plan.bucket_layout(0)[1]])
+                zero.materialize_updater(u)
+            for i, w in enumerate(wl):
+                out["%s_w%d" % (key, i)] = w.float().numpy()
+            _state_arrays(out, key, u.states)
+    os.environ.pop("MXNET_ZERO")
+
+
+def case_zero_misc(out, rank, n, cpu):
+    """The fallbacks (ineligible optimizers, update_on_kvstore,
+    MXNET_ZERO_DEVICES=1), the knob turned off mid-run, an eager
+    per-parameter update between sharded steps, and the state bytes a
+    rank."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.fastpath import fused, zero
+
+    ws, gs = zero_tensors(0)
+
+    def triples():
+        return list(zip(range(len(ws)), [torch.tensor(g) for g in gs],
+                        [torch.tensor(w) for w in ws]))
+
+    os.environ["MXNET_ZERO"] = "1"
+    for i, (opt, kwargs, reason) in enumerate(ZERO_INELIGIBLE):
+        before = zero.FALLBACKS.value(reason=reason)
+        u = opt_mod.get_updater(opt_mod.create(opt, **kwargs))
+        fused.apply_updater(u, triples())
+        out["zx_inel%d" % i] = np.asarray([
+            zero.FALLBACKS.value(reason=reason) - before,
+            zero.plane_of(u) is None,
+            not any(zero.is_sharded(st) for st in u.states.values())])
+    kv = mx.kv.create("local")
+    kv.set_optimizer(opt_mod.create("sgd", momentum=0.9))
+    before = zero.FALLBACKS.value(reason="update_on_kvstore")
+    fused.apply_updater(kv._updater, triples())
+    out["zx_optout"] = np.asarray([
+        kv._updater._zero_opt_out == "update_on_kvstore",
+        zero.FALLBACKS.value(reason="update_on_kvstore") - before,
+        zero.plane_of(kv._updater) is None])
+    os.environ["MXNET_ZERO_DEVICES"] = "1"
+    reason = "1-device mesh (sharding is a no-op)"
+    before = zero.FALLBACKS.value(reason=reason)
+    u = opt_mod.get_updater(opt_mod.create("sgd", momentum=0.9))
+    fused.apply_updater(u, triples())
+    out["zx_devices1"] = np.asarray([
+        zero.FALLBACKS.value(reason=reason) - before,
+        zero.plane_of(u) is None])
+    os.environ["MXNET_ZERO_DEVICES"] = str(n)
+
+    # the knob turned off mid-run: 3 sharded + 2 replicated steps against
+    # 5 replicated ones
+    _ws, gs2 = zero_tensors(2)
+    for tag, levels in (("r", "00000"), ("z", "11100")):
+        u = opt_mod.get_updater(opt_mod.create("adam"))
+        wl = [torch.tensor(w) for w in _ws]
+        planes = []
+        for lv in levels:
+            os.environ["MXNET_ZERO"] = lv
+            fused.apply_updater(u, list(zip(range(len(wl)),
+                                            [torch.tensor(g) for g in gs2],
+                                            wl)))
+            planes.append(zero.plane_of(u) is not None)
+        out["zx_flip_%s_planes" % tag] = np.asarray(planes)
+        for i, w in enumerate(wl):
+            out["zx_flip_%s_w%d" % (tag, i)] = w.numpy().copy()
+        _state_arrays(out, "zx_flip_" + tag, u.states)
+
+    # an eager per-parameter update between sharded steps
+    os.environ["MXNET_ZERO"] = "1"
+    u = opt_mod.get_updater(opt_mod.create("sgd", momentum=0.9))
+    tr = triples()
+    fused.apply_updater(u, tr)
+    first = zero.is_sharded(u.states[0])
+    u(0, tr[0][1], tr[0][2])
+    detached = zero.plane_of(u) is None and not any(
+        zero.is_sharded(st) for st in u.states.values())
+    fused.apply_updater(u, tr)
+    out["zx_interleave"] = np.asarray([first, detached,
+                                       zero.plane_of(u) is not None])
+
+    # the state bytes a rank: sharded, then materialized
+    u = opt_mod.get_updater(opt_mod.create("adam"))
+    fused.apply_updater(u, triples())
+    sharded = zero.state_bytes_on("cpu", u)
+    zero.materialize_updater(u)
+    out["zx_bytes"] = np.asarray([sharded, zero.state_bytes_on("cpu", u)])
+    os.environ.pop("MXNET_ZERO")
+    os.environ.pop("MXNET_ZERO_DEVICES")
+
+
+def case_zero_solo(out, rank, n, cpu):
+    """A materialization that rank 0 calls alone: it must raise within
+    its bound (the job's collective timeout, cut to 2 s here), not hang.
+    The job's last collective case: rank 0's barrier numbering runs ahead
+    after it."""
+    import torch
+
+    from mxnet_tpu_torch import _dist, optimizer as opt_mod
+    from mxnet_tpu_torch.fastpath import fused, zero
+
+    ws, gs = zero_tensors(0)
+    os.environ["MXNET_ZERO"] = "1"
+    u = opt_mod.get_updater(opt_mod.create("sgd", momentum=0.9))
+    fused.apply_updater(u, list(zip(range(len(ws)),
+                                    [torch.tensor(g) for g in gs],
+                                    [torch.tensor(w) for w in ws])))
+    os.environ.pop("MXNET_ZERO")
+    if rank != 0:
+        return
+    bound = _dist._TIMEOUT_S
+    _dist._TIMEOUT_S = 2.0
+    t0 = time.perf_counter()
+    try:
+        zero.materialize_updater(u)
+        raised = ""
+    except zero.ZeroCollectiveError as exc:
+        raised = str(exc)
+    out["zs_seconds"] = np.asarray([time.perf_counter() - t0])
+    out["zs_raised"] = np.asarray([raised])
+    out["zs_attached"] = np.asarray([zero.plane_of(u) is not None])
+    _dist._TIMEOUT_S = bound
+
+
+# -- elastic: sharded checkpoints and resume --------------------------------
+
+EL_B, EL_STEPS, EL_EVERY = 8, 6, 2
+EL_OPT = ("adam", {"learning_rate": 0.01})
+
+
+def elastic_data(seed=3):
+    rs = np.random.RandomState(seed)
+    return (rs.rand(EL_STEPS * EL_B, 6).astype(np.float32),
+            rs.randint(0, 8, (EL_STEPS * EL_B,)).astype(np.float32))
+
+
+def elastic_model(prefix, opt=EL_OPT, kvstore="dist_sync", cast=None):
+    """``tests/test_elastic_resume.py``'s MLP and Trainer, seeded (the
+    current context's)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.gluon import nn
+
+    mx.random.seed(7)
+    net = nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(nn.Dense(16, activation="relu"), nn.Dense(8))
+    net.initialize()
+    with mx.autograd.pause():
+        net(nd.ones((EL_B, 6)))
+    if cast:
+        net.cast(cast)
+    net.hybridize()
+    return net, gluon.Trainer(net.collect_params(), opt[0], dict(opt[1]),
+                              kvstore=kvstore)
+
+
+def elastic_step(net, trainer, xs, ys, s, n, cast=None):
+    """Step ``s`` of the job: every rank the same batch, ``step(n B)``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+
+    x = nd.array(xs[s * EL_B:(s + 1) * EL_B])
+    if cast:
+        x = x.astype(cast)
+    with mx.autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+            net(x), nd.array(ys[s * EL_B:(s + 1) * EL_B]))
+    loss.backward()
+    trainer.step(n * EL_B)
+
+
+def materialized(trainer):
+    """The trainer's states in the plain layout (a collective under a
+    plane), as float32 numpy by (index, leaf)."""
+    from mxnet_tpu_torch.fastpath import zero
+    from mxnet_tpu_torch.optimizer import _state_leaves
+
+    upd = trainer._updater
+    zero.materialize_updater(upd)
+    return {(i, j): t.detach().float().numpy().copy()
+            for i in sorted(upd.states)
+            for j, t in enumerate(_state_leaves(upd.states[i]))}
+
+
+def _put(out, key, arrays):
+    for (i, j), a in arrays.items():
+        out["%s_%d_%d" % (key, i, j)] = a
+
+
+def case_elastic_zero(out, rank, n, cpu, base):
+    """Sharded saves at MXNET_ZERO=1: the save's materializations and
+    files, the 2-rank restore, the replicated level-1 masters, torn-write
+    and drop-shard fallbacks, kill-at-step resume through the eager
+    Trainer and an agreed preemption; arrays for the test to compare."""
+    import json
+
+    from mxnet_tpu_torch import elastic, telemetry
+    from mxnet_tpu_torch.fastpath import zero
+    from mxnet_tpu_torch.resilience import chaos
+
+    xs, ys = elastic_data()
+    os.environ["MXNET_ZERO"] = "1"
+    with cpu:
+        # the sharded save: no all-gather, one shard file a rank
+        d = os.path.join(base, "sharded")
+        net, tr = elastic_model("es_")
+        for s in range(3):
+            elastic_step(net, tr, xs, ys, s, n)
+        cm = elastic.CheckpointManager(d)
+        m0 = zero.MATERIALIZATIONS.value()
+        t0 = telemetry.TRANSFER_BYTES.value(path="ckpt.shard")
+        cm.save_training(0, net=net, trainer=tr)
+        manifest = json.load(open(cm._manifest_path(0)))
+        out["es_save"] = np.asarray([
+            zero.MATERIALIZATIONS.value() - m0,
+            telemetry.TRANSFER_BYTES.value(path="ckpt.shard") > t0,
+            all(zero.is_sharded(st) for st in tr._updater.states.values()),
+            len(manifest["shards"]),
+            manifest["sharded"] == {"dp": n, "level": 1,
+                                    "mesh_shape": {"dp": n}}])
+        out["es_files"] = np.asarray(sorted(os.listdir(d)))
+        _put(out, "es_want", materialized(tr))
+        out["es_counts"] = np.asarray([tr._optimizer.num_update] + [
+            tr._optimizer._index_update_count[i] for i in range(4)])
+        # the restore onto this job's ranks
+        net2, tr2 = elastic_model("er_")
+        assert cm.restore_training(net=net2, trainer=tr2) == 0
+        _put(out, "es_got2", materialized(tr2))
+        out["es_counts2"] = np.asarray([tr2._optimizer.num_update] + [
+            tr2._optimizer._index_update_count[i] for i in range(4)])
+        out["es_params_equal"] = np.asarray([
+            np.array_equal(a.data().asnumpy(), b.data().asnumpy())
+            for a, b in zip(net.collect_params().values(),
+                            net2.collect_params().values())])
+
+        # level 1 with bf16 weights: the float32 masters replicated, saved
+        # once in the .repl file
+        d = os.path.join(base, "masters")
+        mp = ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                      "multi_precision": True})
+        net, tr = elastic_model("em_", opt=mp, cast="bfloat16")
+        for s in range(2):
+            elastic_step(net, tr, xs, ys, s, n, cast="bfloat16")
+        cm = elastic.CheckpointManager(d)
+        cm.save_training(0, net=net, trainer=tr)
+        out["em_repl"] = np.asarray([any(f.endswith(".repl")
+                                         for f in os.listdir(d))])
+        want = materialized(tr)
+        net2, tr2 = elastic_model("en_", opt=mp, cast="bfloat16")
+        assert cm.restore_training(net=net2, trainer=tr2) == 0
+        got = materialized(tr2)
+        out["em_equal"] = np.asarray([sorted(want) == sorted(got)] + [
+            np.array_equal(want[k], got[k]) for k in want])
+
+        # torn-write and drop-shard against the newest epoch
+        for tag, action in (("torn", "torn-write"), ("drop", "drop-shard")):
+            d = os.path.join(base, tag)
+            net, tr = elastic_model("ec%s_" % tag)
+            cm = elastic.CheckpointManager(d)
+            elastic_step(net, tr, xs, ys, 0, n)
+            elastic_step(net, tr, xs, ys, 1, n)
+            cm.save_training(0, net=net, trainer=tr)
+            want = materialized(tr)
+            elastic_step(net, tr, xs, ys, 2, n)
+            with chaos.active("site=ckpt.shard,at=1,action=%s" % action):
+                cm.save_training(1, net=net, trainer=tr)
+            latest = cm.latest_epoch()
+            c0 = telemetry.CKPT_CORRUPTION.value()
+            net2, tr2 = elastic_model("ed%s_" % tag)
+            epoch = cm.restore_training(net=net2, trainer=tr2)
+            got = materialized(tr2)
+            out["ec_%s" % tag] = np.asarray([
+                latest, epoch, telemetry.CKPT_CORRUPTION.value() - c0,
+                all(np.array_equal(want[k], got[k]) for k in want)])
+
+        # kill-at-step resume through the eager Trainer, and a preemption
+        # that reaches rank 0 only, against an uninterrupted run
+        runs = {}
+        for tag in ("ref", "kill", "preempt"):
+            runs[tag] = _elastic_run(os.path.join(base, "run_" + tag), tag,
+                                     rank, n, xs, ys)
+        for tag, got in runs.items():
+            for k, v in got.items():
+                out["er_%s_%s" % (tag, k)] = v
+    os.environ.pop("MXNET_ZERO")
+
+
+def _elastic_run(d, tag, rank, n, xs, ys):
+    """EL_STEPS steps through ``run_elastic`` with an async sharded save
+    every EL_EVERY steps; ``kill``: chaos kill entering step 3 (both
+    ranks); ``preempt``: a preemption file that only rank 0 watches,
+    written after step 1, then a resumed attempt to the end."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import elastic, telemetry
+    from mxnet_tpu_torch.resilience import chaos
+
+    cm = elastic.CheckpointManager(d)
+    final = {}
+    flag = os.path.join(d, "evict-notice")
+    if tag == "preempt" and rank == 0:
+        os.environ["MXNET_PREEMPTION_FILE"] = flag
+
+    def train_fn(start_epoch, manager):
+        net, tr = elastic_model("e%s%d_" % (tag, start_epoch))
+        it = mx.io.NDArrayIter(xs, ys, batch_size=EL_B)
+        last = manager.restore_training(net=net, trainer=tr, train_iter=it)
+        for step in range(last + 1, EL_STEPS):
+            elastic.step_boundary(
+                manager=manager,
+                save_fn=lambda s=step: manager.save_training(
+                    s - 1, net=net, trainer=tr, train_iter=it))
+            batch = it.next()
+            with mx.autograd.record():
+                loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+                    net(batch.data[0]), batch.label[0])
+            loss.backward()
+            tr.step(n * EL_B)
+            if tag == "preempt" and rank == 0 and step == 1:
+                open(flag, "w").close()
+            if (step + 1) % EL_EVERY == 0:
+                manager.save_training(step, net=net, trainer=tr,
+                                      train_iter=it, async_save=True)
+        manager.wait()
+        final.update(net=net, tr=tr, it=it)
+        return "done"
+
+    restarts = telemetry.ELASTIC_RESTARTS.value(reason="exception")
+    preempted = []
+    if tag == "kill":
+        with chaos.active("site=elastic.step,at=4,action=kill"):
+            elastic.run_elastic(train_fn, cm, max_restarts=3,
+                                restart_delay=0)
+    elif tag == "preempt":
+        try:
+            elastic.run_elastic(train_fn, cm, max_restarts=0,
+                                restart_delay=0)
+        except elastic.Preempted:
+            preempted.append(cm.latest_epoch())
+        os.environ.pop("MXNET_PREEMPTION_FILE", None)
+        elastic.clear_preemption()
+        if os.path.exists(flag):
+            os.remove(flag)
+        elastic.run_elastic(train_fn, cm, max_restarts=0, restart_delay=0)
+    else:
+        elastic.run_elastic(train_fn, cm, max_restarts=0, restart_delay=0)
+    net, tr, it = final["net"], final["tr"], final["it"]
+    got = {"restarts": np.asarray([telemetry.ELASTIC_RESTARTS.value(
+        reason="exception") - restarts]),
+        "preempted": np.asarray(preempted or [-1]),
+        "cursor": np.asarray([it.cursor]),
+        "counts": np.asarray([tr._optimizer.num_update] + [
+            tr._optimizer._index_update_count[i] for i in range(4)])}
+    for i, p in enumerate(net.collect_params().values()):
+        got["w%d" % i] = p.data().asnumpy()
+    for (i, j), a in materialized(tr).items():
+        got["s%d_%d" % (i, j)] = a
+    return got
+
+
+def case_elastic_restore(out, rank, n, cpu, base):
+    """The 2-rank sharded checkpoint of ``elastic_zero`` restored onto
+    this job's ranks: the materialized states, then one step, which
+    shards them over this job's ranks."""
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.fastpath import zero
+
+    xs, ys = elastic_data()
+    os.environ["MXNET_ZERO"] = "1"
+    with cpu:
+        cm = elastic.CheckpointManager(os.path.join(base, "sharded"))
+        net, tr = elastic_model("eq_")
+        assert cm.restore_training(net=net, trainer=tr) == 0
+        _put(out, "eq_got", materialized(tr))
+        elastic_step(net, tr, xs, ys, 3, n)
+        out["eq_dp"] = np.asarray([zero.plane_of(tr._updater).dp])
+    os.environ.pop("MXNET_ZERO")
+
+
 CASES = {"collectives": case_collectives, "heartbeat": case_heartbeat,
          "shardings": case_shardings,
          "kvstore": case_kvstore, "trainer": case_trainer,
-         "sequence": case_sequence, "ring_prefill": case_ring_prefill}
+         "sequence": case_sequence, "ring_prefill": case_ring_prefill,
+         "zero_mlp": case_zero_mlp, "zero_bf16": case_zero_bf16,
+         "zero_misc": case_zero_misc, "zero_solo": case_zero_solo,
+         "elastic_zero": case_elastic_zero,
+         "elastic_restore": case_elastic_restore}
 
 
 def main(argv):
