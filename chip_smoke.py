@@ -8596,6 +8596,29 @@ DIST_RING_ITERS = 3
 # expected: two summands add alike in any order)
 DIST_RESNET_STEPS, DIST_RESNET_TOL = 3, 1e-5
 DIST_RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+# dist_planes: the captured training planes across the job's ranks, inside
+# dist_resnet's two jobs at the same width (resnet50_v1, 224 x 224, 1000
+# classes, SGD 0.05 with momentum 0.9, deterministic cuDNN, TF32 off), on
+# DIST_RESNET_STEPS global batches of 2 x 32 (dist_resnet's two shards
+# together). The 1-rank job runs the single-process plane (before it joins
+# the job) and the plane in its 1-rank NCCL group, captured: bit-equal.
+# The 2-rank job (gloo, ranks sharing the card) runs InferStep, TrainStep
+# and TrainPlane on the same global batches: hashes equal every step, each
+# rank's loss vectors the whole batch's, InferStep's logits and step 0's
+# float32 loss vectors within DIST_PLANES_TOL of the single-process
+# plane's. The global BatchNorm's formula is not cuDNN's, and this net at
+# its seeded start turns a float32 rounding difference into percents of a
+# tensor within one step: so the 2-rank TrainStep and TrainPlane are held
+# to DIST_PLANES_TOL of the single-process plane and TrainStep in float64
+# on the same global batches: the plane all DIST_RESNET_STEPS steps (the
+# weights, the moving statistics and the loss vectors), TrainStep its
+# first (its optimizer states stay float32), its float32 run bit-equal to
+# the plane's at every step; their float32 runs' distance from the
+# single-process plane after the last step is a reading. A tensor whose
+# largest magnitude is under DIST_PLANES_FLOOR is held against the floor
+# (the convolutions' biases before a BatchNorm have no gradient in exact
+# arithmetic: rounding noise only). The 1-rank planes also time DIST_PLANES_TIMED steps at batch 32.
+DIST_PLANES_TOL, DIST_PLANES_FLOOR, DIST_PLANES_TIMED = 1e-4, 1e-2, 10
 # ring_prefill_serve: the serve traffic with prompts of at least this many
 # tokens routed through the ring prefill (the system-prompt third reaches
 # 36-56 tokens, the rest 4-24)
@@ -8878,16 +8901,25 @@ def _resnet_net(ctx, kvstore):
     return net, trainer
 
 
-def _resnet_shard(step, shard, ctx):
-    """The rows of shard ``shard`` of step ``step``'s two-shard batch."""
-    import mxnet_tpu_torch as mx
-
+def _resnet_batch(step):
+    """Step ``step``'s two-shard batch, as numpy."""
     rs = np.random.RandomState(1000 + step)
     x = rs.rand(2 * RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE).astype(
         np.float32)
     y = rs.randint(0, RESNET_CLASSES, 2 * RESNET_BATCH).astype(np.float32)
-    rows = slice(shard * RESNET_BATCH, (shard + 1) * RESNET_BATCH)
-    return (mx.nd.array(x[rows], ctx=ctx), mx.nd.array(y[rows], ctx=ctx))
+    return x, y
+
+
+def _resnet_shard(step, shard, ctx, rows=None, dtype="float32"):
+    """The rows of shard ``shard`` of step ``step``'s two-shard batch (or
+    ``rows`` of it)."""
+    import mxnet_tpu_torch as mx
+
+    x, y = _resnet_batch(step)
+    if rows is None:
+        rows = slice(shard * RESNET_BATCH, (shard + 1) * RESNET_BATCH)
+    return (mx.nd.array(x[rows], ctx=ctx, dtype=dtype),
+            mx.nd.array(y[rows], ctx=ctx, dtype=dtype))
 
 
 def _trainable(net):
@@ -8938,12 +8970,13 @@ def _busy_share(fn, dev):
     return busy / wall if busy else None
 
 
-def _rank_resnet(out_dir):
+def _rank_resnet(out_dir, planes_ref=None):
     """A rank of dist_resnet: DIST_RESNET_STEPS dist_sync steps on its
-    shard, a weight hash after each, readings of the exchange, then (in a
-    1-rank job) the single-process reference: both shards' gradients on
-    the same weights, summed in rank order, one step, each shard with its
-    own BatchNorm moving statistics. Writes the final weights and moving
+    shard, a weight hash after each, readings of the exchange, then the
+    planes across the job (:func:`_rank_planes`), then (in a 1-rank job)
+    the single-process reference: both shards' gradients on the same
+    weights, summed in rank order, one step, each shard with its own
+    BatchNorm moving statistics. Writes the final weights and moving
     statistics for the parent to compare."""
     import torch
 
@@ -8997,6 +9030,11 @@ def _rank_resnet(out_dir):
     if n > 1:  # the reference runs in the 1-rank job
         np.savez(os.path.join(out_dir, "resnet_n%d_rank%d.npz" % (n, r)),
                  **final)
+    staged = grp.staged_bytes
+    del net, trainer, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    planes = _rank_planes(grp, ctx, loss_fn, out_dir, planes_ref)
     reading = dict(backend=grp.backend, world=n, hashes=hashes,
                    step_ms=float(np.mean(step_ms)),
                    exchange_ms=float(np.mean(ex_ms)), exchange_bytes=nbytes,
@@ -9004,11 +9042,328 @@ def _rank_resnet(out_dir):
                    buckets=len(plan.buckets) if plan else 0,
                    exchange_gb_s=nbytes / (np.mean(ex_ms) / 1e3) / 1e9,
                    device_busy_share=busy_share,
-                   staged_bytes=grp.staged_bytes)
+                   staged_bytes=staged, planes=planes)
     if n == 1:
         reading["reference_hashes"] = _resnet_reference(out_dir, ctx,
                                                         loss_fn)
     print("rank %d: RESNET %s" % (r, json.dumps(reading)), flush=True)
+
+
+def _plane_ms(plane, ctx, dev):
+    """ms a step of ``plane`` at batch RESNET_BATCH (the first 32 rows of
+    step 0's batch, a path of its own), over DIST_PLANES_TIMED steps after
+    its first."""
+    import torch
+
+    x, y = _resnet_shard(0, 0, ctx)
+    plane.step(x, y)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(DIST_PLANES_TIMED):
+        plane.step(x, y)
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) / DIST_PLANES_TIMED * 1e3
+
+
+def _float64_steps(ctx, loss_fn, kind):
+    """DIST_RESNET_STEPS steps in float64 on the global batches from the
+    seeded weights: ``kind`` ``plane`` (TrainPlane) or ``trainstep``;
+    returns the weights and the moving statistics after the last step
+    and, of the plane, the loss vector of every step (``losses``), of
+    TrainStep also after the first step (``first/``: its optimizer
+    states stay float32, as the JAX step's, so from the second step on
+    its momentum carries float32 rounding)."""
+    import torch
+
+    from mxnet_tpu_torch import parallel, trainplane
+
+    net, trainer = _resnet_net(ctx, None)
+    with ctx:
+        net.cast("float64")
+        batches = [_resnet_shard(step, 0, ctx, rows=slice(None),
+                                 dtype="float64")
+                   for step in range(DIST_RESNET_STEPS)]
+        if kind == "plane":
+            plane = trainplane.TrainPlane(net, loss_fn, trainer)
+            losses = np.stack([plane.step(x, y).asnumpy()
+                               for x, y in batches])
+            out = dict(_resnet_arrays(net), losses=losses)
+            del plane
+        else:
+            step = parallel.TrainStep(net, loss_fn, "sgd",
+                                      optimizer_params=dict(DIST_RESNET_SGD))
+
+            def arrays():
+                return dict(
+                    {"p%d" % i: np.array(step.params[k].detach().cpu())
+                     for i, (k, _p) in enumerate(_trainable(net))},
+                    **{"a%d" % i: np.array(step.params[k].detach().cpu())
+                       for i, (k, _p) in enumerate(_aux(net))})
+
+            for i, (x, y) in enumerate(batches):
+                step(x, y)
+                if i == 0:
+                    first = arrays()
+            out = dict(arrays(), **{"first/" + k: v
+                                    for k, v in first.items()})
+            del step
+    del net, trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _planes_reference(out_dir):
+    """The single-process plane (this process has not joined a job yet):
+    InferStep on step 0's global batch with the seeded initial weights,
+    then TrainPlane for DIST_RESNET_STEPS steps on the global batches, a
+    hash after each, then its ms a step at batch 32; then the same steps
+    in float64, of the plane and of TrainStep. Writes the logits, the loss vectors, the weights and the
+    moving statistics (and the float64 run's); returns the readings and
+    the arrays (for the 1-rank job's bit comparison)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel, trainplane
+
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    ctx = mx.current_context()
+    dev = ctx.torch_device()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    net, trainer = _resnet_net(ctx, None)
+    with ctx:
+        x0, _ = _resnet_shard(0, 0, ctx, rows=slice(None))
+        logits = parallel.InferStep(net)(x0).asnumpy()
+        plane = trainplane.TrainPlane(net, loss_fn, trainer)
+        losses, hashes = [], []
+        for step in range(DIST_RESNET_STEPS):
+            x, y = _resnet_shard(step, 0, ctx, rows=slice(None))
+            losses.append(plane.step(x, y).asnumpy())
+            hashes.append(_sha(net))
+        arrays = _resnet_arrays(net)
+        ms = _plane_ms(plane, ctx, dev)
+        plane_captures = plane.compile_count
+    del plane, net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    f64 = _float64_steps(ctx, loss_fn, "plane")
+    f64ts = _float64_steps(ctx, loss_fn, "trainstep")
+    np.savez(os.path.join(out_dir, "planes_reference.npz"), logits=logits,
+             losses=np.stack(losses), **arrays,
+             **{"f64/" + k: v for k, v in f64.items()},
+             **{"f64ts/" + k: v for k, v in f64ts.items()})
+    reading = dict(hashes=hashes, ms_a_step_32=ms,
+                   captures=plane_captures,
+                   seconds=time.perf_counter() - t0)
+    return reading, arrays
+
+
+def _traced_plane_step(plane, x, y, dev):
+    """The CUDA kernels one traced step of a captured plane ran: their
+    count, NCCL's (``nccl*``, and ``oneRankReduce``, what NCCL runs for a
+    collective over one rank) and cuDNN's (``cudnn``, ``xmma``,
+    convolution kernels); a session that recorded nothing runs again,
+    three at most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            plane.step(x, y)
+            torch.cuda.synchronize(dev)
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    low = [n.lower() for n in names]
+    nccl = sorted({n for n, lo in zip(names, low)
+                   if "nccl" in lo or "onerank" in lo})
+    return dict(kernels=len(names), nccl_kernels=nccl,
+                cudnn_kernels=sum(1 for lo in low if "cudnn" in lo
+                                  or "xmma" in lo or "conv" in lo))
+
+
+def _rank_planes(grp, ctx, loss_fn, out_dir, ref):
+    """A rank's dist_planes: on a fresh seeded net, InferStep on step 0's
+    global batch; in the 2-rank job TrainStep for DIST_RESNET_STEPS steps
+    (a hash after each); then TrainPlane for DIST_RESNET_STEPS steps (a
+    hash and the loss vector after each); in the 2-rank job then the same
+    steps of each in float64, in the 1-rank job the plane's ms a step at
+    batch 32, one traced step and the bits against the single-process
+    plane (``ref``, run before the job)."""
+    import torch
+
+    from mxnet_tpu_torch import parallel, telemetry, trainplane
+
+    r, n, dev = grp.rank, grp.world, grp.device
+    t0 = time.perf_counter()
+    net, trainer = _resnet_net(ctx, None)
+    saved = {}
+    with ctx:
+        x0, _ = _resnet_shard(0, 0, ctx, rows=slice(None))
+        saved["logits"] = parallel.InferStep(net)(x0).asnumpy()
+        ts_hashes = []
+        if n > 1:
+            ts = parallel.TrainStep(net, loss_fn, "sgd",
+                                    optimizer_params=dict(DIST_RESNET_SGD))
+            for step in range(DIST_RESNET_STEPS):
+                x, y = _resnet_shard(step, 0, ctx, rows=slice(None))
+                ts(x, y)
+                ts_hashes.append(_digest([ts.params[k] for k, _p in
+                                          _trainable(net)]))
+            for i, (k, _p) in enumerate(_trainable(net)):
+                saved["ts/p%d" % i] = np.array(ts.params[k].detach().cpu())
+            for i, (k, _p) in enumerate(_aux(net)):
+                saved["ts/a%d" % i] = np.array(ts.params[k].detach().cpu())
+            del ts
+        plane = trainplane.TrainPlane(net, loss_fn, trainer)
+        g0 = telemetry.STEP_DISPATCHES.value(plane="graph")
+        losses, hashes, step_ms, staged = [], [], [], 0
+        for step in range(DIST_RESNET_STEPS):
+            x, y = _resnet_shard(step, 0, ctx, rows=slice(None))
+            before = grp.staged_bytes
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            loss = plane.step(x, y)
+            torch.cuda.synchronize(dev)
+            if step:  # the first step of a path runs its first pass too
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                staged = grp.staged_bytes - before
+            losses.append(loss.asnumpy())
+            hashes.append(_sha(net))
+        arrays = _resnet_arrays(net)
+        reading = dict(
+            plane=plane.plane, uncaptured_reason=plane.uncaptured_reason,
+            hashes=hashes, ts_hashes=ts_hashes,
+            loss_shape=list(losses[0].shape),
+            collectives_a_step=plane.collectives_a_step,
+            ms_a_step_64=float(np.mean(step_ms)),
+            staged_bytes_a_step=staged)
+        if n > 1:
+            reading["trainstep_bit_equal_plane"] = ts_hashes == hashes
+        else:
+            # the step at TrainStep's batch (resnet_train's 32 rows)
+            reading["ms_a_step_32"] = _plane_ms(plane, ctx, dev)
+            reading["trace"] = _traced_plane_step(plane, x, y, dev)
+            reading["bit_equal_reference"] = sorted(arrays) == sorted(
+                ref[1]) and all(np.array_equal(arrays[k], ref[1][k])
+                                for k in arrays)
+            reading["hashes_equal_reference"] = hashes == ref[0]["hashes"]
+            reading["reference"] = {k: v for k, v in ref[0].items()
+                                    if k != "hashes"}
+        reading.update(
+            captures=plane.compile_count, paths=len(plane._paths),
+            graph_replays=plane.graph_replays,
+            steps=telemetry.STEP_DISPATCHES.value(plane="graph") - g0,
+            seconds=time.perf_counter() - t0)
+    del plane, net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if n > 1:
+        saved.update(arrays)
+        saved["losses"] = np.stack(losses)
+        for kind in ("plane", "trainstep"):
+            saved.update({"f64/%s/%s" % (kind, k): v for k, v in
+                          _float64_steps(ctx, loss_fn, kind).items()})
+        np.savez(os.path.join(out_dir, "planes_n2_rank%d.npz" % r), **saved)
+        reading["seconds"] = time.perf_counter() - t0
+    return reading
+
+
+def _scaled_err(got, want):
+    """The largest difference over the largest magnitude of ``want`` (at
+    least DIST_PLANES_FLOOR)."""
+    return float(np.abs(got - want).max()) / max(
+        float(np.abs(want).max()), DIST_PLANES_FLOOR)
+
+
+def _planes_compare(tmp, two, one):
+    """dist_planes' checks (:func:`_rank_planes`): the 1-rank NCCL plane
+    captured (one capture a path, every step a replay), NCCL's kernels in
+    its traced step, bit-equal to the single-process plane at every step;
+    the 2-rank plane and TrainStep with equal hashes every step, each
+    rank's loss vectors the whole batch's, the float32 TrainStep's
+    hashes the plane's; InferStep, step 0's float32 loss vectors and the
+    float64 plane's every step within DIST_PLANES_TOL of the
+    single-process plane's, the float64 TrainStep's first step of the
+    single-process TrainStep's; the ranks' float64 runs equal. Returns the
+    worst scaled differences and the float32 readings."""
+    p1 = one["planes"]
+    if p1["plane"] != "graph" or p1["uncaptured_reason"] is not None:
+        fail("dist_planes: the 1-rank NCCL plane was not captured: %s"
+             % {k: p1[k] for k in ("plane", "uncaptured_reason")})
+    if p1["captures"] != p1["paths"] or \
+            p1["graph_replays"] != p1["steps"]:
+        fail("dist_planes: 1-rank plane captures %d for %d paths, %d "
+             "replays for %d steps" % (p1["captures"], p1["paths"],
+                                       p1["graph_replays"], p1["steps"]))
+    if not p1["trace"]["nccl_kernels"]:
+        fail("dist_planes: no NCCL kernel in the 1-rank plane's traced "
+             "step (%d kernels)" % p1["trace"]["kernels"])
+    if not (p1["bit_equal_reference"] and p1["hashes_equal_reference"]):
+        fail("dist_planes: the 1-rank NCCL plane differs from the "
+             "single-process plane")
+    for key in ("hashes", "ts_hashes"):
+        if two[0]["planes"][key] != two[1]["planes"][key]:
+            fail("dist_planes: the 2 ranks' %s differ" % key)
+    for r in (0, 1):
+        pr = two[r]["planes"]
+        if pr["plane"] != "graph" or pr["uncaptured_reason"] != "gloo" \
+                or pr["captures"] != 0:
+            fail("dist_planes: rank %d's plane %s" % (r, pr))
+        if pr["loss_shape"] != [2 * RESNET_BATCH]:
+            fail("dist_planes: rank %d's loss vector %s, not the whole "
+                 "batch's" % (r, pr["loss_shape"]))
+    ref = np.load(os.path.join(tmp, "planes_reference.npz"))
+    got = [np.load(os.path.join(tmp, "planes_n2_rank%d.npz" % r))
+           for r in (0, 1)]
+    if not np.array_equal(got[0]["losses"], got[1]["losses"]):
+        fail("dist_planes: the ranks' loss vectors differ")
+    fp32 = [k for k in ref.files if k[0] in "pa"]
+    f64 = [k for k in ref.files if k.startswith("f64/") and k != "f64/losses"]
+    for k in got[0].files:
+        if k.startswith("f64/") and not np.array_equal(got[0][k], got[1][k]):
+            fail("dist_planes: the ranks' float64 %s differ" % k)
+    held = {"inferstep": max(_scaled_err(g["logits"], ref["logits"])
+                             for g in got),
+            "float32_step0_losses": max(_scaled_err(
+                g["losses"][0], ref["losses"][0]) for g in got),
+            "float64_plane_losses": max(_scaled_err(
+                g["f64/plane/losses"], ref["f64/losses"]) for g in got)}
+    # each executor against itself in one process (TrainStep's update
+    # rounds its learning rate otherwise than the plane's fused kernel);
+    # TrainStep's float32 states hold it to its first step, and its
+    # float32 run to the plane's bits at every step
+    held["float64_plane"] = max(_scaled_err(
+        g["f64/plane/" + k[4:]], ref[k]) for g in got for k in f64)
+    held["float64_trainstep_first_step"] = max(_scaled_err(
+        g["f64/trainstep/first/" + k[4:]], ref["f64ts/first/" + k[4:]])
+        for g in got for k in f64)
+    for r in (0, 1):
+        if not two[r]["planes"]["trainstep_bit_equal_plane"]:
+            fail("dist_planes: rank %d's float32 TrainStep differs from "
+                 "its plane" % r)
+    readings = {
+        "float32_plane": max(_scaled_err(got[0][k], ref[k]) for k in fp32),
+        "float32_trainstep": max(_scaled_err(got[0]["ts/" + k], ref[k])
+                                 for k in fp32),
+        "float32_losses_by_step": [_scaled_err(g, w) for g, w in zip(
+            got[0]["losses"], ref["losses"])],
+        "float64_trainstep_last_step": max(_scaled_err(
+            g["f64/trainstep/" + k[4:]], ref["f64ts/" + k[4:]])
+            for g in got for k in f64),
+        "float64_trainstep_from_plane": max(_scaled_err(
+            ref["f64ts/" + k[4:]], ref[k]) for k in f64)}
+    bad = {k: v for k, v in held.items() if v > DIST_PLANES_TOL}
+    if bad:
+        fail("dist_planes: 2-rank readings beyond %g of the largest "
+             "magnitude: %s (float32 readings %s)"
+             % (DIST_PLANES_TOL, bad, readings))
+    return held, readings
 
 
 def _resnet_reference(out_dir, ctx, loss_fn):
@@ -9100,15 +9455,33 @@ def dist_resnet():
         two = _rank_lines(out2, 2, "RESNET")
         one = _rank_lines(out1, 1, "RESNET")[0]
         worst, bits = _resnet_compare(tmp, two)
+        planes_held, planes_fp32 = _planes_compare(tmp, two, one)
     phase("dist_resnet", steps=DIST_RESNET_STEPS, batch_a_rank=RESNET_BATCH,
           worst_rel_err=worst, bit_equal=bits,
           hashes_equal_reference=two[0]["hashes"] ==
           one["reference_hashes"],
-          two_ranks={k: v for k, v in two[0].items() if k != "hashes"},
+          two_ranks={k: v for k, v in two[0].items()
+                     if k not in ("hashes", "planes")},
           two_ranks_job_s=secs2,
           one_rank={k: v for k, v in one.items()
-                    if k not in ("hashes", "reference_hashes")},
+                    if k not in ("hashes", "reference_hashes", "planes")},
           one_rank_job_s=secs1)
+    p1, p2 = one["planes"], [t["planes"] for t in two]
+    drop = ("hashes", "ts_hashes", "reference")
+    import torch
+
+    phase("dist_planes", card=CARD, torch=torch.__version__,
+          nccl=".".join(map(str, torch.cuda.nccl.version())),
+          steps=DIST_RESNET_STEPS,
+          global_batch=2 * RESNET_BATCH, worst_scaled_err=planes_held,
+          float32_scaled_err=planes_fp32,
+          one_rank_nccl={k: v for k, v in p1.items() if k not in drop},
+          single_process_plane=p1["reference"],
+          two_ranks_gloo=[{k: v for k, v in p.items() if k not in drop}
+                          for p in p2],
+          eager_dist_sync_ms_a_step=one["step_ms"],
+          phase_s=p1["seconds"] + p1["reference"]["seconds"] +
+          max(p["seconds"] for p in p2))
 
 
 def ring_prefill_serve():
@@ -9810,6 +10183,11 @@ def dist_rank(argv):
     the port's launcher."""
     from mxnet_tpu_torch import kvstore
 
+    planes_ref = None
+    if argv[0] == "resnet" and os.environ.get("MXNET_NUM_WORKERS") == "1":
+        # dist_planes' single-process plane, before this process joins
+        # the job
+        planes_ref = _planes_reference(argv[1])
     if not kvstore.init_distributed():
         fail("--dist-rank: no launcher environment")
     if argv[0] == "nightly":
@@ -9825,7 +10203,7 @@ def dist_rank(argv):
     elif argv[0] == "ring":
         _rank_ring()
     elif argv[0] == "resnet":
-        _rank_resnet(argv[1])
+        _rank_resnet(argv[1], planes_ref)
     elif argv[0] == "zero":
         _rank_zero(argv[1])
     elif argv[0] == "resume":
@@ -9947,6 +10325,15 @@ def main():
         # only the distributed slice's phases (no kernel is built: the
         # paths run none)
         dist_phases()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--dist-planes"]:
+        # only dist_resnet's two jobs, with the planes across the ranks
+        # (no kernel is built: the paths run none)
+        torch.cuda.empty_cache()
+        dist_resnet()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

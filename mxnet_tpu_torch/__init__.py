@@ -59,8 +59,10 @@ training: ``kvstore.init_distributed`` over ``torch.distributed`` (jobs
 started by ``tools/launch.py``), ``KVStoreTPU`` for ``tpu`` and every
 ``dist*`` name, ``parallel``'s collectives and shardings over the job's
 ranks, ``fastpath.bucketing``, the heartbeat, ``sequence_parallel`` and
-``example/distributed_training/cifar10_dist.py``; it runs no
-hand-written kernel. The top-level aliases ``mx.mod``,
+``example/distributed_training/cifar10_dist.py``, and the captured
+planes (``TrainStep``, ``InferStep``, ``TrainPlane``) across the job's
+ranks with the gradient average and BatchNorm's global statistics inside
+the step; it runs no hand-written kernel. The top-level aliases ``mx.mod``,
 ``mx.NDArray``, ``mx.Symbol``, ``mx.var`` and ``mx.AttrScope`` are the
 JAX package's. The training
 paths follow MXNet's entry points, with one departure: the default

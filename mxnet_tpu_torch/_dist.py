@@ -24,10 +24,20 @@ not plant it: the rank's position among the ranks of its host). A failed
 NCCL init raises: the group is never made again on gloo.
 
 One job a process: :func:`group` is None outside a job.
+
+A step that spans the job's ranks (``parallel.TrainStep``,
+``InferStep``, ``trainplane.TrainPlane``) runs its function inside a
+:class:`Span` (:func:`spanning`), which issues the step's collectives
+and counts them; BatchNorm reads :func:`current_span` to take the global
+batch's statistics. Under NCCL a span's collectives are issued on the
+current stream without a ``Work`` to wait on, so a CUDA graph captures
+them; under gloo they are staged as above, and the step is never
+captured.
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import datetime
 import json
 import os
@@ -40,8 +50,9 @@ import torch.distributed as dist
 from .base import MXNetError
 from .telemetry import registry as _registry
 
-__all__ = ["Group", "init", "group", "world_size", "rank", "connect_store",
-           "store_barrier", "STAGED_BYTES"]
+__all__ = ["Group", "Span", "init", "group", "world_size", "rank",
+           "connect_store", "store_barrier", "spanning", "current_span",
+           "STAGED_BYTES"]
 
 #: bytes a collective moved between a card and pinned host memory (gloo
 #: with card tensors), by collective
@@ -53,6 +64,7 @@ STAGED_BYTES = _registry.counter(
 _TIMEOUT_S = 300.0
 _OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 _GROUP: Optional["Group"] = None
+_SPAN: Optional["Span"] = None
 
 
 def plan_topology(infos: Sequence[dict]):
@@ -191,6 +203,65 @@ class Group(object):
         self.all_reduce([torch.zeros(1, device=self.device)])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+class Span(object):
+    """The job's group as a step that spans its ranks sees it: ``world``,
+    ``backend``, whether the step may be captured (``captured``: NCCL on
+    a card), and ``collectives``, the count issued through it so far."""
+
+    def __init__(self, grp: Group):
+        self.group = grp
+        self.world = grp.world
+        self.backend = grp.backend
+        self.captured = grp.backend == "nccl" and grp.device.type == "cuda"
+        self.collectives = 0
+
+    def all_reduce(self, tensors: List[torch.Tensor], op: str = "sum"):
+        """Reduce each tensor across the job in place (``sum`` or ``avg``,
+        the sum divided by the world size). Under NCCL one blocking
+        collective a tensor on the current stream, with no ``Work`` to
+        query: a capture records it (``avg`` is NCCL's own, which over
+        one rank runs NCCL's one-rank kernel where ``sum`` in place runs
+        nothing). Under gloo ``avg`` is the sum, then the division."""
+        self.collectives += len(tensors)
+        if self.backend != "nccl":
+            self.group.all_reduce(tensors, "sum")
+            if op == "avg":
+                for t in tensors:
+                    t.div_(self.world)
+            return tensors
+        rop = dist.ReduceOp.AVG if op == "avg" else \
+            getattr(dist.ReduceOp, _OPS[op])
+        for t in tensors:
+            dist.all_reduce(t, op=rop)
+        return tensors
+
+    def all_gather(self, out: torch.Tensor, inp: torch.Tensor):
+        """``out[j]`` = rank ``j``'s ``inp`` (:meth:`Group.all_gather`)."""
+        self.collectives += 1
+        return self.group.all_gather(out, inp)
+
+
+@contextlib.contextmanager
+def spanning(span: Optional[Span]):
+    """Make ``span`` the current one for the body (None: no change)."""
+    global _SPAN
+    if span is None:
+        yield
+        return
+    saved, _SPAN = _SPAN, span
+    try:
+        yield
+    finally:
+        _SPAN = saved
+
+
+def current_span() -> Optional[Span]:
+    """The span of the step running now, or None. Process-wide, not a
+    thread's: a backward's recompute on autograd's device thread sees the
+    step's span too."""
+    return _SPAN
 
 
 def group() -> Optional[Group]:

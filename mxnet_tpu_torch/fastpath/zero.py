@@ -80,8 +80,9 @@ Kept deviations from the JAX package:
   ``donation_prep``/``invalidate_consumed`` and its "donated step
   failed" branches have no counterpart.
 * No in-graph plane: a ``TrainPlane`` on one rank declines with the
-  "1-device mesh" reason, and across ranks the captured planes are not
-  ported (``trainplane``).
+  "1-device mesh" reason, and a plane across ranks raises at
+  ``MXNET_ZERO`` >= 1 (its sharded in-graph step is not ported;
+  ``trainplane``).
 * :meth:`ZeroPlane.shard_export` returns this rank's shard only; every
   rank writes its own shard file (``elastic``).
 """

@@ -4,8 +4,11 @@ basic_layers.py`` (``:13-102``), whole.
 Concurrent and HybridConcurrent run every child on the same input and
 concatenate the outputs (Inception's branches); Identity; SparseEmbedding,
 which is Embedding with a dense gradient (as in the JAX package); and
-SyncBatchNorm, which on the port's one device is BatchNorm (the JAX
-package's is BatchNorm on one device too).
+SyncBatchNorm, which is BatchNorm: inside a step that spans the ranks of a
+job (``parallel.TrainStep``, ``trainplane.TrainPlane``) BatchNorm
+normalises with the global batch's statistics across the ranks, as the
+JAX package's does over a batch sharded across devices; elsewhere (one
+process, the eager ``dist_sync`` Trainer) with the rank's own.
 """
 from __future__ import annotations
 
@@ -74,8 +77,9 @@ class SparseEmbedding(Block):
 
 class SyncBatchNorm(BatchNorm):
     """BatchNorm whose statistics the reference synchronises across
-    devices; the port trains on one device, where it is BatchNorm over
-    axis 1 (``num_devices`` is accepted and unused)."""
+    devices: BatchNorm over axis 1, global across the ranks inside a step
+    that spans them (see the module's docstring); ``num_devices`` is
+    accepted and unused."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, center=True, scale=True,

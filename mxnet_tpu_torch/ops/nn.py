@@ -27,13 +27,20 @@ channels-last layouts (NWC, NHWC, NDHWC) of ``Convolution``,
 ``Deconvolution`` and ``Pooling`` (the weight stays OIHW, as in the JAX
 package), and the legacy aliases (``SyncBatchNorm``, the ``*_v1`` ops).
 Train mode is ``autograd.is_training()``.
+
+Inside a step that spans two or more ranks (``_dist.current_span()``),
+``BatchNorm`` in train mode normalises with the global batch's
+statistics, as the JAX op does over a batch axis sharded across devices
+(``mxnet_tpu/ops/vision.py:719-726``): :class:`_GlobalBatchNorm`, plain
+torch ops around two all-reduces (see there). Over one rank the global
+batch is the rank's own, and the op keeps its local path.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .. import autograd, random as _random
+from .. import _dist, autograd, random as _random
 from ..base import MXNetError, torch_dtype
 from .registry import OP_REGISTRY, REQUIRED, register
 
@@ -164,6 +171,65 @@ def dropout(attrs, data):
     return torch.where(draw < keep, data / keep, torch.zeros_like(data))
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalisation over the batch of every rank of a
+    span (``x`` channels-first): ``(out, mean, var)``, the statistics
+    the global batch's per-channel mean and biased variance.
+
+    Forward: each rank's per-channel sum, sum of squares and row count
+    (from ``torch.var_mean``), one all-reduce, then ``var = E[x^2] -
+    mean^2``. Backward: ``gamma``'s and ``beta``'s gradients are the
+    rank's own sums (the step's gradient all-reduce adds them up), and
+    the two per-channel sums of the input's gradient, ``sum(dy)`` and
+    ``sum(dy * xhat)``, are all-reduced once, as the reference's
+    SyncBatchNorm backward does. The statistics are float32 for a
+    bfloat16 or float16 input."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, span):
+        red = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+        var, mean = torch.var_mean(xf, dim=red, unbiased=False)
+        n = torch.full((1,), float(x.numel() // x.shape[1]),
+                       dtype=mean.dtype, device=x.device)
+        sums = torch.cat([mean * n, (var + mean * mean) * n, n])
+        span.all_reduce([sums])
+        c = mean.numel()
+        total = sums[2 * c]
+        mean = sums[:c] / total
+        var = torch.clamp(sums[c:2 * c] / total - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean.view(shape)) * invstd.view(shape)
+        out = xhat * weight.view(shape).to(xhat.dtype) + \
+            bias.view(shape).to(xhat.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, total)
+        ctx.span = span
+        ctx.mark_non_differentiable(mean, var)
+        return out.to(x.dtype), mean.to(x.dtype), var.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, total = ctx.saved_tensors
+        red = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+        dyf = dy.to(xf.dtype)
+        xhat = (xf - mean.view(shape)) * invstd.view(shape)
+        sum_dy = dyf.sum(dim=red)
+        sum_dy_xhat = (dyf * xhat).sum(dim=red)
+        dweight = sum_dy_xhat.to(weight.dtype)
+        dbias = sum_dy.to(weight.dtype)
+        sums = torch.cat([sum_dy, sum_dy_xhat])
+        ctx.span.all_reduce([sums])
+        c = mean.numel()
+        g_dy = (sums[:c] / total).view(shape)
+        g_dy_xhat = (sums[c:] / total).view(shape)
+        dx = (weight.to(xf.dtype) * invstd).view(shape) * \
+            (dyf - g_dy - xhat * g_dy_xhat)
+        return dx.to(x.dtype), dweight, dbias, None, None
+
+
 @register("BatchNorm",
           params={"eps": (float, 1e-3), "momentum": (float, 0.9),
                   "fix_gamma": (bool, True),
@@ -187,7 +253,12 @@ def batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
     # fix_gamma: a weight of ones, as the JAX op's ones_like(gamma) (cuDNN's
     # training backward fails on the card for a bias without a weight)
     weight = torch.ones_like(gamma) if attrs.fix_gamma else gamma
-    if autograd.is_training() and not attrs.use_global_stats:
+    span = _dist.current_span()
+    if autograd.is_training() and not attrs.use_global_stats \
+            and span is not None and span.world > 1:
+        out, mean, var = _GlobalBatchNorm.apply(x, weight, beta, attrs.eps,
+                                                span)
+    elif autograd.is_training() and not attrs.use_global_stats:
         red = tuple(i for i in range(data.dim()) if i != ax)
         var, mean = torch.var_mean(data, dim=red, unbiased=False)
         # torch.batch_norm, not F.batch_norm: the JAX op normalises a
@@ -997,7 +1068,8 @@ def rnn_param_concat(attrs, *xs):
 
 
 # legacy names: the same OpDef as their modern op, as the JAX registry
-# holds them (mxnet_tpu/ops/vision.py:712-745)
+# holds them (mxnet_tpu/ops/vision.py:712-745); SyncBatchNorm is BatchNorm,
+# whose statistics are global inside a step that spans the job's ranks
 for _legacy, _modern in (("_contrib_SyncBatchNorm", "BatchNorm"),
                          ("SyncBatchNorm", "BatchNorm"),
                          ("BatchNorm_v1", "BatchNorm"),

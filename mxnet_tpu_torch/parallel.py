@@ -51,15 +51,42 @@ statistics alone. ``memory_analysis()`` reports the last single-step
 path's memory under the attribute names of XLA's ``CompiledMemoryStats``
 (:class:`MemoryStats`).
 
-Departures: a step runs on one device, and ``TrainStep`` in a job of
-several ranks raises "not ported yet" (a captured step would need the
-gradient collective inside its graph); ``pipeline_apply`` is not ported.
-The parameters are copied once at the first call and updated in place,
-where the JAX package donates and rebinds them.
+Across the ranks of a job (``kvstore.init_distributed``) the step is
+the JAX package's SPMD step over ``device_mesh()``
+(``mxnet_tpu/parallel.py:479-690``), one process a rank: every rank
+passes the same global batch, and :func:`put_sharded` gives each its
+block along ``batch_axis`` (the whole batch, replicated, where the ranks
+cannot split it evenly). The step function runs inside the job's
+``_dist.Span``: BatchNorm in train mode normalises with the global
+batch's statistics (``ops/nn.py``), the gradients are averaged over the
+ranks in one flat buffer a dtype (one all-reduce each, the buffer made
+once, outside the step), and ``TrainStep``'s mean loss too, so every
+rank returns the job's mean loss and keeps the same weights bit for bit.
+``InferStep`` gathers the ranks' outputs in rank order into the global
+batch's output. A mesh must hold every rank of the job: a process drives
+one device, and no process group spans a subset of the ranks.
+
+Where the collectives run is the backend's to decide (``_dist``): under
+NCCL (a card a rank) they are issued on the capture stream and recorded
+inside the path's CUDA graph with the forward, the backward and the
+update, even at world size 1; under gloo (ranks sharing a card, or the
+CPU) a CUDA graph cannot hold them, so the same step function runs
+uncaptured, each collective staged through pinned host memory. That is
+decided before the first step, never after a failed capture:
+``uncaptured_reason`` is then ``"gloo"``, each such step counts in
+``mxnet_uncaptured_steps_total{site,reason}``, and ``compile_count``
+stays 0. ``collectives_a_step`` counts the collectives of the last
+path's step function.
+
+Departures: ``pipeline_apply`` is not ported. The parameters are copied
+once at the first call and updated in place, where the JAX package
+donates and rebinds them. A capture runs with the garbage collector
+paused, as the decode engine's does.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from collections import OrderedDict
 from typing import Any, Dict
@@ -73,13 +100,23 @@ from .base import MXNetError, resolve_device
 from .context import Context, from_device
 from .gluon.parameter import DeferredInitializationError
 from .ndarray.ndarray import NDArray
+from .fastpath import bucketing
 from .telemetry import accounting as _accounting
+from .telemetry import registry as _registry
 
 __all__ = ["Mesh", "Sharding", "device_mesh", "all_reduce",
            "all_reduce_multi", "broadcast_to_devices", "shard_for_device",
            "batch_sharding", "resolve_sharding", "put_sharded",
            "shard_to_mesh", "fresh_replicate", "TrainStep", "InferStep",
-           "MemoryStats"]
+           "MemoryStats", "UNCAPTURED_STEPS"]
+
+#: steps of a captured executor or plane that ran uncaptured, by site and
+#: reason (``"gloo"``: the job's collectives cannot be recorded in a CUDA
+#: graph)
+UNCAPTURED_STEPS = _registry.counter(
+    "mxnet_uncaptured_steps_total",
+    "steps of a captured path run without a CUDA graph, by reason",
+    labels=("site", "reason"))
 
 
 class Mesh(object):
@@ -416,6 +453,91 @@ def fresh_replicate(x, mesh: Mesh, target=None):
     return out
 
 
+def job_span(mesh: Mesh, what: str):
+    """The ``_dist.Span`` of a step over ``mesh``: None outside a job; in a
+    job the mesh must hold every rank of it (a process drives one device,
+    and no process group spans a subset of the ranks)."""
+    grp = _dist.group()
+    if grp is None:
+        return None
+    if sorted(r for r, _ in mesh.members) != list(range(grp.world)):
+        raise MXNetError(
+            "%s over %r leaves ranks of the job of %d out: a process "
+            "drives one device, and no process group spans a subset of "
+            "the ranks" % (what, mesh, grp.world))
+    return _dist.Span(grp)
+
+
+def rank_block(x, mesh: Mesh, batch_axis: int):
+    """``(this rank's block of the global batch x along batch_axis,
+    whether the ranks split it)``: the whole batch, replicated, where they
+    cannot split it evenly. Over one rank the batch counts as split."""
+    block = put_sharded(x, batch_sharding(mesh, x.ndim, batch_axis))
+    sh = getattr(block, "_mx_sharding", None)
+    split = mesh.size == 1 or sh is None or \
+        any(sh.normalized(block.ndim))
+    return block, split
+
+
+def global_rows(x, batch_axis: int) -> int:
+    """The global batch's rows of ``x`` along ``batch_axis``: its own,
+    or a laid-out block's times the ranks that split it."""
+    rows = int(x.shape[batch_axis])
+    sh = getattr(x, "_mx_sharding", None)
+    if sh is not None:
+        names = sh.normalized(x.ndim)[batch_axis]
+        for n in names or ():
+            rows *= sh.mesh.shape[n]
+    return rows
+
+
+def gather_axis(shape, rows: int, batch_axis: int) -> int:
+    """The axis of a rank's output that holds its ``rows`` batch rows:
+    ``batch_axis`` where it does, else the first that does."""
+    if batch_axis < len(shape) and shape[batch_axis] == rows:
+        return batch_axis
+    for ax, n in enumerate(shape):
+        if n == rows:
+            return ax
+    raise MXNetError("an output of shape %s has no axis of the rank's %d "
+                     "batch rows to gather the ranks' outputs along"
+                     % (tuple(shape), rows))
+
+
+def gather_ranks(span, t: torch.Tensor, axis: int) -> torch.Tensor:
+    """Every rank's ``t`` joined along ``axis`` in rank order (one
+    all-gather)."""
+    buf = torch.empty((span.world,) + tuple(t.shape), dtype=t.dtype,
+                      device=t.device)
+    span.all_gather(buf, t.contiguous())
+    out = buf.movedim(0, axis)
+    shape = list(t.shape)
+    shape[axis] *= span.world
+    return out.reshape(shape)
+
+
+class GradBuffers(object):
+    """One flat buffer a gradient dtype, made once for a layout of
+    gradients (``fastpath.bucketing.flat_plan``), so a captured graph
+    holds its address: :meth:`average` packs the gradients in with one
+    ``torch.cat`` a buffer, averages each buffer over the span's ranks in
+    place, and returns views of it shaped as the gradients."""
+
+    def __init__(self, like, device):
+        like = list(like)
+        self.sig = tuple((tuple(t.shape), t.dtype) for t in like)
+        self.plan = bucketing.flat_plan(like, [t.dtype for t in like])
+        self.flats = [torch.empty(self.plan.bucket_layout(b)[1],
+                                  dtype=like[pos[0]].dtype, device=device)
+                      for b, pos in enumerate(self.plan.buckets)]
+
+    def average(self, span, grads):
+        for pos, flat in zip(self.plan.buckets, self.flats):
+            torch.cat([grads[i].reshape(-1) for i in pos], out=flat)
+        span.all_reduce(self.flats, "avg")
+        return self.plan.unpack(self.flats)
+
+
 @contextlib.contextmanager
 def _bound(params, tensors):
     """Run the net on ``tensors`` (name -> tensor) in place of its
@@ -591,6 +713,11 @@ class _Graphs(object):
             torch.cuda.current_stream(self._device).wait_stream(stream)
             del saved
             graph = torch.cuda.CUDAGraph()
+            # no garbage collection inside the capture (as the decode
+            # engine's): a collection could free another graph's memory
+            # on this thread mid-capture
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.graph(graph, stream=stream,
                                       capture_error_mode="relaxed"):
@@ -601,6 +728,9 @@ class _Graphs(object):
                     "failed: %s" % (type(self).__name__,
                                     [tuple(t.shape) for t in path.inputs],
                                     exc)) from exc
+            finally:
+                if collecting:
+                    gc.enable()
             path.graph, path.out = graph, out
         path.ready = True
         self._captures += 1
@@ -612,14 +742,53 @@ class _Executor(_Graphs):
     of the net's parameters, and the memory of each path's first run."""
 
     def __init__(self, net, mesh, batch_axis):
-        if batch_axis != 0:
-            raise MXNetError("batch_axis %d is not ported yet (0 only)"
-                             % batch_axis)
         self._mesh = mesh if mesh is not None else device_mesh()
         super().__init__(self._mesh.device)
         self._net = net
+        self._batch_axis = int(batch_axis)
+        self._span = job_span(self._mesh, type(self).__name__)
+        #: why the paths run without a CUDA graph (None: captured on the
+        #: card)
+        self.uncaptured_reason = "gloo" if self._span is not None \
+            and self._span.backend == "gloo" else None
+        self._collectives = 0
         self._pvals = None
         self._first_call_captures = None
+
+    @property
+    def collectives_a_step(self) -> int:
+        """Collectives the last path's step function issued in one run
+        (0 outside a job)."""
+        return self._collectives
+
+    def _block(self, x, lead=0):
+        """``(x, whether split)``: outside a job the batch itself; in a
+        job this rank's block along ``batch_axis`` (``lead`` leading axes
+        before it) and whether the ranks split it."""
+        if self._span is None:
+            return x, True
+        return rank_block(x, self._mesh, self._batch_axis + lead)
+
+    def _new_path(self, inputs, fn) -> _Path:
+        """A path over ``inputs``: counted collectives in a job, and
+        never captured where ``uncaptured_reason`` says so."""
+        span = self._span
+        if span is not None:
+            inner = fn
+
+            def fn():
+                before = span.collectives
+                out = inner()
+                self._collectives = span.collectives - before
+                return out
+        path = _Path(inputs, fn)
+        path.ready = self.uncaptured_reason is not None
+        return path
+
+    def _note_uncaptured(self, path):
+        if path.graph is None and self.uncaptured_reason is not None:
+            UNCAPTURED_STEPS.inc(site=self._site,
+                                 reason=self.uncaptured_reason)
 
     @property
     def steady_state_recompiles(self) -> int:
@@ -694,6 +863,12 @@ class TrainStep(_Executor):
     ``capture=False`` runs the same step function eagerly on the card,
     for comparing against the captured step; it is never a fallback.
 
+    In a job the step spans the mesh's ranks (the module's docstring):
+    ``loss`` is the job's mean loss on every rank, the gradients are
+    averaged over the ranks inside the step, and BatchNorm takes the
+    global batch's statistics; ``batch_axis`` names the axis of ``data``
+    and ``label`` the ranks split.
+
     In bfloat16 the optimizer states are float32 and the update's math
     too, the weights stay bfloat16 (see the module's docstring).
     ``remat=True`` recomputes the forward in the backward instead of
@@ -707,11 +882,6 @@ class TrainStep(_Executor):
                  capture=True):
         from . import optimizer as opt_mod
 
-        if _dist.world_size() > 1:
-            raise MXNetError(
-                "TrainStep across %d ranks is not ported yet: a captured "
-                "step would need the gradient collective inside its graph "
-                "(train through a dist_sync Trainer)" % _dist.world_size())
         super().__init__(net, mesh, batch_axis)
         self._remat = remat
         self._loss = loss_fn
@@ -726,6 +896,7 @@ class TrainStep(_Executor):
         self._t = 0
         self._t_dev = self._lr_dev = None
         self._last_path = None
+        self._grad_bufs = None
 
     def _ensure_init(self, data):
         if self._pvals is not None:
@@ -746,6 +917,9 @@ class TrainStep(_Executor):
                                   device=self._device)
         self._lr_dev = torch.zeros((), dtype=torch.float32,
                                    device=self._device)
+        if self._span is not None:
+            self._grad_bufs = GradBuffers(
+                [self._pvals[n] for n in self._diff], self._device)
 
     def _state_tensors(self):
         out = list(self._pvals.values())
@@ -762,11 +936,13 @@ class TrainStep(_Executor):
         return self._loss(out, NDArray(label))._data.mean()
 
     def _step_fn(self, data, label):
-        """The step on the static tensors: returns the 0-d mean loss."""
+        """The step on the static tensors: returns the 0-d mean loss (in
+        a job the ranks' mean, the gradients averaged over the ranks)."""
         ws = [self._pvals[n] for n in self._diff]
+        span = self._span
         # the backward stays inside _bound: remat's recompute runs the net
         # there, and must see the step's parameters
-        with _bound(self._params, self._pvals):
+        with _bound(self._params, self._pvals), _dist.spanning(span):
             with autograd.record():
                 if self._remat:
                     loss = torch.utils.checkpoint.checkpoint(
@@ -777,11 +953,17 @@ class TrainStep(_Executor):
             grads = torch.autograd.grad(loss, ws, allow_unused=True)
         grads = [torch.zeros_like(w) if g is None else g
                  for w, g in zip(ws, grads)]
+        loss = loss.detach()
         with torch.no_grad():
+            if span is not None:
+                grads = self._grad_bufs.average(span, grads)
+                loss = loss.reshape(1).clone()
+                span.all_reduce([loss], "avg")
+                loss = loss.reshape(())
             self._optimizer.pure_step(ws, grads, self._states, self._t_dev,
                                       self._lr_dev, self._lr_mults,
                                       self._wds)
-        return loss.detach()
+        return loss
 
     def _path(self, data, label) -> _Path:
         key = (tuple(data.shape), data.dtype, tuple(label.shape),
@@ -789,8 +971,9 @@ class TrainStep(_Executor):
         path = self._paths.get(key)
         if path is None:
             d, lab = self._static(data), self._static(label)
-            path = _Path((d, lab), lambda: self._step_fn(d, lab))
-            path.ready = not self._capture_graphs  # eager: never captured
+            path = self._new_path((d, lab), lambda: self._step_fn(d, lab))
+            if not self._capture_graphs:
+                path.ready = True  # eager: never captured
             self._paths[key] = path
         return path
 
@@ -799,10 +982,13 @@ class TrainStep(_Executor):
         d.copy_(data)
         lab.copy_(label)
         self._t_dev.fill_(float(t))
-        return self._run(path)
+        out = self._run(path)
+        self._note_uncaptured(path)
+        return out
 
     def __call__(self, data, label):
-        data, label = _host_tensor(data), _host_tensor(label)
+        data, _ = self._block(_host_tensor(data))
+        label, _ = self._block(_host_tensor(label))
         self._ensure_init(data)
         # one step counter, shared with eager Trainer/Updater steps
         # (parallel.py:667-668)
@@ -820,7 +1006,8 @@ class TrainStep(_Executor):
         and the step replayed (the counterpart of the JAX package's
         ``lax.scan``). The learning rate is sampled once per call. Returns
         the K losses as an NDArray of shape (K,), in the loss's dtype."""
-        datas, labels = _host_tensor(datas), _host_tensor(labels)
+        datas, _ = self._block(_host_tensor(datas), 1)
+        labels, _ = self._block(_host_tensor(labels), 1)
         k = int(datas.shape[0])
         self._ensure_init(datas[0])
         self._t = max(self._t, self._optimizer.num_update) + k
@@ -877,7 +1064,13 @@ class InferStep(_Executor):
     statistics), captured as a CUDA graph per input shape; ``multi_call``
     replays it once per slice of a leading steps axis. The parameters are
     snapshot at the first call; ``refresh_params()`` copies the net's
-    current values into that snapshot in place, keeping the graphs."""
+    current values into that snapshot in place, keeping the graphs.
+
+    In a job each rank runs the forward on its block of the global batch
+    (along ``batch_axis``) and the ranks' outputs are gathered in rank
+    order, inside the path, into the global batch's output (along the
+    output's axis of the rank's rows, ``batch_axis`` where it is one); a
+    batch the ranks cannot split runs whole on every rank."""
 
     _site = "parallel.InferStep"
 
@@ -897,35 +1090,43 @@ class InferStep(_Executor):
             for n, v in self._pvals.items():
                 v.copy_(self._params[n].data()._data)
 
-    def _forward(self, data):
+    def _forward(self, data, split):
         with _bound(self._params, self._pvals), autograd.pause(), \
                 torch.no_grad():
             out = self._net(NDArray(data))
-        return (out[0] if isinstance(out, (tuple, list)) else out)._data
+            out = (out[0] if isinstance(out, (tuple, list)) else out)._data
+            if self._span is not None and split:
+                rows = data.shape[self._batch_axis]
+                out = gather_ranks(self._span, out, gather_axis(
+                    out.shape, rows, self._batch_axis))
+        return out
 
-    def _path(self, data) -> _Path:
-        key = (tuple(data.shape), data.dtype)
+    def _path(self, data, split) -> _Path:
+        key = (tuple(data.shape), data.dtype, split)
         path = self._paths.get(key)
         if path is None:
             d = self._static(data)
-            path = self._paths[key] = _Path((d,), lambda: self._forward(d))
+            path = self._paths[key] = self._new_path(
+                (d,), lambda: self._forward(d, split))
         return path
 
     def _replay(self, path, data):
         path.inputs[0].copy_(data)
-        return self._run(path)
+        out = self._run(path)
+        self._note_uncaptured(path)
+        return out
 
     def __call__(self, data):
-        data = _host_tensor(data)
+        data, split = self._block(_host_tensor(data))
         self._ensure_init(data)
-        out = self._replay(self._path(data), data).clone()
+        out = self._replay(self._path(data, split), data).clone()
         self._end_call()
         return NDArray(out)
 
     def multi_call(self, datas):
-        datas = _host_tensor(datas)
+        datas, split = self._block(_host_tensor(datas), 1)
         self._ensure_init(datas[0])
-        path = self._path(datas[0])
+        path = self._path(datas[0], split)
         outs = [self._replay(path, datas[i]).clone()
                 for i in range(int(datas.shape[0]))]
         self._end_call()

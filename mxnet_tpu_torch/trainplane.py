@@ -87,27 +87,51 @@ Anything else propagates. With ``MXNET_DEVPROF_SAMPLE`` > 0 a graph
 step is a devprof step scope: its replay is timed by a CUDA event pair
 (site ``trainplane.step``) into ``mxnet_train_step_ms``.
 
-``MXNET_ZERO`` (``fastpath.zero``): the plane trains on one rank, where
-sharding is a no-op, so each step declines with the JAX package's
-"1-device mesh (sharding is a no-op)" reason, counted in
-``mxnet_zero_fallbacks_total``, and runs replicated, as the JAX plane
-does on a 1-device mesh. :func:`fit` takes ``checkpoint=`` (an
-``elastic.CheckpointManager``): it resumes from the last committed epoch,
-calls ``elastic.step_boundary`` before every batch and saves every
-``checkpoint_every`` epochs.
+Across the ranks of a job the gluon plane is the JAX plane's SPMD step
+(``mxnet_tpu/trainplane.py:44-47``, ``:228-230``): the plane's mesh
+(:func:`_default_mesh` unless given) holds every rank, each rank passes
+the same global batch and steps on its block along ``batch_axis``, and
+the step function runs inside the job's span (``parallel``'s docstring):
+BatchNorm takes the global batch's statistics, each rank's gradients,
+scaled by its own rows, are averaged over the ranks in one flat buffer a
+dtype, and ``step`` returns the whole batch's per-sample losses,
+all-gathered in rank order inside the step (a batch the ranks cannot
+split runs whole on every rank, its losses the rank's own). Under NCCL
+that is one CUDA graph a batch signature, collectives included; under
+gloo the same step runs uncaptured (``uncaptured_reason == "gloo"``,
+counted in ``parallel.UNCAPTURED_STEPS``, ``compile_count`` 0).
+``collectives_a_step`` counts a step's collectives. The ranks' weights
+stay bit-equal: the update runs on replicated weights and states. In a
+job the plane never demotes: the eager step would train the whole
+global batch on every rank. A configuration the plane cannot step
+(``MXNET_TRAINSTEP=0`` among the reasons above) raises ``MXNetError``
+naming it, and a failed first pass, capture or OOM raises as it came.
 
-Not ported yet (they raise): a mesh of several devices and the planes
-across the ranks of a job: a ``TrainPlane``, and a module that would take
-the module plane, in a job of several ranks raise "across N ranks is not
-ported yet" (a captured step would need the gradient collective inside
-its graph) rather than train each rank on its own; a module with a
-kvstore takes the eager path through the store there, as on one process.
+``MXNET_ZERO`` (``fastpath.zero``): on one rank sharding is a no-op, so
+each step declines with the JAX package's "1-device mesh (sharding is a
+no-op)" reason, counted in ``mxnet_zero_fallbacks_total``, and runs
+replicated, as the JAX plane does on a 1-device mesh. On a plane across
+ranks ``MXNET_ZERO`` of 1 or more raises "not ported yet": the JAX
+plane's sharded in-graph step (``mxnet_tpu/trainplane.py:456-560``) is
+not ported, and the plane does not run replicated in its place.
+:func:`fit` takes ``checkpoint=`` (an ``elastic.CheckpointManager``): it
+resumes from the last committed epoch, calls ``elastic.step_boundary``
+before every batch and saves every ``checkpoint_every`` epochs; across
+ranks every rank writes its own files of the replicated states
+(``elastic``'s shard file a rank), and the plane's mesh is decided at
+the first batch.
 ``TrainPlane.feed_sharding`` gives the sharding batches should arrive in
-(``parallel.batch_sharding`` over the plane's mesh).
+(``parallel.batch_sharding`` over the plane's mesh at ``batch_axis``).
+
+The module plane trains each rank's module on its own device with no
+collective, as the JAX module plane (a one-device step,
+``mxnet_tpu/trainplane.py:1016-1051``) does in a job; a module with a
+kvstore takes the eager path through the store, as on one process.
 """
 from __future__ import annotations
 
 import copy
+import gc
 import logging
 import time
 from typing import Any, Dict, Optional
@@ -115,7 +139,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from . import _dist, autograd, fastpath, random as _random, rtc
+from . import _dist, autograd, fastpath, parallel, random as _random, rtc
 from .base import MXNetError, get_env
 from .fastpath import zero
 from .fastpath.fused import _is_mp_state
@@ -176,15 +200,23 @@ class _Path(object):
         self.launches = {}    # rtc kernel -> launches a replay
 
 
-class _AcrossRanks(MXNetError):
-    """A plane asked for in a job of several ranks."""
-
-    def __init__(self, what):
-        super().__init__(
-            "%s across %d ranks is not ported yet: a captured step would "
-            "need the gradient collective inside its graph (train through "
-            "a dist_sync Trainer or Module kvstore)"
-            % (what, _dist.world_size()))
+def _default_mesh(batch_size: int):
+    """The mesh over the job's ranks (``mxnet_tpu/trainplane.py:
+    101-111``), shrunk to the largest count that divides the batch; one
+    process drives one device, so a shrunk mesh that would leave ranks
+    out raises instead."""
+    world = _dist.world_size()
+    n = world
+    while n > 1 and batch_size % n:
+        n -= 1
+    if n < world:
+        raise MXNetError(
+            "TrainPlane: a batch of %d rows splits over %d of the job's %d "
+            "ranks; a mesh that leaves ranks out is not ported (one process "
+            "drives one device, and no process group spans a subset of the "
+            "ranks): make the batch a multiple of %d"
+            % (batch_size, n, world, world))
+    return parallel.device_mesh()
 
 
 class _Ineligible(Exception):
@@ -199,6 +231,15 @@ class _PlaneBase(object):
     ``_held()`` (every tensor the step writes outside its batch)."""
 
     _site = "trainplane"
+
+    _span = None
+    uncaptured_reason = None
+    _replays = 0
+
+    @property
+    def graph_replays(self) -> int:
+        """Steps run as a replay of a captured graph."""
+        return self._replays
 
     def _init_scalars(self):
         self._stream = None
@@ -270,7 +311,7 @@ class _PlaneBase(object):
         gen = _random.generator(self._device)
         rng = gen.get_state()
         self._set_scalars(probe_rows)
-        cuda = self._device.type == "cuda"
+        cuda = self._device.type == "cuda" and self.uncaptured_reason is None
         try:
             if cuda:
                 if self._stream is None:
@@ -286,10 +327,18 @@ class _PlaneBase(object):
                 gen.set_state(rng)
                 graph = torch.cuda.CUDAGraph()
                 before = rtc.launch_counts()
-                with no_host_reads(self._site), torch.cuda.graph(
-                        graph, stream=self._stream,
-                        capture_error_mode="relaxed"):
-                    out = path.fn()
+                # no garbage collection inside the capture (as the decode
+                # engine's)
+                collecting = gc.isenabled()
+                gc.disable()
+                try:
+                    with no_host_reads(self._site), torch.cuda.graph(
+                            graph, stream=self._stream,
+                            capture_error_mode="relaxed"):
+                        out = path.fn()
+                finally:
+                    if collecting:
+                        gc.enable()
                 after = rtc.launch_counts()
                 path.launches = {k: n - before.get(k, 0)
                                  for k, n in after.items()
@@ -308,8 +357,10 @@ class _PlaneBase(object):
             self._restore(held, saved)
             gen.set_state(rng)
             return exc
-        self._captures += 1
-        _accounting.note_recompile(self._site, 1, time.perf_counter() - t0)
+        if self.uncaptured_reason is None:
+            self._captures += 1
+            _accounting.note_recompile(self._site, 1,
+                                       time.perf_counter() - t0)
         return None
 
     @staticmethod
@@ -321,9 +372,9 @@ class _PlaneBase(object):
     def _ptrs(self):
         return tuple(t.data_ptr() for t in self._held())
 
-    @staticmethod
-    def _replay(path):
+    def _replay(self, path):
         path.graph.replay()
+        self._replays += 1
         rtc.add_launches(path.launches)
 
 
@@ -337,24 +388,27 @@ class TrainPlane(_PlaneBase):
     net : Block (a HybridBlock for the graph plane)
     loss_fn : gluon Loss (or ``(out, label) -> loss`` NDArray)
     trainer : gluon.Trainer over the net's parameters
-    mesh : ``parallel.device_mesh`` of one device, or None
-    batch_axis : 0 (other axes are not ported yet)
+    mesh : ``parallel.device_mesh()`` (one device, or in a job every
+        rank), or None for :func:`_default_mesh` at the first step
+    batch_axis : the axis of data and label that the ranks split
     """
 
     _site = "trainplane.TrainPlane"
 
     def __init__(self, net, loss_fn, trainer, mesh=None, batch_axis=0):
-        if batch_axis != 0:
-            raise MXNetError("batch_axis %d is not ported yet (0 only)"
-                             % batch_axis)
-        if mesh is not None and len(mesh.devices) != 1:
-            raise MXNetError("a mesh of several devices is not ported yet")
-        if _dist.world_size() > 1:
-            raise _AcrossRanks("TrainPlane")
+        if mesh is not None:
+            if _dist.group() is None and len(mesh.devices) != 1:
+                raise MXNetError("a mesh of several devices in one process "
+                                 "is not ported: a process drives one "
+                                 "device")
+            parallel.job_span(mesh, "TrainPlane")  # every rank, or raise
         self._net = net
         self._loss = loss_fn
         self._trainer = trainer
         self._mesh = mesh
+        self._batch_axis = int(batch_axis)
+        self._grad_bufs = None
+        self._collectives = 0
         self._plane: Optional[str] = None  # 'graph' | 'eager'
         self._why_eager: Optional[str] = None
         self._cast = None                  # torch.bfloat16 under bf16 mode
@@ -379,16 +433,31 @@ class TrainPlane(_PlaneBase):
     def mesh(self):
         return self._mesh
 
+    @property
+    def collectives_a_step(self) -> int:
+        """Collectives the last path's step function issued in one run
+        (0 outside a job)."""
+        return self._collectives
+
     def feed_sharding(self, ndim: int):
         """The sharding batches should arrive in (pre-sharded feed); None
         without a mesh."""
-        from . import parallel
-
         if self._mesh is None:
             return None
-        return parallel.batch_sharding(self._mesh, ndim, 0)
+        return parallel.batch_sharding(self._mesh, ndim, self._batch_axis)
+
+    def _refuse_eager(self, reason: str):
+        """In a job the eager step would train the whole global batch on
+        every rank (per-rank BatchNorm statistics, every rank's gradient
+        of the whole batch summed by a dist_sync store): the plane raises
+        instead of demoting."""
+        if self._span is not None:
+            raise MXNetError(
+                "TrainPlane across the ranks of a job has no eager "
+                "fallback: %s" % reason)
 
     def _demote(self, reason: str):
+        self._refuse_eager(reason)
         FALLBACKS.inc(reason=reason)
         self._plane = "eager"
         self._why_eager = reason
@@ -438,7 +507,13 @@ class TrainPlane(_PlaneBase):
             if params and params[0].data()._data.dtype != torch.bfloat16:
                 self._net.cast("bfloat16")
             self._trainer._optimizer.multi_precision = True
+        if self._mesh is None and _dist.group() is not None:
+            self._mesh = _default_mesh(
+                parallel.global_rows(data_nd._data, self._batch_axis))
+        if self._mesh is not None:
+            self._span = parallel.job_span(self._mesh, "TrainPlane")
         if mode() == "0":
+            self._refuse_eager("MXNET_TRAINSTEP=0")
             self._plane = "eager"
             self._why_eager = "MXNET_TRAINSTEP=0"
             return
@@ -452,6 +527,8 @@ class TrainPlane(_PlaneBase):
         if not self._rows:
             self._demote("no trainable parameters")
             return
+        if self._span is not None and self._span.backend == "gloo":
+            self.uncaptured_reason = "gloo"
         self._params = list(self._net.collect_params().values())
         self._device = self._rows[0][1].data()._data.device
         self._init_scalars()  # (2, rows) float32 lrs and counts, 0-d views
@@ -480,29 +557,42 @@ class TrainPlane(_PlaneBase):
             out += _leaves(states.get(i))
         return out
 
-    def _step_fn(self, data, label, mp_flags, wds):
+    def _step_fn(self, data, label, mp_flags, wds, split):
         """The whole step on the static batch: forward, per-sample loss,
-        backward seeded with ones, and the fused update in place."""
+        backward seeded with ones, and the fused update in place. In a job
+        the gradients are averaged over the ranks and, where the ranks
+        split the batch, the losses gathered in rank order."""
         opt = self._trainer._optimizer
         states = self._trainer._updater.states
+        span = self._span
         ws = [p.data()._data for _, p in self._rows]
         if self._cast is not None and data.is_floating_point():
             data = data.to(self._cast)
-        with autograd.record():
-            out = self._net(NDArray(data))
-            if isinstance(out, (tuple, list)):
-                out = out[0]
-            loss = self._loss(out, NDArray(label))._data
-        grads = torch.autograd.grad(loss, ws, torch.ones_like(loss),
-                                    allow_unused=True)
+        before = span.collectives if span is not None else 0
+        with _dist.spanning(span):
+            with autograd.record():
+                out = self._net(NDArray(data))
+                if isinstance(out, (tuple, list)):
+                    out = out[0]
+                loss = self._loss(out, NDArray(label))._data
+            grads = torch.autograd.grad(loss, ws, torch.ones_like(loss),
+                                        allow_unused=True)
         grads = [torch.zeros_like(w) if g is None else g
                  for w, g in zip(ws, grads)]
+        loss = loss.detach()
+        if span is not None:
+            grads = self._grad_bufs.average(span, grads)
+            if split:
+                rows = data.shape[self._batch_axis]
+                loss = parallel.gather_ranks(span, loss, parallel.gather_axis(
+                    loss.shape, rows, self._batch_axis))
+            self._collectives = span.collectives - before
         fastpath.tree_kernel(
             opt, ws, grads, [states[i] for i, _ in self._rows], mp_flags,
             self._t_views, self._lr_views, wds, self._extra_views)
-        return loss.detach()
+        return loss
 
-    def _new_path(self, data, label, wds):
+    def _new_path(self, data, label, wds, split):
         """States, static inputs and the step for a new batch signature,
         first-passed and captured; None (the plane demoted) when the step
         cannot be captured."""
@@ -511,17 +601,25 @@ class TrainPlane(_PlaneBase):
         states = self._trainer._updater.states
         mp_flags = tuple(_is_mp_state(opt, i, p.data(), states[i])
                          for i, p in self._rows)
+        if self._span is not None:
+            ws = [p.data()._data for _, p in self._rows]
+            if self._grad_bufs is None or self._grad_bufs.sig != tuple(
+                    (tuple(w.shape), w.dtype) for w in ws):
+                self._grad_bufs = parallel.GradBuffers(ws, self._device)
         d = torch.empty(data.shape, dtype=data.dtype, device=self._device)
         lab = torch.empty(label.shape, dtype=label.dtype, device=self._device)
         d.copy_(data)
         lab.copy_(label)
-        path = _Path((d, lab), lambda: self._step_fn(d, lab, mp_flags, wds),
+        path = _Path((d, lab),
+                     lambda: self._step_fn(d, lab, mp_flags, wds, split),
                      self._ptrs())
         probe_rows = self._prologue(self._probe_optimizer(opt))
         exc = self._capture(path, probe_rows)
         if exc is not None:
-            if _hbm.classify(exc) is not None:
-                raise exc  # the step's OOM survival (_graph_step_guarded)
+            if _hbm.classify(exc) is not None or self._span is not None:
+                # the step's OOM survival (_graph_step_guarded); in a job
+                # a failed first pass or capture raises
+                raise exc
             self._demote("capture: %s" % type(exc).__name__)
             return None
         return path
@@ -534,22 +632,32 @@ class TrainPlane(_PlaneBase):
         (``hbm.oom_survival``), then demotes to the eager plane; the
         caller runs the step there. Anything non-OOM still propagates —
         a programming error must fail fast, not hide behind a fallback.
-        Returns None after a demotion."""
+        Returns None after a demotion. In a job the OOM raises after its
+        diagnostic: the rank's peers wait in the step's collectives."""
         try:
             return self._graph_step(data_nd, label_nd, batch_size)
         except Exception as exc:  # noqa: BLE001 - OOM-only survival
-            if not _hbm.oom_survival("trainplane.step", exc, dump=True):
+            if not _hbm.oom_survival("trainplane.step", exc, dump=True) \
+                    or self._span is not None:
                 raise
             self._demote("oom: %s" % type(exc).__name__)
             return None
 
     def _zero_decline(self, opt):
         """``MXNET_ZERO`` on the graph plane (``mxnet_tpu/trainplane.py:
-        463-482``): the plane trains on one rank, so the gate declines
-        with the "1-device mesh" reason, counted, and the step runs
-        replicated; a plane the eager path attached is materialized."""
-        if not zero.level():
+        463-482``): on one rank the gate declines with the "1-device
+        mesh" reason, counted, and the step runs replicated; a plane the
+        eager path attached is materialized. Across ranks the sharded
+        in-graph step is not ported, and raises."""
+        level = zero.level()
+        if not level:
             return
+        if self._span is not None and self._span.world > 1:
+            raise MXNetError(
+                "MXNET_ZERO=%d on a TrainPlane across %d ranks is not ported "
+                "yet (the sharded in-graph step); unset MXNET_ZERO to train "
+                "the plane replicated, or train through a dist_sync Trainer"
+                % (level, self._span.world))
         updater = self._trainer._updater
         zero.note_fallback(zero.eligible_reason(opt, _dist.world_size()))
         zero.materialize_updater(updater)
@@ -562,11 +670,20 @@ class TrainPlane(_PlaneBase):
         tr = self._trainer
         opt = tr._optimizer
         self._zero_decline(opt)
-        opt.rescale_grad = tr._scale / batch_size  # Trainer.step parity
         data, label = data_nd._data, label_nd._data
+        split = True
+        if self._span is not None:
+            data, split = parallel.rank_block(data, self._mesh,
+                                              self._batch_axis)
+            label, _ = parallel.rank_block(label, self._mesh,
+                                           self._batch_axis)
+        # Trainer.step parity; across ranks each rank scales by its own
+        # rows and the step averages the ranks' gradients
+        ranks = self._span.world if self._span is not None and split else 1
+        opt.rescale_grad = tr._scale * ranks / batch_size
         wds = tuple(opt._get_wd(i) for i, _ in self._rows)
         key = (tuple(data.shape), data.dtype, tuple(label.shape),
-               label.dtype, opt.rescale_grad, opt.clip_gradient, wds)
+               label.dtype, opt.rescale_grad, opt.clip_gradient, wds, split)
         path = self._paths.get(key)
         if path is not None and path.ptrs != self._ptrs():
             # a parameter or state was rebound since the capture (a cast,
@@ -575,7 +692,7 @@ class TrainPlane(_PlaneBase):
             self._paths.clear()
             path = None
         if path is None:
-            path = self._new_path(data, label, wds)
+            path = self._new_path(data, label, wds, split)
             if path is None:
                 return None
             self._paths[key] = path
@@ -592,6 +709,9 @@ class TrainPlane(_PlaneBase):
             loss = path.out.clone()
         else:
             loss = path.fn()
+            if self.uncaptured_reason is not None:
+                parallel.UNCAPTURED_STEPS.inc(site=self._site,
+                                              reason=self.uncaptured_reason)
         if probe is not None:
             probe.stop()
         STEP_DISPATCHES.inc(plane="graph")
@@ -616,7 +736,7 @@ class TrainPlane(_PlaneBase):
         data_nd, label_nd = (x if isinstance(x, NDArray) else NDArray(
             torch.as_tensor(np.asarray(x)).to(device)) for x in (data, label))
         if batch_size is None:
-            batch_size = int(data_nd.shape[0])
+            batch_size = parallel.global_rows(data_nd._data, self._batch_axis)
         if self._plane is None:
             self._activate(data_nd)
         self.step_count += 1
@@ -896,11 +1016,7 @@ def module_plane(module):
                 or module.inputs_need_grad:
             FALLBACKS.inc(reason="module-config")
             return None
-        if _dist.world_size() > 1:
-            raise _AcrossRanks("the module plane")
         return _ModulePlane(module)
-    except _AcrossRanks:
-        raise
     except Exception as exc:  # noqa: BLE001 - the fallback contract
         FALLBACKS.inc(reason="module-trace: %s" % type(exc).__name__)
         if mode() == "1":

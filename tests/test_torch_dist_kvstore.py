@@ -197,22 +197,28 @@ def test_dist_async_applies_each_copy_as_jax_does():
     assert OPS.value(op="push_async") >= 1
 
 
-def test_planes_raise_across_ranks(monkeypatch):
-    # in a job of several ranks the captured planes raise rather than
-    # train each rank alone
-    from mxnet_tpu_torch import _dist, gluon, parallel, trainplane
+def test_planes_across_ranks_refuse_zero_and_a_partial_mesh(monkeypatch):
+    # the planes train across ranks (tests/test_torch_dist_planes.py); on
+    # a plane across ranks MXNET_ZERO >= 1 raises "not ported yet" rather
+    # than run replicated, and the default TrainPlane mesh raises where
+    # the batch would leave ranks out (one process drives one device)
+    from mxnet_tpu_torch import _dist, gluon, trainplane
 
     monkeypatch.setattr(_dist, "world_size", lambda: 2)
+    with pytest.raises(MXNetError, match="5 rows.*2 ranks"):
+        trainplane._default_mesh(5)
     with tmx.cpu():
         net = gluon.nn.Dense(2)
         net.initialize()
         trainer = gluon.Trainer(net.collect_params(), "sgd",
                                 {"learning_rate": 0.1})
-        with pytest.raises(MXNetError, match="across 2 ranks"):
-            parallel.TrainStep(net, gluon.loss.L2Loss(), "sgd",
-                               parallel.Mesh([(0, "cpu")]))
-        with pytest.raises(MXNetError, match="across 2 ranks"):
-            trainplane.TrainPlane(net, gluon.loss.L2Loss(), trainer)
+        plane = trainplane.TrainPlane(net, gluon.loss.L2Loss(), trainer)
+        # the span a job's plane would run in: two ranks over gloo
+        plane._span = _dist.Span(_dist.Group(
+            None, None, 0, 2, "gloo", ["cpu", "cpu"]))
+        monkeypatch.setenv("MXNET_ZERO", "1")
+        with pytest.raises(MXNetError, match="MXNET_ZERO=1.*not ported"):
+            plane._zero_decline(trainer._optimizer)
 
 
 def test_feed_sharding_is_the_mesh_batch_sharding():

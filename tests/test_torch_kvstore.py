@@ -385,12 +385,15 @@ def test_model_exchanges_match_jax(monkeypatch, fastpath_on):
         _same(a, b, 2e-5)
 
 
-def test_the_four_exchanges_are_kvstore_spans_as_in_jax():
+def test_the_four_exchanges_are_kvstore_spans_as_in_jax(tmp_path):
     from mxnet_tpu import profiler as jprof
     from mxnet_tpu_torch import profiler as tprof
 
     def spans(pkg, make, prof):
         prof._events.clear()
+        # a session writes its trace beside the configured file
+        kept = prof._config["filename"]
+        prof.set_config(filename=str(tmp_path / ("%s.json" % pkg.__name__)))
         prof.set_state("run")
         try:
             kv = pkg.kv.create("local")
@@ -404,6 +407,7 @@ def test_the_four_exchanges_are_kvstore_spans_as_in_jax():
             kv.pushpull_update_multi([3], [[make(np.ones(SHAPE))]], [[out]])
         finally:
             prof.set_state("stop")
+            prof.set_config(filename=kept)
         got = [(e["name"], e["cat"]) for e in prof._events
                if e.get("cat") == "kvstore"]
         prof._events.clear()

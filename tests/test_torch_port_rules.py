@@ -999,6 +999,8 @@ _DIST_FILES = ("mxnet_tpu_torch/_dist.py", "mxnet_tpu_torch/kvstore.py",
                "mxnet_tpu_torch/elastic.py",
                "mxnet_tpu_torch/fastpath/bucketing.py",
                "mxnet_tpu_torch/fastpath/zero.py",
+               "mxnet_tpu_torch/trainplane.py",
+               "mxnet_tpu_torch/ops/nn.py",
                "mxnet_tpu_torch/tools/launch.py",
                "mxnet_tpu_torch/example/distributed_training/"
                "cifar10_dist.py")
@@ -1085,6 +1087,44 @@ with chaos.active("site=elastic.step,at=4,action=kill"):
     assert elastic.run_elastic(train_fn, cm, restart_delay=0) == "fit"
 assert cm.latest_epoch() == 1
 assert zero.FALLBACKS.value(reason="1-device mesh (sharding is a no-op)") > 0
+# the captured planes across the job's ranks (here one, over gloo): the
+# step, the forward and the plane span the group, uncaptured; BatchNorm's
+# global function over the one-rank span against the local op
+os.environ.pop("MXNET_ZERO")
+from mxnet_tpu_torch import _dist
+from mxnet_tpu_torch.ops import nn as nn_ops
+with mx.cpu():
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(4), gluon.nn.BatchNorm())
+    net.initialize()
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    step = parallel.TrainStep(net, ce, "sgd",
+                              optimizer_params={"learning_rate": 0.1})
+    loss = step(mx.nd.array(xs[:8]), mx.nd.array(xs[:8, :4].argmax(1)))
+    out = parallel.InferStep(net, batch_axis=0)(mx.nd.array(xs[:8]))
+    tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+    plane = trainplane.TrainPlane(net, ce, tr)
+    before = parallel.UNCAPTURED_STEPS.value(site="trainplane.TrainPlane",
+                                             reason="gloo")
+    vec = plane.step(mx.nd.array(xs[:8]), mx.nd.array(xs[:8, :4].argmax(1)))
+assert step.uncaptured_reason == "gloo" and step.compile_count == 0
+assert step.collectives_a_step == 2 and out.shape == (8, 4)
+assert plane.plane == "graph" and vec.shape == (8,)
+assert parallel.UNCAPTURED_STEPS.value(site="trainplane.TrainPlane",
+                                       reason="gloo") == before + 1
+x = torch.randn(6, 3, 5, requires_grad=True)
+w, b = torch.rand(3) + 0.5, torch.randn(3)
+y, mean, var = nn_ops._GlobalBatchNorm.apply(x, w, b, 1e-5,
+                                             _dist.Span(_dist.group()))
+ref = torch.batch_norm(x, w, b, None, None, True, 0.0, 1e-5, False)
+assert torch.allclose(y, ref, atol=1e-5)
+assert torch.allclose(var, x.detach().var((0, 2), unbiased=False), atol=1e-5)
+g = torch.randn(6, 3, 5)
+gx, = torch.autograd.grad(y, x, g)
+rx = x.detach().requires_grad_(True)
+gr, = torch.autograd.grad(torch.batch_norm(rx, w, b, None, None, True, 0.0,
+                                           1e-5, False), rx, g)
+assert torch.allclose(gx, gr, atol=1e-4)
 assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
                for k, v in sys.modules.items() if v is not None)
 print("distributed ok")

@@ -340,9 +340,15 @@ def test_unported_knobs_raise(monkeypatch):
         loss = plane.step(nd.array(xs[:B]), nd.array(ys[:B]))
     assert np.isfinite(loss.asnumpy()).all()
     assert zero.FALLBACKS.value(reason=reason) == before + 1
-    with pytest.raises(MXNetError, match="batch_axis"):
+    # batch_axis is ported (tests/test_torch_dist_planes.py); a mesh of
+    # several devices in one process still raises: a process drives one
+    # device
+    from mxnet_tpu_torch import parallel
+
+    two = parallel.Mesh([(0, "cpu"), (1, "cpu")])
+    with pytest.raises(MXNetError, match="drives one device"):
         trainplane.TrainPlane(net, gluon.loss.L2Loss(), plane._trainer,
-                              batch_axis=1)
+                              mesh=two)
 
 
 def _jbf16(x):

@@ -778,6 +778,262 @@ def case_elastic_restore(out, rank, n, cpu, base):
     os.environ.pop("MXNET_ZERO")
 
 
+# -- the captured planes across ranks (tests/test_torch_dist_planes.py) -----
+
+PL_B, PL_K = 8, 3
+PL_SGD = {"learning_rate": 0.1}
+PL_MOM = {"learning_rate": 0.1, "momentum": 0.9}
+MOD_B, MOD_N = 4, 16
+
+
+def planes_data(seed=21):
+    """K global batches of PL_B images (2 x 6 x 6) with 3-class labels, a
+    ragged batch of 5, BatchNorm's (PL_B, 3) batch, and the (T, N, C)
+    sequences of the batch_axis=1 net with (T, N) labels."""
+    rs = np.random.RandomState(seed)
+    return dict(
+        xs=rs.rand(PL_K, PL_B, 2, 6, 6).astype(np.float32),
+        ys=rs.randint(0, 3, (PL_K, PL_B)).astype(np.float32),
+        rx=rs.rand(5, 2, 6, 6).astype(np.float32),
+        ry=rs.randint(0, 3, 5).astype(np.float32),
+        bn=(rs.rand(PL_B, 3) * 5.0).astype(np.float32),
+        tx=rs.rand(PL_K, 3, PL_B, 4).astype(np.float32),
+        ty=rs.randint(0, 3, (PL_K, 3, PL_B)).astype(np.float32))
+
+
+def module_data(rank, seed=30):
+    """Rank ``rank``'s own MOD_N samples of 6 features, 3 classes."""
+    rs = np.random.RandomState(seed + rank)
+    return (rs.rand(MOD_N, 6).astype(np.float32),
+            rs.randint(0, 3, MOD_N).astype(np.float32))
+
+
+def plane_net(pkg, kind):
+    """The nets of the planes' cases, built alike in both packages:
+    ``conv`` (tests/test_parallel.py's conv, BatchNorm, relu, Dense), the
+    lone ``bn`` BatchNorm, and ``axis1``, which reads (T, N, C) sequences
+    (batch axis 1) through a BatchNorm over the channel axis."""
+    nn = pkg.gluon.nn
+    if kind == "bn":
+        return nn.BatchNorm(prefix="plbn_")
+    net = nn.HybridSequential(prefix="pl%s_" % kind)
+    with net.name_scope():
+        if kind == "conv":
+            net.add(nn.Conv2D(4, kernel_size=3, padding=1))
+            net.add(nn.BatchNorm())
+            net.add(nn.Activation("relu"))
+            net.add(nn.Flatten())
+            net.add(nn.Dense(3))
+        else:
+            net.add(nn.Dense(4, flatten=False))
+            net.add(nn.BatchNorm(axis=2))
+            net.add(nn.Activation("relu"))
+            net.add(nn.Dense(3, flatten=False))
+    return net
+
+
+def module_symbol(pkg):
+    s = pkg.sym
+    net = s.FullyConnected(s.var("data"), num_hidden=8, name="fc1")
+    net = s.Activation(net, act_type="relu", name="relu1")
+    net = s.FullyConnected(net, num_hidden=3, name="fc2")
+    return s.SoftmaxOutput(net, name="softmax")
+
+
+def _arrays(net):
+    return [p.data().asnumpy() for p in net.collect_params().values()]
+
+
+def case_planes(out, rank, n, cpu, init_file):
+    """TrainStep, InferStep and TrainPlane over the job's ranks on the
+    global batches of :func:`planes_data`, from the JAX package's initial
+    weights; the module plane on each rank's own data; the eager
+    dist_sync Trainer's per-rank BatchNorm statistics; the refusals; fit
+    with a checkpoint, resumed."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import MXNetError, gluon, nd, parallel, telemetry
+    from mxnet_tpu_torch import trainplane
+
+    init = dict(np.load(init_file))
+    d = planes_data()
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def fresh(kind, x):
+        net = plane_net(mx, kind)
+        net.initialize()
+        with mx.autograd.pause():
+            net(nd.array(x))
+        gluon.params_from_jax(net, {k[len(kind) + 1:]: v for k, v in
+                                    init.items() if k.startswith(kind + "/")})
+        return net
+
+    def put(key, arrays):
+        for i, a in enumerate(arrays):
+            out["%s_%d" % (key, i)] = np.asarray(a)
+
+    with cpu:
+        # TrainStep: 3 steps, the job's mean loss; then multi_call
+        net = fresh("conv", d["xs"][0])
+        step = parallel.TrainStep(net, ce, "sgd", optimizer_params=PL_SGD)
+        out["ts_loss"] = np.asarray([step(nd.array(d["xs"][k]), nd.array(
+            d["ys"][k])).asnumpy() for k in range(PL_K)])
+        put("ts", [p.detach().numpy().copy() for p in step.params.values()])
+        out["ts_counts"] = np.asarray([step.compile_count,
+                                       step.collectives_a_step])
+        out["ts_reason"] = np.asarray([str(step.uncaptured_reason)])
+        net = fresh("conv", d["xs"][0])
+        step = parallel.TrainStep(net, ce, "sgd", optimizer_params=PL_MOM)
+        out["mc_loss"] = step.multi_call(nd.array(d["xs"]),
+                                         nd.array(d["ys"])).asnumpy()
+        put("mc", [p.detach().numpy().copy() for p in step.params.values()])
+        # a ragged batch: replicated over the ranks
+        net = fresh("conv", d["xs"][0])
+        step = parallel.TrainStep(net, ce, "sgd", optimizer_params=PL_SGD)
+        out["rg_loss"] = step(nd.array(d["rx"]), nd.array(d["ry"])).asnumpy()
+        put("rg", [p.detach().numpy().copy() for p in step.params.values()])
+        # BatchNorm's global statistics (tests/test_parallel.py:339)
+        net = fresh("bn", d["bn"])
+        step = parallel.TrainStep(net, lambda o, l: nd.sum(o * 0.0), "sgd",
+                                  optimizer_params={"learning_rate": 0.0})
+        step(nd.array(d["bn"]), nd.array(np.zeros(PL_B, np.float32)))
+        put("bn", [p.detach().numpy().copy() for p in step.params.values()])
+        # InferStep: the ranks' outputs gathered into the global batch's
+        net = fresh("conv", d["xs"][0])
+        infer = parallel.InferStep(net)
+        out["inf"] = infer(nd.array(d["xs"][0])).asnumpy()
+        out["inf_multi"] = infer.multi_call(nd.array(d["xs"])).asnumpy()
+        out["inf_ragged"] = infer(nd.array(d["rx"])).asnumpy()
+        # TrainPlane: the whole batch's per-sample losses, a ragged batch
+        net = fresh("conv", d["xs"][0])
+        tr = gluon.Trainer(net.collect_params(), "sgd", dict(PL_SGD))
+        plane = trainplane.TrainPlane(net, ce, tr)
+        g0 = telemetry.STEP_DISPATCHES.value(plane="graph")
+        for k in range(2):
+            out["tp_loss%d" % k] = plane.step(
+                nd.array(d["xs"][k]), nd.array(d["ys"][k])).asnumpy()
+        out["tp_loss_ragged"] = plane.step(nd.array(d["rx"]),
+                                           nd.array(d["ry"])).asnumpy()
+        put("tp", _arrays(net))
+        # a block laid out by the plane's feed sharding counts its ranks'
+        # rows: the step's default batch size is the global batch's
+        block = parallel.put_sharded(nd.array(d["xs"][0])._data,
+                                     plane.feed_sharding(4))
+        out["tp_feed_rows"] = np.asarray([block.shape[0],
+                                          parallel.global_rows(block, 0)])
+        out["tp_state"] = np.asarray([
+            plane.plane, str(plane.uncaptured_reason),
+            str(plane.mesh.size)])
+        out["tp_counts"] = np.asarray([
+            plane.compile_count, plane.collectives_a_step,
+            telemetry.STEP_DISPATCHES.value(plane="graph") - g0,
+            parallel.UNCAPTURED_STEPS.value(site="trainplane.TrainPlane",
+                                            reason="gloo")])
+        # batch_axis=1: (T, N, C) sequences, the ranks split N
+        ce1 = gluon.loss.SoftmaxCrossEntropyLoss(batch_axis=1)
+        net = fresh("axis1", d["tx"][0])
+        step = parallel.TrainStep(net, ce1, "sgd", optimizer_params=PL_SGD,
+                                  batch_axis=1)
+        out["ax_ts_loss"] = np.asarray([step(nd.array(d["tx"][k]), nd.array(
+            d["ty"][k])).asnumpy() for k in range(2)])
+        put("ax_ts", [p.detach().numpy().copy() for p in step.params.values()])
+        net = fresh("axis1", d["tx"][0])
+        out["ax_inf"] = parallel.InferStep(net, batch_axis=1)(
+            nd.array(d["tx"][0])).asnumpy()
+        tr = gluon.Trainer(net.collect_params(), "sgd", dict(PL_SGD))
+        plane = trainplane.TrainPlane(net, ce1, tr, batch_axis=1)
+        out["ax_tp_loss"] = plane.step(nd.array(d["tx"][0]),
+                                       nd.array(d["ty"][0])).asnumpy()
+        put("ax_tp", _arrays(net))
+        # the eager dist_sync Trainer keeps each rank's own statistics
+        net = fresh("bn", d["bn"])
+        tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate":
+                                                         0.1},
+                           kvstore="dist_sync")
+        rows = slice(rank * PL_B // n, (rank + 1) * PL_B // n)
+        with mx.autograd.record():
+            loss = nd.sum(net(nd.array(d["bn"][rows])))
+        loss.backward()
+        tr.step(PL_B)
+        put("eager_bn", _arrays(net))
+        # the module plane: each rank trains its own module, no collective
+        xs, ys = module_data(rank)
+        it = mx.io.NDArrayIter(xs, ys, MOD_B)
+        mod = mx.module.Module(module_symbol(mx), context=cpu)
+        g0 = telemetry.STEP_DISPATCHES.value(plane="graph")
+        mod.fit(it, optimizer="sgd", optimizer_params=dict(PL_MOM),
+                arg_params={k[4:]: nd.array(v) for k, v in init.items()
+                            if k.startswith("mod/")}, num_epoch=2)
+        out["mod_steps"] = np.asarray(
+            [telemetry.STEP_DISPATCHES.value(plane="graph") - g0])
+        args, _aux = mod.get_params()
+        for k, v in args.items():
+            out["mod_" + k] = v.asnumpy()
+        # refusals: MXNET_ZERO across ranks, a mesh leaving ranks out
+        net = fresh("conv", d["xs"][0])
+        tr = gluon.Trainer(net.collect_params(), "sgd", dict(PL_SGD))
+        os.environ["MXNET_ZERO"] = "1"
+        try:
+            trainplane.TrainPlane(net, ce, tr).step(nd.array(d["xs"][0]),
+                                                    nd.array(d["ys"][0]))
+            out["refuse_zero"] = np.asarray([""])
+        except MXNetError as e:
+            out["refuse_zero"] = np.asarray([str(e)])
+        finally:
+            os.environ.pop("MXNET_ZERO")
+        try:
+            trainplane.TrainPlane(net, ce, tr).step(nd.array(d["rx"]),
+                                                    nd.array(d["ry"]))
+            out["refuse_mesh"] = np.asarray([""])
+        except MXNetError as e:
+            out["refuse_mesh"] = np.asarray([str(e)])
+        # no eager fallback in a job: a first pass that fails raises on
+        # every rank (the loss fails once: an eager retry would pass), and
+        # so does a configuration the plane cannot step
+        calls = []
+
+        def failing_once(o, l):
+            calls.append(1)
+            if len(calls) == 1:
+                raise RuntimeError("planted first-pass failure")
+            return ce(o, l)
+
+        net = fresh("conv", d["xs"][0])
+        tr = gluon.Trainer(net.collect_params(), "sgd", dict(PL_SGD))
+        plane = trainplane.TrainPlane(net, failing_once, tr)
+        try:
+            plane.step(nd.array(d["xs"][0]), nd.array(d["ys"][0]))
+            out["refuse_capture"] = np.asarray(["", str(plane.plane)])
+        except RuntimeError as e:
+            out["refuse_capture"] = np.asarray([str(e), str(plane.plane)])
+        os.environ["MXNET_FASTPATH"] = "0"
+        try:
+            trainplane.TrainPlane(net, ce, tr).step(nd.array(d["xs"][0]),
+                                                    nd.array(d["ys"][0]))
+            out["refuse_eager"] = np.asarray([""])
+        except MXNetError as e:
+            out["refuse_eager"] = np.asarray([str(e)])
+        finally:
+            os.environ.pop("MXNET_FASTPATH")
+        # fit across the ranks on the global batches with a checkpoint:
+        # one epoch, then a fresh net resumed from it for the second
+        from mxnet_tpu_torch import elastic
+
+        ckpt = os.path.join(os.path.dirname(init_file), "fit_ckpt")
+        xs, ys = d["xs"].reshape((-1,) + d["xs"].shape[2:]), \
+            d["ys"].reshape(-1)
+        for epochs in (1, 2):
+            net = fresh("conv", d["xs"][0])
+            tr = gluon.Trainer(net.collect_params(), "sgd", dict(PL_MOM))
+            cm = elastic.CheckpointManager(ckpt)
+            plane = trainplane.fit(net, ce, tr,
+                                   mx.io.NDArrayIter(xs, ys, PL_B),
+                                   epochs=epochs, checkpoint=cm)
+        put("fit", _arrays(net))
+        out["fit_state"] = np.asarray([cm.latest_epoch(), plane.step_count,
+                                       plane.mesh.size])
+        out["fit_plane"] = np.asarray([plane.plane])
+
+
 CASES = {"collectives": case_collectives, "heartbeat": case_heartbeat,
          "shardings": case_shardings,
          "kvstore": case_kvstore, "trainer": case_trainer,
@@ -785,7 +1041,7 @@ CASES = {"collectives": case_collectives, "heartbeat": case_heartbeat,
          "zero_mlp": case_zero_mlp, "zero_bf16": case_zero_bf16,
          "zero_misc": case_zero_misc, "zero_solo": case_zero_solo,
          "elastic_zero": case_elastic_zero,
-         "elastic_restore": case_elastic_restore}
+         "elastic_restore": case_elastic_restore, "planes": case_planes}
 
 
 def main(argv):
