@@ -489,16 +489,16 @@ was printed):
     ImageNet-like sizes (IMAGENET_SIZES) packed by the port's ``im2rec``
     at quality 95 (timed); ``ImageRecordIter`` at (3, 224, 224),
     ``resize=256``, ``rand_crop``, ``rand_mirror`` and ImageNet's mean and
-    std with 1 worker process (IMAGENET_ONE_WORKER_BATCHES batches), 4
-    and all host cores (an epoch each, which must hand out every record
-    once, every image through the library): img/s and the seconds to the
-    first batch; the first batch of the one-worker run must equal, bit
+    std with 1 worker process (IMAGENET_ONE_WORKER_BATCHES batches) and
+    all host cores (an epoch, which must hand out every record once,
+    every image through the library): img/s and the seconds to the first
+    batch; the first batch of the one-worker run must equal, bit
     for bit, the same batch built by the pipeline's worker function on
     the plain codec (the master's shuffle and the worker's draws
     replayed);
 70. imagenet_train: ``example/gluon/train_resnet.py --rec`` (resnet50_v1,
     batch 32, 224 x 224, its ``ImageRecordIter`` call: 4 worker
-    processes stretching each image) for two epochs of that .rec (80
+    processes stretching each image) for two epochs of that .rec (40
     batches, finite losses, one capture, every image decoded and resized
     by the library): each epoch's img/s and the share of a step's wall
     time spent waiting for the batch (the second epoch's headline; each
@@ -535,6 +535,26 @@ slice (``--elastic`` runs only these; no nvcc build):
 75. elastic_kill: ``tests/nightly/torch_dist_elastic_kill.py`` on 3
     ranks, every marker (this job and the resume job run beside the fit
     runs of phase 74).
+
+Slice 28 (several contexts, the sharded plane, the pipeline;
+``--multi-device`` runs the ring job, the zero job and phase 78 only):
+
+76. pipeline: in dist_ring's job, ``parallel.pipeline_apply`` over the 2
+    ranks (PIPE_WIDTH, PIPE_MICRO, PIPE_ROWS) within PIPE_TOL of the
+    stages applied in turn to each microbatch on one rank; ms a call,
+    both ways, and staged bytes a call.
+77. zero_plane: in the zero job, ``TrainPlane`` across the 2 ranks at
+    ``MXNET_ZERO`` 1 and 2 against the replicated plane on dist_resnet's
+    global batches, in float64 within ZERO_PLANE_TOL, the float32
+    distance a reading; state bytes, peak bytes, ms, collectives and
+    staged bytes a step. (dist_planes' 1-rank NCCL plane also checks
+    that ``MXNET_ZERO=1`` declines there with the "1-device mesh"
+    reason, counted.)
+78. multi_context: the card beside the host in one process (MC_TOL):
+    train_mnist.py's mlp through ``Module(context=[gpu(0), cpu(0)])``,
+    the gluon ``Trainer`` over both, ``matrix_factorization.py`` at its
+    defaults, each against its one-device run; ms a step and the bytes
+    copied across the card/host edge a step.
 
 ``python3 chip_smoke.py --imagenet`` runs phases 68-71 only (the host
 compiler builds the codec; no nvcc build).
@@ -716,13 +736,13 @@ RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9}
 # summation orders) inside a capture, and its weight-gradient kernels may
 # accumulate with atomics
 RESNET_TOL = 1e-4
-RESNET_TRAIN_S, RESNET_INFER_S = 5.0, 2.0
+RESNET_TRAIN_S, RESNET_INFER_S = 2.5, 1.0
 # bf16: one bfloat16 rounding step, of the compared tensor's largest
 # magnitude (a captured step may run other cuDNN algorithms than the eager
 # one, so a weight may round the other way)
 BF16_RTOL = 2.0 ** -7
-RESNET_PERCALL_S = 3.0
-PLANE_BATCHES, PLANE_S = (32, 64, 128, 256), 2.5
+RESNET_PERCALL_S = 1.5
+PLANE_BATCHES, PLANE_S = (32, 64, 128, 256), 1.0
 # the module plane: the rtc kernels' names as the profiler reports them,
 # and the plane steps traced to hold the counted launches against them
 RTC_KERNELS = ("softmax_fwd", "softmax_ce_bwd")
@@ -748,7 +768,7 @@ ZOO_NETS = ("alexnet", "vgg16", "squeezenet1_0", "densenet121",
 # its time limit (zoo_score is the first depth to cut)
 ZOO_BATCH1 = ("squeezenet1_0", "mobilenet1_0", "mobilenet_v2_1_0")
 ZOO_TOL = 1e-4
-ZOO_S = 0.4  # the time budget of each timed loop
+ZOO_S = 0.2  # the time budget of each timed loop
 # the checkpoint phases: ckpt_resnet saves after CKPT_STEPS TrainPlane
 # steps, then a resumed run and a rewound one repeat the next CKPT_STEPS
 CKPT_STEPS = 3
@@ -5828,7 +5848,7 @@ GLUON_TRAINSTEP_IMG_S = [559, 562]
 # gluon_loader: an ImageFolderDataset of GLUON_LOADER_IMAGES synthetic PNGs
 # (4 classes, sides 240-320) through RandomResizedCrop(224), a flip,
 # ToTensor and Normalize, DataLoader batches of 32 with pin_memory
-GLUON_LOADER_IMAGES, GLUON_LOADER_WORKERS = 256, (0, 4)
+GLUON_LOADER_IMAGES, GLUON_LOADER_WORKERS = 128, (0, 4)
 # and the resizing transforms on one decoded image on the card against the
 # same on the host, seeded alike, of the largest magnitude (fp32, TF32 off)
 GLUON_TRANSFORM_TOL = 1e-5
@@ -8136,7 +8156,7 @@ def vision_phases():
 # the plain version), im2rec, MPImageRecordIter and train_resnet.py --rec
 IMAGENET_SIZES = ((375, 500), (500, 375), (333, 500), (480, 640),
                   (375, 499), (281, 500), (500, 353), (427, 640))  # (h, w)
-IMAGENET_IMAGES = 1280  # 40 batches of 32: one epoch of train_resnet --rec
+IMAGENET_IMAGES = 640  # 20 batches of 32: one epoch of train_resnet --rec
 IMAGENET_BATCH = 32
 IMAGENET_SHAPE = (3, 224, 224)
 IMAGENET_NORM = dict(mean_r=123.68, mean_g=116.28, mean_b=103.53,
@@ -8145,7 +8165,7 @@ IMAGENET_ONE_WORKER_BATCHES = 8  # one worker is timed over these only
 IMAGENET_PROFILE_STEPS = 10
 # the --rec loop's profile skips the batches its workers prefetched
 # while the run was elsewhere, then reads a data-bound stretch
-IMAGENET_REC_PROFILE = dict(skip=8, steps=20)
+IMAGENET_REC_PROFILE = dict(skip=8, steps=10)
 IMAGENET_SEED = 24
 
 
@@ -8339,8 +8359,8 @@ def _plain_first_batch(rec, aug, seed):
 
 
 def imagenet_rec():
-    """The record pipeline at 1, 4 and all host cores, and its first
-    batch against the plain codec's; returns the .rec path."""
+    """The record pipeline at 1 worker and at all host cores, and its
+    first batch against the plain codec's; returns the .rec path."""
     import collections
 
     import mxnet_tpu_torch as mx
@@ -8354,7 +8374,7 @@ def imagenet_rec():
                                for i in range(IMAGENET_IMAGES))
     rates = {}
     first_lib = None
-    for n in (1, 4, os.cpu_count()):
+    for n in (1, os.cpu_count()):
         if n == 1:
             it = MPImageRecordIter(rec, preprocess_threads=1,
                                    seed=IMAGENET_SEED, **aug)
@@ -8587,6 +8607,13 @@ DIST_ASYNC_MARKERS = ("ASYNC_PUSHPULL_OK", "ASYNC_UPDATER_REJECTED_OK")
 DIST_RING_SHAPE = (1, 8, 8192, 64)
 DIST_RING_TOL = dict(rtol=2e-4, atol=2e-5)
 DIST_RING_ITERS = 3
+# pipeline: parallel.pipeline_apply over the ring job's 2 ranks (a stage a
+# rank), tanh(x @ w) stages of width PIPE_WIDTH, PIPE_MICRO microbatches
+# of PIPE_ROWS rows, against both stages applied in turn on one rank to
+# each microbatch (the same GEMM shapes: cuBLAS picks another kernel for
+# the whole stream at once, 6e-6 off)
+PIPE_WIDTH, PIPE_MICRO, PIPE_ROWS, PIPE_ITERS = 4096, 8, 256, 3
+PIPE_TOL = dict(rtol=1e-5, atol=1e-6)
 # dist_resnet: BASELINE workload 5's model (resnet50_v1, 224 x 224, 1000
 # classes, fp32, batch 32 a rank, SGD 0.05 with momentum 0.9 through a
 # dist_sync Trainer), 3 compared steps on seeded data (the full script's
@@ -8618,7 +8645,7 @@ DIST_RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9}
 # largest magnitude is under DIST_PLANES_FLOOR is held against the floor
 # (the convolutions' biases before a BatchNorm have no gradient in exact
 # arithmetic: rounding noise only). The 1-rank planes also time DIST_PLANES_TIMED steps at batch 32.
-DIST_PLANES_TOL, DIST_PLANES_FLOOR, DIST_PLANES_TIMED = 1e-4, 1e-2, 10
+DIST_PLANES_TOL, DIST_PLANES_FLOOR, DIST_PLANES_TIMED = 1e-4, 1e-2, 5
 # ring_prefill_serve: the serve traffic with prompts of at least this many
 # tokens routed through the ring prefill (the system-prompt third reaches
 # 36-56 tokens, the rest 4-24)
@@ -8837,18 +8864,68 @@ def _rank_ring():
         torch.cuda.empty_cache()
     print("rank %d: RING %s" % (r, json.dumps(dict(
         backend=grp.backend, world=n, cases=res))), flush=True)
+    print("rank %d: PIPE %s" % (r, json.dumps(_rank_pipeline(grp))),
+          flush=True)
+
+
+def _rank_pipeline(grp):
+    """A rank of the pipeline phase: ``pipeline_apply`` of the job's
+    stages on the card against the stages applied in turn here (raises
+    past PIPE_TOL); ms a call, both ways, and staged bytes a call."""
+    import torch
+
+    from mxnet_tpu_torch import parallel
+
+    n, dev = grp.world, grp.device
+    rs = np.random.RandomState(9)
+    ws = torch.from_numpy((rs.randn(n, PIPE_WIDTH, PIPE_WIDTH) /
+                           np.sqrt(PIPE_WIDTH)).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rs.randn(PIPE_MICRO, PIPE_ROWS, PIPE_WIDTH)
+                          .astype(np.float32)).to(dev)
+    mesh = parallel.device_mesh(axis_names=("pp",))
+
+    def stage(w, x):
+        return torch.tanh(x @ w)
+
+    def sequential():
+        outs = []
+        for x in xs:
+            for s in range(n):
+                x = stage(ws[s], x)
+            outs.append(x)
+        return torch.stack(outs)
+
+    staged = grp.staged_bytes
+    out = parallel.pipeline_apply(stage, ws, xs, mesh)
+    staged = grp.staged_bytes - staged
+    ref = sequential()
+    err = float((out - ref).abs().max())
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               **PIPE_TOL)
+    with torch.no_grad():
+        ms = time_ms(lambda: parallel.pipeline_apply(stage, ws, xs, mesh),
+                     iters=PIPE_ITERS, warm=1)
+        seq_ms = time_ms(sequential, iters=PIPE_ITERS, warm=1)
+    return dict(backend=grp.backend, world=n, shape=list(xs.shape),
+                max_abs_err=err, bit_equal=bool(torch.equal(out, ref)),
+                ms=ms, sequential_ms=seq_ms, staged_bytes_a_call=staged)
 
 
 def dist_ring():
     """Ring and Ulysses attention across 2 ranks at DIST_RING_SHAPE
     (``_rank_ring``): within DIST_RING_TOL of the plain attention and its
-    gradients; ms a call and staged bytes a forward and backward."""
+    gradients; ms a call and staged bytes a forward and backward. Then
+    the pipeline phase in the same job (``_rank_pipeline``)."""
     out, secs = _dist_job("dist_ring", 2, [
         sys.executable, "chip_smoke.py", "--dist-rank", "ring"])
     ranks = _rank_lines(out, 2, "RING")
     phase("dist_ring", shape=list(DIST_RING_SHAPE), job_s=secs,
           backend=ranks[0]["backend"], tol=DIST_RING_TOL,
           rank0=ranks[0]["cases"], rank1=ranks[1]["cases"])
+    pipe = _rank_lines(out, 2, "PIPE")
+    phase("pipeline", stages=2, width=PIPE_WIDTH, microbatches=PIPE_MICRO,
+          rows=PIPE_ROWS, tol=PIPE_TOL, card=CARD, job_s=secs,
+          rank0=pipe[0], rank1=pipe[1])
 
 
 def dist_cifar():
@@ -9255,6 +9332,7 @@ def _rank_planes(grp, ctx, loss_fn, out_dir, ref):
             reading["hashes_equal_reference"] = hashes == ref[0]["hashes"]
             reading["reference"] = {k: v for k, v in ref[0].items()
                                     if k != "hashes"}
+            reading["zero_one_rank"] = _zero_one_rank(plane, ctx)
         reading.update(
             captures=plane.compile_count, paths=len(plane._paths),
             graph_replays=plane.graph_replays,
@@ -9272,6 +9350,30 @@ def _rank_planes(grp, ctx, loss_fn, out_dir, ref):
         np.savez(os.path.join(out_dir, "planes_n2_rank%d.npz" % r), **saved)
         reading["seconds"] = time.perf_counter() - t0
     return reading
+
+
+def _zero_one_rank(plane, ctx):
+    """One more step of the 1-rank NCCL plane at MXNET_ZERO=1: sharding
+    over one rank is a no-op, so the step declines with the "1-device
+    mesh" reason, counted once, and replays its graph replicated."""
+    from mxnet_tpu_torch.fastpath import zero
+
+    reason = "1-device mesh (sharding is a no-op)"
+    f0 = zero.FALLBACKS.value(reason=reason)
+    r0 = plane.graph_replays
+    x, y = _resnet_shard(0, 0, ctx)
+    os.environ["MXNET_ZERO"] = "1"
+    try:
+        plane.step(x, y)
+    finally:
+        os.environ.pop("MXNET_ZERO")
+    got = dict(fallbacks=zero.FALLBACKS.value(reason=reason) - f0,
+               replays=plane.graph_replays - r0,
+               sharded=zero.plane_of(plane._trainer._updater) is not None)
+    if got != dict(fallbacks=1, replays=1, sharded=False):
+        fail("dist_planes: MXNET_ZERO=1 on the 1-rank NCCL plane gave %s"
+             % got)
+    return dict(got, reason=reason)
 
 
 def _scaled_err(got, want):
@@ -9590,6 +9692,16 @@ ZERO_CKPT_STEPS, PREEMPT_STEPS, PREEMPT_AT = 2, 4, 1
 # ELASTIC_BATCHES batches of 32, chaos kill at the ELASTIC_KILL_AT-th step
 # boundary (entering the third step)
 ELASTIC_EPOCHS, ELASTIC_BATCHES, ELASTIC_KILL_AT = 3, 2, 4
+# zero_plane: TrainPlane across the zero job's 2 ranks (gloo, uncaptured)
+# on dist_resnet's global batches (2 x 32 rows, SGD 0.05 momentum 0.9,
+# deterministic cuDNN, TF32 off), ZERO_PLANE_STEPS steps at MXNET_ZERO 0
+# (the replicated plane), 1 and 2. The sharded step is held to the
+# replicated one in float64 (this net turns float32 rounding into
+# percents of a tensor within a step, PR 27's R1-R2): each tensor within
+# ZERO_PLANE_TOL of its largest magnitude (at least DIST_PLANES_FLOOR),
+# the loss vectors alike; the float32 runs at levels 0 and 1 give the
+# readings and their distance
+ZERO_PLANE_STEPS, ZERO_PLANE_TOL = 3, 1e-9
 
 
 def _zero_net(ctx, opt, params, cast, kvstore="dist_sync"):
@@ -9739,11 +9851,103 @@ def _zero_case(grp, ctx, loss_fn, opt, params, level, cast):
     return reading, weights, states
 
 
+def _zero_plane_run(grp, ctx, loss_fn, level, dtype):
+    """zero_plane's run of TrainPlane at MXNET_ZERO=level in ``dtype``:
+    its readings (from the second step on) and its weights, moving
+    statistics and loss vectors."""
+    import torch
+
+    from mxnet_tpu_torch import trainplane
+    from mxnet_tpu_torch.fastpath import zero
+
+    dev = grp.device
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    os.environ["MXNET_ZERO"] = str(level)
+    try:
+        net, trainer = _resnet_net(ctx, None)
+        with ctx:
+            if dtype != "float32":
+                net.cast(dtype)
+            plane = trainplane.TrainPlane(net, loss_fn, trainer)
+            f0 = _zero_counts()[0]
+            losses, ms, staged = [], [], 0
+            for step in range(ZERO_PLANE_STEPS):
+                x, y = _resnet_shard(step, 0, ctx, rows=slice(None),
+                                     dtype=dtype)
+                before = grp.staged_bytes
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                losses.append(plane.step(x, y).asnumpy())
+                torch.cuda.synchronize(dev)
+                if step:  # the first step runs its first pass too
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    staged = grp.staged_bytes - before
+        upd = trainer._updater
+        zp = zero.plane_of(upd)
+        reading = dict(
+            level=level, dtype=dtype, plane=plane.plane,
+            uncaptured_reason=plane.uncaptured_reason,
+            sharded=zp is not None and all(
+                zero.is_sharded(st) for st in upd.states.values()),
+            buckets=len(zp.plan.buckets) if zp is not None else 0,
+            ms_a_step=float(np.mean(ms)),
+            collectives_a_step=plane.collectives_a_step,
+            staged_bytes_a_step=staged,
+            state_bytes=zero.state_bytes_on(dev, upd),
+            peak_bytes=torch.cuda.max_memory_allocated(dev),
+            fallbacks=_zero_counts()[0] - f0,
+            hash=_sha(net))
+        arrays = dict(_resnet_arrays(net), losses=np.stack(losses))
+        if zp is not None:
+            zero.materialize_updater(upd)
+    finally:
+        os.environ.pop("MXNET_ZERO")
+    del plane, net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reading, arrays
+
+
+def _rank_zero_plane(grp, ctx, loss_fn):
+    """A rank's zero_plane: the float64 runs at MXNET_ZERO 0, 1 and 2 (the
+    sharded against the replicated: fails the rank past ZERO_PLANE_TOL),
+    then the float32 runs at 0 and 1 (readings, and their distance)."""
+    runs, errs = {}, {}
+    ref = None
+    for dtype, levels in (("float64", (0, 1, 2)), ("float32", (0, 1))):
+        for level in levels:
+            reading, arrays = _zero_plane_run(grp, ctx, loss_fn, level,
+                                              dtype)
+            if level == 0:
+                ref = arrays
+            else:
+                if sorted(arrays) != sorted(ref):
+                    fail("zero_plane: MXNET_ZERO=%d %s gave other arrays"
+                         % (level, dtype))
+                err = max(_scaled_err(arrays[k], ref[k]) for k in arrays)
+                reading["bit_equal_replicated"] = all(
+                    np.array_equal(arrays[k], ref[k]) for k in arrays)
+                reading["max_scaled_err"] = err
+                errs["%s_zero%d" % (dtype, level)] = err
+                if not reading["sharded"] or reading["fallbacks"]:
+                    fail("zero_plane: MXNET_ZERO=%d %s ran %s (%d fallbacks)"
+                         % (level, dtype, "sharded" if reading["sharded"]
+                            else "replicated", reading["fallbacks"]))
+                if dtype == "float64" and not err <= ZERO_PLANE_TOL:
+                    fail("zero_plane: MXNET_ZERO=%d float64 stands %.3g "
+                         "from the replicated plane (tol %g)"
+                         % (level, err, ZERO_PLANE_TOL))
+            runs["%s_zero%d" % (dtype, level)] = reading
+    return dict(runs=runs, errs=errs)
+
+
 def _rank_zero(out_dir):
     """A rank of the zero job: zero_resnet's three cases, zero_ckpt's
-    saves and restores, and the preemption case's uninterrupted and
-    preempted runs. Prints ``rank <r>: ZERO {json}``; fails the rank on a
-    mismatch."""
+    saves and restores, the preemption case's uninterrupted and
+    preempted runs, and zero_plane's runs. Prints ``rank <r>: ZERO
+    {json}``; fails the rank on a mismatch."""
     import torch
 
     import mxnet_tpu_torch as mx
@@ -9764,7 +9968,8 @@ def _rank_zero(out_dir):
         cases[name] = dict(level=level, replicated=rep, sharded=got)
     res = dict(backend=grp.backend, world=grp.world, cases=cases,
                ckpt=_rank_zero_ckpt(grp, ctx, loss_fn, out_dir),
-               preempt=_rank_preempt(grp, ctx, loss_fn, out_dir))
+               preempt=_rank_preempt(grp, ctx, loss_fn, out_dir),
+               plane=_rank_zero_plane(grp, ctx, loss_fn))
     print("rank %d: ZERO %s" % (grp.rank, json.dumps(res)), flush=True)
 
 
@@ -9991,6 +10196,36 @@ def zero_ckpt(ranks, secs):
              for i, c in enumerate(ck)})
 
 
+def zero_plane(ranks, secs):
+    """zero_plane's checks across the ranks (each rank held its sharded
+    runs to its replicated ones): the ranks' weights equal in every run;
+    the sharded float32 run's state bytes a rank at most half the
+    replicated plus the padding. Prints each run's readings beside the
+    card's name and power limit."""
+    per = [rk["plane"] for rk in ranks]
+    for key in per[0]["runs"]:
+        if per[0]["runs"][key]["hash"] != per[1]["runs"][key]["hash"]:
+            fail("zero_plane %s: the ranks' weights differ" % key)
+    for rk in per:
+        rep = rk["runs"]["float32_zero0"]["state_bytes"]
+        sh = rk["runs"]["float32_zero1"]["state_bytes"]
+        # a bucket's padding is under one element a rank, two slots a
+        # bucket (the momentum: one)
+        if sh > rep / len(ranks) + 8 * rk["runs"]["float32_zero1"][
+                "buckets"]:
+            fail("zero_plane: %d state bytes a rank against %d replicated"
+                 % (sh, rep))
+    phase("zero_plane", net="resnet50_v1 224x224, 1000 classes",
+          steps=ZERO_PLANE_STEPS, batch_a_rank=RESNET_BATCH,
+          ranks=len(ranks), backend=ranks[0]["backend"], job_s=secs,
+          card=CARD, tol_float64=ZERO_PLANE_TOL,
+          **{"rank%d" % i: {k: {f: v for f, v in r.items() if f != "hash"}
+                            for k, r in rk["runs"].items()}
+             for i, rk in enumerate(per)},
+          float32_distance={k: max(rk["errs"][k] for rk in per)
+                            for k in per[0]["errs"]})
+
+
 def _fit_run(ckpt_dir, kill):
     """trainplane.fit(checkpoint=) of resnet50_v1 at batch 32 on this
     process under run_elastic; with ``kill``, chaos kill at the
@@ -10137,22 +10372,29 @@ def elastic_kill(job):
           backend=_expected_backend(3), card=CARD)
 
 
+def zero_job(tmp):
+    """The zero job (2 ranks): zero_resnet, zero_ckpt and zero_plane;
+    returns the preempted run's readings."""
+    out, secs = _dist_job("zero_resnet", 2, [
+        sys.executable, "chip_smoke.py", "--dist-rank", "zero", tmp])
+    ranks = _rank_lines(out, 2, "ZERO")
+    zero_resnet(ranks, secs)
+    zero_ckpt(ranks, secs)
+    zero_plane(ranks, secs)
+    return _preempted(ranks)
+
+
 def elastic_phases():
     """The sharded-state and elastic slice's phases (no kernel of the
-    five runs on these paths): one 2-rank job for zero_resnet, zero_ckpt
-    and the preempted run; then the resume job and the 3-rank kill job
-    run beside fit under run_elastic in this process (the script's time
-    limit: a job spends 13-22 s starting)."""
+    five runs on these paths): one 2-rank job for zero_resnet, zero_ckpt,
+    zero_plane and the preempted run; then the resume job and the 3-rank
+    kill job run beside fit under run_elastic in this process (the
+    script's time limit: a job spends 13-22 s starting)."""
     import torch
 
     torch.cuda.empty_cache()  # the ranks share the card with this process
     with tempfile.TemporaryDirectory() as tmp:
-        out, secs = _dist_job("zero_resnet", 2, [
-            sys.executable, "chip_smoke.py", "--dist-rank", "zero", tmp])
-        ranks = _rank_lines(out, 2, "ZERO")
-        zero_resnet(ranks, secs)
-        zero_ckpt(ranks, secs)
-        pre = _preempted(ranks)
+        pre = zero_job(tmp)
         resume_job = _dist_start(2, [
             sys.executable, "chip_smoke.py", "--dist-rank", "resume",
             pre[0]["dir"]])
@@ -10174,6 +10416,209 @@ def elastic_phases():
         finally:  # a failed check stops the jobs it left running
             _dist_stop(resume_job)
             _dist_stop(kill_job)
+
+
+# -- several contexts in one process (slice 28) -------------------------------
+# multi_context: the card beside the host, the one layout of several
+# contexts a one-card machine has. train_mnist.py's mlp (784-128-64-10,
+# batch 64, SGD 0.05 momentum 0.9 wd 1e-4) on MC_MNIST_EXAMPLES synthetic
+# examples through Module(context=[gpu(0), cpu(0)]) (a local store,
+# update_on_kvstore) against Module(context=gpu(0)); the gluon Trainer
+# over [gpu(0), cpu(0)] (kvstore="device") on the same net against one
+# context, MC_TRAINER_STEPS steps; matrix_factorization.py at its
+# defaults (embed_user on the host, embed_item on the card) against both
+# groups on the card. Each pair sums its batch slices in another order,
+# so they are held within MC_TOL of each tensor's largest magnitude (the
+# losses and rmse relatively), not bit for bit.
+MC_MNIST_EXAMPLES, MC_TRAINER_STEPS, MC_TOL = 6400, 20, 1e-3
+
+
+def _cross_bytes():
+    from mxnet_tpu_torch.telemetry import registry
+
+    m = registry.REGISTRY.get("mxnet_cross_device_bytes_total")
+    return sum(s["value"] for s in m.series()) if m is not None else 0
+
+
+def _mc_close(what, got, want):
+    err = max(float(np.abs(np.asarray(g) - np.asarray(w)).max()) /
+              max(float(np.abs(np.asarray(w)).max()), 1e-6)
+              for g, w in zip(got, want))
+    if len(got) != len(want) or not err <= MC_TOL:
+        fail("multi_context %s: %.3g of the largest magnitude from the "
+             "one-context run (tol %g)" % (what, err, MC_TOL))
+    return err
+
+
+def _mc_module(contexts):
+    """train_mnist.py's mlp through Module over ``contexts``: the running
+    cross-entropy after every batch, the weights, ms a step and the bytes
+    copied between the card and the host a step."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.image_classification import train_mnist
+
+    args = train_mnist.parse_args(["--num-examples",
+                                   str(MC_MNIST_EXAMPLES)])
+    losses = []
+    with mx.gpu(0):
+        mx.random.seed(0)
+        train, _val = train_mnist.get_mnist_iter(args, None)
+        mod = mx.mod.Module(train_mnist.get_symbol(args), context=contexts)
+        cross = _cross_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.fit(train, eval_metric="ce", kvstore="local", optimizer="sgd",
+                optimizer_params={"learning_rate": 0.05, "wd": 1e-4,
+                                  "momentum": 0.9},
+                initializer=mx.initializer.Xavier(
+                    rnd_type="gaussian", factor_type="in", magnitude=2),
+                batch_end_callback=[lambda p: losses.append(
+                    float(p.eval_metric.get()[1]))], num_epoch=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        args_, _aux = mod.get_params()
+        weights = [args_[k].asnumpy() for k in sorted(args_)]
+        train.reset()
+        top = _mc_host_top(mod, next(iter(train))) if len(contexts) > 1 \
+            else None
+    steps = len(losses)
+    return dict(losses=losses, weights=weights, steps=steps, host_top=top,
+                ms_a_step=secs / steps * 1e3,
+                cross_bytes_a_step=(_cross_bytes() - cross) / steps,
+                executors=len(mod._exec_group.execs),
+                store=type(mod._kvstore).__name__)
+
+
+def _mc_host_top(mod, batch, steps=5):
+    """The host's costliest operations (self CPU ms a step) over ``steps``
+    more forward, backward and update steps of ``mod``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:6]
+    return [[e.key, e.count // steps, e.self_cpu_time_total / steps / 1e3]
+            for e in rows]
+
+
+def _mc_trainer(contexts):
+    """The same mlp in gluon over ``contexts`` (split_and_load, a
+    ``device`` store), MC_TRAINER_STEPS steps on the synthetic set's
+    first batches: the weights of every context's copy, ms a step, bytes
+    across the card/host edge a step."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.example.image_classification import train_mnist
+    from mxnet_tpu_torch.gluon.utils import split_and_load
+
+    x, y = train_mnist._synthetic_mnist(64 * MC_TRAINER_STEPS, seed=7)
+    x = x.reshape(len(x), -1)
+    with mx.gpu(0):
+        mx.random.seed(0)
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(128, activation="relu"),
+                gluon.nn.Dense(64, activation="relu"), gluon.nn.Dense(10))
+        net.initialize(mx.initializer.Xavier(rnd_type="gaussian",
+                                             factor_type="in", magnitude=2),
+                       ctx=contexts)
+        with autograd.pause():
+            net(mx.nd.array(x[:2]))
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.05, "momentum": 0.9},
+                           kvstore="device")
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        cross, ms = _cross_bytes(), []
+        for step in range(MC_TRAINER_STEPS):
+            rows = slice(64 * step, 64 * (step + 1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data = split_and_load(mx.nd.array(x[rows]), contexts)
+            label = split_and_load(mx.nd.array(y[rows]), contexts)
+            with autograd.record():
+                losses = [loss_fn(net(d), lab) for d, lab in zip(data,
+                                                                  label)]
+            for loss in losses:
+                loss.backward()
+            tr.step(64)
+            torch.cuda.synchronize()
+            if step:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        copies = [[d.asnumpy() for d in p.list_data()]
+                  for p in net.collect_params().values()]
+    return dict(copies=copies, ms_a_step=float(np.mean(ms)),
+                cross_bytes_a_step=(_cross_bytes() - cross) /
+                MC_TRAINER_STEPS,
+                store=type(tr._kvstore).__name__ if tr._kvstore else None)
+
+
+def _mc_factorization(argv):
+    import torch
+
+    from mxnet_tpu_torch.example.model_parallel import matrix_factorization
+
+    args = matrix_factorization.parse_args(argv)
+    cross = _cross_bytes()
+    res = matrix_factorization.run(args)
+    torch.cuda.synchronize()
+    return dict(rmse=res["rmse"], improved=res["improved"],
+                ms_a_step=res["seconds"] / res["steps"] * 1e3,
+                cross_bytes_a_step=(_cross_bytes() - cross) / res["steps"],
+                group2ctx={k: str(v) for k, v in
+                           matrix_factorization.group2ctx(args).items()})
+
+
+def multi_context():
+    """Several contexts in one process on the card and the host: Module,
+    gluon Trainer and group2ctx (matrix_factorization.py), each against
+    its one-device run (see MC_TOL's note)."""
+    import mxnet_tpu_torch as mx
+
+    mix = [mx.gpu(0), mx.cpu(0)]
+    mod2, mod1 = _mc_module(mix), _mc_module([mx.gpu(0)])
+    if mod2["executors"] != 2 or mod2["cross_bytes_a_step"] <= 0:
+        fail("multi_context module: %d executors, %s card/host bytes a "
+             "step" % (mod2["executors"], mod2["cross_bytes_a_step"]))
+    mod_err = dict(losses=_mc_close("module losses", [mod2["losses"]],
+                                    [mod1["losses"]]),
+                   weights=_mc_close("module weights", mod2["weights"],
+                                     mod1["weights"]))
+    tr2, tr1 = _mc_trainer(mix), _mc_trainer([mx.gpu(0)])
+    tr_err = _mc_close("trainer weights", [c[0] for c in tr2["copies"]],
+                       [c[0] for c in tr1["copies"]])
+    copies_err = _mc_close("trainer host copies",
+                           [c[1] for c in tr2["copies"]],
+                           [c[0] for c in tr2["copies"]])
+    mf_mix = _mc_factorization([])
+    mf_card = _mc_factorization(["--user-ctx", "gpu", "--item-ctx", "gpu"])
+    if not mf_mix["improved"] or mf_mix["group2ctx"]["embed_user"] != \
+            "cpu(0)":
+        fail("matrix_factorization at its defaults: %s" % mf_mix)
+    mf_err = _mc_close("matrix_factorization rmse", [mf_mix["rmse"]],
+                       [mf_card["rmse"]])
+    for run in (mod1, mod2):
+        del run["weights"]
+        run["losses"] = run["losses"][:1] + run["losses"][-1:]
+    for run in (tr1, tr2):
+        del run["copies"]
+    phase("multi_context", card=CARD, tol=MC_TOL,
+          module=dict(config="train_mnist.py's mlp, batch 64, %d synthetic "
+                      "examples, 1 epoch, SGD 0.05 momentum 0.9 wd 1e-4"
+                      % MC_MNIST_EXAMPLES, card_host=mod2, card=mod1,
+                      scaled_err=mod_err),
+          trainer=dict(steps=MC_TRAINER_STEPS, card_host=tr2, card=tr1,
+                       scaled_err=tr_err, host_copy_scaled_err=copies_err),
+          matrix_factorization=dict(card_host=mf_mix, card=mf_card,
+                                    scaled_err=mf_err))
 
 
 def dist_rank(argv):
@@ -10338,6 +10783,19 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--multi-device"]:
+        # only this slice's phases and their two jobs' others: dist_ring
+        # with pipeline, the zero job (zero_resnet, zero_ckpt, zero_plane),
+        # multi_context (no kernel is built: the paths run none)
+        torch.cuda.empty_cache()
+        dist_ring()
+        with tempfile.TemporaryDirectory() as tmp:
+            zero_job(tmp)
+        multi_context()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--elastic"]:
         # only the sharded-state and elastic phases (no kernel is built:
         # the paths run none)
@@ -10480,6 +10938,7 @@ def main():
     imagenet_phases()
     dist_phases()
     elastic_phases()
+    multi_context()
     print(json.dumps({"kernels": [entry, spec_entry, flash_entry,
                                   nms_entry, rtc_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

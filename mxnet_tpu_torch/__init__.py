@@ -82,7 +82,8 @@ from . import symbol
 from . import symbol as sym
 from . import subgraph
 from .base import MXNetError, fetch_host, get_env, resolve_device
-from .context import Context, cpu, current_context, gpu, num_gpus
+from .context import (Context, cpu, current_context, gpu, num_gpus,
+                      num_tpus, tpu)
 from .model import load_checkpoint, save_checkpoint
 from .attribute import AttrScope
 from .ndarray import NDArray
@@ -90,7 +91,8 @@ from .symbol import Symbol, var
 from . import module as mod
 
 __all__ = ["MXNetError", "fetch_host", "get_env", "resolve_device",
-           "Context", "cpu", "gpu", "current_context", "num_gpus",
+           "Context", "cpu", "gpu", "tpu", "current_context", "num_gpus",
+           "num_tpus",
            "autograd", "gluon", "initializer", "nd", "ndarray", "optimizer",
            "random", "attribute", "executor", "image", "io", "model",
            "module", "recordio", "sym", "symbol", "subgraph", "callback",

@@ -181,6 +181,24 @@ class Group(object):
         self._up("all_gather", [out], [h_out])
         return out
 
+    def reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor):
+        """``out`` = this rank's ``1/world`` block of the sum of every
+        rank's ``inp`` (contiguous, ``world`` x ``out``), one
+        ``reduce_scatter_tensor``."""
+        h_in, = self._down("reduce_scatter", [inp])
+        h_out, = self._down("reduce_scatter", [out], slot0=1, copy=False)
+        dist.reduce_scatter_tensor(h_out.reshape(-1), h_in.reshape(-1))
+        self._up("reduce_scatter", [out], [h_out])
+        return out
+
+    def broadcast(self, t: torch.Tensor, src: int):
+        """Rank ``src``'s ``t`` into every rank's ``t``, in place."""
+        h, = self._down("broadcast", [t], copy=self.rank == src)
+        dist.broadcast(h, src)
+        if self.rank != src:
+            self._up("broadcast", [t], [h])
+        return t
+
     def exchange(self, send: List[torch.Tensor], dst: int,
                  recv: List[torch.Tensor], src: int):
         """Send ``send`` to rank ``dst`` while receiving ``recv`` from rank
@@ -241,6 +259,24 @@ class Span(object):
         """``out[j]`` = rank ``j``'s ``inp`` (:meth:`Group.all_gather`)."""
         self.collectives += 1
         return self.group.all_gather(out, inp)
+
+    def reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor,
+                       op: str = "sum"):
+        """``out`` = this rank's block of the ranks' ``inp`` reduced
+        (``sum``, or ``avg``: the sum over the world size). Under NCCL one
+        ``reduce_scatter_tensor`` on the current stream, which a capture
+        records (``avg`` NCCL's own); under gloo
+        :meth:`Group.reduce_scatter` staged, then the division."""
+        self.collectives += 1
+        if self.backend != "nccl":
+            self.group.reduce_scatter(out, inp)
+            if op == "avg":
+                out.div_(self.world)
+            return out
+        dist.reduce_scatter_tensor(
+            out.reshape(-1), inp.reshape(-1),
+            op=dist.ReduceOp.AVG if op == "avg" else dist.ReduceOp.SUM)
+        return out
 
 
 @contextlib.contextmanager

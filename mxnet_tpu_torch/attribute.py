@@ -5,8 +5,8 @@ API parity with the reference ``python/mxnet/attribute.py`` (AttrScope:
 a with-block whose attributes — ``ctx_group``, ``__lr_mult__``, custom
 ``__key__`` attrs — attach to every Symbol created inside it; nested scopes
 merge, inner wins). The attributes land in ``Symbol.attr_dict()`` and the
-symbol JSON; the port's executor does not place by ``ctx_group`` (group2ctx
-is not ported yet).
+symbol JSON; ``bind``/``simple_bind(group2ctx=)`` place each ``ctx_group``
+on its context (``Symbol.eval_torch``).
 """
 from __future__ import annotations
 

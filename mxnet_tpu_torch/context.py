@@ -15,7 +15,18 @@ fall back quietly:
   no card, :func:`current_context` raises unless a ``with mx.cpu():``
   scope is active;
 * :func:`gpu` raises when there is no card, where
-  ``mxnet_tpu/context.py:81`` quietly resolves to the host.
+  ``mxnet_tpu/context.py:81`` quietly resolves to the host, and
+  ``gpu(i)`` raises beyond the cards present, where the JAX package
+  aliases ``i`` modulo the devices (``:85``);
+* :func:`tpu` names the card: ``tpu(i)`` is ``gpu(i)`` and
+  :func:`num_tpus` is :func:`num_gpus`.
+
+Several contexts in one process: every ``cpu(i)`` is the host
+(``torch.device("cpu")``), and an array made for ``cpu(i)`` keeps its
+``i`` (``NDArray.context``), so a parameter's copy on ``cpu(1)`` is the
+one a batch on ``cpu(1)`` trains; ``gpu(i)`` is card ``i``. On a machine
+with one card the layouts of several contexts are several ``cpu(i)``, or
+the card beside the host.
 """
 from __future__ import annotations
 
@@ -26,7 +37,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "current_context", "num_gpus",
+           "num_tpus"]
 
 
 class Context:
@@ -117,8 +129,19 @@ def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
 
 
+def tpu(device_id: int = 0) -> Context:
+    """The accelerator of the JAX package's name: here the card, ``gpu(
+    device_id)`` (raises as :func:`gpu` does)."""
+    return gpu(device_id)
+
+
 def num_gpus() -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_tpus() -> int:
+    """The accelerators of the JAX package's name: the cards."""
+    return num_gpus()
 
 
 def current_context() -> Context:

@@ -11,14 +11,14 @@ or the card, the default). ``--kv-store dist_sync``/``tpu`` train one
 context a rank of a job the launcher started (``python -m
 mxnet_tpu_torch.tools.launch -n N -- ...``): the rank joins it here
 (``kvstore.init_distributed``) and the store sums every rank's gradients.
-``--devices`` above 1 is not ported yet and raises.
+``--devices N`` trains one ``Module`` over ``N`` contexts of the current
+type, each on its slice of the batch.
 """
 import logging
 import os
 import time
 
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch.base import MXNetError
 
 
 def add_fit_args(parser):
@@ -63,11 +63,14 @@ def add_fit_args(parser):
 
 
 def _contexts(args):
-    """The current context; several devices are not ported yet."""
-    if args.devices > 1:
-        raise MXNetError("--devices %d is not ported yet: the port trains "
-                         "on one device" % args.devices)
-    return [mx.current_context()]
+    """``--devices N`` contexts of the current context's type (the JAX
+    example's ``_contexts``): ``cpu(0..N-1)`` under ``with mx.cpu()``,
+    ``gpu(0..N-1)`` on the card, where ``gpu(i)`` raises beyond the cards
+    present; one device is the current context (a rank's own card)."""
+    cur = mx.current_context()
+    if args.devices <= 1:
+        return [cur]
+    return [mx.Context(cur.device_type, i) for i in range(args.devices)]
 
 
 def fit(args, network, data_loader, **kwargs):

@@ -24,6 +24,13 @@ them). A callback set by :meth:`Executor.set_monitor_callback` (a
 ``trainplane.module_plane`` captures the same forward, backward and
 update as one CUDA graph a step. :meth:`Executor.reshape` binds the graph
 anew for other input shapes, keeping every array whose shape holds.
+
+``group2ctx`` (``ctx_group`` -> context; ``mxnet_tpu/executor.py:35-43``)
+runs each mapped group's nodes on that context's device and the others
+on the executor's, copying a tensor at each edge between devices
+(``Symbol.eval_torch``); the gradients come back across the same edges.
+``trainplane.module_plane`` declines an executor whose groups leave its
+device (a CUDA graph holds no host work).
 """
 from __future__ import annotations
 
@@ -53,9 +60,13 @@ class Executor(object):
     in ``list_arguments()`` order, as for ``Symbol.bind``."""
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
-                 aux_states=None):
+                 aux_states=None, group2ctx=None):
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else current_context()
+        self._group2ctx = dict(group2ctx) if group2ctx else None
+        self._group2dev = {
+            g: c.torch_device() if isinstance(c, Context) else torch.device(c)
+            for g, c in group2ctx.items()} if group2ctx else None
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
@@ -120,7 +131,8 @@ class Executor(object):
         else:
             with autograd.predict_mode(), torch.no_grad():
                 outs = self._symbol.eval_torch(
-                    values, device=self._ctx.torch_device())
+                    values, device=self._ctx.torch_device(),
+                    group2dev=self._group2dev)
         self.outputs = [NDArray(o.detach()) for o in outs]
         if self._monitor_callback is not None:
             # the graph's outputs, as the JAX executor hands them
@@ -149,7 +161,7 @@ class Executor(object):
         with autograd.train_mode(), torch.enable_grad():
             outs = self._symbol.eval_torch(
                 values, aux_updates=aux_updates,
-                device=self._ctx.torch_device())
+                device=self._ctx.torch_device(), group2dev=self._group2dev)
         with torch.no_grad():
             for name, val in aux_updates.items():
                 if name in self.aux_dict:
@@ -199,10 +211,9 @@ class Executor(object):
         executor.py:copy_params_from), in place where the value has the
         bound array's shape and dtype, so a CUDA graph holding the array
         replays with the new value; a value of another shape or dtype is
-        rebound (on this executor's device) instead. A value that is the
+        rebound (on the bound array's device) instead. A value that is the
         bound array's own memory (a bucket's executors share their
         parameters) costs no copy."""
-        dev = self._ctx.torch_device()
         for src, dst, what in ((arg_params, self.arg_dict, "arguments"),
                                (aux_params or {}, self.aux_dict,
                                 "auxiliary states")):
@@ -216,7 +227,7 @@ class Executor(object):
                         with torch.no_grad():
                             held.copy_(value)
                     else:
-                        dst[name]._data = value.to(dev)
+                        dst[name]._data = value.to(held.device)
                 elif not allow_extra_params:
                     raise MXNetError("Found name \"%s\" that is not in the "
                                      "%s" % (name, what))
@@ -229,7 +240,8 @@ class Executor(object):
         shape is unchanged is this executor's own NDArray, the others are
         new zeros on this executor's device. ``partial_shaping`` and
         ``allow_up_sizing`` are accepted and unused, as in the JAX
-        package: nothing is preallocated to outgrow."""
+        package: nothing is preallocated to outgrow. New arrays are made
+        where the old ones lie (a ``group2ctx`` group's context)."""
         from .ndarray import ndarray as nd_mod
 
         arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
@@ -237,7 +249,7 @@ class Executor(object):
         def keep(old, shape):
             if old is not None and tuple(old.shape) == tuple(shape):
                 return old
-            return nd_mod.zeros(shape, ctx=self._ctx, dtype=old.dtype)
+            return nd_mod.zeros(shape, ctx=old.context, dtype=old.dtype)
 
         new_args = {n: keep(self.arg_dict[n], s)
                     for n, s in zip(self.arg_names, arg_shapes)}
@@ -246,7 +258,14 @@ class Executor(object):
         new_aux = {n: keep(self.aux_dict[n], s)
                    for n, s in zip(self.aux_names, aux_shapes)}
         return Executor(self._symbol, self._ctx, new_args, new_grads,
-                        self.grad_req, new_aux)
+                        self.grad_req, new_aux, group2ctx=self._group2ctx)
+
+    @property
+    def crosses_devices(self) -> bool:
+        """Whether a ``group2ctx`` group runs on another device than the
+        executor's."""
+        dev = self._ctx.torch_device()
+        return any(d != dev for d in (self._group2dev or {}).values())
 
     @property
     def output_dict(self):

@@ -111,8 +111,9 @@ def apply_updater(updater, triples, positions: int = 1):
     update first (``mxnet_tpu/fastpath/fused.py:253-283``); what it
     declines, counted by reason, runs here replicated, its states
     materialized first (a collective in a job, where a plane was
-    attached). ``positions`` is the caller's count of device positions;
-    the port trains on one."""
+    attached). ``positions`` is the caller's count of device positions
+    (contexts, executors): the sharded plane takes one only, and declines
+    more with the reason "multi-position eager update"."""
     if not triples:
         return
     from . import zero

@@ -79,10 +79,14 @@ Kept deviations from the JAX package:
 * No buffer donation: the port updates in place, so the JAX package's
   ``donation_prep``/``invalidate_consumed`` and its "donated step
   failed" branches have no counterpart.
-* No in-graph plane: a ``TrainPlane`` on one rank declines with the
-  "1-device mesh" reason, and a plane across ranks raises at
-  ``MXNET_ZERO`` >= 1 (its sharded in-graph step is not ported;
-  ``trainplane``).
+* The in-step plane (:meth:`ZeroPlane.traced_update`, what a
+  ``TrainPlane`` across ranks runs at ``MXNET_ZERO`` >= 1) reduce-scatters
+  the packed gradients: NCCL's ``reduce_scatter_tensor`` with its
+  average, recorded in the plane's CUDA graph; under gloo the same
+  collective staged through pinned host memory, then the division by the
+  world size (``_dist.Span.reduce_scatter``). A ``TrainPlane`` on one rank
+  declines with the "1-device mesh" reason, as the JAX plane on a
+  1-device mesh.
 * :meth:`ZeroPlane.shard_export` returns this rank's shard only; every
   rank writes its own shard file (``elastic``).
 """
@@ -454,27 +458,28 @@ class ZeroPlane(object):
         and gradients' views, the state trees of shard views, and whether
         each is a master pair. Raises (before anything moved) where a
         parameter is not one contiguous block."""
-        ws, gs, sts, mps = [], [], [], []
-        with torch.no_grad():
-            self._views(grads, weights, ws, gs, sts, mps)
-        return ws, gs, sts, mps
+        def grad_of(_b, pos, lo, hi, _off):
+            return _flat(grads[pos])[lo:hi]
 
-    def _views(self, grads, weights, ws, gs, sts, mps):
+        with torch.no_grad():
+            return self._views(grad_of, weights)
+
+    def _views(self, grad_of, weights):
+        """The kernel's operands over this rank's segments, each segment's
+        gradient ``grad_of(bucket, position, lo, hi, shard offset)``."""
+        ws, gs, sts, mps = [], [], [], []
         for b, segs in enumerate(self._segments):
             slots = self.buckets[b]
             for pos, lo, hi, off, boff in segs:
-                w, g = weights[pos], grads[pos]
-                if not (w.is_contiguous() and g.is_contiguous()):
-                    raise MXNetError("a parameter or gradient is not "
-                                     "contiguous")
-                ws.append(w.view(-1)[lo:hi])
-                gs.append(g.view(-1)[lo:hi])
+                ws.append(_flat(weights[pos])[lo:hi])
+                gs.append(grad_of(b, pos, lo, hi, off))
                 leaves = [slot[boff + lo:boff + hi]
                           if self.replicated_slot(b, j)
                           else slot[off:off + hi - lo]
                           for j, slot in enumerate(slots)]
                 sts.append(_rebuild_state(self.templates[b], iter(leaves)))
                 mps.append(self.bucket_mp[b])
+        return ws, gs, sts, mps
 
     def step(self, optimizer, operands, weights, ts, lrs, wds):
         """One sharded update: the fused apply's kernel over this rank's
@@ -488,13 +493,58 @@ class ZeroPlane(object):
         tree_kernel(optimizer, ws, gs, sts, mps, tv, lrv, wdv)
         self.gather_weights(weights)
 
-    def gather_weights(self, weights) -> None:
+    def step_buffers(self):
+        """The in-step update's gradient buffers (:meth:`traced_update`):
+        a padded flat bucket and this rank's shard of it a bucket, made
+        once, so a captured step holds their addresses; the padding stays
+        zero."""
+        flats, shards = [], []
+        for b in range(len(self.plan.buckets)):
+            dtype = self.bucket_dtypes[b]
+            flats.append(torch.zeros(self.plan.bucket_layout(b)[1],
+                                     dtype=dtype, device=self.device))
+            shards.append(torch.empty(self.shard_len(b), dtype=dtype,
+                                      device=self.device))
+        return flats, shards
+
+    def traced_update(self, optimizer, span, weights, grads, bufs, ts, lrs,
+                      wds):
+        """The sharded update inside a step function (the JAX package's
+        ``traced_update``, ``mxnet_tpu/fastpath/zero.py:507-530``): each
+        bucket's packed gradients averaged over the ranks by one
+        reduce-scatter into this rank's shard, the fused kernel on this
+        rank's segments only (views of the weights, of the gradient
+        shard and of the state shards), then one all-gather a bucket of
+        the updated weights into every parameter in place
+        (:meth:`gather_weights`). Every collective goes through the
+        step's ``span`` (a captured step records them under NCCL).
+        ``bufs`` is :meth:`step_buffers`'; ``ts``/``lrs``/``wds`` one
+        value (or 0-d tensor) a parameter."""
+        from .fused import tree_kernel
+
+        flats, shards = bufs
+        with torch.no_grad():
+            for b, positions in enumerate(self.plan.buckets):
+                used = sum(self.plan.bucket_layout(b)[0])
+                torch.cat([grads[p].reshape(-1) for p in positions],
+                          out=flats[b][:used])
+                span.reduce_scatter(shards[b], flats[b], "avg")
+            ws, gs, sts, mps = self._views(
+                lambda b, _pos, lo, hi, off: shards[b][off:off + hi - lo],
+                weights)
+        tv, lrv, wdv = self.expand_scalars(ts, lrs, wds)
+        tree_kernel(optimizer, ws, gs, sts, mps, tv, lrv, wdv)
+        self.gather_weights(weights, span)
+
+    def gather_weights(self, weights, comm=None) -> None:
         """Each bucket's updated shard from every rank into every
-        parameter, in place: one all-gather a bucket into a flat buffer,
-        then one ``torch._foreach_copy_`` into the parameters. A level-1
-        master bucket gathers the float32 masters instead (in place in
-        their replicated slot), and the weights are cast from them, as
-        the kernel casts them."""
+        parameter, in place: one all-gather a bucket into a flat buffer
+        (through ``comm``, a step's span, or the plane's group), then one
+        ``torch._foreach_copy_`` into the parameters. A level-1 master
+        bucket gathers the float32 masters instead (in place in their
+        replicated slot), and the weights are cast from them, as the
+        kernel casts them."""
+        comm = comm or self.group
         with torch.no_grad():
             for b, positions in enumerate(self.plan.buckets):
                 sizes, padded = self.plan.bucket_layout(b)
@@ -502,7 +552,7 @@ class ZeroPlane(object):
                 own = slice(self.rank * s, (self.rank + 1) * s)
                 if self.replicated_slot(b, 0):
                     full = self.buckets[b][0]
-                    self.group.all_gather(full.view(self.dp, -1), full[own])
+                    comm.all_gather(full.view(self.dp, -1), full[own])
                 else:
                     full = weights[positions[0]].new_empty(padded)
                     mine = full[own]
@@ -513,7 +563,7 @@ class ZeroPlane(object):
                         torch.cat(parts, out=mine[:used])
                     if used < s:
                         mine[used:].zero_()
-                    self.group.all_gather(full.view(self.dp, -1), mine)
+                    comm.all_gather(full.view(self.dp, -1), mine)
                 dst, src, off = [], [], 0
                 for pos, n in zip(positions, sizes):
                     dst.append(weights[pos].view(-1))
@@ -536,6 +586,14 @@ class ZeroPlane(object):
 # ---------------------------------------------------------------------------
 # updater plumbing (the eager fused path behind apply_updater)
 # ---------------------------------------------------------------------------
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as one flat view; raises where it is not one contiguous
+    block (before anything moved)."""
+    if not t.is_contiguous():
+        raise MXNetError("a parameter or gradient is not contiguous")
+    return t.view(-1)
 
 
 def plane_of(updater) -> Optional[ZeroPlane]:

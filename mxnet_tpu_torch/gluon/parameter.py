@@ -1,8 +1,9 @@
 """Gluon Parameter / ParameterDict: the port of
 ``mxnet_tpu/gluon/parameter.py``.
 
-A parameter owns one NDArray per context (one context is what the port
-runs: more raise in ``Trainer``) and its gradient buffer. Shapes with an
+A parameter owns one NDArray per context and a gradient buffer a
+context; ``data()`` without a context, over several, is the current
+context's copy, as in the JAX package. Shapes with an
 unknown (0) dimension defer initialization to the first forward, which
 fills them in call order; since every weight is drawn from the one host
 stream ``random.np_rng()``, that order fixes the values, and it is the
@@ -119,8 +120,12 @@ class Parameter(object):
         if arr_dict is not None:
             if ctx is list:
                 return list(arr_dict.values())
-            if ctx is None or len(arr_dict) == 1:
+            if len(arr_dict) == 1:
                 return list(arr_dict.values())[0]
+            if ctx is None:
+                # several contexts: the current one's copy, as in the JAX
+                # package (mxnet_tpu/gluon/parameter.py:103-106)
+                ctx = current_context()
             if ctx in arr_dict:
                 return arr_dict[ctx]
             raise MXNetError("Parameter '%s' was not initialized on context "

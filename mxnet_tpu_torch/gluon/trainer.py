@@ -1,18 +1,27 @@
-"""Gluon Trainer: the port of ``mxnet_tpu/gluon/trainer.py`` for one
-context.
+"""Gluon Trainer: the port of ``mxnet_tpu/gluon/trainer.py``.
 
 ``step`` = ``allreduce_grads`` (a no-op on one context, as in the JAX
-package) + ``update``: one fused apply over every parameter
+package) + ``update``: one fused apply over every parameter a context
 (``fastpath.apply_updater``, ``trainer.py:212-224``), or with
-``MXNET_FASTPATH=0`` the per-parameter loop over the updater
+``MXNET_FASTPATH=0`` the per-parameter loop over the updaters
 (``trainer.py:227-234``), both under the fresh-gradient contract
 (``trainer.py:189-206``): a gradient no backward has renewed since the
 last step raises unless ``ignore_stale_grad``, which then skips that
-parameter. Parameters on more than one context raise "not ported yet".
+parameter.
+
+Several contexts in one process (``mxnet_tpu/gluon/trainer.py:47-105``,
+``:146-177``): every parameter lives on the same contexts, the card and
+the host or several ``cpu(i)``, with one updater a context (their states
+on that context). The store reduces the contexts' gradients
+(``pushpull_multi``: the copies summed in context order on the first
+context's device, the sum copied back into every copy), so each
+context's update takes the same gradient and its copy stays the
+others'.
 
 The kvstore is made at the first ``step`` (``_init_kvstore``,
 ``mxnet_tpu/gluon/trainer.py:80-108``): ``"device"``/``"local"`` on one
-context mean no store, as in the JAX package; a ``KVStore`` object is
+context mean no store, as in the JAX package, and a ``device``,
+``local`` or ``tpu`` store over several; a ``KVStore`` object is
 kept, takes a copy of every parameter and the ``compression_params``,
 and with ``update_on_kvstore`` the optimizer: ``step`` then pushes each
 gradient (the store's updater steps the store's weight) and pulls the
@@ -81,7 +90,13 @@ class Trainer(object):
         else:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
-        self._updater = opt.get_updater(self._optimizer)
+        self._updaters = [opt.get_updater(self._optimizer)
+                          for _ in self._contexts or [None]]
+
+    @property
+    def _updater(self):
+        """The first context's updater (the one of a single context)."""
+        return self._updaters[0]
 
     def _check_contexts(self):
         contexts = None
@@ -94,9 +109,6 @@ class Trainer(object):
                     "previous Parameters are initialized on %s."
                     % (param.name, ctx, contexts))
             contexts = ctx
-        if contexts is not None and len(contexts) > 1:
-            raise MXNetError("training on %d contexts is not ported yet (the "
-                             "port trains on one)" % len(contexts))
         return contexts
 
     def _init_kvstore(self):
@@ -126,8 +138,9 @@ class Trainer(object):
             if self._compression_params:
                 self._kvstore.set_gradient_compression(
                     self._compression_params)
+            ctx = self._contexts[0] if self._contexts else None
             for i, param in enumerate(self._params):
-                self._kvstore.init(i, param.data())
+                self._kvstore.init(i, param.data(ctx))
             if self._update_on_kvstore:
                 self._kvstore.set_optimizer(self._optimizer)
         self._kv_initialized = True
@@ -152,11 +165,11 @@ class Trainer(object):
             self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
             return
         with open(fname, "wb") as fout:
-            fout.write(self._updater.get_states(dump_optimizer=True))
+            fout.write(self._updaters[0].get_states(dump_optimizer=True))
 
     def load_states(self, fname):
-        """Load ``save_states``'s file: the states into the live state
-        tensors (new ones on the parameters' context where there are
+        """Load ``save_states``'s file: the states into each context's
+        live state tensors (new ones on that context where there are
         none), and its optimizer, with this Trainer's parameters as its
         ``param_dict``."""
         if not self._kv_initialized:
@@ -168,10 +181,11 @@ class Trainer(object):
             return
         with open(fname, "rb") as f:
             states = f.read()
-        device = self._contexts[0].torch_device() if self._contexts \
-            else None
-        self._updater.set_states(states, device=device)
-        self._optimizer = self._updater.optimizer
+        for upd, ctx in zip(self._updaters, self._contexts or [None]):
+            upd.set_states(states, device=ctx.torch_device() if ctx
+                           else None)
+            upd.optimizer = self._updaters[0].optimizer
+        self._optimizer = self._updaters[0].optimizer
         self._optimizer.param_dict = dict(enumerate(self._params))
 
     def step(self, batch_size, ignore_stale_grad=False):
@@ -203,11 +217,11 @@ class Trainer(object):
         keys = [i for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
         if not self._update_on_kvstore and kv._can_fuse_pushpull():
-            grads = [[self._params[i].grad()] for i in keys]
+            grads = [self._params[i].list_grad() for i in keys]
             kv.pushpull_multi(keys, grads, grads)
             return
         for i in keys:
-            grad = [self._params[i].grad()]
+            grad = self._params[i].list_grad()
             kv.push(i, grad, priority=-i)
             if not self._update_on_kvstore:
                 kv.pull(i, grad, priority=-i)
@@ -224,34 +238,48 @@ class Trainer(object):
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
-        """Apply the optimizer to every parameter with a fresh gradient;
-        under ``update_on_kvstore``, pull the store's weights instead."""
+        """Apply each context's updater to every parameter with a fresh
+        gradient there; under ``update_on_kvstore``, pull the store's
+        weights instead."""
         rows = []
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
-            arr = param.data()
-            if not getattr(arr, "_fresh_grad", True):
-                if ignore_stale_grad:
-                    continue
-                raise UserWarning(
-                    "Gradient of Parameter `%s` on context %s has not been "
-                    "updated by backward since last `step`. This could mean "
-                    "a bug in your model that made it only use a subset of "
-                    "the Parameters for this iteration. If you are "
-                    "intentionally only using a subset, call step with "
-                    "ignore_stale_grad=True to suppress this warning and "
-                    "skip updating of Parameters with stale gradient"
-                    % (param.name, arr.context))
-            rows.append((i, param.grad(), arr))
-        for _i, _grad, arr in rows:
-            arr._fresh_grad = False
-        if self._update_on_kvstore:
-            for i, _grad, arr in rows:
-                self._kvstore.pull(i, [arr], priority=-i)
+            if not ignore_stale_grad:
+                for arr in param.list_data():
+                    if not getattr(arr, "_fresh_grad", True):
+                        raise UserWarning(
+                            "Gradient of Parameter `%s` on context %s has "
+                            "not been updated by backward since last "
+                            "`step`. This could mean a bug in your model "
+                            "that made it only use a subset of the "
+                            "Parameters for this iteration. If you are "
+                            "intentionally only using a subset, call step "
+                            "with ignore_stale_grad=True to suppress this "
+                            "warning and skip updating of Parameters with "
+                            "stale gradient" % (param.name, arr.context))
+            if self._update_on_kvstore:
+                for arr in param.list_data():
+                    arr._fresh_grad = False
+                self._kvstore.pull(i, param.list_data(), priority=-i)
+                continue
+            rows.append((i, param))
+        n = len(self._updaters)
+        if fastpath.enabled() and fastpath.supports(self._optimizer,
+                                                    n_positions=n):
+            # one fused apply a context, its updater over its copies
+            for j, upd in enumerate(self._updaters):
+                triples = []
+                for i, param in rows:
+                    arr = param.list_data()[j]
+                    if getattr(arr, "_fresh_grad", True):
+                        triples.append((i, param.list_grad()[j], arr))
+                        arr._fresh_grad = False
+                fastpath.apply_updater(upd, triples, positions=n)
             return
-        if fastpath.enabled() and fastpath.supports(self._optimizer):
-            fastpath.apply_updater(self._updater, rows)
-            return
-        for i, grad, arr in rows:
-            self._updater(i, grad, arr)
+        for i, param in rows:
+            for upd, arr, grad in zip(self._updaters, param.list_data(),
+                                      param.list_grad()):
+                if getattr(arr, "_fresh_grad", True):
+                    upd(i, grad, arr)
+                    arr._fresh_grad = False

@@ -60,7 +60,7 @@ from . import _dist
 from . import optimizer as opt
 from . import resilience, telemetry
 from .base import MXNetError, get_env
-from .ndarray.ndarray import NDArray
+from .ndarray.ndarray import NDArray, cross_copy
 from .optimizer import _tensor
 from .resilience import chaos
 from .telemetry import registry as _registry
@@ -113,7 +113,7 @@ def _copy_into(dst, src):
     held = dst._data
     with torch.no_grad():
         if tuple(held.shape) == tuple(src.shape):
-            held.copy_(src)
+            held.copy_(cross_copy(src, held.device, "kvstore"))
         else:
             dst._data = src.detach().to(held.device, copy=True)
 
@@ -228,7 +228,7 @@ class KVStore(object):
         dev = datas[0].device
         acc = datas[0]
         for d in datas[1:]:
-            acc = acc + d.to(dev)
+            acc = acc + cross_copy(d, dev, "kvstore")
         return acc
 
     def _reduce_multi(self, groups: List[List[torch.Tensor]]):

@@ -17,7 +17,8 @@ One departure: with no ``context`` the module runs on the current
 context (the card), as the port's ``Module`` does; the JAX one defaults
 to ``cpu()``. ``BaseModule.fit`` steps a bucketing module eagerly
 (``trainplane.module_plane`` takes a ``Module`` only), as in the JAX
-package. ``group2ctxs`` is not ported yet and raises.
+package. ``context`` may list several contexts and ``group2ctxs`` place
+each bucket's ``ctx_group``s: every bucket's ``Module`` takes them.
 """
 from __future__ import annotations
 
@@ -39,8 +40,6 @@ class BucketingModule(BaseModule):
         if default_bucket_key is None:
             raise MXNetError("BucketingModule: default_bucket_key is "
                              "required")
-        if group2ctxs:
-            raise MXNetError("BucketingModule: group2ctxs is not ported yet")
         if context is None:
             context = current_context()
         self._default_bucket_key = default_bucket_key
@@ -48,6 +47,7 @@ class BucketingModule(BaseModule):
         self._context = [context] if isinstance(context, Context) \
             else list(context)
         self._work_load_list = work_load_list
+        self._group2ctxs = group2ctxs
         self._fixed_param_names = fixed_param_names
         self._state_names = state_names
         self._compression_params = compression_params
@@ -103,6 +103,7 @@ class BucketingModule(BaseModule):
                       work_load_list=self._work_load_list,
                       fixed_param_names=self._fixed_param_names,
                       state_names=self._state_names,
+                      group2ctxs=self._group2ctxs,
                       compression_params=self._compression_params)
 
     # -- parameters -------------------------------------------------------

@@ -2,9 +2,20 @@
 ``mxnet_tpu/module/module.py`` (bind, init_params, init_optimizer,
 forward/backward, update, get_outputs, get_params/set_params).
 
-One context (the card by default: ``context=None`` is the current
-context, which raises without a card unless a ``with mx.cpu():`` scope
-asks for the host). Without a kvstore :meth:`Module.update` applies the
+The card by default (``context=None`` is the current context, which
+raises without a card unless a ``with mx.cpu():`` scope asks for the
+host). A ``context`` list binds one executor a context, each on its
+slice of the batch by ``work_load_list`` (``executor_group``), and
+``group2ctxs`` places the ``ctx_group``s of each executor's graph
+(``Symbol.simple_bind(group2ctx=)``). Over several contexts
+``init_optimizer`` makes a ``local`` store by default (``update_on_kvstore``,
+as ``model._create_kvstore`` decides): each update pushes every
+executor's gradient, the store's updater steps its weight with their sum,
+and the weight is pulled into every executor. Without a store each
+executor's gradient updates its own copy, through the one updater, as
+in the JAX ``Module`` (``mxnet_tpu/module/module.py:289-330``): that
+updater's states are shared by the copies. Without a kvstore on one
+context :meth:`Module.update` applies the
 optimizer in place through the fused ``fastpath`` apply
 (``MXNET_FASTPATH=0``: the per-parameter updater). With a ``KVStore``
 object (``model._create_kvstore``: what ``common/fit.py`` passes) the
@@ -36,7 +47,7 @@ default bucket's); ``init_params`` given an executor's own arrays (another
 bucket's ``get_params``) takes them as they are, so a bucket switch copies
 nothing. ``state_names`` are inputs the caller sets, not parameters.
 :meth:`Module.reshape` binds anew for other input shapes with the trained
-parameters. ``group2ctxs`` is not ported yet and raises.
+parameters.
 
 :func:`params_from_jax` carries the JAX ``Module.get_params()`` into this
 package, so both can compute the same thing.
@@ -71,10 +82,10 @@ class Module(BaseModule):
             context = current_context()
         if isinstance(context, Context):
             context = [context]
-        if group2ctxs:
-            raise MXNetError("Module: group2ctxs is not ported yet")
         self._compression_params = compression_params
         self._context = list(context)
+        self._work_load_list = work_load_list
+        self._group2ctxs = group2ctxs
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
         label_names = list(label_names) if label_names is not None else []
@@ -171,8 +182,8 @@ class Module(BaseModule):
         return self._arg_params, self._aux_params
 
     def _sync_params_from_devices(self):
-        """Point the module's parameter dicts at the executor's current
-        values (one context: no copy)."""
+        """Point the module's parameter dicts at the executors' current
+        values (one context: no copy; several: their mean)."""
         self._exec_group.get_params(self._arg_params, self._aux_params)
         self._params_dirty = False
 
@@ -274,10 +285,11 @@ class Module(BaseModule):
                 raise MXNetError("shared_module must be binded first")
             shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
-            self._symbol, self._context, data_shapes, label_shapes,
-            self._param_names, for_training, inputs_need_grad,
+            self._symbol, self._context, self._work_load_list, data_shapes,
+            label_shapes, self._param_names, for_training, inputs_need_grad,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            shared_group=shared_group, state_names=self._state_names)
+            shared_group=shared_group, state_names=self._state_names,
+            group2ctxs=self._group2ctxs)
         self.binded = True
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
@@ -394,32 +406,48 @@ class Module(BaseModule):
         self._require("binded", "params_initialized",
                       "optimizer_initialized")
         self._params_dirty = True
-        e = self._exec_group.execs[0]
+        execs = self._exec_group.execs
         names = self._ordered_param_names()
         if self._update_on_kvstore and self._kvstore:
             for idx, name in enumerate(names):
-                if name not in e.grad_dict:
+                grads = [e.grad_dict[name] for e in execs
+                         if name in e.grad_dict]
+                if not grads:
                     continue
-                self._kvstore.push(idx, [e.grad_dict[name]], priority=-idx)
-                self._kvstore.pull(idx, [e.arg_dict[name]], priority=-idx)
+                self._kvstore.push(idx, grads, priority=-idx)
+                self._kvstore.pull(idx, [e.arg_dict[name] for e in execs],
+                                   priority=-idx)
             return
-        triples = [(idx, e.grad_dict[name], e.arg_dict[name])
-                   for idx, name in enumerate(names) if name in e.grad_dict]
+        # (index, [(executor, gradient)] of the executors holding it)
+        entries = [(idx, name, [(e, e.grad_dict[name]) for e in execs
+                                if name in e.grad_dict])
+                   for idx, name in enumerate(names)]
+        entries = [en for en in entries if en[2]]
         if self._kvstore is not None:
             kv = self._kvstore
+            grads = [[g for _, g in pairs] for _, _, pairs in entries]
+            keys = [idx for idx, _, _ in entries]
             if kv._can_fuse_pushpull():
-                grads = [[g] for _, g, _ in triples]
-                kv.pushpull_multi([i for i, _, _ in triples], grads, grads)
+                kv.pushpull_multi(keys, grads, grads)
             else:
-                for idx, g, _ in triples:
-                    kv.push(idx, [g], priority=-idx)
-                    kv.pull(idx, [g], priority=-idx)
-        if fastpath.enabled() and fastpath.supports(self._optimizer):
-            # one fused apply over every parameter (module.py:306-322)
-            fastpath.apply_updater(self._updater, triples)
+                for idx, g in zip(keys, grads):
+                    kv.push(idx, g, priority=-idx)
+                    kv.pull(idx, g, priority=-idx)
+        n_pos = max((len(pairs) for _, _, pairs in entries), default=1)
+        if fastpath.enabled() and isinstance(self._updater, opt.Updater) \
+                and fastpath.supports(self._optimizer, n_positions=n_pos):
+            # one fused apply an executor position over every parameter
+            # (module.py:306-322)
+            for k in range(n_pos):
+                fastpath.apply_updater(
+                    self._updater, [(idx, pairs[k][1],
+                                     pairs[k][0].arg_dict[name])
+                                    for idx, name, pairs in entries
+                                    if k < len(pairs)], positions=n_pos)
             return
-        for idx, grad, weight in triples:
-            self._updater(idx, grad, weight)
+        for idx, name, pairs in entries:
+            for e, g in pairs:
+                self._updater(idx, g, e.arg_dict[name])
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         """Feed the last forward's outputs and ``labels`` to the metric

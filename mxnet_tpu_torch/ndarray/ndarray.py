@@ -63,7 +63,7 @@ def no_host_reads(what):
 
 class NDArray:
     __slots__ = ("_data", "_grad", "_grad_req", "_marked", "_leaf",
-                 "_fresh_grad", "__weakref__")
+                 "_fresh_grad", "_cpu_id", "__weakref__")
 
     def __init__(self, data):
         if isinstance(data, NDArray):
@@ -96,7 +96,13 @@ class NDArray:
 
     @property
     def context(self) -> Context:
-        return from_device(self._data.device)
+        """The array's device as a context; a host array keeps the ``i``
+        of the ``cpu(i)`` it was made for (several contexts in one
+        process: every ``cpu(i)`` is the host)."""
+        dev = self._data.device
+        if dev.type == "cpu":
+            return Context("cpu", getattr(self, "_cpu_id", 0))
+        return from_device(dev)
 
     ctx = context
 
@@ -175,14 +181,18 @@ class NDArray:
 
     def astype(self, dtype) -> "NDArray":
         """A copy cast to ``dtype``."""
-        return NDArray(self._data.detach().to(torch_dtype(dtype), copy=True))
+        return _like(self, NDArray(self._data.detach().to(torch_dtype(dtype),
+                                                          copy=True)))
 
     def copy(self) -> "NDArray":
         return invoke("_copy", self)
 
     def copyto(self, other) -> "NDArray":
         if isinstance(other, Context):
-            return NDArray(self._data.detach().to(other.torch_device()))
+            # a copy always, as MXNet's: cpu(0) and cpu(1) are one device
+            return _on(NDArray(cross_copy(self._data.detach(),
+                                          other.torch_device(), "copyto",
+                                          copy=True)), other)
         if isinstance(other, NDArray):
             other._data = self._data.detach().to(other._data.device)
             return other
@@ -233,13 +243,13 @@ class NDArray:
         if stype not in (None, "default", "row_sparse", "csr"):
             raise MXNetError("attach_grad: unknown stype %r" % (stype,))
         _make_leaf(self, grad_req)
-        self._grad = NDArray(torch.zeros_like(self._data))
+        self._grad = _like(self, NDArray(torch.zeros_like(self._data)))
         # a leaf no backward has reached yet is stale (Trainer's
         # ignore_stale_grad contract holds from the first step)
         self._fresh_grad = False
 
     def detach(self) -> "NDArray":
-        return NDArray(self._data.detach())
+        return _like(self, NDArray(self._data.detach()))
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         from .. import autograd
@@ -262,7 +272,7 @@ class NDArray:
             key = key._data.long()
         with torch.set_grad_enabled(autograd.is_recording()
                                     and self._in_graph):
-            return NDArray(self._data[key])
+            return _like(self, NDArray(self._data[key]))
 
     def __setitem__(self, key, value):
         """``x[key] = value``: rebinds to a new tensor with the slice
@@ -617,9 +627,9 @@ def invoke(op_name: str, *inputs, out=None, **kwargs):
     with torch.set_grad_enabled(record):
         outputs = opdef.fcompute(attrs, *datas)
     if isinstance(outputs, (tuple, list)):
-        result = [NDArray(o) for o in outputs]
+        result = [_like(first, NDArray(o)) for o in outputs]
     else:
-        result = NDArray(outputs)
+        result = _like(first, NDArray(outputs))
     return _bind_out(out, result)
 
 
@@ -697,6 +707,48 @@ def _device(ctx) -> torch.device:
     return (ctx or current_context()).torch_device()
 
 
+def cross_copy(t: torch.Tensor, device: torch.device, site: str,
+               copy: bool = False):
+    """``t`` on ``device`` (``t`` itself where it lies there, unless
+    ``copy``); a copy between the card and the host counts its bytes under
+    ``site`` in ``mxnet_cross_device_bytes_total`` (the edges of several
+    contexts in one process: a kvstore's reduce and pull, a batch's
+    slices, a ``group2ctx`` graph's crossing tensors), and so does the
+    gradient a backward sends back across it."""
+    if t.device.type == torch.device(device).type:
+        return t.to(device, copy=copy)
+    from ..telemetry import registry as _registry
+
+    counter = _registry.counter(
+        "mxnet_cross_device_bytes_total",
+        "bytes copied between the card and the host by the paths of "
+        "several contexts in one process, by site", labels=("site",))
+    counter.inc(t.numel() * t.element_size(), site=site)
+    out = t.to(device, copy=copy)
+    if out.requires_grad:
+        out.register_hook(lambda g: counter.inc(
+            g.numel() * g.element_size(), site=site))
+    return out
+
+
+def _on(nd: NDArray, ctx: Optional[Context]) -> NDArray:
+    """``nd`` marked as made for ``ctx`` (the current context when None):
+    a host array keeps which ``cpu(i)`` it is."""
+    ctx = ctx or current_context()
+    if ctx.device_type == "cpu" and ctx.device_id:
+        nd._cpu_id = ctx.device_id
+    return nd
+
+
+def _like(src: Optional[NDArray], nd: NDArray) -> NDArray:
+    """``nd`` on ``src``'s context: an op's output, a view or a copy of a
+    host array keeps its ``cpu(i)``."""
+    cid = getattr(src, "_cpu_id", 0)
+    if cid and nd._data.device.type == "cpu":
+        nd._cpu_id = cid
+    return nd
+
+
 def _dtype(dtype, default=torch.float32) -> torch.dtype:
     return default if dtype is None else torch_dtype(dtype)
 
@@ -713,23 +765,23 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
     # a copy, as MXNet's nd.array makes: the array never aliases source
     host = np.array(data, np.float32 if td == torch.bfloat16
                     else np.dtype(np_dtype(dtype)))
-    return NDArray(torch.from_numpy(host).to(device=dev, dtype=td))
+    return _on(NDArray(torch.from_numpy(host).to(device=dev, dtype=td)), ctx)
 
 
 def zeros(shape, ctx=None, dtype=None, **kw) -> NDArray:
-    return NDArray(torch.zeros(shape, dtype=_dtype(dtype),
-                               device=_device(ctx)))
+    return _on(NDArray(torch.zeros(shape, dtype=_dtype(dtype),
+                                   device=_device(ctx))), ctx)
 
 
 def ones(shape, ctx=None, dtype=None, **kw) -> NDArray:
-    return NDArray(torch.ones(shape, dtype=_dtype(dtype),
-                              device=_device(ctx)))
+    return _on(NDArray(torch.ones(shape, dtype=_dtype(dtype),
+                                  device=_device(ctx))), ctx)
 
 
 def full(shape, val, ctx=None, dtype=None, **kw) -> NDArray:
-    return NDArray(torch.full(shape if isinstance(shape, (tuple, list))
-                              else (shape,), val, dtype=_dtype(dtype),
-                              device=_device(ctx)))
+    return _on(NDArray(torch.full(shape if isinstance(shape, (tuple, list))
+                                  else (shape,), val, dtype=_dtype(dtype),
+                                  device=_device(ctx))), ctx)
 
 
 def empty(shape, ctx=None, dtype=None) -> NDArray:

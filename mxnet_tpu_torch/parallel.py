@@ -78,7 +78,14 @@ decided before the first step, never after a failed capture:
 stays 0. ``collectives_a_step`` counts the collectives of the last
 path's step function.
 
-Departures: ``pipeline_apply`` is not ported. The parameters are copied
+:func:`pipeline_apply` is the JAX package's GPipe schedule
+(``:244-306``) over the job's ranks: a stage a rank, each rank keeping
+its row of the stage parameters, the activations handed to the next
+rank by ``torch.distributed`` P2P each tick (staged through pinned host
+memory under gloo), and the last stage's outputs broadcast to every
+rank. It is a forward: no gradient flows back across the ranks.
+
+Departures: the parameters are copied
 once at the first call and updated in place, where the JAX package
 donates and rebinds them. A capture runs with the garbage collector
 paused, as the decode engine's does.
@@ -105,7 +112,8 @@ from .telemetry import accounting as _accounting
 from .telemetry import registry as _registry
 
 __all__ = ["Mesh", "Sharding", "device_mesh", "all_reduce",
-           "all_reduce_multi", "broadcast_to_devices", "shard_for_device",
+           "all_reduce_multi", "pipeline_apply", "broadcast_to_devices",
+           "shard_for_device",
            "batch_sharding", "resolve_sharding", "put_sharded",
            "shard_to_mesh", "fresh_replicate", "TrainStep", "InferStep",
            "MemoryStats", "UNCAPTURED_STEPS"]
@@ -293,6 +301,89 @@ def all_reduce_multi(groups, op: str = "sum"):
     for cop, ts in by_op.items():
         _dist.group().all_reduce(ts, cop)
     return [finish(t) for t, _, finish in parts]
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves of nested lists, tuples and dicts."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def pipeline_apply(stage_fn, stage_params, microbatches, mesh=None,
+                   axis: str = "pp"):
+    """GPipe pipeline parallelism over the job's ranks (the JAX package's
+    ``pipeline_apply``, ``mxnet_tpu/parallel.py:244-306``): stage ``s`` is
+    rank ``s``, and the ``axis`` of ``mesh`` (every rank; by default
+    ``device_mesh(axis_names=(axis,))``) counts the stages.
+
+    ``stage_fn(params_s, x) -> y`` is one stage's computation on tensors;
+    activations keep one shape across stages. ``stage_params`` is a tree
+    (nested lists, tuples, dicts) of tensors, NDArrays or arrays whose
+    leaves have a leading stage axis ``(S, ...)``: each rank keeps its
+    row. ``microbatches`` is the ``(M, B, ...)`` stream, the same on every
+    rank. The schedule runs ``M + S - 1`` ticks: at tick ``t`` stage 0
+    takes microbatch ``t`` and stage ``s`` the activation stage ``s - 1``
+    sent it at ``t - 1`` (one ``batch_isend_irecv`` a tick between
+    neighbours; a stage idles before its first microbatch and after its
+    last). Returns the last stage's ``(M, B, ...)`` outputs in
+    microbatch order on every rank (a broadcast from the last rank), as
+    a tensor, or an NDArray for an NDArray ``microbatches``. Outside a job
+    the one stage runs every microbatch. A forward, under
+    ``torch.no_grad``."""
+    grp = _dist.group()
+    if mesh is None:
+        mesh = device_mesh(axis_names=(axis,))
+    if axis not in mesh.shape:
+        raise MXNetError("pipeline_apply: the mesh has no axis %r (axes %s)"
+                         % (axis, mesh.axis_names))
+    n_stage = int(mesh.shape[axis])
+    world = _dist.world_size()
+    if n_stage != world:
+        raise MXNetError(
+            "pipeline_apply: the %r axis must hold every rank of the job "
+            "(%d), a stage a rank; got %d" % (axis, world, n_stage))
+    if grp is not None:
+        job_span(mesh, "pipeline_apply")
+    leaves = []
+    _tree_map(lambda a: leaves.append(_tensor_of(a)), stage_params)
+    bad = [tuple(t.shape) for t in leaves
+           if t.dim() == 0 or t.shape[0] != n_stage]
+    if bad:
+        raise MXNetError(
+            "pipeline_apply: every stage_params leaf needs leading dim %d "
+            "(one stage per '%s' device); got %s" % (n_stage, axis, bad))
+    rank = _dist.rank()
+    dev = mesh.device
+    params = _tree_map(lambda a: _tensor_of(a)[rank].to(dev), stage_params)
+    xs = _tensor_of(microbatches).to(dev)
+    n_micro = int(xs.shape[0])
+    outs = []
+    with torch.no_grad():
+        act = torch.zeros_like(xs[0])
+        for t in range(n_micro + n_stage - 1):
+            out = None
+            if rank <= t < n_micro + rank:
+                out = stage_fn(params, xs[t] if rank == 0 else act)
+                if out.data_ptr() == act.data_ptr():
+                    out = out.clone()  # the next receive writes act
+                if rank == n_stage - 1:
+                    outs.append(out)
+            send = [out] if out is not None and rank < n_stage - 1 else []
+            recv = [act] if 0 < rank and rank - 1 <= t < n_micro + rank - 1 \
+                else []
+            if send or recv:
+                grp.exchange(send, rank + 1, recv, rank - 1)
+        if rank == n_stage - 1:
+            result = torch.stack(outs)
+        else:
+            result = torch.empty((n_micro,) + tuple(xs.shape[1:]),
+                                 dtype=xs.dtype, device=dev)
+        if grp is not None:
+            grp.broadcast(result, n_stage - 1)
+    return NDArray(result) if isinstance(microbatches, NDArray) else result
 
 
 def shard_for_device(array, device):

@@ -36,8 +36,20 @@ subgraphs for the shapes of their free variables (a weight used inside a
 loop). ``simple_bind(shared_exec=)`` binds the shared executor's arrays
 themselves (a bucketing module's executors share one set of
 parameters); :meth:`Symbol.get_backend_symbol` partitions the graph with
-a registered ``subgraph`` property. ``group2ctx`` is not ported yet and
-raises.
+a registered ``subgraph`` property.
+
+``bind``/``simple_bind`` take ``group2ctx`` (``mxnet_tpu/symbol.py:
+491-565``, the reference's manual model parallelism): a node whose
+``ctx_group`` attribute (``AttrScope(ctx_group=...)``) the map names runs
+on that group's device, and so do its arguments, gradients and auxiliary
+states (a variable of no group lives beside the ops that read it, where
+they are of one group); an unmapped node runs on the executor's
+context. A tensor that
+crosses from one device to another is copied at the edge, as the
+reference's ``_CrossDeviceCopy`` (``graph_executor.cc:1577``), and the
+backward copies its gradient back the same way (autograd through the
+copy); a copy between the card and the host is counted in
+``mxnet_cross_device_bytes_total{site="group2ctx"}``.
 """
 from __future__ import annotations
 
@@ -441,7 +453,8 @@ class Symbol(object):
     # -- evaluation / binding ---------------------------------------------
     def eval_torch(self, value_map: Dict[str, torch.Tensor],
                    aux_updates: Optional[Dict[str, torch.Tensor]] = None,
-                   device: Optional[torch.device] = None):
+                   device: Optional[torch.device] = None,
+                   group2dev: Optional[Dict[str, torch.device]] = None):
         """Output tensors of the graph given name -> tensor bindings; runs
         each op's ``fcompute`` in topological order (under whatever
         autograd mode the caller set). An op with no input and no ``ctx``
@@ -451,8 +464,12 @@ class Symbol(object):
         ``BatchNorm`` in train mode (without ``use_global_stats``) records
         there its moving statistics' new values, ``momentum * moving +
         (1 - momentum) * batch``, under the auxiliary variables' names,
-        as ``mxnet_tpu/symbol.py:462-471`` does; the caller writes them."""
+        as ``mxnet_tpu/symbol.py:462-471`` does; the caller writes them.
+        With ``group2dev`` (``ctx_group`` -> device) each op runs on its
+        group's device, else on ``device``, its inputs copied there where
+        they lie elsewhere."""
         from . import autograd
+        from .ndarray.ndarray import cross_copy
 
         vals: Dict[Tuple[int, int], Any] = {}
         for node in self._topo_nodes():
@@ -464,11 +481,16 @@ class Symbol(object):
                 continue
             opdef = get_op(node.op)
             attrs = opdef.parse_attrs(node.attrs)
-            if device is not None and not node.inputs \
+            ins = [vals[(id(n), i)] for n, i in node.inputs]
+            dev = device
+            if group2dev is not None:
+                dev = group2dev.get(_node_group(node), device)
+                ins = [cross_copy(t, dev, "group2ctx")
+                       if isinstance(t, torch.Tensor) else t for t in ins]
+            if dev is not None and not node.inputs \
                     and not attrs.get("ctx"):
-                attrs["__device__"] = device
-            out = opdef.fcompute(attrs, *[vals[(id(n), i)]
-                                          for n, i in node.inputs])
+                attrs["__device__"] = dev
+            out = opdef.fcompute(attrs, *ins)
             outs = out if isinstance(out, (tuple, list)) else (out,)
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
@@ -530,13 +552,35 @@ class Symbol(object):
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
-        """An executor over the given arrays. ``shared_exec`` is accepted
-        and unused, as in the JAX package: the arrays are the caller's."""
+        """An executor over the given arrays (each where the caller put
+        it), its ``ctx_group``s on ``group2ctx``'s contexts.
+        ``shared_exec`` is accepted and unused, as in the JAX package: the
+        arrays are the caller's."""
         from .executor import Executor
 
-        if group2ctx:
-            raise MXNetError("bind: group2ctx is not ported yet")
-        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        group2ctx=group2ctx)
+
+    def _var_contexts(self, group2ctx, ctx):
+        """name -> context of each argument and auxiliary variable: its
+        ``ctx_group``'s in ``group2ctx``; for a variable of no group (a
+        weight an op made), the group of the ops that read it where they
+        are all of one group, as the reference's placement pass puts a
+        variable beside its readers; else ``ctx``."""
+        g2c = group2ctx or {}
+        nodes = self._topo_nodes()
+        readers = {}
+        for node in nodes:
+            for src, _ in node.inputs:
+                readers.setdefault(id(src), set()).add(_node_group(node))
+        out = {}
+        for node in nodes:
+            if node.is_var():
+                grp = _node_group(node)
+                if grp is None and len(readers.get(id(node), ())) == 1:
+                    grp, = readers[id(node)]
+                out[node.name] = g2c.get(grp, ctx)
+        return out
 
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
                     stype_dict=None, group2ctx=None, shared_arg_names=None,
@@ -553,13 +597,13 @@ class Symbol(object):
         other pool: an argument not shared through ``shared_exec`` takes
         the buffer's array of its name where the shape and dtype agree,
         and a newly made argument array is put into the buffer under its
-        name, as in the JAX package. ``group2ctx`` is not ported yet and
-        raises."""
+        name, as in the JAX package. With ``group2ctx`` a variable of a
+        mapped ``ctx_group`` (its argument, gradient or auxiliary array) is
+        made on that group's context."""
         from .executor import Executor
         from .ndarray import ndarray as nd_mod
 
-        if group2ctx:
-            raise MXNetError("simple_bind: group2ctx is not ported yet")
+        where = self._var_contexts(group2ctx, ctx)
         if stype_dict and any(v != "default" for v in stype_dict.values()):
             raise MXNetError("simple_bind: sparse storage is not ported yet")
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
@@ -594,20 +638,28 @@ class Symbol(object):
                     fits(shared_buffer.get(name)):
                 args[name] = shared_buffer[name]
             else:
-                args[name] = nd_mod.zeros(shape, ctx=ctx, dtype=dt)
+                args[name] = nd_mod.zeros(shape, ctx=where[name], dtype=dt)
                 if shared_buffer is not None:
                     shared_buffer[name] = args[name]
             if reqs.get(name, "null") != "null":
                 args_grad[name] = shared_grads[name] \
                     if fits(shared_grads.get(name)) \
-                    else nd_mod.zeros(shape, ctx=ctx, dtype=dt)
+                    else nd_mod.zeros(shape, ctx=where[name], dtype=dt)
         aux = {}
         for name, shape in zip(self.list_auxiliary_states(), aux_shapes):
             held = shared_aux.get(name)
             aux[name] = held if held is not None and \
                 tuple(held.shape) == tuple(shape) \
-                else nd_mod.zeros(shape, ctx=ctx)
-        return Executor(self, ctx, args, args_grad or None, grad_req, aux)
+                else nd_mod.zeros(shape, ctx=where[name])
+        return Executor(self, ctx, args, args_grad or None, grad_req, aux,
+                        group2ctx=group2ctx)
+
+
+def _node_group(node: _Node) -> Optional[str]:
+    """A node's ``ctx_group``: an op's attribute, or the one its
+    ``AttrScope`` gave it."""
+    grp = node.attrs.get("ctx_group") if node.op is not None else None
+    return grp or node._extra_attrs.get("ctx_group")
 
 
 def _str_attrs(node: _Node) -> Dict[str, str]:

@@ -67,8 +67,10 @@ subclass, uncounted, and demotes for the JAX package's reasons, each
 counted in ``FALLBACKS`` under the JAX label: ``MXNET_FASTPATH=0``,
 several contexts or
 executors, a kvstore, an updater that is not ``Updater``, an optimizer
-without a list kernel, ``state_names`` or ``inputs_need_grad``
-(``"module-config"``), and ``"module-trace: <error>"`` for a ``grad_req``
+without a list kernel, ``state_names``, ``inputs_need_grad`` or a
+``group2ctx`` group on another device (``"module-config"``; the JAX
+plane places such a group inside its program, a CUDA graph holds no
+host work), and ``"module-trace: <error>"`` for a ``grad_req``
 other than ``write``/``null``, no trainable parameter, or a first pass
 that fails: a custom op that reads back to the host (a numpy op) demotes
 there. A CUDA graph replays device work only, so a custom op's Python
@@ -107,13 +109,22 @@ global batch on every rank. A configuration the plane cannot step
 (``MXNET_TRAINSTEP=0`` among the reasons above) raises ``MXNetError``
 naming it, and a failed first pass, capture or OOM raises as it came.
 
-``MXNET_ZERO`` (``fastpath.zero``): on one rank sharding is a no-op, so
-each step declines with the JAX package's "1-device mesh (sharding is a
-no-op)" reason, counted in ``mxnet_zero_fallbacks_total``, and runs
-replicated, as the JAX plane does on a 1-device mesh. On a plane across
-ranks ``MXNET_ZERO`` of 1 or more raises "not ported yet": the JAX
-plane's sharded in-graph step (``mxnet_tpu/trainplane.py:456-560``) is
-not ported, and the plane does not run replicated in its place.
+``MXNET_ZERO`` (``fastpath.zero``), read at every step as the JAX
+plane's ``_zero_acquire`` (``mxnet_tpu/trainplane.py:456-560``): on a
+plane across ranks at level 1 or 2 the step acquires the updater's
+``ZeroPlane`` over the job's group and runs the sharded step inside the
+step function (``ZeroPlane.traced_update``): the packed gradients
+reduce-scattered over the ranks (one collective a bucket: NCCL's
+average inside the graph; under gloo the staged sum, then the division),
+the fused kernel on this rank's shard only, then one all-gather a bucket
+of the updated weights. The states stay sharded between steps, each rank
+holding its ``1/N`` of every bucket; ``collectives_a_step`` counts the
+new collectives. On one rank sharding is a no-op, so each step declines
+with the JAX package's "1-device mesh (sharding is a no-op)" reason,
+counted in ``mxnet_zero_fallbacks_total``, and runs replicated, as the
+JAX plane does on a 1-device mesh; so do an optimizer the gate declines
+and an acquire that fails (``"adopt: <error>"``), the states
+materialized first. A step that fails after its kernel ran raises.
 :func:`fit` takes ``checkpoint=`` (an ``elastic.CheckpointManager``): it
 resumes from the last committed epoch, calls ``elastic.step_boundary``
 before every batch and saves every ``checkpoint_every`` epochs; across
@@ -547,21 +558,29 @@ class TrainPlane(_PlaneBase):
             else:
                 states[i] = ensure_mp_state(opt, i, w, states[i])
 
-    def _held(self, states=None):
+    def _held(self):
         """Every tensor the step reads or writes outside its batch: the
-        net's parameters (moving statistics included) and the states."""
-        if states is None:
-            states = self._trainer._updater.states
+        net's parameters (moving statistics included) and the states (a
+        sharded plane's: this rank's shards)."""
+        updater = self._trainer._updater
         out = [p.data()._data for p in self._params]
         for i, _ in self._rows:
-            out += _leaves(states.get(i))
+            st = updater.states.get(i)
+            if not zero.is_sharded(st):
+                out += _leaves(st)
+        zp = zero.plane_of(updater)
+        if zp is not None and zp.buckets is not None:
+            out += [t for slots in zp.buckets for t in slots]
         return out
 
-    def _step_fn(self, data, label, mp_flags, wds, split):
+    def _step_fn(self, data, label, mp_flags, wds, split, zp=None,
+                 bufs=None):
         """The whole step on the static batch: forward, per-sample loss,
         backward seeded with ones, and the fused update in place. In a job
         the gradients are averaged over the ranks and, where the ranks
-        split the batch, the losses gathered in rank order."""
+        split the batch, the losses gathered in rank order; with a
+        sharded plane ``zp`` the update is its ``traced_update`` over
+        ``bufs``."""
         opt = self._trainer._optimizer
         states = self._trainer._updater.states
         span = self._span
@@ -581,27 +600,39 @@ class TrainPlane(_PlaneBase):
                  for w, g in zip(ws, grads)]
         loss = loss.detach()
         if span is not None:
-            grads = self._grad_bufs.average(span, grads)
+            if zp is None:
+                grads = self._grad_bufs.average(span, grads)
             if split:
                 rows = data.shape[self._batch_axis]
                 loss = parallel.gather_ranks(span, loss, parallel.gather_axis(
                     loss.shape, rows, self._batch_axis))
+        if zp is not None:
+            zp.traced_update(opt, span, ws, grads, bufs, self._t_views,
+                             self._lr_views, wds)
+        else:
+            fastpath.tree_kernel(
+                opt, ws, grads, [states[i] for i, _ in self._rows],
+                mp_flags, self._t_views, self._lr_views, wds,
+                self._extra_views)
+        if span is not None:
             self._collectives = span.collectives - before
-        fastpath.tree_kernel(
-            opt, ws, grads, [states[i] for i, _ in self._rows], mp_flags,
-            self._t_views, self._lr_views, wds, self._extra_views)
         return loss
 
-    def _new_path(self, data, label, wds, split):
+    def _new_path(self, data, label, wds, split, zp):
         """States, static inputs and the step for a new batch signature,
         first-passed and captured; None (the plane demoted) when the step
-        cannot be captured."""
+        cannot be captured. With a sharded plane ``zp`` the step updates
+        through it, over gradient buffers of its own."""
         opt = self._trainer._optimizer
-        self._ensure_states()
-        states = self._trainer._updater.states
-        mp_flags = tuple(_is_mp_state(opt, i, p.data(), states[i])
-                         for i, p in self._rows)
-        if self._span is not None:
+        mp_flags = bufs = None
+        if zp is not None:
+            bufs = zp.step_buffers()
+        else:
+            self._ensure_states()
+            states = self._trainer._updater.states
+            mp_flags = tuple(_is_mp_state(opt, i, p.data(), states[i])
+                             for i, p in self._rows)
+        if self._span is not None and zp is None:
             ws = [p.data()._data for _, p in self._rows]
             if self._grad_bufs is None or self._grad_bufs.sig != tuple(
                     (tuple(w.shape), w.dtype) for w in ws):
@@ -611,7 +642,8 @@ class TrainPlane(_PlaneBase):
         d.copy_(data)
         lab.copy_(label)
         path = _Path((d, lab),
-                     lambda: self._step_fn(d, lab, mp_flags, wds, split),
+                     lambda: self._step_fn(d, lab, mp_flags, wds, split,
+                                           zp, bufs),
                      self._ptrs())
         probe_rows = self._prologue(self._probe_optimizer(opt))
         exc = self._capture(path, probe_rows)
@@ -643,24 +675,35 @@ class TrainPlane(_PlaneBase):
             self._demote("oom: %s" % type(exc).__name__)
             return None
 
-    def _zero_decline(self, opt):
-        """``MXNET_ZERO`` on the graph plane (``mxnet_tpu/trainplane.py:
-        463-482``): on one rank the gate declines with the "1-device
-        mesh" reason, counted, and the step runs replicated; a plane the
-        eager path attached is materialized. Across ranks the sharded
-        in-graph step is not ported, and raises."""
+    def _zero_acquire(self, opt):
+        """The updater's ``ZeroPlane`` for this step, or None for the
+        replicated layout (``mxnet_tpu/trainplane.py:456-482``), decided
+        at every step so a flipped ``MXNET_ZERO`` takes effect (and
+        materializes) at once. Every decline is counted in
+        ``mxnet_zero_fallbacks_total``: one rank ("1-device mesh"), what
+        the gate refuses, an acquire that fails."""
+        updater = self._trainer._updater
         level = zero.level()
         if not level:
-            return
-        if self._span is not None and self._span.world > 1:
-            raise MXNetError(
-                "MXNET_ZERO=%d on a TrainPlane across %d ranks is not ported "
-                "yet (the sharded in-graph step); unset MXNET_ZERO to train "
-                "the plane replicated, or train through a dist_sync Trainer"
-                % (level, self._span.world))
-        updater = self._trainer._updater
-        zero.note_fallback(zero.eligible_reason(opt, _dist.world_size()))
-        zero.materialize_updater(updater)
+            zero.materialize_updater(updater)
+            return None
+        world = zero._ndev() if self._span is not None else 1
+        reason = zero.eligible_reason(opt, world)
+        if reason is not None:
+            zero.note_fallback(reason)
+            zero.materialize_updater(updater)
+            return None
+        ws = [p.data()._data for _, p in self._rows]
+        try:
+            return zero.acquire_plane(updater, opt, self._span.group, level,
+                                      [i for i, _ in self._rows], ws)
+        except zero.ZeroCollectiveError:
+            raise
+        except Exception as exc:  # noqa: BLE001 - as the JAX plane: a
+            # layout that cannot be built runs replicated, counted
+            zero.note_fallback("adopt: %s" % type(exc).__name__)
+            zero.materialize_updater(updater)
+            return None
 
     def _graph_step(self, data_nd, label_nd, batch_size):
         if chaos.ENABLED:
@@ -669,7 +712,7 @@ class TrainPlane(_PlaneBase):
             chaos.maybe_fail("jit.compile")
         tr = self._trainer
         opt = tr._optimizer
-        self._zero_decline(opt)
+        zp = self._zero_acquire(opt)
         data, label = data_nd._data, label_nd._data
         split = True
         if self._span is not None:
@@ -683,7 +726,8 @@ class TrainPlane(_PlaneBase):
         opt.rescale_grad = tr._scale * ranks / batch_size
         wds = tuple(opt._get_wd(i) for i, _ in self._rows)
         key = (tuple(data.shape), data.dtype, tuple(label.shape),
-               label.dtype, opt.rescale_grad, opt.clip_gradient, wds, split)
+               label.dtype, opt.rescale_grad, opt.clip_gradient, wds, split,
+               zp.sig if zp is not None else None)
         path = self._paths.get(key)
         if path is not None and path.ptrs != self._ptrs():
             # a parameter or state was rebound since the capture (a cast,
@@ -692,7 +736,7 @@ class TrainPlane(_PlaneBase):
             self._paths.clear()
             path = None
         if path is None:
-            path = self._new_path(data, label, wds, split)
+            path = self._new_path(data, label, wds, split, zp)
             if path is None:
                 return None
             self._paths[key] = path
@@ -1012,6 +1056,7 @@ def module_plane(module):
                 or not isinstance(module._updater, Updater) \
                 or not getattr(module._optimizer, "fastpath_capable", False) \
                 or group is None or len(group.execs) != 1 \
+                or group.execs[0].crosses_devices \
                 or getattr(group, "state_names", None) \
                 or module.inputs_need_grad:
             FALLBACKS.inc(reason="module-config")

@@ -321,6 +321,7 @@ def test_bucketing_module_defaults_to_the_card():
     with mx.cpu():
         mod = BucketingModule(_embed_gen(mx), default_bucket_key=10)
     assert mod._context == [mx.cpu()]
-    with pytest.raises(MXNetError, match="group2ctxs"):
-        BucketingModule(_embed_gen(mx), default_bucket_key=10,
-                        context=mx.cpu(), group2ctxs={"a": mx.cpu()})
+    # group2ctxs reach every bucket's Module
+    mod = BucketingModule(_embed_gen(mx), default_bucket_key=10,
+                          context=mx.cpu(), group2ctxs={"a": mx.cpu()})
+    assert mod._new_module(10)._group2ctxs == {"a": mx.cpu()}

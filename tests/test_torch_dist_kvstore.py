@@ -199,26 +199,33 @@ def test_dist_async_applies_each_copy_as_jax_does():
 
 def test_planes_across_ranks_refuse_zero_and_a_partial_mesh(monkeypatch):
     # the planes train across ranks (tests/test_torch_dist_planes.py); on
-    # a plane across ranks MXNET_ZERO >= 1 raises "not ported yet" rather
-    # than run replicated, and the default TrainPlane mesh raises where
-    # the batch would leave ranks out (one process drives one device)
+    # a plane across ranks MXNET_ZERO >= 1 acquires the sharded plane over
+    # the job's group (this rank's half of every bucket; its step in
+    # tests/test_torch_dist_planes.py), and the default TrainPlane mesh
+    # raises where the batch would leave ranks out (one process drives
+    # one device)
     from mxnet_tpu_torch import _dist, gluon, trainplane
+    from mxnet_tpu_torch.fastpath import zero
 
     monkeypatch.setattr(_dist, "world_size", lambda: 2)
     with pytest.raises(MXNetError, match="5 rows.*2 ranks"):
         trainplane._default_mesh(5)
     with tmx.cpu():
-        net = gluon.nn.Dense(2)
+        net = gluon.nn.Dense(2, in_units=3)
         net.initialize()
         trainer = gluon.Trainer(net.collect_params(), "sgd",
-                                {"learning_rate": 0.1})
+                                {"learning_rate": 0.1, "momentum": 0.9})
         plane = trainplane.TrainPlane(net, gluon.loss.L2Loss(), trainer)
+        plane._rows = list(enumerate(trainer._params))
         # the span a job's plane would run in: two ranks over gloo
         plane._span = _dist.Span(_dist.Group(
             None, None, 0, 2, "gloo", ["cpu", "cpu"]))
         monkeypatch.setenv("MXNET_ZERO", "1")
-        with pytest.raises(MXNetError, match="MXNET_ZERO=1.*not ported"):
-            plane._zero_decline(trainer._optimizer)
+        zp = plane._zero_acquire(trainer._optimizer)
+    assert zp is not None and zp.dp == 2 and zp.rank == 0 and zp.level == 1
+    assert all(zero.is_sharded(s) for s in trainer._updater.states.values())
+    # the weight (6) and the bias (2) in one bucket of 8: 4 a rank
+    assert [[t.numel() for t in slots] for slots in zp.buckets] == [[4]]
 
 
 def test_feed_sharding_is_the_mesh_batch_sharding():

@@ -1,36 +1,53 @@
 """The captured training planes across the ranks of a job (CPU, gloo):
 ``TrainStep``, ``InferStep`` and ``TrainPlane`` over 2 ranks against the
 JAX package's over 2 virtual devices on the same global batches, from
-the JAX package's initial weights; ``fit`` with a checkpoint and a
-resume against the JAX ``fit``; the module plane on each rank's own
-data against the JAX ``Module.fit`` in one process; the eager
-``dist_sync`` Trainer's per-rank BatchNorm statistics; the refusals.
+the JAX package's initial weights; the plane's sharded ``MXNET_ZERO``
+step at levels 1 and 2 against the JAX plane's; ``fit`` with a
+checkpoint and a resume against the JAX ``fit``; the module plane on
+each rank's own data against the JAX ``Module.fit`` in one process; the
+eager ``dist_sync`` Trainer's per-rank BatchNorm statistics; the
+refusals; ``parallel.pipeline_apply`` over the 2 ranks against the JAX
+one over 2 devices.
 
-One 2-rank job (``tests/torch_dist_ranks.py``'s ``planes`` case) runs
-every case while this process runs the JAX side. The tolerances are
-``tests/test_parallel.py:120``'s: losses 1e-5 / 1e-6, parameters 1e-4 /
-1e-5. The ranks' weights must be bit-equal.
+One 2-rank job (``tests/torch_dist_ranks.py``'s ``planes`` and
+``pipeline`` cases) runs every case while this process runs the JAX
+side. The tolerances are ``tests/test_parallel.py:120``'s: losses 1e-5 /
+1e-6, parameters 1e-4 / 1e-5; the sharded plane's are
+``tests/test_zero.py:324``'s, 1e-5 / 1e-6; the pipeline's
+``tests/test_parallel.py:377``'s, 1e-4 / 1e-5. The ranks' weights must be
+bit-equal.
 """
+import os
 import threading
 
 import jax
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
+
 import mxnet_tpu as jmx
 from mxnet_tpu import gluon as jgluon, nd as jnd, parallel as jparallel
 from mxnet_tpu import trainplane as jtrainplane
+from mxnet_tpu.fastpath import zero as jzero
 
 import torch_dist_ranks as R
 from torch_dist_harness import run_cases
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
+ZERO_TOL = dict(rtol=1e-5, atol=1e-6)
+PP_TOL = dict(rtol=1e-4, atol=1e-5)
 KINDS = ("conv", "bn", "axis1")
 
 
 def _mesh(n):
     return jparallel.device_mesh(n, devices=jax.devices()[:n])
+
+
+def _mesh_pp(n):
+    return jparallel.device_mesh(n, axis_names=("pp",),
+                                 devices=jax.devices()[:n])
 
 
 def _np(x):
@@ -55,6 +72,23 @@ def _jax_net(kind, d, init=None):
     if init is not None:
         for p, a in zip(net.collect_params().values(), init):
             p.set_data(jnd.array(a))
+    return net
+
+
+def _zero_mlp(init=None):
+    """``tests/test_zero.py``'s MLP, materialized on its first batch; with
+    ``init`` (arrays in parameter order) its weights set to those."""
+    net = jgluon.nn.HybridSequential(prefix="zmlp_")
+    with net.name_scope():
+        net.add(jgluon.nn.Dense(16, activation="relu"))
+        net.add(jgluon.nn.Dense(8))
+    net.initialize()
+    with jmx.autograd.pause():
+        net(jnd.array(R.zero_data()[0][:R.ZERO_B]))
+    if init is not None:
+        for p, a in zip(net.collect_params().values(), init):
+            p.set_data(jnd.array(a))
+    net.hybridize()
     return net
 
 
@@ -134,6 +168,40 @@ def _jax_side(d, init):
         jtrainplane.fit(net, ce, tr, jmx.io.NDArrayIter(xs, ys, R.PL_B),
                         epochs=2, mesh=_mesh(2))
     want["fit"] = _arrays(net)
+    zxs, zys = R.zero_data()
+    for opt_name, params in R.PL_ZERO:
+        for lv in (1, 2):
+            net = _zero_mlp(init["zmlp"])
+            tr = jgluon.Trainer(net.collect_params(), opt_name, dict(params))
+            plane = jtrainplane.TrainPlane(net, ce, tr, mesh=_mesh(2))
+            os.environ["MXNET_ZERO"] = str(lv)
+            try:
+                want["zp_loss", opt_name, lv] = np.asarray([_np(plane.step(
+                    jnd.array(zxs[k * R.ZERO_B:(k + 1) * R.ZERO_B]),
+                    jnd.array(zys[k * R.ZERO_B:(k + 1) * R.ZERO_B])))
+                    for k in range(R.ZERO_STEPS)])
+            finally:
+                os.environ.pop("MXNET_ZERO")
+            want["zp", opt_name, lv] = _arrays(net)
+            upd = tr._updaters[0]
+            want["zp_sharded", opt_name, lv] = jzero.plane_of(upd) is not None
+            jzero.materialize_updater(upd)
+            want["zp_states", opt_name, lv] = {
+                i: [np.asarray(jnp.asarray(leaf, jnp.float32)) for leaf in
+                    jax.tree_util.tree_leaves(st)]
+                for i, st in upd.states.items()}
+    ws, xs = R.pipeline_data(2)
+    stage = lambda w, x: jnp.tanh(x @ w)  # noqa: E731
+    want["pp"] = np.asarray(jparallel.pipeline_apply(
+        stage, jnp.asarray(ws), jnp.asarray(xs), _mesh_pp(2)))
+    want["pp_one"] = np.asarray(jparallel.pipeline_apply(
+        stage, jnp.asarray(ws), jnp.asarray(xs[:1]), _mesh_pp(2)))
+    try:
+        jparallel.pipeline_apply(stage, jnp.asarray(ws[:1]),
+                                 jnp.asarray(xs), _mesh_pp(2))
+        want["pp_refuse"] = ""
+    except Exception as e:  # noqa: BLE001 - the message is the result
+        want["pp_refuse"] = str(e)
     for r in range(2):
         xs, ys = R.module_data(r)
         with jmx.cpu():
@@ -159,12 +227,18 @@ def job(tmp_path_factory):
         for name, a in zip(net.collect_params().keys(), init[kind]):
             npz["%s/%s" % (kind, name)] = a
     npz.update({"mod/" + k: v for k, v in _module_init().items()})
+    # seeded: a cross-package comparison must see the same inputs every
+    # run (Adam scales the two packages' float32 rounding of a nearly
+    # cancelling gradient up to its learning rate on some draws)
+    jmx.random.seed(0)
+    init["zmlp"] = _arrays(_zero_mlp())
+    npz.update({"zmlp/%d" % i: a for i, a in enumerate(init["zmlp"])})
     np.savez(base / "init.npz", **npz)
     got = {}
 
     def run():
-        got["ranks"] = run_cases(2, ["planes=%s" % (base / "init.npz")],
-                                 base / "out")
+        got["ranks"] = run_cases(2, ["planes=%s" % (base / "init.npz"),
+                                     "pipeline"], base / "out")
 
     worker = threading.Thread(target=run)
     worker.start()
@@ -317,12 +391,61 @@ def test_eager_dist_sync_trainer_keeps_rank_statistics(job):
 
 
 def test_plane_across_ranks_refuses_zero_and_a_partial_mesh(job):
+    """``MXNET_ZERO`` across the ranks no longer raises (the sharded
+    step runs: see the tests below); a mesh leaving ranks out still
+    does."""
     ranks, _ = job
     for r in ranks:
-        assert "MXNET_ZERO=1" in r["refuse_zero"][0]
-        assert "not ported yet" in r["refuse_zero"][0]
+        assert r["refuse_zero"][0] == ""
         assert "a batch of 5 rows" in r["refuse_mesh"][0]
         assert "2 ranks" in r["refuse_mesh"][0]
+
+
+@pytest.mark.parametrize("opt_name", [o for o, _ in R.PL_ZERO])
+@pytest.mark.parametrize("lv", [1, 2])
+def test_zero_plane_across_ranks_equals_jax(job, opt_name, lv):
+    """The plane's sharded step on 2 ranks against the JAX plane's on 2
+    devices on ``tests/test_zero.py``'s MLP and batches: the loss vectors,
+    the weights and (materialized) every state after its 5 steps; between
+    steps the states stayed sharded, each
+    rank holding half of every bucket."""
+    ranks, want = job
+    key = "zp_%s%d" % (opt_name, lv)
+    assert want["zp_sharded", opt_name, lv]
+    for r in ranks:
+        # the port's sharded step is its replicated step, bit for bit
+        rep = "zp_%s0" % opt_name
+        for k in r:
+            if k.startswith(rep + "_"):
+                np.testing.assert_array_equal(r[key + k[len(rep):]], r[k],
+                                              err_msg=k)
+        np.testing.assert_allclose(r[key + "_loss"],
+                                   want["zp_loss", opt_name, lv], **ZERO_TOL)
+        _close(_params(r, key), want["zp", opt_name, lv], ZERO_TOL, key)
+        for i, leaves in want["zp_states", opt_name, lv].items():
+            for j, leaf in enumerate(leaves):
+                np.testing.assert_allclose(r["%s_s%d_%d" % (key, i, j)], leaf,
+                                           err_msg="%s state %d.%d"
+                                           % (key, i, j), **ZERO_TOL)
+        sharded, halves, captures, coll, fallbacks, buckets, level = \
+            r[key + "_state"]
+        assert sharded and halves and level == lv
+        # uncaptured under gloo; a step: a reduce-scatter and an
+        # all-gather a bucket, the loss gather
+        assert captures == 0 and coll == 2 * buckets + 1
+        assert fallbacks == 0
+    _same_on_ranks(ranks, key)
+
+
+def test_pipeline_apply_two_ranks_equals_jax(job):
+    ranks, want = job
+    for r in ranks:
+        for key in ("pp", "pp_one"):
+            assert r[key].shape == want[key].shape, key
+            np.testing.assert_allclose(r[key], want[key], err_msg=key,
+                                       **PP_TOL)
+        assert r["pp_refuse"][0] == want["pp_refuse"]
+    np.testing.assert_array_equal(ranks[0]["pp"], ranks[1]["pp"])
 
 
 def test_plane_across_ranks_raises_where_one_process_would_demote(job):

@@ -10,7 +10,9 @@
   the forward with a state set equals JAX's;
 * ``simple_bind(shared_exec=)``: the shared arrays are the same objects;
 * ``Symbol.grad`` raises, ``copy``/``deepcopy`` give a new graph with the
-  same JSON; ``group2ctx`` and ``group2ctxs`` still raise.
+  same JSON; ``group2ctx`` of a group no node names binds as the plain
+  graph (JAX's too), and ``Module(group2ctxs=)`` trains (the placement
+  itself: ``tests/test_torch_multi_context.py``).
 
 fp32 within ``atol=rtol=2e-5``.
 """
@@ -189,8 +191,22 @@ def test_symbol_grad_copy_and_group2ctx():
         assert dup.tojson() == sym.tojson()
         assert {id(n) for n in dup._topo_nodes()}.isdisjoint(
             id(n) for n in sym._topo_nodes())
-    with pytest.raises(MXNetError, match="group2ctx"):
-        sym.simple_bind(mx.cpu(), data=(4, 5), softmax_label=(4,),
-                        group2ctx={"a": mx.cpu()})
-    with pytest.raises(MXNetError, match="group2ctxs"):
-        Module(sym, context=mx.cpu(), group2ctxs={"a": mx.cpu()})
+    # a group no node names changes nothing: the plain executor's outputs
+    # and the JAX executor's
+    outs = []
+    for pkg, g2c in ((mx, {"a": mx.cpu(1)}), (mx, None),
+                     (jmx, {"a": jmx.cpu(1)})):
+        ex = _net(pkg).simple_bind(pkg.cpu(), data=(4, 5),
+                                   softmax_label=(4,), group2ctx=g2c)
+        rs = np.random.RandomState(1)
+        for name in ("data", "fc_weight", "bn_gamma"):
+            ex.arg_dict[name][:] = rs.rand(*ex.arg_dict[name].shape).astype(
+                np.float32)
+        outs.append(ex.forward(is_train=True)[0].asnumpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_allclose(outs[0], outs[2], **TOL)
+    with mx.cpu():
+        mod = Module(sym, context=mx.cpu(), group2ctxs={"a": mx.cpu()})
+        mod.bind([("data", (4, 5))], [("softmax_label", (4,))])
+        mod.init_params()
+    assert mod._exec_group.execs[0]._group2ctx == {"a": mx.cpu()}

@@ -148,6 +148,8 @@ def test_fit_refuses_what_is_not_ported():
         assert mod._kvstore.type == "dist_sync"
         # a monitor is ported now: fit takes it (the eager path)
         mod.fit(train, num_epoch=1, monitor=mx.monitor.Monitor(100))
-        with pytest.raises(MXNetError, match="not ported"):
-            mx.module.Module(port_cr.get_symbol("np_softmax_ce"),
-                             group2ctxs=[{"dev1": mx.cpu()}])
+        # group2ctxs are ported now: one map a context, the fit the same
+        mod = mx.module.Module(port_cr.get_symbol("np_softmax_ce"),
+                               group2ctxs=[{"dev1": mx.cpu()}])
+        mod.fit(train, num_epoch=1)
+        assert mod._exec_group.group2ctxs == [{"dev1": mx.cpu()}]

@@ -1003,7 +1003,14 @@ _DIST_FILES = ("mxnet_tpu_torch/_dist.py", "mxnet_tpu_torch/kvstore.py",
                "mxnet_tpu_torch/ops/nn.py",
                "mxnet_tpu_torch/tools/launch.py",
                "mxnet_tpu_torch/example/distributed_training/"
-               "cifar10_dist.py")
+               "cifar10_dist.py",
+               "mxnet_tpu_torch/context.py",
+               "mxnet_tpu_torch/module/executor_group.py",
+               "mxnet_tpu_torch/gluon/trainer.py",
+               "mxnet_tpu_torch/executor.py",
+               "mxnet_tpu_torch/symbol.py",
+               "mxnet_tpu_torch/example/model_parallel/"
+               "matrix_factorization.py")
 
 
 def test_scan_covers_the_distributed_slice():
@@ -1125,6 +1132,30 @@ rx = x.detach().requires_grad_(True)
 gr, = torch.autograd.grad(torch.batch_norm(rx, w, b, None, None, True, 0.0,
                                            1e-5, False), rx, g)
 assert torch.allclose(gx, gr, atol=1e-4)
+# several contexts in one process, group2ctx and pipeline_apply (the job
+# of one rank: one stage)
+from mxnet_tpu_torch.example.model_parallel import matrix_factorization as mf
+from mxnet_tpu_torch.gluon.utils import split_and_load
+res = mf.run(mf.parse_args(["--device", "cpu", "--epochs", "1"]))
+assert len(res["rmse"]) == 1 and np.isfinite(res["rmse"][0])
+with mx.cpu():
+    net = gluon.nn.Dense(2, in_units=6)
+    net.initialize(ctx=[mx.cpu(0), mx.cpu(1)])
+    tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+    parts = split_and_load(mx.nd.array(xs[:8]), [mx.cpu(0), mx.cpu(1)])
+    with mx.autograd.record():
+        losses = [net(x).sum() for x in parts]
+    for l in losses:
+        l.backward()
+    tr.step(8)
+    w0, w1 = net.weight.list_data()
+assert [p.context for p in parts] == [mx.cpu(0), mx.cpu(1)]
+assert np.array_equal(w0.asnumpy(), w1.asnumpy())
+ws = torch.randn(1, 3, 3)
+pp = parallel.pipeline_apply(lambda w, x: x @ w, ws, torch.randn(4, 2, 3),
+                             parallel.device_mesh(axis_names=("pp",),
+                                                  devices=["cpu"]))
+assert pp.shape == (4, 2, 3) and mx.num_tpus() == mx.num_gpus()
 assert not any(k.split(".")[0] in ("jax", "mxnet_tpu")
                for k, v in sys.modules.items() if v is not None)
 print("distributed ok")

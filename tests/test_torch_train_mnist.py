@@ -176,10 +176,16 @@ def test_test_io_reads_batches_only(jax_example):
     assert mod is None and OPS.value(op="push") == before
 
 
-def test_not_ported_options_raise():
-    with pytest.raises(mx.MXNetError, match="not ported yet"):
-        train_mnist.main(["--device", "cpu", "--num-examples", "128",
-                          "--devices", "2"])
+def test_not_ported_options_raise(jax_example):
+    # --devices 2 trains one Module over cpu(0) and cpu(1), each on half
+    # of every batch, as the JAX example does over two host devices
+    argv = ["--network", "mlp", "--devices", "2"] + BASE
+    mod, acc, _ = _run("port", argv, jax_example)
+    jmod, jacc, _ = _run("jax", argv, jax_example)
+    assert mod._context == [mx.cpu(0), mx.cpu(1)]
+    assert len(mod._exec_group.execs) == 2
+    np.testing.assert_allclose(acc, jacc, rtol=0, atol=TOL)
+    _same_params(mod, jmod)
     # the multi-process stores are ported now: outside a launched job
     # the example trains as the job's one worker
     for store in ("dist_sync", "tpu"):

@@ -784,6 +784,10 @@ PL_B, PL_K = 8, 3
 PL_SGD = {"learning_rate": 0.1}
 PL_MOM = {"learning_rate": 0.1, "momentum": 0.9}
 MOD_B, MOD_N = 4, 16
+# the sharded plane's optimizers (tests/test_zero.py:275-278)
+PL_ZERO = (("sgd", PL_MOM), ("adam", {"learning_rate": 0.01}))
+# pipeline_apply (tests/test_parallel.py:363): M microbatches of B rows
+PP_M, PP_B, PP_D = 6, 2, 8
 
 
 def planes_data(seed=21):
@@ -799,6 +803,14 @@ def planes_data(seed=21):
         bn=(rs.rand(PL_B, 3) * 5.0).astype(np.float32),
         tx=rs.rand(PL_K, 3, PL_B, 4).astype(np.float32),
         ty=rs.randint(0, 3, (PL_K, 3, PL_B)).astype(np.float32))
+
+
+def pipeline_data(n, seed=0):
+    """``n`` stages' (D, D) weights and the (M, B, D) microbatches of
+    ``tests/test_parallel.py:370-373``."""
+    rs = np.random.RandomState(seed)
+    ws = rs.randn(n, PP_D, PP_D).astype(np.float32) * 0.3
+    return ws, rs.randn(PP_M, PP_B, PP_D).astype(np.float32)
 
 
 def module_data(rank, seed=30):
@@ -968,7 +980,50 @@ def case_planes(out, rank, n, cpu, init_file):
         args, _aux = mod.get_params()
         for k, v in args.items():
             out["mod_" + k] = v.asnumpy()
-        # refusals: MXNET_ZERO across ranks, a mesh leaving ranks out
+        # MXNET_ZERO across the ranks: the sharded step inside the plane
+        # on tests/test_zero.py's MLP and batches (the global batch of
+        # ZERO_B rows split over the ranks), at levels 1 and 2, its states
+        # materialized afterwards, and the replicated plane (level 0)
+        from mxnet_tpu_torch.fastpath import zero
+
+        zxs, zys = zero_data()
+        zinit = {i: init["zmlp/%d" % i] for i in range(len(ZERO_SHAPES))}
+        for opt_name, params in PL_ZERO:
+            for lv in (0, 1, 2):
+                key = "zp_%s%d" % (opt_name, lv)
+                net = _zero_mlp("zp%s%d_" % (opt_name, lv), zinit, zxs)
+                tr = gluon.Trainer(net.collect_params(), opt_name,
+                                   dict(params))
+                plane = trainplane.TrainPlane(net, ce, tr)
+                f0 = sum(s["value"] for s in zero.FALLBACKS.series())
+                os.environ["MXNET_ZERO"] = str(lv)
+                try:
+                    out[key + "_loss"] = np.asarray([plane.step(
+                        nd.array(zxs[k * ZERO_B:(k + 1) * ZERO_B]),
+                        nd.array(zys[k * ZERO_B:(k + 1) * ZERO_B])).asnumpy()
+                        for k in range(ZERO_STEPS)])
+                finally:
+                    os.environ.pop("MXNET_ZERO")
+                put(key, _arrays(net))
+                upd = tr._updater
+                if not lv:
+                    _state_arrays(out, key, upd.states)
+                    continue
+                zp = zero.plane_of(upd)
+                halves = [slot.numel() * 2 == zp.plan.bucket_layout(b)[1]
+                          for b, slots in enumerate(zp.buckets)
+                          for j, slot in enumerate(slots)
+                          if not zp.replicated_slot(b, j)]
+                out[key + "_state"] = np.asarray([
+                    all(zero.is_sharded(st) for st in upd.states.values()),
+                    bool(halves) and all(halves),
+                    plane.compile_count, plane.collectives_a_step,
+                    sum(s["value"] for s in zero.FALLBACKS.series()) - f0,
+                    len(zp.plan.buckets), zp.level])
+                zero.materialize_updater(upd)
+                _state_arrays(out, key, upd.states)
+        # refusals: a mesh leaving ranks out (MXNET_ZERO across the ranks
+        # no longer raises: "" below)
         net = fresh("conv", d["xs"][0])
         tr = gluon.Trainer(net.collect_params(), "sgd", dict(PL_SGD))
         os.environ["MXNET_ZERO"] = "1"
@@ -1034,6 +1089,37 @@ def case_planes(out, rank, n, cpu, init_file):
         out["fit_plane"] = np.asarray([plane.plane])
 
 
+def case_pipeline(out, rank, n, cpu):
+    """``parallel.pipeline_apply`` over the job's ranks (a stage a rank):
+    :func:`pipeline_data`'s ``tanh(x @ w)`` stages on all M microbatches
+    and on the first alone; the staged bytes of the first call."""
+    import torch
+
+    from mxnet_tpu_torch import _dist, parallel
+
+    ws, xs = pipeline_data(n)
+    staged = _dist.group().staged_bytes
+
+    def stage(w, x):
+        return torch.tanh(x @ w)
+
+    with cpu:
+        mesh = parallel.device_mesh(axis_names=("pp",))
+        out["pp"] = parallel.pipeline_apply(
+            stage, torch.from_numpy(ws), torch.from_numpy(xs),
+            mesh).numpy()
+        out["pp_staged"] = np.asarray([_dist.group().staged_bytes - staged])
+        out["pp_one"] = parallel.pipeline_apply(
+            stage, torch.from_numpy(ws), torch.from_numpy(xs[:1]),
+            mesh).numpy()
+        try:
+            parallel.pipeline_apply(stage, torch.from_numpy(ws[:1]),
+                                    torch.from_numpy(xs), mesh)
+            out["pp_refuse"] = np.asarray([""])
+        except Exception as e:  # noqa: BLE001 - the message is the result
+            out["pp_refuse"] = np.asarray([str(e)])
+
+
 CASES = {"collectives": case_collectives, "heartbeat": case_heartbeat,
          "shardings": case_shardings,
          "kvstore": case_kvstore, "trainer": case_trainer,
@@ -1041,7 +1127,8 @@ CASES = {"collectives": case_collectives, "heartbeat": case_heartbeat,
          "zero_mlp": case_zero_mlp, "zero_bf16": case_zero_bf16,
          "zero_misc": case_zero_misc, "zero_solo": case_zero_solo,
          "elastic_zero": case_elastic_zero,
-         "elastic_restore": case_elastic_restore, "planes": case_planes}
+         "elastic_restore": case_elastic_restore, "planes": case_planes,
+         "pipeline": case_pipeline}
 
 
 def main(argv):
